@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+From the repository root, on a machine with a CUDA card:
+
+1. prints the card (``nvidia-smi`` name and power limit, torch's device name);
+2. builds every CUDA kernel of the summarization path from ``csrc/`` (one
+   ``nvcc`` per source, all at once) and times the build;
+3. calls each kernel's wrapper at the shapes the main path gives it, holds
+   the result against the kernel's plain PyTorch version on the same inputs,
+   and times kernel, plain version and one library call (CUDA events, after
+   warm-up) beside the least time the card could take;
+4. drives the main path — ``extract_features`` → ``fuse_many`` →
+   ``summarize`` — over three synthetic videos (600, 300 and 150 condensed
+   180×320 frames with their audio) at the full width of
+   ``configs/reference_parity.json``, with launch counts set to 0 just before
+   and read just after; checks the outputs, holds the first 64 frames against
+   the same port run on the CPU, and times the path;
+5. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and as
+   the last line ``{"ok": true, "device": {...}}``.
+
+Any failed phase raises, so the script exits non-zero and prints no result;
+so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cvml_goalnet_tpu_torch import weights
+from cvml_goalnet_tpu_torch.config import PipelineConfig
+from cvml_goalnet_tpu_torch.data.synthetic import (
+    synthetic_change_points,
+    synthetic_video_frames,
+    synthetic_waveform,
+)
+from cvml_goalnet_tpu_torch.device import strict_f32
+from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
+from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
+from cvml_goalnet_tpu_torch.ops.cuda import _build
+from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp, fused_fusion_mlp_plain
+from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import (
+    fused_preprocess_frames,
+    fused_preprocess_frames_plain,
+)
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, fused_conv_pool_stage_plain
+from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul, head_matmul_plain
+from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
+from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
+
+REPO = Path(__file__).resolve().parent
+VIDEO_LENGTHS = (600, 300, 150)   # condensed frames per synthetic video
+RAW_HW = (180, 320)               # PreprocessConfig.serving_raw_hw
+CPU_CHECK_FRAMES = 64
+# Published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
+# HBM3 bandwidth, and float32 on the CUDA cores (the kernels are float32 and
+# do not use the tensor cores).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+# wrapper, CUDA source, and the TPU kernel it replaces, per kernel of the main path
+KERNELS = {
+    "fused_preprocess_frames": (fused_preprocess_frames, "cvml_goalnet_tpu_torch/csrc/fused_preprocess.cu",
+                                "cvml_goalnet_tpu/ops/pallas/fused_preprocess.py:74"),
+    "fused_conv_pool_stage": (fused_conv_pool_stage, "cvml_goalnet_tpu_torch/csrc/fused_stage.cu",
+                              "cvml_goalnet_tpu/ops/pallas/fused_stage.py:65"),
+    "head_matmul": (head_matmul, "cvml_goalnet_tpu_torch/csrc/matmul.cu",
+                    "cvml_goalnet_tpu/ops/pallas/matmul.py:50"),
+    "fused_fusion_mlp": (fused_fusion_mlp, "cvml_goalnet_tpu_torch/csrc/fused_mlp.cu",
+                         "cvml_goalnet_tpu/ops/pallas/fused_mlp.py:38"),
+}
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean milliseconds per call on the card (CUDA events around ``reps`` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite kernel output")
+    return (got - want).abs().max().item()
+
+
+def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generator) -> dict:
+    """Each kernel against its plain version at the main path's shapes, with times and bounds."""
+    dev = torch.device("cuda")
+    rows = {}
+
+    def record(name, parts):
+        rows[name] = {
+            "ms": sum(p["ms"] for p in parts),
+            "plain_ms": sum(p["plain_ms"] for p in parts),
+            "library_ms": sum(p["library_ms"] for p in parts),
+            "bound_ms": sum(p["bound_ms"] for p in parts),
+            "bound_by": parts[0]["bound_by"],
+            "max_abs_err": max(p["max_abs_err"] for p in parts),
+            "parts": parts,
+        }
+
+    # preprocess, once per video as extract_features launches it: each output
+    # is a few float32 operations on exact uint8 values, so kernel and plain
+    # version differ only by rounding order
+    h, w = RAW_HW
+    oh, ow = cfg.preprocess.frame_size
+    eps = cfg.preprocess.eps
+    taps_h, taps_w = resize_taps_on(h, oh, dev), resize_taps_on(w, ow, dev)
+    parts = []
+    for nv in VIDEO_LENGTHS:
+        frames = torch.randint(0, 256, (nv, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
+        got = fused_preprocess_frames(frames, taps_h, taps_w, eps)
+        want = fused_preprocess_frames_plain(frames, taps_h, taps_w, eps)
+        err = max_err(got, want)
+        if err > 1e-5:
+            raise AssertionError(f"fused_preprocess_frames ({nv} frames): max |err| {err} > 1e-5")
+
+        def library_preprocess():
+            lo, hi = torch.aminmax(frames.reshape(nv, -1), dim=1)
+            lo, hi = lo.float()[:, None, None, None], hi.float()[:, None, None, None]
+            small = F.interpolate(frames.permute(0, 3, 1, 2).float(), size=(oh, ow), mode="bilinear",
+                                  align_corners=False)
+            return (small - lo) / (hi - lo + eps)
+
+        lib_err = max_err(library_preprocess().permute(0, 2, 3, 1), want)
+        b, kind = bound_ms(nv * (h * w * 3 + oh * ow * 3 * 4), nv * (2 * h * w * 3 + 10 * oh * ow * 3))
+        parts.append({
+            "shape": [nv, h, w, 3], "ms": time_ms(lambda: fused_preprocess_frames(frames, taps_h, taps_w, eps)),
+            "plain_ms": time_ms(lambda: fused_preprocess_frames_plain(frames, taps_h, taps_w, eps)),
+            "library_ms": time_ms(library_preprocess), "library_max_abs_err": lib_err,
+            "bound_ms": b, "bound_by": kind, "max_abs_err": err,
+        })
+        del frames, got, want
+    record("fused_preprocess_frames", parts)
+
+    # conv-pool stages: float32 sums of 9·Cin products in another order than
+    # cuDNN's, so the tolerance scales with the output: 1e-4·max|ref|
+    parts = []
+    for hh, cin, cout, scale in ((13, 64, 256, 0.05), (11, 256, 512, 0.02)):
+        x = torch.randn((n, hh, hh, cin), generator=gen, device=dev)
+        wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * scale
+        bs = torch.randn((hh, hh, cout), generator=gen, device=dev) * 0.1
+        got = fused_conv_pool_stage(x, wt, bs)
+        want = fused_conv_pool_stage_plain(x, wt, bs)
+        err, tol = max_err(got, want), 1e-4 * want.abs().max().item()
+        if err > tol:
+            raise AssertionError(f"fused_conv_pool_stage {hh}x{hh}x{cin}->{cout}: max |err| {err} > {tol}")
+        x_nchw = x.permute(0, 3, 1, 2)               # channels-last view, no copy
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+        b_chw = bs.permute(2, 0, 1)[None]
+
+        def library_stage():
+            with strict_f32():
+                return F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, padding=1) + b_chw), 3, 1)
+
+        flops = 2.0 * n * hh * hh * cin * cout * 9
+        n_bytes = 4.0 * (n * hh * hh * cin + 9 * cin * cout + hh * hh * cout + n * (hh - 2) ** 2 * cout)
+        b, kind = bound_ms(n_bytes, flops)
+        parts.append({
+            "shape": [n, hh, hh, cin, cout], "ms": time_ms(lambda: fused_conv_pool_stage(x, wt, bs)),
+            "plain_ms": time_ms(lambda: fused_conv_pool_stage_plain(x, wt, bs)),
+            "library_ms": time_ms(library_stage), "bound_ms": b, "bound_by": kind, "max_abs_err": err,
+            "tolerance": tol,
+        })
+        del x, wt, bs, got, want
+    record("fused_conv_pool_stage", parts)
+
+    # head: float32 sums over K = 41472 in another order (split K, then the
+    # splits in order) than cuBLAS: 1e-4·max|ref|
+    k, nout = 9 * 9 * cfg.model.vis_channels[-1], cfg.model.vis_feature_dim
+    x = torch.rand((n, k), generator=gen, device=dev)
+    wt = torch.randn((k, nout), generator=gen, device=dev) * 0.005
+    bs = torch.randn((nout,), generator=gen, device=dev) * 0.1
+    got = head_matmul(x, wt, bs)
+    want = head_matmul_plain(x, wt, bs)
+    err, tol = max_err(got, want), 1e-4 * want.abs().max().item()
+    if err > tol:
+        raise AssertionError(f"head_matmul: max |err| {err} > {tol}")
+    if not torch.equal(got, head_matmul(x, wt, bs)):
+        raise AssertionError("head_matmul: two runs on the same inputs differ")
+
+    def library_head():
+        with strict_f32():
+            return torch.relu(torch.addmm(bs, x, wt))
+
+    b, kind = bound_ms(4.0 * (n * k + k * nout + nout + n * nout), 2.0 * n * k * nout)
+    record("head_matmul", [{
+        "shape": [n, k, nout], "ms": time_ms(lambda: head_matmul(x, wt, bs)),
+        "plain_ms": time_ms(lambda: head_matmul_plain(x, wt, bs)), "library_ms": time_ms(library_head),
+        "bound_ms": b, "bound_by": kind, "max_abs_err": err, "tolerance": tol,
+    }])
+    del x, wt, bs, got, want
+
+    # fusion MLP: five short float32 chains and a sigmoid; outputs in [1, 5]
+    din = fusion_layers[0]["w"].shape[0]
+    x = torch.rand((n, din), generator=gen, device=dev)
+    lo, hi = cfg.model.out_lo, cfg.model.out_hi
+    got = fused_fusion_mlp(x, fusion_layers, lo, hi)
+    want = fused_fusion_mlp_plain(x, fusion_layers, lo, hi)
+    err = max_err(got, want)
+    if err > 1e-5:
+        raise AssertionError(f"fused_fusion_mlp: max |err| {err} > 1e-5")
+
+    def library_mlp():
+        with strict_f32():
+            h_ = x
+            for i, lp in enumerate(fusion_layers):
+                h_ = torch.addmm(lp["b"], h_, lp["w"])
+                if i < len(fusion_layers) - 1:
+                    h_ = torch.relu(h_)
+            return (hi - lo) * torch.sigmoid(h_) + lo
+
+    macs = sum(lp["w"].shape[0] * lp["w"].shape[1] for lp in fusion_layers)
+    w_bytes = 4.0 * sum(lp["w"].numel() + lp["b"].numel() for lp in fusion_layers)
+    b, kind = bound_ms(4.0 * n * (din + got.shape[1]) + w_bytes, 2.0 * n * macs)
+    record("fused_fusion_mlp", [{
+        "shape": [n, din, got.shape[1]], "ms": time_ms(lambda: fused_fusion_mlp(x, fusion_layers, lo, hi)),
+        "plain_ms": time_ms(lambda: fused_fusion_mlp_plain(x, fusion_layers, lo, hi)),
+        "library_ms": time_ms(library_mlp), "bound_ms": b, "bound_by": kind, "max_abs_err": err,
+    }])
+    return rows
+
+
+def make_videos(cfg: PipelineConfig, seed: int) -> list[dict]:
+    skip = cfg.preprocess.skip_frames
+    per_frame = cfg.audio.sample_rate * skip // 30   # samples per condensed frame at 30 fps raw
+    videos = []
+    for i, n in enumerate(VIDEO_LENGTHS):
+        full_n = n * skip
+        videos.append({
+            "frames": synthetic_video_frames(n, *RAW_HW, seed=seed + i),
+            "waveform": synthetic_waveform(n * per_frame, cfg.audio.sample_rate, seed=seed + i),
+            "intervals": synthetic_change_points(full_n, max(8, n // 10), seed=seed + i),
+            "full_n": full_n,
+            "per_frame": per_frame,
+        })
+    return videos
+
+
+def run_path(videos, params, state, cfg):
+    """The main path over ``videos``; also returns the wall seconds of its three stages."""
+    t0 = time.perf_counter()
+    feats = [extract_features(v["frames"], v["waveform"], cfg) for v in videos]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scores = fuse_many(params, state, feats, cfg)   # NumPy scores: waits for the card
+    t2 = time.perf_counter()
+    results = [summarize(s, v["intervals"], cfg.preprocess.skip_frames, v["full_n"], cfg.knapsack)
+               for s, v in zip(scores, videos)]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return feats, scores, results, {"extract_s": t1 - t0, "fuse_s": t2 - t1, "summarize_s": t3 - t2}
+
+
+def profile_path(videos, params, state, cfg) -> dict:
+    """One main-path run traced on the card: device time by name and the device's busy share.
+
+    Only device activity is traced (tracing host ops costs more than the run),
+    and only the second of two runs (the first starts the tracer).  Busy time
+    is the union of the device intervals (kernels and copies) over that run's
+    wall time; the tracer's own buffer requests are left out.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []  # the profiler clears its events after each cycle: keep the active one's
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run_path(videos, params, state, cfg)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            prof.step()
+    spans, by_name = [], {}
+    for ev in traced:
+        if ev.device_type != DeviceType.CUDA or ev.name.startswith("Activity Buffer"):
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (end - start) / 1e3
+    if not spans:
+        return {"device_ms": "not measured"}
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy_us += cur_end - cur_start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
+            "device_ms_by_name": [[k[:70], round(v, 4)] for k, v in top]}
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def check_outputs(videos, feats, scores, results, cfg):
+    h, w = cfg.preprocess.frame_size
+    for i, (v, f, s, r) in enumerate(zip(videos, feats, scores, results)):
+        n = len(v["frames"])
+        require(tuple(f["visual"].shape) == (n, h, w, 3) and bool(torch.isfinite(f["visual"]).all()),
+                f"video {i}: visual features of shape {tuple(f['visual'].shape)} or not finite")
+        require(tuple(f["audio"].shape) == (n, cfg.audio.bin_length, cfg.audio.n_mfcc)
+                and bool(torch.isfinite(f["audio"]).all()),
+                f"video {i}: audio features of shape {tuple(f['audio'].shape)} or not finite")
+        require(s.shape == (n,) and bool(np.isfinite(s).all()), f"video {i}: scores {s.shape} or not finite")
+        require(bool((s >= cfg.model.out_lo).all() and (s <= cfg.model.out_hi).all()), f"video {i}: scores out of range")
+        require(r.frame_mask.shape == (v["full_n"],) and r.frame_mask.dtype == np.uint8, f"video {i}: mask shape")
+        # every chosen clip fits the budget; the inclusive end adds one frame per clip
+        budget = int(cfg.knapsack.summary_ratio * v["full_n"]) + len(r.selected_clips)
+        require(len(r.selected_clips) > 0 and 0 < int(r.frame_mask.sum()) <= budget,
+                f"video {i}: {len(r.selected_clips)} clips, {int(r.frame_mask.sum())} frames for budget {budget}")
+
+
+def check_against_cpu(video, feats, scores, params_np, state_np, cfg) -> dict:
+    """First frames on the CPU (plain versions) against the card: features, encoders, scores."""
+    m = CPU_CHECK_FRAMES
+    cpu_feats = extract_features(video["frames"][:m], video["waveform"][: m * video["per_frame"]], cfg,
+                                 device="cpu")
+    tp, ts = weights.from_jax(params_np, state_np, device="cpu")
+    cpu_scores = fuse(tp, ts, cpu_feats, cfg, device="cpu")
+    gp, gs = weights.from_jax(params_np, state_np)
+    with torch.no_grad():
+        gpu_vis = visual_encoder_apply(gp["visual"], gs["visual"], feats["visual"][:m]).cpu()
+        cpu_vis = visual_encoder_apply(tp["visual"], ts["visual"], cpu_feats["visual"])
+        gpu_aud = audio_encoder_apply(gp["audio"], feats["audio"][:m]).cpu()
+        cpu_aud = audio_encoder_apply(tp["audio"], cpu_feats["audio"])
+    errs = {
+        "visual_input": (feats["visual"][:m].cpu() - cpu_feats["visual"]).abs().max().item(),
+        "audio_input": (feats["audio"][:m].cpu() - cpu_feats["audio"]).abs().max().item(),
+        "visual_features_rel": ((gpu_vis - cpu_vis).abs().max() / cpu_vis.abs().max()).item(),
+        "audio_features_rel": ((gpu_aud - cpu_aud).abs().max() / cpu_aud.abs().max()).item(),
+        "scores": float(np.abs(scores[:m] - cpu_scores).max()),
+    }
+    # visual inputs: 1e-5 as in the goldens; audio: cuFFT vs the CPU FFT, the
+    # goldens' rtol 1e-3 / atol 2e-3; encoders: float32 sums in other orders;
+    # scores: the goldens' 1e-4
+    limits = {"visual_input": 1e-5, "audio_input": 2e-3 + 1e-3 * cpu_feats["audio"].abs().max().item(),
+              "visual_features_rel": 1e-4, "audio_features_rel": 1e-4, "scores": 1e-4}
+    for k, lim in limits.items():
+        if not errs[k] <= lim:
+            raise AssertionError(f"card vs CPU: {k} max |err| {errs[k]} > {lim}")
+    return errs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}", flush=True)
+
+    t0 = time.perf_counter()
+    per_kernel = _build.build()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s wall ({json.dumps({k: round(v, 1) for k, v in per_kernel.items()})})")
+    for name in _build.KERNELS:
+        log = _build.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
+
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    params_np, state_np = weights.init_params(cfg, args.seed)
+    params, state = weights.from_jax(params_np, state_np)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    n_total = sum(VIDEO_LENGTHS)
+
+    rows = check_kernels(n_total, cfg, params["fusion"], gen)
+    for name, r in rows.items():
+        print(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+    t0 = time.perf_counter()
+    videos = make_videos(cfg, args.seed)
+    print(f"data: {len(videos)} videos, {n_total} frames of {RAW_HW}, made in {time.perf_counter() - t0:.1f} s")
+
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    feats, scores, results, _ = run_path(videos, params, state, cfg)
+    first_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    print(f"main path launches: {json.dumps(launches)}")
+    missing = [name for name, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    check_outputs(videos, feats, scores, results, cfg)
+    errs = check_against_cpu(videos[0], feats[0], scores[0], params_np, state_np, cfg)
+    print(f"card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(errs)}")
+
+    walls, stages, per_video = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stages.append(run_path(videos, params, state, cfg)[3])
+        walls.append(time.perf_counter() - t0)
+        for v in videos:
+            t0 = time.perf_counter()
+            run_path([v], params, state, cfg)
+            per_video.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    stage_ms = {k: 1e3 * statistics.median(st[k] for st in stages) for k in stages[0]}
+    print(f"main path on {kind} ({smi}): first run {first_s:.3f} s; three videos in one batch "
+          f"median {wall:.4f} s = {n_total / wall:.1f} frames/s; per-video p50 "
+          f"{1e3 * statistics.median(per_video):.1f} ms over {len(per_video)} runs "
+          f"(lengths {VIDEO_LENGTHS}); batch stages median ms {json.dumps(stage_ms)}")
+    print(f"profile of one batch run: {json.dumps(profile_path(videos, params, state, cfg))}")
+    print(f"total script {time.perf_counter() - t_start:.1f} s")
+
+    table = []
+    for name, r in rows.items():
+        _, source, replaces = KERNELS[name]
+        table.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "parts": r["parts"],
+        })
+    print(json.dumps({"kernels": table}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

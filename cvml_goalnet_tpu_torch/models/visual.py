@@ -1,0 +1,70 @@
+"""Visual branch, eval path with batchnorm folded into the next layer.
+
+Port of the folded eval path of ``cvml_goalnet_tpu/models/visual.py``
+(``:93-162``; reference ``VisBl``, ``utils.py:145-195``): three
+conv → ReLU → maxpool(3, s1) → batchnorm stages, channels (64, 256, 512),
+spatial sizes 40→15→13→13→11→11→9, then flatten → linear(512) → ReLU.
+
+Each eval batchnorm ``y = s·x + t`` is absorbed by the layer that consumes
+it.  Its scale multiplies that layer's input-channel weights; its shift
+becomes ``corr``, a batch-1 convolution over a t-filled map that carries the
+conv bias and is exact at the zero-padded borders, added as a spatial bias.
+Mapping onto the port's kernels:
+
+* conv0 (k3 s3 p3, Cin 3) has no kernel of its own: ``F.conv2d`` + ReLU +
+  ``F.max_pool2d``;
+* conv1 and conv2 → ``fused_conv_pool_stage`` with ``b_spatial = corr[0]``
+  and a zero conv bias;
+* head → ``head_matmul`` on the NHWC flatten (N, 9·9·512) with the last
+  batchnorm folded in; the flatten is channel-last, so the scale tiles as
+  ``repeat(s, H·W)``.  Activations stay NHWC end to end.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cvml_goalnet_tpu_torch.models import layers as L
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage
+from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul
+
+# (kernel, stride, padding) per conv stage — reference utils.py:151-163.
+STAGE_GEOM = ((3, 3, 3), (3, 1, 1), (3, 1, 1))
+POOL = (3, 1)  # kernel, stride — reference utils.py:153
+
+
+def visual_spatial_trace(hw: tuple[int, int], n_stages: int) -> list[tuple[int, int]]:
+    """Spatial sizes after each conv+pool stage."""
+    h, w = hw
+    sizes = []
+    for k, s, p in STAGE_GEOM[:n_stages]:
+        h = L.conv_out_size(h, k, s, p)
+        w = L.conv_out_size(w, k, s, p)
+        h = L.conv_out_size(h, POOL[0], POOL[1], 0)
+        w = L.conv_out_size(w, POOL[0], POOL[1], 0)
+        sizes.append((h, w))
+    return sizes
+
+
+def visual_encoder_apply(params, state, x: torch.Tensor) -> torch.Tensor:
+    """x (N, H, W, C) normalised frames → (N, vis_feature_dim), eval mode."""
+    n = x.shape[0]
+    n_stages = sum(1 for i in range(len(STAGE_GEOM)) if f"conv{i}" in params)
+    s_prev = t_prev = None
+    for i in range(n_stages):
+        _, stride, pad = STAGE_GEOM[i]
+        conv = params[f"conv{i}"]
+        if s_prev is None:
+            x = L.maxpool2d(torch.relu(L.conv2d_apply(conv, x, stride, pad)), *POOL)
+        else:
+            t_map = t_prev.expand(1, x.shape[1], x.shape[2], conv["w"].shape[2])
+            corr = L.conv2d_apply(conv, t_map, stride, pad)
+            w_folded = conv["w"] * s_prev[None, None, :, None]
+            x = fused_conv_pool_stage(x.contiguous(), w_folded.contiguous(), corr[0].contiguous())
+        s_prev, t_prev = L.bn_affine(params[f"bn{i}"], state[f"bn{i}"])
+    hw = x.shape[1] * x.shape[2]
+    w = params["head"]["w"]
+    w_folded = w * s_prev.repeat(hw)[:, None]
+    b_folded = L.linear_apply({"w": w, "b": params["head"]["b"]}, t_prev.repeat(hw)[None])[0]
+    flat = x.contiguous().reshape(n, hw * x.shape[3])
+    return head_matmul(flat, w_folded.contiguous(), b_folded.contiguous(), relu=True)

@@ -1,0 +1,20 @@
+"""Importance-score expansion from condensed (decimated) to raw frame rate.
+
+Port of ``cvml_goalnet_tpu/ops/expand.py`` (reference ``expand_array``,
+``utils.py:396-410``): ``expanded[i] = scores[min(i // skip, n − 1)]``, and the
+scores back unchanged when they are already at the raw length.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def expand_scores(scores: torch.Tensor, skip_frames: int, full_n_frames: int) -> torch.Tensor:
+    """Expand (n,) condensed scores to (full_n_frames,) raw-rate scores, on their device."""
+    scores = scores.reshape(-1)
+    n = scores.shape[0]
+    if n == full_n_frames:
+        return scores
+    idx = torch.clamp(torch.arange(full_n_frames, device=scores.device) // skip_frames, max=n - 1)
+    return scores[idx]

@@ -1,0 +1,87 @@
+"""Frame preprocessing: per-frame min-max normalisation + bilinear resize.
+
+Port of ``cvml_goalnet_tpu/ops/preprocess.py``.  The contract is the
+reference's normalise-then-resize (``utils.py:283-292``): each frame is
+min-max normalised over ALL pixels and channels jointly, then resized with
+cv2/INTER_LINEAR's half-pixel, edge-clamped taps.  Bilinear rows sum to one,
+so the port computes it as resize-then-normalise, ``(resize(f) − lo) / (hi −
+lo + eps)``, exactly as the JAX ``preprocess_frames`` does; min and max come
+from the raw (uint8) frame.
+
+On the card :func:`preprocess_frames` is one launch of the hand-written kernel
+(``ops/cuda/fused_preprocess.py``); on the CPU it is that kernel's plain
+version.  :func:`preprocess_frames_host` is the NumPy mirror.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import fused_preprocess_frames
+
+
+@lru_cache(maxsize=64)
+def resize_taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """One bilinear axis as two taps per output: ((2, dst) int32 indices, (2, dst) f32 weights).
+
+    Half-pixel source coordinate ``x = (i + 0.5)·src/dst − 0.5``, clipped to
+    ``[0, src − 1]``; taps ``floor(x)`` and ``min(floor(x) + 1, src − 1)`` with
+    weights ``1 − frac`` and ``frac``.
+    """
+    x = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    x = np.clip(x, 0.0, src - 1.0)
+    lo = np.floor(x).astype(np.int64)
+    hi = np.minimum(lo + 1, src - 1)
+    frac = x - lo
+    idx = np.stack([lo, hi]).astype(np.int32)
+    wts = np.stack([1.0 - frac, frac]).astype(np.float32)
+    return idx, wts
+
+
+@lru_cache(maxsize=64)
+def resize_matrices(src_h: int, src_w: int, dst_h: int, dst_w: int) -> tuple[np.ndarray, np.ndarray]:
+    """Bilinear interpolation matrices (dst_h, src_h) and (dst_w, src_w) from :func:`resize_taps`."""
+
+    def axis_matrix(src: int, dst: int) -> np.ndarray:
+        idx, wts = resize_taps(src, dst)
+        m = np.zeros((dst, src), dtype=np.float32)
+        rows = np.arange(dst)
+        np.add.at(m, (rows, idx[0]), wts[0])
+        np.add.at(m, (rows, idx[1]), wts[1])
+        return m
+
+    return axis_matrix(src_h, dst_h), axis_matrix(src_w, dst_w)
+
+
+@lru_cache(maxsize=64)
+def resize_taps_on(src: int, dst: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`resize_taps` as tensors on ``device``, made once per (src, dst, device)."""
+    idx, wts = resize_taps(src, dst)
+    return torch.as_tensor(idx, device=device), torch.as_tensor(wts, device=device)
+
+
+def preprocess_frames(
+    frames: torch.Tensor, out_hw: tuple[int, int] = (40, 40), eps: float = 1e-7
+) -> torch.Tensor:
+    """(N, H, W, C) uint8 or float32 frames → (N, h, w, C) float32, on the frames' device."""
+    _, h, w, _ = frames.shape
+    dev = frames.device
+    return fused_preprocess_frames(frames, resize_taps_on(h, out_hw[0], dev), resize_taps_on(w, out_hw[1], dev), eps)
+
+
+def preprocess_frames_host(
+    frames: np.ndarray, out_hw: tuple[int, int] = (40, 40), eps: float = 1e-7
+) -> np.ndarray:
+    """NumPy mirror of :func:`preprocess_frames` (same matrices, resize then normalise)."""
+    frames = np.asarray(frames)
+    n, h, w, c = frames.shape
+    lo = frames.min(axis=(1, 2, 3)).astype(np.float32)
+    hi = frames.max(axis=(1, 2, 3)).astype(np.float32)
+    rh, rw = resize_matrices(h, w, *out_hw)
+    x = np.einsum("ah,nhwc->nawc", rh, frames.astype(np.float32))
+    small = np.einsum("bw,nawc->nabc", rw, x)
+    scale = (hi - lo + eps)[:, None, None, None]
+    return ((small - lo[:, None, None, None]) / scale).astype(np.float32)

@@ -1,0 +1,153 @@
+"""Parameter bridge between the JAX package's pytrees and the port's tensors.
+
+The port keeps the JAX package's parameter layout, so a checkpoint moves over
+by dtype and device alone, with no transposes:
+
+* linear weights ``(in, out)``, conv2d weights HWIO, conv1d weights WIO
+  (``cvml_goalnet_tpu/models/layers.py``);
+* ``params = {"visual": {"conv0".."conv2", "bn0".."bn2", "head"},
+  "audio": {"conv0", "conv1", "head"}, "fusion": [{"w", "b"}, ...]}`` and
+  ``model_state = {"visual": {"bn0".."bn2": {"mean", "var"}}}``.
+
+:func:`init_params` draws a pytree of that layout from a numpy seed (it is a
+fresh draw with PyTorch's default bounds, not ``avm_init``'s JAX random
+stream); :func:`load_jax_checkpoint` reads the ``<tag>_state.npz`` files that
+``cvml_goalnet_tpu/train/checkpoint.py`` writes.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import re
+
+import numpy as np
+import torch
+
+from cvml_goalnet_tpu_torch.config import PipelineConfig
+from cvml_goalnet_tpu_torch.device import resolve_device
+from cvml_goalnet_tpu_torch.models.audio import audio_feature_channels, audio_temporal_trace
+from cvml_goalnet_tpu_torch.models.avm import N_CLASSES, fusion_input_dim
+from cvml_goalnet_tpu_torch.models.visual import STAGE_GEOM, visual_spatial_trace
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def from_jax(params, model_state, device=None):
+    """Numpy (or JAX) pytrees in the JAX layout → the same trees of float32 tensors."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.kind != "f":
+            raise TypeError(f"parameter leaf of dtype {a.dtype} is not floating point")
+        return torch.as_tensor(a.astype(np.float32)).to(dev)
+
+    return _tree_map(leaf, params), _tree_map(leaf, model_state)
+
+
+# ------------------------------------------------------------------ init
+
+
+def _uniform(rng, shape, fan_in):
+    # PyTorch's default bounds: kaiming_uniform(a=√5) weights, ±1/√fan_in bias;
+    # both reduce to ±1/√fan_in
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+
+def _layer(rng, w_shape, fan_in):
+    return {"w": _uniform(rng, w_shape, fan_in), "b": _uniform(rng, (w_shape[-1],), fan_in)}
+
+
+def init_params(cfg: PipelineConfig, seed: int, classifier: bool = False):
+    """A seeded (params, model_state) numpy pytree in the JAX layout.
+
+    Batchnorm statistics are drawn away from their identity values (means
+    near 0, variances in [0.5, 1.5], scales near 1) so the eval-time fold is
+    exercised, as it would be with trained weights.
+    """
+    m, pre, aud = cfg.model, cfg.preprocess, cfg.audio
+    rng = np.random.default_rng(seed)
+    visual, vstate = {}, {}
+    chans = (pre.channels,) + m.vis_channels
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        k = STAGE_GEOM[i][0]
+        visual[f"conv{i}"] = _layer(rng, (k, k, cin, cout), cin * k * k)
+        visual[f"bn{i}"] = {
+            "scale": (1.0 + 0.1 * rng.standard_normal(cout)).astype(np.float32),
+            "bias": (0.1 * rng.standard_normal(cout)).astype(np.float32),
+        }
+        vstate[f"bn{i}"] = {
+            "mean": (0.1 * rng.standard_normal(cout)).astype(np.float32),
+            "var": rng.uniform(0.5, 1.5, cout).astype(np.float32),
+        }
+    h, w = visual_spatial_trace(pre.frame_size, len(m.vis_channels))[-1]
+    flat = m.vis_channels[-1] * h * w
+    visual["head"] = _layer(rng, (flat, m.vis_feature_dim), flat)
+    params = {"visual": visual}
+    if m.audio_included:
+        audio = {}
+        achans = (audio_feature_channels(aud),) + m.aud_channels
+        for i, (cin, cout) in enumerate(zip(achans[:-1], achans[1:])):
+            audio[f"conv{i}"] = _layer(rng, (3, cin, cout), cin * 3)
+        t = audio_temporal_trace(aud.bin_length, len(m.aud_channels))[-1]
+        audio["head"] = _layer(rng, (m.aud_channels[-1] * t, m.aud_feature_dim), m.aud_channels[-1] * t)
+        params["audio"] = audio
+    dims = (fusion_input_dim(m),) + m.fusion_hidden + (N_CLASSES if classifier else 1,)
+    params["fusion"] = [_layer(rng, (din, dout), din) for din, dout in zip(dims[:-1], dims[1:])]
+    return params, {"visual": vstate}
+
+
+# ------------------------------------------------------------ checkpoints
+
+_KEY_PART = re.compile(r"^\['(.*)'\]$|^\[(\d+)\]$")
+
+
+def _insert(tree: dict, parts: list[str], value):
+    """Place ``value`` at a jax key path; ``[i]`` parts build lists."""
+    node = tree
+    for j, part in enumerate(parts):
+        m = _KEY_PART.match(part)
+        if m is None:
+            raise ValueError(f"unrecognised checkpoint key part {part!r}")
+        key = m.group(1) if m.group(1) is not None else int(m.group(2))
+        last = j == len(parts) - 1
+        node = node.setdefault(key, value if last else {})
+    return tree
+
+
+def _lists(tree):
+    """Dicts whose keys are all ints (the ``[i]`` parts) → lists in index order."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(isinstance(k, int) for k in tree):
+        return [_lists(tree[i]) for i in range(len(tree))]
+    return {k: _lists(v) for k, v in tree.items()}
+
+
+def load_jax_checkpoint(ckp_dir: str, tag: str = "ckp"):
+    """Read ``<ckp_dir>/<tag>_state.npz`` as the JAX package writes it → (params, model_state).
+
+    Keys are ``"/".join(str(p) for p in path)`` over jax key paths, e.g.
+    ``['params']/['visual']/['conv0']/['w']`` or ``['params']/['fusion']/[0]/['w']``.
+    The optimizer state and epoch in the same file are for training and are
+    not returned.
+    """
+    tree: dict = {}
+    with np.load(os.path.join(ckp_dir, f"{tag}_state.npz")) as data:
+        for key in data.files:
+            if key == "__epoch__":
+                continue
+            _insert(tree, key.split("/"), data[key])
+    tree = _lists(tree)
+    for part in ("params", "model_state"):
+        if part not in tree:
+            raise ValueError(f"{ckp_dir}/{tag}_state.npz holds no '{part}' tree")
+    return tree["params"], tree["model_state"]
