@@ -6,28 +6,40 @@
 From the repository root, on a machine with a CUDA card:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's device name);
-2. builds every CUDA kernel of the summarization path from ``csrc/`` (one
-   ``nvcc`` per source, all at once) and times the build;
-3. calls each kernel's wrapper at the shapes the main path gives it, holds
+2. builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all at
+   once) and times the build;
+3. calls each kernel's wrapper at the shapes its main path gives it, holds
    the result against the kernel's plain PyTorch version on the same inputs,
    and times kernel, plain version and one library call (CUDA events, after
-   warm-up) beside the least time the card could take;
-4. drives the main path — ``extract_features`` → ``fuse_many`` →
+   warm-up) beside the least time the card could take; the attention kernels
+   also at T = 32,768, and the banded one at T = 135,000, where it is checked
+   on row slices;
+4. drives the summarization path — ``extract_features`` → ``fuse_many`` →
    ``summarize`` — over three synthetic videos (600, 300 and 150 condensed
    180×320 frames with their audio) at the full width of
-   ``configs/reference_parity.json``, with launch counts set to 0 just before
-   and read just after; checks the outputs, holds the first 64 frames against
-   the same port run on the CPU, and times the path;
-5. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and as
+   ``configs/reference_parity.json``; checks the outputs, holds the first 64
+   frames against the same port run on the CPU, and times the path;
+5. drives the spotting path over one synthetic 5400-frame match with its
+   audio: ``extract_features``, then ``summarize_match`` with
+   ``configs/tpu_spotting.json`` (banded attention), the same with
+   ``temporal_window = 0`` (full attention) and
+   ``configs/tpu_spotting_quality.json`` (GRU + banded hybrid), then
+   ``spot_stream`` in 600-frame chunks; holds the stream to the offline
+   scores, each scorer to its CPU run on the card's features and the trunk
+   to the CPU on the first 64 frames, and times the path;
+6. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
-Any failed phase raises, so the script exits non-zero and prints no result;
-so does a machine without a CUDA device.
+Every path is driven with the launch counts set to 0 just before it and read
+just after; a kernel of the path that did not launch fails the run.  Any
+failed phase raises, so the script exits non-zero and prints no result; so
+does a machine without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -50,6 +62,12 @@ from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.ops.cuda import _build
+from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
+    flash_fwd,
+    flash_fwd_plain,
+    flash_local_fwd,
+    flash_local_fwd_plain,
+)
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp, fused_fusion_mlp_plain
 from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import (
     fused_preprocess_frames,
@@ -59,11 +77,25 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, f
 from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul, head_matmul_plain
 from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
+from cvml_goalnet_tpu_torch.spotting import (
+    encode_timeline,
+    score_timeline_auto,
+    scores_to_importance,
+    spot_events,
+    spot_stream,
+    summarize_match,
+)
 
 REPO = Path(__file__).resolve().parent
 VIDEO_LENGTHS = (600, 300, 150)   # condensed frames per synthetic video
 RAW_HW = (180, 320)               # PreprocessConfig.serving_raw_hw
 CPU_CHECK_FRAMES = 64
+MATCH_FRAMES = 5400               # one 90-minute match at one condensed frame per second
+SEGMENT_FRAMES = 600              # frames made per generator call, and spot_stream's chunk
+PEAK_WINDOW = 5                   # spot_events' default neighbourhood
+ATTN_WINDOW = 1024                # temporal_window of configs/tpu_spotting*.json
+LONG_T = 32_768                   # attention checked against its plain version at this T too
+MATCH_RATE_T = 135_000            # a 90-minute match at 25 frames/s: banded kernel timed alone
 # Published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
 # HBM3 bandwidth, and float32 on the CUDA cores (the kernels are float32 and
 # do not use the tensor cores).
@@ -80,7 +112,12 @@ KERNELS = {
                     "cvml_goalnet_tpu/ops/pallas/matmul.py:50"),
     "fused_fusion_mlp": (fused_fusion_mlp, "cvml_goalnet_tpu_torch/csrc/fused_mlp.cu",
                          "cvml_goalnet_tpu/ops/pallas/fused_mlp.py:38"),
+    "flash_fwd": (flash_fwd, "cvml_goalnet_tpu_torch/csrc/flash_attention.cu",
+                  "cvml_goalnet_tpu/ops/pallas/flash_attention.py:125"),
+    "flash_local_fwd": (flash_local_fwd, "cvml_goalnet_tpu_torch/csrc/flash_attention.cu",
+                        "cvml_goalnet_tpu/ops/pallas/flash_attention.py:609"),
 }
+TRUNK = ("fused_conv_pool_stage", "head_matmul")
 
 
 def nvidia_smi_line() -> str:
@@ -118,21 +155,28 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item()
 
 
+def row_of(parts: list[dict]) -> dict:
+    """A kernel's row: times and bounds summed over the parts at its main paths' shapes
+    (one call each); the error is the worst of all parts."""
+    main = [p for p in parts if p.get("main_path", True)]
+    return {
+        "ms": sum(p["ms"] for p in main),
+        "plain_ms": sum(p["plain_ms"] for p in main),
+        "library_ms": sum(p["library_ms"] for p in main),
+        "bound_ms": sum(p["bound_ms"] for p in main),
+        "bound_by": main[0]["bound_by"],
+        "max_abs_err": max(p["max_abs_err"] for p in parts),
+        "parts": parts,
+    }
+
+
 def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generator) -> dict:
-    """Each kernel against its plain version at the main path's shapes, with times and bounds."""
+    """Each kernel of the summarization path against its plain version at the path's shapes, with times and bounds."""
     dev = torch.device("cuda")
     rows = {}
 
     def record(name, parts):
-        rows[name] = {
-            "ms": sum(p["ms"] for p in parts),
-            "plain_ms": sum(p["plain_ms"] for p in parts),
-            "library_ms": sum(p["library_ms"] for p in parts),
-            "bound_ms": sum(p["bound_ms"] for p in parts),
-            "bound_by": parts[0]["bound_by"],
-            "max_abs_err": max(p["max_abs_err"] for p in parts),
-            "parts": parts,
-        }
+        rows[name] = row_of(parts)
 
     # preprocess, once per video as extract_features launches it: each output
     # is a few float32 operations on exact uint8 values, so kernel and plain
@@ -287,8 +331,8 @@ def run_path(videos, params, state, cfg):
     return feats, scores, results, {"extract_s": t1 - t0, "fuse_s": t2 - t1, "summarize_s": t3 - t2}
 
 
-def profile_path(videos, params, state, cfg) -> dict:
-    """One main-path run traced on the card: device time by name and the device's busy share.
+def profile_run(run) -> dict:
+    """One run of ``run()`` traced on the card: device time by name and the device's busy share.
 
     Only device activity is traced (tracing host ops costs more than the run),
     and only the second of two runs (the first starts the tracer).  Busy time
@@ -303,7 +347,8 @@ def profile_path(videos, params, state, cfg) -> dict:
                  on_trace_ready=lambda p: traced.extend(p.events())) as prof:
         for _ in range(2):
             t0 = time.perf_counter()
-            run_path(videos, params, state, cfg)
+            run()
+            torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
             prof.step()
     spans, by_name = [], {}
@@ -383,6 +428,276 @@ def check_against_cpu(video, feats, scores, params_np, state_np, cfg) -> dict:
     return errs
 
 
+def band_pairs(t: int, window: int | None) -> int:
+    """Valid (query, key) pairs of one head: all T² for full attention, else those with |i − j| ≤ W."""
+    if window is None:
+        return t * t
+    i = np.arange(t)
+    return int((np.minimum(i + window, t - 1) - np.maximum(i - window, 0) + 1).sum())
+
+
+def attention_bound(h: int, t: int, d: int, window: int | None) -> tuple[float, str]:
+    # 4·d FLOP per valid pair (score and weighted sum); q, k, v read and out, lse written once
+    return bound_ms(4.0 * (4 * h * t * d + h * t), 4.0 * d * h * band_pairs(t, window))
+
+
+def check_attention_kernels(gen: torch.Generator) -> dict:
+    """The two attention kernels against their plain versions, with times, bounds and the library call.
+
+    Tolerances: 3e-5 on out and 1e-5 on lse, as ``tests/test_flash_attention.py``
+    holds the Pallas kernels (float32 sums in another order; the row statistics
+    are kept in float32 by both).
+    """
+    dev = torch.device("cuda")
+    parts = {"flash_fwd": [], "flash_local_fwd": []}
+    # (H, T, d, window) at the spotting path's shapes, then at T = 32,768
+    cases = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
+             (2, MATCH_FRAMES, 64, ATTN_WINDOW, True), (1, LONG_T, 128, None, False),
+             (1, LONG_T, 128, ATTN_WINDOW, False)]
+    for h, t, d, window, main_path in cases:
+        q, k, v = (torch.randn((h, t, d), generator=gen, device=dev) for _ in range(3))
+        scale = d ** -0.5
+        if window is None:
+            name, run = "flash_fwd", lambda: flash_fwd(q, k, v, scale)
+            plain = lambda: flash_fwd_plain(q, k, v, scale)
+            mask = None
+        else:
+            name, run = "flash_local_fwd", lambda: flash_local_fwd(q, k, v, scale, window)
+            plain = lambda: flash_local_fwd_plain(q, k, v, scale, window)
+            idx = torch.arange(t, device=dev)
+            mask = (idx[:, None] - idx[None, :]).abs() <= window
+
+        def library():
+            with strict_f32():
+                return F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask, scale=scale)[0]
+
+        (out, lse), (want_out, want_lse) = run(), plain()
+        err_out, err_lse = max_err(out, want_out), max_err(lse, want_lse)
+        if err_out > 3e-5 or err_lse > 1e-5:
+            raise AssertionError(f"{name} {(h, t, d, window)}: max |err| out {err_out} > 3e-5 or lse {err_lse} > 1e-5")
+        lib_err = max_err(library(), want_out)
+        b, kind = attention_bound(h, t, d, window)
+        parts[name].append({
+            "shape": [h, t, d], "window": window, "main_path": main_path, "ms": time_ms(run),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(library), "library_max_abs_err": lib_err,
+            "bound_ms": b, "bound_by": kind, "max_abs_err": max(err_out, err_lse), "lse_max_abs_err": err_lse,
+        })
+        del q, k, v, out, lse, want_out, want_lse, mask
+        torch.cuda.empty_cache()
+
+    # a full-rate match: the plain version's score matrix would be 73 GB, so check
+    # row slices: a banded row needs only the keys within ±W, so the plain version
+    # on keys [a − W, b + W) with the offset gives rows [a, b) exactly
+    t, d = MATCH_RATE_T, 128
+    q, k, v = (torch.randn((1, t, d), generator=gen, device=dev) for _ in range(3))
+    out, lse = flash_local_fwd(q, k, v, d ** -0.5, ATTN_WINDOW)
+    err = 0.0
+    for a in (0, t // 2, t - 2048):
+        b = a + 2048
+        ks, ke = max(0, a - ATTN_WINDOW), min(t, b + ATTN_WINDOW)
+        want_out, want_lse = flash_local_fwd_plain(q[:, a:b], k[:, ks:ke], v[:, ks:ke], d ** -0.5, ATTN_WINDOW,
+                                                   q_offset=a - ks)
+        e_out, e_lse = max_err(out[:, a:b], want_out), max_err(lse[:, a:b], want_lse)
+        if e_out > 3e-5 or e_lse > 1e-5:
+            raise AssertionError(f"flash_local_fwd T={t} rows [{a}, {b}): max |err| out {e_out}, lse {e_lse}")
+        err = max(err, e_out, e_lse)
+    b, kind = attention_bound(1, t, d, ATTN_WINDOW)
+    parts["flash_local_fwd"].append({
+        "shape": [1, t, d], "window": ATTN_WINDOW, "main_path": False,
+        "ms": time_ms(lambda: flash_local_fwd(q, k, v, d ** -0.5, ATTN_WINDOW)), "plain_ms": None,
+        "library_ms": None, "bound_ms": b, "bound_by": kind, "max_abs_err": err,
+        "checked": "rows [0, 2048), [67500, 69548), [132952, 135000) against the plain version on their keys",
+    })
+    del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    return {name: row_of(p) for name, p in parts.items()}
+
+
+def make_match(cfg: PipelineConfig, seed: int) -> dict:
+    """One synthetic match: 600-frame segments as uint8 (the generator's float64
+    temporaries for 5400 frames at once would take about 22 GB), its audio and clips."""
+    skip = cfg.preprocess.skip_frames
+    per_frame = cfg.audio.sample_rate * skip // 30
+    frames = np.concatenate([synthetic_video_frames(SEGMENT_FRAMES, *RAW_HW, seed=seed + 100 + i)
+                             for i in range(MATCH_FRAMES // SEGMENT_FRAMES)])
+    full_n = MATCH_FRAMES * skip
+    return {
+        "frames": frames,
+        "waveform": synthetic_waveform(MATCH_FRAMES * per_frame, cfg.audio.sample_rate, seed=seed + 100),
+        "intervals": synthetic_change_points(full_n, MATCH_FRAMES // 10, seed=seed + 100),
+        "full_n": full_n,
+        "per_frame": per_frame,
+    }
+
+
+def drive(label: str, expect, fn, launches_by_path: dict):
+    """Run one path with every launch count set to 0 just before and read just after."""
+    for f, _, _ in KERNELS.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: f.launches for name, (f, _, _) in KERNELS.items()}
+    launches_by_path[label] = got
+    missing = [name for name in expect if got[name] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing} (counts {got})")
+    print(f"{label} launches: {json.dumps({k: v for k, v in got.items() if v})}", flush=True)
+    return out
+
+
+def run_match(match, params, state, tparams, cfg) -> tuple[np.ndarray, dict]:
+    """The spotting path stage by stage, as ``summarize_match`` runs it after ``extract_features``;
+    returns the scores and the wall milliseconds of each stage."""
+    t0 = time.perf_counter()
+    feats = extract_features(match["frames"], match["waveform"], cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    enc = encode_timeline(params, state, feats["visual"], feats["audio"], cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    scores = score_timeline_auto(tparams, enc, cfg).cpu().numpy()
+    t3 = time.perf_counter()
+    spot_events(scores, PEAK_WINDOW)
+    summarize(scores_to_importance(scores), match["intervals"], cfg.preprocess.skip_frames, match["full_n"],
+              cfg.knapsack)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    return scores, {"extract_ms": 1e3 * (t1 - t0), "encode_ms": 1e3 * (t2 - t1), "score_ms": 1e3 * (t3 - t2),
+                    "events_summarize_ms": 1e3 * (t4 - t3)}
+
+
+def check_match(res, match) -> None:
+    n = MATCH_FRAMES
+    require(res.scores.shape == (n,) and bool(np.isfinite(res.scores).all()),
+            f"match scores {res.scores.shape} or not finite")
+    require(res.events.ndim == 1 and bool(((res.events >= 0) & (res.events < n)).all()), "event frames out of range")
+    require(res.summary.frame_mask.shape == (match["full_n"],), "summary mask shape")
+    require(0 < int(res.summary.frame_mask.sum()) <= int(0.15 * match["full_n"]) + len(res.summary.selected_clips),
+            "summary frames outside the knapsack budget")
+
+
+def peak_margin(s: np.ndarray, i: int, window: int, threshold: float = 0.0) -> float:
+    """How far frame i's peak test (max of its ±window neighbourhood and > threshold) is from flipping."""
+    nb = np.delete(s[max(0, i - window) : i + window + 1], i - max(0, i - window))
+    return float(min(abs(s[i] - threshold), abs(s[i] - nb.max()) if len(nb) else np.inf))
+
+
+def compare_events(a: np.ndarray, b: np.ndarray, tol: float) -> list[dict]:
+    """Frames whose event status differs between two score vectors; each must be a near tie."""
+    ea, eb = set(spot_events(a, PEAK_WINDOW).tolist()), set(spot_events(b, PEAK_WINDOW).tolist())
+    diffs = []
+    for i in sorted(ea ^ eb):
+        margin = min(peak_margin(a, i, PEAK_WINDOW), peak_margin(b, i, PEAK_WINDOW))
+        if margin > tol:
+            raise AssertionError(f"event at frame {i} differs, decided by {margin} > {tol}")
+        diffs.append({"frame": i, "margin": margin})
+    return diffs
+
+
+def score_tolerance(scores: np.ndarray) -> float:
+    # float32 sums in other orders through 2 layers at T = 5400: 1e-4 relative to the score scale
+    return 1e-4 * max(1.0, float(np.abs(scores).max()))
+
+
+def check_scorers_against_cpu(enc: torch.Tensor, scorers) -> dict:
+    """Each scorer on the card's (T, 640) features, on the card and on the CPU (plain versions)."""
+    enc_cpu = enc.cpu()
+    out = {}
+    for label, cfg, tp_np in scorers:
+        card = score_timeline_auto(weights.tree_from_jax(tp_np), enc, cfg).cpu().numpy()
+        cpu = score_timeline_auto(weights.tree_from_jax(tp_np, device="cpu"), enc_cpu, cfg).numpy()
+        err, tol = float(np.abs(card - cpu).max()), score_tolerance(cpu)
+        if err > tol:
+            raise AssertionError(f"{label}: card vs CPU scores max |err| {err} > {tol}")
+        out[label] = {"max_abs_err": err, "tolerance": tol, "near_tie_events": compare_events(card, cpu, tol)}
+    return out
+
+
+def check_trunk_against_cpu(match, feats, card_weights, cpu_weights, cfg) -> dict:
+    """The first frames through extract_features and encode_timeline on the CPU against the card."""
+    m = CPU_CHECK_FRAMES
+    cpu_feats = extract_features(match["frames"][:m], match["waveform"][: m * match["per_frame"]], cfg, device="cpu")
+    cpu_enc = encode_timeline(*cpu_weights, cpu_feats["visual"], cpu_feats["audio"], cfg, device="cpu")
+    card_enc = encode_timeline(*card_weights, feats["visual"][:m], feats["audio"][:m], cfg).cpu()
+    errs = {
+        "visual_input": (feats["visual"][:m].cpu() - cpu_feats["visual"]).abs().max().item(),
+        "audio_input": (feats["audio"][:m].cpu() - cpu_feats["audio"]).abs().max().item(),
+        "features_rel": ((card_enc - cpu_enc).abs().max() / cpu_enc.abs().max()).item(),
+    }
+    # as check_against_cpu: inputs 1e-5 and cuFFT's 2e-3 + 1e-3·max; trunk features 1e-4 relative
+    limits = {"visual_input": 1e-5, "audio_input": 2e-3 + 1e-3 * cpu_feats["audio"].abs().max().item(),
+              "features_rel": 1e-4}
+    for k, lim in limits.items():
+        if not errs[k] <= lim:
+            raise AssertionError(f"trunk card vs CPU: {k} max |err| {errs[k]} > {lim}")
+    return errs
+
+
+def spotting_phase(seed: int, smi: str, launches_by_path: dict) -> None:
+    """The spotting path at the full width of configs/tpu_spotting*.json over one 5400-frame match."""
+    banded_cfg = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+    full_cfg = dataclasses.replace(banded_cfg, model=dataclasses.replace(banded_cfg.model, temporal_window=0))
+    hybrid_cfg = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting_quality.json"))
+    params_np, state_np = weights.init_params(banded_cfg, seed)
+    params, state = weights.from_jax(params_np, state_np)
+    in_dim = banded_cfg.model.vis_feature_dim + banded_cfg.model.aud_feature_dim
+    transformer_np = weights.init_temporal_params(banded_cfg.model, in_dim, seed)
+    hybrid_np = weights.init_temporal_params(hybrid_cfg.model, in_dim, seed)
+    transformer, hybrid = weights.tree_from_jax(transformer_np), weights.tree_from_jax(hybrid_np)
+    runs = (("spot_banded", banded_cfg, transformer, transformer_np, "flash_local_fwd"),
+            ("spot_full", full_cfg, transformer, transformer_np, "flash_fwd"),
+            ("spot_hybrid", hybrid_cfg, hybrid, hybrid_np, "flash_local_fwd"))
+
+    t0 = time.perf_counter()
+    match = make_match(banded_cfg, seed)
+    print(f"match: {MATCH_FRAMES} frames of {RAW_HW} with audio and {len(match['intervals'])} clips, "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    feats = drive("spot_extract", ["fused_preprocess_frames"],
+                  lambda: extract_features(match["frames"], match["waveform"], banded_cfg), launches_by_path)
+    results = {}
+    for label, cfg, tparams, _, kernel in runs:
+        results[label] = drive(label, [*TRUNK, kernel], lambda: summarize_match(
+            params, state, tparams, feats["visual"], feats["audio"], match["intervals"], cfg), launches_by_path)
+        check_match(results[label], match)
+        print(f"{label}: {len(results[label].events)} events, "
+              f"{len(results[label].summary.selected_clips)} clips selected", flush=True)
+
+    # the stream in 600-frame chunks equals the offline banded scorer (finite receptive field)
+    chunks = [slice(i, i + SEGMENT_FRAMES) for i in range(0, MATCH_FRAMES, SEGMENT_FRAMES)]
+    updates = drive("spot_stream", [*TRUNK, "flash_local_fwd"], lambda: list(spot_stream(
+        params, state, transformer, [feats["visual"][c] for c in chunks], banded_cfg,
+        audio_chunks=[feats["audio"][c] for c in chunks], peak_window=PEAK_WINDOW)), launches_by_path)
+    streamed = np.concatenate([u.scores for u in updates])
+    offline = results["spot_banded"].scores
+    err, tol = float(np.abs(streamed - offline).max()), score_tolerance(offline)
+    if streamed.shape != offline.shape or err > tol:
+        raise AssertionError(f"spot_stream scores {streamed.shape} vs offline: max |err| {err} > {tol}")
+    # its events are spot_events of its scores exactly, and the offline events up to near ties
+    if not np.array_equal(np.sort(np.concatenate([u.events for u in updates])), spot_events(streamed, PEAK_WINDOW)):
+        raise AssertionError("spot_stream events differ from spot_events on the streamed scores")
+    ties = compare_events(streamed, offline, tol)
+    print(f"spot_stream: {len(updates)} updates, scores vs offline max |err| {err:.3g} (tol {tol:.3g}), "
+          f"events equal except near ties {ties}", flush=True)
+
+    enc = encode_timeline(params, state, feats["visual"], feats["audio"], banded_cfg)
+    cpu = check_scorers_against_cpu(enc, [(label, cfg, tp_np) for label, cfg, _, tp_np, _ in runs])
+    print(f"scorers card vs CPU on the card's features: {json.dumps(cpu)}")
+    trunk = check_trunk_against_cpu(match, feats, (params, state),
+                                    weights.from_jax(params_np, state_np, device="cpu"), banded_cfg)
+    print(f"trunk card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(trunk)}", flush=True)
+    del feats, enc
+
+    for label, cfg, tparams, _, _ in runs:
+        stages = [run_match(match, params, state, tparams, cfg)[1] for _ in range(3)]
+        totals = [sum(st.values()) for st in stages]
+        p50 = statistics.median(totals)
+        stage_ms = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
+        print(f"{label} on {smi}: per-match p50 {p50:.1f} ms over 3 runs = {1e3 * MATCH_FRAMES / p50:.1f} "
+              f"frames/s; stages median ms {json.dumps(stage_ms)}", flush=True)
+    prof = profile_run(lambda: run_match(match, params, state, transformer, banded_cfg))
+    print(f"profile of one spot_banded match on {smi}: {json.dumps(prof)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -414,24 +729,22 @@ def main() -> int:
     n_total = sum(VIDEO_LENGTHS)
 
     rows = check_kernels(n_total, cfg, params["fusion"], gen)
+    rows.update(check_attention_kernels(gen))
     for name, r in rows.items():
-        print(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        print(f"kernel {name} on {smi}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
 
     t0 = time.perf_counter()
     videos = make_videos(cfg, args.seed)
     print(f"data: {len(videos)} videos, {n_total} frames of {RAW_HW}, made in {time.perf_counter() - t0:.1f} s")
 
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
+    launches_by_path: dict[str, dict] = {}
     t0 = time.perf_counter()
-    feats, scores, results, _ = run_path(videos, params, state, cfg)
+    feats, scores, results, _ = drive(
+        "summarize", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+        lambda: run_path(videos, params, state, cfg), launches_by_path)
     first_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
-    print(f"main path launches: {json.dumps(launches)}")
-    missing = [name for name, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
     check_outputs(videos, feats, scores, results, cfg)
     errs = check_against_cpu(videos[0], feats[0], scores[0], params_np, state_np, cfg)
     print(f"card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(errs)}")
@@ -451,16 +764,20 @@ def main() -> int:
           f"median {wall:.4f} s = {n_total / wall:.1f} frames/s; per-video p50 "
           f"{1e3 * statistics.median(per_video):.1f} ms over {len(per_video)} runs "
           f"(lengths {VIDEO_LENGTHS}); batch stages median ms {json.dumps(stage_ms)}")
-    print(f"profile of one batch run: {json.dumps(profile_path(videos, params, state, cfg))}")
+    print(f"profile of one batch run: {json.dumps(profile_run(lambda: run_path(videos, params, state, cfg)))}")
+    del videos, feats
+
+    spotting_phase(args.seed, smi, launches_by_path)
     print(f"total script {time.perf_counter() - t_start:.1f} s")
 
     table = []
     for name, r in rows.items():
         _, source, replaces = KERNELS[name]
+        by_path = {label: got[name] for label, got in launches_by_path.items() if got[name]}
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "parts": r["parts"],
         })
     print(json.dumps({"kernels": table}))

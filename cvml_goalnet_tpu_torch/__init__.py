@@ -4,21 +4,46 @@ The JAX package ``cvml_goalnet_tpu`` stays the reference; this package imports
 neither it nor JAX.  Public API, as in the JAX package:
 ``extract_features`` → ``fuse`` / ``fuse_many`` → ``summarize``
 (``pipeline.py``), with weights from ``weights.from_jax`` /
-``weights.load_jax_checkpoint``.  Entry points run on the card unless the
-caller passes ``device="cpu"``.
+``weights.load_jax_checkpoint``; and event spotting, ``encode_timeline`` →
+``score_timeline_auto`` → ``spot_events`` / ``summarize_match``, or
+``spot_stream`` over a live stream (``spotting.py``), with temporal heads from
+``weights.init_temporal_params`` / ``weights.load_spotting_checkpoint``.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
-from cvml_goalnet_tpu_torch.weights import from_jax, init_params, load_jax_checkpoint
+from cvml_goalnet_tpu_torch.spotting import (
+    encode_timeline,
+    score_timeline_auto,
+    spot_events,
+    spot_stream,
+    summarize_match,
+)
+from cvml_goalnet_tpu_torch.weights import (
+    from_jax,
+    init_params,
+    init_temporal_params,
+    load_jax_checkpoint,
+    load_spotting_checkpoint,
+    tree_from_jax,
+)
 
 __all__ = [
     "PipelineConfig",
+    "encode_timeline",
     "extract_features",
     "from_jax",
     "fuse",
     "fuse_many",
     "init_params",
+    "init_temporal_params",
     "load_jax_checkpoint",
+    "load_spotting_checkpoint",
+    "score_timeline_auto",
+    "spot_events",
+    "spot_stream",
     "summarize",
+    "summarize_match",
+    "tree_from_jax",
 ]

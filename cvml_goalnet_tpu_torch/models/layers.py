@@ -2,7 +2,7 @@
 
 Port of the eval-time primitives of ``cvml_goalnet_tpu/models/layers.py``:
 conv2d (HWIO weights), conv1d (WIO), maxpool2d, the eval batchnorm as a
-per-channel affine, and linear (``(in, out)`` weights).  Each takes and returns
+per-channel affine, linear (``(in, out)`` weights) and layernorm.  Each takes and returns
 the JAX layout and permutes to PyTorch's channel-first layout only around the
 library call.  Library convolutions and products run with TF32 off.
 """
@@ -50,3 +50,8 @@ def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
     """x (N, in) @ w (in, out) + b."""
     with strict_f32():
         return torch.matmul(x, params["w"]) + params["b"]
+
+
+def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: biased variance, ``(x − mean)·rsqrt(var + eps)·scale + bias``."""
+    return F.layer_norm(x, (x.shape[-1],), params["scale"], params["bias"], eps)

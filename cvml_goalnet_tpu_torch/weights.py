@@ -13,6 +13,15 @@ by dtype and device alone, with no transposes:
 fresh draw with PyTorch's default bounds, not ``avm_init``'s JAX random
 stream); :func:`load_jax_checkpoint` reads the ``<tag>_state.npz`` files that
 ``cvml_goalnet_tpu/train/checkpoint.py`` writes.
+
+The temporal (spotting) heads keep their JAX trees too: GRU
+``{"fwd", "bwd": {"wx", "wh"}, "head"}``, transformer ``{"proj_in",
+"pos"?, "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "mlp_in",
+"mlp_out"}], "head"}`` (``pos`` only for learned positions), hybrid
+``{"gru": {"fwd", "bwd"}, "transformer"}``.  :func:`init_temporal_params`
+draws one, :func:`load_spotting_checkpoint` reads the npz that
+``cvml_goalnet_tpu/train/spotting.py::save_spotting_checkpoint`` writes, and
+:func:`tree_from_jax` moves any such tree to the device.
 """
 
 from __future__ import annotations
@@ -31,16 +40,17 @@ from cvml_goalnet_tpu_torch.models.avm import N_CLASSES, fusion_input_dim
 from cvml_goalnet_tpu_torch.models.visual import STAGE_GEOM, visual_spatial_trace
 
 
-def _tree_map(fn, tree):
+def _map_with_paths(fn, tree, path=()):
+    """Map ``fn(key, leaf)`` over a tree; ``key`` is the jax key path as the npz files spell it."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _map_with_paths(fn, v, path + (f"['{k}']",)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [_map_with_paths(fn, v, path + (f"[{i}]",)) for i, v in enumerate(tree)]
+    return fn("/".join(path), tree)
 
 
-def from_jax(params, model_state, device=None):
-    """Numpy (or JAX) pytrees in the JAX layout → the same trees of float32 tensors."""
+def tree_from_jax(tree, device=None):
+    """Any numpy (or JAX) pytree → the same tree of float32 tensors on the device; lists stay lists."""
     dev = resolve_device(device)
 
     def leaf(a):
@@ -49,7 +59,12 @@ def from_jax(params, model_state, device=None):
             raise TypeError(f"parameter leaf of dtype {a.dtype} is not floating point")
         return torch.as_tensor(a.astype(np.float32)).to(dev)
 
-    return _tree_map(leaf, params), _tree_map(leaf, model_state)
+    return _map_with_paths(lambda _, a: leaf(a), tree)
+
+
+def from_jax(params, model_state, device=None):
+    """Numpy (or JAX) pytrees in the JAX layout → the same trees of float32 tensors."""
+    return tree_from_jax(params, device), tree_from_jax(model_state, device)
 
 
 # ------------------------------------------------------------------ init
@@ -105,6 +120,53 @@ def init_params(cfg: PipelineConfig, seed: int, classifier: bool = False):
     return params, {"visual": vstate}
 
 
+def _layernorm(rng, dim):
+    # away from the identity (1, 0), so the scale and shift are exercised
+    return {"scale": (1.0 + 0.1 * rng.standard_normal(dim)).astype(np.float32),
+            "bias": (0.1 * rng.standard_normal(dim)).astype(np.float32)}
+
+
+def _gru(rng, in_dim, hidden):
+    return {"wx": _layer(rng, (in_dim, 3 * hidden), in_dim), "wh": _layer(rng, (hidden, 3 * hidden), hidden)}
+
+
+def _transformer(rng, in_dim, mc, n_classes):
+    md = mc.temporal_hidden
+    if md % mc.temporal_num_heads:
+        raise ValueError(f"temporal_hidden={md} is not a multiple of temporal_num_heads={mc.temporal_num_heads}")
+    if mc.temporal_pos_encoding not in ("learned", "rotary"):
+        raise ValueError(f"pos_encoding must be 'learned' or 'rotary', got {mc.temporal_pos_encoding!r}")
+    params = {"proj_in": _layer(rng, (in_dim, md), in_dim), "head": _layer(rng, (md, n_classes), md), "layers": []}
+    if mc.temporal_pos_encoding == "learned":
+        params["pos"] = (0.02 * rng.standard_normal((mc.temporal_max_len, md))).astype(np.float32)
+    for _ in range(mc.temporal_num_layers):
+        layer = {"ln1": _layernorm(rng, md)}
+        for name in ("wq", "wk", "wv", "wo"):
+            layer[name] = _layer(rng, (md, md), md)
+        layer["ln2"] = _layernorm(rng, md)
+        layer["mlp_in"] = _layer(rng, (md, 4 * md), md)
+        layer["mlp_out"] = _layer(rng, (4 * md, md), 4 * md)
+        params["layers"].append(layer)
+    return params
+
+
+def init_temporal_params(model_cfg, in_dim: int, seed: int, n_classes: int = 1):
+    """A seeded numpy temporal head for ``model_cfg.temporal_model``, in the tree of the JAX
+    package's ``temporal_head_init_auto`` (a fresh draw, not its JAX random stream)."""
+    mc = model_cfg
+    rng = np.random.default_rng(seed)
+    h = mc.temporal_hidden
+    if mc.temporal_model == "gru":
+        return {"fwd": _gru(rng, in_dim, h), "bwd": _gru(rng, in_dim, h), "head": _layer(rng, (2 * h, n_classes), 2 * h)}
+    if mc.temporal_model == "transformer":
+        return _transformer(rng, in_dim, mc, n_classes)
+    if mc.temporal_model == "hybrid":
+        gru = {"fwd": _gru(rng, in_dim, h), "bwd": _gru(rng, in_dim, h)}
+        return {"gru": gru, "transformer": _transformer(rng, in_dim + 2 * h, mc, n_classes)}
+    raise ValueError(
+        f"unknown temporal_model {mc.temporal_model!r} — expected 'gru', 'transformer', or 'hybrid'")
+
+
 # ------------------------------------------------------------ checkpoints
 
 _KEY_PART = re.compile(r"^\['(.*)'\]$|^\[(\d+)\]$")
@@ -151,3 +213,43 @@ def load_jax_checkpoint(ckp_dir: str, tag: str = "ckp"):
         if part not in tree:
             raise ValueError(f"{ckp_dir}/{tag}_state.npz holds no '{part}' tree")
     return tree["params"], tree["model_state"]
+
+
+def load_spotting_checkpoint(path: str, template, classes=None):
+    """Read a temporal head's npz into ``template``'s structure → a numpy tree.
+
+    The file's key set must match the template's (a learned-position head
+    has a ``pos`` table a rotary template lacks), and leaf shapes must agree.
+    When the file carries its training-time ``__classes__``, ``classes`` must
+    name the same classes in the same order: channels are positional.
+    """
+    with np.load(path) as data:
+        files = set(data.files)
+        if "__classes__" in files:
+            stored = [str(c) for c in data["__classes__"]]
+            want = list(classes) if classes else None
+            if want != stored:
+                raise ValueError(
+                    f"spotting checkpoint {path!r} was trained with classes {stored} but is being "
+                    f"loaded with {want if want is not None else 'no --classes'} — channel order is "
+                    "positional, so the names must match exactly"
+                )
+        keys = []
+        _map_with_paths(lambda key, leaf: keys.append(key), template)
+        missing = [k for k in keys if k not in files]
+        extra = sorted(files - set(keys) - {"__classes__"})
+        if missing or extra:
+            raise ValueError(
+                f"spotting checkpoint {path!r} does not match the configured scorer structure "
+                f"(missing: {missing or '—'}; not in template: {extra or '—'}) — was the head trained "
+                "with a different temporal_pos_encoding / temporal_model / --classes setting?"
+            )
+
+        def leaf(key, tmpl):
+            stored = data[key]
+            if stored.shape != tuple(tmpl.shape):
+                raise ValueError(
+                    f"spotting checkpoint {path!r}: shape mismatch for {key} ({stored.shape} vs {tuple(tmpl.shape)})")
+            return stored
+
+        return _map_with_paths(leaf, template)

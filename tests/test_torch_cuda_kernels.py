@@ -6,7 +6,11 @@ the card has no JAX, so run the file there without the suite's conftest:
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda -q
 
 The shapes include the ragged ones of ``tests/test_pallas.py`` (batch,
-channel and K edges) besides the reference widths.
+channel and K edges) besides the reference widths, and for the flash-attention
+forwards ragged sequence lengths, every head width the kernels are built for,
+bands from 0 to past T, key bounds with dead rows and a query offset.  Those
+hold out to 3e-5 and lse to 1e-5 against the plain versions, the tolerances of
+``tests/test_flash_attention.py``.
 """
 
 import numpy as np
@@ -16,6 +20,7 @@ import torch
 from cvml_goalnet_tpu_torch import weights
 from cvml_goalnet_tpu_torch.config import ModelConfig, PipelineConfig, PreprocessConfig
 from cvml_goalnet_tpu_torch.data.synthetic import synthetic_video_frames, synthetic_waveform
+from cvml_goalnet_tpu_torch.ops.cuda import flash_attention as FA
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp, fused_fusion_mlp_plain
 from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import fused_preprocess_frames, fused_preprocess_frames_plain
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, fused_conv_pool_stage_plain
@@ -118,3 +123,102 @@ def test_small_pipeline_card_matches_cpu(dev):
     a = summarize(got, iv, 30, 360)
     b = summarize(want, iv, 30, 360, device="cpu")
     np.testing.assert_array_equal(a.frame_mask, b.frame_mask)
+
+
+def _attn_check(got, want, atol=3e-5):
+    (o, lse), (o_want, lse_want) = got, want
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(o, o_want, atol=atol, rtol=0)
+    torch.testing.assert_close(lse, lse_want, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("h,t,d", [(1, 1, 128), (2, 63, 64), (1, 64, 32), (2, 65, 128), (1, 1000, 32),
+                                   (1, 5400, 128), (2, 5400, 64), (2, 300, 32)])
+def test_flash_fwd(dev, h, t, d):
+    q, k, v = (_rand((h, t, d), 30 + i) for i in range(3))
+    before = FA.flash_fwd.launches
+    got = FA.flash_fwd(q, k, v, d ** -0.5)
+    assert FA.flash_fwd.launches == before + 1
+    _attn_check(got, FA.flash_fwd_plain(q, k, v, d ** -0.5))
+
+
+@pytest.mark.parametrize("t_valid", [0, 1, 97, 1000])
+def test_flash_fwd_t_valid_and_unequal_lengths(dev, t_valid):
+    q, k, v = _rand((2, 200, 64), 40), _rand((2, 1000, 64), 41), _rand((2, 1000, 64), 42)
+    got = FA.flash_fwd(q, k, v, 0.125, t_valid)
+    _attn_check(got, FA.flash_fwd_plain(q, k, v, 0.125, t_valid))
+    if t_valid == 0:
+        assert not got[0].any() and not got[1].any()
+
+
+@pytest.mark.parametrize("h,t,d,window", [(1, 1, 64, 0), (2, 63, 32, 1), (1, 65, 128, 37), (2, 1000, 64, 37),
+                                          (1, 5400, 128, 1024), (2, 5400, 64, 1024), (1, 300, 32, 300),
+                                          (1, 200, 64, 10**6), (2, 129, 128, 0)])
+def test_flash_local_fwd(dev, h, t, d, window):
+    q, k, v = (_rand((h, t, d), 50 + i) for i in range(3))
+    before = FA.flash_local_fwd.launches
+    got = FA.flash_local_fwd(q, k, v, d ** -0.5, window)
+    assert FA.flash_local_fwd.launches == before + 1
+    _attn_check(got, FA.flash_local_fwd_plain(q, k, v, d ** -0.5, window))
+    if window == 0:
+        torch.testing.assert_close(got[0], v, atol=3e-6, rtol=0)
+
+
+@pytest.mark.parametrize("lo,hi,q_offset", [(64, 200, 0), (10, 180, 16), (0, 192, 16), (150, 40, 0)])
+def test_flash_local_fwd_bounds_dead_rows_and_offset(dev, lo, hi, q_offset):
+    tq = 160 if q_offset else 256
+    tk = tq + 2 * q_offset
+    q, k, v = _rand((2, tq, 64), 60), _rand((2, tk, 64), 61), _rand((2, tk, 64), 62)
+    got = FA.flash_local_fwd(q, k, v, 0.125, 16, lo, hi, q_offset)
+    _attn_check(got, FA.flash_local_fwd_plain(q, k, v, 0.125, 16, lo, hi, q_offset))
+    if (lo, hi) == (64, 200):   # rows < 48 and ≥ 216 have empty bands: out 0, lse 0
+        for x in got:
+            assert not x[:, :48].any() and not x[:, 216:].any()
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_large_magnitudes_stay_finite(dev, window):
+    q, k, v = _rand((1, 1000, 64), 70, 10.0), _rand((1, 1000, 64), 71, 10.0), _rand((1, 1000, 64), 72)
+    got = FA.flash_local_fwd(q, k, v, 0.125, window) if window else FA.flash_fwd(q, k, v, 0.125)
+    want = FA.flash_local_fwd_plain(q, k, v, 0.125, window) if window else FA.flash_fwd_plain(q, k, v, 0.125)
+    # scores up to ~1e3: lse carries float32 rounding of that size
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-6)
+
+
+def test_flash_refuses_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((1, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_fwd(x, x, x, 0.1)
+    y = torch.zeros((1, 16, 32), device=dev)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        FA.flash_fwd(y.transpose(1, 2).contiguous().transpose(1, 2), y, y, 0.1)
+    with pytest.raises(ValueError, match="self-attention band"):
+        FA.flash_attention_local(y, torch.zeros((1, 17, 32), device=dev), torch.zeros((1, 17, 32), device=dev), 4)
+
+
+def test_spotting_card_matches_cpu(dev):
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch import spotting
+
+    base = PipelineConfig(
+        preprocess=PreprocessConfig(frame_size=(24, 24)),
+        model=ModelConfig(vis_channels=(8, 16, 16), vis_feature_dim=32, aud_channels=(8, 16), aud_feature_dim=16,
+                          fusion_hidden=(32, 16), audio_included=False, temporal_hidden=32, temporal_window=6,
+                          temporal_max_len=128),
+    )
+    p_np, s_np = weights.init_params(base, seed=3)
+    visual = np.random.default_rng(4).random((70, 24, 24, 3)).astype(np.float32)
+    iv = np.array([[0, 700], [700, 1400], [1400, 2100]])
+    for family in ("gru", "transformer", "hybrid"):
+        cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, temporal_model=family))
+        t_np = weights.init_temporal_params(cfg.model, 32, seed=5)
+        got = spotting.summarize_match(*weights.from_jax(p_np, s_np), weights.tree_from_jax(t_np), visual, None,
+                                       iv, cfg, peak_window=3)
+        want = spotting.summarize_match(*weights.from_jax(p_np, s_np, device="cpu"),
+                                        weights.tree_from_jax(t_np, device="cpu"), visual, None, iv, cfg,
+                                        peak_window=3, device="cpu")
+        np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
+        np.testing.assert_array_equal(got.events, want.events)
