@@ -27,7 +27,18 @@ From the repository root, on a machine with a CUDA card:
    ``spot_stream`` in 600-frame chunks; holds the stream to the offline
    scores, each scorer to its CPU run on the card's features and the trunk
    to the CPU on the first 64 frames, and times the path;
-6. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and as
+6. holds the two attention backwards (dq, dk, dv) against their plain
+   versions at the same shapes as the forwards, with times, bounds and the
+   backward of ``scaled_dot_product_attention``; the band at T = 135,000 on
+   row and key slices;
+7. drives spotting training on the match's features: a seeded event sidecar
+   read back with ``load_event_labels``, then three
+   ``make_spotting_train_step`` steps from one seeded head for the banded,
+   full and hybrid configs on the card and on the CPU (first gradients and
+   every loss held to each other), ``save_spotting_checkpoint`` →
+   ``weights.load_spotting_checkpoint`` → ``score_timeline_auto`` →
+   ``spot_events``, with the median step time per scorer;
+8. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and read
@@ -41,9 +52,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,8 +76,12 @@ from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
+    flash_bwd,
+    flash_bwd_plain,
     flash_fwd,
     flash_fwd_plain,
+    flash_local_bwd,
+    flash_local_bwd_plain,
     flash_local_fwd,
     flash_local_fwd_plain,
 )
@@ -79,11 +96,18 @@ from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
 from cvml_goalnet_tpu_torch.spotting import (
     encode_timeline,
+    load_event_labels,
     score_timeline_auto,
     scores_to_importance,
     spot_events,
     spot_stream,
     summarize_match,
+)
+from cvml_goalnet_tpu_torch.train.optim import tree_leaves
+from cvml_goalnet_tpu_torch.train.spotting import (
+    init_spotting_opt,
+    make_spotting_train_step,
+    save_spotting_checkpoint,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -96,6 +120,8 @@ PEAK_WINDOW = 5                   # spot_events' default neighbourhood
 ATTN_WINDOW = 1024                # temporal_window of configs/tpu_spotting*.json
 LONG_T = 32_768                   # attention checked against its plain version at this T too
 MATCH_RATE_T = 135_000            # a 90-minute match at 25 frames/s: banded kernel timed alone
+EVENT_SPACING = 300               # condensed frames per synthetic training event
+TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
 # Published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
 # HBM3 bandwidth, and float32 on the CUDA cores (the kernels are float32 and
 # do not use the tensor cores).
@@ -114,8 +140,12 @@ KERNELS = {
                          "cvml_goalnet_tpu/ops/pallas/fused_mlp.py:38"),
     "flash_fwd": (flash_fwd, "cvml_goalnet_tpu_torch/csrc/flash_attention.cu",
                   "cvml_goalnet_tpu/ops/pallas/flash_attention.py:125"),
+    "flash_bwd": (flash_bwd, "cvml_goalnet_tpu_torch/csrc/flash_attention.cu",
+                  "cvml_goalnet_tpu/ops/pallas/flash_attention.py:275"),
     "flash_local_fwd": (flash_local_fwd, "cvml_goalnet_tpu_torch/csrc/flash_attention.cu",
                         "cvml_goalnet_tpu/ops/pallas/flash_attention.py:609"),
+    "flash_local_bwd": (flash_local_bwd, "cvml_goalnet_tpu_torch/csrc/flash_attention.cu",
+                        "cvml_goalnet_tpu/ops/pallas/flash_attention.py:661"),
 }
 TRUNK = ("fused_conv_pool_stage", "head_matmul")
 
@@ -371,6 +401,7 @@ def profile_run(run) -> dict:
     busy_us += cur_end - cur_start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
+            "attention_kernel_ms": sum(v for k, v in by_name.items() if "flash_" in k),
             "device_ms_by_name": [[k[:70], round(v, 4)] for k, v in top]}
 
 
@@ -513,6 +544,103 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
     return {name: row_of(p) for name, p in parts.items()}
 
 
+def attention_bwd_bound(h: int, t: int, d: int, window: int | None) -> tuple[float, str]:
+    # 10·d FLOP per valid pair (s, dp, dv, dk, dq); q, k, v, out, dout read and dq, dk, dv written once, lse read
+    return bound_ms(4.0 * (8 * h * t * d + h * t), 10.0 * d * h * band_pairs(t, window))
+
+
+def grads_err(got, want) -> tuple[float, float]:
+    """Worst |err| of (dq, dk, dv) against the plain version, and its worst ratio to 1e-4·max(1, max|plain|):
+    the 1e-4 of the grad tests of tests/test_flash_attention.py, scaled to each gradient's size (float32 sums
+    over keys or queries in another order)."""
+    err, ratio = 0.0, 0.0
+    for g, w in zip(got, want):
+        e = max_err(g, w)
+        err, ratio = max(err, e), max(ratio, e / (1e-4 * max(1.0, w.abs().max().item())))
+    return err, ratio
+
+
+def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
+    """The two attention backwards against their plain versions, with times, bounds and the library backward.
+
+    Inputs are the kernels' own forward outputs and a random cotangent; the
+    library is ``scaled_dot_product_attention``'s backward through
+    ``torch.autograd.grad`` on a retained graph, float32, TF32 off, with the
+    boolean band mask for the banded form.
+    """
+    dev = torch.device("cuda")
+    parts = {"flash_bwd": [], "flash_local_bwd": []}
+    cases = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
+             (2, MATCH_FRAMES, 64, ATTN_WINDOW, True), (1, LONG_T, 128, None, False),
+             (1, LONG_T, 128, ATTN_WINDOW, False)]
+    for h, t, d, window, main_path in cases:
+        q, k, v, do = (torch.randn((h, t, d), generator=gen, device=dev) for _ in range(4))
+        scale = d ** -0.5
+        if window is None:
+            name, mask = "flash_bwd", None
+            out, lse = flash_fwd(q, k, v, scale)
+            run = lambda: flash_bwd(q, k, v, out, lse, do, scale)
+            plain = lambda: flash_bwd_plain(q, k, v, out, lse, do, scale)
+        else:
+            name = "flash_local_bwd"
+            out, lse = flash_local_fwd(q, k, v, scale, window)
+            run = lambda: flash_local_bwd(q, k, v, out, lse, do, scale, window)
+            plain = lambda: flash_local_bwd_plain(q, k, v, out, lse, do, scale, window)
+            idx = torch.arange(t, device=dev)
+            mask = (idx[:, None] - idx[None, :]).abs() <= window
+        err, ratio = grads_err(run(), plain())
+        if ratio > 1.0:
+            raise AssertionError(f"{name} {(h, t, d, window)}: max |err| {err} beyond 1e-4·max(1, max|plain|)")
+        lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        with strict_f32():
+            lib_out = F.scaled_dot_product_attention(lq[None], lk[None], lv[None], attn_mask=mask, scale=scale)
+
+        def library():
+            with strict_f32():
+                return torch.autograd.grad(lib_out, (lq, lk, lv), do[None], retain_graph=True)
+
+        lib_err, _ = grads_err(library(), plain())
+        b, kind = attention_bwd_bound(h, t, d, window)
+        parts[name].append({
+            "shape": [h, t, d], "window": window, "main_path": main_path, "ms": time_ms(run),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(library), "library_max_abs_err": lib_err,
+            "bound_ms": b, "bound_by": kind, "max_abs_err": err, "err_over_tolerance": ratio,
+        })
+        del q, k, v, do, out, lse, mask, lq, lk, lv, lib_out
+        torch.cuda.empty_cache()
+
+    # a full-rate match: dq of rows [a, b) needs only keys [a − W, b + W), and dk, dv of keys [a, b)
+    # only queries [a − W, b + W), so the plain version on those slices, with the offset, gives them exactly
+    t, d, w = MATCH_RATE_T, 128, ATTN_WINDOW
+    q, k, v, do = (torch.randn((1, t, d), generator=gen, device=dev) for _ in range(4))
+    out, lse = flash_local_fwd(q, k, v, d ** -0.5, w)
+    dq, dk, dv = flash_local_bwd(q, k, v, out, lse, do, d ** -0.5, w)
+    require(all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)), f"flash_local_bwd T={t}: non-finite output")
+    err, ratio = 0.0, 0.0
+    slices = [(a, a + 2048) for a in (0, t // 2, t - 2048)]
+    for a, b in slices:
+        s0, s1 = max(0, a - w), min(t, b + w)
+        want_dq = flash_local_bwd_plain(q[:, a:b], k[:, s0:s1], v[:, s0:s1], out[:, a:b], lse[:, a:b], do[:, a:b],
+                                        d ** -0.5, w, q_offset=a - s0)[0]
+        want_dkv = flash_local_bwd_plain(q[:, s0:s1], k[:, a:b], v[:, a:b], out[:, s0:s1], lse[:, s0:s1],
+                                         do[:, s0:s1], d ** -0.5, w, q_offset=s0 - a)[1:]
+        e, r = grads_err((dq[:, a:b], dk[:, a:b], dv[:, a:b]), (want_dq, *want_dkv))
+        if r > 1.0:
+            raise AssertionError(f"flash_local_bwd T={t} slice [{a}, {b}): max |err| {e}")
+        err, ratio = max(err, e), max(ratio, r)
+    b, kind = attention_bwd_bound(1, t, d, w)
+    parts["flash_local_bwd"].append({
+        "shape": [1, t, d], "window": w, "main_path": False,
+        "ms": time_ms(lambda: flash_local_bwd(q, k, v, out, lse, do, d ** -0.5, w)), "plain_ms": None,
+        "library_ms": None, "bound_ms": b, "bound_by": kind, "max_abs_err": err, "err_over_tolerance": ratio,
+        "checked": f"dq of rows and dk, dv of keys {', '.join(f'[{a}, {b})' for a, b in slices)} against the "
+                   "plain version on their slices; every output finite",
+    })
+    del q, k, v, do, out, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {name: row_of(p) for name, p in parts.items()}
+
+
 def make_match(cfg: PipelineConfig, seed: int) -> dict:
     """One synthetic match: 600-frame segments as uint8 (the generator's float64
     temporaries for 5400 frames at once would take about 22 GB), its audio and clips."""
@@ -633,8 +761,11 @@ def check_trunk_against_cpu(match, feats, card_weights, cpu_weights, cfg) -> dic
     return errs
 
 
-def spotting_phase(seed: int, smi: str, launches_by_path: dict) -> None:
-    """The spotting path at the full width of configs/tpu_spotting*.json over one 5400-frame match."""
+def spotting_phase(seed: int, smi: str, launches_by_path: dict):
+    """The spotting path at the full width of configs/tpu_spotting*.json over one 5400-frame match.
+
+    Returns the match's encoded (T, 640) features and, per scorer, (label, config, numpy head) for training.
+    """
     banded_cfg = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
     full_cfg = dataclasses.replace(banded_cfg, model=dataclasses.replace(banded_cfg.model, temporal_window=0))
     hybrid_cfg = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting_quality.json"))
@@ -685,7 +816,7 @@ def spotting_phase(seed: int, smi: str, launches_by_path: dict) -> None:
     trunk = check_trunk_against_cpu(match, feats, (params, state),
                                     weights.from_jax(params_np, state_np, device="cpu"), banded_cfg)
     print(f"trunk card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(trunk)}", flush=True)
-    del feats, enc
+    del feats
 
     for label, cfg, tparams, _, _ in runs:
         stages = [run_match(match, params, state, tparams, cfg)[1] for _ in range(3)]
@@ -696,6 +827,102 @@ def spotting_phase(seed: int, smi: str, launches_by_path: dict) -> None:
               f"frames/s; stages median ms {json.dumps(stage_ms)}", flush=True)
     prof = profile_run(lambda: run_match(match, params, state, transformer, banded_cfg))
     print(f"profile of one spot_banded match on {smi}: {json.dumps(prof)}", flush=True)
+    return enc, [(label.replace("spot_", "train_"), cfg, tp_np) for label, cfg, _, tp_np, _ in runs]
+
+
+def synthetic_labels(n: int, skip: int, seed: int, directory: str) -> np.ndarray:
+    """Seeded events about one per EVENT_SPACING condensed frames, written as a ``.events.json`` sidecar in
+    raw frame indices and read back with ``load_event_labels`` → (n,) 0/1 labels."""
+    rng = np.random.default_rng(seed)
+    n_events = n // EVENT_SPACING
+    condensed = np.sort(rng.choice(n, n_events, replace=False))
+    raw = condensed * skip + rng.integers(0, skip, n_events)
+    path = os.path.join(directory, "match.events.json")
+    with open(path, "w") as f:
+        json.dump([int(i) for i in raw], f)
+    labels = load_event_labels(path, n, skip)
+    require(labels.shape == (n,) and int(labels.sum()) == n_events and bool((labels[condensed] == 1).all()),
+            "event sidecar did not read back")
+    return labels
+
+
+def train_steps(step, params, features, labels, steps: int = TRAIN_STEPS):
+    """``steps`` steps from ``params`` → (params, losses, wall ms per step, each ending in a synchronise)."""
+    opt, losses, ms = init_spotting_opt(params), [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, features, labels)
+        losses.append(loss.item())   # waits for the card
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return params, losses, ms
+
+
+def training_phase(enc: torch.Tensor, runs, seed: int, smi: str, kernel_rows: dict, launches_by_path: dict) -> None:
+    """Spotting training on the match's (T, 640) features, per scorer: first gradients and three steps on the
+    card against the CPU, then the trained head through a checkpoint file and back to scoring on the card."""
+    n = enc.shape[0]
+    enc_cpu = enc.cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        labels_np = synthetic_labels(n, runs[0][1].preprocess.skip_frames, seed + 200, tmp)
+        y_card, y_cpu = torch.as_tensor(labels_np, device="cuda"), torch.as_tensor(labels_np)
+        print(f"training labels: {int(labels_np.sum())} events over {n} frames", flush=True)
+        for label, cfg, tp_np in runs:
+            mc = cfg.model
+            n_layers = mc.temporal_num_layers
+            fwd, bwd = ("flash_local_fwd", "flash_local_bwd") if mc.temporal_window > 0 else ("flash_fwd", "flash_bwd")
+            step = make_spotting_train_step(mc.temporal_hidden if mc.temporal_model == "hybrid" else 0, lr=1e-3,
+                                            pos_weight=10.0, scorer=mc.temporal_model,
+                                            num_heads=mc.temporal_num_heads, window=mc.temporal_window)
+            card0, cpu0 = weights.tree_from_jax(tp_np), weights.tree_from_jax(tp_np, device="cpu")
+
+            # the first step's gradients, leaf by leaf: float32 sums over 5400 frames in other orders,
+            # 1e-4·max(1, max|g|) as the kernels' gradients are held
+            g_card = tree_leaves(step.value_and_grad(card0, enc, y_card)[1])
+            g_cpu = tree_leaves(step.value_and_grad(cpu0, enc_cpu, y_cpu)[1])
+            grad_ratio = max((a.cpu() - b).abs().max().item() / (1e-4 * max(1.0, b.abs().max().item()))
+                             for a, b in zip(g_card, g_cpu))
+            if grad_ratio > 1.0:
+                raise AssertionError(f"{label}: card vs CPU gradients beyond 1e-4·max(1, max|g|) ({grad_ratio:.3g}×)")
+
+            trained, losses, step_ms = drive(label, [fwd, bwd], lambda: train_steps(step, card0, enc, y_card),
+                                             launches_by_path)
+            got = launches_by_path[label]
+            require(got[fwd] == got[bwd] == TRAIN_STEPS * n_layers,
+                    f"{label}: {got[fwd]} {fwd} and {got[bwd]} {bwd} launches for {TRAIN_STEPS} steps of "
+                    f"{n_layers} layers")
+            trained_cpu, losses_cpu, _ = train_steps(step, cpu0, enc_cpu, y_cpu)
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_cpu))
+            if loss_rel > 1e-4:
+                raise AssertionError(f"{label}: card losses {losses} vs CPU {losses_cpu}")
+            param_diff = max((a.cpu() - b).abs().max().item()
+                             for a, b in zip(tree_leaves(trained), tree_leaves(trained_cpu)))
+
+            # the trained head through a checkpoint file and back: the same scores and events on the card
+            path = os.path.join(tmp, f"{label}.npz")
+            save_spotting_checkpoint(path, trained)
+            template = weights._map_with_paths(lambda _, t: t.detach().cpu().numpy(), trained)
+            loaded = weights.tree_from_jax(weights.load_spotting_checkpoint(path, template))
+            scores = score_timeline_auto(loaded, enc, cfg).cpu().numpy()
+            in_memory = score_timeline_auto(trained, enc, cfg).cpu().numpy()
+            require(np.array_equal(scores, in_memory), f"{label}: the reloaded head scores differently")
+            events = spot_events(scores, PEAK_WINDOW)
+
+            # the attention kernels' share of the steps, from their times at these shapes in the kernel phase
+            heads = mc.temporal_num_heads
+            shape = [heads, n, mc.temporal_hidden // heads]
+            attn_ms = TRAIN_STEPS * n_layers * sum(
+                next(p["ms"] for p in kernel_rows[name]["parts"] if p["shape"] == shape) for name in (fwd, bwd))
+            record = {
+                "losses": losses, "losses_cpu": losses_cpu, "loss_max_rel_err": loss_rel,
+                "first_grads_err_over_tolerance": grad_ratio, "param_max_abs_diff_after_steps": param_diff,
+                "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+                "attention_kernel_share_from_kernel_times": attn_ms / sum(step_ms),
+                "reloaded_scores_equal": True, "events_after_training": len(events),
+            }
+            print(f"{label} on {smi}: {json.dumps(record)}", flush=True)
+            if mc.temporal_model == "transformer":
+                prof = profile_run(lambda: step(card0, init_spotting_opt(card0), enc, y_card))
+                print(f"profile of one {label} step on {smi}: {json.dumps(prof)}", flush=True)
 
 
 def main() -> int:
@@ -730,6 +957,8 @@ def main() -> int:
 
     rows = check_kernels(n_total, cfg, params["fusion"], gen)
     rows.update(check_attention_kernels(gen))
+    rows.update(check_attention_bwd_kernels(gen))
+    rows = {name: rows[name] for name in KERNELS}
     for name, r in rows.items():
         print(f"kernel {name} on {smi}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
@@ -767,7 +996,8 @@ def main() -> int:
     print(f"profile of one batch run: {json.dumps(profile_run(lambda: run_path(videos, params, state, cfg)))}")
     del videos, feats
 
-    spotting_phase(args.seed, smi, launches_by_path)
+    enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)
+    training_phase(enc, train_runs, args.seed, smi, rows, launches_by_path)
     print(f"total script {time.perf_counter() - t_start:.1f} s")
 
     table = []

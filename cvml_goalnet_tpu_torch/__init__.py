@@ -7,8 +7,11 @@ neither it nor JAX.  Public API, as in the JAX package:
 ``weights.load_jax_checkpoint``; and event spotting, ``encode_timeline`` →
 ``score_timeline_auto`` → ``spot_events`` / ``summarize_match``, or
 ``spot_stream`` over a live stream (``spotting.py``), with temporal heads from
-``weights.init_temporal_params`` / ``weights.load_spotting_checkpoint``.
-Entry points run on the card unless the caller passes ``device="cpu"``.
+``weights.init_temporal_params`` / ``weights.load_spotting_checkpoint``; and
+training of those heads, ``make_spotting_train_step`` / ``init_spotting_opt``
+/ ``save_spotting_checkpoint`` (``train/spotting.py``, Adam from
+``train/optim.py``).  Entry points run on the card unless the caller passes
+``device="cpu"``; the training step runs where its tensors are.
 """
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig
@@ -19,6 +22,11 @@ from cvml_goalnet_tpu_torch.spotting import (
     spot_events,
     spot_stream,
     summarize_match,
+)
+from cvml_goalnet_tpu_torch.train.spotting import (
+    init_spotting_opt,
+    make_spotting_train_step,
+    save_spotting_checkpoint,
 )
 from cvml_goalnet_tpu_torch.weights import (
     from_jax,
@@ -37,9 +45,12 @@ __all__ = [
     "fuse",
     "fuse_many",
     "init_params",
+    "init_spotting_opt",
     "init_temporal_params",
     "load_jax_checkpoint",
     "load_spotting_checkpoint",
+    "make_spotting_train_step",
+    "save_spotting_checkpoint",
     "score_timeline_auto",
     "spot_events",
     "spot_stream",

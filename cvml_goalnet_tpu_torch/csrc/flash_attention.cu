@@ -1,6 +1,7 @@
-// Flash-attention forwards, float32, for the temporal transformer scorer.
+// Flash attention, float32, for the temporal transformer scorer: the two
+// forwards first, the two backwards (training) after them.
 //
-// Replaces two kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
+// The forwards replace two kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_fwd (body _fwd_kernel): full non-causal attention of (H, Tq, d)
 //     queries over (H, Tk, d) keys and values, keys valid below t_valid;
 //     writes out and the row log-sum-exp;
@@ -265,6 +266,333 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
              : launch_local<D, 2>(q, k, v, out, lse, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
 }
 
+// ---------------------------------------------------------------------------
+// Backwards: dq, dk and dv from q, k, v, dO, lse and di = rowsum(dO * O) - g_lse
+// (di is computed by the caller, as the JAX package leaves it to XLA).
+//
+// Replaces two more kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
+//   * _flash_bwd (bodies _dkv_kernel and _dq_kernel): the full form, keys
+//     valid below t_valid;
+//   * _flash_local_bwd (bodies _local_dkv_kernel and _local_dq_kernel): the
+//     band |i + q_offset - j| <= W with keys valid in [lo, hi).
+// The TPU grid carries dk/dv (or dq) scratch across sequential grid steps;
+// Hopper blocks run in no order, so each call is two kernels, no atomics, and
+// its results repeat exactly:
+//   * dkv: one block per (head, key tile of B keys).  K^T and V^T stay in
+//     shared memory; the block walks the query tiles that can reach its keys
+//     (all of them for the full form; rows [j - W - q_offset, j + W - q_offset]
+//     for the band), recomputing per tile S = Q K^T * scale, P = exp(S - lse)
+//     and dS = P * (dO V^T - di), and accumulates dV += P^T dO and
+//     dK += dS^T Q in registers; dK is scaled once at the end;
+//   * dq: one block per (head, query tile) walking the key tiles the forward
+//     walks, dQ += dS K in registers, scaled once at the end.
+// Masked entries get P = dS = 0 exactly, so a dead row (forward out 0, lse 0)
+// adds nothing and gets dq = 0, and keys outside t_valid or [lo, hi) get
+// dk = dv = 0; a key tile no query reaches still writes its zeros.
+//
+// What bounds it on an H100: operations.  The useful work is 10d FLOP per
+// valid (query, key) pair (s, dp, dv, dk, dq at 2d each); the two-kernel split
+// does 14d, since both kernels recompute s and dp.  Float32 on the FP32 cores,
+// as the forwards: TF32 would break the 1e-4 gradient contract.  Tiles are
+// B x B with B = 16R: 256 threads as a 16 x 16 grid, a thread owning R x R
+// entries of the score tile and R rows (or keys) x d/16 columns of the
+// accumulators.  At d = 128, R = 2 takes 75 KB of shared memory (three blocks
+// per SM), R = 4 takes 166 KB (one); R = 4 only when it gives at least two
+// blocks per SM, the forwards' rule.
+
+template <int D, int R>
+struct BwdGeom {
+  static constexpr int B = 16 * R;    // query rows per query tile, keys per key tile
+  static constexpr int NC = D / 16;   // accumulator columns per thread
+  static constexpr int kLdR = D + 1;  // a row of Q or dO in shared memory (Geom<D, R>'s kLdQ)
+  static constexpr int kLdT = B + 1;  // a row of K^T or V^T, and of P or dS
+  static constexpr int kRows = B * kLdR;
+  static constexpr int kCols = D * kLdT;
+  static constexpr int kTile = B * kLdT;
+  // Q, dO, K^T, V^T, P, dS, then lse and di of the query tile
+  static constexpr size_t kBytes = sizeof(float) * (2 * kRows + 2 * kCols + 2 * kTile + 2 * B);
+};
+
+struct BwdArgs {
+  const float *q, *k, *v, *dout, *lse, *di;  // (H, Tq, D), (H, Tk, D) x 2, (H, Tq, D), (H, Tq) x 2
+  float *dq, *dk, *dv;                       // (H, Tq, D), (H, Tk, D) x 2
+  int Tq, Tk;
+  float scale;
+};
+
+// Rows [k0, k0 + B) of one head's (T, D) keys or values, transposed into
+// dst[c * kLdT + r] (zeros from row k_lim on).
+template <int D, int R>
+__device__ __forceinline__ void load_t(const float* __restrict__ src, int k0, int k_lim, float* dst) {
+  using G = BwdGeom<D, R>;
+  for (int idx = threadIdx.x; idx < G::B * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D;
+    dst[c * G::kLdT + r] = (k0 + r < k_lim) ? __ldg(src + static_cast<size_t>(k0 + r) * D + c) : 0.f;
+  }
+}
+
+// The thread's R x R entries (rows q0 + ty + 16i, keys k0 + tx + 16j) of
+// P = exp(Q K^T * scale - lse) and dS = P * (dO V^T - di), written to sp and
+// sds as [row][key].  Entries whose row is at or past row_lim, whose key lies
+// outside [k_lo, k_hi), or that `mask` refuses are exactly 0.
+template <int D, int R, typename Mask>
+__device__ __forceinline__ void grad_scores(const float* sq, const float* sdo, const float* skt, const float* svt,
+                                            int q0, int row_lim, int k0, int k_lo, int k_hi, float scale,
+                                            Mask mask, const float (&lse)[R], const float (&di)[R], float* sp,
+                                            float* sds) {
+  using G = BwdGeom<D, R>;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float s[R][R] = {}, dp[R][R] = {};
+#pragma unroll 4
+  for (int kk = 0; kk < D; ++kk) {
+    float a[R], g[R], b[R], w[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      a[i] = sq[(ty + 16 * i) * G::kLdR + kk];
+      g[i] = sdo[(ty + 16 * i) * G::kLdR + kk];
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      b[j] = skt[kk * G::kLdT + tx + 16 * j];
+      w[j] = svt[kk * G::kLdT + tx + 16 * j];
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int key = k0 + tx + 16 * j;
+      const bool valid = row < row_lim && key >= k_lo && key < k_hi && mask(row, key);
+      const float p = valid ? expf(s[i][j] * scale - lse[i]) : 0.f;
+      sp[(ty + 16 * i) * G::kLdT + tx + 16 * j] = p;
+      sds[(ty + 16 * i) * G::kLdT + tx + 16 * j] = p * (dp[i][j] - di[i]);
+    }
+  }
+}
+
+// dK and dV of the block's B keys of head blockIdx.y, from the query rows
+// [q_begin, q_end) tile by tile; keys valid in [k_lo, k_hi) that pass `mask`.
+template <int D, int R, typename Mask>
+__device__ __forceinline__ void dkv_keys(const BwdArgs& a, int q_begin, int q_end, int k_lo, int k_hi, Mask mask) {
+  using G = BwdGeom<D, R>;
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sdo = sq + G::kRows;
+  float* skt = sdo + G::kRows;
+  float* svt = skt + G::kCols;
+  float* sp = svt + G::kCols;
+  float* sds = sp + G::kTile;
+  float* sl = sds + G::kTile;
+  float* sd = sl + G::B;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int h = blockIdx.y, k0 = blockIdx.x * G::B;
+  const size_t qrow = static_cast<size_t>(h) * a.Tq, krow = static_cast<size_t>(h) * a.Tk;
+  load_t<D, R>(a.k + krow * D, k0, a.Tk, skt);
+  load_t<D, R>(a.v + krow * D, k0, a.Tk, svt);
+  float acc_k[R][G::NC] = {}, acc_v[R][G::NC] = {};
+  for (int q0 = q_begin; q0 < q_end; q0 += G::B) {
+    __syncthreads();  // every thread is done with the previous tile's Q, dO, P and dS
+    load_q<D, R>(a.q + qrow * D, q0, q_end, sq);
+    load_q<D, R>(a.dout + qrow * D, q0, q_end, sdo);
+    for (int r = threadIdx.x; r < G::B; r += kThreads) {
+      const bool in = q0 + r < q_end;
+      sl[r] = in ? __ldg(a.lse + qrow + q0 + r) : 0.f;
+      sd[r] = in ? __ldg(a.di + qrow + q0 + r) : 0.f;
+    }
+    __syncthreads();
+    float l[R], dd[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      l[i] = sl[ty + 16 * i];
+      dd[i] = sd[ty + 16 * i];
+    }
+    grad_scores<D, R>(sq, sdo, skt, svt, q0, q_end, k0, k_lo, k_hi, a.scale, mask, l, dd, sp, sds);
+    __syncthreads();
+    // dV += P^T dO and dK += dS^T Q over the tile's rows; the thread's keys are ty + 16i
+#pragma unroll 2
+    for (int r = 0; r < G::B; ++r) {
+      float pr[R], dr[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        pr[i] = sp[r * G::kLdT + ty + 16 * i];
+        dr[i] = sds[r * G::kLdT + ty + 16 * i];
+      }
+#pragma unroll
+      for (int c = 0; c < G::NC; ++c) {
+        const float gv = sdo[r * G::kLdR + tx + 16 * c], qv = sq[r * G::kLdR + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          acc_v[i][c] = fmaf(pr[i], gv, acc_v[i][c]);
+          acc_k[i][c] = fmaf(dr[i], qv, acc_k[i][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= a.Tk) continue;
+#pragma unroll
+    for (int c = 0; c < G::NC; ++c) {
+      a.dk[(krow + key) * D + tx + 16 * c] = acc_k[i][c] * a.scale;
+      a.dv[(krow + key) * D + tx + 16 * c] = acc_v[i][c];
+    }
+  }
+}
+
+// dQ of the block's B query rows of head blockIdx.y, from the keys
+// [k_begin, k_end) that pass `mask`, tile by tile.
+template <int D, int R, typename Mask>
+__device__ __forceinline__ void dq_rows(const BwdArgs& a, int k_begin, int k_end, Mask mask) {
+  using G = BwdGeom<D, R>;
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sdo = sq + G::kRows;
+  float* skt = sdo + G::kRows;
+  float* svt = skt + G::kCols;
+  float* sp = svt + G::kCols;
+  float* sds = sp + G::kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int h = blockIdx.y, q0 = blockIdx.x * G::B;
+  const size_t qrow = static_cast<size_t>(h) * a.Tq, krow = static_cast<size_t>(h) * a.Tk;
+  load_q<D, R>(a.q + qrow * D, q0, a.Tq, sq);
+  load_q<D, R>(a.dout + qrow * D, q0, a.Tq, sdo);
+  float l[R], dd[R], acc[R][G::NC] = {};
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    l[i] = row < a.Tq ? __ldg(a.lse + qrow + row) : 0.f;
+    dd[i] = row < a.Tq ? __ldg(a.di + qrow + row) : 0.f;
+  }
+  for (int k0 = k_begin; k0 < k_end; k0 += G::B) {
+    __syncthreads();  // every thread is done with the previous tile's K^T, V^T and dS
+    load_t<D, R>(a.k + krow * D, k0, k_end, skt);
+    load_t<D, R>(a.v + krow * D, k0, k_end, svt);
+    __syncthreads();
+    grad_scores<D, R>(sq, sdo, skt, svt, q0, a.Tq, k0, k_begin, k_end, a.scale, mask, l, dd, sp, sds);
+    __syncthreads();
+    // dQ += dS K: K[j][col] is K^T[col][j], an odd stride apart across the threads
+#pragma unroll 4
+    for (int j = 0; j < G::B; ++j) {
+      float g[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) g[i] = sds[(ty + 16 * i) * G::kLdT + j];
+#pragma unroll
+      for (int c = 0; c < G::NC; ++c) {
+        const float kv = skt[(tx + 16 * c) * G::kLdT + j];
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i][c] = fmaf(g[i], kv, acc[i][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.Tq) continue;
+#pragma unroll
+    for (int c = 0; c < G::NC; ++c) a.dq[(qrow + row) * D + tx + 16 * c] = acc[i][c] * a.scale;
+  }
+}
+
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a, int kv_end) {
+  // a key tile wholly past t_valid visits no query and writes zeros
+  const bool any_valid = static_cast<int>(blockIdx.x) * BwdGeom<D, R>::B < kv_end;
+  dkv_keys<D, R>(a, 0, any_valid ? a.Tq : 0, 0, kv_end, AllKeys{});
+}
+
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a, int kv_end) {
+  dq_rows<D, R>(a, 0, kv_end, AllKeys{});
+}
+
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads)
+    flash_local_dkv_kernel(BwdArgs a, int window, int lo, int hi, int q_offset) {
+  // the tile's valid keys [kb, ke], then the rows whose band reaches one of them
+  const int k0 = blockIdx.x * BwdGeom<D, R>::B;
+  const int k_lo = max(lo, 0), k_hi = min(hi, a.Tk);
+  const int kb = max(k0, k_lo), ke = min(k0 + BwdGeom<D, R>::B, k_hi) - 1;
+  const long long begin = min(max(static_cast<long long>(kb) - window - q_offset, 0LL), static_cast<long long>(a.Tq));
+  const long long end = kb > ke ? begin
+                                : max(begin, min(static_cast<long long>(ke) + window - q_offset + 1,
+                                                 static_cast<long long>(a.Tq)));
+  dkv_keys<D, R>(a, static_cast<int>(begin), static_cast<int>(end), k_lo, k_hi, Band{q_offset, window});
+}
+
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads)
+    flash_local_dq_kernel(BwdArgs a, int window, int lo, int hi, int q_offset) {
+  // the keys any row of this tile may see, as in flash_local_fwd_kernel
+  const int q0 = blockIdx.x * BwdGeom<D, R>::B;
+  const int last_row = min(q0 + BwdGeom<D, R>::B, a.Tq) - 1;
+  const long long begin = max(static_cast<long long>(q0) + q_offset - window, static_cast<long long>(max(lo, 0)));
+  const long long end = min(static_cast<long long>(last_row) + q_offset + window + 1,
+                            static_cast<long long>(min(hi, a.Tk)));
+  dq_rows<D, R>(a, static_cast<int>(min(begin, end)), static_cast<int>(end), Band{q_offset, window});
+}
+
+// One backward kernel over `tiles` x H blocks (none when either is 0).
+template <typename Kernel, typename... Args>
+int launch_bwd(Kernel kernel, size_t bytes, int tiles, int H, cudaStream_t s, Args... args) {
+  if (tiles == 0 || H == 0) return 0;
+  const int err = allow_dynamic_smem(kernel, bytes);
+  if (err) return err;
+  kernel<<<dim3(tiles, H), kThreads, bytes, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int tiles_of(int T) {
+  return (T + 16 * R - 1) / (16 * R);
+}
+
+template <int D>
+int full_bwd_for(const BwdArgs& a, int H, int kv_end, cudaStream_t s) {
+  using W = BwdGeom<D, 4>;
+  using N = BwdGeom<D, 2>;
+  const int err = wide_tiles(H, a.Tk)
+                      ? launch_bwd(flash_dkv_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tk), H, s, a, kv_end)
+                      : launch_bwd(flash_dkv_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tk), H, s, a, kv_end);
+  if (err) return err;
+  return wide_tiles(H, a.Tq) ? launch_bwd(flash_dq_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tq), H, s, a, kv_end)
+                             : launch_bwd(flash_dq_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tq), H, s, a, kv_end);
+}
+
+template <int D>
+int local_bwd_for(const BwdArgs& a, int H, int window, int lo, int hi, int q_offset, cudaStream_t s) {
+  using W = BwdGeom<D, 4>;
+  using N = BwdGeom<D, 2>;
+  const int err =
+      wide_tiles(H, a.Tk)
+          ? launch_bwd(flash_local_dkv_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tk), H, s, a, window, lo, hi,
+                       q_offset)
+          : launch_bwd(flash_local_dkv_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tk), H, s, a, window, lo, hi,
+                       q_offset);
+  if (err) return err;
+  return wide_tiles(H, a.Tq)
+             ? launch_bwd(flash_local_dq_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tq), H, s, a, window, lo, hi,
+                          q_offset)
+             : launch_bwd(flash_local_dq_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tq), H, s, a, window, lo, hi,
+                          q_offset);
+}
+
+BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* di,
+                 void* dq, void* dk, void* dv, int Tq, int Tk, float scale) {
+  return BwdArgs{static_cast<const float*>(q),    static_cast<const float*>(k),   static_cast<const float*>(v),
+                 static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
+                 static_cast<float*>(dq),         static_cast<float*>(dk),        static_cast<float*>(dv),
+                 Tq,                              Tk,                             scale};
+}
+
 }  // namespace
 
 // q: (H, Tq, D); k, v: (H, Tk, D); out: (H, Tq, D); lse: (H, Tq).  Keys at
@@ -302,6 +630,39 @@ extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void
     case 32: return local_for<32>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     case 64: return local_for<64>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     case 128: return local_for<128>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The full backward: dq (H, Tq, D), dk and dv (H, Tk, D) from q, k, v, the
+// cotangent dout of out, the forward's lse (H, Tq) and di (H, Tq); keys at
+// j >= t_valid are masked.  Two launches, each checked.
+extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                         const void* di, void* dq, void* dk, void* dv, int H, int Tq, int Tk, int D, float scale,
+                         int t_valid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, scale);
+  const int kv_end = t_valid < 0 ? 0 : (t_valid < Tk ? t_valid : Tk);
+  switch (D) {
+    case 32: return full_bwd_for<32>(a, H, kv_end, s);
+    case 64: return full_bwd_for<64>(a, H, kv_end, s);
+    case 128: return full_bwd_for<128>(a, H, kv_end, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// As flash_bwd, with the band |i + q_offset - j| <= window (window >= 0) and
+// keys valid in [lo, hi) instead of t_valid.
+extern "C" int flash_local_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                               const void* di, void* dq, void* dk, void* dv, int H, int Tq, int Tk, int D,
+                               float scale, int window, int lo, int hi, int q_offset, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, scale);
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32: return local_bwd_for<32>(a, H, window, lo, hi, q_offset, s);
+    case 64: return local_bwd_for<64>(a, H, window, lo, hi, q_offset, s);
+    case 128: return local_bwd_for<128>(a, H, window, lo, hi, q_offset, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

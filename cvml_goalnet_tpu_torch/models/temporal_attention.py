@@ -6,7 +6,8 @@ learned positions ``pos[(pos_offset + t) mod max_len]`` or rotary positions
 on q/k, pre-LN blocks (attention, then a GELU MLP of width 4·D with the tanh
 approximation of ``jax.nn.gelu``), and a per-frame head → (T,) scores, or
 (T, C) for a C-class head.  Attention is the flash kernels of
-``ops/cuda/flash_attention.py``: banded when ``window > 0``, full otherwise.
+``ops/cuda/flash_attention.py``: banded when ``window > 0``, full otherwise,
+differentiable through their backward kernels, so the scorer trains as is.
 The context-parallel variants are multi-GPU work and not ported yet.
 """
 

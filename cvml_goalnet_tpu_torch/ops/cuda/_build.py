@@ -127,6 +127,16 @@ def require_f32(what: str, device: torch.device, **tensors: torch.Tensor) -> Non
             raise ValueError(f"{what}: {name} must be contiguous float32 on {device}, got {t.dtype} on {t.device}")
 
 
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a forward-only kernel: its output has no ``grad_fn``, so the
+    gradient would stop there without a word.  Training takes the differentiable path instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward and its output would cut the gradient; call it under "
+            "torch.no_grad() or on tensors that do not require grad (training takes the differentiable path)"
+        )
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

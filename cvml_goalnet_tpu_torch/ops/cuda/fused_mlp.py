@@ -4,6 +4,10 @@ Counterpart of ``cvml_goalnet_tpu/ops/pallas/fused_mlp.py``.  The kernel
 (``csrc/fused_mlp.cu``) keeps each 8-row tile's activations in shared memory
 through all layers and streams the weights from L2; its note says what
 bounds it.  ``layers`` is the fusion list of ``{"w": (in, out), "b": (out,)}``.
+
+The kernel has no backward (the JAX package's has no VJP either): on CUDA
+tensors that require grad with grad mode on, the wrapper raises rather than
+return an output that would cut the gradient.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ def fused_fusion_mlp(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float
         if w.shape[0] != dims[-1] or b.shape != (w.shape[1],):
             raise ValueError(f"fused_fusion_mlp: layer {i} w {tuple(w.shape)} b {tuple(b.shape)} does not chain from {dims[-1]}")
         dims.append(w.shape[1])
+    _build.refuse_grad("fused_fusion_mlp", x, *(t for lp in layers for t in (lp["w"], lp["b"])))
     _build.require_f32("fused_fusion_mlp", x.device, x=x,
                        **{f"layer{i}.{k}": lp[k] for i, lp in enumerate(layers) for k in ("w", "b")})
     m = x.shape[0]

@@ -8,6 +8,10 @@ uint8 frame directly; its note says what bounds it and why it is built so.
 float32)`` pairs of ``ops/preprocess.py::resize_taps``, as tensors on the
 frames' device; indices must lie inside the frame (``resize_taps`` clamps
 them there).
+
+The kernel has no backward (the JAX package's has no VJP either): on CUDA
+tensors that require grad with grad mode on, the wrapper raises rather than
+return an output that would cut the gradient.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ def fused_preprocess_frames(frames: torch.Tensor, taps_h: Taps, taps_w: Taps, ep
             "fused_preprocess_frames: frames must be a contiguous (N, H, W, C) uint8 or "
             f"float32 tensor, got {tuple(frames.shape)} {frames.dtype}"
         )
+    _build.refuse_grad("fused_preprocess_frames", frames)
     n, h, w, c = frames.shape
     (ih, wh), (iw, ww) = taps_h, taps_w
     oh, ow = ih.shape[1], iw.shape[1]

@@ -4,6 +4,10 @@ Counterpart of ``cvml_goalnet_tpu/ops/pallas/fused_stage.py``; conv1 and conv2
 of the folded visual trunk run through it.  The kernel
 (``csrc/fused_stage.cu``) keeps the pre-pool conv tile in shared memory and
 writes only the pooled tile; its note says what bounds it.
+
+The kernel has no backward (the JAX package's has no VJP either): on CUDA
+tensors that require grad with grad mode on, the wrapper raises rather than
+return an output that would cut the gradient.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ def fused_conv_pool_stage(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Ten
         )
     if h < 3 or wd < 3 or h * wd > 256:
         raise ValueError(f"fused_conv_pool_stage: the kernel takes 3 ≤ H, W and H·W ≤ 256, got {h}×{wd}")
+    _build.refuse_grad("fused_conv_pool_stage", x, w, b_spatial)
     _build.require_f32("fused_conv_pool_stage", x.device, x=x, w=w, b_spatial=b_spatial)
     cout = w.shape[3]
     out = torch.empty((n, h - 2, wd - 2, cout), dtype=torch.float32, device=x.device)

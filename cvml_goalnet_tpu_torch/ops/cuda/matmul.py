@@ -4,6 +4,10 @@ Counterpart of ``cvml_goalnet_tpu/ops/pallas/matmul.py``.  The kernel
 (``csrc/matmul.cu``) splits K across blocks, writes float32 partial sums to a
 workspace this wrapper allocates, and reduces them in a fixed order in a
 second pass, so results repeat exactly; its note says what bounds it.
+
+The kernel has no backward (the JAX package's has no VJP either): on CUDA
+tensors that require grad with grad mode on, the wrapper raises rather than
+return an output that would cut the gradient.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = 
         return head_matmul_plain(x, w, b, relu)
     if x.device.type != "cuda":
         raise ValueError(f"head_matmul: unsupported device {x.device}")
+    _build.refuse_grad("head_matmul", x, w, b)
     _build.require_f32("head_matmul", x.device, x=x, w=w, b=b)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:

@@ -7,10 +7,12 @@ the card has no JAX, so run the file there without the suite's conftest:
 
 The shapes include the ragged ones of ``tests/test_pallas.py`` (batch,
 channel and K edges) besides the reference widths, and for the flash-attention
-forwards ragged sequence lengths, every head width the kernels are built for,
-bands from 0 to past T, key bounds with dead rows and a query offset.  Those
-hold out to 3e-5 and lse to 1e-5 against the plain versions, the tolerances of
-``tests/test_flash_attention.py``.
+forwards and backwards ragged sequence lengths, every head width the kernels
+are built for, bands from 0 to past T, key bounds with dead rows and a query
+offset.  The forwards hold out to 3e-5 and lse to 1e-5 against the plain
+versions, the backwards dq, dk and dv to 1e-4·max(1, max|plain|): the
+tolerances of ``tests/test_flash_attention.py``.  The spotting path and one
+train step per scorer are held against the CPU.
 """
 
 import numpy as np
@@ -153,7 +155,7 @@ def test_flash_fwd_t_valid_and_unequal_lengths(dev, t_valid):
 
 @pytest.mark.parametrize("h,t,d,window", [(1, 1, 64, 0), (2, 63, 32, 1), (1, 65, 128, 37), (2, 1000, 64, 37),
                                           (1, 5400, 128, 1024), (2, 5400, 64, 1024), (1, 300, 32, 300),
-                                          (1, 200, 64, 10**6), (2, 129, 128, 0)])
+                                          (1, 200, 64, 10**6), (2, 129, 128, 0), (4, 4300, 32, 100)])
 def test_flash_local_fwd(dev, h, t, d, window):
     q, k, v = (_rand((h, t, d), 50 + i) for i in range(3))
     before = FA.flash_local_fwd.launches
@@ -222,3 +224,163 @@ def test_spotting_card_matches_cpu(dev):
                                         peak_window=3, device="cpu")
         np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
         np.testing.assert_array_equal(got.events, want.events)
+
+
+def _bwd_check(got, want):
+    """dq, dk, dv against the plain backward: 1e-4·max(1, max|plain|) per gradient, the 1e-4 of the grad
+    tests of ``tests/test_flash_attention.py`` scaled to the gradient's size (float32 sums over the keys,
+    or over the queries, in another order)."""
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=1e-4 * max(1.0, w.abs().max().item()), rtol=0)
+
+
+def _poison_allocator(dev):
+    """Fill freed memory with NaN, so outputs from torch.empty that a kernel fails to write show up."""
+    torch.full((64 << 20,), float("nan"), device=dev)
+    torch.cuda.synchronize()
+
+
+# (4, 4300, 32) and (2, 8500, 64) give at least two blocks per SM, so they take the 64-row tiles
+@pytest.mark.parametrize("h,t,d", [(1, 1, 128), (2, 63, 64), (1, 64, 32), (2, 65, 128), (1, 1000, 32),
+                                   (1, 5400, 128), (2, 300, 32), (2, 4500, 64), (4, 4300, 32), (2, 8500, 64)])
+def test_flash_bwd(dev, h, t, d):
+    q, k, v, do = (_rand((h, t, d), 80 + i) for i in range(4))
+    out, lse = FA.flash_fwd_plain(q, k, v, d ** -0.5)
+    _poison_allocator(dev)
+    before = FA.flash_bwd.launches
+    got = FA.flash_bwd(q, k, v, out, lse, do, d ** -0.5)
+    assert FA.flash_bwd.launches == before + 1
+    _bwd_check(got, FA.flash_bwd_plain(q, k, v, out, lse, do, d ** -0.5))
+    assert all(torch.equal(a, b) for a, b in zip(got, FA.flash_bwd(q, k, v, out, lse, do, d ** -0.5)))
+
+
+@pytest.mark.parametrize("t_valid", [0, 1, 97, 1000])
+def test_flash_bwd_t_valid_g_lse_and_unequal_lengths(dev, t_valid):
+    q, k, v, do = _rand((2, 200, 64), 90), _rand((2, 1000, 64), 91), _rand((2, 1000, 64), 92), _rand((2, 200, 64), 93)
+    g_lse = _rand((2, 200), 94)
+    out, lse = FA.flash_fwd_plain(q, k, v, 0.125, t_valid)
+    _poison_allocator(dev)
+    got = FA.flash_bwd(q, k, v, out, lse, do, 0.125, t_valid, g_lse)
+    _bwd_check(got, FA.flash_bwd_plain(q, k, v, out, lse, do, 0.125, t_valid, g_lse))
+    dq, dk, dv = got
+    assert not dk[:, t_valid:].any() and not dv[:, t_valid:].any()   # key tiles no query reaches: zeros
+    if t_valid == 0:                                                   # every row dead
+        assert not dq.any()
+
+
+@pytest.mark.parametrize("h,t,d,window", [(1, 1, 64, 0), (2, 63, 32, 1), (1, 65, 128, 37), (2, 1000, 64, 37),
+                                          (1, 5400, 128, 1024), (2, 5400, 64, 1024), (1, 300, 32, 300),
+                                          (1, 200, 64, 10**6), (2, 129, 128, 0), (4, 4300, 32, 100),
+                                          (2, 8500, 64, 700)])
+def test_flash_local_bwd(dev, h, t, d, window):
+    q, k, v, do = (_rand((h, t, d), 100 + i) for i in range(4))
+    out, lse = FA.flash_local_fwd_plain(q, k, v, d ** -0.5, window)
+    _poison_allocator(dev)
+    before = FA.flash_local_bwd.launches
+    got = FA.flash_local_bwd(q, k, v, out, lse, do, d ** -0.5, window)
+    assert FA.flash_local_bwd.launches == before + 1
+    _bwd_check(got, FA.flash_local_bwd_plain(q, k, v, out, lse, do, d ** -0.5, window))
+
+
+@pytest.mark.parametrize("lo,hi,q_offset", [(64, 200, 0), (10, 180, 16), (0, 192, 16), (150, 40, 0)])
+def test_flash_local_bwd_bounds_dead_rows_and_offset(dev, lo, hi, q_offset):
+    tq = 160 if q_offset else 256
+    tk = tq + 2 * q_offset
+    q, k, v, do = _rand((2, tq, 64), 110), _rand((2, tk, 64), 111), _rand((2, tk, 64), 112), _rand((2, tq, 64), 113)
+    out, lse = FA.flash_local_fwd_plain(q, k, v, 0.125, 16, lo, hi, q_offset)
+    _poison_allocator(dev)
+    got = FA.flash_local_bwd(q, k, v, out, lse, do, 0.125, 16, lo, hi, q_offset)
+    _bwd_check(got, FA.flash_local_bwd_plain(q, k, v, out, lse, do, 0.125, 16, lo, hi, q_offset))
+    dq, dk, dv = got
+    assert not dk[:, :max(lo, 0)].any() and not dk[:, max(hi, 0):].any() and not dv[:, max(hi, 0):].any()
+    if (lo, hi) == (64, 200):   # rows < 48 and ≥ 216 have empty bands: dq 0
+        assert not dq[:, :48].any() and not dq[:, 216:].any()
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_bwd_large_magnitudes_stay_finite(dev, window):
+    q, k, v, do = _rand((1, 1000, 64), 120, 10.0), _rand((1, 1000, 64), 121, 10.0), _rand((1, 1000, 64), 122), \
+        _rand((1, 1000, 64), 123)
+    if window:
+        out, lse = FA.flash_local_fwd_plain(q, k, v, 0.125, window)
+        got = FA.flash_local_bwd(q, k, v, out, lse, do, 0.125, window)
+        want = FA.flash_local_bwd_plain(q, k, v, out, lse, do, 0.125, window)
+    else:
+        out, lse = FA.flash_fwd_plain(q, k, v, 0.125)
+        got = FA.flash_bwd(q, k, v, out, lse, do, 0.125)
+        want = FA.flash_bwd_plain(q, k, v, out, lse, do, 0.125)
+    _bwd_check(got, want)
+
+
+@pytest.mark.parametrize("window", [0, 7])
+def test_public_attention_grads_card_match_cpu(dev, window):
+    """The autograd Functions on the card (both kernels of the form) against the same Functions on the CPU."""
+    x = [np.random.default_rng(130 + i).standard_normal((2, 300, 64)).astype(np.float32) for i in range(4)]
+    grads = {}
+    for where in ("cuda", "cpu"):
+        q, k, v = (torch.tensor(a, device=where, requires_grad=True) for a in x[:3])
+        out = FA.flash_attention_local(q, k, v, window) if window else FA.flash_attention(q, k, v)
+        # the cotangent arrives permuted, as from the transformer's head merge
+        out.permute(1, 0, 2).mul(torch.as_tensor(x[3], device=where).permute(1, 0, 2)).sum().backward()
+        grads[where] = [t.grad.cpu() for t in (q, k, v)]
+    _bwd_check(grads["cuda"], grads["cpu"])
+
+
+def test_raw_kernel_wrappers_refuse_to_cut_the_gradient(dev):
+    """Forward-only kernels raise on tensors that require grad with grad mode on, and run under no_grad."""
+    q = torch.zeros((1, 16, 32), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_fwd(q, q, q, 0.1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_local_fwd(q, q, q, 0.1, 4)
+    w = torch.zeros((8, 4), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        head_matmul(torch.zeros((2, 8), device=dev), w, torch.zeros(4, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_fusion_mlp(torch.zeros((2, 8), device=dev), [{"w": w, "b": torch.zeros(4, device=dev)}])
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_conv_pool_stage(torch.zeros((1, 5, 5, 8), device=dev, requires_grad=True),
+                              torch.zeros((3, 3, 8, 4), device=dev), torch.zeros((5, 5, 4), device=dev))
+    frames = torch.zeros((1, 8, 8, 3), device=dev, requires_grad=True)
+    taps = resize_taps_on(8, 4, dev), resize_taps_on(8, 4, dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_preprocess_frames(frames, *taps)
+    with torch.no_grad():
+        FA.flash_fwd(q, q, q, 0.1)
+        fused_preprocess_frames(frames, *taps)
+
+
+def test_spotting_train_step_card_matches_cpu(dev):
+    """Two steps of each scorer on the card (flash kernels forward and backward) against the CPU."""
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch.train import spotting as TS
+
+    mc = ModelConfig(temporal_hidden=32, temporal_window=40, temporal_max_len=512, temporal_num_heads=1)
+    rng = np.random.default_rng(140)
+    feats = rng.standard_normal((400, 24)).astype(np.float32)
+    labels = (rng.random(400) < 0.02).astype(np.float32)
+    for family, window in (("transformer", 40), ("transformer", 0), ("hybrid", 40), ("gru", 0)):
+        m = dataclasses.replace(mc, temporal_model=family, temporal_window=window)
+        p_np = weights.init_temporal_params(m, 24, seed=141)
+        step = TS.make_spotting_train_step(32, lr=1e-3, scorer=family, window=window)
+        runs = {}
+        for where in ("cuda", "cpu"):
+            tp = weights.tree_from_jax(p_np, device=where)
+            x, y = torch.as_tensor(feats, device=where), torch.as_tensor(labels, device=where)
+            _, g = step.value_and_grad(tp, x, y)
+            opt, losses = TS.init_spotting_opt(tp), []
+            for _ in range(2):
+                tp, opt, loss = step(tp, opt, x, y)
+                losses.append(loss.item())
+            runs[where] = (losses, [t.cpu() for t in _leaves(g)])
+        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+        for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+            torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, b.abs().max().item()), rtol=0)
+
+
+def _leaves(tree):
+    from cvml_goalnet_tpu_torch.train.optim import tree_leaves
+
+    return tree_leaves(tree)

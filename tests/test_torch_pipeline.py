@@ -302,8 +302,9 @@ class TestDevicePolicy:
             TP.summarize(np.ones(2), np.array([[0, 30], [30, 60]]), 30, 60)
 
     def test_port_imports_no_jax(self):
-        """A fresh interpreter: every module of the port and chip_smoke.py's
-        imports leave jax and cvml_goalnet_tpu out of sys.modules."""
+        """A fresh interpreter: every module of the port (the training modules
+        among them) and chip_smoke.py's imports leave jax and cvml_goalnet_tpu
+        out of sys.modules."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import cvml_goalnet_tpu_torch as pkg\n"
@@ -313,6 +314,8 @@ class TestDevicePolicy:
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cvml_goalnet_tpu' or m.startswith('cvml_goalnet_tpu.'))\n"
             "assert not bad, bad\n"
+            "for m in ('cvml_goalnet_tpu_torch.train.optim', 'cvml_goalnet_tpu_torch.train.spotting'):\n"
+            "    assert m in sys.modules, m\n"
             "print(len([m for m in sys.modules if m.startswith('cvml_goalnet_tpu_torch')]))\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
