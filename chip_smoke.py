@@ -13,7 +13,9 @@ From the repository root, on a machine with a CUDA card:
    and times kernel, plain version and one library call (CUDA events, after
    warm-up) beside the least time the card could take; the attention kernels
    also at T = 32,768, and the banded one at T = 135,000, where it is checked
-   on row slices;
+   on row slices; the fusion MLP also at each video's M and at the 5-way
+   classifier's widths, with equal bits on a repeat, then every tile plan at
+   the path's M timed and the plan's cost model refitted to those times;
 4. drives the summarization path — ``extract_features`` → ``fuse_many`` →
    ``summarize`` — over three synthetic videos (600, 300 and 150 condensed
    180×320 frames with their audio) at the full width of
@@ -85,7 +87,18 @@ from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     flash_local_fwd,
     flash_local_fwd_plain,
 )
-from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp, fused_fusion_mlp_plain
+from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import (
+    BLOCK_ROWS,
+    MAX_CLUSTER,
+    SMEM_LIMIT,
+    card_plan,
+    fused_fusion_mlp,
+    fused_fusion_mlp_plain,
+    fused_fusion_mlp_planned,
+    max_active_clusters,
+    plan_terms,
+    smem_bytes,
+)
 from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import (
     fused_preprocess_frames,
     fused_preprocess_frames_plain,
@@ -300,34 +313,81 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
     }])
     del x, wt, bs, got, want
 
-    # fusion MLP: five short float32 chains and a sigmoid; outputs in [1, 5]
-    din = fusion_layers[0]["w"].shape[0]
-    x = torch.rand((n, din), generator=gen, device=dev)
+    # fusion MLP: five short float32 chains and a sigmoid; outputs in [1, 5].  The batch of the three
+    # videos is the row's headline; each video's M as the per-video path calls it, and the 5-way
+    # classifier's widths (raw logits), are parts beside it
     lo, hi = cfg.model.out_lo, cfg.model.out_hi
-    got = fused_fusion_mlp(x, fusion_layers, lo, hi)
-    want = fused_fusion_mlp_plain(x, fusion_layers, lo, hi)
+    k_last = fusion_layers[-1]["w"].shape[0]
+    classifier = [*fusion_layers[:-1], {"w": torch.randn((k_last, 5), generator=gen, device=dev) * k_last ** -0.5,
+                                        "b": torch.randn((5,), generator=gen, device=dev) * 0.1}]
+    cases = [(n, fusion_layers, True, True), *((m, fusion_layers, True, False) for m in VIDEO_LENGTHS),
+             (n, classifier, False, False)]
+    record("fused_fusion_mlp", [mlp_part(m, layers, squash, lo, hi, main, gen) for m, layers, squash, main in cases])
+    return rows
+
+
+def mlp_dims(layers) -> list[int]:
+    return [layers[0]["w"].shape[0], *(lp["w"].shape[1] for lp in layers)]
+
+
+def mlp_part(m: int, layers, squash: bool, lo: float, hi: float, main_path: bool, gen: torch.Generator) -> dict:
+    """The fusion MLP at one M and widths against its plain version (1e-5: float32 sums in another order
+    through five layers), with equal bits on a second call, times, bound and the plan launched."""
+    dims = mlp_dims(layers)
+    x = torch.rand((m, dims[0]), generator=gen, device="cuda")
+    run = lambda: fused_fusion_mlp(x, layers, lo, hi, squash)
+    got, want = run(), fused_fusion_mlp_plain(x, layers, lo, hi, squash)
     err = max_err(got, want)
     if err > 1e-5:
-        raise AssertionError(f"fused_fusion_mlp: max |err| {err} > 1e-5")
+        raise AssertionError(f"fused_fusion_mlp {dims} at M = {m}: max |err| {err} > 1e-5")
+    require(torch.equal(got, run()), f"fused_fusion_mlp {dims} at M = {m}: two calls on the same inputs differ")
 
-    def library_mlp():
+    def library():
         with strict_f32():
-            h_ = x
-            for i, lp in enumerate(fusion_layers):
-                h_ = torch.addmm(lp["b"], h_, lp["w"])
-                if i < len(fusion_layers) - 1:
-                    h_ = torch.relu(h_)
-            return (hi - lo) * torch.sigmoid(h_) + lo
+            h = x
+            for i, lp in enumerate(layers):
+                h = torch.addmm(lp["b"], h, lp["w"])
+                if i < len(layers) - 1:
+                    h = torch.relu(h)
+            return (hi - lo) * torch.sigmoid(h) + lo if squash else h
 
-    macs = sum(lp["w"].shape[0] * lp["w"].shape[1] for lp in fusion_layers)
-    w_bytes = 4.0 * sum(lp["w"].numel() + lp["b"].numel() for lp in fusion_layers)
-    b, kind = bound_ms(4.0 * n * (din + got.shape[1]) + w_bytes, 2.0 * n * macs)
-    record("fused_fusion_mlp", [{
-        "shape": [n, din, got.shape[1]], "ms": time_ms(lambda: fused_fusion_mlp(x, fusion_layers, lo, hi)),
-        "plain_ms": time_ms(lambda: fused_fusion_mlp_plain(x, fusion_layers, lo, hi)),
-        "library_ms": time_ms(library_mlp), "bound_ms": b, "bound_by": kind, "max_abs_err": err,
-    }])
-    return rows
+    macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    n_bytes = 4.0 * (m * (dims[0] + dims[-1]) + sum(lp["w"].numel() + lp["b"].numel() for lp in layers))
+    b, kind = bound_ms(n_bytes, 2.0 * m * macs)
+    bm, c = card_plan(m, dims)
+    reps = 100   # a call takes about 0.1 ms: ten would time a millisecond
+    return {
+        "shape": [m, *dims], "squash": squash, "main_path": main_path, "ms": time_ms(run, reps),
+        "plain_ms": time_ms(lambda: fused_fusion_mlp_plain(x, layers, lo, hi, squash), reps),
+        "library_ms": time_ms(library, reps), "bound_ms": b, "bound_by": kind, "max_abs_err": err,
+        "plan": {"block_rows": bm, "cluster": c, "blocks": -(-m // bm) * c,
+                 "clusters_at_once": max_active_clusters(dims, bm, c)},
+    }
+
+
+def mlp_plan_sweep(layers, gen: torch.Generator) -> dict:
+    """Every plan that fits, timed at the summarization path's M, and the plan model refitted to them.
+
+    The model (``ops/cuda/fused_mlp.py::plan_seconds``) is rounds × (fixed + FMAs per thread · a +
+    weight bytes · b); least squares over these times gives the three constants the module carries.
+    """
+    dims = mlp_dims(layers)
+    at_once = {(bm, c): max_active_clusters(dims, bm, c) for bm in BLOCK_ROWS if smem_bytes(bm, dims) <= SMEM_LIMIT
+               for c in range(1, MAX_CLUSTER + 1)}
+    times, rows, terms, chosen = {}, [], [], {}
+    for m in (sum(VIDEO_LENGTHS), *VIDEO_LENGTHS):
+        x = torch.rand((m, dims[0]), generator=gen, device="cuda")
+        for (bm, c), n_at_once in at_once.items():
+            times[f"{m}:{bm}x{c}"] = time_ms(lambda: fused_fusion_mlp_planned(x, layers, bm, c), 50)
+            rounds, fmas, weight_bytes = plan_terms(m, dims, bm, c, n_at_once)
+            rows.append([rounds, rounds * fmas, rounds * weight_bytes])
+            terms.append(times[f"{m}:{bm}x{c}"] * 1e-3)
+        bm, c = card_plan(m, dims)
+        best = min((t, k) for k, t in times.items() if k.startswith(f"{m}:"))
+        chosen[m] = {"plan": f"{bm}x{c}", "ms": times[f"{m}:{bm}x{c}"], "best": best[1], "best_ms": best[0]}
+    fit = np.linalg.lstsq(np.array(rows, dtype=float), np.array(terms), rcond=None)[0]
+    return {"chosen": chosen, "fit": {"fixed_s": fit[0], "s_per_thread_fma": fit[1], "s_per_weight_byte": fit[2]},
+            "clusters_at_once": {f"{bm}x{c}": v for (bm, c), v in at_once.items()}, "ms": times}
 
 
 def make_videos(cfg: PipelineConfig, seed: int) -> list[dict]:
@@ -402,6 +462,7 @@ def profile_run(run) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
             "attention_kernel_ms": sum(v for k, v in by_name.items() if "flash_" in k),
+            "mlp_kernel_ms": sum(v for k, v in by_name.items() if "fused_mlp" in k),
             "device_ms_by_name": [[k[:70], round(v, 4)] for k, v in top]}
 
 
@@ -956,6 +1017,10 @@ def main() -> int:
     n_total = sum(VIDEO_LENGTHS)
 
     rows = check_kernels(n_total, cfg, params["fusion"], gen)
+    sweep = mlp_plan_sweep(params["fusion"], gen)
+    print(f"fused_fusion_mlp plans on {smi}: chosen {json.dumps(sweep['chosen'])}; model refitted "
+          f"{json.dumps(sweep['fit'])}; clusters at once {json.dumps(sweep['clusters_at_once'])}; "
+          f"ms by M:plan {json.dumps(sweep['ms'])}", flush=True)
     rows.update(check_attention_kernels(gen))
     rows.update(check_attention_bwd_kernels(gen))
     rows = {name: rows[name] for name in KERNELS}
@@ -993,7 +1058,10 @@ def main() -> int:
           f"median {wall:.4f} s = {n_total / wall:.1f} frames/s; per-video p50 "
           f"{1e3 * statistics.median(per_video):.1f} ms over {len(per_video)} runs "
           f"(lengths {VIDEO_LENGTHS}); batch stages median ms {json.dumps(stage_ms)}")
-    print(f"profile of one batch run: {json.dumps(profile_run(lambda: run_path(videos, params, state, cfg)))}")
+    prof = profile_run(lambda: run_path(videos, params, state, cfg))
+    print(f"profile of one batch run: {json.dumps(prof)}")
+    print(f"fused_fusion_mlp at M = {n_total} on {smi}: traced in the path {prof.get('mlp_kernel_ms')} ms, "
+          f"timing loop {rows['fused_fusion_mlp']['ms']:.4f} ms")
     del videos, feats
 
     enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)

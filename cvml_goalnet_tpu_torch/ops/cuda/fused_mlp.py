@@ -1,9 +1,21 @@
-"""The eval fusion MLP in one launch: CUDA kernel and its plain version.
+"""The eval fusion MLP in one launch: CUDA kernel, its tile plan and its plain version.
 
-Counterpart of ``cvml_goalnet_tpu/ops/pallas/fused_mlp.py``.  The kernel
-(``csrc/fused_mlp.cu``) keeps each 8-row tile's activations in shared memory
-through all layers and streams the weights from L2; its note says what
-bounds it.  ``layers`` is the fusion list of ``{"w": (in, out), "b": (out,)}``.
+Counterpart of ``cvml_goalnet_tpu/ops/pallas/fused_mlp.py`` (``_kernel``: the
+whole chain per 256-row tile, held in VMEM).  ``layers`` is the fusion list of
+``{"w": (in, out), "b": (out,)}``: 1 to 8 layers of any widths, ReLU between,
+then ``(hi − lo)·σ + lo`` or the raw logits.
+
+The kernel (``csrc/fused_mlp.cu``) is bound by arithmetic: 753,792 FMAs per
+row at the reference widths 640 → 512 → 512 → 256 → 128 → 1, so 1.583 GFLOP at
+M = 1050, 23.6 µs at the H100's 67 TFLOP/s float32 rate; the 3.02 MB of
+weights cost 0.9 µs from HBM.  A cluster of C blocks owns each tile of BM
+rows; each block computes about 1/C of every layer's columns from its own
+slice of the weights, in 8 × 8 register tiles fed by a cp.async ring (K split
+over thread groups where a slice is narrow), and hands its slice to every
+block of the cluster through distributed shared memory.  :func:`tile_plan`
+picks (BM, C) from M, the widths and how many clusters the card runs at once:
+16 rows by 2 blocks (132 blocks) at M = 1050, where the kernel took
+0.08–0.10 ms on an H100 (``chip_smoke.py``'s kernel phase; ``PERF.md``).
 
 The kernel has no backward (the JAX package's has no VJP either): on CUDA
 tensors that require grad with grad mode on, the wrapper raises rather than
@@ -13,6 +25,8 @@ return an output that would cut the gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
+from collections.abc import Sequence
 
 import torch
 
@@ -20,8 +34,92 @@ from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"fused_mlp": [_P, _P, _I, _I, _P, _P, _P, _I, ctypes.c_float, ctypes.c_float, _P]}
+_SIGNATURES = {
+    "fused_mlp": [_P, _P, _I, _I, _P, _P, _P, _I, ctypes.c_float, ctypes.c_float, _I, _I, _P],
+    "fused_mlp_max_clusters": [_I, _P, _I, _I, _P],
+}
 MAX_LAYERS = 8
+SMEM_LIMIT = 232_448             # shared memory one block may use on Hopper
+BLOCK_ROWS = (32, 24, 16, 8)     # the kernel's row tiles, as instantiated in csrc/fused_mlp.cu
+MAX_CLUSTER = 8                  # the portable cluster size
+THREADS, CHUNK_K, PASS_COLS, STAGES = 256, 32, 256, 3   # csrc/fused_mlp.cu: kThreads, kChunkK, kPassCols, kStages
+RING_BYTES = STAGES * CHUNK_K * PASS_COLS * 4
+# Clusters of C blocks an H100 SXM runs at once when one block fills an SM's shared memory
+# (cudaOccupancyMaxActiveClusters in chip_smoke.py, PERF.md): a cluster lives in one GPC,
+# so 33 clusters of 4 take two rounds.  The wrapper asks the card instead.
+H100_CLUSTERS_AT_ONCE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# The plan's cost model, per round of clusters: a fixed part, the busiest block's FMAs per thread and
+# the weight bytes it copies into shared memory.  Least squares over every plan that fits at the
+# summarization path's M on an H100 SXM (chip_smoke.py's plan sweep, PERF.md).
+PLAN_FIXED_S = 41.4e-6
+PLAN_S_PER_THREAD_FMA = 1.574e-9
+PLAN_S_PER_WEIGHT_BYTE = 9.55e-12
+
+
+def smem_bytes(block_rows: int, dims: Sequence[int]) -> int:
+    """Shared memory of one block: two k-major activation buffers (the widest input of the even and of
+    the odd layers) and the weight ring."""
+    n_layers = len(dims) - 1
+    even = max(dims[l] for l in range(0, n_layers, 2))
+    odd = max((dims[l] for l in range(1, n_layers, 2)), default=0)
+    return 4 * block_rows * (even + odd) + RING_BYTES
+
+
+def cols_per_block(n: int, cluster: int) -> int:
+    """Columns of an N-wide layer that each block of a cluster computes: ⌈N / C⌉ rounded up to 4."""
+    return (-(-n // cluster) + 3) // 4 * 4
+
+
+def block_work(dims: Sequence[int], block_rows: int, cluster: int) -> tuple[int, int]:
+    """(FMAs per thread, weight bytes) of a cluster's first block, the busiest, as the kernel runs it:
+    passes of up to 256 columns in 8 × 8 tiles, K split over G = 2^j thread groups."""
+    fmas, weight_bytes = 0, 0
+    for k, n in zip(dims[:-1], dims[1:]):
+        mine = min(cols_per_block(n, cluster), n)
+        for c0 in range(0, mine, PASS_COLS):
+            tiles = block_rows // 8 * -(-min(PASS_COLS, mine - c0) // 8)
+            g = 1
+            while g < CHUNK_K and 2 * g * tiles <= THREADS:
+                g *= 2
+            fmas += -(-k // CHUNK_K) * (CHUNK_K // g) * 64
+        weight_bytes += 4 * k * mine
+    return fmas, weight_bytes
+
+
+def plan_terms(m: int, dims: Sequence[int], block_rows: int, cluster: int, clusters_at_once: int) -> tuple[int, int, int]:
+    """The cost model's inputs for a plan: rounds of at most ``clusters_at_once`` clusters, and the
+    busiest block's FMAs per thread and weight bytes (:func:`block_work`)."""
+    return (-(-(-(-m // block_rows)) // clusters_at_once), *block_work(dims, block_rows, cluster))
+
+
+def plan_seconds(m: int, dims: Sequence[int], block_rows: int, cluster: int, clusters_at_once: int) -> float:
+    """The cost model's time for a plan: each round the fixed part plus the busiest block's FMAs per
+    thread and weight bytes at the fitted rates."""
+    rounds, fmas, weight_bytes = plan_terms(m, dims, block_rows, cluster, clusters_at_once)
+    return rounds * (PLAN_FIXED_S + fmas * PLAN_S_PER_THREAD_FMA + weight_bytes * PLAN_S_PER_WEIGHT_BYTE)
+
+
+def tile_plan(m: int, dims: Sequence[int], clusters_at_once=None) -> tuple[int, int]:
+    """(BM, C): rows per tile and blocks per cluster for ``m`` rows through layers of widths ``dims``.
+
+    ``clusters_at_once(bm, c)`` says how many clusters of that plan the card
+    runs at once; by default the H100 SXM's counts at one block per SM (the
+    wrapper asks the card).  The plan of least :func:`plan_seconds` whose
+    shared memory fits wins; ties go to fewer blocks, then a smaller cluster.
+    """
+    best = None
+    for bm in BLOCK_ROWS:
+        if smem_bytes(bm, dims) > SMEM_LIMIT:
+            continue
+        for c in range(1, MAX_CLUSTER + 1):
+            at_once = clusters_at_once(bm, c) if clusters_at_once else H100_CLUSTERS_AT_ONCE[c]
+            key = (plan_seconds(m, dims, bm, c, at_once), -(-m // bm) * c, c)
+            if best is None or key < best[0]:
+                best = (key, bm, c)
+    if best is None:
+        raise ValueError(f"fused_fusion_mlp: widths {list(dims)} need more than {SMEM_LIMIT} bytes of shared "
+                         f"memory even at {min(BLOCK_ROWS)} rows per block")
+    return best[1], best[2]
 
 
 def fused_fusion_mlp_plain(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float = 5.0, squash: bool = True) -> torch.Tensor:
@@ -37,23 +135,29 @@ def fused_fusion_mlp_plain(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi:
 def fused_fusion_mlp(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float = 5.0, squash: bool = True) -> torch.Tensor:
     """(N, D) fused features → (N, out) scores in [out_lo, out_hi], or the raw logits without ``squash``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel with :func:`tile_plan`'s
+    plan for its M and widths on this card.
     """
     if x.device.type == "cpu":
         return fused_fusion_mlp_plain(x, layers, out_lo, out_hi, squash)
     if x.device.type != "cuda":
         raise ValueError(f"fused_fusion_mlp: unsupported device {x.device}")
-    if not 1 <= len(layers) <= MAX_LAYERS:
-        raise ValueError(f"fused_fusion_mlp: the kernel takes 1 to {MAX_LAYERS} layers, got {len(layers)}")
-    dims = [x.shape[1]]
-    for i, lp in enumerate(layers):
-        w, b = lp["w"], lp["b"]
-        if w.shape[0] != dims[-1] or b.shape != (w.shape[1],):
-            raise ValueError(f"fused_fusion_mlp: layer {i} w {tuple(w.shape)} b {tuple(b.shape)} does not chain from {dims[-1]}")
-        dims.append(w.shape[1])
-    _build.refuse_grad("fused_fusion_mlp", x, *(t for lp in layers for t in (lp["w"], lp["b"])))
-    _build.require_f32("fused_fusion_mlp", x.device, x=x,
-                       **{f"layer{i}.{k}": lp[k] for i, lp in enumerate(layers) for k in ("w", "b")})
+    dims = _dims_of(x, layers)
+    if x.shape[0] == 0:
+        return torch.empty((0, dims[-1]), dtype=torch.float32, device=x.device)
+    return _launch(x, layers, dims, *card_plan(x.shape[0], dims), out_lo, out_hi, squash)
+
+
+def fused_fusion_mlp_planned(x: torch.Tensor, layers, block_rows: int, cluster: int, out_lo: float = 1.0,
+                             out_hi: float = 5.0, squash: bool = True) -> torch.Tensor:
+    """The kernel on CUDA tensors with a given plan (BM in ``BLOCK_ROWS``, 1 ≤ C ≤ 8), for the plan
+    sweep of ``chip_smoke.py``; :func:`fused_fusion_mlp` picks the plan itself."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_fusion_mlp_planned: the kernel runs on CUDA tensors, got {x.device}")
+    return _launch(x, layers, _dims_of(x, layers), block_rows, cluster, out_lo, out_hi, squash)
+
+
+def _launch(x, layers, dims, block_rows, cluster, out_lo, out_hi, squash) -> torch.Tensor:
     m = x.shape[0]
     y = torch.empty((m, dims[-1]), dtype=torch.float32, device=x.device)
     if m == 0:
@@ -65,11 +169,55 @@ def fused_fusion_mlp(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float
     lib = _build.load("fused_mlp", _SIGNATURES)
     code = lib.fused_mlp(
         x.data_ptr(), y.data_ptr(), m, n_layers, ctypes.cast(w_ptrs, _P), ctypes.cast(b_ptrs, _P),
-        ctypes.cast(c_dims, _P), int(squash), out_lo, out_hi, _build.stream_of(x),
+        ctypes.cast(c_dims, _P), int(squash), out_lo, out_hi, block_rows, cluster, _build.stream_of(x),
     )
     _build.check(lib, code, "fused_fusion_mlp")
     fused_fusion_mlp.launches += 1
     return y
+
+
+def _dims_of(x: torch.Tensor, layers) -> list[int]:
+    """The chain's widths, after the checks of what the kernel takes."""
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"fused_fusion_mlp: the kernel takes 1 to {MAX_LAYERS} layers, got {len(layers)}")
+    dims = [x.shape[1]]
+    for i, lp in enumerate(layers):
+        w, b = lp["w"], lp["b"]
+        if w.shape[0] != dims[-1] or b.shape != (w.shape[1],):
+            raise ValueError(f"fused_fusion_mlp: layer {i} w {tuple(w.shape)} b {tuple(b.shape)} does not chain from {dims[-1]}")
+        dims.append(w.shape[1])
+    _build.refuse_grad("fused_fusion_mlp", x, *(t for lp in layers for t in (lp["w"], lp["b"])))
+    _build.require_f32("fused_fusion_mlp", x.device, x=x,
+                       **{f"layer{i}.{k}": lp[k] for i, lp in enumerate(layers) for k in ("w", "b")})
+    return dims
+
+
+def card_plan(m: int, dims: Sequence[int]) -> tuple[int, int]:
+    """:func:`tile_plan` with the current card's cluster occupancy: the plan ``fused_fusion_mlp`` launches."""
+    return _plan_on_card(torch.cuda.current_device(), m, tuple(dims))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_on_card(device: int, m: int, dims: tuple[int, ...]) -> tuple[int, int]:
+    return tile_plan(m, dims, lambda bm, c: _clusters_at_once(device, dims, bm, c))
+
+
+def max_active_clusters(dims: Sequence[int], block_rows: int, cluster: int) -> int:
+    """How many clusters of the plan (block_rows, cluster) the current card runs at once, by the CUDA
+    occupancy calculator."""
+    return _clusters_at_once(torch.cuda.current_device(), tuple(dims), block_rows, cluster)
+
+
+@functools.lru_cache(maxsize=1024)
+def _clusters_at_once(device: int, dims: tuple[int, ...], block_rows: int, cluster: int) -> int:
+    lib = _build.load("fused_mlp", _SIGNATURES)
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.fused_mlp_max_clusters(len(dims) - 1, ctypes.cast(c_dims, _P), block_rows, cluster,
+                                          ctypes.byref(out))
+    _build.check(lib, code, "fused_fusion_mlp: occupancy")
+    return out.value
 
 
 fused_fusion_mlp.launches = 0

@@ -23,6 +23,7 @@ from cvml_goalnet_tpu_torch import weights
 from cvml_goalnet_tpu_torch.config import ModelConfig, PipelineConfig, PreprocessConfig
 from cvml_goalnet_tpu_torch.data.synthetic import synthetic_video_frames, synthetic_waveform
 from cvml_goalnet_tpu_torch.ops.cuda import flash_attention as FA
+from cvml_goalnet_tpu_torch.ops.cuda import fused_mlp as mlp_plan
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp, fused_fusion_mlp_plain
 from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import fused_preprocess_frames, fused_preprocess_frames_plain
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, fused_conv_pool_stage_plain
@@ -97,15 +98,65 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                               torch.zeros((17, 17, 8), device=dev))
 
 
-@pytest.mark.parametrize("dims,squash,rows", [
-    ((640, 512, 512, 256, 128, 1), True, 1050), ((48, 32, 16, 1), True, 37), ((48, 32, 16, 5), False, 9),
-])
+MLP_REF = (640, 512, 512, 256, 128, 1)
+# (widths, squash): the reference, audio off, the 5-way classifier (logits), ragged, one layer, eight layers
+MLP_CASES = [(MLP_REF, True), ((512, 512, 512, 256, 128, 1), True), ((640, 512, 512, 256, 128, 5), False),
+             ((48, 33, 17, 1), True), ((640, 1), True), ((64, 48, 40, 36, 32, 24, 20, 12, 3), False)]
+
+
+def _mlp_layers(dims):
+    return [{"w": _rand((a, b), 10 + i, a ** -0.5), "b": _rand((b,), 20 + i, 0.1)}
+            for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))]
+
+
+@pytest.mark.parametrize("dims,squash", MLP_CASES)
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 31, 32, 33, 150, 300, 600, 1050, 5400])
 def test_fused_mlp(dev, dims, squash, rows):
-    layers = [{"w": _rand((a, b), 10 + i, a ** -0.5), "b": _rand((b,), 20 + i, 0.1)}
-              for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))]
+    layers = _mlp_layers(dims)
     x = _rand((rows, dims[0]), 7)
     got = fused_fusion_mlp(x, layers, 1.0, 5.0, squash)
     torch.testing.assert_close(got, fused_fusion_mlp_plain(x, layers, 1.0, 5.0, squash), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("block_rows", mlp_plan.BLOCK_ROWS)
+@pytest.mark.parametrize("cluster", range(1, mlp_plan.MAX_CLUSTER + 1))
+def test_fused_mlp_every_plan(dev, block_rows, cluster):
+    # every tile plan the kernel takes, at widths where all of them fit and a ragged M
+    dims = (96, 72, 40, 3)
+    layers = _mlp_layers(dims)
+    x = _rand((203, dims[0]), 8)
+    got = mlp_plan.fused_fusion_mlp_planned(x, layers, block_rows, cluster, squash=False)
+    torch.testing.assert_close(got, fused_fusion_mlp_plain(x, layers, squash=False), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [9, 1050])
+def test_fused_mlp_writes_every_output(dev, rows):
+    # the allocator hands the output the memory of a NaN-filled block: a missed write stays NaN
+    layers = _mlp_layers(MLP_REF)
+    x = _rand((rows, MLP_REF[0]), 9)
+    poison = torch.full((rows,), float("nan"), device=dev)
+    del poison
+    got = fused_fusion_mlp(x, layers)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, fused_fusion_mlp_plain(x, layers), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dims,squash", MLP_CASES[:3])
+def test_fused_mlp_repeats_bit_for_bit(dev, dims, squash):
+    layers = _mlp_layers(dims)
+    x = _rand((1050, dims[0]), 11)
+    assert torch.equal(fused_fusion_mlp(x, layers, squash=squash), fused_fusion_mlp(x, layers, squash=squash))
+
+
+def test_fused_mlp_counts_one_launch_per_call(dev):
+    layers = _mlp_layers(MLP_REF)
+    x = _rand((150, MLP_REF[0]), 12)
+    before = fused_fusion_mlp.launches
+    for i in range(3):
+        fused_fusion_mlp(x, layers)
+        assert fused_fusion_mlp.launches == before + i + 1
+    fused_fusion_mlp(x[:0], layers)   # no rows: nothing to launch
+    assert fused_fusion_mlp.launches == before + 3
 
 
 def test_small_pipeline_card_matches_cpu(dev):

@@ -7,6 +7,8 @@ those of ``tests/test_pallas.py``.  The CUDA kernels themselves run only on
 the card (``tests/test_torch_cuda_kernels.py``).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +23,17 @@ from cvml_goalnet_tpu.ops.pallas.matmul import head_matmul_pallas
 from cvml_goalnet_tpu.ops.preprocess import preprocess_frames as jax_preprocess_frames
 from cvml_goalnet_tpu.ops.preprocess import resize_matrices as jax_resize_matrices
 from cvml_goalnet_tpu_torch.ops.cuda import _build
+from cvml_goalnet_tpu_torch.ops.cuda import fused_mlp as mlp_plan
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage
 from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul, split_plan
 from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames, preprocess_frames_host, resize_matrices
+
+MLP_REF = (640, 512, 512, 256, 128, 1)
+# the reference, audio off, the 5-way classifier, ragged, one layer, eight layers
+MLP_WIDTHS = [MLP_REF, (512, 512, 512, 256, 128, 1), (640, 512, 512, 256, 128, 5), (48, 33, 17, 1), (640, 1),
+              (64, 48, 40, 36, 32, 24, 20, 12, 3)]
+MLP_ROWS = [1, 7, 8, 9, 31, 32, 33, 150, 300, 600, 1050, 5400]
 
 
 class TestFusedPreprocess:
@@ -73,6 +82,64 @@ class TestFusedMLP:
         got = fused_fusion_mlp(torch.from_numpy(x), layers, squash=False)
         assert got.shape == (9, 5)
         np.testing.assert_allclose(got.numpy(), np.asarray(h), atol=1e-5)
+
+    def test_plain_matches_pallas_at_the_reference_width(self):
+        # 640 → 512 → 512 → 256 → 128 → 1 over the summarization batch, in 256-row Pallas tiles
+        rng = np.random.default_rng(5)
+        fusion = [{"w": (rng.standard_normal((a, b)) * a ** -0.5).astype(np.float32),
+                   "b": (rng.standard_normal(b) * 0.1).astype(np.float32)} for a, b in zip(MLP_REF[:-1], MLP_REF[1:])]
+        x = rng.standard_normal((1050, MLP_REF[0])).astype(np.float32)
+        jax_fusion = tuple({k: jnp.asarray(v) for k, v in lp.items()} for lp in fusion)
+        want = np.asarray(pallas_mlp(jnp.asarray(x), jax_fusion, 1.0, 5.0, 256, True))
+        got = fused_fusion_mlp(torch.from_numpy(x), [{k: torch.from_numpy(v) for k, v in lp.items()} for lp in fusion])
+        assert got.shape == (1050, 1)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+class TestFusedMLPTilePlan:
+    """The kernel's tile plan (pure Python): what ``fused_fusion_mlp`` launches on the card."""
+
+    # (BM, C, blocks) at the summarization path's M with the H100 SXM's cluster counts (PERF.md §6)
+    PATH_PLANS = {1050: (16, 2, 132), 600: (24, 4, 100), 300: (24, 8, 104), 150: (16, 8, 80)}
+
+    @pytest.mark.parametrize("m", sorted(PATH_PLANS))
+    def test_plan_at_the_path_shapes(self, m):
+        bm, c = mlp_plan.tile_plan(m, MLP_REF)
+        assert (bm, c, -(-m // bm) * c) == self.PATH_PLANS[m]
+
+    @pytest.mark.parametrize("dims", MLP_WIDTHS)
+    @pytest.mark.parametrize("m", MLP_ROWS)
+    def test_plan_covers_m_and_fits(self, m, dims):
+        bm, c = mlp_plan.tile_plan(m, dims)
+        assert bm in mlp_plan.BLOCK_ROWS and 1 <= c <= mlp_plan.MAX_CLUSTER
+        assert (-(-m // bm) - 1) * bm < m <= -(-m // bm) * bm
+        assert mlp_plan.smem_bytes(bm, dims) <= 227 * 1024
+        fmas, weight_bytes = mlp_plan.block_work(dims, bm, c)
+        mine = [min(mlp_plan.cols_per_block(n, c), n) for n in dims[1:]]
+        # the first block's threads do all of its FMAs, and it copies each of its weights once
+        assert fmas * mlp_plan.THREADS >= bm * sum(k * n for k, n in zip(dims[:-1], mine))
+        assert weight_bytes == 4 * sum(k * n for k, n in zip(dims[:-1], mine))
+
+    @pytest.mark.parametrize("n,c", [(512, 2), (512, 3), (33, 4), (1, 8), (5, 2)])
+    def test_column_slices_cover_the_layer(self, n, c):
+        per = mlp_plan.cols_per_block(n, c)
+        assert per % 4 == 0 and per * c >= n and per < -(-n // c) + 4
+
+    def test_plan_follows_the_cards_cluster_counts(self):
+        # a card that runs few clusters of 2 at once pushes M = 1050 off the 16 × 2 plan
+        assert mlp_plan.tile_plan(1050, MLP_REF, lambda bm, c: 1 if c == 2 else 132 // c) != (16, 2)
+
+    def test_widths_beyond_shared_memory_raise(self):
+        with pytest.raises(ValueError, match="shared memory"):
+            mlp_plan.tile_plan(100, (8192, 8192, 1))
+
+    def test_constants_match_the_kernel_source(self):
+        src = (_build.CSRC_DIR / "fused_mlp.cu").read_text()
+        for name, value in {"kThreads": mlp_plan.THREADS, "kChunkK": mlp_plan.CHUNK_K,
+                            "kPassCols": mlp_plan.PASS_COLS, "kStages": mlp_plan.STAGES}.items():
+            assert re.search(rf"constexpr int {name} = {value};", src), name
+        launched = {int(b) for b in re.findall(r"case (\d+): return launch<\1>", src)}
+        assert launched == set(mlp_plan.BLOCK_ROWS)
 
 
 class TestFusedConvPoolStage:
