@@ -55,6 +55,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -78,6 +79,10 @@ from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
+    HEAD_DIMS,
+    bwd_blocks_per_sm,
+    bwd_slots,
+    card_bwd_plan,
     flash_bwd,
     flash_bwd_plain,
     flash_fwd,
@@ -86,6 +91,7 @@ from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     flash_local_bwd_plain,
     flash_local_fwd,
     flash_local_fwd_plain,
+    padded_head_dim,
 )
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import (
     BLOCK_ROWS,
@@ -135,11 +141,14 @@ LONG_T = 32_768                   # attention checked against its plain version 
 MATCH_RATE_T = 135_000            # a 90-minute match at 25 frames/s: banded kernel timed alone
 EVENT_SPACING = 300               # condensed frames per synthetic training event
 TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
+PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
 # Published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
-# HBM3 bandwidth, and float32 on the CUDA cores (the kernels are float32 and
-# do not use the tensor cores).
+# HBM3 bandwidth, float32 on the CUDA cores (every kernel's bound but kernel
+# 6's), and TF32 on the tensor cores, dense (kernel 6's bound: the full
+# backward's products, in 3xTF32).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 
 # wrapper, CUDA source, and the TPU kernel it replaces, per kernel of the main path
 KERNELS = {
@@ -354,14 +363,14 @@ def mlp_part(m: int, layers, squash: bool, lo: float, hi: float, main_path: bool
     macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     n_bytes = 4.0 * (m * (dims[0] + dims[-1]) + sum(lp["w"].numel() + lp["b"].numel() for lp in layers))
     b, kind = bound_ms(n_bytes, 2.0 * m * macs)
-    bm, c = card_plan(m, dims)
+    bm, c = card_plan(m, dims, x.device)
     reps = 100   # a call takes about 0.1 ms: ten would time a millisecond
     return {
         "shape": [m, *dims], "squash": squash, "main_path": main_path, "ms": time_ms(run, reps),
         "plain_ms": time_ms(lambda: fused_fusion_mlp_plain(x, layers, lo, hi, squash), reps),
         "library_ms": time_ms(library, reps), "bound_ms": b, "bound_by": kind, "max_abs_err": err,
         "plan": {"block_rows": bm, "cluster": c, "blocks": -(-m // bm) * c,
-                 "clusters_at_once": max_active_clusters(dims, bm, c)},
+                 "clusters_at_once": max_active_clusters(dims, bm, c, x.device)},
     }
 
 
@@ -372,8 +381,8 @@ def mlp_plan_sweep(layers, gen: torch.Generator) -> dict:
     weight bytes · b); least squares over these times gives the three constants the module carries.
     """
     dims = mlp_dims(layers)
-    at_once = {(bm, c): max_active_clusters(dims, bm, c) for bm in BLOCK_ROWS if smem_bytes(bm, dims) <= SMEM_LIMIT
-               for c in range(1, MAX_CLUSTER + 1)}
+    at_once = {(bm, c): max_active_clusters(dims, bm, c, "cuda") for bm in BLOCK_ROWS
+               if smem_bytes(bm, dims) <= SMEM_LIMIT for c in range(1, MAX_CLUSTER + 1)}
     times, rows, terms, chosen = {}, [], [], {}
     for m in (sum(VIDEO_LENGTHS), *VIDEO_LENGTHS):
         x = torch.rand((m, dims[0]), generator=gen, device="cuda")
@@ -382,7 +391,7 @@ def mlp_plan_sweep(layers, gen: torch.Generator) -> dict:
             rounds, fmas, weight_bytes = plan_terms(m, dims, bm, c, n_at_once)
             rows.append([rounds, rounds * fmas, rounds * weight_bytes])
             terms.append(times[f"{m}:{bm}x{c}"] * 1e-3)
-        bm, c = card_plan(m, dims)
+        bm, c = card_plan(m, dims, "cuda")
         best = min((t, k) for k, t in times.items() if k.startswith(f"{m}:"))
         chosen[m] = {"plan": f"{bm}x{c}", "ms": times[f"{m}:{bm}x{c}"], "best": best[1], "best_ms": best[0]}
     fit = np.linalg.lstsq(np.array(rows, dtype=float), np.array(terms), rcond=None)[0]
@@ -461,7 +470,7 @@ def profile_run(run) -> dict:
     busy_us += cur_end - cur_start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
-            "attention_kernel_ms": sum(v for k, v in by_name.items() if "flash_" in k),
+            "attention_kernel_ms": sum(v for k, v in by_name.items() if "flash_" in k or "split_sum" in k),
             "mlp_kernel_ms": sum(v for k, v in by_name.items() if "fused_mlp" in k),
             "device_ms_by_name": [[k[:70], round(v, 4)] for k, v in top]}
 
@@ -577,6 +586,14 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
         del q, k, v, out, lse, want_out, want_lse, mask
         torch.cuda.empty_cache()
 
+    q, k, v = (torch.randn((2, 1000, PADDED_HEAD_DIM), generator=gen, device=dev) for _ in range(3))
+    scale = PADDED_HEAD_DIM ** -0.5
+    parts["flash_fwd"].append(padded_case("flash_fwd", lambda: flash_fwd(q, k, v, scale),
+                                          lambda: flash_fwd_plain(q, k, v, scale)))
+    parts["flash_local_fwd"].append(padded_case("flash_local_fwd", lambda: flash_local_fwd(q, k, v, scale, 100),
+                                                lambda: flash_local_fwd_plain(q, k, v, scale, 100)))
+    del q, k, v
+
     # a full-rate match: the plain version's score matrix would be 73 GB, so check
     # row slices: a banded row needs only the keys within ±W, so the plain version
     # on keys [a − W, b + W) with the offset gives rows [a, b) exactly
@@ -608,6 +625,58 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
 def attention_bwd_bound(h: int, t: int, d: int, window: int | None) -> tuple[float, str]:
     # 10·d FLOP per valid pair (s, dp, dv, dk, dq); q, k, v, out, dout read and dq, dk, dv written once, lse read
     return bound_ms(4.0 * (8 * h * t * d + h * t), 10.0 * d * h * band_pairs(t, window))
+
+
+def attention_bwd_tc_bound(h: int, t: int, d: int) -> tuple[float, str]:
+    """The full backward's bound on the tensor cores, where kernel 6 computes: each of its 10·d FLOP per
+    pair as three TF32 products (3xTF32) at the dense TF32 rate, or its bytes, whichever takes longer."""
+    t_bytes = 4.0 * (8 * h * t * d + h * t) / PEAK_BYTES_PER_S
+    t_ops = 30.0 * d * h * t * t / PEAK_TF32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(name: str) -> dict:
+    """{kernel: {"registers", "spill_bytes"}} of csrc/<name>.cu from the ``-Xptxas -v`` report of its build;
+    kernel 6's kernels under readable names."""
+    report, fn = {}, None
+    for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+            if k6 := re.search(r"flash_bwd_tc_kernelILi(\d+)ELb([01])E", fn):
+                fn = f"flash_bwd_tc_kernel<{k6.group(1)}, {'dK/dV' if k6.group(2) == '1' else 'dQ'}>"
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and fn:
+            report.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            report.setdefault(fn, {})["registers"] = int(m.group(1))
+            fn = None
+    return report
+
+
+def kernel6_parts(run) -> dict:
+    """Device ms of kernel 6's parts in one traced call: the dK/dV and dQ kernels and the split sums."""
+    parts = {"dkv_ms": 0.0, "dq_ms": 0.0, "reduction_ms": 0.0}
+    for name, ms in profile_run(run).get("device_ms_by_name", []):
+        if "flash_bwd_tc_kernel" in name:
+            parts["dkv_ms" if "true" in name else "dq_ms"] += ms
+        elif "split_sum_kernel" in name:
+            parts["reduction_ms"] += ms
+    require(parts["dkv_ms"] > 0 and parts["dq_ms"] > 0, f"kernel 6's parts not in the trace: {parts}")
+    return parts
+
+
+def padded_case(name: str, run, plain) -> dict:
+    """One call at a head width the kernels take zero-padded, against the plain version, at the
+    tolerances of the unpadded cases (forwards: out 3e-5, lse 1e-5; backwards: grads_err)."""
+    got, want = run(), plain()
+    if name.endswith("bwd"):
+        err, ratio = grads_err(got, want)
+    else:
+        e_out, e_lse = max_err(got[0], want[0]), max_err(got[1], want[1])
+        err, ratio = max(e_out, e_lse), max(e_out / 3e-5, e_lse / 1e-5)
+    if ratio > 1.0:
+        raise AssertionError(f"{name} at head dim {PADDED_HEAD_DIM}: max |err| {err} beyond its tolerance")
+    return {"shape": list(want[0].shape), "padded_to": padded_head_dim(name, PADDED_HEAD_DIM), "main_path": False,
+            "max_abs_err": err, "checked": "a head width the kernels take zero-padded, against the plain version"}
 
 
 def grads_err(got, want) -> tuple[float, float]:
@@ -662,13 +731,32 @@ def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
 
         lib_err, _ = grads_err(library(), plain())
         b, kind = attention_bwd_bound(h, t, d, window)
-        parts[name].append({
+        part = {
             "shape": [h, t, d], "window": window, "main_path": main_path, "ms": time_ms(run),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library), "library_max_abs_err": lib_err,
             "bound_ms": b, "bound_by": kind, "max_abs_err": err, "err_over_tolerance": ratio,
-        })
+        }
+        if window is None:   # kernel 6: its plan, its parts in the trace, held to the tensor cores' bound
+            tc_b, tc_kind = attention_bwd_tc_bound(h, t, d)
+            part.update(plan=card_bwd_plan(h, t, t, d, dev)._asdict(), parts_ms=kernel6_parts(run),
+                        bound_ms=tc_b, bound_by=tc_kind, f32_core_bound_ms=b)
+            print(f"flash_bwd (kernel 6) at {[h, t, d]}: {part['ms']:.4f} ms (library {part['library_ms']:.4f}); "
+                  f"plan {json.dumps(part['plan'])}; traced parts {json.dumps(part['parts_ms'])}; bound "
+                  f"{tc_b:.4f} ms tensor cores in 3xTF32 ({tc_kind}), {b:.4f} ms float32 cores", flush=True)
+        parts[name].append(part)
         del q, k, v, do, out, lse, mask, lq, lk, lv, lib_out
         torch.cuda.empty_cache()
+
+    q, k, v, do = (torch.randn((2, 1000, PADDED_HEAD_DIM), generator=gen, device=dev) for _ in range(4))
+    scale = PADDED_HEAD_DIM ** -0.5
+    out, lse = flash_fwd_plain(q, k, v, scale)
+    parts["flash_bwd"].append(padded_case("flash_bwd", lambda: flash_bwd(q, k, v, out, lse, do, scale),
+                                          lambda: flash_bwd_plain(q, k, v, out, lse, do, scale)))
+    out, lse = flash_local_fwd_plain(q, k, v, scale, 100)
+    parts["flash_local_bwd"].append(padded_case(
+        "flash_local_bwd", lambda: flash_local_bwd(q, k, v, out, lse, do, scale, 100),
+        lambda: flash_local_bwd_plain(q, k, v, out, lse, do, scale, 100)))
+    del q, k, v, do, out, lse
 
     # a full-rate match: dq of rows [a, b) needs only keys [a − W, b + W), and dk, dv of keys [a, b)
     # only queries [a − W, b + W), so the plain version on those slices, with the offset, gives them exactly
@@ -1009,6 +1097,12 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
+
+    k6 = {fn: r for fn, r in ptxas_report("flash_attention").items() if fn.startswith("flash_bwd_tc_kernel")}
+    dev = torch.device("cuda")
+    print(f"kernel 6 (flash_bwd) registers and spill bytes: {json.dumps(k6)}; blocks per SM (dK/dV, dQ) "
+          f"{json.dumps({d: bwd_blocks_per_sm(d, dev) for d in HEAD_DIMS})}, resident slots "
+          f"{json.dumps({d: bwd_slots(d, dev) for d in HEAD_DIMS})}", flush=True)
 
     cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
     params_np, state_np = weights.init_params(cfg, args.seed)

@@ -41,6 +41,8 @@
 
 #include <math.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;  // a 16 x 16 grid: tx picks keys and columns, ty rows
@@ -272,9 +274,10 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 //
 // Replaces two more kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_bwd (bodies _dkv_kernel and _dq_kernel): the full form, keys
-//     valid below t_valid;
+//     valid below t_valid, on the tensor cores (the section after this one);
 //   * _flash_local_bwd (bodies _local_dkv_kernel and _local_dq_kernel): the
-//     band |i + q_offset - j| <= W with keys valid in [lo, hi).
+//     band |i + q_offset - j| <= W with keys valid in [lo, hi), on the FP32
+//     cores with the templates of this section.
 // The TPU grid carries dk/dv (or dq) scratch across sequential grid steps;
 // Hopper blocks run in no order, so each call is two kernels, no atomics, and
 // its results repeat exactly:
@@ -293,7 +296,8 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 // What bounds it on an H100: operations.  The useful work is 10d FLOP per
 // valid (query, key) pair (s, dp, dv, dk, dq at 2d each); the two-kernel split
 // does 14d, since both kernels recompute s and dp.  Float32 on the FP32 cores,
-// as the forwards: TF32 would break the 1e-4 gradient contract.  Tiles are
+// as the forwards (one TF32 product would break the 1e-4 gradient contract;
+// the full form's 3xTF32 design follows this section).  Tiles are
 // B x B with B = 16R: 256 threads as a 16 x 16 grid, a thread owning R x R
 // entries of the score tile and R rows (or keys) x d/16 columns of the
 // accumulators.  At d = 128, R = 2 takes 75 KB of shared memory (three blocks
@@ -503,18 +507,6 @@ __device__ __forceinline__ void dq_rows(const BwdArgs& a, int k_begin, int k_end
 }
 
 template <int D, int R>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a, int kv_end) {
-  // a key tile wholly past t_valid visits no query and writes zeros
-  const bool any_valid = static_cast<int>(blockIdx.x) * BwdGeom<D, R>::B < kv_end;
-  dkv_keys<D, R>(a, 0, any_valid ? a.Tq : 0, 0, kv_end, AllKeys{});
-}
-
-template <int D, int R>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a, int kv_end) {
-  dq_rows<D, R>(a, 0, kv_end, AllKeys{});
-}
-
-template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
     flash_local_dkv_kernel(BwdArgs a, int window, int lo, int hi, int q_offset) {
   // the tile's valid keys [kb, ke], then the rows whose band reaches one of them
@@ -556,18 +548,6 @@ int tiles_of(int T) {
 }
 
 template <int D>
-int full_bwd_for(const BwdArgs& a, int H, int kv_end, cudaStream_t s) {
-  using W = BwdGeom<D, 4>;
-  using N = BwdGeom<D, 2>;
-  const int err = wide_tiles(H, a.Tk)
-                      ? launch_bwd(flash_dkv_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tk), H, s, a, kv_end)
-                      : launch_bwd(flash_dkv_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tk), H, s, a, kv_end);
-  if (err) return err;
-  return wide_tiles(H, a.Tq) ? launch_bwd(flash_dq_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tq), H, s, a, kv_end)
-                             : launch_bwd(flash_dq_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tq), H, s, a, kv_end);
-}
-
-template <int D>
 int local_bwd_for(const BwdArgs& a, int H, int window, int lo, int hi, int q_offset, cudaStream_t s) {
   using W = BwdGeom<D, 4>;
   using N = BwdGeom<D, 2>;
@@ -591,6 +571,427 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, 
                  static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
                  static_cast<float*>(dq),         static_cast<float*>(dk),        static_cast<float*>(dv),
                  Tq,                              Tk,                             scale};
+}
+
+
+// ---------------------------------------------------------------------------
+// Kernel 6, the full backward, on the tensor cores in 3xTF32.
+//
+// Same function as the FP32-core templates above with the full mask (keys
+// valid below kv_end), same contract: float32 in and out, masked keys get
+// dk = dv = 0 exactly, dead rows dq = 0 exactly, no atomics, equal bits on a
+// repeat.
+//
+// What bounds it on an H100: operations.  The two-kernel split does 14d FLOP
+// per (query, key) pair (S and dP in both kernels, then dV, dK; dQ).  One TF32
+// product keeps 10 bits of mantissa and breaks the 1e-4 gradient contract, so
+// every product is 3xTF32: each float32 operand x splits into big = tf32(x)
+// and small = tf32(x - big) (cvt.rna), and big*big' + big*small' + small*big'
+// accumulate in float32 (the dropped small*small' is 2^-22 relative).  Three
+// products at the 495 TFLOP/s TF32 rate are still 2.5x the 67 TFLOP/s of the
+// FP32 cores: 14d*3 per pair bounds (1, 5400, 128) at 0.32 ms.  All five
+// products go through mma.sync m16n8k8 (row.col, f32 += tf32 * tf32), whose
+// operands sit in registers, where the split happens.
+//
+// Design (both kernels are one template, `Dkv` picks the side):
+//   * a block of 4 warps owns a stationary tile of 64 rows, 16 per warp: keys
+//     (K and V) for dK/dV, query rows (Q and dO) for dQ.  It streams the other
+//     side in chunks of BS rows (16 at d = 128, 32 below) through a two-stage
+//     cp.async ring of 16-byte copies (zero-filled past the end; a copy's
+//     address is a shift and an add);
+//   * per chunk each warp computes its 16 x BS tiles of S (or S^T) and dP by
+//     MMA over d, applies the mask, exp and P * (dP - di) in registers in the
+//     MMA accumulator layout, and feeds P and dS as the A operand of the next
+//     products straight from those registers: the accumulator holds columns
+//     (2t, 2t+1) where the A operand wants (t, t+4), so the k index of those
+//     products is permuted and the B operand (dO, Q or K from shared memory)
+//     is read in the same permuted row order;
+//   * in the products over d the k order within each 8 columns is permuted
+//     the same way for both operands, so a thread's two values of a fragment
+//     row are adjacent and come in one 8-byte load;
+//   * stationary rows are D + 8 floats in shared memory and streamed rows
+//     D + 4, so those pair loads of the stationary tile and the (row 2t,
+//     col g) loads of the streamed one hit distinct banks (the streamed pair
+//     loads take two passes);
+//   * at d = 128 a dK/dV warp holds 2 x 16 x 128 accumulators (128 registers
+//     a thread); a chunk of 16 queries keeps S and dP at 16 more.  Shared
+//     memory is 101 KB, two blocks per SM;
+//   * a small grid (one head of T = 5400 is 85 tiles for an H100's 264
+//     resident blocks) is filled by splitting each block's walk over the
+//     chunks into s parts (the wrapper's plan from the card's occupancy,
+//     ops/cuda/flash_attention.py::card_bwd_plan); split
+//     i writes float32 partials to scratch the wrapper allocates, and a last
+//     kernel adds them in split order.  With s = 1 the tile kernels write the
+//     outputs directly.
+
+constexpr int kTcThreads = 128;  // 4 warps
+constexpr int kTcTile = 64;      // stationary rows per block, 16 per warp
+// The MMA's float32 accumulation rounds toward zero, so a long chain of MMAs
+// into one accumulator drifts toward zero (on an H100, with |q|, |k| ~ 10 and
+// d = 64, every gradient came out about 1.2e-4 smaller in magnitude: the
+// scores had lost about 16 ulp, beyond the gradient tolerance).  So S and
+// dP are summed over kSumGroup k-steps at a time in a fresh accumulator, and
+// each chunk's share of dK, dV and dQ likewise, then added in float32, which
+// rounds to nearest.
+constexpr int kSumGroup = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct TcGeom {
+  static constexpr int BS = D == 128 ? 16 : 32;  // streamed rows per chunk
+  static constexpr int kLdX = D + 8;             // a stationary row in shared memory
+  static constexpr int kLd = D + 4;              // a streamed row
+  static constexpr int NT = BS / 8;              // 8-wide MMA tiles across a chunk
+  static constexpr int ND = D / 8;               // 8-wide MMA tiles across d
+  // stationary X1, X2; the ring of streamed Y1, Y2; lse and di of streamed queries
+  static constexpr size_t kBytes = sizeof(float) * (2 * kTcTile * kLdX + 4 * BS * kLd + 4 * BS);
+  static_assert(kTcTile * D / 4 % kTcThreads == 0 && BS * D / 4 % kTcThreads == 0, "whole copy rounds");
+};
+
+struct TcArgs {
+  const float *q, *k, *v, *dout, *lse, *di;  // (H, Tq, D), (H, Tk, D) x 2, (H, Tq, D), (H, Tq) x 2
+  float *dq, *dk, *dv;                       // (H, Tq, D), (H, Tk, D) x 2
+  float *part_kv, *part_q;                   // (s_dkv, 2, H, Tk, D), (s_dq, H, Tq, D), or null when s = 1
+  int H, Tq, Tk, kv_end, s_dkv, s_dq;
+  float scale;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of one head's (T, D) matrix into dst (pitch LD),
+// zeros from row lim on.
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void copy_rows(float* dst, const float* __restrict__ src, int r0, int lim) {
+  constexpr int kPer = D / 4;  // 16-byte copies per row
+#pragma unroll
+  for (int i = 0; i < ROWS * kPer / kTcThreads; ++i) {
+    const int c = threadIdx.x + i * kTcThreads;
+    const int r = c / kPer, c4 = c % kPer;
+    const bool in = r0 + r < lim;
+    cp_async16(dst + r * LD + 4 * c4, src + static_cast<size_t>(in ? r0 + r : 0) * D + 4 * c4, in);
+  }
+}
+
+// x = big + small: big = tf32(x) (cvt.rna: round to nearest, ties away) and
+// small = x - big, exact in float32; the MMA reads small's top 19 bits, so
+// big + small keeps x to about 2^-21 of |x|.  (Rounding small with a second
+// cvt cost 12 % of the kernel's time on an H100 and gained nothing the
+// tolerance can see.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in 3xTF32: the small cross terms first, then big * big.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+
+// The A fragment (16 x 8, row-major) of a product over d at p = &M[g][2t]
+// with row pitch ld: rows g and g + 8, k index t <- column 2t and t + 4 <-
+// 2t + 1 (both operands of a product over d take this order, so one 8-byte
+// load fetches a row's pair).
+__device__ __forceinline__ void frag_a(const float* p, int ld, uint32_t (&big)[4], uint32_t (&small)[4]) {
+  const float2 lo = *reinterpret_cast<const float2*>(p);
+  const float2 hi = *reinterpret_cast<const float2*>(p + 8 * ld);
+  split_tf32(lo.x, big[0], small[0]);
+  split_tf32(hi.x, big[1], small[1]);
+  split_tf32(lo.y, big[2], small[2]);
+  split_tf32(hi.y, big[3], small[3]);
+}
+
+// The B fragment (8 x 8, k x n) from two values: k index t and t + 4 of column g.
+__device__ __forceinline__ void frag_b(float lo, float hi, uint32_t (&big)[2], uint32_t (&small)[2]) {
+  split_tf32(lo, big[0], small[0]);
+  split_tf32(hi, big[1], small[1]);
+}
+
+// An accumulator tile (rows g, g + 8; columns 2t, 2t + 1) as the A operand of
+// a product over its columns, k index t <- column 2t and t + 4 <- 2t + 1.
+__device__ __forceinline__ void frag_a_from_acc(const float (&c)[4], uint32_t (&big)[4], uint32_t (&small)[4]) {
+  split_tf32(c[0], big[0], small[0]);
+  split_tf32(c[2], big[1], small[1]);
+  split_tf32(c[1], big[2], small[2]);
+  split_tf32(c[3], big[3], small[3]);
+}
+
+// acc += sum over j of A_j * Y[8j .. 8j + 8 in the permuted order][8n .. 8n + 8],
+// Y in shared memory with pitch D + 4 and p = &Y[2t][g + 8n]: the chunk's
+// products in a fresh accumulator, then one float32 add (see kSumGroup).
+template <int D>
+__device__ __forceinline__ void add_chunk_product(float (&acc)[4], const uint32_t (&ab)[TcGeom<D>::NT][4],
+                                                  const uint32_t (&as)[TcGeom<D>::NT][4], const float* p) {
+  constexpr int kLd = D + 4;
+  float part[4] = {};
+#pragma unroll
+  for (int j = 0; j < TcGeom<D>::NT; ++j) {
+    uint32_t bb[2], bs[2];
+    frag_b(p[8 * j * kLd], p[(8 * j + 1) * kLd], bb, bs);
+    mma3(part, ab[j], as[j], bb, bs);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// One block of kernel 6: blockIdx = (stationary tile, head, split).
+template <int D, bool Dkv>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_tc_kernel(TcArgs a) {
+  using G = TcGeom<D>;
+  constexpr int BS = G::BS, kLd = G::kLd;
+  extern __shared__ float4 smem4[];
+  float* sx1 = reinterpret_cast<float*>(smem4);
+  float* sx2 = sx1 + kTcTile * G::kLdX;
+  float* sy1 = sx2 + kTcTile * G::kLdX;  // [2][BS][kLd]
+  float* sy2 = sy1 + 2 * BS * kLd;
+  float* sl = sy2 + 2 * BS * kLd;    // [2][BS]
+  float* sd = sl + 2 * BS;
+
+  const int h = blockIdx.y, split = blockIdx.z, n_split = Dkv ? a.s_dkv : a.s_dq;
+  const int r0 = blockIdx.x * kTcTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const size_t qoff = static_cast<size_t>(h) * a.Tq, koff = static_cast<size_t>(h) * a.Tk;
+  // stationary X1, X2 and streamed Y1, Y2: K, V and Q, dO for dK/dV; Q, dO and K, V for dQ
+  const float* x1 = Dkv ? a.k + koff * D : a.q + qoff * D;
+  const float* x2 = Dkv ? a.v + koff * D : a.dout + qoff * D;
+  const float* y1 = Dkv ? a.q + qoff * D : a.k + koff * D;
+  const float* y2 = Dkv ? a.dout + qoff * D : a.v + koff * D;
+  const float* lse = a.lse + qoff;
+  const float* di = a.di + qoff;
+  const int x_lim = Dkv ? a.Tk : a.Tq;
+  const int y_lim = Dkv ? a.Tq : a.kv_end;  // streamed rows that exist (queries) or are valid (keys)
+
+  // this split's chunks; a key tile wholly past kv_end sees no query and writes zeros
+  const int chunks = (Dkv && r0 >= a.kv_end) ? 0 : (y_lim + BS - 1) / BS;
+  const int c_begin = static_cast<int>(static_cast<long long>(split) * chunks / n_split);
+  const int c_end = static_cast<int>(static_cast<long long>(split + 1) * chunks / n_split);
+
+  auto load_chunk = [&](int stage, int c) {
+    const int y0 = c * BS;
+    copy_rows<D, BS, kLd>(sy1 + stage * BS * kLd, y1, y0, y_lim);
+    copy_rows<D, BS, kLd>(sy2 + stage * BS * kLd, y2, y0, y_lim);
+    if (Dkv && threadIdx.x < BS) {
+      const bool in = y0 + threadIdx.x < a.Tq;
+      const int row = in ? y0 + threadIdx.x : 0;
+      cp_async4(sl + stage * BS + threadIdx.x, lse + row, in);
+      cp_async4(sd + stage * BS + threadIdx.x, di + row, in);
+    }
+  };
+  if (c_begin < c_end) {
+    copy_rows<D, kTcTile, G::kLdX>(sx1, x1, r0, x_lim);
+    copy_rows<D, kTcTile, G::kLdX>(sx2, x2, r0, x_lim);
+    load_chunk(0, c_begin);
+  }
+  cp_async_commit();
+
+  // the thread's two stationary rows (g and g + 8 of the warp's 16); for dQ their lse and di
+  const int row_a = r0 + warp * 16 + g, row_b = row_a + 8;
+  float l_row[2] = {0.f, 0.f}, d_row[2] = {0.f, 0.f};
+  if constexpr (!Dkv) {
+    if (row_a < a.Tq) l_row[0] = __ldg(lse + row_a) * kLog2e, d_row[0] = __ldg(di + row_a);
+    if (row_b < a.Tq) l_row[1] = __ldg(lse + row_b) * kLog2e, d_row[1] = __ldg(di + row_b);
+  }
+
+  const float scale_log2e = a.scale * kLog2e;      // P = 2^(S * scale * log2 e - lse * log2 e)
+  float acc1[G::ND][4] = {}, acc2[G::ND][4] = {};  // dK and dV, or dQ (acc2 unused)
+  const float* xa = sx1 + (warp * 16 + g) * G::kLdX + 2 * t;
+  const float* xb = sx2 + (warp * 16 + g) * G::kLdX + 2 * t;
+  for (int c = c_begin; c < c_end; ++c) {
+    const int stage = (c - c_begin) & 1;
+    if (c + 1 < c_end) {
+      load_chunk(stage ^ 1, c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ys1 = sy1 + stage * BS * kLd;
+    const float* ys2 = sy2 + stage * BS * kLd;
+    const int y0 = c * BS;
+
+    // S (or S^T) = X1 Y1^T and dP (or dP^T) = X2 Y2^T over d, kSumGroup k-steps per fresh accumulator
+    float s[G::NT][4] = {}, dp[G::NT][4] = {};
+#pragma unroll 1
+    for (int k0 = 0; k0 < D / 8; k0 += kSumGroup) {
+      float ps[G::NT][4] = {}, pdp[G::NT][4] = {};
+#pragma unroll
+      for (int kk = k0; kk < k0 + kSumGroup; ++kk) {
+        uint32_t a1b[4], a1s[4], a2b[4], a2s[4];
+        frag_a(xa + 8 * kk, G::kLdX, a1b, a1s);
+        frag_a(xb + 8 * kk, G::kLdX, a2b, a2s);
+#pragma unroll
+        for (int n = 0; n < G::NT; ++n) {
+          const float2 y1v = *reinterpret_cast<const float2*>(ys1 + (8 * n + g) * kLd + 8 * kk + 2 * t);
+          const float2 y2v = *reinterpret_cast<const float2*>(ys2 + (8 * n + g) * kLd + 8 * kk + 2 * t);
+          uint32_t bb[2], bs[2];
+          frag_b(y1v.x, y1v.y, bb, bs);
+          mma3(ps[n], a1b, a1s, bb, bs);
+          frag_b(y2v.x, y2v.y, bb, bs);
+          mma3(pdp[n], a2b, a2s, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < G::NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] += ps[n][e];
+          dp[n][e] += pdp[n][e];
+        }
+    }
+
+    // P = exp(S * scale - lse) and dS = P * (dP - di), exactly 0 where masked
+#pragma unroll
+    for (int n = 0; n < G::NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * t + (e & 1);  // streamed row within the chunk
+        const int stat = e < 2 ? row_a : row_b;   // stationary row
+        float l, dd;
+        bool valid;
+        if constexpr (Dkv) {  // stationary keys, streamed queries
+          l = sl[stage * BS + col] * kLog2e;
+          dd = sd[stage * BS + col];
+          valid = stat < a.kv_end && y0 + col < a.Tq;
+        } else {    // stationary queries, streamed keys
+          l = l_row[e >> 1];
+          dd = d_row[e >> 1];
+          valid = y0 + col < a.kv_end && stat < a.Tq;
+        }
+        const float p = valid ? exp2f(fmaf(s[n][e], scale_log2e, -l)) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dd);
+      }
+    }
+
+    // dK += dS^T Q and dV += P^T dO (dK/dV), or dQ += dS K (dQ), 8 columns at a time
+    uint32_t gb[G::NT][4], gs[G::NT][4], pb[G::NT][4], pbs[G::NT][4];
+#pragma unroll
+    for (int j = 0; j < G::NT; ++j) {
+      frag_a_from_acc(dp[j], gb[j], gs[j]);
+      if constexpr (Dkv) frag_a_from_acc(s[j], pb[j], pbs[j]);
+    }
+    const int off = 2 * t * kLd + g;
+#pragma unroll
+    for (int n = 0; n < G::ND; ++n) {
+      add_chunk_product<D>(acc1[n], gb, gs, ys1 + off + 8 * n);
+      if constexpr (Dkv) add_chunk_product<D>(acc2[n], pb, pbs, ys2 + off + 8 * n);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // rows g and g + 8, columns (2t, 2t + 1) of each 8-wide tile; split i > 1 way writes its partials
+  float *out1, *out2 = nullptr;
+  if constexpr (Dkv) {
+    const size_t n = static_cast<size_t>(a.H) * a.Tk * D;
+    out1 = a.s_dkv > 1 ? a.part_kv + 2 * split * n : a.dk;
+    out2 = a.s_dkv > 1 ? a.part_kv + (2 * split + 1) * n : a.dv;
+    out1 += koff * D;
+    out2 += koff * D;
+  } else {
+    out1 = (a.s_dq > 1 ? a.part_q + split * static_cast<size_t>(a.H) * a.Tq * D : a.dq) + qoff * D;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_b : row_a;
+    if (row >= x_lim) continue;
+#pragma unroll
+    for (int n = 0; n < G::ND; ++n) {
+      const size_t at = static_cast<size_t>(row) * D + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(out1 + at) =
+          make_float2(acc1[n][2 * half] * a.scale, acc1[n][2 * half + 1] * a.scale);
+      if constexpr (Dkv) *reinterpret_cast<float2*>(out2 + at) = make_float2(acc2[n][2 * half], acc2[n][2 * half + 1]);
+    }
+  }
+}
+
+// out[i] = part[i] + part[stride + i] + ... over s splits, in split order.
+struct SplitSum {
+  const float4* part;
+  float4* out;
+  size_t n4, stride4;
+};
+
+__global__ void __launch_bounds__(256) split_sum_kernel(SplitSum j0, SplitSum j1, SplitSum j2, int s) {
+  const SplitSum j = blockIdx.y == 0 ? j0 : (blockIdx.y == 1 ? j1 : j2);
+  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  if (i >= j.n4) return;
+  float4 acc = j.part[i];
+  for (int k = 1; k < s; ++k) {
+    const float4 p = j.part[k * j.stride4 + i];
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
+  j.out[i] = acc;
+}
+
+int split_sum(SplitSum j0, SplitSum j1, SplitSum j2, int jobs, int s, cudaStream_t st) {
+  if (jobs == 0 || j0.n4 == 0) return 0;
+  const int blocks = static_cast<int>((j0.n4 + 255) / 256);
+  split_sum_kernel<<<dim3(blocks, jobs), 256, 0, st>>>(j0, j1, j2, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool Dkv>
+int launch_tc(const TcArgs& a, int tiles, int splits, cudaStream_t s) {
+  if (tiles == 0 || a.H == 0) return 0;
+  const int err = allow_dynamic_smem(flash_bwd_tc_kernel<D, Dkv>, TcGeom<D>::kBytes);
+  if (err) return err;
+  flash_bwd_tc_kernel<D, Dkv><<<dim3(tiles, a.H, splits), kTcThreads, TcGeom<D>::kBytes, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dK/dV, then dQ, then (if either was split) the sums of the partials.
+template <int D>
+int full_bwd_tc(const TcArgs& a, cudaStream_t s) {
+  int err = launch_tc<D, true>(a, (a.Tk + kTcTile - 1) / kTcTile, a.s_dkv, s);
+  if (err) return err;
+  err = launch_tc<D, false>(a, (a.Tq + kTcTile - 1) / kTcTile, a.s_dq, s);
+  if (err) return err;
+  const size_t nk4 = static_cast<size_t>(a.H) * a.Tk * D / 4, nq4 = static_cast<size_t>(a.H) * a.Tq * D / 4;
+  const SplitSum dk{reinterpret_cast<const float4*>(a.part_kv), reinterpret_cast<float4*>(a.dk), nk4, 2 * nk4};
+  const SplitSum dv{reinterpret_cast<const float4*>(a.part_kv) + nk4, reinterpret_cast<float4*>(a.dv), nk4, 2 * nk4};
+  const SplitSum dq{reinterpret_cast<const float4*>(a.part_q), reinterpret_cast<float4*>(a.dq), nq4, nq4};
+  if (a.s_dkv > 1) {
+    err = split_sum(dk, dv, dv, 2, a.s_dkv, s);
+    if (err) return err;
+  }
+  return a.s_dq > 1 ? split_sum(dq, dq, dq, 1, a.s_dq, s) : 0;
+}
+
+template <int D>
+int tc_blocks_per_sm(int which, int* out) {
+  auto kernel = which == 0 ? flash_bwd_tc_kernel<D, true> : flash_bwd_tc_kernel<D, false>;
+  const int err = allow_dynamic_smem(kernel, TcGeom<D>::kBytes);
+  if (err) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kTcThreads, TcGeom<D>::kBytes));
 }
 
 }  // namespace
@@ -634,19 +1035,40 @@ extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void
   }
 }
 
-// The full backward: dq (H, Tq, D), dk and dv (H, Tk, D) from q, k, v, the
-// cotangent dout of out, the forward's lse (H, Tq) and di (H, Tq); keys at
-// j >= t_valid are masked.  Two launches, each checked.
+// The full backward (kernel 6): dq (H, Tq, D), dk and dv (H, Tk, D) from q,
+// k, v, the cotangent dout of out, the forward's lse (H, Tq) and di (H, Tq);
+// keys at j >= t_valid are masked.  s_dkv and s_dq split the dK/dV and dQ
+// walks (the wrapper's plan); when one is above 1, part_kv (s_dkv, 2, H, Tk, D)
+// or part_q (s_dq, H, Tq, D) holds the float32 partials.  Up to three
+// launches, each checked.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                          const void* di, void* dq, void* dk, void* dv, int H, int Tq, int Tk, int D, float scale,
-                         int t_valid, void* stream) {
+                         int t_valid, int s_dkv, int s_dq, void* part_kv, void* part_q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, scale);
+  if (s_dkv < 1 || s_dq < 1 || (s_dkv > 1 && !part_kv) || (s_dq > 1 && !part_q))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int kv_end = t_valid < 0 ? 0 : (t_valid < Tk ? t_valid : Tk);
+  const TcArgs a{static_cast<const float*>(q),    static_cast<const float*>(k),   static_cast<const float*>(v),
+                 static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
+                 static_cast<float*>(dq),         static_cast<float*>(dk),        static_cast<float*>(dv),
+                 static_cast<float*>(part_kv),    static_cast<float*>(part_q),    H,
+                 Tq,                              Tk,                             kv_end,
+                 s_dkv,                           s_dq,                           scale};
   switch (D) {
-    case 32: return full_bwd_for<32>(a, H, kv_end, s);
-    case 64: return full_bwd_for<64>(a, H, kv_end, s);
-    case 128: return full_bwd_for<128>(a, H, kv_end, s);
+    case 32: return full_bwd_tc<32>(a, s);
+    case 64: return full_bwd_tc<64>(a, s);
+    case 128: return full_bwd_tc<128>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of kernel 6's dK/dV (which = 0) or dQ (which = 1) kernel an SM of
+// the current card keeps resident, into *out.
+extern "C" int flash_bwd_blocks_per_sm(int D, int which, int* out) {
+  switch (D) {
+    case 32: return tc_blocks_per_sm<32>(which, out);
+    case 64: return tc_blocks_per_sm<64>(which, out);
+    case 128: return tc_blocks_per_sm<128>(which, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,6 +8,7 @@ silently continued on the CPU would report CPU numbers under a GPU's name.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -24,6 +25,11 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return torch.device(device)
 
 
+_strict_lock = threading.Lock()
+_strict_depth = 0          # scopes of strict_f32 open in any thread
+_strict_saved = (False, False)
+
+
 @contextlib.contextmanager
 def strict_f32():
     """Full-float32 matmuls and convolutions on the card (TF32 off), restored on exit.
@@ -31,12 +37,21 @@ def strict_f32():
     cuDNN runs float32 convolutions in TF32 by default, which keeps about three
     decimal digits; the port holds its float32 results to the JAX package at
     1e-4, so every library convolution and product of the port runs inside
-    this scope.
+    this scope.  The flags are global, so the scope counts its holders across
+    threads: the first in saves them and turns TF32 off, the last out restores
+    them, and while any thread is inside both stay off.
     """
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    global _strict_depth, _strict_saved
+    with _strict_lock:
+        if _strict_depth == 0:
+            _strict_saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _strict_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _strict_lock:
+            _strict_depth -= 1
+            if _strict_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = _strict_saved

@@ -140,3 +140,15 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t: torch.Tensor) -> torch.cuda.device:
+    """The scope that makes ``t``'s card current: a ctypes launch runs on the current device, and
+    :func:`stream_of` gives the stream of ``t``'s, so every launch enters this first."""
+    return torch.cuda.device(t.device)
+
+
+def device_index(device: torch.device) -> int:
+    """The card's index: ``cuda`` alone names the current one."""
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index

@@ -13,9 +13,18 @@ v are (H, T, d) float32 as in the JAX package.
   full form, that of lse (``di = rowsum(dout·out) − g_lse``, torch ops before
   the launch, as XLA outside Pallas in the JAX package).
 * A CPU tensor takes each wrapper's plain version; a CUDA tensor launches the
-  kernel (``csrc/flash_attention.cu``) or raises.  The forward wrappers keep
-  no graph: called on CUDA tensors that require grad with grad mode on, they
-  raise rather than cut the gradient.
+  kernel (``csrc/flash_attention.cu``) on the tensor's card or raises.  The
+  forward wrappers keep no graph: called on CUDA tensors that require grad
+  with grad mode on, they raise rather than cut the gradient.
+* The kernels are built for head widths 32, 64 and 128; a narrower head runs
+  zero-padded to the next of them (:func:`pad_head_dim`) with the scale of
+  its true width, and its outputs are sliced back; above 128 the wrappers
+  raise.
+* :func:`flash_bwd` runs on the tensor cores in 3xTF32 (kernel 6), with the
+  plan of :func:`card_bwd_plan`: when one head's tiles leave the card's
+  resident blocks (its occupancy calculator's) unfilled, each block's walk is split and float32 partials
+  (scratch allocated here) are added in split order by the entry's last
+  kernel.
 * :func:`flash_attention` (also under the JAX name
   :func:`flash_attention_trainable`), :func:`flash_attention_with_lse`,
   :func:`flash_attention_local` and :func:`flash_attention_local_bounded`
@@ -36,7 +45,9 @@ to dk and dv.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -47,10 +58,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "flash_local_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
-    "flash_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _P],
+    "flash_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P],
     "flash_local_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "flash_bwd_blocks_per_sm": [_I, _I, _P],
 }
-HEAD_DIMS = (32, 64, 128)  # the head widths the kernels are built for
+HEAD_DIMS = (32, 64, 128)  # the head widths the kernels are built for; narrower heads are zero-padded
+# The full backward (csrc/flash_attention.cu, kernel 6): a block owns 64 rows (keys for dK/dV, queries
+# for dQ) and streams the other side through shared memory in chunks of BWD_STREAM[d] rows.
+BWD_TILE = 64
+BWD_STREAM = {32: 32, 64: 32, 128: 16}
+BWD_MAX_SPLIT = 8
 
 
 def _default_scale(q: torch.Tensor, scale: float | None) -> float:
@@ -150,48 +167,160 @@ def _check_device(what: str, q) -> bool:
     return False
 
 
+def padded_head_dim(what: str, d: int) -> int:
+    """The built head width a head of ``d`` runs at: the next of :data:`HEAD_DIMS`; above 128 raises."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"{what}: the kernels take head dims up to {HEAD_DIMS[-1]} (built for {HEAD_DIMS}, "
+                     f"narrower ones zero-padded), got {d}")
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (..., d) with zero columns up to ``width``, contiguous.  Zero columns of q, k, v and dout add
+    nothing to any score q·k, to lse or to ``di = rowsum(dout·out)``, so the padded call's first d columns
+    of out, dq, dk and dv are the unpadded call's."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous() if t.shape[-1] < width else t
+
+
 def _check_kernel_inputs(what: str, q, k, v, **more) -> None:
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"{what}: the kernel is built for head dims {HEAD_DIMS}, got {q.shape[2]}")
     _build.require_f32(what, q.device, q=q, k=k, v=v, **more)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{what}: q, k and v must start on 16-byte boundaries")
 
 
 def _launch(entry: str, q, k, v, *args) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check what the forward kernels take, allocate out and lse, launch ``entry``."""
+    """Check what the forward kernels take, pad the head to a built width, allocate out and lse, launch
+    ``entry``; out is sliced back to the true width."""
     _build.refuse_grad(entry, q, k, v)
     _check_kernel_inputs(entry, q, k, v)
     h, tq, d = q.shape
+    width = padded_head_dim(entry, d)
+    q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
     if h * tq == 0:
-        return out, lse
+        return out[..., :d], lse
     lib = _build.load("flash_attention", _SIGNATURES)
-    code = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), h, tq, k.shape[1], d, *args,
-        _build.stream_of(q),
-    )
+    with _build.on_device(q):
+        code = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), h, tq, k.shape[1], width,
+            *args, _build.stream_of(q),
+        )
     _build.check(lib, code, entry)
-    return out, lse
+    return (out if width == d else out[..., :d].contiguous()), lse
+
+
+def split_ranges(n: int, s: int) -> list[tuple[int, int]]:
+    """The chunks ``[i·n // s, (i + 1)·n // s)`` that split i of s walks, as the kernels compute them."""
+    return [(i * n // s, (i + 1) * n // s) for i in range(s)]
+
+
+class BwdPlan(NamedTuple):
+    """How kernel 6 runs: 64-row tiles, streamed in chunks of ``stream`` rows, each walk cut in splits."""
+    tile_q: int     # query rows per dQ block
+    tile_k: int     # keys per dK/dV block
+    stream: int     # rows per streamed chunk (queries for dK/dV, keys for dQ)
+    s_dkv: int      # splits of a dK/dV block's walk over the query chunks
+    s_dq: int       # splits of a dQ block's walk over the key chunks
+
+
+def _splits(tiles: int, chunks: int, slots: int) -> int:
+    """Splits of each of ``tiles`` blocks' walk over ``chunks`` streamed chunks.
+
+    1 once the tiles alone fill the ``slots`` the card keeps resident; below that, the s of least
+    rounds/s (rounds of ``slots`` blocks, each split doing 1/s of the walk), a larger s only for a gain
+    of a tenth or more, with at least two chunks per split and at most BWD_MAX_SPLIT.
+    """
+    if tiles >= slots:
+        return 1
+    best, best_cost = 1, 1.0
+    for s in range(2, min(chunks // 2, BWD_MAX_SPLIT) + 1):
+        cost = -(-tiles * s // slots) / s
+        if cost < 0.9 * best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def full_bwd_plan(h: int, tq: int, tk: int, d: int, slots: tuple[int, int]) -> BwdPlan:
+    """Kernel 6's plan for (h, tq, d) queries over (h, tk, d) keys (``d`` a built width) on a card that
+    keeps ``slots`` = (dK/dV, dQ) blocks resident at once.
+
+    Each kernel gets h·⌈T/64⌉ blocks; when they leave its slots unfilled, each block's walk is split
+    so the grid fills whole rounds, and the splits' float32 partial sums are added in split order
+    afterwards.
+    """
+    stream = BWD_STREAM[d]
+    s_dkv = _splits(h * -(-tk // BWD_TILE), -(-tq // stream), slots[0])
+    s_dq = _splits(h * -(-tq // BWD_TILE), -(-tk // stream), slots[1])
+    return BwdPlan(BWD_TILE, BWD_TILE, stream, s_dkv, s_dq)
+
+
+def card_bwd_plan(h: int, tq: int, tk: int, d: int, device: torch.device) -> BwdPlan:
+    """:func:`full_bwd_plan` with the resident slots of the card ``device`` (the input's): the plan
+    ``flash_bwd`` launches."""
+    return full_bwd_plan(h, tq, tk, d, bwd_slots(d, device))
+
+
+def bwd_slots(d: int, device: torch.device) -> tuple[int, int]:
+    """Blocks of kernel 6's (dK/dV, dQ) kernels the card ``device`` keeps resident at once: its SMs ×
+    :func:`bwd_blocks_per_sm`."""
+    return _slots_on_card(_build.device_index(device), d)
+
+
+@functools.lru_cache(maxsize=None)
+def _slots_on_card(device: int, d: int) -> tuple[int, int]:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm_dkv, per_sm_dq = bwd_blocks_per_sm(d, device)
+    return sms * per_sm_dkv, sms * per_sm_dq
+
+
+def bwd_blocks_per_sm(d: int, device: torch.device) -> tuple[int, int]:
+    """Blocks of kernel 6's (dK/dV, dQ) kernels the card ``device`` keeps resident per SM, by the CUDA
+    occupancy calculator (``d`` a built width)."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    got = []
+    for which in (0, 1):
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(lib, lib.flash_bwd_blocks_per_sm(d, which, ctypes.byref(out)), "flash_bwd: occupancy")
+        got.append(out.value)
+    return got[0], got[1]
 
 
 def _launch_bwd(entry: str, q, k, v, out, lse, dout, g_lse, *args) -> tuple[torch.Tensor, ...]:
-    """Compute di, check what the backward kernels take, allocate dq, dk, dv, launch ``entry`` (two kernels)."""
+    """Compute di, check what the backward kernels take, pad the head to a built width, allocate dq, dk,
+    dv (and for the full form the split partials), launch ``entry``; the gradients are sliced back."""
     dout = dout.contiguous()
     di = _di(out, dout, g_lse).contiguous()
     _check_kernel_inputs(entry, q, k, v, dout=dout, lse=lse, di=di)
     if lse.shape != q.shape[:2] or di.shape != q.shape[:2] or dout.shape != q.shape:
         raise ValueError(f"{entry}: lse {tuple(lse.shape)}, dout {tuple(dout.shape)} do not match q {tuple(q.shape)}")
     h, tq, d = q.shape
+    tk = k.shape[1]
+    width = padded_head_dim(entry, d)
+    q, k, v, dout = (pad_head_dim(t, width) for t in (q, k, v, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if entry == "flash_bwd":
+        plan = card_bwd_plan(h, tq, tk, width, q.device)
+        # float32 partials of each split, added in split order by the entry's last kernel
+        part_kv = torch.empty((plan.s_dkv, 2, h, tk, width), device=q.device) if plan.s_dkv > 1 else None
+        part_q = torch.empty((plan.s_dq, h, tq, width), device=q.device) if plan.s_dq > 1 else None
+        args = (*args, plan.s_dkv, plan.s_dq, _ptr(part_kv), _ptr(part_q))
     lib = _build.load("flash_attention", _SIGNATURES)
-    code = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), h, tq, k.shape[1], d, *args, _build.stream_of(q),
-    )
+    with _build.on_device(q):
+        code = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), h, tq, tk, width, *args, _build.stream_of(q),
+        )
     _build.check(lib, code, entry)
-    return dq, dk, dv
+    if width == d:
+        return dq, dk, dv
+    return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _band_args(q, k, window: int, lo, hi, q_offset: int) -> tuple[int, int, int, int]:

@@ -145,7 +145,7 @@ def fused_fusion_mlp(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float
     dims = _dims_of(x, layers)
     if x.shape[0] == 0:
         return torch.empty((0, dims[-1]), dtype=torch.float32, device=x.device)
-    return _launch(x, layers, dims, *card_plan(x.shape[0], dims), out_lo, out_hi, squash)
+    return _launch(x, layers, dims, *card_plan(x.shape[0], dims, x.device), out_lo, out_hi, squash)
 
 
 def fused_fusion_mlp_planned(x: torch.Tensor, layers, block_rows: int, cluster: int, out_lo: float = 1.0,
@@ -167,10 +167,11 @@ def _launch(x, layers, dims, block_rows, cluster, out_lo, out_hi, squash) -> tor
     b_ptrs = (ctypes.c_void_p * n_layers)(*[lp["b"].data_ptr() for lp in layers])
     c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
     lib = _build.load("fused_mlp", _SIGNATURES)
-    code = lib.fused_mlp(
-        x.data_ptr(), y.data_ptr(), m, n_layers, ctypes.cast(w_ptrs, _P), ctypes.cast(b_ptrs, _P),
-        ctypes.cast(c_dims, _P), int(squash), out_lo, out_hi, block_rows, cluster, _build.stream_of(x),
-    )
+    with _build.on_device(x):
+        code = lib.fused_mlp(
+            x.data_ptr(), y.data_ptr(), m, n_layers, ctypes.cast(w_ptrs, _P), ctypes.cast(b_ptrs, _P),
+            ctypes.cast(c_dims, _P), int(squash), out_lo, out_hi, block_rows, cluster, _build.stream_of(x),
+        )
     _build.check(lib, code, "fused_fusion_mlp")
     fused_fusion_mlp.launches += 1
     return y
@@ -192,9 +193,10 @@ def _dims_of(x: torch.Tensor, layers) -> list[int]:
     return dims
 
 
-def card_plan(m: int, dims: Sequence[int]) -> tuple[int, int]:
-    """:func:`tile_plan` with the current card's cluster occupancy: the plan ``fused_fusion_mlp`` launches."""
-    return _plan_on_card(torch.cuda.current_device(), m, tuple(dims))
+def card_plan(m: int, dims: Sequence[int], device: torch.device) -> tuple[int, int]:
+    """:func:`tile_plan` with the cluster occupancy of the card ``device`` (the input's): the plan
+    ``fused_fusion_mlp`` launches."""
+    return _plan_on_card(_build.device_index(device), m, tuple(dims))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -202,10 +204,10 @@ def _plan_on_card(device: int, m: int, dims: tuple[int, ...]) -> tuple[int, int]
     return tile_plan(m, dims, lambda bm, c: _clusters_at_once(device, dims, bm, c))
 
 
-def max_active_clusters(dims: Sequence[int], block_rows: int, cluster: int) -> int:
-    """How many clusters of the plan (block_rows, cluster) the current card runs at once, by the CUDA
+def max_active_clusters(dims: Sequence[int], block_rows: int, cluster: int, device: torch.device) -> int:
+    """How many clusters of the plan (block_rows, cluster) the card ``device`` runs at once, by the CUDA
     occupancy calculator."""
-    return _clusters_at_once(torch.cuda.current_device(), tuple(dims), block_rows, cluster)
+    return _clusters_at_once(_build.device_index(device), tuple(dims), block_rows, cluster)
 
 
 @functools.lru_cache(maxsize=1024)

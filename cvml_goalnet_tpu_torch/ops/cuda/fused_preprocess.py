@@ -66,10 +66,11 @@ def fused_preprocess_frames(frames: torch.Tensor, taps_h: Taps, taps_w: Taps, ep
     if n == 0:
         return out
     lib = _build.load("fused_preprocess", _SIGNATURES)
-    code = lib.fused_preprocess(
-        frames.data_ptr(), int(frames.dtype == torch.uint8), out.data_ptr(), n, h, w, c, oh, ow,
-        ih.data_ptr(), wh.data_ptr(), iw.data_ptr(), ww.data_ptr(), eps, _build.stream_of(frames),
-    )
+    with _build.on_device(frames):
+        code = lib.fused_preprocess(
+            frames.data_ptr(), int(frames.dtype == torch.uint8), out.data_ptr(), n, h, w, c, oh, ow,
+            ih.data_ptr(), wh.data_ptr(), iw.data_ptr(), ww.data_ptr(), eps, _build.stream_of(frames),
+        )
     _build.check(lib, code, "fused_preprocess")
     fused_preprocess_frames.launches += 1
     return out

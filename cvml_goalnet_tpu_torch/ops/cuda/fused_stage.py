@@ -56,9 +56,11 @@ def fused_conv_pool_stage(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Ten
     if n == 0:
         return out
     lib = _build.load("fused_stage", _SIGNATURES)
-    code = lib.fused_conv_pool_stage(
-        x.data_ptr(), w.data_ptr(), b_spatial.data_ptr(), out.data_ptr(), n, h, wd, cin, cout, _build.stream_of(x)
-    )
+    with _build.on_device(x):
+        code = lib.fused_conv_pool_stage(
+            x.data_ptr(), w.data_ptr(), b_spatial.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+            _build.stream_of(x),
+        )
     _build.check(lib, code, "fused_conv_pool_stage")
     fused_conv_pool_stage.launches += 1
     return out

@@ -67,10 +67,11 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = 
     splits, k_chunk = split_plan(m, k, n)
     part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     lib = _build.load("matmul", _SIGNATURES)
-    code = lib.head_matmul(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), part.data_ptr(), y.data_ptr(),
-        m, k, n, splits, k_chunk, int(relu), _build.stream_of(x),
-    )
+    with _build.on_device(x):
+        code = lib.head_matmul(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), part.data_ptr(), y.data_ptr(),
+            m, k, n, splits, k_chunk, int(relu), _build.stream_of(x),
+        )
     _build.check(lib, code, "head_matmul")
     head_matmul.launches += 1
     return y

@@ -242,7 +242,10 @@ def test_flash_large_magnitudes_stay_finite(dev, window):
 
 def test_flash_refuses_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 8, 48), device=dev)
-    with pytest.raises(ValueError, match="head dims"):
+    out, lse = FA.flash_fwd(x, x, x, 0.1)     # d = 48 runs, zero-padded to 64
+    assert out.shape == x.shape and not out.any() and torch.allclose(lse, torch.full_like(lse, np.log(8)))
+    x = torch.zeros((1, 8, 160), device=dev)
+    with pytest.raises(ValueError, match="head dims up to 128"):
         FA.flash_fwd(x, x, x, 0.1)
     y = torch.zeros((1, 16, 32), device=dev)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -362,6 +365,102 @@ def test_flash_bwd_large_magnitudes_stay_finite(dev, window):
         got = FA.flash_bwd(q, k, v, out, lse, do, 0.125)
         want = FA.flash_bwd_plain(q, k, v, out, lse, do, 0.125)
     _bwd_check(got, want)
+
+
+# the plan splits every walk here (s > 1), and T is ragged against the 64-row tiles, the streamed chunks
+# and the splits; t_valid falls inside a split, on a chunk edge, or past every key
+@pytest.mark.parametrize("h,tq,tk,d,t_valid", [(1, 1000, 1000, 32, 300), (1, 1000, 1000, 32, None),
+                                               (1, 777, 1000, 128, 513), (2, 130, 451, 64, 448),
+                                               (1, 5400, 5400, 128, 5001), (1, 63, 63, 128, 40),
+                                               (2, 300, 300, 32, 10**6), (1, 200, 333, 64, 0)])
+def test_flash_bwd_split_boundaries(dev, h, tq, tk, d, t_valid):
+    plan = FA.card_bwd_plan(h, tq, tk, d, dev)
+    assert plan.s_dkv > 1 and plan.s_dq > 1
+    q, do = _rand((h, tq, d), 160), _rand((h, tq, d), 161)
+    k, v = _rand((h, tk, d), 162), _rand((h, tk, d), 163)
+    g_lse = _rand((h, tq), 164)
+    out, lse = FA.flash_fwd_plain(q, k, v, d ** -0.5, t_valid)
+    _poison_allocator(dev)
+    before = FA.flash_bwd.launches
+    got = FA.flash_bwd(q, k, v, out, lse, do, d ** -0.5, t_valid, g_lse)
+    assert FA.flash_bwd.launches == before + 1
+    _bwd_check(got, FA.flash_bwd_plain(q, k, v, out, lse, do, d ** -0.5, t_valid, g_lse))
+    kv_end = tk if t_valid is None else min(t_valid, tk)
+    assert not got[1][:, kv_end:].any() and not got[2][:, kv_end:].any()
+    if kv_end == 0:
+        assert not got[0].any()
+    again = FA.flash_bwd(q, k, v, out, lse, do, d ** -0.5, t_valid, g_lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_bwd_plan_takes_the_cards_slots(dev):
+    """The plan's resident slots are the card's SMs × the CUDA occupancy calculator's blocks per SM; on an
+    H100 SXM they are the slots the CPU plan tests use (tests/test_torch_attention_kernel6.py)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = {}
+    for d in FA.HEAD_DIMS:
+        per_dkv, per_dq = FA.bwd_blocks_per_sm(d, dev)
+        slots[d] = FA.bwd_slots(d, dev)
+        assert slots[d] == (sms * per_dkv, sms * per_dq)
+        assert FA.card_bwd_plan(1, 5400, 5400, d, dev) == FA.full_bwd_plan(1, 5400, 5400, d, slots[d])
+    if "H100" in torch.cuda.get_device_name(dev) and sms == 132:
+        assert slots == {32: (396, 396), 64: (264, 396), 128: (264, 264)}
+
+
+@pytest.mark.parametrize("d", [8, 16, 48, 96])
+@pytest.mark.parametrize("kind", ["fwd", "local_fwd", "bwd", "local_bwd"])
+def test_flash_head_dims_between_the_built_widths(dev, kind, d):
+    """Head widths the kernels are not built for run zero-padded to the next built width."""
+    h, t, window = 2, 300, 37
+    q, k, v, do = (_rand((h, t, d), 170 + i) for i in range(4))
+    scale = d ** -0.5
+    wrapper = getattr(FA, f"flash_{kind}")
+    before = wrapper.launches
+    if kind == "fwd":
+        _attn_check(FA.flash_fwd(q, k, v, scale, 250), FA.flash_fwd_plain(q, k, v, scale, 250))
+    elif kind == "local_fwd":
+        _attn_check(FA.flash_local_fwd(q, k, v, scale, window), FA.flash_local_fwd_plain(q, k, v, scale, window))
+    elif kind == "bwd":
+        out, lse = FA.flash_fwd_plain(q, k, v, scale, 250)
+        _poison_allocator(dev)
+        _bwd_check(FA.flash_bwd(q, k, v, out, lse, do, scale, 250),
+                   FA.flash_bwd_plain(q, k, v, out, lse, do, scale, 250))
+    else:
+        out, lse = FA.flash_local_fwd_plain(q, k, v, scale, window)
+        _poison_allocator(dev)
+        _bwd_check(FA.flash_local_bwd(q, k, v, out, lse, do, scale, window),
+                   FA.flash_local_bwd_plain(q, k, v, out, lse, do, scale, window))
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_transformer_scorer_with_narrow_heads_card_matches_cpu(dev, window):
+    """summarize_match with a transformer of 2 heads of 16 (padded to 32 on the card) against the CPU."""
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch import spotting
+
+    cfg = PipelineConfig(
+        preprocess=PreprocessConfig(frame_size=(24, 24)),
+        model=ModelConfig(vis_channels=(8, 16, 16), vis_feature_dim=32, aud_channels=(8, 16), aud_feature_dim=16,
+                          fusion_hidden=(32, 16), audio_included=False, temporal_model="transformer",
+                          temporal_hidden=32, temporal_num_heads=2, temporal_max_len=128),
+    )
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, temporal_window=window))
+    p_np, s_np = weights.init_params(cfg, seed=6)
+    t_np = weights.init_temporal_params(cfg.model, 32, seed=7)
+    visual = np.random.default_rng(8).random((90, 24, 24, 3)).astype(np.float32)
+    iv = np.array([[0, 900], [900, 1800], [1800, 2700]])
+    kernel = FA.flash_local_fwd if window else FA.flash_fwd
+    before = kernel.launches
+    got = spotting.summarize_match(*weights.from_jax(p_np, s_np), weights.tree_from_jax(t_np), visual, None, iv,
+                                   cfg, peak_window=3)
+    assert kernel.launches > before
+    want = spotting.summarize_match(*weights.from_jax(p_np, s_np, device="cpu"),
+                                    weights.tree_from_jax(t_np, device="cpu"), visual, None, iv, cfg,
+                                    peak_window=3, device="cpu")
+    np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
+    np.testing.assert_array_equal(got.events, want.events)
 
 
 @pytest.mark.parametrize("window", [0, 7])
