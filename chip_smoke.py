@@ -11,11 +11,14 @@ From the repository root, on a machine with a CUDA card:
 3. calls each kernel's wrapper at the shapes its main path gives it, holds
    the result against the kernel's plain PyTorch version on the same inputs,
    and times kernel, plain version and one library call (CUDA events, after
-   warm-up) beside the least time the card could take; the attention kernels
-   also at T = 32,768, and the banded one at T = 135,000, where it is checked
-   on row slices; the fusion MLP also at each video's M and at the 5-way
-   classifier's widths, with equal bits on a repeat, then every tile plan at
-   the path's M timed and the plan's cost model refitted to those times;
+   warm-up) beside the least time the card could take; the head (kernel 3)
+   at the batch's and the match's M and at one video's, with its plan, the
+   traced times of its two passes and its tensor-core bound; the attention
+   kernels also at T = 32,768 and with one head of 256, and the banded one at
+   T = 135,000, where it is checked on row slices; the fusion MLP also at
+   each video's M and at the 5-way classifier's widths, with equal bits on a
+   repeat, then every tile plan at the path's M timed and the plan's cost
+   model refitted to those times;
 4. drives the summarization path — ``extract_features`` → ``fuse_many`` →
    ``summarize`` — over three synthetic videos (600, 300 and 150 condensed
    180×320 frames with their audio) at the full width of
@@ -27,8 +30,10 @@ From the repository root, on a machine with a CUDA card:
    ``temporal_window = 0`` (full attention) and
    ``configs/tpu_spotting_quality.json`` (GRU + banded hybrid), then
    ``spot_stream`` in 600-frame chunks; holds the stream to the offline
-   scores, each scorer to its CPU run on the card's features and the trunk
-   to the CPU on the first 64 frames, and times the path;
+   scores, each scorer and the default GRU scorer to its CPU run on the
+   card's features, a GRU timeline past ``temporal_chunk_threshold`` (scored
+   chunked) to the CPU on seeded features, and the trunk to the CPU on the
+   first 64 frames, and times the path;
 6. holds the two attention backwards (dq, dk, dv) against their plain
    versions at the same shapes as the forwards, with times, bounds and the
    backward of ``scaled_dot_product_attention``; the band at T = 135,000 on
@@ -79,7 +84,7 @@ from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
-    HEAD_DIMS,
+    BWD_STREAM,
     bwd_blocks_per_sm,
     bwd_slots,
     card_bwd_plan,
@@ -110,7 +115,7 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import (
     fused_preprocess_frames_plain,
 )
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, fused_conv_pool_stage_plain
-from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul, head_matmul_plain
+from cvml_goalnet_tpu_torch.ops.cuda.matmul import card_head_plan, head_matmul, head_matmul_plain, head_slots
 from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
 from cvml_goalnet_tpu_torch.spotting import (
@@ -141,7 +146,14 @@ LONG_T = 32_768                   # attention checked against its plain version 
 MATCH_RATE_T = 135_000            # a 90-minute match at 25 frames/s: banded kernel timed alone
 EVENT_SPACING = 300               # condensed frames per synthetic training event
 TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
+LONG_GRU_EXTRA = 3_616            # frames past temporal_chunk_threshold for the chunked GRU check
 PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
+# (H, T, d, window, on a main path) of the attention kernels' checks: the spotting path's shapes, then
+# T = 32,768, then one head of 256, the widest the kernels take
+ATTENTION_CASES = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
+                   (2, MATCH_FRAMES, 64, ATTN_WINDOW, True), (1, LONG_T, 128, None, False),
+                   (1, LONG_T, 128, ATTN_WINDOW, False), (1, MATCH_FRAMES, 256, None, False),
+                   (1, MATCH_FRAMES, 256, ATTN_WINDOW, False)]
 # Published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
 # HBM3 bandwidth, float32 on the CUDA cores (every kernel's bound but kernel
 # 6's), and TF32 on the tensor cores, dense (kernel 6's bound: the full
@@ -296,31 +308,10 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
         del x, wt, bs, got, want
     record("fused_conv_pool_stage", parts)
 
-    # head: float32 sums over K = 41472 in another order (split K, then the
-    # splits in order) than cuBLAS: 1e-4·max|ref|
+    # head: the summarization batch and a match (both on the main paths), and one video of 150 frames
     k, nout = 9 * 9 * cfg.model.vis_channels[-1], cfg.model.vis_feature_dim
-    x = torch.rand((n, k), generator=gen, device=dev)
-    wt = torch.randn((k, nout), generator=gen, device=dev) * 0.005
-    bs = torch.randn((nout,), generator=gen, device=dev) * 0.1
-    got = head_matmul(x, wt, bs)
-    want = head_matmul_plain(x, wt, bs)
-    err, tol = max_err(got, want), 1e-4 * want.abs().max().item()
-    if err > tol:
-        raise AssertionError(f"head_matmul: max |err| {err} > {tol}")
-    if not torch.equal(got, head_matmul(x, wt, bs)):
-        raise AssertionError("head_matmul: two runs on the same inputs differ")
-
-    def library_head():
-        with strict_f32():
-            return torch.relu(torch.addmm(bs, x, wt))
-
-    b, kind = bound_ms(4.0 * (n * k + k * nout + nout + n * nout), 2.0 * n * k * nout)
-    record("head_matmul", [{
-        "shape": [n, k, nout], "ms": time_ms(lambda: head_matmul(x, wt, bs)),
-        "plain_ms": time_ms(lambda: head_matmul_plain(x, wt, bs)), "library_ms": time_ms(library_head),
-        "bound_ms": b, "bound_by": kind, "max_abs_err": err, "tolerance": tol,
-    }])
-    del x, wt, bs, got, want
+    record("head_matmul", [head_part(m, k, nout, main, gen) for m, main in
+                           ((n, True), (MATCH_FRAMES, True), (VIDEO_LENGTHS[-1], False))])
 
     # fusion MLP: five short float32 chains and a sigmoid; outputs in [1, 5].  The batch of the three
     # videos is the row's headline; each video's M as the per-video path calls it, and the 5-way
@@ -333,6 +324,63 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
              (n, classifier, False, False)]
     record("fused_fusion_mlp", [mlp_part(m, layers, squash, lo, hi, main, gen) for m, layers, squash, main in cases])
     return rows
+
+
+def head_part(m: int, k: int, n: int, main_path: bool, gen: torch.Generator) -> dict:
+    """Kernel 3 at (m, k) @ (k, n) against its plain version, with equal bits on a repeat, its plan, the
+    traced times of its two passes, and its bound on the tensor cores, where it computes: 3 TF32 products
+    per multiply-add (3xTF32) at the dense TF32 rate, or its bytes, whichever takes longer; the FP32-core
+    bound beside it.  Tolerance 1e-4·max|ref|: float32 sums over K in another order (split K, then the
+    splits in order) than cuBLAS."""
+    x = torch.rand((m, k), generator=gen, device="cuda")
+    wt = torch.randn((k, n), generator=gen, device="cuda") * 0.005
+    bs = torch.randn((n,), generator=gen, device="cuda") * 0.1
+    run = lambda: head_matmul(x, wt, bs)
+    got, want = run(), head_matmul_plain(x, wt, bs)
+    err, tol = max_err(got, want), 1e-4 * want.abs().max().item()
+    if err > tol:
+        raise AssertionError(f"head_matmul at M = {m}: max |err| {err} > {tol}")
+    require(torch.equal(got, run()), f"head_matmul at M = {m}: two runs on the same inputs differ")
+
+    def library():
+        with strict_f32():
+            return torch.relu(torch.addmm(bs, x, wt))
+
+    n_bytes = 4.0 * (m * k + k * n + n + m * n)
+    f32_b, _ = bound_ms(n_bytes, 2.0 * m * k * n)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, 6.0 * m * k * n / PEAK_TF32_FLOP_PER_S
+    passes = head_passes(run)
+    part = {
+        "shape": [m, k, n], "main_path": main_path, "ms": time_ms(run),
+        "plain_ms": time_ms(lambda: head_matmul_plain(x, wt, bs)), "library_ms": time_ms(library),
+        "library_max_abs_err": max_err(library(), want),
+        "bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "f32_core_bound_ms": f32_b, "max_abs_err": err, "tolerance": tol,
+        "plan": card_head_plan(m, k, n, x.device)._asdict(), "passes_traced_ms": passes,
+    }
+    print(f"head_matmul (kernel 3) at {[m, k, n]}: {part['ms']:.4f} ms (library {part['library_ms']:.4f}, plain "
+          f"{part['plain_ms']:.4f}); plan {json.dumps(part['plan'])}; traced passes {json.dumps(passes)}; bound "
+          f"{part['bound_ms']:.4f} ms tensor cores in 3xTF32 ({part['bound_by']}), {f32_b:.4f} ms float32 cores",
+          flush=True)
+    del x, wt, bs, got, want
+    torch.cuda.empty_cache()
+    return part
+
+
+def head_passes(run, tries: int = 3) -> dict:
+    """Device ms of kernel 3's GEMM and reduce passes in one traced call.  The tracer has been seen to drop
+    the GEMM's record of a call, so a trace that lacks a pass is taken again; after ``tries`` such traces
+    the pass reads "not measured"."""
+    for _ in range(tries):
+        passes = {"gemm_ms": 0.0, "reduce_ms": 0.0}
+        for name, ms in profile_run(run).get("device_ms_by_name", []):
+            if "splitk_tc_gemm_kernel" in name:
+                passes["gemm_ms"] += ms
+            elif "reduce_bias_kernel" in name:
+                passes["reduce_ms"] += ms
+        if passes["gemm_ms"] > 0 and passes["reduce_ms"] > 0:
+            return passes
+    return {k: v if v > 0 else "not measured" for k, v in passes.items()}
 
 
 def mlp_dims(layers) -> list[int]:
@@ -551,11 +599,7 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
     """
     dev = torch.device("cuda")
     parts = {"flash_fwd": [], "flash_local_fwd": []}
-    # (H, T, d, window) at the spotting path's shapes, then at T = 32,768
-    cases = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
-             (2, MATCH_FRAMES, 64, ATTN_WINDOW, True), (1, LONG_T, 128, None, False),
-             (1, LONG_T, 128, ATTN_WINDOW, False)]
-    for h, t, d, window, main_path in cases:
+    for h, t, d, window, main_path in ATTENTION_CASES:
         q, k, v = (torch.randn((h, t, d), generator=gen, device=dev) for _ in range(3))
         scale = d ** -0.5
         if window is None:
@@ -700,10 +744,7 @@ def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
     """
     dev = torch.device("cuda")
     parts = {"flash_bwd": [], "flash_local_bwd": []}
-    cases = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
-             (2, MATCH_FRAMES, 64, ATTN_WINDOW, True), (1, LONG_T, 128, None, False),
-             (1, LONG_T, 128, ATTN_WINDOW, False)]
-    for h, t, d, window, main_path in cases:
+    for h, t, d, window, main_path in ATTENTION_CASES:
         q, k, v, do = (torch.randn((h, t, d), generator=gen, device=dev) for _ in range(4))
         scale = d ** -0.5
         if window is None:
@@ -736,7 +777,7 @@ def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
             "plain_ms": time_ms(plain), "library_ms": time_ms(library), "library_max_abs_err": lib_err,
             "bound_ms": b, "bound_by": kind, "max_abs_err": err, "err_over_tolerance": ratio,
         }
-        if window is None:   # kernel 6: its plan, its parts in the trace, held to the tensor cores' bound
+        if window is None and d in BWD_STREAM:   # kernel 6: plan, traced parts, held to the tensor cores' bound
             tc_b, tc_kind = attention_bwd_tc_bound(h, t, d)
             part.update(plan=card_bwd_plan(h, t, t, d, dev)._asdict(), parts_ms=kernel6_parts(run),
                         bound_ms=tc_b, bound_by=tc_kind, f32_core_bound_ms=b)
@@ -960,8 +1001,21 @@ def spotting_phase(seed: int, smi: str, launches_by_path: dict):
           f"events equal except near ties {ties}", flush=True)
 
     enc = encode_timeline(params, state, feats["visual"], feats["audio"], banded_cfg)
-    cpu = check_scorers_against_cpu(enc, [(label, cfg, tp_np) for label, cfg, _, tp_np, _ in runs])
+    # the default GRU scorer (configs/reference_parity.json) beside the three of the path
+    gru_cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    gru_np = weights.init_temporal_params(gru_cfg.model, in_dim, seed)
+    cpu = check_scorers_against_cpu(enc, [*((label, cfg, tp_np) for label, cfg, _, tp_np, _ in runs),
+                                          ("spot_gru", gru_cfg, gru_np)])
     print(f"scorers card vs CPU on the card's features: {json.dumps(cpu)}")
+    # a GRU timeline past temporal_chunk_threshold, scored chunked with halos, on seeded features
+    t_long = gru_cfg.model.temporal_chunk_threshold + LONG_GRU_EXTRA
+    long_feats = torch.randn((t_long, in_dim), generator=torch.Generator().manual_seed(seed)).cuda()
+    t0 = time.perf_counter()
+    chunked = check_scorers_against_cpu(long_feats, [("gru_chunked", gru_cfg, gru_np)])
+    print(f"GRU over {t_long} seeded frames (chunks of {gru_cfg.model.temporal_chunk}, halo "
+          f"{gru_cfg.model.temporal_halo}) card vs CPU: {json.dumps(chunked)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del long_feats
     trunk = check_trunk_against_cpu(match, feats, (params, state),
                                     weights.from_jax(params_np, state_np, device="cpu"), banded_cfg)
     print(f"trunk card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(trunk)}", flush=True)
@@ -1101,8 +1155,11 @@ def main() -> int:
     k6 = {fn: r for fn, r in ptxas_report("flash_attention").items() if fn.startswith("flash_bwd_tc_kernel")}
     dev = torch.device("cuda")
     print(f"kernel 6 (flash_bwd) registers and spill bytes: {json.dumps(k6)}; blocks per SM (dK/dV, dQ) "
-          f"{json.dumps({d: bwd_blocks_per_sm(d, dev) for d in HEAD_DIMS})}, resident slots "
-          f"{json.dumps({d: bwd_slots(d, dev) for d in HEAD_DIMS})}", flush=True)
+          f"{json.dumps({d: bwd_blocks_per_sm(d, dev) for d in BWD_STREAM})}, resident slots "
+          f"{json.dumps({d: bwd_slots(d, dev) for d in BWD_STREAM})}", flush=True)
+    k3 = {fn: r for fn, r in ptxas_report("matmul").items() if "splitk_tc_gemm_kernel" in fn}
+    print(f"kernel 3 (head_matmul) GEMM pass registers and spill bytes: {json.dumps(k3)}; (SMs, blocks per SM) "
+          f"{json.dumps(head_slots(dev))}", flush=True)
 
     cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
     params_np, state_np = weights.init_params(cfg, args.seed)

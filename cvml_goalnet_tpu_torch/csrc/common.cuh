@@ -10,8 +10,20 @@ extern "C" const char* goalnet_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory (Hopper allows
-// up to 227 KB per block).  Returns the CUDA error code.
+// Shared memory a block may take on Hopper (227 KB).
+constexpr size_t kMaxSmemBytes = 232448;
+
+// SMs of the current card (the wrappers make the input's card current before
+// every launch).
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory (up to
+// kMaxSmemBytes).  Returns the CUDA error code.
 template <typename Kernel>
 static int allow_dynamic_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;

@@ -36,8 +36,13 @@
 //     blocks per SM (one head of T = 5400 is 85 such tiles on 132 SMs), so
 //     that short timelines spread over more SMs.  Timing both heights in
 //     turns on an H100 chose this: 32-row tiles made short bands faster and
-//     everything else slower.
+//     everything else slower;
+//   * head widths 32, 64, 128 and 256 are built (the wrapper zero-pads the
+//     others up to 256).  At D = 256, RQ = 4 takes 210 KB of shared memory
+//     and RQ = 2 169 KB: one block per SM either way.  D = 512 would need
+//     over 300 KB at RQ = 2, more than a block may take.
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 #include <math.h>
 
@@ -234,13 +239,14 @@ __global__ void __launch_bounds__(kThreads)
                      Band{q_offset, window});
 }
 
-// 64-row tiles for the band when they give at least two blocks per SM of the H100.
-bool wide_tiles(int H, int Tq) { return static_cast<long long>(H) * ((Tq + 63) / 64) >= 2 * 132; }
+// 64-row tiles when they give at least two blocks per SM of the card.
+bool wide_tiles(int H, int Tq) { return static_cast<long long>(H) * ((Tq + 63) / 64) >= 2LL * sm_count(); }
 
 template <int D, int RQ>
 int launch_full(const float* q, const float* k, const float* v, float* out, float* lse, int H, int Tq, int Tk,
                 int kv_end, float scale, cudaStream_t s) {
   using G = Geom<D, RQ>;
+  static_assert(G::kBytes <= kMaxSmemBytes, "the forward's tiles must fit a block's shared memory");
   const int err = allow_dynamic_smem(flash_fwd_kernel<D, RQ>, G::kBytes);
   if (err) return err;
   const dim3 grid((Tq + G::BQ - 1) / G::BQ, H);
@@ -252,6 +258,7 @@ template <int D, int RQ>
 int launch_local(const float* q, const float* k, const float* v, float* out, float* lse, int H, int Tq, int Tk,
                  float scale, int window, int lo, int hi, int q_offset, cudaStream_t s) {
   using G = Geom<D, RQ>;
+  static_assert(G::kBytes <= kMaxSmemBytes, "the forward's tiles must fit a block's shared memory");
   const int err = allow_dynamic_smem(flash_local_fwd_kernel<D, RQ>, G::kBytes);
   if (err) return err;
   const dim3 grid((Tq + G::BQ - 1) / G::BQ, H);
@@ -274,7 +281,10 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 //
 // Replaces two more kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_bwd (bodies _dkv_kernel and _dq_kernel): the full form, keys
-//     valid below t_valid, on the tensor cores (the section after this one);
+//     valid below t_valid, on the tensor cores (the section after this one)
+//     for head widths up to 128; at 256 with the templates of this section
+//     and the full mask, since the tensor-core kernel's dK and dV would not
+//     fit in registers there (128 a thread at 128 already);
 //   * _flash_local_bwd (bodies _local_dkv_kernel and _local_dq_kernel): the
 //     band |i + q_offset - j| <= W with keys valid in [lo, hi), on the FP32
 //     cores with the templates of this section.
@@ -302,7 +312,8 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 // entries of the score tile and R rows (or keys) x d/16 columns of the
 // accumulators.  At d = 128, R = 2 takes 75 KB of shared memory (three blocks
 // per SM), R = 4 takes 166 KB (one); R = 4 only when it gives at least two
-// blocks per SM, the forwards' rule.
+// blocks per SM, the forwards' rule, and fits: at d = 256, R = 2 takes 139 KB
+// and R = 4 would take 292 KB, so 256 runs R = 2 only.
 
 template <int D, int R>
 struct BwdGeom {
@@ -507,6 +518,18 @@ __device__ __forceinline__ void dq_rows(const BwdArgs& a, int k_begin, int k_end
 }
 
 template <int D, int R>
+__global__ void __launch_bounds__(kThreads) flash_full_dkv_kernel(BwdArgs a, int kv_end) {
+  // a key tile wholly past kv_end visits no query and writes zeros
+  const bool any_valid = static_cast<int>(blockIdx.x) * BwdGeom<D, R>::B < kv_end;
+  dkv_keys<D, R>(a, 0, any_valid ? a.Tq : 0, 0, kv_end, AllKeys{});
+}
+
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads) flash_full_dq_kernel(BwdArgs a, int kv_end) {
+  dq_rows<D, R>(a, 0, kv_end, AllKeys{});
+}
+
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
     flash_local_dkv_kernel(BwdArgs a, int window, int lo, int hi, int q_offset) {
   // the tile's valid keys [kb, ke], then the rows whose band reaches one of them
@@ -547,22 +570,38 @@ int tiles_of(int T) {
   return (T + 16 * R - 1) / (16 * R);
 }
 
+// The wide tiles: R = 4 where they fit a block's shared memory (every width but 256), else R = 2.
+template <int D>
+constexpr int kWideR = BwdGeom<D, 4>::kBytes <= kMaxSmemBytes ? 4 : 2;
+
 template <int D>
 int local_bwd_for(const BwdArgs& a, int H, int window, int lo, int hi, int q_offset, cudaStream_t s) {
-  using W = BwdGeom<D, 4>;
+  constexpr int RW = kWideR<D>;
+  using W = BwdGeom<D, RW>;
   using N = BwdGeom<D, 2>;
+  static_assert(N::kBytes <= kMaxSmemBytes, "the backward's tiles must fit a block's shared memory");
   const int err =
       wide_tiles(H, a.Tk)
-          ? launch_bwd(flash_local_dkv_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tk), H, s, a, window, lo, hi,
+          ? launch_bwd(flash_local_dkv_kernel<D, RW>, W::kBytes, tiles_of<RW>(a.Tk), H, s, a, window, lo, hi,
                        q_offset)
           : launch_bwd(flash_local_dkv_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tk), H, s, a, window, lo, hi,
                        q_offset);
   if (err) return err;
   return wide_tiles(H, a.Tq)
-             ? launch_bwd(flash_local_dq_kernel<D, 4>, W::kBytes, tiles_of<4>(a.Tq), H, s, a, window, lo, hi,
+             ? launch_bwd(flash_local_dq_kernel<D, RW>, W::kBytes, tiles_of<RW>(a.Tq), H, s, a, window, lo, hi,
                           q_offset)
              : launch_bwd(flash_local_dq_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tq), H, s, a, window, lo, hi,
                           q_offset);
+}
+
+// The full backward at a head width past the tensor-core kernel's (256): the FP32-core templates with the full
+// mask, R = 2 (the only tiles that fit), no split.
+template <int D>
+int full_bwd_f32(const BwdArgs& a, int H, int kv_end, cudaStream_t s) {
+  using N = BwdGeom<D, 2>;
+  const int err = launch_bwd(flash_full_dkv_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tk), H, s, a, kv_end);
+  if (err) return err;
+  return launch_bwd(flash_full_dq_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tq), H, s, a, kv_end);
 }
 
 BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* di,
@@ -584,14 +623,10 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, 
 //
 // What bounds it on an H100: operations.  The two-kernel split does 14d FLOP
 // per (query, key) pair (S and dP in both kernels, then dV, dK; dQ).  One TF32
-// product keeps 10 bits of mantissa and breaks the 1e-4 gradient contract, so
-// every product is 3xTF32: each float32 operand x splits into big = tf32(x)
-// and small = tf32(x - big) (cvt.rna), and big*big' + big*small' + small*big'
-// accumulate in float32 (the dropped small*small' is 2^-22 relative).  Three
-// products at the 495 TFLOP/s TF32 rate are still 2.5x the 67 TFLOP/s of the
-// FP32 cores: 14d*3 per pair bounds (1, 5400, 128) at 0.32 ms.  All five
-// products go through mma.sync m16n8k8 (row.col, f32 += tf32 * tf32), whose
-// operands sit in registers, where the split happens.
+// product breaks the 1e-4 gradient contract, so every product is 3xTF32
+// (csrc/tf32_mma.cuh).  Three products at the 495 TFLOP/s TF32 rate are still
+// 2.5x the 67 TFLOP/s of the FP32 cores: 14d*3 per pair bounds
+// (1, 5400, 128) at 0.32 ms.
 //
 // Design (both kernels are one template, `Dkv` picks the side):
 //   * a block of 4 warps owns a stationary tile of 64 rows, 16 per warp: keys
@@ -626,13 +661,9 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, 
 
 constexpr int kTcThreads = 128;  // 4 warps
 constexpr int kTcTile = 64;      // stationary rows per block, 16 per warp
-// The MMA's float32 accumulation rounds toward zero, so a long chain of MMAs
-// into one accumulator drifts toward zero (on an H100, with |q|, |k| ~ 10 and
-// d = 64, every gradient came out about 1.2e-4 smaller in magnitude: the
-// scores had lost about 16 ulp, beyond the gradient tolerance).  So S and
-// dP are summed over kSumGroup k-steps at a time in a fresh accumulator, and
-// each chunk's share of dK, dV and dQ likewise, then added in float32, which
-// rounds to nearest.
+// The MMA's float32 accumulation rounds toward zero (csrc/tf32_mma.cuh), so S
+// and dP are summed over kSumGroup k-steps at a time in a fresh accumulator,
+// and each chunk's share of dK, dV and dQ likewise, then added in float32.
 constexpr int kSumGroup = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -656,23 +687,6 @@ struct TcArgs {
   float scale;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Rows [r0, r0 + ROWS) of one head's (T, D) matrix into dst (pitch LD),
 // zeros from row lim on.
 template <int D, int ROWS, int LD>
@@ -685,59 +699,6 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* __restrict__ 
     const bool in = r0 + r < lim;
     cp_async16(dst + r * LD + 4 * c4, src + static_cast<size_t>(in ? r0 + r : 0) * D + 4 * c4, in);
   }
-}
-
-// x = big + small: big = tf32(x) (cvt.rna: round to nearest, ties away) and
-// small = x - big, exact in float32; the MMA reads small's top 19 bits, so
-// big + small keeps x to about 2^-21 of |x|.  (Rounding small with a second
-// cvt cost 12 % of the kernel's time on an H100 and gained nothing the
-// tolerance can see.)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in 3xTF32: the small cross terms first, then big * big.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                     const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
-  mma_tf32(c, as, bb);
-  mma_tf32(c, ab, bs);
-  mma_tf32(c, ab, bb);
-}
-
-// The A fragment (16 x 8, row-major) of a product over d at p = &M[g][2t]
-// with row pitch ld: rows g and g + 8, k index t <- column 2t and t + 4 <-
-// 2t + 1 (both operands of a product over d take this order, so one 8-byte
-// load fetches a row's pair).
-__device__ __forceinline__ void frag_a(const float* p, int ld, uint32_t (&big)[4], uint32_t (&small)[4]) {
-  const float2 lo = *reinterpret_cast<const float2*>(p);
-  const float2 hi = *reinterpret_cast<const float2*>(p + 8 * ld);
-  split_tf32(lo.x, big[0], small[0]);
-  split_tf32(hi.x, big[1], small[1]);
-  split_tf32(lo.y, big[2], small[2]);
-  split_tf32(hi.y, big[3], small[3]);
-}
-
-// The B fragment (8 x 8, k x n) from two values: k index t and t + 4 of column g.
-__device__ __forceinline__ void frag_b(float lo, float hi, uint32_t (&big)[2], uint32_t (&small)[2]) {
-  split_tf32(lo, big[0], small[0]);
-  split_tf32(hi, big[1], small[1]);
-}
-
-// An accumulator tile (rows g, g + 8; columns 2t, 2t + 1) as the A operand of
-// a product over its columns, k index t <- column 2t and t + 4 <- 2t + 1.
-__device__ __forceinline__ void frag_a_from_acc(const float (&c)[4], uint32_t (&big)[4], uint32_t (&small)[4]) {
-  split_tf32(c[0], big[0], small[0]);
-  split_tf32(c[2], big[1], small[1]);
-  split_tf32(c[1], big[2], small[2]);
-  split_tf32(c[3], big[3], small[3]);
 }
 
 // acc += sum over j of A_j * Y[8j .. 8j + 8 in the permuted order][8n .. 8n + 8],
@@ -997,7 +958,7 @@ int tc_blocks_per_sm(int which, int* out) {
 }  // namespace
 
 // q: (H, Tq, D); k, v: (H, Tk, D); out: (H, Tq, D); lse: (H, Tq).  Keys at
-// j >= t_valid are masked.  D is 32, 64 or 128; all rows 16-byte aligned.
+// j >= t_valid are masked.  D is 32, 64, 128 or 256; all rows 16-byte aligned.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int H, int Tq, int Tk,
                          int D, float scale, int t_valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1011,6 +972,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
     case 32: return launch_full<32, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
     case 64: return launch_full<64, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
     case 128: return launch_full<128, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
+    case 256: return launch_full<256, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1031,6 +993,7 @@ extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void
     case 32: return local_for<32>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     case 64: return local_for<64>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     case 128: return local_for<128>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
+    case 256: return local_for<256>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1040,7 +1003,8 @@ extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void
 // keys at j >= t_valid are masked.  s_dkv and s_dq split the dK/dV and dQ
 // walks (the wrapper's plan); when one is above 1, part_kv (s_dkv, 2, H, Tk, D)
 // or part_q (s_dq, H, Tq, D) holds the float32 partials.  Up to three
-// launches, each checked.
+// launches, each checked.  At D = 256 the FP32-core kernels run, unsplit
+// (s_dkv = s_dq = 1).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                          const void* di, void* dq, void* dk, void* dv, int H, int Tq, int Tk, int D, float scale,
                          int t_valid, int s_dkv, int s_dq, void* part_kv, void* part_q, void* stream) {
@@ -1058,6 +1022,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
     case 32: return full_bwd_tc<32>(a, s);
     case 64: return full_bwd_tc<64>(a, s);
     case 128: return full_bwd_tc<128>(a, s);
+    case 256:
+      if (s_dkv != 1 || s_dq != 1) return static_cast<int>(cudaErrorInvalidValue);
+      return full_bwd_f32<256>(bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, scale), H, kv_end, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1085,6 +1052,7 @@ extern "C" int flash_local_bwd(const void* q, const void* k, const void* v, cons
     case 32: return local_bwd_for<32>(a, H, window, lo, hi, q_offset, s);
     case 64: return local_bwd_for<64>(a, H, window, lo, hi, q_offset, s);
     case 128: return local_bwd_for<128>(a, H, window, lo, hi, q_offset, s);
+    case 256: return local_bwd_for<256>(a, H, window, lo, hi, q_offset, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,118 +1,234 @@
-// y = ReLU?(x @ w + b), float32, split over K with a deterministic second pass.
+// y = ReLU?(x @ w + b), float32, on the tensor cores in 3xTF32, split over K
+// with a deterministic second pass.
 //
 // Replaces cvml_goalnet_tpu/ops/pallas/matmul.py::head_matmul_pallas (its
-// _kernel): the visual head, (N, 41472) @ (41472, 512) after batchnorm
-// folding.  On the TPU one grid row walks K in order and carries the sum in a
-// VMEM accumulator; on Hopper blocks run in parallel and in no order, so
-// nothing can be carried between them.
+// _kernel): the visual head, (M, 41472) @ (41472, 512) after batchnorm
+// folding, M = 1050 for a summarization batch and 5400 for a match.  On the
+// TPU one grid row walks K in order and carries the sum in a VMEM
+// accumulator; on Hopper blocks run in parallel and in no order, so nothing
+// can be carried between them.
 //
 // What bounds it on an H100: operations (2*41472*512 = 42.5 MFLOP per row
-// against 166 KB of activations per row; the 85 MB of weights are read once
-// per batch when row tiles share them through L2), float32 on the FP32 cores.
-// The narrow N = 512 over a huge K gives few output tiles (8 per 64 rows),
-// too few to fill 132 SMs, so K is split across blocks:
-//   * pass 1: block (n-tile, m-tile, split) computes a 64x64 tile over its K
-//     range: 256 threads, a 4x4 register tile each, 16-deep K steps staged in
-//     shared memory (A transposed so both operands read as float4); it writes
-//     float32 partial sums to a workspace (splits, M, N) that the caller owns;
-//   * pass 2: one thread per output adds the splits in a fixed order, then
-//     the bias and the ReLU.  No atomics, so results repeat bit for bit.
+// against 166 KB of x per row; the 85 MB of w are read once per batch when
+// the row tiles share them through L2).  A float32 product on the FP32 cores
+// tops out at 67 TFLOP/s; in 3xTF32 (csrc/tf32_mma.cuh) it is three products
+// at the 495 TFLOP/s of the TF32 tensor cores, and keeps the float32 contract.
+//
+// Design:
+//   * pass 1: block (n-tile, m-tile, split) computes a 128 x 128 tile over
+//     its K range.  8 warps as 2 x 4, each owning 64 x 32: 4 x 4 MMA tiles of
+//     m16n8k8, so each A fragment's split serves 4 n-tiles and each B
+//     fragment's 4 m-tiles;
+//   * x (BM x 32) and w (32 x BN) tiles come through a 4-stage ring of
+//     16-byte cp.async copies, zero-filled past M, N and the split's K range;
+//     a copy's address is a base, a stage offset and a compile-time constant;
+//   * k order: within 16 k a thread's k indices t and t + 4 name physical k
+//     4t, 4t + 1 in the first k-step and 4t + 2, 4t + 3 in the second, for A
+//     and B alike, so a thread fetches a row of A for two k-steps in one
+//     16-byte load.  B's MMA column g of n-tile j is output column 4g + j of
+//     the warp's 32, so one 16-byte load of a w row gives all 4 n-tiles, and
+//     a thread's accumulators are 8 adjacent output columns (two 16-byte
+//     stores per row);
+//   * shared memory is swizzled by 16-byte chunk (x: chunk ^ 4 on odd rows;
+//     w: chunk ^ 2((row / 4) % 4)), so every fragment load of a quarter warp
+//     hits 32 distinct banks;
+//   * each stage (4 k-steps) is summed in a fresh accumulator and added to
+//     the float32 totals, since the MMA's accumulation rounds toward zero
+//     (tests/test_torch_head_kernel3.py holds that scheme to the tolerance
+//     where one accumulator over all of K is not);
+//   * it writes float32 partial sums to a workspace (splits, M, N) that the
+//     caller owns; pass 2 adds the splits in a fixed order, then the bias and
+//     the ReLU.  No atomics, so results repeat bit for bit.  The split plan
+//     (ops/cuda/matmul.py::head_plan) takes the card's SMs and the kernel's
+//     resident blocks per SM.
+// K and N must be multiples of 4 and every pointer 16-byte aligned (the
+// wrapper pads smaller operands that are not).
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64, kBN = 64, kBK = 16;
+constexpr int kThreads = 256;                     // 8 warps: 2 along M x 4 along N
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kStages = 4;
+constexpr int kXStage = kBM * kBK;                // floats of one x tile, rows of 32
+constexpr int kWStage = kBK * kBN;                // floats of one w tile, rows of 128
+constexpr size_t kSmemBytes = sizeof(float) * kStages * (kXStage + kWStage);
+static_assert(kBM * kBK / 4 % kThreads == 0 && kBK * kBN / 4 % kThreads == 0, "whole copy rounds");
 
-__global__ void __launch_bounds__(kThreads) splitk_gemm_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ part, int M,
-    int K, int N, int k_chunk) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+}
+
+__global__ void __launch_bounds__(kThreads, 1) splitk_tc_gemm_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ part, int M, int K, int N,
+    int k_chunk) {
+  extern __shared__ float4 smem4[];
+  float* sx = reinterpret_cast<float*>(smem4);   // [kStages][kBM][kBK]
+  float* sw = sx + kStages * kXStage;            // [kStages][kBK][kBN]
+
+  const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(K, k_begin + k_chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // loader coordinates: A tile 64 rows x 16 k, B tile 16 k x 64 cols, 4 values each
-  const int a_row = threadIdx.x / 4, a_k = (threadIdx.x % 4) * 4;
-  const int b_k = threadIdx.x / 16, b_col = (threadIdx.x % 16) * 4;
+  const int n_k = k_begin < k_end ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
-  float acc[4][4] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    {
-      const int m = m0 + a_row;
+  // copies: x rows tid / 8 + 32i at chunk tid % 8; w rows tid / 32 + 8i at chunk tid % 32
+  const int xr = tid / 8, xc = tid % 8, wr = tid / 32, wc = tid % 32;
+  // (a copy that is out of range reads nothing; its source is the operand's first element)
+  const float* xg = x + static_cast<size_t>(m0 + xr) * K + k_begin + 4 * xc;
+  const float* wg = w + static_cast<size_t>(k_begin + wr) * N + n0 + 4 * wc;
+  const bool w_col_in = n0 + 4 * wc < N;
+  const int xs_off = xr * kBK + 4 * (xc ^ ((xr & 1) << 2));
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = kt * kBK;
+    const bool x_k_in = k_begin + k0 + 4 * xc < k_end;
+    float* dx = sx + stage * kXStage + xs_off;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + a_k + j;
-        As[a_k + j][a_row] = (m < M && k < k_end) ? __ldg(x + static_cast<long long>(m) * K + k) : 0.f;
-      }
-      const int k = k0 + b_k;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + b_col + j;
-        Bs[b_k][b_col + j] = (k < k_end && n < N) ? __ldg(w + static_cast<long long>(k) * N + n) : 0.f;
-      }
+    for (int i = 0; i < kBM / 32; ++i) {
+      const bool in = x_k_in && m0 + xr + 32 * i < M;
+      cp_async16(dx + 32 * i * kBK, in ? xg + static_cast<size_t>(32 * i) * K + k0 : x, in);
     }
-    __syncthreads();
+    float* dw = sw + stage * kWStage;
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int i = 0; i < kBK / 8; ++i) {
+      const int row = wr + 8 * i;
+      const bool in = w_col_in && k_begin + k0 + row < k_end;
+      cp_async16(dw + row * kBN + 4 * (wc ^ (((row >> 2) & 3) << 1)),
+                 in ? wg + static_cast<size_t>(k0 + 8 * i) * N : w, in);
     }
-    __syncthreads();
+  };
+
+  // fragments: the warp's 64 x 32 at (64 wm, 32 wn); rows g (+ 8) of each 16, chunk t of each 16 k
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int a_off = (64 * wm + g) * kBK + 4 * (t ^ ((g & 1) << 2));   // the first 16 k; the second: chunk ^ 4
+  const int b_off = 4 * t * kBN + 4 * (8 * wn + (g ^ (2 * t)));       // row 4t of the first 16 k
+
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_k) load_stage(st, st);
+    cp_async_commit();
   }
-  float* p = part + static_cast<long long>(blockIdx.z) * M * N;
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt has landed for every thread, and stage kt - 1 is free
+    if (kt + kStages - 1 < n_k) load_stage((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+
+    const float* xs = sx + (kt % kStages) * kXStage;
+    const float* ws = sw + (kt % kStages) * kWStage;
+    float fresh[4][4][4] = {};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+    for (int h = 0; h < kBK / 16; ++h) {
+      float4 alo[4], ahi[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) p[static_cast<long long>(m) * N + n] = acc[i][j];
+      for (int i = 0; i < 4; ++i) {
+        const float* p = xs + ((a_off + 16 * i * kBK) ^ (16 * h));
+        alo[i] = *reinterpret_cast<const float4*>(p);
+        ahi[i] = *reinterpret_cast<const float4*>(p + 8 * kBK);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t ab[4][4], as[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          frag_a_pairs(ks ? make_float2(alo[i].z, alo[i].w) : make_float2(alo[i].x, alo[i].y),
+                       ks ? make_float2(ahi[i].z, ahi[i].w) : make_float2(ahi[i].x, ahi[i].y), ab[i], as[i]);
+        const float* wrow = ws + b_off + (16 * h + 2 * ks) * kBN;
+        const float4 b_lo = *reinterpret_cast<const float4*>(wrow);
+        const float4 b_hi = *reinterpret_cast<const float4*>(wrow + kBN);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bb[2], bs[2];
+          frag_b(lane_of(b_lo, j), lane_of(b_hi, j), bb, bs);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma3(fresh[i][j], ab[i], as[i], bb, bs);
+        }
+      }
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += fresh[i][j][e];
   }
+  cp_async_wait<0>();
+
+  // rows g and g + 8 of each m-tile; columns 8t .. 8t + 7 of the warp's 32: c0 (c2) of n-tiles 0..3, then c1 (c3)
+  float* p = part + static_cast<size_t>(blockIdx.z) * M * N;
+  const int col = n0 + 32 * wn + 8 * t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + 64 * wm + 16 * i + 8 * half + g;
+      if (row >= M) continue;
+      float* out = p + static_cast<size_t>(row) * N + col;
+      if (col < N)
+        *reinterpret_cast<float4*>(out) = make_float4(acc[i][0][2 * half], acc[i][1][2 * half],
+                                                      acc[i][2][2 * half], acc[i][3][2 * half]);
+      if (col + 4 < N)
+        *reinterpret_cast<float4*>(out + 4) = make_float4(acc[i][0][2 * half + 1], acc[i][1][2 * half + 1],
+                                                          acc[i][2][2 * half + 1], acc[i][3][2 * half + 1]);
+    }
 }
 
-__global__ void __launch_bounds__(kThreads) reduce_bias_kernel(
-    const float* __restrict__ part, const float* __restrict__ b, float* __restrict__ y, int M,
-    int N, int splits, int relu) {
-  const long long total = static_cast<long long>(M) * N;
-  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; e < total;
-       e += static_cast<long long>(gridDim.x) * kThreads) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += part[z * total + e];
-    s += __ldg(b + e % N);
-    y[e] = relu ? fmaxf(s, 0.f) : s;
+// y = ReLU?(sum of the splits in order + b), four outputs a thread.
+__global__ void __launch_bounds__(256) reduce_bias_kernel(const float4* __restrict__ part,
+                                                          const float4* __restrict__ b, float4* __restrict__ y,
+                                                          int N4, long long total4, int splits, int relu) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= total4) return;
+  float4 s = part[e];
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = part[z * total4 + e];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
   }
+  const float4 bb = __ldg(b + e % N4);
+  s.x += bb.x;
+  s.y += bb.y;
+  s.z += bb.z;
+  s.w += bb.w;
+  if (relu) s = make_float4(fmaxf(s.x, 0.f), fmaxf(s.y, 0.f), fmaxf(s.z, 0.f), fmaxf(s.w, 0.f));
+  y[e] = s;
 }
 
 }  // namespace
 
-// x: (M, K); w: (K, N); b: (N,); part: (splits, M, N) workspace; y: (M, N).
-// k_chunk must be a multiple of 16 with splits * k_chunk >= K.
-extern "C" int head_matmul(const void* x, const void* w, const void* b, void* part, void* y,
-                           int M, int K, int N, int splits, int k_chunk, int relu, void* stream) {
+// x: (M, K); w: (K, N); b: (N,); part: (splits, M, N) workspace; y: (M, N);
+// K and N multiples of 4, every pointer 16-byte aligned.  k_chunk must be a
+// multiple of 32 with splits * k_chunk >= K.  Two launches, each checked.
+extern "C" int head_matmul(const void* x, const void* w, const void* b, void* part, void* y, int M, int K, int N,
+                           int splits, int k_chunk, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k_chunk % kBK != 0 || static_cast<long long>(splits) * k_chunk < K)
+  if (M <= 0 || N <= 0 || K % 4 != 0 || N % 4 != 0 || splits < 1 || k_chunk <= 0 || k_chunk % kBK != 0 ||
+      static_cast<long long>(splits) * k_chunk < K)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  splitk_gemm_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(x),
-                                               static_cast<const float*>(w),
-                                               static_cast<float*>(part), M, K, N, k_chunk);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = allow_dynamic_smem(splitk_tc_gemm_kernel, kSmemBytes);
   if (err) return err;
-  const long long total = static_cast<long long>(M) * N;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
-  reduce_bias_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(part),
-                                                 static_cast<const float*>(b),
-                                                 static_cast<float*>(y), M, N, splits, relu);
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  splitk_tc_gemm_kernel<<<grid, kThreads, kSmemBytes, s>>>(static_cast<const float*>(x),
+                                                           static_cast<const float*>(w),
+                                                           static_cast<float*>(part), M, K, N, k_chunk);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long long total4 = static_cast<long long>(M) * N / 4;
+  reduce_bias_kernel<<<static_cast<unsigned>((total4 + 255) / 256), 256, 0, s>>>(
+      static_cast<const float4*>(part), static_cast<const float4*>(b), static_cast<float4*>(y), N / 4, total4,
+      splits, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the GEMM pass an SM of the current card keeps resident, into *out.
+extern "C" int head_matmul_blocks_per_sm(int* out) {
+  const int err = allow_dynamic_smem(splitk_tc_gemm_kernel, kSmemBytes);
+  if (err) return err;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, splitk_tc_gemm_kernel, kThreads, kSmemBytes));
 }

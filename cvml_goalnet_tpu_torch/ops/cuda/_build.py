@@ -51,7 +51,7 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built, named by a hash of its inputs."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"):
+    for src in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -16,15 +16,17 @@ v are (H, T, d) float32 as in the JAX package.
   kernel (``csrc/flash_attention.cu``) on the tensor's card or raises.  The
   forward wrappers keep no graph: called on CUDA tensors that require grad
   with grad mode on, they raise rather than cut the gradient.
-* The kernels are built for head widths 32, 64 and 128; a narrower head runs
-  zero-padded to the next of them (:func:`pad_head_dim`) with the scale of
-  its true width, and its outputs are sliced back; above 128 the wrappers
-  raise.
-* :func:`flash_bwd` runs on the tensor cores in 3xTF32 (kernel 6), with the
-  plan of :func:`card_bwd_plan`: when one head's tiles leave the card's
-  resident blocks (its occupancy calculator's) unfilled, each block's walk is split and float32 partials
-  (scratch allocated here) are added in split order by the entry's last
-  kernel.
+* The kernels are built for head widths 32, 64, 128 and 256; any other head
+  up to 256 runs zero-padded to the next of them (:func:`pad_head_dim`) with
+  the scale of its true width, and its outputs are sliced back; above 256 the
+  wrappers raise (the forward's tiles at 512 would not fit a block's shared
+  memory).
+* :func:`flash_bwd` runs on the tensor cores in 3xTF32 (kernel 6) at widths
+  up to 128, with the plan of :func:`card_bwd_plan`: when one head's tiles
+  leave the card's resident blocks (its occupancy calculator's) unfilled,
+  each block's walk is split and float32 partials (scratch allocated here)
+  are added in split order by the entry's last kernel.  At 256 it runs the
+  banded backward's FP32-core kernels with the full mask, unsplit.
 * :func:`flash_attention` (also under the JAX name
   :func:`flash_attention_trainable`), :func:`flash_attention_with_lse`,
   :func:`flash_attention_local` and :func:`flash_attention_local_bounded`
@@ -62,9 +64,10 @@ _SIGNATURES = {
     "flash_local_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "flash_bwd_blocks_per_sm": [_I, _I, _P],
 }
-HEAD_DIMS = (32, 64, 128)  # the head widths the kernels are built for; narrower heads are zero-padded
-# The full backward (csrc/flash_attention.cu, kernel 6): a block owns 64 rows (keys for dK/dV, queries
-# for dQ) and streams the other side through shared memory in chunks of BWD_STREAM[d] rows.
+HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernels are built for; other heads are zero-padded
+# The full backward (csrc/flash_attention.cu, kernel 6) on the tensor cores, at the widths BWD_STREAM
+# names: a block owns 64 rows (keys for dK/dV, queries for dQ) and streams the other side through shared
+# memory in chunks of BWD_STREAM[d] rows.
 BWD_TILE = 64
 BWD_STREAM = {32: 32, 64: 32, 128: 16}
 BWD_MAX_SPLIT = 8
@@ -168,7 +171,7 @@ def _check_device(what: str, q) -> bool:
 
 
 def padded_head_dim(what: str, d: int) -> int:
-    """The built head width a head of ``d`` runs at: the next of :data:`HEAD_DIMS`; above 128 raises."""
+    """The built head width a head of ``d`` runs at: the next of :data:`HEAD_DIMS`; above 256 raises."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
@@ -302,11 +305,12 @@ def _launch_bwd(entry: str, q, k, v, out, lse, dout, g_lse, *args) -> tuple[torc
     q, k, v, dout = (pad_head_dim(t, width) for t in (q, k, v, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if entry == "flash_bwd":
-        plan = card_bwd_plan(h, tq, tk, width, q.device)
+        # kernel 6's splits at the tensor-core widths; past them the FP32-core kernels run unsplit
+        s_dkv, s_dq = card_bwd_plan(h, tq, tk, width, q.device)[3:] if width in BWD_STREAM else (1, 1)
         # float32 partials of each split, added in split order by the entry's last kernel
-        part_kv = torch.empty((plan.s_dkv, 2, h, tk, width), device=q.device) if plan.s_dkv > 1 else None
-        part_q = torch.empty((plan.s_dq, h, tq, width), device=q.device) if plan.s_dq > 1 else None
-        args = (*args, plan.s_dkv, plan.s_dq, _ptr(part_kv), _ptr(part_q))
+        part_kv = torch.empty((s_dkv, 2, h, tk, width), device=q.device) if s_dkv > 1 else None
+        part_q = torch.empty((s_dq, h, tq, width), device=q.device) if s_dq > 1 else None
+        args = (*args, s_dkv, s_dq, _ptr(part_kv), _ptr(part_q))
     lib = _build.load("flash_attention", _SIGNATURES)
     with _build.on_device(q):
         code = getattr(lib, entry)(

@@ -1,9 +1,15 @@
-"""``ReLU?(x @ w + b)`` for the visual head: split-K CUDA kernel and its plain version.
+"""``ReLU?(x @ w + b)`` for the visual head: split-K tensor-core CUDA kernel and its plain version.
 
 Counterpart of ``cvml_goalnet_tpu/ops/pallas/matmul.py``.  The kernel
-(``csrc/matmul.cu``) splits K across blocks, writes float32 partial sums to a
-workspace this wrapper allocates, and reduces them in a fixed order in a
-second pass, so results repeat exactly; its note says what bounds it.
+(``csrc/matmul.cu``) computes float32 products in 3xTF32 on the tensor
+cores, splits K across blocks by :func:`card_head_plan`, writes float32
+partial sums to a workspace this wrapper allocates, and reduces them in a
+fixed order in a second pass, so results repeat exactly; its note says what
+bounds it.
+
+The kernel takes K and N that are multiples of 4 and 16-byte aligned
+operands; other operands (only ever small ones here) are copied zero-padded
+into scratch first, and the output is sliced back.
 
 The kernel has no backward (the JAX package's has no VJP either): on CUDA
 tensors that require grad with grad mode on, the wrapper raises rather than
@@ -13,7 +19,9 @@ return an output that would cut the gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -21,20 +29,60 @@ from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"head_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
+_SIGNATURES = {
+    "head_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "head_matmul_blocks_per_sm": [_P],
+}
 
-_BLOCK, _BK = 64, 16      # output tile edge and K step of the kernel
-_TARGET_BLOCKS = 132 * 8  # about 8 blocks on each of the H100's 132 SMs
-_MIN_STEPS = 16           # K steps per split, so a block does real work
+BLOCK_M, BLOCK_N, BLOCK_K = 128, 128, 32   # the kernel's output tile and K step (csrc/matmul.cu)
+FILL_STEPS = 8     # the plan's fixed cost of a block (pipeline fill, partial write) in K steps
+MAX_SPLITS = 64    # the most splits the plan tries
 
 
-def split_plan(m: int, k: int, n: int) -> tuple[int, int]:
-    """(splits, k_chunk): enough blocks to fill the card, k_chunk a multiple of the K step."""
-    tiles = math.ceil(m / _BLOCK) * math.ceil(n / _BLOCK)
-    steps = math.ceil(k / _BK)
-    splits = max(1, min(math.ceil(_TARGET_BLOCKS / tiles), steps // _MIN_STEPS))
-    k_chunk = math.ceil(steps / splits) * _BK
-    return math.ceil(k / k_chunk), k_chunk
+class HeadPlan(NamedTuple):
+    """How the kernel splits K: ``splits`` blocks per output tile, each over ``k_chunk`` of K."""
+    splits: int
+    k_chunk: int   # a multiple of BLOCK_K; splits · k_chunk ≥ K > (splits − 1) · k_chunk
+
+
+@functools.lru_cache(maxsize=1024)   # a pure function of its ints, asked on every call
+def head_plan(m: int, k: int, n: int, sms: int, blocks_per_sm: int) -> HeadPlan:
+    """The split of K for (m, k) @ (k, n) on a card of ``sms`` SMs that keeps ``blocks_per_sm`` blocks each.
+
+    Each of the ⌈m/128⌉·⌈n/128⌉ output tiles gets s blocks of ⌈steps/s⌉ K steps; the blocks run in rounds
+    of sms · blocks_per_sm.  The plan takes the s of least rounds · (steps per block + FILL_STEPS), the
+    smallest on a tie.
+    """
+    tiles = math.ceil(m / BLOCK_M) * math.ceil(n / BLOCK_N)
+    steps = max(1, math.ceil(k / BLOCK_K))
+    slots = sms * blocks_per_sm
+    best = None
+    for s in range(1, min(steps, MAX_SPLITS) + 1):
+        per = math.ceil(steps / s)
+        used = math.ceil(steps / per)   # splits that get any K
+        cost = math.ceil(tiles * used / slots) * (per + FILL_STEPS)
+        if best is None or cost < best[0]:
+            best = (cost, used, per)
+    return HeadPlan(best[1], best[2] * BLOCK_K)
+
+
+def card_head_plan(m: int, k: int, n: int, device: torch.device) -> HeadPlan:
+    """:func:`head_plan` with the SMs and resident blocks of the card ``device`` (the input's)."""
+    return head_plan(m, k, n, *head_slots(device))
+
+
+def head_slots(device: torch.device) -> tuple[int, int]:
+    """(SMs, resident blocks of the GEMM pass per SM by the CUDA occupancy calculator) of the card ``device``."""
+    return _slots_on_card(_build.device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _slots_on_card(device: int) -> tuple[int, int]:
+    lib = _build.load("matmul", _SIGNATURES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.head_matmul_blocks_per_sm(ctypes.byref(out)), "head_matmul: occupancy")
+    return torch.cuda.get_device_properties(device).multi_processor_count, out.value
 
 
 def head_matmul_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True) -> torch.Tensor:
@@ -42,6 +90,15 @@ def head_matmul_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: b
     with strict_f32():
         y = torch.matmul(x, w) + b
     return torch.relu(y) if relu else y
+
+
+def _aligned(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t`` zero-padded to ``shape`` on a 16-byte boundary: ``t`` itself when it already is."""
+    if tuple(t.shape) == shape and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, s) for s in t.shape)] = t
+    return out
 
 
 def head_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True) -> torch.Tensor:
@@ -61,20 +118,22 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = 
         raise ValueError(f"head_matmul: unsupported device {x.device}")
     _build.refuse_grad("head_matmul", x, w, b)
     _build.require_f32("head_matmul", x.device, x=x, w=w, b=b)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return y
-    splits, k_chunk = split_plan(m, k, n)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=torch.float32, device=x.device)
+    k4, n4 = -(-k // 4) * 4, -(-n // 4) * 4
+    x, w, b = _aligned(x, m, k4), _aligned(w, k4, n4), _aligned(b, n4)
+    y = torch.empty((m, n4), dtype=torch.float32, device=x.device)
+    plan = card_head_plan(m, k4, n4, x.device)
+    part = torch.empty((plan.splits, m, n4), dtype=torch.float32, device=x.device)
     lib = _build.load("matmul", _SIGNATURES)
     with _build.on_device(x):
         code = lib.head_matmul(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), part.data_ptr(), y.data_ptr(),
-            m, k, n, splits, k_chunk, int(relu), _build.stream_of(x),
+            m, k4, n4, plan.splits, plan.k_chunk, int(relu), _build.stream_of(x),
         )
     _build.check(lib, code, "head_matmul")
     head_matmul.launches += 1
-    return y
+    return y if n4 == n else y[:, :n].contiguous()
 
 
 head_matmul.launches = 0

@@ -1,9 +1,10 @@
 """PyTorch port: what the attention kernels' wrappers and the full backward's design rest on, on the CPU.
 
-* Head widths outside the built ones (32, 64, 128) reach the kernels zero-padded
-  to the next built width, with the scale of the true width: the plain
-  versions on inputs padded by the wrappers' own helper, sliced back, equal
-  the unpadded plain versions, and the JAX package's XLA reference.
+* Head widths outside the built ones (32, 64, 128, 256) reach the kernels
+  zero-padded to the next built width, with the scale of the true width: the
+  plain versions on inputs padded by the wrappers' own helper, sliced back,
+  equal the unpadded plain versions, and the JAX package's XLA reference.
+  Widths past 256 raise.
 * ``strict_f32`` holds TF32 off while any thread is inside it.
 * ``full_bwd_plan``'s splits walk every streamed chunk exactly once, for an H100's resident slots.
 * The full backward (kernel 6) computes its five products in 3xTF32 on the
@@ -39,7 +40,7 @@ def _padded(tensors, d):
 
 
 @pytest.mark.parametrize("d,width", [(1, 32), (8, 32), (16, 32), (32, 32), (33, 64), (48, 64), (96, 128),
-                                     (128, 128)])
+                                     (128, 128), (129, 256), (160, 256), (192, 256), (256, 256)])
 def test_padded_head_dim_is_the_next_built_width(d, width):
     assert FA.padded_head_dim("x", d) == width
     x = torch.ones((2, 3, d))
@@ -49,11 +50,15 @@ def test_padded_head_dim_is_the_next_built_width(d, width):
 
 
 def test_head_dims_past_128_raise():
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        FA.padded_head_dim("flash_fwd", 160)
+    """Past 128 the heads run on the 256-wide kernels, up to 256; wider ones raise, naming 256."""
+    for d in (129, 160, 256):
+        assert FA.padded_head_dim("flash_fwd", d) == 256
+    for d in (257, 320, 512):
+        with pytest.raises(ValueError, match="head dims up to 256"):
+            FA.padded_head_dim("flash_fwd", d)
 
 
-@pytest.mark.parametrize("d", [8, 16, 48, 96])
+@pytest.mark.parametrize("d", [8, 16, 48, 96, 160, 192, 256])
 @pytest.mark.parametrize("window", [None, 5])
 def test_padding_keeps_forward_and_backward(d, window):
     h, tq, tk = 2, 37, 37

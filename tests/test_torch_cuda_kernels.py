@@ -24,6 +24,7 @@ from cvml_goalnet_tpu_torch.config import ModelConfig, PipelineConfig, Preproces
 from cvml_goalnet_tpu_torch.data.synthetic import synthetic_video_frames, synthetic_waveform
 from cvml_goalnet_tpu_torch.ops.cuda import flash_attention as FA
 from cvml_goalnet_tpu_torch.ops.cuda import fused_mlp as mlp_plan
+from cvml_goalnet_tpu_torch.ops.cuda import matmul as head_plan
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp, fused_fusion_mlp_plain
 from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import fused_preprocess_frames, fused_preprocess_frames_plain
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, fused_conv_pool_stage_plain
@@ -73,15 +74,32 @@ def test_conv_pool_stage(dev, shape):
     torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
 
 
+# the summarization batch (1050), a per-video batch (150), one frame, K ending inside a split and inside a
+# 32-deep K step (41452), and K and N that are not multiples of 4 (the wrapper pads them)
 @pytest.mark.parametrize("m,k,n,relu", [
     (100, 4608, 512, True), (64, 4608, 128, True), (130, 2304, 256, True), (32, 2304, 128, False),
-    (3, 20, 7, False), (37, 41472, 512, True),
+    (3, 20, 7, False), (37, 41472, 512, True), (1050, 41472, 512, True), (150, 41472, 512, True),
+    (1, 41472, 512, True), (300, 41452, 512, False), (5, 18, 9, True),
 ])
 def test_head_matmul(dev, m, k, n, relu):
     x, w, b = _rand((m, k), 4, 0.1), _rand((k, n), 5, 0.02), _rand((n,), 6)
+    _poison_allocator(dev)
+    before = head_matmul.launches
     got = head_matmul(x, w, b, relu)
+    assert head_matmul.launches == before + 1
     torch.testing.assert_close(got, head_matmul_plain(x, w, b, relu), atol=2e-5, rtol=1e-5)
     assert torch.equal(got, head_matmul(x, w, b, relu))  # no atomics: runs repeat exactly
+
+
+def test_head_plan_takes_the_cards_slots(dev):
+    """The plan's slots are the card's SMs and the occupancy calculator's blocks per SM; on an H100 SXM,
+    the values the CPU plan tests use (tests/test_torch_head_kernel3.py)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = head_plan.head_slots(dev)
+    assert slots[0] == sms and slots[1] >= 1
+    assert head_plan.card_head_plan(1050, 41472, 512, dev) == head_plan.head_plan(1050, 41472, 512, *slots)
+    if "H100" in torch.cuda.get_device_name(dev) and sms == 132:
+        assert slots == (132, 1)
 
 
 def test_head_matmul_contraction_mismatch(dev):
@@ -244,8 +262,10 @@ def test_flash_refuses_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 8, 48), device=dev)
     out, lse = FA.flash_fwd(x, x, x, 0.1)     # d = 48 runs, zero-padded to 64
     assert out.shape == x.shape and not out.any() and torch.allclose(lse, torch.full_like(lse, np.log(8)))
-    x = torch.zeros((1, 8, 160), device=dev)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    x = _rand((1, 8, 160), 29)                # d = 160 runs, zero-padded to 256
+    _attn_check(FA.flash_fwd(x, x, x, 0.1), FA.flash_fwd_plain(x, x, x, 0.1))
+    x = torch.zeros((1, 8, 320), device=dev)
+    with pytest.raises(ValueError, match="head dims up to 256"):
         FA.flash_fwd(x, x, x, 0.1)
     y = torch.zeros((1, 16, 32), device=dev)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -398,7 +418,7 @@ def test_flash_bwd_plan_takes_the_cards_slots(dev):
     H100 SXM they are the slots the CPU plan tests use (tests/test_torch_attention_kernel6.py)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     slots = {}
-    for d in FA.HEAD_DIMS:
+    for d in FA.BWD_STREAM:   # the widths kernel 6 runs on the tensor cores
         per_dkv, per_dq = FA.bwd_blocks_per_sm(d, dev)
         slots[d] = FA.bwd_slots(d, dev)
         assert slots[d] == (sms * per_dkv, sms * per_dq)
@@ -407,7 +427,7 @@ def test_flash_bwd_plan_takes_the_cards_slots(dev):
         assert slots == {32: (396, 396), 64: (264, 396), 128: (264, 264)}
 
 
-@pytest.mark.parametrize("d", [8, 16, 48, 96])
+@pytest.mark.parametrize("d", [8, 16, 48, 96, 160, 192, 256])
 @pytest.mark.parametrize("kind", ["fwd", "local_fwd", "bwd", "local_bwd"])
 def test_flash_head_dims_between_the_built_widths(dev, kind, d):
     """Head widths the kernels are not built for run zero-padded to the next built width."""
@@ -433,6 +453,40 @@ def test_flash_head_dims_between_the_built_widths(dev, kind, d):
     assert wrapper.launches == before + 1
 
 
+@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("kind", ["full", "band"])
+def test_flash_wide_heads_masks_and_dead_rows(dev, kind, d):
+    """Heads of 160 to 256 wide under the masks: t_valid with unequal lengths and g_lse (every key tile past
+    t_valid gets zeros), and a [lo, hi) band with a query offset and dead rows (out, lse and dq 0)."""
+    if kind == "full":
+        q, do = _rand((2, 200, d), 180), _rand((2, 200, d), 181)
+        k, v = _rand((2, 700, d), 182), _rand((2, 700, d), 183)
+        g_lse, scale = _rand((2, 200), 184), d ** -0.5
+        _attn_check(FA.flash_fwd(q, k, v, scale, 97), FA.flash_fwd_plain(q, k, v, scale, 97))
+        out, lse = FA.flash_fwd_plain(q, k, v, scale, 97)
+        _poison_allocator(dev)
+        got = FA.flash_bwd(q, k, v, out, lse, do, scale, 97, g_lse)
+        _bwd_check(got, FA.flash_bwd_plain(q, k, v, out, lse, do, scale, 97, g_lse))
+        assert not got[1][:, 97:].any() and not got[2][:, 97:].any()
+    else:
+        q, do = _rand((2, 256, d), 185), _rand((2, 256, d), 186)
+        k, v = _rand((2, 256, d), 187), _rand((2, 256, d), 188)
+        scale = d ** -0.5
+        got = FA.flash_local_fwd(q, k, v, scale, 16, 64, 200)
+        _attn_check(got, FA.flash_local_fwd_plain(q, k, v, scale, 16, 64, 200))
+        for x in got:   # rows < 48 and ≥ 216 have empty bands
+            assert not x[:, :48].any() and not x[:, 216:].any()
+        out, lse = FA.flash_local_fwd_plain(q, k, v, scale, 16, 64, 200)
+        _poison_allocator(dev)
+        dq, dk, dv = FA.flash_local_bwd(q, k, v, out, lse, do, scale, 16, 64, 200)
+        _bwd_check((dq, dk, dv), FA.flash_local_bwd_plain(q, k, v, out, lse, do, scale, 16, 64, 200))
+        assert not dq[:, :48].any() and not dq[:, 216:].any() and not dk[:, :64].any() and not dv[:, 200:].any()
+        qo = _rand((2, 160, d), 189)
+        ko, vo = _rand((2, 192, d), 190), _rand((2, 192, d), 191)
+        _attn_check(FA.flash_local_fwd(qo, ko, vo, scale, 16, 10, 180, 16),
+                    FA.flash_local_fwd_plain(qo, ko, vo, scale, 16, 10, 180, 16))
+
+
 @pytest.mark.parametrize("window", [0, 6])
 def test_transformer_scorer_with_narrow_heads_card_matches_cpu(dev, window):
     """summarize_match with a transformer of 2 heads of 16 (padded to 32 on the card) against the CPU."""
@@ -450,6 +504,36 @@ def test_transformer_scorer_with_narrow_heads_card_matches_cpu(dev, window):
     p_np, s_np = weights.init_params(cfg, seed=6)
     t_np = weights.init_temporal_params(cfg.model, 32, seed=7)
     visual = np.random.default_rng(8).random((90, 24, 24, 3)).astype(np.float32)
+    iv = np.array([[0, 900], [900, 1800], [1800, 2700]])
+    kernel = FA.flash_local_fwd if window else FA.flash_fwd
+    before = kernel.launches
+    got = spotting.summarize_match(*weights.from_jax(p_np, s_np), weights.tree_from_jax(t_np), visual, None, iv,
+                                   cfg, peak_window=3)
+    assert kernel.launches > before
+    want = spotting.summarize_match(*weights.from_jax(p_np, s_np, device="cpu"),
+                                    weights.tree_from_jax(t_np, device="cpu"), visual, None, iv, cfg,
+                                    peak_window=3, device="cpu")
+    np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
+    np.testing.assert_array_equal(got.events, want.events)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_transformer_scorer_with_one_wide_head_card_matches_cpu(dev, window):
+    """summarize_match with a transformer of one head of 256 (the 256-wide kernels) against the CPU."""
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch import spotting
+
+    cfg = PipelineConfig(
+        preprocess=PreprocessConfig(frame_size=(24, 24)),
+        model=ModelConfig(vis_channels=(8, 16, 16), vis_feature_dim=32, aud_channels=(8, 16), aud_feature_dim=16,
+                          fusion_hidden=(32, 16), audio_included=False, temporal_model="transformer",
+                          temporal_hidden=256, temporal_num_heads=1, temporal_max_len=128),
+    )
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, temporal_window=window))
+    p_np, s_np = weights.init_params(cfg, seed=9)
+    t_np = weights.init_temporal_params(cfg.model, 32, seed=10)
+    visual = np.random.default_rng(11).random((90, 24, 24, 3)).astype(np.float32)
     iv = np.array([[0, 900], [900, 1800], [1800, 2700]])
     kernel = FA.flash_local_fwd if window else FA.flash_fwd
     before = kernel.launches

@@ -26,7 +26,7 @@ from cvml_goalnet_tpu_torch.ops.cuda import _build
 from cvml_goalnet_tpu_torch.ops.cuda import fused_mlp as mlp_plan
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage
-from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul, split_plan
+from cvml_goalnet_tpu_torch.ops.cuda.matmul import BLOCK_K, head_matmul, head_plan
 from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames, preprocess_frames_host, resize_matrices
 
 MLP_REF = (640, 512, 512, 256, 128, 1)
@@ -180,8 +180,8 @@ class TestHeadMatmul:
 
     @pytest.mark.parametrize("m,k,n", [(1050, 41472, 512), (100, 4608, 512), (3, 20, 7), (130, 2304, 256)])
     def test_split_plan_covers_k(self, m, k, n):
-        splits, k_chunk = split_plan(m, k, n)
-        assert k_chunk % 16 == 0 and splits >= 1
+        splits, k_chunk = head_plan(m, k, n, 132, 1)   # an H100 SXM's SMs, one resident block each
+        assert k_chunk % BLOCK_K == 0 and splits >= 1
         assert (splits - 1) * k_chunk < k <= splits * k_chunk
 
 
