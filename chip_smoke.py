@@ -14,8 +14,12 @@ From the repository root, on a machine with a CUDA card:
    warm-up) beside the least time the card could take; the head (kernel 3)
    at the batch's and the match's M and at one video's, with its plan, the
    traced times of its two passes and its tensor-core bound; the attention
-   kernels also at T = 32,768 and with one head of 256, and the banded one at
-   T = 135,000, where it is checked on row slices; the fusion MLP also at
+   kernels also at T = 32,768, with one head of 256 and with one head of 512
+   (the wide path), and the banded one at T = 135,000, where it is checked on
+   row slices; the full forward (kernel 5) with its plan, the traced times of
+   its tile and merge kernels and its tensor-core bound, and at scores near
+   1e3 its distance from the plain version and from float64 beside the plain
+   version's own; the fusion MLP also at
    each video's M and at the 5-way classifier's widths, with equal bits on a
    repeat, then every tile plan at the path's M timed and the plan's cost
    model refitted to those times;
@@ -85,9 +89,11 @@ from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     BWD_STREAM,
+    FWD_STREAM,
     bwd_blocks_per_sm,
     bwd_slots,
     card_bwd_plan,
+    card_fwd_plan,
     flash_bwd,
     flash_bwd_plain,
     flash_fwd,
@@ -96,6 +102,8 @@ from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     flash_local_bwd_plain,
     flash_local_fwd,
     flash_local_fwd_plain,
+    fwd_blocks_per_sm,
+    fwd_slots,
     padded_head_dim,
 )
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import (
@@ -149,15 +157,16 @@ TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
 LONG_GRU_EXTRA = 3_616            # frames past temporal_chunk_threshold for the chunked GRU check
 PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
 # (H, T, d, window, on a main path) of the attention kernels' checks: the spotting path's shapes, then
-# T = 32,768, then one head of 256, the widest the kernels take
+# T = 32,768, then one head of 256, the widest built width, and one of 512, on the wide path
 ATTENTION_CASES = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
                    (2, MATCH_FRAMES, 64, ATTN_WINDOW, True), (1, LONG_T, 128, None, False),
                    (1, LONG_T, 128, ATTN_WINDOW, False), (1, MATCH_FRAMES, 256, None, False),
-                   (1, MATCH_FRAMES, 256, ATTN_WINDOW, False)]
+                   (1, MATCH_FRAMES, 256, ATTN_WINDOW, False), (1, MATCH_FRAMES, 512, None, False),
+                   (1, MATCH_FRAMES, 512, ATTN_WINDOW, False)]
 # Published peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit:
-# HBM3 bandwidth, float32 on the CUDA cores (every kernel's bound but kernel
-# 6's), and TF32 on the tensor cores, dense (kernel 6's bound: the full
-# backward's products, in 3xTF32).
+# HBM3 bandwidth, float32 on the CUDA cores (the bound of the kernels that
+# run there), and TF32 on the tensor cores, dense (the bound of kernels 3, 5
+# and 6, whose products run there in 3xTF32).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
@@ -367,20 +376,25 @@ def head_part(m: int, k: int, n: int, main_path: bool, gen: torch.Generator) -> 
     return part
 
 
-def head_passes(run, tries: int = 3) -> dict:
-    """Device ms of kernel 3's GEMM and reduce passes in one traced call.  The tracer has been seen to drop
-    the GEMM's record of a call, so a trace that lacks a pass is taken again; after ``tries`` such traces
-    the pass reads "not measured"."""
+def traced_parts(run, part_of, parts: tuple[str, ...], required: tuple[str, ...], tries: int = 3) -> dict:
+    """Device ms of a kernel's parts in one traced call of ``run``: ``part_of`` names the part of each traced
+    kernel (None for the rest).  The tracer has been seen to drop a kernel's record of a call, so a trace
+    that lacks a ``required`` part is taken again; after ``tries`` such traces the part reads "not
+    measured"."""
     for _ in range(tries):
-        passes = {"gemm_ms": 0.0, "reduce_ms": 0.0}
+        got = dict.fromkeys(parts, 0.0)
         for name, ms in profile_run(run).get("device_ms_by_name", []):
-            if "splitk_tc_gemm_kernel" in name:
-                passes["gemm_ms"] += ms
-            elif "reduce_bias_kernel" in name:
-                passes["reduce_ms"] += ms
-        if passes["gemm_ms"] > 0 and passes["reduce_ms"] > 0:
-            return passes
-    return {k: v if v > 0 else "not measured" for k, v in passes.items()}
+            if part := part_of(name):
+                got[part] += ms
+        if all(got[p] > 0 for p in required):
+            return got
+    return {k: v if v > 0 or k not in required else "not measured" for k, v in got.items()}
+
+
+def head_passes(run) -> dict:
+    """Device ms of kernel 3's GEMM and reduce passes in one traced call."""
+    part_of = lambda n: "gemm_ms" if "splitk_tc_gemm_kernel" in n else "reduce_ms" if "reduce_bias_kernel" in n else None
+    return traced_parts(run, part_of, ("gemm_ms", "reduce_ms"), ("gemm_ms", "reduce_ms"))
 
 
 def mlp_dims(layers) -> list[int]:
@@ -518,7 +532,8 @@ def profile_run(run) -> dict:
     busy_us += cur_end - cur_start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
-            "attention_kernel_ms": sum(v for k, v in by_name.items() if "flash_" in k or "split_sum" in k),
+            "attention_kernel_ms": sum(v for k, v in by_name.items()
+                                       if "flash_" in k or "split_sum" in k or "fwd_merge" in k),
             "mlp_kernel_ms": sum(v for k, v in by_name.items() if "fused_mlp" in k),
             "device_ms_by_name": [[k[:70], round(v, 4)] for k, v in top]}
 
@@ -590,6 +605,20 @@ def attention_bound(h: int, t: int, d: int, window: int | None) -> tuple[float, 
     return bound_ms(4.0 * (4 * h * t * d + h * t), 4.0 * d * h * band_pairs(t, window))
 
 
+def attention_fwd_tc_bound(h: int, t: int, d: int) -> tuple[float, str]:
+    """The full forward's bound on the tensor cores, where kernel 5 computes: each of its 4·d FLOP per pair
+    as three TF32 products (3xTF32) at the dense TF32 rate, or its bytes, whichever takes longer."""
+    t_bytes = 4.0 * (4 * h * t * d + h * t) / PEAK_BYTES_PER_S
+    t_ops = 12.0 * d * h * t * t / PEAK_TF32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel5_parts(run) -> dict:
+    """Device ms of kernel 5's parts in one traced call: the tile kernel and, when the plan splits, the merge."""
+    part_of = lambda n: "tile_ms" if "flash_fwd_tc_kernel" in n else "merge_ms" if "fwd_merge_kernel" in n else None
+    return traced_parts(run, part_of, ("tile_ms", "merge_ms"), ("tile_ms",))
+
+
 def check_attention_kernels(gen: torch.Generator) -> dict:
     """The two attention kernels against their plain versions, with times, bounds and the library call.
 
@@ -622,16 +651,31 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
             raise AssertionError(f"{name} {(h, t, d, window)}: max |err| out {err_out} > 3e-5 or lse {err_lse} > 1e-5")
         lib_err = max_err(library(), want_out)
         b, kind = attention_bound(h, t, d, window)
-        parts[name].append({
+        part = {
             "shape": [h, t, d], "window": window, "main_path": main_path, "ms": time_ms(run),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library), "library_max_abs_err": lib_err,
             "bound_ms": b, "bound_by": kind, "max_abs_err": max(err_out, err_lse), "lse_max_abs_err": err_lse,
-        })
+        }
+        if d > 256:
+            part["padded_to"] = padded_head_dim(d)
+        if window is None and d in FWD_STREAM:   # kernel 5: plan, traced parts, held to the tensor cores' bound
+            require(all(torch.equal(x, y) for x, y in zip(run(), (out, lse))),
+                    f"flash_fwd {(h, t, d)}: two runs on the same inputs differ")
+            tc_b, tc_kind = attention_fwd_tc_bound(h, t, d)
+            part.update(plan=card_fwd_plan(h, t, t, d, dev)._asdict(), parts_ms=kernel5_parts(run),
+                        bound_ms=tc_b, bound_by=tc_kind, f32_core_bound_ms=b)
+            print(f"flash_fwd (kernel 5) at {[h, t, d]}: {part['ms']:.4f} ms (library {part['library_ms']:.4f}, "
+                  f"plain {part['plain_ms']:.4f}); plan {json.dumps(part['plan'])}; traced parts "
+                  f"{json.dumps(part['parts_ms'])}; bound {tc_b:.4f} ms tensor cores in 3xTF32 ({tc_kind}), "
+                  f"{b:.4f} ms float32 cores; max |err| out {err_out:.3g}, lse {err_lse:.3g}", flush=True)
+        parts[name].append(part)
         del q, k, v, out, lse, want_out, want_lse, mask
         torch.cuda.empty_cache()
 
     q, k, v = (torch.randn((2, 1000, PADDED_HEAD_DIM), generator=gen, device=dev) for _ in range(3))
     scale = PADDED_HEAD_DIM ** -0.5
+    print(f"flash_fwd (kernel 5) at scores near 1e3, max |err| of (out, lse): "
+          f"{json.dumps(large_magnitude_case(dev))}", flush=True)
     parts["flash_fwd"].append(padded_case("flash_fwd", lambda: flash_fwd(q, k, v, scale),
                                           lambda: flash_fwd_plain(q, k, v, scale)))
     parts["flash_local_fwd"].append(padded_case("flash_local_fwd", lambda: flash_local_fwd(q, k, v, scale, 100),
@@ -681,13 +725,17 @@ def attention_bwd_tc_bound(h: int, t: int, d: int) -> tuple[float, str]:
 
 def ptxas_report(name: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of csrc/<name>.cu from the ``-Xptxas -v`` report of its build;
-    kernel 6's kernels under readable names."""
+    kernels 5 and 6 under readable names."""
     report, fn = {}, None
     for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
             fn = m.group(1)
             if k6 := re.search(r"flash_bwd_tc_kernelILi(\d+)ELb([01])E", fn):
                 fn = f"flash_bwd_tc_kernel<{k6.group(1)}, {'dK/dV' if k6.group(2) == '1' else 'dQ'}>"
+            elif k5 := re.search(r"flash_fwd_tc_kernelILi(\d+)E", fn):
+                fn = f"flash_fwd_tc_kernel<{k5.group(1)}>"
+            elif "fwd_merge_kernel" in fn:
+                fn = "fwd_merge_kernel"
         elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and fn:
             report.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
@@ -698,14 +746,28 @@ def ptxas_report(name: str) -> dict:
 
 def kernel6_parts(run) -> dict:
     """Device ms of kernel 6's parts in one traced call: the dK/dV and dQ kernels and the split sums."""
-    parts = {"dkv_ms": 0.0, "dq_ms": 0.0, "reduction_ms": 0.0}
-    for name, ms in profile_run(run).get("device_ms_by_name", []):
+    def part_of(name):
         if "flash_bwd_tc_kernel" in name:
-            parts["dkv_ms" if "true" in name else "dq_ms"] += ms
-        elif "split_sum_kernel" in name:
-            parts["reduction_ms"] += ms
-    require(parts["dkv_ms"] > 0 and parts["dq_ms"] > 0, f"kernel 6's parts not in the trace: {parts}")
-    return parts
+            return "dkv_ms" if "true" in name else "dq_ms"
+        return "reduction_ms" if "split_sum_kernel" in name else None
+    return traced_parts(run, part_of, ("dkv_ms", "dq_ms", "reduction_ms"), ("dkv_ms", "dq_ms"))
+
+
+def large_magnitude_case(dev: torch.device) -> dict:
+    """The full forward at the inputs of ``tests/test_torch_cuda_kernels.py::test_flash_large_magnitudes_stay_finite``
+    (scores near 1e3): the worst |err| of (out, lse) of the kernel against the plain version, of the kernel against
+    the plain version in float64, and of the float32 plain version against float64 (ROADMAP §3).  The kernel must
+    be at least as close to float64 as the float32 plain version."""
+    q, k, v = (torch.as_tensor(np.random.default_rng(seed).standard_normal((1, 1000, 64)).astype(np.float32) * sc,
+                               device=dev) for seed, sc in ((70, 10.0), (71, 10.0), (72, 1.0)))
+    got, plain = flash_fwd(q, k, v, 0.125), flash_fwd_plain(q, k, v, 0.125)
+    exact = flash_fwd_plain(q.double(), k.double(), v.double(), 0.125)
+    worst = lambda xs, ys: [(x.double() - y.double()).abs().max().item() for x, y in zip(xs, ys)]
+    errs = {"kernel_vs_plain": worst(got, plain), "kernel_vs_float64": worst(got, exact),
+            "plain_vs_float64": worst(plain, exact)}
+    require(all(a <= b for a, b in zip(errs["kernel_vs_float64"], errs["plain_vs_float64"])),
+            f"flash_fwd at scores near 1e3: further from float64 than the plain version: {errs}")
+    return errs
 
 
 def padded_case(name: str, run, plain) -> dict:
@@ -719,7 +781,7 @@ def padded_case(name: str, run, plain) -> dict:
         err, ratio = max(e_out, e_lse), max(e_out / 3e-5, e_lse / 1e-5)
     if ratio > 1.0:
         raise AssertionError(f"{name} at head dim {PADDED_HEAD_DIM}: max |err| {err} beyond its tolerance")
-    return {"shape": list(want[0].shape), "padded_to": padded_head_dim(name, PADDED_HEAD_DIM), "main_path": False,
+    return {"shape": list(want[0].shape), "padded_to": padded_head_dim(PADDED_HEAD_DIM), "main_path": False,
             "max_abs_err": err, "checked": "a head width the kernels take zero-padded, against the plain version"}
 
 
@@ -777,6 +839,8 @@ def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
             "plain_ms": time_ms(plain), "library_ms": time_ms(library), "library_max_abs_err": lib_err,
             "bound_ms": b, "bound_by": kind, "max_abs_err": err, "err_over_tolerance": ratio,
         }
+        if d > 256:
+            part["padded_to"] = padded_head_dim(d)
         if window is None and d in BWD_STREAM:   # kernel 6: plan, traced parts, held to the tensor cores' bound
             tc_b, tc_kind = attention_bwd_tc_bound(h, t, d)
             part.update(plan=card_bwd_plan(h, t, t, d, dev)._asdict(), parts_ms=kernel6_parts(run),
@@ -1152,8 +1216,13 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
 
-    k6 = {fn: r for fn, r in ptxas_report("flash_attention").items() if fn.startswith("flash_bwd_tc_kernel")}
+    attention_regs = ptxas_report("flash_attention")
+    k5 = {fn: r for fn, r in attention_regs.items() if fn.startswith(("flash_fwd_tc_kernel", "fwd_merge_kernel"))}
+    k6 = {fn: r for fn, r in attention_regs.items() if fn.startswith("flash_bwd_tc_kernel")}
     dev = torch.device("cuda")
+    print(f"kernel 5 (flash_fwd) registers and spill bytes: {json.dumps(k5)}; blocks per SM "
+          f"{json.dumps({d: fwd_blocks_per_sm(d, dev) for d in FWD_STREAM})}, resident slots "
+          f"{json.dumps({d: fwd_slots(d, dev) for d in FWD_STREAM})}", flush=True)
     print(f"kernel 6 (flash_bwd) registers and spill bytes: {json.dumps(k6)}; blocks per SM (dK/dV, dQ) "
           f"{json.dumps({d: bwd_blocks_per_sm(d, dev) for d in BWD_STREAM})}, resident slots "
           f"{json.dumps({d: bwd_slots(d, dev) for d in BWD_STREAM})}", flush=True)

@@ -1,10 +1,14 @@
 // Flash attention, float32, for the temporal transformer scorer: the two
-// forwards first, the two backwards (training) after them.
+// forwards first, the two backwards (training) after them, then the two
+// kernels on the tensor cores (kernel 6, the full backward; kernel 5, the
+// full forward).
 //
 // The forwards replace two kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_fwd (body _fwd_kernel): full non-causal attention of (H, Tq, d)
 //     queries over (H, Tk, d) keys and values, keys valid below t_valid;
-//     writes out and the row log-sum-exp;
+//     writes out and the row log-sum-exp.  Head widths up to 128 run on the
+//     tensor cores (kernel 5, the last section); 256 and the wide path run
+//     the FP32-core template of this section;
 //   * _flash_local_fwd (body _local_fwd_kernel, mask _band_mask): banded
 //     attention |i + q_offset - j| <= W with keys valid in [lo, hi), visiting
 //     only the key tiles that meet each query tile's band, so the work is
@@ -14,12 +18,11 @@
 // What bounds it on an H100: operations.  Each valid (query, key) pair costs
 // 2d FLOP for the score and 2d for the weighted sum of values, against 16d
 // bytes per row of q, k, v and out (T = 5400, d = 128: 1.49e10 FLOP against
-// 11 MB for full attention, 5.1e9 FLOP for the W = 1024 band).  The work is
-// float32, so the ceiling is the 67 TFLOP/s of the FP32 cores: tensor-core
-// products would round the inputs to TF32, which keeps about three digits and
-// breaks the 2e-5 contract the kernels are held to.  The design keeps the
-// (Tq, Tk) score matrix out of device memory and feeds the FMA units from
-// shared memory:
+// 11 MB for full attention, 5.1e9 FLOP for the W = 1024 band).  The work of
+// this section is float32 on the FP32 cores (67 TFLOP/s): one TF32 product
+// keeps about three digits and breaks the 2e-5 contract the kernels are held
+// to.  The design keeps the (Tq, Tk) score matrix out of device memory and
+// feeds the FMA units from shared memory:
 //   * one block owns BQ = 16*RQ query rows of one head: 256 threads as a
 //     16 x 16 grid, a thread owning RQ rows (strided by 16) and, per key
 //     tile, 4 keys (strided by 16) of the score tile and d/16 columns of the
@@ -31,16 +34,23 @@
 //     share); after the last tile one divide gives out, and lse = m + log l;
 //   * masked entries get weight 0 instead of a large negative score: a row
 //     whose running max is still -inf has seen no valid key;
-//   * the full kernel takes 64-row tiles (RQ = 4); the banded one takes
-//     32-row tiles when 64-row tiles would give the card fewer than two
-//     blocks per SM (one head of T = 5400 is 85 such tiles on 132 SMs), so
-//     that short timelines spread over more SMs.  Timing both heights in
-//     turns on an H100 chose this: 32-row tiles made short bands faster and
-//     everything else slower;
+//   * the banded kernel takes 64-row tiles (RQ = 4) when they give the card
+//     at least two blocks per SM, else 32-row tiles (one head of T = 5400 is
+//     85 tiles of 64 on 132 SMs), so that short timelines spread over more
+//     SMs.  Timing both heights in turns on an H100 chose this: 32-row tiles
+//     made short bands faster and everything else slower;
 //   * head widths 32, 64, 128 and 256 are built (the wrapper zero-pads the
 //     others up to 256).  At D = 256, RQ = 4 takes 210 KB of shared memory
-//     and RQ = 2 169 KB: one block per SM either way.  D = 512 would need
-//     over 300 KB at RQ = 2, more than a block may take.
+//     and RQ = 2 169 KB: one block per SM either way.
+//   * the wide path: past 256 the wrapper zero-pads d to a multiple of kDC
+//     and the D = kDC templates run with rows of dw floats (a template flag
+//     W and the run-time width dw).  Nothing of width dw sits in shared
+//     memory: the contractions over d (S = Q K^T, and dP = dO V^T in the
+//     backwards) walk it in kDC-wide chunks through the same buffers, summed
+//     in registers, and block z of the grid's third axis writes columns
+//     [z*kDC, (z + 1)*kDC) of the outputs (only z = 0 writes lse).  Every
+//     slice recomputes the scores over the whole width: at d = 512 four times
+//     the score work, for widths no configuration uses.
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
@@ -53,6 +63,7 @@ namespace {
 constexpr int kThreads = 256;  // a 16 x 16 grid: tx picks keys and columns, ty rows
 constexpr int kBK = 64;        // keys per tile
 constexpr int kLdK = kBK + 1;  // padded row of K^T and P in shared memory
+constexpr int kDC = 128;       // the wide path's chunk of d and column slice
 
 template <int D, int RQ>
 struct Geom {
@@ -76,39 +87,41 @@ struct Band {
   __device__ bool operator()(int row, int key) const { return abs(row + q_offset - key) <= window; }
 };
 
+// Rows [q0, q0 + 16*RQ) of one head's rows of ld floats, their first D columns, into sq (zeros from row Tq on).
 template <int D, int RQ>
-__device__ __forceinline__ void load_q(const float* __restrict__ qh, int q0, int Tq, float* sq) {
+__device__ __forceinline__ void load_q(const float* __restrict__ qh, int q0, int Tq, float* sq, int ld = D) {
   using G = Geom<D, RQ>;
   for (int idx = threadIdx.x; idx < G::BQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
-    sq[r * G::kLdQ + c] = (q0 + r < Tq) ? __ldg(qh + static_cast<size_t>(q0 + r) * D + c) : 0.f;
+    sq[r * G::kLdQ + c] = (q0 + r < Tq) ? __ldg(qh + static_cast<size_t>(q0 + r) * ld + c) : 0.f;
   }
 }
 
-// One key tile of the online softmax: keys [k0, min(k0 + kBK, k_lim)) that
-// pass `mask` against the block's rows q0 + ty + 16i.  Updates the running
-// max m, sum l and unnormalised output acc of the thread's rows.
-template <int D, int RQ, typename Mask>
-__device__ __forceinline__ void attend_tile(const float* __restrict__ kh, const float* __restrict__ vh, int k0,
-                                            int k_lim, int q0, float scale, Mask mask, const float* sq,
-                                            float* skt, float* sv, float* sp, float (&m)[RQ], float (&l)[RQ],
-                                            float (&acc)[RQ][Geom<D, RQ>::NC]) {
-  using G = Geom<D, RQ>;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  __syncthreads();  // every thread is done with the previous tile's K^T, V and P
+// Keys [k0, k0 + kBK) (zeros from k_lim on), the first D columns of rows of ld floats: K transposed into
+// skt, V as it is into sv.
+template <int D>
+__device__ __forceinline__ void load_kt(const float* __restrict__ kh, int k0, int k_lim, float* skt, int ld = D) {
   for (int idx = threadIdx.x; idx < kBK * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
-    skt[c * kLdK + r] = (k0 + r < k_lim) ? __ldg(kh + static_cast<size_t>(k0 + r) * D + c) : 0.f;
+    skt[c * kLdK + r] = (k0 + r < k_lim) ? __ldg(kh + static_cast<size_t>(k0 + r) * ld + c) : 0.f;
   }
+}
+
+template <int D>
+__device__ __forceinline__ void load_v(const float* __restrict__ vh, int k0, int k_lim, float* sv, int ld = D) {
   for (int idx = threadIdx.x; idx < kBK * D / 4; idx += kThreads) {
     const int r = idx / (D / 4), c4 = idx % (D / 4);
     reinterpret_cast<float4*>(sv)[idx] =
-        (k0 + r < k_lim) ? __ldg(reinterpret_cast<const float4*>(vh + static_cast<size_t>(k0 + r) * D) + c4)
+        (k0 + r < k_lim) ? __ldg(reinterpret_cast<const float4*>(vh + static_cast<size_t>(k0 + r) * ld) + c4)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  __syncthreads();
+}
 
-  float s[RQ][4] = {};
+// s += the thread's RQ x 4 scores (rows ty + 16i, keys tx + 16j of the tile) over the D columns in shared memory.
+template <int D, int RQ>
+__device__ __forceinline__ void score_tile(const float* sq, const float* skt, float (&s)[RQ][4]) {
+  using G = Geom<D, RQ>;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll 4
   for (int kk = 0; kk < D; ++kk) {
     float a[RQ], b[4];
@@ -121,7 +134,17 @@ __device__ __forceinline__ void attend_tile(const float* __restrict__ kh, const 
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
+}
 
+// The online-softmax step of one key tile from its scores s: keys [k0, min(k0 + kBK, k_lim)) that pass
+// `mask` against the block's rows q0 + ty + 16i.  Updates the running max m, sum l and the rescaling of
+// the unnormalised output acc, and leaves the tile's weights in sp.
+template <int D, int RQ, typename Mask>
+__device__ __forceinline__ void softmax_tile(float (&s)[RQ][4], int k0, int k_lim, int q0, float scale, Mask mask,
+                                             float* sp, float (&m)[RQ], float (&l)[RQ],
+                                             float (&acc)[RQ][Geom<D, RQ>::NC]) {
+  using G = Geom<D, RQ>;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -153,8 +176,13 @@ __device__ __forceinline__ void attend_tile(const float* __restrict__ kh, const 
 #pragma unroll
     for (int c = 0; c < G::NC; ++c) acc[i][c] *= alpha;
   }
-  __syncthreads();
+}
 
+// acc += P V over the tile's keys, P and V in shared memory.
+template <int D, int RQ>
+__device__ __forceinline__ void weigh_values(const float* sp, const float* sv, float (&acc)[RQ][Geom<D, RQ>::NC]) {
+  using G = Geom<D, RQ>;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll 4
   for (int j = 0; j < kBK; ++j) {
     float p[RQ];
@@ -169,9 +197,53 @@ __device__ __forceinline__ void attend_tile(const float* __restrict__ kh, const 
   }
 }
 
+// One key tile of the online softmax: keys [k0, min(k0 + kBK, k_lim)) that
+// pass `mask` against the block's rows q0 + ty + 16i, Q already in sq.
+// Updates the running max m, sum l and unnormalised output acc of the
+// thread's rows.
+template <int D, int RQ, typename Mask>
+__device__ __forceinline__ void attend_tile(const float* __restrict__ kh, const float* __restrict__ vh, int k0,
+                                            int k_lim, int q0, float scale, Mask mask, const float* sq,
+                                            float* skt, float* sv, float* sp, float (&m)[RQ], float (&l)[RQ],
+                                            float (&acc)[RQ][Geom<D, RQ>::NC]) {
+  __syncthreads();  // every thread is done with the previous tile's K^T, V and P
+  load_kt<D>(kh, k0, k_lim, skt);
+  load_v<D>(vh, k0, k_lim, sv);
+  __syncthreads();
+  float s[RQ][4] = {};
+  score_tile<D, RQ>(sq, skt, s);
+  softmax_tile<D, RQ>(s, k0, k_lim, q0, scale, mask, sp, m, l, acc);
+  __syncthreads();
+  weigh_values<D, RQ>(sp, sv, acc);
+}
+
+// attend_tile on the wide path: rows of dw floats, the scores summed over dw / kDC chunks of Q and K
+// (each staged through sq and skt), the values of the block's column slice (grid z) only.
+template <int RQ, typename Mask>
+__device__ __forceinline__ void attend_tile_wide(const float* __restrict__ qh, const float* __restrict__ kh,
+                                                 const float* __restrict__ vh, int k0, int k_lim, int q0, int Tq,
+                                                 int dw, float scale, Mask mask, float* sq, float* skt, float* sv,
+                                                 float* sp, float (&m)[RQ], float (&l)[RQ],
+                                                 float (&acc)[RQ][Geom<kDC, RQ>::NC]) {
+  const int slice = blockIdx.z;
+  float s[RQ][4] = {};
+  for (int ch = 0; ch < dw / kDC; ++ch) {
+    __syncthreads();  // every thread is done with the previous chunk's Q and K^T (and the last tile's V, P)
+    load_q<kDC, RQ>(qh + ch * kDC, q0, Tq, sq, dw);
+    load_kt<kDC>(kh + ch * kDC, k0, k_lim, skt, dw);
+    if (ch == slice) load_v<kDC>(vh + slice * kDC, k0, k_lim, sv, dw);
+    __syncthreads();
+    score_tile<kDC, RQ>(sq, skt, s);
+  }
+  softmax_tile<kDC, RQ>(s, k0, k_lim, q0, scale, mask, sp, m, l, acc);
+  __syncthreads();
+  weigh_values<kDC, RQ>(sp, sv, acc);
+}
+
+// out (rows of ld floats from oh, the thread's D / 16 columns) and, when write_lse, lse of the block's rows.
 template <int D, int RQ>
-__device__ __forceinline__ void store_rows(float* __restrict__ oh, float* __restrict__ lh, int q0, int Tq,
-                                           const float (&m)[RQ], const float (&l)[RQ],
+__device__ __forceinline__ void store_rows(float* __restrict__ oh, float* __restrict__ lh, int q0, int Tq, int ld,
+                                           bool write_lse, const float (&m)[RQ], const float (&l)[RQ],
                                            const float (&acc)[RQ][Geom<D, RQ>::NC]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
@@ -181,28 +253,31 @@ __device__ __forceinline__ void store_rows(float* __restrict__ oh, float* __rest
     const bool dead = (m[i] == -INFINITY);
 #pragma unroll
     for (int c = 0; c < Geom<D, RQ>::NC; ++c)
-      oh[static_cast<size_t>(row) * D + tx + 16 * c] = dead ? 0.f : acc[i][c] / l[i];
-    if (tx == 0) lh[row] = dead ? 0.f : m[i] + logf(l[i]);
+      oh[static_cast<size_t>(row) * ld + tx + 16 * c] = dead ? 0.f : acc[i][c] / l[i];
+    if (write_lse && tx == 0) lh[row] = dead ? 0.f : m[i] + logf(l[i]);
   }
 }
 
 // The block's BQ query rows of head blockIdx.y against keys [k_begin, k_end)
-// that pass `mask`, tile by tile; writes their out and lse.
-template <int D, int RQ, typename Mask>
+// that pass `mask`, tile by tile; writes their out and lse.  W: the wide path
+// (rows of dw floats, D = kDC, the column slice blockIdx.z).
+template <int D, int RQ, bool W, typename Mask>
 __device__ __forceinline__ void attend_rows(const float* __restrict__ q, const float* __restrict__ k,
                                             const float* __restrict__ v, float* __restrict__ out,
                                             float* __restrict__ lse, int Tq, int Tk, int k_begin, int k_end,
-                                            float scale, Mask mask) {
+                                            float scale, Mask mask, int dw) {
   using G = Geom<D, RQ>;
   extern __shared__ float4 smem4[];
   float* sv = reinterpret_cast<float*>(smem4);
   float* sq = sv + G::kV;
   float* skt = sq + G::kQ;
   float* sp = skt + G::kKt;
-  const int h = blockIdx.y, q0 = blockIdx.x * G::BQ;
-  const float* kh = k + static_cast<size_t>(h) * Tk * D;
-  const float* vh = v + static_cast<size_t>(h) * Tk * D;
-  load_q<D, RQ>(q + static_cast<size_t>(h) * Tq * D, q0, Tq, sq);
+  const int ld = W ? dw : D;
+  const int h = blockIdx.y, q0 = blockIdx.x * G::BQ, c0 = W ? blockIdx.z * D : 0;
+  const float* qh = q + static_cast<size_t>(h) * Tq * ld;
+  const float* kh = k + static_cast<size_t>(h) * Tk * ld;
+  const float* vh = v + static_cast<size_t>(h) * Tk * ld;
+  if constexpr (!W) load_q<D, RQ>(qh, q0, Tq, sq);
   float m[RQ], l[RQ], acc[RQ][G::NC];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
@@ -211,23 +286,29 @@ __device__ __forceinline__ void attend_rows(const float* __restrict__ q, const f
 #pragma unroll
     for (int c = 0; c < G::NC; ++c) acc[i][c] = 0.f;
   }
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK)
-    attend_tile<D, RQ>(kh, vh, k0, k_end, q0, scale, mask, sq, skt, sv, sp, m, l, acc);
-  store_rows<D, RQ>(out + static_cast<size_t>(h) * Tq * D, lse + static_cast<size_t>(h) * Tq, q0, Tq, m, l, acc);
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+    if constexpr (W)
+      attend_tile_wide<RQ>(qh, kh, vh, k0, k_end, q0, Tq, dw, scale, mask, sq, skt, sv, sp, m, l, acc);
+    else
+      attend_tile<D, RQ>(kh, vh, k0, k_end, q0, scale, mask, sq, skt, sv, sp, m, l, acc);
+  }
+  store_rows<D, RQ>(out + static_cast<size_t>(h) * Tq * ld + c0, lse + static_cast<size_t>(h) * Tq, q0, Tq, ld,
+                    c0 == 0, m, l, acc);
 }
 
-template <int D, int RQ>
+template <int D, int RQ, bool W>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     float* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int kv_end, float scale) {
-  attend_rows<D, RQ>(q, k, v, out, lse, Tq, Tk, 0, kv_end, scale, AllKeys{});
+                     float* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int kv_end, float scale,
+                     int dw) {
+  attend_rows<D, RQ, W>(q, k, v, out, lse, Tq, Tk, 0, kv_end, scale, AllKeys{}, dw);
 }
 
-template <int D, int RQ>
+template <int D, int RQ, bool W>
 __global__ void __launch_bounds__(kThreads)
     flash_local_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                            float* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, float scale,
-                           int window, int lo, int hi, int q_offset) {
+                           int window, int lo, int hi, int q_offset, int dw) {
   // the keys any row of this tile may see: the bands of its first and last
   // row, cut to [lo, hi) and [0, Tk)
   const int q0 = blockIdx.x * Geom<D, RQ>::BQ;
@@ -235,35 +316,41 @@ __global__ void __launch_bounds__(kThreads)
   const long long begin = max(static_cast<long long>(q0) + q_offset - window, static_cast<long long>(max(lo, 0)));
   const long long end = min(static_cast<long long>(last_row) + q_offset + window + 1,
                             static_cast<long long>(min(hi, Tk)));
-  attend_rows<D, RQ>(q, k, v, out, lse, Tq, Tk, static_cast<int>(min(begin, end)), static_cast<int>(end), scale,
-                     Band{q_offset, window});
+  attend_rows<D, RQ, W>(q, k, v, out, lse, Tq, Tk, static_cast<int>(min(begin, end)), static_cast<int>(end), scale,
+                        Band{q_offset, window}, dw);
 }
 
 // 64-row tiles when they give at least two blocks per SM of the card.
 bool wide_tiles(int H, int Tq) { return static_cast<long long>(H) * ((Tq + 63) / 64) >= 2LL * sm_count(); }
 
-template <int D, int RQ>
+// Column slices of the grid: dw / D on the wide path, else 1.
+template <int D, bool W>
+__host__ __device__ __forceinline__ int slices_of(int dw) {
+  return W ? dw / D : 1;
+}
+
+template <int D, int RQ, bool W = false>
 int launch_full(const float* q, const float* k, const float* v, float* out, float* lse, int H, int Tq, int Tk,
-                int kv_end, float scale, cudaStream_t s) {
+                int kv_end, float scale, int dw, cudaStream_t s) {
   using G = Geom<D, RQ>;
   static_assert(G::kBytes <= kMaxSmemBytes, "the forward's tiles must fit a block's shared memory");
-  const int err = allow_dynamic_smem(flash_fwd_kernel<D, RQ>, G::kBytes);
+  const int err = allow_dynamic_smem(flash_fwd_kernel<D, RQ, W>, G::kBytes);
   if (err) return err;
-  const dim3 grid((Tq + G::BQ - 1) / G::BQ, H);
-  flash_fwd_kernel<D, RQ><<<grid, kThreads, G::kBytes, s>>>(q, k, v, out, lse, Tq, Tk, kv_end, scale);
+  const dim3 grid((Tq + G::BQ - 1) / G::BQ, H, slices_of<D, W>(dw));
+  flash_fwd_kernel<D, RQ, W><<<grid, kThreads, G::kBytes, s>>>(q, k, v, out, lse, Tq, Tk, kv_end, scale, dw);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int RQ>
+template <int D, int RQ, bool W = false>
 int launch_local(const float* q, const float* k, const float* v, float* out, float* lse, int H, int Tq, int Tk,
-                 float scale, int window, int lo, int hi, int q_offset, cudaStream_t s) {
+                 float scale, int window, int lo, int hi, int q_offset, int dw, cudaStream_t s) {
   using G = Geom<D, RQ>;
   static_assert(G::kBytes <= kMaxSmemBytes, "the forward's tiles must fit a block's shared memory");
-  const int err = allow_dynamic_smem(flash_local_fwd_kernel<D, RQ>, G::kBytes);
+  const int err = allow_dynamic_smem(flash_local_fwd_kernel<D, RQ, W>, G::kBytes);
   if (err) return err;
-  const dim3 grid((Tq + G::BQ - 1) / G::BQ, H);
-  flash_local_fwd_kernel<D, RQ>
-      <<<grid, kThreads, G::kBytes, s>>>(q, k, v, out, lse, Tq, Tk, scale, window, lo, hi, q_offset);
+  const dim3 grid((Tq + G::BQ - 1) / G::BQ, H, slices_of<D, W>(dw));
+  flash_local_fwd_kernel<D, RQ, W>
+      <<<grid, kThreads, G::kBytes, s>>>(q, k, v, out, lse, Tq, Tk, scale, window, lo, hi, q_offset, dw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -271,8 +358,8 @@ template <int D>
 int local_for(const float* q, const float* k, const float* v, float* out, float* lse, int H, int Tq, int Tk,
               float scale, int window, int lo, int hi, int q_offset, cudaStream_t s) {
   return wide_tiles(H, Tq)
-             ? launch_local<D, 4>(q, k, v, out, lse, H, Tq, Tk, scale, window, lo, hi, q_offset, s)
-             : launch_local<D, 2>(q, k, v, out, lse, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
+             ? launch_local<D, 4>(q, k, v, out, lse, H, Tq, Tk, scale, window, lo, hi, q_offset, D, s)
+             : launch_local<D, 2>(q, k, v, out, lse, H, Tq, Tk, scale, window, lo, hi, q_offset, D, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -281,10 +368,11 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 //
 // Replaces two more kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_bwd (bodies _dkv_kernel and _dq_kernel): the full form, keys
-//     valid below t_valid, on the tensor cores (the section after this one)
-//     for head widths up to 128; at 256 with the templates of this section
-//     and the full mask, since the tensor-core kernel's dK and dV would not
-//     fit in registers there (128 a thread at 128 already);
+//     valid below t_valid, on the tensor cores (kernel 6, the section after
+//     this one) for head widths up to 128; at 256 and on the wide path with
+//     the templates of this section and the full mask, since the tensor-core
+//     kernel's dK and dV would not fit in registers there (128 a thread at
+//     128 already);
 //   * _flash_local_bwd (bodies _local_dkv_kernel and _local_dq_kernel): the
 //     band |i + q_offset - j| <= W with keys valid in [lo, hi), on the FP32
 //     cores with the templates of this section.
@@ -313,7 +401,10 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 // accumulators.  At d = 128, R = 2 takes 75 KB of shared memory (three blocks
 // per SM), R = 4 takes 166 KB (one); R = 4 only when it gives at least two
 // blocks per SM, the forwards' rule, and fits: at d = 256, R = 2 takes 139 KB
-// and R = 4 would take 292 KB, so 256 runs R = 2 only.
+// and R = 4 would take 292 KB, so 256 runs R = 2 only, as does the wide path
+// (D = kDC; both operand sides of a tile are reloaded chunk by chunk, the
+// block's own column slice last, so that its columns of Q and dO, or of K,
+// are in shared memory for the sums into dK and dV, or dQ).
 
 template <int D, int R>
 struct BwdGeom {
@@ -329,35 +420,30 @@ struct BwdGeom {
 };
 
 struct BwdArgs {
-  const float *q, *k, *v, *dout, *lse, *di;  // (H, Tq, D), (H, Tk, D) x 2, (H, Tq, D), (H, Tq) x 2
-  float *dq, *dk, *dv;                       // (H, Tq, D), (H, Tk, D) x 2
-  int Tq, Tk;
+  const float *q, *k, *v, *dout, *lse, *di;  // (H, Tq, dw), (H, Tk, dw) x 2, (H, Tq, dw), (H, Tq) x 2
+  float *dq, *dk, *dv;                       // (H, Tq, dw), (H, Tk, dw) x 2
+  int Tq, Tk, dw;                            // dw: the row width (D but on the wide path)
   float scale;
 };
 
-// Rows [k0, k0 + B) of one head's (T, D) keys or values, transposed into
-// dst[c * kLdT + r] (zeros from row k_lim on).
+// Rows [k0, k0 + B) of one head's keys or values (the first D columns of rows of ld floats), transposed
+// into dst[c * kLdT + r] (zeros from row k_lim on).
 template <int D, int R>
-__device__ __forceinline__ void load_t(const float* __restrict__ src, int k0, int k_lim, float* dst) {
+__device__ __forceinline__ void load_t(const float* __restrict__ src, int k0, int k_lim, float* dst, int ld = D) {
   using G = BwdGeom<D, R>;
   for (int idx = threadIdx.x; idx < G::B * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
-    dst[c * G::kLdT + r] = (k0 + r < k_lim) ? __ldg(src + static_cast<size_t>(k0 + r) * D + c) : 0.f;
+    dst[c * G::kLdT + r] = (k0 + r < k_lim) ? __ldg(src + static_cast<size_t>(k0 + r) * ld + c) : 0.f;
   }
 }
 
-// The thread's R x R entries (rows q0 + ty + 16i, keys k0 + tx + 16j) of
-// P = exp(Q K^T * scale - lse) and dS = P * (dO V^T - di), written to sp and
-// sds as [row][key].  Entries whose row is at or past row_lim, whose key lies
-// outside [k_lo, k_hi), or that `mask` refuses are exactly 0.
-template <int D, int R, typename Mask>
-__device__ __forceinline__ void grad_scores(const float* sq, const float* sdo, const float* skt, const float* svt,
-                                            int q0, int row_lim, int k0, int k_lo, int k_hi, float scale,
-                                            Mask mask, const float (&lse)[R], const float (&di)[R], float* sp,
-                                            float* sds) {
+// s += Q K^T and dp += dO V^T over the D columns in shared memory, for the
+// thread's R x R entries (rows ty + 16i, keys tx + 16j of the tiles).
+template <int D, int R>
+__device__ __forceinline__ void grad_sums(const float* sq, const float* sdo, const float* skt, const float* svt,
+                                          float (&s)[R][R], float (&dp)[R][R]) {
   using G = BwdGeom<D, R>;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[R][R] = {}, dp[R][R] = {};
 #pragma unroll 4
   for (int kk = 0; kk < D; ++kk) {
     float a[R], g[R], b[R], w[R];
@@ -379,6 +465,18 @@ __device__ __forceinline__ void grad_scores(const float* sq, const float* sdo, c
         dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
       }
   }
+}
+
+// The thread's R x R entries (rows q0 + ty + 16i, keys k0 + tx + 16j) of
+// P = exp(s * scale - lse) and dS = P * (dp - di), written to sp and sds as
+// [row][key].  Entries whose row is at or past row_lim, whose key lies outside
+// [k_lo, k_hi), or that `mask` refuses are exactly 0.
+template <int D, int R, typename Mask>
+__device__ __forceinline__ void grad_probs(const float (&s)[R][R], const float (&dp)[R][R], int q0, int row_lim,
+                                           int k0, int k_lo, int k_hi, float scale, Mask mask, const float (&lse)[R],
+                                           const float (&di)[R], float* sp, float* sds) {
+  using G = BwdGeom<D, R>;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -393,9 +491,17 @@ __device__ __forceinline__ void grad_scores(const float* sq, const float* sdo, c
   }
 }
 
+// The column of the chunk a tile's j-th pass over d stages: 0 on the built
+// widths; on the wide path (n chunks of D) the block's own slice comes last.
+template <int D, bool W>
+__device__ __forceinline__ int chunk_col(int j, int n) {
+  return W ? (static_cast<int>(blockIdx.z) + 1 + j) % n * D : 0;
+}
+
 // dK and dV of the block's B keys of head blockIdx.y, from the query rows
 // [q_begin, q_end) tile by tile; keys valid in [k_lo, k_hi) that pass `mask`.
-template <int D, int R, typename Mask>
+// W: the wide path (rows of a.dw floats, D = kDC, the column slice blockIdx.z).
+template <int D, int R, bool W, typename Mask>
 __device__ __forceinline__ void dkv_keys(const BwdArgs& a, int q_begin, int q_end, int k_lo, int k_hi, Mask mask) {
   using G = BwdGeom<D, R>;
   extern __shared__ float4 smem4[];
@@ -408,28 +514,47 @@ __device__ __forceinline__ void dkv_keys(const BwdArgs& a, int q_begin, int q_en
   float* sl = sds + G::kTile;
   float* sd = sl + G::B;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int ld = W ? a.dw : D, chunks = slices_of<D, W>(a.dw);
   const int h = blockIdx.y, k0 = blockIdx.x * G::B;
   const size_t qrow = static_cast<size_t>(h) * a.Tq, krow = static_cast<size_t>(h) * a.Tk;
-  load_t<D, R>(a.k + krow * D, k0, a.Tk, skt);
-  load_t<D, R>(a.v + krow * D, k0, a.Tk, svt);
+  const float* qh = a.q + qrow * ld;
+  const float* doh = a.dout + qrow * ld;
+  const float* kh = a.k + krow * ld;
+  const float* vh = a.v + krow * ld;
+  if constexpr (!W) {
+    load_t<D, R>(kh, k0, a.Tk, skt);
+    load_t<D, R>(vh, k0, a.Tk, svt);
+  }
   float acc_k[R][G::NC] = {}, acc_v[R][G::NC] = {};
   for (int q0 = q_begin; q0 < q_end; q0 += G::B) {
-    __syncthreads();  // every thread is done with the previous tile's Q, dO, P and dS
-    load_q<D, R>(a.q + qrow * D, q0, q_end, sq);
-    load_q<D, R>(a.dout + qrow * D, q0, q_end, sdo);
-    for (int r = threadIdx.x; r < G::B; r += kThreads) {
-      const bool in = q0 + r < q_end;
-      sl[r] = in ? __ldg(a.lse + qrow + q0 + r) : 0.f;
-      sd[r] = in ? __ldg(a.di + qrow + q0 + r) : 0.f;
-    }
-    __syncthreads();
-    float l[R], dd[R];
+    float s[R][R] = {}, dp[R][R] = {}, l[R], dd[R];
+    for (int j = 0; j < chunks; ++j) {
+      const int col = chunk_col<D, W>(j, chunks);
+      __syncthreads();  // every thread is done with the previous tile's (or chunk's) Q, dO, P and dS
+      load_q<D, R>(qh + col, q0, q_end, sq, ld);
+      load_q<D, R>(doh + col, q0, q_end, sdo, ld);
+      if constexpr (W) {
+        load_t<D, R>(kh + col, k0, a.Tk, skt, ld);
+        load_t<D, R>(vh + col, k0, a.Tk, svt, ld);
+      }
+      if (j == 0) {
+        for (int r = threadIdx.x; r < G::B; r += kThreads) {
+          const bool in = q0 + r < q_end;
+          sl[r] = in ? __ldg(a.lse + qrow + q0 + r) : 0.f;
+          sd[r] = in ? __ldg(a.di + qrow + q0 + r) : 0.f;
+        }
+      }
+      __syncthreads();
+      if (j == 0) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      l[i] = sl[ty + 16 * i];
-      dd[i] = sd[ty + 16 * i];
+        for (int i = 0; i < R; ++i) {
+          l[i] = sl[ty + 16 * i];
+          dd[i] = sd[ty + 16 * i];
+        }
+      }
+      grad_sums<D, R>(sq, sdo, skt, svt, s, dp);
     }
-    grad_scores<D, R>(sq, sdo, skt, svt, q0, q_end, k0, k_lo, k_hi, a.scale, mask, l, dd, sp, sds);
+    grad_probs<D, R>(s, dp, q0, q_end, k0, k_lo, k_hi, a.scale, mask, l, dd, sp, sds);
     __syncthreads();
     // dV += P^T dO and dK += dS^T Q over the tile's rows; the thread's keys are ty + 16i
 #pragma unroll 2
@@ -451,21 +576,22 @@ __device__ __forceinline__ void dkv_keys(const BwdArgs& a, int q_begin, int q_en
       }
     }
   }
+  const int c0 = W ? blockIdx.z * D : 0;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= a.Tk) continue;
 #pragma unroll
     for (int c = 0; c < G::NC; ++c) {
-      a.dk[(krow + key) * D + tx + 16 * c] = acc_k[i][c] * a.scale;
-      a.dv[(krow + key) * D + tx + 16 * c] = acc_v[i][c];
+      a.dk[(krow + key) * ld + c0 + tx + 16 * c] = acc_k[i][c] * a.scale;
+      a.dv[(krow + key) * ld + c0 + tx + 16 * c] = acc_v[i][c];
     }
   }
 }
 
 // dQ of the block's B query rows of head blockIdx.y, from the keys
-// [k_begin, k_end) that pass `mask`, tile by tile.
-template <int D, int R, typename Mask>
+// [k_begin, k_end) that pass `mask`, tile by tile.  W: as dkv_keys.
+template <int D, int R, bool W, typename Mask>
 __device__ __forceinline__ void dq_rows(const BwdArgs& a, int k_begin, int k_end, Mask mask) {
   using G = BwdGeom<D, R>;
   extern __shared__ float4 smem4[];
@@ -476,10 +602,17 @@ __device__ __forceinline__ void dq_rows(const BwdArgs& a, int k_begin, int k_end
   float* sp = svt + G::kCols;
   float* sds = sp + G::kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int ld = W ? a.dw : D, chunks = slices_of<D, W>(a.dw);
   const int h = blockIdx.y, q0 = blockIdx.x * G::B;
   const size_t qrow = static_cast<size_t>(h) * a.Tq, krow = static_cast<size_t>(h) * a.Tk;
-  load_q<D, R>(a.q + qrow * D, q0, a.Tq, sq);
-  load_q<D, R>(a.dout + qrow * D, q0, a.Tq, sdo);
+  const float* qh = a.q + qrow * ld;
+  const float* doh = a.dout + qrow * ld;
+  const float* kh = a.k + krow * ld;
+  const float* vh = a.v + krow * ld;
+  if constexpr (!W) {
+    load_q<D, R>(qh, q0, a.Tq, sq);
+    load_q<D, R>(doh, q0, a.Tq, sdo);
+  }
   float l[R], dd[R], acc[R][G::NC] = {};
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -488,11 +621,20 @@ __device__ __forceinline__ void dq_rows(const BwdArgs& a, int k_begin, int k_end
     dd[i] = row < a.Tq ? __ldg(a.di + qrow + row) : 0.f;
   }
   for (int k0 = k_begin; k0 < k_end; k0 += G::B) {
-    __syncthreads();  // every thread is done with the previous tile's K^T, V^T and dS
-    load_t<D, R>(a.k + krow * D, k0, k_end, skt);
-    load_t<D, R>(a.v + krow * D, k0, k_end, svt);
-    __syncthreads();
-    grad_scores<D, R>(sq, sdo, skt, svt, q0, a.Tq, k0, k_begin, k_end, a.scale, mask, l, dd, sp, sds);
+    float s[R][R] = {}, dp[R][R] = {};
+    for (int j = 0; j < chunks; ++j) {
+      const int col = chunk_col<D, W>(j, chunks);
+      __syncthreads();  // every thread is done with the previous tile's (or chunk's) K^T, V^T and dS
+      if constexpr (W) {
+        load_q<D, R>(qh + col, q0, a.Tq, sq, ld);
+        load_q<D, R>(doh + col, q0, a.Tq, sdo, ld);
+      }
+      load_t<D, R>(kh + col, k0, k_end, skt, ld);
+      load_t<D, R>(vh + col, k0, k_end, svt, ld);
+      __syncthreads();
+      grad_sums<D, R>(sq, sdo, skt, svt, s, dp);
+    }
+    grad_probs<D, R>(s, dp, q0, a.Tq, k0, k_begin, k_end, a.scale, mask, l, dd, sp, sds);
     __syncthreads();
     // dQ += dS K: K[j][col] is K^T[col][j], an odd stride apart across the threads
 #pragma unroll 4
@@ -508,28 +650,29 @@ __device__ __forceinline__ void dq_rows(const BwdArgs& a, int k_begin, int k_end
       }
     }
   }
+  const int c0 = W ? blockIdx.z * D : 0;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.Tq) continue;
 #pragma unroll
-    for (int c = 0; c < G::NC; ++c) a.dq[(qrow + row) * D + tx + 16 * c] = acc[i][c] * a.scale;
+    for (int c = 0; c < G::NC; ++c) a.dq[(qrow + row) * ld + c0 + tx + 16 * c] = acc[i][c] * a.scale;
   }
 }
 
-template <int D, int R>
+template <int D, int R, bool W>
 __global__ void __launch_bounds__(kThreads) flash_full_dkv_kernel(BwdArgs a, int kv_end) {
   // a key tile wholly past kv_end visits no query and writes zeros
   const bool any_valid = static_cast<int>(blockIdx.x) * BwdGeom<D, R>::B < kv_end;
-  dkv_keys<D, R>(a, 0, any_valid ? a.Tq : 0, 0, kv_end, AllKeys{});
+  dkv_keys<D, R, W>(a, 0, any_valid ? a.Tq : 0, 0, kv_end, AllKeys{});
 }
 
-template <int D, int R>
+template <int D, int R, bool W>
 __global__ void __launch_bounds__(kThreads) flash_full_dq_kernel(BwdArgs a, int kv_end) {
-  dq_rows<D, R>(a, 0, kv_end, AllKeys{});
+  dq_rows<D, R, W>(a, 0, kv_end, AllKeys{});
 }
 
-template <int D, int R>
+template <int D, int R, bool W>
 __global__ void __launch_bounds__(kThreads)
     flash_local_dkv_kernel(BwdArgs a, int window, int lo, int hi, int q_offset) {
   // the tile's valid keys [kb, ke], then the rows whose band reaches one of them
@@ -540,10 +683,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long end = kb > ke ? begin
                                 : max(begin, min(static_cast<long long>(ke) + window - q_offset + 1,
                                                  static_cast<long long>(a.Tq)));
-  dkv_keys<D, R>(a, static_cast<int>(begin), static_cast<int>(end), k_lo, k_hi, Band{q_offset, window});
+  dkv_keys<D, R, W>(a, static_cast<int>(begin), static_cast<int>(end), k_lo, k_hi, Band{q_offset, window});
 }
 
-template <int D, int R>
+template <int D, int R, bool W>
 __global__ void __launch_bounds__(kThreads)
     flash_local_dq_kernel(BwdArgs a, int window, int lo, int hi, int q_offset) {
   // the keys any row of this tile may see, as in flash_local_fwd_kernel
@@ -552,16 +695,16 @@ __global__ void __launch_bounds__(kThreads)
   const long long begin = max(static_cast<long long>(q0) + q_offset - window, static_cast<long long>(max(lo, 0)));
   const long long end = min(static_cast<long long>(last_row) + q_offset + window + 1,
                             static_cast<long long>(min(hi, a.Tk)));
-  dq_rows<D, R>(a, static_cast<int>(min(begin, end)), static_cast<int>(end), Band{q_offset, window});
+  dq_rows<D, R, W>(a, static_cast<int>(min(begin, end)), static_cast<int>(end), Band{q_offset, window});
 }
 
-// One backward kernel over `tiles` x H blocks (none when either is 0).
+// One backward kernel over `tiles` x H x `slices` blocks (none when tiles or H is 0).
 template <typename Kernel, typename... Args>
-int launch_bwd(Kernel kernel, size_t bytes, int tiles, int H, cudaStream_t s, Args... args) {
+int launch_bwd(Kernel kernel, size_t bytes, int tiles, int H, int slices, cudaStream_t s, Args... args) {
   if (tiles == 0 || H == 0) return 0;
   const int err = allow_dynamic_smem(kernel, bytes);
   if (err) return err;
-  kernel<<<dim3(tiles, H), kThreads, bytes, s>>>(args...);
+  kernel<<<dim3(tiles, H, slices), kThreads, bytes, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,34 +725,48 @@ int local_bwd_for(const BwdArgs& a, int H, int window, int lo, int hi, int q_off
   static_assert(N::kBytes <= kMaxSmemBytes, "the backward's tiles must fit a block's shared memory");
   const int err =
       wide_tiles(H, a.Tk)
-          ? launch_bwd(flash_local_dkv_kernel<D, RW>, W::kBytes, tiles_of<RW>(a.Tk), H, s, a, window, lo, hi,
-                       q_offset)
-          : launch_bwd(flash_local_dkv_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tk), H, s, a, window, lo, hi,
-                       q_offset);
+          ? launch_bwd(flash_local_dkv_kernel<D, RW, false>, W::kBytes, tiles_of<RW>(a.Tk), H, 1, s, a, window, lo,
+                       hi, q_offset)
+          : launch_bwd(flash_local_dkv_kernel<D, 2, false>, N::kBytes, tiles_of<2>(a.Tk), H, 1, s, a, window, lo,
+                       hi, q_offset);
   if (err) return err;
   return wide_tiles(H, a.Tq)
-             ? launch_bwd(flash_local_dq_kernel<D, RW>, W::kBytes, tiles_of<RW>(a.Tq), H, s, a, window, lo, hi,
-                          q_offset)
-             : launch_bwd(flash_local_dq_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tq), H, s, a, window, lo, hi,
-                          q_offset);
+             ? launch_bwd(flash_local_dq_kernel<D, RW, false>, W::kBytes, tiles_of<RW>(a.Tq), H, 1, s, a, window,
+                          lo, hi, q_offset)
+             : launch_bwd(flash_local_dq_kernel<D, 2, false>, N::kBytes, tiles_of<2>(a.Tq), H, 1, s, a, window, lo,
+                          hi, q_offset);
 }
 
-// The full backward at a head width past the tensor-core kernel's (256): the FP32-core templates with the full
-// mask, R = 2 (the only tiles that fit), no split.
-template <int D>
+// The banded backward on the wide path: R = 2, a.dw / kDC column slices.
+int local_bwd_wide(const BwdArgs& a, int H, int window, int lo, int hi, int q_offset, cudaStream_t s) {
+  using N = BwdGeom<kDC, 2>;
+  const int slices = a.dw / kDC;
+  const int err = launch_bwd(flash_local_dkv_kernel<kDC, 2, true>, N::kBytes, tiles_of<2>(a.Tk), H, slices, s, a,
+                             window, lo, hi, q_offset);
+  if (err) return err;
+  return launch_bwd(flash_local_dq_kernel<kDC, 2, true>, N::kBytes, tiles_of<2>(a.Tq), H, slices, s, a, window, lo,
+                    hi, q_offset);
+}
+
+// The full backward at a head width past the tensor-core kernel's (256, or the wide path with D = kDC): the
+// FP32-core templates with the full mask, R = 2 (the only tiles that fit at 256), no split.
+template <int D, bool W>
 int full_bwd_f32(const BwdArgs& a, int H, int kv_end, cudaStream_t s) {
   using N = BwdGeom<D, 2>;
-  const int err = launch_bwd(flash_full_dkv_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tk), H, s, a, kv_end);
+  const int slices = slices_of<D, W>(a.dw);
+  const int err =
+      launch_bwd(flash_full_dkv_kernel<D, 2, W>, N::kBytes, tiles_of<2>(a.Tk), H, slices, s, a, kv_end);
   if (err) return err;
-  return launch_bwd(flash_full_dq_kernel<D, 2>, N::kBytes, tiles_of<2>(a.Tq), H, s, a, kv_end);
+  return launch_bwd(flash_full_dq_kernel<D, 2, W>, N::kBytes, tiles_of<2>(a.Tq), H, slices, s, a, kv_end);
 }
 
 BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* di,
-                 void* dq, void* dk, void* dv, int Tq, int Tk, float scale) {
+                 void* dq, void* dk, void* dv, int Tq, int Tk, int dw, float scale) {
   return BwdArgs{static_cast<const float*>(q),    static_cast<const float*>(k),   static_cast<const float*>(v),
                  static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
                  static_cast<float*>(dq),         static_cast<float*>(dk),        static_cast<float*>(dv),
-                 Tq,                              Tk,                             scale};
+                 Tq,                              Tk,                             dw,
+                 scale};
 }
 
 
@@ -702,17 +859,16 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* __restrict__ 
 }
 
 // acc += sum over j of A_j * Y[8j .. 8j + 8 in the permuted order][8n .. 8n + 8],
-// Y in shared memory with pitch D + 4 and p = &Y[2t][g + 8n]: the chunk's
+// Y in shared memory with pitch LD and p = &Y[2t][g + 8n]: the chunk's NT
 // products in a fresh accumulator, then one float32 add (see kSumGroup).
-template <int D>
-__device__ __forceinline__ void add_chunk_product(float (&acc)[4], const uint32_t (&ab)[TcGeom<D>::NT][4],
-                                                  const uint32_t (&as)[TcGeom<D>::NT][4], const float* p) {
-  constexpr int kLd = D + 4;
+template <int NT, int LD>
+__device__ __forceinline__ void add_chunk_product(float (&acc)[4], const uint32_t (&ab)[NT][4],
+                                                  const uint32_t (&as)[NT][4], const float* p) {
   float part[4] = {};
 #pragma unroll
-  for (int j = 0; j < TcGeom<D>::NT; ++j) {
+  for (int j = 0; j < NT; ++j) {
     uint32_t bb[2], bs[2];
-    frag_b(p[8 * j * kLd], p[(8 * j + 1) * kLd], bb, bs);
+    frag_b(p[8 * j * LD], p[(8 * j + 1) * LD], bb, bs);
     mma3(part, ab[j], as[j], bb, bs);
   }
 #pragma unroll
@@ -859,8 +1015,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_tc_kernel(TcArgs a) {
     const int off = 2 * t * kLd + g;
 #pragma unroll
     for (int n = 0; n < G::ND; ++n) {
-      add_chunk_product<D>(acc1[n], gb, gs, ys1 + off + 8 * n);
-      if constexpr (Dkv) add_chunk_product<D>(acc2[n], pb, pbs, ys2 + off + 8 * n);
+      add_chunk_product<G::NT, kLd>(acc1[n], gb, gs, ys1 + off + 8 * n);
+      if constexpr (Dkv) add_chunk_product<G::NT, kLd>(acc2[n], pb, pbs, ys2 + off + 8 * n);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -955,12 +1111,280 @@ int tc_blocks_per_sm(int which, int* out) {
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kTcThreads, TcGeom<D>::kBytes));
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 5, the full forward, on the tensor cores in 3xTF32.
+//
+// Same function as flash_fwd_kernel with the full mask, at head widths up to
+// 128 (256 and the wide path keep that FP32-core template): keys valid below
+// kv_end, out and the row lse, a dead row out 0 and lse 0; no atomics, equal
+// bits on a repeat.
+//
+// What bounds it on an H100: operations.  4d FLOP per (query, key) pair
+// (S = Q K^T, then P V), each product in 3xTF32 as in kernel 6: 12d per pair
+// at 495 TFLOP/s bounds (1, 5400, 128) at 0.090 ms, where the FP32 cores'
+// 67 TFLOP/s bound the template above at 0.223 ms.
+//
+// Design (kernel 6's pieces, in the shape of its dQ side):
+//   * a block of 4 warps owns 64 query rows of one head, 16 per warp.  Q
+//     stays in shared memory (rows of D + 8 floats); K and V stream in chunks
+//     of BS keys (32 at d = 128, 64 below) through a two-stage ring of
+//     16-byte cp.async copies (rows of D + 4; zero-filled past kv_end, where
+//     the walk ends);
+//   * per chunk each warp computes its 16 x BS scores by mma3 over d,
+//     kSumGroup k-steps per fresh accumulator added in float32, and runs the
+//     online softmax in the accumulator layout: a thread holds rows g and
+//     g + 8, the scores are taken to log2 units once (times scale * log2 e),
+//     the row max is reduced over the quad's 4 threads, the weights are
+//     exp2f of the scores less the running max, O is rescaled by alpha, and
+//     the row sum stays a per-thread partial until the end;
+//   * P goes from the accumulators straight into the A operand with kernel
+//     6's permuted k index, V is read in the same permuted row order, and
+//     O += P V runs per 8-column tile in a fresh accumulator per chunk (O is
+//     D / 2 registers a thread, 64 at d = 128);
+//   * one head of T = 5400 is 85 tiles for an H100's 264 resident blocks, so
+//     the wrapper's plan (ops/cuda/flash_attention.py::card_fwd_plan, from
+//     the card's occupancy) may split each block's walk over the chunks in s
+//     parts.  Split i writes its unnormalised out with its row max and sum to
+//     float32 scratch the wrapper allocates, and fwd_merge_kernel combines
+//     the splits in split order: out = sum_i e^(m_i - m) o_i / sum_i
+//     e^(m_i - m) l_i, lse = m + log l.  A split that saw no valid key has
+//     weight exactly 0.  With s = 1 the tile kernel writes out and lse.
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct TcFwdGeom {
+  static constexpr int BS = D == 128 ? 32 : 64;  // keys per streamed chunk
+  static constexpr int kLdQ = D + 8;             // a row of Q in shared memory
+  static constexpr int kLd = D + 4;              // a streamed row of K or V
+  static constexpr int NT = BS / 8;              // 8-key MMA tiles across a chunk
+  static constexpr int ND = D / 8;               // 8-wide MMA tiles across d
+  // Q, then the ring of K and V
+  static constexpr size_t kBytes = sizeof(float) * (kTcTile * kLdQ + 4 * BS * kLd);
+  static_assert(kTcTile * D / 4 % kTcThreads == 0 && BS * D / 4 % kTcThreads == 0, "whole copy rounds");
+};
+
+struct TcFwdArgs {
+  const float *q, *k, *v;    // (H, Tq, D), (H, Tk, D) x 2
+  float *out, *lse;          // (H, Tq, D), (H, Tq)
+  float *part_o, *part_ml;   // (s, H, Tq, D) unnormalised out, (s, H, Tq, 2) row max (log2 units) and sum; s > 1
+  int H, Tq, Tk, kv_end, splits;
+  float scale;
+};
+
+// One block of kernel 5: blockIdx = (query tile, head, split).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a) {
+  using G = TcFwdGeom<D>;
+  constexpr int BS = G::BS, kLd = G::kLd, NT = G::NT, ND = G::ND;
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sk = sq + kTcTile * G::kLdQ;  // [2][BS][kLd]
+  float* sv = sk + 2 * BS * kLd;       // [2][BS][kLd]
+
+  const int h = blockIdx.y, split = blockIdx.z, r0 = blockIdx.x * kTcTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const size_t qoff = static_cast<size_t>(h) * a.Tq, koff = static_cast<size_t>(h) * a.Tk;
+  const float* kh = a.k + koff * D;
+  const float* vh = a.v + koff * D;
+
+  // this split's chunks of the valid keys
+  const int chunks = (a.kv_end + BS - 1) / BS;
+  const int c_begin = static_cast<int>(static_cast<long long>(split) * chunks / a.splits);
+  const int c_end = static_cast<int>(static_cast<long long>(split + 1) * chunks / a.splits);
+
+  auto load_chunk = [&](int stage, int c) {
+    copy_rows<D, BS, kLd>(sk + stage * BS * kLd, kh, c * BS, a.kv_end);
+    copy_rows<D, BS, kLd>(sv + stage * BS * kLd, vh, c * BS, a.kv_end);
+  };
+  if (c_begin < c_end) {
+    copy_rows<D, kTcTile, G::kLdQ>(sq, a.q + qoff * D, r0, a.Tq);
+    load_chunk(0, c_begin);
+  }
+  cp_async_commit();
+
+  const float scale_log2e = a.scale * kLog2e;
+  // rows g and g + 8 of the warp's 16: running max (log2 units), the thread's part of the sum, and out
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[ND][4] = {};
+  const float* xq = sq + (warp * 16 + g) * G::kLdQ + 2 * t;
+  for (int c = c_begin; c < c_end; ++c) {
+    const int stage = (c - c_begin) & 1;
+    if (c + 1 < c_end) {
+      load_chunk(stage ^ 1, c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ks = sk + stage * BS * kLd;
+    const float* vs = sv + stage * BS * kLd;
+
+    // S = Q K^T over d, kSumGroup k-steps per fresh accumulator (two groups unrolled: timed on an H100
+    // against none and all, it was the fastest)
+    float s[NT][4] = {};
+#pragma unroll 2
+    for (int k0 = 0; k0 < ND; k0 += kSumGroup) {
+      float ps[NT][4] = {};
+#pragma unroll
+      for (int kk = k0; kk < k0 + kSumGroup; ++kk) {
+        uint32_t ab[4], as[4];
+        frag_a(xq + 8 * kk, G::kLdQ, ab, as);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float2 kv = *reinterpret_cast<const float2*>(ks + (8 * n + g) * kLd + 8 * kk + 2 * t);
+          uint32_t bb[2], bs[2];
+          frag_b(kv.x, kv.y, bb, bs);
+          mma3(ps[n], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += ps[n][e];
+    }
+
+    // the online softmax in log2 units; keys at or past kv_end get weight exactly 0
+    const int key0 = c * BS + 2 * t;
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = key0 + 8 * n + (e & 1) < a.kv_end ? s[n][e] * scale_log2e : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+      }
+    float alpha[2], base[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // a row's 4 threads are one quad of lanes
+      mt[half] = fmaxf(mt[half], __shfl_xor_sync(0xffffffffu, mt[half], 1));
+      mt[half] = fmaxf(mt[half], __shfl_xor_sync(0xffffffffu, mt[half], 2));
+      const float m_new = fmaxf(m[half], mt[half]);
+      // no valid key yet: subtract 0, so every weight and alpha is 0, not NaN
+      base[half] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[half] = exp2f(m[half] - base[half]);
+      m[half] = m_new;
+      l[half] *= alpha[half];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - base[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+
+    // O += P V, P from the accumulators: k index t <- key 2t and t + 4 <- 2t + 1 of each 8
+    uint32_t pb[NT][4], psm[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) frag_a_from_acc(s[j], pb[j], psm[j]);
+    const float* vp = vs + 2 * t * kLd + g;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) add_chunk_product<NT, kLd>(o[n], pb, psm, vp + 8 * n);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // the row sums over the quad, then rows g and g + 8, columns (2t, 2t + 1) of each 8-wide tile
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + warp * 16 + g + 8 * half;
+    if (row >= a.Tq) continue;
+    const bool dead = m[half] == -INFINITY;
+    if (a.splits == 1) {
+      float* orow = a.out + (qoff + row) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            dead ? make_float2(0.f, 0.f) : make_float2(o[n][2 * half] / l[half], o[n][2 * half + 1] / l[half]);
+      if (t == 0) a.lse[qoff + row] = dead ? 0.f : m[half] * kLn2 + logf(l[half]);
+    } else {
+      const size_t at = static_cast<size_t>(split) * a.H * a.Tq + qoff + row;
+      float* orow = a.part_o + at * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o[n][2 * half], o[n][2 * half + 1]);
+      if (t == 0) *reinterpret_cast<float2*>(a.part_ml + 2 * at) = make_float2(m[half], l[half]);
+    }
+  }
+}
+
+// out and lse of kernel 5 from its s splits' partials over `rows` rows of d4 float4s, combined in split
+// order; one thread per float4 of out.  A row no split saw a valid key of is dead: out 0, lse 0.
+__global__ void __launch_bounds__(256)
+    fwd_merge_kernel(const float4* __restrict__ part_o, const float2* __restrict__ part_ml, float4* __restrict__ out,
+                     float* __restrict__ lse, int rows, int d4, int s) {
+  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  const size_t n = static_cast<size_t>(rows) * d4;
+  if (i >= n) return;
+  const size_t row = i / d4;
+  float mx = -INFINITY;
+  for (int k = 0; k < s; ++k) mx = fmaxf(mx, part_ml[k * static_cast<size_t>(rows) + row].x);
+  if (mx == -INFINITY) {
+    out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i % d4 == 0) lse[row] = 0.f;
+    return;
+  }
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float l = 0.f;
+  for (int k = 0; k < s; ++k) {
+    const float2 ml = part_ml[k * static_cast<size_t>(rows) + row];
+    const float w = ml.x == -INFINITY ? 0.f : exp2f(ml.x - mx);
+    const float4 p = part_o[k * n + i];
+    acc.x = fmaf(w, p.x, acc.x);
+    acc.y = fmaf(w, p.y, acc.y);
+    acc.z = fmaf(w, p.z, acc.z);
+    acc.w = fmaf(w, p.w, acc.w);
+    l = fmaf(w, ml.y, l);
+  }
+  out[i] = make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  if (i % d4 == 0) lse[row] = mx * kLn2 + logf(l);
+}
+
+// The tile kernel, then (when split) the merge.
+template <int D>
+int full_fwd_tc(const TcFwdArgs& a, cudaStream_t s) {
+  const int tiles = (a.Tq + kTcTile - 1) / kTcTile;
+  if (tiles == 0 || a.H == 0) return 0;
+  int err = allow_dynamic_smem(flash_fwd_tc_kernel<D>, TcFwdGeom<D>::kBytes);
+  if (err) return err;
+  flash_fwd_tc_kernel<D><<<dim3(tiles, a.H, a.splits), kTcThreads, TcFwdGeom<D>::kBytes, s>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || a.splits == 1) return err;
+  const int rows = a.H * a.Tq, d4 = D / 4;
+  const int blocks = static_cast<int>((static_cast<size_t>(rows) * d4 + 255) / 256);
+  fwd_merge_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(a.part_o),
+                                          reinterpret_cast<const float2*>(a.part_ml), reinterpret_cast<float4*>(a.out),
+                                          a.lse, rows, d4, a.splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int tc_fwd_blocks_per_sm(int* out) {
+  const int err = allow_dynamic_smem(flash_fwd_tc_kernel<D>, TcFwdGeom<D>::kBytes);
+  if (err) return err;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, flash_fwd_tc_kernel<D>, kTcThreads, TcFwdGeom<D>::kBytes));
+}
+
 }  // namespace
 
-// q: (H, Tq, D); k, v: (H, Tk, D); out: (H, Tq, D); lse: (H, Tq).  Keys at
-// j >= t_valid are masked.  D is 32, 64, 128 or 256; all rows 16-byte aligned.
+// The full forward (kernel 5).  q: (H, Tq, D); k, v: (H, Tk, D); out: (H, Tq, D); lse: (H, Tq).  Keys at
+// j >= t_valid are masked.  D is 32, 64 or 128 (the tensor-core kernel, its walk split in `splits` by the
+// wrapper's plan, with part_o (splits, H, Tq, D) and part_ml (splits, H, Tq, 2) float32 scratch when
+// splits > 1), 256 (the FP32-core template), or past 256 a multiple of 128 (the wide path); those two
+// unsplit.  All rows 16-byte aligned.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int H, int Tq, int Tk,
-                         int D, float scale, int t_valid, void* stream) {
+                         int D, float scale, int t_valid, int splits, void* part_o, void* part_ml, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -968,17 +1392,33 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   float* of = static_cast<float*>(out);
   float* lf = static_cast<float*>(lse);
   const int kv_end = t_valid < 0 ? 0 : (t_valid < Tk ? t_valid : Tk);
+  if (splits < 1 || (splits > 1 && (!part_o || !part_ml || D > 128))) return static_cast<int>(cudaErrorInvalidValue);
+  const TcFwdArgs a{qf, kf, vf, of, lf, static_cast<float*>(part_o), static_cast<float*>(part_ml), H, Tq, Tk, kv_end,
+                    splits, scale};
   switch (D) {
-    case 32: return launch_full<32, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
-    case 64: return launch_full<64, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
-    case 128: return launch_full<128, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
-    case 256: return launch_full<256, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, s);
+    case 32: return full_fwd_tc<32>(a, s);
+    case 64: return full_fwd_tc<64>(a, s);
+    case 128: return full_fwd_tc<128>(a, s);
+    case 256: return launch_full<256, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, D, s);
+    default:
+      if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_full<kDC, 4, true>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, D, s);
+  }
+}
+
+// Blocks of kernel 5's tile kernel an SM of the current card keeps resident, into *out.
+extern "C" int flash_fwd_blocks_per_sm(int D, int* out) {
+  switch (D) {
+    case 32: return tc_fwd_blocks_per_sm<32>(out);
+    case 64: return tc_fwd_blocks_per_sm<64>(out);
+    case 128: return tc_fwd_blocks_per_sm<128>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // As flash_fwd, with the band |i + q_offset - j| <= window (window >= 0) and
-// keys valid in [lo, hi) instead of t_valid.
+// keys valid in [lo, hi) instead of t_valid: D is 32, 64, 128, 256 or past
+// 256 a multiple of 128 (the wide path).
 extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int H, int Tq,
                                int Tk, int D, float scale, int window, int lo, int hi, int q_offset,
                                void* stream) {
@@ -994,7 +1434,9 @@ extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void
     case 64: return local_for<64>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     case 128: return local_for<128>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     case 256: return local_for<256>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_local<kDC, 4, true>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, D, s);
   }
 }
 
@@ -1003,8 +1445,8 @@ extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void
 // keys at j >= t_valid are masked.  s_dkv and s_dq split the dK/dV and dQ
 // walks (the wrapper's plan); when one is above 1, part_kv (s_dkv, 2, H, Tk, D)
 // or part_q (s_dq, H, Tq, D) holds the float32 partials.  Up to three
-// launches, each checked.  At D = 256 the FP32-core kernels run, unsplit
-// (s_dkv = s_dq = 1).
+// launches, each checked.  At D = 256, and past it at a multiple of 128 (the
+// wide path), the FP32-core kernels run, unsplit (s_dkv = s_dq = 1).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                          const void* di, void* dq, void* dk, void* dv, int H, int Tq, int Tk, int D, float scale,
                          int t_valid, int s_dkv, int s_dq, void* part_kv, void* part_q, void* stream) {
@@ -1018,14 +1460,16 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                  static_cast<float*>(part_kv),    static_cast<float*>(part_q),    H,
                  Tq,                              Tk,                             kv_end,
                  s_dkv,                           s_dq,                           scale};
+  if (D > 128 && (s_dkv != 1 || s_dq != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs f = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, D, scale);
   switch (D) {
     case 32: return full_bwd_tc<32>(a, s);
     case 64: return full_bwd_tc<64>(a, s);
     case 128: return full_bwd_tc<128>(a, s);
-    case 256:
-      if (s_dkv != 1 || s_dq != 1) return static_cast<int>(cudaErrorInvalidValue);
-      return full_bwd_f32<256>(bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, scale), H, kv_end, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 256: return full_bwd_f32<256, false>(f, H, kv_end, s);
+    default:
+      if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
+      return full_bwd_f32<kDC, true>(f, H, kv_end, s);
   }
 }
 
@@ -1041,18 +1485,20 @@ extern "C" int flash_bwd_blocks_per_sm(int D, int which, int* out) {
 }
 
 // As flash_bwd, with the band |i + q_offset - j| <= window (window >= 0) and
-// keys valid in [lo, hi) instead of t_valid.
+// keys valid in [lo, hi) instead of t_valid; D as for flash_local_fwd.
 extern "C" int flash_local_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                const void* di, void* dq, void* dk, void* dv, int H, int Tq, int Tk, int D,
                                float scale, int window, int lo, int hi, int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, scale);
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, D, scale);
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 32: return local_bwd_for<32>(a, H, window, lo, hi, q_offset, s);
     case 64: return local_bwd_for<64>(a, H, window, lo, hi, q_offset, s);
     case 128: return local_bwd_for<128>(a, H, window, lo, hi, q_offset, s);
     case 256: return local_bwd_for<256>(a, H, window, lo, hi, q_offset, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
+      return local_bwd_wide(a, H, window, lo, hi, q_offset, s);
   }
 }

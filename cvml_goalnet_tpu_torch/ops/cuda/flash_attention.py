@@ -18,15 +18,17 @@ v are (H, T, d) float32 as in the JAX package.
   with grad mode on, they raise rather than cut the gradient.
 * The kernels are built for head widths 32, 64, 128 and 256; any other head
   up to 256 runs zero-padded to the next of them (:func:`pad_head_dim`) with
-  the scale of its true width, and its outputs are sliced back; above 256 the
-  wrappers raise (the forward's tiles at 512 would not fit a block's shared
-  memory).
-* :func:`flash_bwd` runs on the tensor cores in 3xTF32 (kernel 6) at widths
-  up to 128, with the plan of :func:`card_bwd_plan`: when one head's tiles
+  the scale of its true width, and its outputs are sliced back.  Past 256 a
+  head runs zero-padded to a multiple of :data:`WIDE_CHUNK` on the wide path
+  of the FP32-core kernels, which walk d in chunks of that width and write
+  one column slice of the outputs per block (:func:`padded_head_dim`).
+* :func:`flash_fwd` runs on the tensor cores in 3xTF32 (kernel 5) at widths
+  up to 128, with the plan of :func:`card_fwd_plan`; :func:`flash_bwd` too
+  (kernel 6), with the plan of :func:`card_bwd_plan`.  When one head's tiles
   leave the card's resident blocks (its occupancy calculator's) unfilled,
   each block's walk is split and float32 partials (scratch allocated here)
-  are added in split order by the entry's last kernel.  At 256 it runs the
-  banded backward's FP32-core kernels with the full mask, unsplit.
+  are combined in split order by the entry's last kernel.  At 256 and on the
+  wide path both run FP32-core kernels with the full mask, unsplit.
 * :func:`flash_attention` (also under the JAX name
   :func:`flash_attention_trainable`), :func:`flash_attention_with_lse`,
   :func:`flash_attention_local` and :func:`flash_attention_local_bounded`
@@ -58,19 +60,25 @@ from cvml_goalnet_tpu_torch.ops.cuda import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P],
+    "flash_fwd_blocks_per_sm": [_I, _P],
     "flash_local_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "flash_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P],
     "flash_local_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "flash_bwd_blocks_per_sm": [_I, _I, _P],
 }
 HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernels are built for; other heads are zero-padded
+WIDE_CHUNK = 128                 # past 256: the wide path's chunk of d and column slice (csrc kDC)
+# The full forward (kernel 5) on the tensor cores, at the widths FWD_STREAM names: a block owns 64 query
+# rows and streams the keys and values in chunks of FWD_STREAM[d].
+FWD_TILE = 64
+FWD_STREAM = {32: 64, 64: 64, 128: 32}
 # The full backward (csrc/flash_attention.cu, kernel 6) on the tensor cores, at the widths BWD_STREAM
 # names: a block owns 64 rows (keys for dK/dV, queries for dQ) and streams the other side through shared
 # memory in chunks of BWD_STREAM[d] rows.
 BWD_TILE = 64
 BWD_STREAM = {32: 32, 64: 32, 128: 16}
-BWD_MAX_SPLIT = 8
+MAX_SPLIT = 8   # splits of a block's walk, kernels 5 and 6
 
 
 def _default_scale(q: torch.Tensor, scale: float | None) -> float:
@@ -170,13 +178,13 @@ def _check_device(what: str, q) -> bool:
     return False
 
 
-def padded_head_dim(what: str, d: int) -> int:
-    """The built head width a head of ``d`` runs at: the next of :data:`HEAD_DIMS`; above 256 raises."""
+def padded_head_dim(d: int) -> int:
+    """The width a head of ``d`` runs at: the next of :data:`HEAD_DIMS`, or past 256 the next multiple of
+    :data:`WIDE_CHUNK` (the wide path)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"{what}: the kernels take head dims up to {HEAD_DIMS[-1]} (built for {HEAD_DIMS}, "
-                     f"narrower ones zero-padded), got {d}")
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -192,18 +200,27 @@ def _check_kernel_inputs(what: str, q, k, v, **more) -> None:
         raise ValueError(f"{what}: q, k and v must start on 16-byte boundaries")
 
 
-def _launch(entry: str, q, k, v, *args) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check what the forward kernels take, pad the head to a built width, allocate out and lse, launch
-    ``entry``; out is sliced back to the true width."""
+def _launch(entry: str, q, k, v, *args, splits: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check what the forward kernels take, pad the head to a built width, allocate out and lse (and for
+    the full form the split partials), launch ``entry``; out is sliced back to the true width.  For the
+    full form ``args`` end with ``t_valid``; ``splits`` (None: :func:`card_fwd_plan`'s) splits kernel 5's
+    walk."""
     _build.refuse_grad(entry, q, k, v)
     _check_kernel_inputs(entry, q, k, v)
     h, tq, d = q.shape
-    width = padded_head_dim(entry, d)
+    width = padded_head_dim(d)
     q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
     if h * tq == 0:
         return out[..., :d], lse
+    if entry == "flash_fwd":
+        if splits is None:   # kernel 5's plan at the tensor-core widths; past them the FP32-core kernels, unsplit
+            splits = card_fwd_plan(h, tq, args[-1], width, q.device).splits if width in FWD_STREAM else 1
+        # each split's unnormalised out and its row max and sum, combined in split order by the entry's last kernel
+        part_o = torch.empty((splits, h, tq, width), device=q.device) if splits > 1 else None
+        part_ml = torch.empty((splits, h, tq, 2), device=q.device) if splits > 1 else None
+        args = (*args, splits, _ptr(part_o), _ptr(part_ml))
     lib = _build.load("flash_attention", _SIGNATURES)
     with _build.on_device(q):
         code = getattr(lib, entry)(
@@ -217,6 +234,47 @@ def _launch(entry: str, q, k, v, *args) -> tuple[torch.Tensor, torch.Tensor]:
 def split_ranges(n: int, s: int) -> list[tuple[int, int]]:
     """The chunks ``[i·n // s, (i + 1)·n // s)`` that split i of s walks, as the kernels compute them."""
     return [(i * n // s, (i + 1) * n // s) for i in range(s)]
+
+
+class FwdPlan(NamedTuple):
+    """How kernel 5 runs: 64-row query tiles, keys streamed in chunks of ``stream``, each walk cut in splits."""
+    tile: int       # query rows per block
+    stream: int     # keys per streamed chunk
+    splits: int     # splits of a block's walk over the key chunks
+
+
+def full_fwd_plan(h: int, tq: int, kv_end: int, d: int, slots: int) -> FwdPlan:
+    """Kernel 5's plan for (h, tq, d) queries over ``kv_end`` valid keys (``d`` a tensor-core width) on a
+    card that keeps ``slots`` of its blocks resident at once: h·⌈tq/64⌉ blocks, each walk split (as
+    :func:`_splits` decides) when they leave the slots unfilled."""
+    stream = FWD_STREAM[d]
+    return FwdPlan(FWD_TILE, stream, _splits(h * -(-tq // FWD_TILE), -(-kv_end // stream), slots))
+
+
+def card_fwd_plan(h: int, tq: int, kv_end: int, d: int, device: torch.device) -> FwdPlan:
+    """:func:`full_fwd_plan` with the resident slots of the card ``device``: the plan ``flash_fwd`` launches."""
+    return full_fwd_plan(h, tq, kv_end, d, fwd_slots(d, device))
+
+
+def fwd_slots(d: int, device: torch.device) -> int:
+    """Blocks of kernel 5's tile kernel the card ``device`` keeps resident at once: its SMs ×
+    :func:`fwd_blocks_per_sm`."""
+    return _fwd_slots_on_card(_build.device_index(device), d)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_slots_on_card(device: int, d: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count * fwd_blocks_per_sm(d, device)
+
+
+def fwd_blocks_per_sm(d: int, device: torch.device) -> int:
+    """Blocks of kernel 5's tile kernel the card ``device`` keeps resident per SM, by the CUDA occupancy
+    calculator (``d`` a tensor-core width)."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.flash_fwd_blocks_per_sm(d, ctypes.byref(out)), "flash_fwd: occupancy")
+    return out.value
 
 
 class BwdPlan(NamedTuple):
@@ -233,12 +291,12 @@ def _splits(tiles: int, chunks: int, slots: int) -> int:
 
     1 once the tiles alone fill the ``slots`` the card keeps resident; below that, the s of least
     rounds/s (rounds of ``slots`` blocks, each split doing 1/s of the walk), a larger s only for a gain
-    of a tenth or more, with at least two chunks per split and at most BWD_MAX_SPLIT.
+    of a tenth or more, with at least two chunks per split and at most MAX_SPLIT.
     """
     if tiles >= slots:
         return 1
     best, best_cost = 1, 1.0
-    for s in range(2, min(chunks // 2, BWD_MAX_SPLIT) + 1):
+    for s in range(2, min(chunks // 2, MAX_SPLIT) + 1):
         cost = -(-tiles * s // slots) / s
         if cost < 0.9 * best_cost:
             best, best_cost = s, cost
@@ -301,7 +359,7 @@ def _launch_bwd(entry: str, q, k, v, out, lse, dout, g_lse, *args) -> tuple[torc
         raise ValueError(f"{entry}: lse {tuple(lse.shape)}, dout {tuple(dout.shape)} do not match q {tuple(q.shape)}")
     h, tq, d = q.shape
     tk = k.shape[1]
-    width = padded_head_dim(entry, d)
+    width = padded_head_dim(d)
     q, k, v, dout = (pad_head_dim(t, width) for t in (q, k, v, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if entry == "flash_bwd":
@@ -347,6 +405,17 @@ def flash_fwd(q, k, v, scale: float, t_valid=None) -> tuple[torch.Tensor, torch.
 
 
 flash_fwd.launches = 0
+
+
+def flash_fwd_planned(q, k, v, scale: float, splits: int, t_valid=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_fwd` on CUDA tensors with kernel 5's walk cut in ``splits`` (1 to :data:`MAX_SPLIT`)
+    instead of the plan's, at head widths up to 128: for holding every split count to the plain version.
+    Counts no launch."""
+    _check_qkv("flash_fwd_planned", q, k, v)
+    if q.device.type != "cuda" or padded_head_dim(q.shape[-1]) not in FWD_STREAM or not 1 <= splits <= MAX_SPLIT:
+        raise ValueError(f"flash_fwd_planned: CUDA tensors with head dims up to 128 and 1 to {MAX_SPLIT} splits, "
+                         f"got {q.device}, d = {q.shape[-1]}, {splits} splits")
+    return _launch("flash_fwd", q, k, v, float(scale), _t_valid(k.shape[1], t_valid), splits=splits)
 
 
 def flash_local_fwd(q, k, v, scale: float, window: int, lo=None, hi=None,

@@ -165,6 +165,27 @@ class TestBandedGrads:
         _close([x.numpy() for x in got], [np.asarray(x) for x in want])
 
 
+class TestWideHeads:
+    """A head of 320, which the card runs on the wide path (zero-padded to 384, d walked in 128-wide chunks):
+    out and the gradients of the public functions against the JAX package's Pallas kernels in interpret mode."""
+
+    def test_full_matches_pallas(self):
+        q, k, v, g = _arrays(31, *[(1, 128, 320)] * 4)
+        want_out = np.asarray(JF.flash_attention(*map(jnp.asarray, (q, k, v)), None, None, None, True))
+        got_out = TF.flash_attention(*map(torch.as_tensor, (q, k, v)))
+        np.testing.assert_allclose(got_out.numpy(), want_out, atol=3e-5, rtol=0)
+        want = _jax_grads(lambda q, k, v: JF.flash_attention_trainable(q, k, v, None, True), q, k, v, g)
+        _close(_port_grads(TF.flash_attention, q, k, v, g), want)
+
+    def test_local_matches_pallas(self):
+        q, k, v, g = _arrays(32, *[(2, 200, 320)] * 4)
+        want_out = np.asarray(JF.flash_attention_local(*map(jnp.asarray, (q, k, v)), 37, None, True))
+        got_out = TF.flash_attention_local(*map(torch.as_tensor, (q, k, v)), 37)
+        np.testing.assert_allclose(got_out.numpy(), want_out, atol=3e-5, rtol=0)
+        want = _jax_grads(lambda q, k, v: JF.flash_attention_local(q, k, v, 37, None, True), q, k, v, g)
+        _close(_port_grads(lambda q, k, v: TF.flash_attention_local(q, k, v, 37), q, k, v, g), want)
+
+
 class TestAutograd:
     def test_public_outputs_carry_the_port_function(self):
         """Each public function records the port's autograd Function, so the gradient never stops at the kernel."""

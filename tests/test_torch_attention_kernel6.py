@@ -4,7 +4,7 @@
   zero-padded to the next built width, with the scale of the true width: the
   plain versions on inputs padded by the wrappers' own helper, sliced back,
   equal the unpadded plain versions, and the JAX package's XLA reference.
-  Widths past 256 raise.
+  Widths past 256 run zero-padded to a multiple of 128, on the wide path.
 * ``strict_f32`` holds TF32 off while any thread is inside it.
 * ``full_bwd_plan``'s splits walk every streamed chunk exactly once, for an H100's resident slots.
 * The full backward (kernel 6) computes its five products in 3xTF32 on the
@@ -32,7 +32,7 @@ def _t(seed, *shapes, scale=1.0):
 
 
 def _padded(tensors, d):
-    width = FA.padded_head_dim("test", d)
+    width = FA.padded_head_dim(d)
     return [FA.pad_head_dim(x, width) for x in tensors]
 
 
@@ -40,9 +40,10 @@ def _padded(tensors, d):
 
 
 @pytest.mark.parametrize("d,width", [(1, 32), (8, 32), (16, 32), (32, 32), (33, 64), (48, 64), (96, 128),
-                                     (128, 128), (129, 256), (160, 256), (192, 256), (256, 256)])
+                                     (128, 128), (129, 256), (160, 256), (192, 256), (256, 256), (257, 384),
+                                     (320, 384), (512, 512), (1000, 1024)])
 def test_padded_head_dim_is_the_next_built_width(d, width):
-    assert FA.padded_head_dim("x", d) == width
+    assert FA.padded_head_dim(d) == width
     x = torch.ones((2, 3, d))
     got = FA.pad_head_dim(x, width)
     assert got.shape == (2, 3, width) and got.is_contiguous()
@@ -50,15 +51,15 @@ def test_padded_head_dim_is_the_next_built_width(d, width):
 
 
 def test_head_dims_past_128_raise():
-    """Past 128 the heads run on the 256-wide kernels, up to 256; wider ones raise, naming 256."""
+    """Past 128 the heads run on the 256-wide kernels, up to 256; wider ones run on the wide path, zero-padded
+    to a multiple of its 128-wide chunk, and no positive width raises."""
     for d in (129, 160, 256):
-        assert FA.padded_head_dim("flash_fwd", d) == 256
-    for d in (257, 320, 512):
-        with pytest.raises(ValueError, match="head dims up to 256"):
-            FA.padded_head_dim("flash_fwd", d)
+        assert FA.padded_head_dim(d) == 256
+    for d, width in ((257, 384), (320, 384), (384, 384), (512, 512), (1000, 1024)):
+        assert FA.padded_head_dim(d) == width and width % FA.WIDE_CHUNK == 0
 
 
-@pytest.mark.parametrize("d", [8, 16, 48, 96, 160, 192, 256])
+@pytest.mark.parametrize("d", [8, 16, 48, 96, 160, 192, 256, 320])
 @pytest.mark.parametrize("window", [None, 5])
 def test_padding_keeps_forward_and_backward(d, window):
     h, tq, tk = 2, 37, 37
@@ -164,7 +165,7 @@ def test_full_bwd_plan_walks_every_chunk_once(h, t, d):
     assert (plan.tile_q, plan.tile_k, plan.stream) == (FA.BWD_TILE, FA.BWD_TILE, FA.BWD_STREAM[d])
     chunks = -(-t // plan.stream)
     for s in (plan.s_dkv, plan.s_dq):
-        assert 1 <= s <= FA.BWD_MAX_SPLIT
+        assert 1 <= s <= FA.MAX_SPLIT
         assert s == 1 or chunks // s >= 2
         covered = [c for lo, hi in FA.split_ranges(chunks, s) for c in range(lo, hi)]
         assert covered == list(range(chunks))

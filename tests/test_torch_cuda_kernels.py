@@ -8,8 +8,9 @@ the card has no JAX, so run the file there without the suite's conftest:
 The shapes include the ragged ones of ``tests/test_pallas.py`` (batch,
 channel and K edges) besides the reference widths, and for the flash-attention
 forwards and backwards ragged sequence lengths, every head width the kernels
-are built for, bands from 0 to past T, key bounds with dead rows and a query
-offset.  The forwards hold out to 3e-5 and lse to 1e-5 against the plain
+are built for and widths between and past them (the wide path), every split
+of the full forward, bands from 0 to past T, key bounds with dead rows and a
+query offset.  The forwards hold out to 3e-5 and lse to 1e-5 against the plain
 versions, the backwards dq, dk and dv to 1e-4·max(1, max|plain|): the
 tolerances of ``tests/test_flash_attention.py``.  The spotting path and one
 train step per scorer are held against the CPU.
@@ -204,7 +205,7 @@ def _attn_check(got, want, atol=3e-5):
 
 
 @pytest.mark.parametrize("h,t,d", [(1, 1, 128), (2, 63, 64), (1, 64, 32), (2, 65, 128), (1, 1000, 32),
-                                   (1, 5400, 128), (2, 5400, 64), (2, 300, 32)])
+                                   (1, 5400, 128), (2, 5400, 64), (2, 300, 32), (2, 300, 64)])
 def test_flash_fwd(dev, h, t, d):
     q, k, v = (_rand((h, t, d), 30 + i) for i in range(3))
     before = FA.flash_fwd.launches
@@ -258,15 +259,25 @@ def test_flash_large_magnitudes_stay_finite(dev, window):
     torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-6)
 
 
+def test_flash_fwd_large_magnitudes_against_float64(dev):
+    """The full forward at the inputs of test_flash_large_magnitudes_stay_finite, against the plain version in
+    float64: out and lse at least as close to it as the plain float32 version, whose own rounding at scores
+    near 1e3 reaches about 1e-4 on out."""
+    q, k, v = _rand((1, 1000, 64), 70, 10.0), _rand((1, 1000, 64), 71, 10.0), _rand((1, 1000, 64), 72)
+    exact = FA.flash_fwd_plain(q.double(), k.double(), v.double(), 0.125)
+    got, plain = FA.flash_fwd(q, k, v, 0.125), FA.flash_fwd_plain(q, k, v, 0.125)
+    for g, p, e in zip(got, plain, exact):
+        assert (g - e).abs().max() <= (p - e).abs().max()
+
+
 def test_flash_refuses_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 8, 48), device=dev)
     out, lse = FA.flash_fwd(x, x, x, 0.1)     # d = 48 runs, zero-padded to 64
     assert out.shape == x.shape and not out.any() and torch.allclose(lse, torch.full_like(lse, np.log(8)))
     x = _rand((1, 8, 160), 29)                # d = 160 runs, zero-padded to 256
     _attn_check(FA.flash_fwd(x, x, x, 0.1), FA.flash_fwd_plain(x, x, x, 0.1))
-    x = torch.zeros((1, 8, 320), device=dev)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        FA.flash_fwd(x, x, x, 0.1)
+    x = _rand((1, 8, 320), 28)                # d = 320 runs on the wide path, zero-padded to 384
+    _attn_check(FA.flash_fwd(x, x, x, 0.1), FA.flash_fwd_plain(x, x, x, 0.1))
     y = torch.zeros((1, 16, 32), device=dev)
     with pytest.raises(ValueError, match="contiguous float32"):
         FA.flash_fwd(y.transpose(1, 2).contiguous().transpose(1, 2), y, y, 0.1)
@@ -427,10 +438,11 @@ def test_flash_bwd_plan_takes_the_cards_slots(dev):
         assert slots == {32: (396, 396), 64: (264, 396), 128: (264, 264)}
 
 
-@pytest.mark.parametrize("d", [8, 16, 48, 96, 160, 192, 256])
+@pytest.mark.parametrize("d", [8, 16, 48, 96, 160, 192, 256, 257, 320, 512])
 @pytest.mark.parametrize("kind", ["fwd", "local_fwd", "bwd", "local_bwd"])
 def test_flash_head_dims_between_the_built_widths(dev, kind, d):
-    """Head widths the kernels are not built for run zero-padded to the next built width."""
+    """Head widths the kernels are not built for run zero-padded to the next built width, and past 256 to a
+    multiple of 128 on the wide path."""
     h, t, window = 2, 300, 37
     q, k, v, do = (_rand((h, t, d), 170 + i) for i in range(4))
     scale = d ** -0.5
@@ -453,10 +465,10 @@ def test_flash_head_dims_between_the_built_widths(dev, kind, d):
     assert wrapper.launches == before + 1
 
 
-@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("d", [160, 192, 256, 257, 320, 512])
 @pytest.mark.parametrize("kind", ["full", "band"])
 def test_flash_wide_heads_masks_and_dead_rows(dev, kind, d):
-    """Heads of 160 to 256 wide under the masks: t_valid with unequal lengths and g_lse (every key tile past
+    """Heads of 160 to 512 wide under the masks: t_valid with unequal lengths and g_lse (every key tile past
     t_valid gets zeros), and a [lo, hi) band with a query offset and dead rows (out, lse and dq 0)."""
     if kind == "full":
         q, do = _rand((2, 200, d), 180), _rand((2, 200, d), 181)
@@ -485,6 +497,63 @@ def test_flash_wide_heads_masks_and_dead_rows(dev, kind, d):
         ko, vo = _rand((2, 192, d), 190), _rand((2, 192, d), 191)
         _attn_check(FA.flash_local_fwd(qo, ko, vo, scale, 16, 10, 180, 16),
                     FA.flash_local_fwd_plain(qo, ko, vo, scale, 16, 10, 180, 16))
+        do_o = _rand((2, 160, d), 192)
+        out, lse = FA.flash_local_fwd_plain(qo, ko, vo, scale, 16, 10, 180, 16)
+        _bwd_check(FA.flash_local_bwd(qo, ko, vo, out, lse, do_o, scale, 16, 10, 180, 16),
+                   FA.flash_local_bwd_plain(qo, ko, vo, out, lse, do_o, scale, 16, 10, 180, 16))
+
+
+# kernel 5's tile kernel: blocks an H100 SXM keeps resident per width (tests/test_torch_attention_kernel5.py)
+H100_FWD_SLOTS = {32: 396, 64: 264, 128: 264}
+
+
+# each shape's plan as the card picks it (one head of a match splits in 3 on an H100, T = 32,768 does not);
+# t_valid falls inside a chunk, and at 0 every row is dead
+@pytest.mark.parametrize("h,tq,tk,d,t_valid", [(1, 5400, 5400, 128, None), (1, 32768, 32768, 128, None),
+                                               (2, 300, 300, 64, None), (4, 300, 300, 128, 250),
+                                               (1, 1000, 1000, 32, 97), (2, 777, 451, 64, 448),
+                                               (1, 200, 333, 128, 0), (3, 65, 1000, 32, None)])
+def test_flash_fwd_card_plans(dev, h, tq, tk, d, t_valid):
+    q, k, v = _rand((h, tq, d), 200), _rand((h, tk, d), 201), _rand((h, tk, d), 202)
+    plan = FA.card_fwd_plan(h, tq, FA._t_valid(tk, t_valid), d, dev)
+    assert plan.stream == FA.FWD_STREAM[d]
+    _poison_allocator(dev)
+    before = FA.flash_fwd.launches
+    got = FA.flash_fwd(q, k, v, d ** -0.5, t_valid)
+    assert FA.flash_fwd.launches == before + 1
+    _attn_check(got, FA.flash_fwd_plain(q, k, v, d ** -0.5, t_valid))
+    again = FA.flash_fwd(q, k, v, d ** -0.5, t_valid)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    if t_valid == 0:
+        assert not got[0].any() and not got[1].any()
+
+
+# every split count, forced, against the plain version with equal bits on a repeat; splits past the chunks
+# walk no key and weigh exactly 0 in the merge
+@pytest.mark.parametrize("splits", range(1, FA.MAX_SPLIT + 1))
+@pytest.mark.parametrize("h,tq,tk,d,t_valid", [(1, 5400, 5400, 128, None), (2, 300, 300, 64, 97),
+                                               (1, 1000, 1000, 32, None), (2, 48, 1000, 128, 0),
+                                               (1, 200, 120, 16, None)])
+def test_flash_fwd_every_split(dev, splits, h, tq, tk, d, t_valid):
+    q, k, v = _rand((h, tq, d), 210), _rand((h, tk, d), 211), _rand((h, tk, d), 212)
+    _poison_allocator(dev)
+    got = FA.flash_fwd_planned(q, k, v, d ** -0.5, splits, t_valid)
+    _attn_check(got, FA.flash_fwd_plain(q, k, v, d ** -0.5, t_valid))
+    again = FA.flash_fwd_planned(q, k, v, d ** -0.5, splits, t_valid)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_flash_fwd_plan_takes_the_cards_slots(dev):
+    """Kernel 5's resident slots are the card's SMs × the CUDA occupancy calculator's blocks per SM; on an H100
+    SXM they are the slots the CPU plan tests use (tests/test_torch_attention_kernel5.py)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = {}
+    for d in FA.FWD_STREAM:
+        slots[d] = FA.fwd_slots(d, dev)
+        assert slots[d] == sms * FA.fwd_blocks_per_sm(d, dev)
+        assert FA.card_fwd_plan(1, 5400, 5400, d, dev) == FA.full_fwd_plan(1, 5400, 5400, d, slots[d])
+    if "H100" in torch.cuda.get_device_name(dev) and sms == 132:
+        assert slots == H100_FWD_SLOTS
 
 
 @pytest.mark.parametrize("window", [0, 6])
