@@ -11,7 +11,12 @@ From the repository root, on a machine with a CUDA card:
 3. calls each kernel's wrapper at the shapes its main path gives it, holds
    the result against the kernel's plain PyTorch version on the same inputs,
    and times kernel, plain version and one library call (CUDA events, after
-   warm-up) beside the least time the card could take; the head (kernel 3)
+   warm-up) beside the least time the card could take; the conv-pool stage
+   (kernel 2) at conv1's and conv2's shapes at the batch's and the match's N,
+   with its plan, blocks per SM and tensor-core bound, and the visual trunk
+   at frame_size (64, 64), where kernel 2 cuts frames into tiles, against the
+   CPU, then every whole-frame plan of kernel 2 at the batch's N timed beside
+   the plan model's cost; the head (kernel 3)
    at the batch's and the match's M and at one video's, with its plan, the
    traced times of its two passes and its tensor-core bound; the attention
    kernels also at T = 32,768, with one head of 256 and with one head of 512
@@ -122,7 +127,22 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import (
     fused_preprocess_frames,
     fused_preprocess_frames_plain,
 )
-from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, fused_conv_pool_stage_plain
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import BLOCK_SMEM as STAGE_BLOCK_SMEM
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import M_TILES as STAGE_M_TILES
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
+    STAGE_COUNTS,
+    StagePlan,
+    card_blocks_per_sm,
+    card_stage_plan,
+    fused_conv_pool_stage,
+    fused_conv_pool_stage_plain,
+    fused_conv_pool_stage_planned,
+    plan_cost,
+    stage_slots,
+)
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import block_count as stage_block_count
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import blocks_per_sm as stage_blocks_per_sm
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import smem_bytes as stage_smem_bytes
 from cvml_goalnet_tpu_torch.ops.cuda.matmul import card_head_plan, head_matmul, head_matmul_plain, head_slots
 from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
@@ -156,6 +176,7 @@ EVENT_SPACING = 300               # condensed frames per synthetic training even
 TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
 LONG_GRU_EXTRA = 3_616            # frames past temporal_chunk_threshold for the chunked GRU check
 PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
+FRAME64_FRAMES = 6                # frames of the trunk check at frame_size (64, 64)
 # (H, T, d, window, on a main path) of the attention kernels' checks: the spotting path's shapes, then
 # T = 32,768, then one head of 256, the widest built width, and one of 512, on the wide path
 ATTENTION_CASES = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
@@ -285,37 +306,9 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
         del frames, got, want
     record("fused_preprocess_frames", parts)
 
-    # conv-pool stages: float32 sums of 9·Cin products in another order than
-    # cuDNN's, so the tolerance scales with the output: 1e-4·max|ref|
-    parts = []
-    for hh, cin, cout, scale in ((13, 64, 256, 0.05), (11, 256, 512, 0.02)):
-        x = torch.randn((n, hh, hh, cin), generator=gen, device=dev)
-        wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * scale
-        bs = torch.randn((hh, hh, cout), generator=gen, device=dev) * 0.1
-        got = fused_conv_pool_stage(x, wt, bs)
-        want = fused_conv_pool_stage_plain(x, wt, bs)
-        err, tol = max_err(got, want), 1e-4 * want.abs().max().item()
-        if err > tol:
-            raise AssertionError(f"fused_conv_pool_stage {hh}x{hh}x{cin}->{cout}: max |err| {err} > {tol}")
-        x_nchw = x.permute(0, 3, 1, 2)               # channels-last view, no copy
-        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
-        b_chw = bs.permute(2, 0, 1)[None]
-
-        def library_stage():
-            with strict_f32():
-                return F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, padding=1) + b_chw), 3, 1)
-
-        flops = 2.0 * n * hh * hh * cin * cout * 9
-        n_bytes = 4.0 * (n * hh * hh * cin + 9 * cin * cout + hh * hh * cout + n * (hh - 2) ** 2 * cout)
-        b, kind = bound_ms(n_bytes, flops)
-        parts.append({
-            "shape": [n, hh, hh, cin, cout], "ms": time_ms(lambda: fused_conv_pool_stage(x, wt, bs)),
-            "plain_ms": time_ms(lambda: fused_conv_pool_stage_plain(x, wt, bs)),
-            "library_ms": time_ms(library_stage), "bound_ms": b, "bound_by": kind, "max_abs_err": err,
-            "tolerance": tol,
-        })
-        del x, wt, bs, got, want
-    record("fused_conv_pool_stage", parts)
+    # conv-pool stages, conv1 and conv2 at the batch's N and at a match's (both on the main paths)
+    record("fused_conv_pool_stage", [stage_part(m, hh, cin, cout, scale, gen) for m in (n, MATCH_FRAMES)
+                                     for hh, cin, cout, scale in ((13, 64, 256, 0.05), (11, 256, 512, 0.02))])
 
     # head: the summarization batch and a match (both on the main paths), and one video of 150 frames
     k, nout = 9 * 9 * cfg.model.vis_channels[-1], cfg.model.vis_feature_dim
@@ -333,6 +326,75 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
              (n, classifier, False, False)]
     record("fused_fusion_mlp", [mlp_part(m, layers, squash, lo, hi, main, gen) for m, layers, squash, main in cases])
     return rows
+
+
+def stage_part(n: int, hh: int, cin: int, cout: int, scale: float, gen: torch.Generator) -> dict:
+    """Kernel 2 at (n, hh, hh, cin) → cout against its plain version, with equal bits on a repeat, its plan and
+    resident blocks per SM, and its bound on the tensor cores, where it computes: 3 TF32 products per
+    multiply-add (3xTF32) at the dense TF32 rate, or its bytes, whichever takes longer; the FP32-core bound
+    beside it.  Tolerance 1e-4·max|ref|: float32 sums of 9·Cin products in another order than cuDNN's."""
+    dev = torch.device("cuda")
+    x = torch.randn((n, hh, hh, cin), generator=gen, device=dev)
+    wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * scale
+    bs = torch.randn((hh, hh, cout), generator=gen, device=dev) * 0.1
+    run = lambda: fused_conv_pool_stage(x, wt, bs)
+    got, want = run(), fused_conv_pool_stage_plain(x, wt, bs)
+    err, tol = max_err(got, want), 1e-4 * want.abs().max().item()
+    if err > tol:
+        raise AssertionError(f"fused_conv_pool_stage {n}x{hh}x{hh}x{cin}->{cout}: max |err| {err} > {tol}")
+    require(torch.equal(got, run()), f"fused_conv_pool_stage at {[n, hh, cin, cout]}: two runs on the same inputs differ")
+    x_nchw = x.permute(0, 3, 1, 2)               # channels-last view, no copy
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+    b_chw = bs.permute(2, 0, 1)[None]
+
+    def library():
+        with strict_f32():
+            return F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, padding=1) + b_chw), 3, 1)
+
+    macs = 1.0 * n * hh * hh * cin * cout * 9
+    n_bytes = 4.0 * (n * hh * hh * cin + 9 * cin * cout + hh * hh * cout + n * (hh - 2) ** 2 * cout)
+    f32_b, _ = bound_ms(n_bytes, 2.0 * macs)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, 6.0 * macs / PEAK_TF32_FLOP_PER_S
+    plan = card_stage_plan(n, hh, hh, cout, dev)
+    part = {
+        "shape": [n, hh, hh, cin, cout], "main_path": True, "ms": time_ms(run),
+        "plain_ms": time_ms(lambda: fused_conv_pool_stage_plain(x, wt, bs)), "library_ms": time_ms(library),
+        "library_max_abs_err": max_err(library().permute(0, 2, 3, 1), want),
+        "bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "f32_core_bound_ms": f32_b, "max_abs_err": err, "tolerance": tol, "plan": plan._asdict(),
+        "blocks": stage_block_count(plan, n, hh, hh, cout),
+        "blocks_per_sm": card_blocks_per_sm(plan.m_tiles, plan.stages, stage_smem_bytes(plan), torch.cuda.current_device()),
+    }
+    print(f"fused_conv_pool_stage (kernel 2) at {part['shape']}: {part['ms']:.4f} ms (library {part['library_ms']:.4f}, "
+          f"plain {part['plain_ms']:.4f}); plan {json.dumps(part['plan'])}, {part['blocks']} blocks, "
+          f"{part['blocks_per_sm']} per SM; bound {part['bound_ms']:.4f} ms tensor cores in 3xTF32 "
+          f"({part['bound_by']}), {f32_b:.4f} ms float32 cores; max |err| {err:.3g} (tol {tol:.3g})", flush=True)
+    del x, wt, bs, got, want
+    torch.cuda.empty_cache()
+    return part
+
+
+def check_trunk_at_frame_size_64(seed: int) -> dict:
+    """The visual trunk of configs/reference_parity.json's widths at frame_size (64, 64) on a few frames, card
+    against CPU with the same weights: conv1 runs at 21×21 and conv2 at 19×19, which the stage kernel cuts
+    into tiles with a recomputed halo.  Features within 1e-4 relative."""
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    cfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(cfg.preprocess, frame_size=(64, 64)))
+    p_np, s_np = weights.init_params(cfg, seed)
+    frames = np.random.default_rng(seed).random((FRAME64_FRAMES, 64, 64, 3)).astype(np.float32)
+    before = fused_conv_pool_stage.launches
+    with torch.no_grad():
+        params, state = weights.from_jax(p_np, s_np)
+        card = visual_encoder_apply(params["visual"], state["visual"], torch.as_tensor(frames, device="cuda")).cpu()
+        params, state = weights.from_jax(p_np, s_np, device="cpu")
+        cpu = visual_encoder_apply(params["visual"], state["visual"], torch.from_numpy(frames))
+    require(fused_conv_pool_stage.launches == before + 2, "trunk at frame_size (64, 64): kernel 2 did not launch twice")
+    rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    if not rel <= 1e-4:
+        raise AssertionError(f"trunk at frame_size (64, 64) card vs CPU: features max |err| {rel} relative > 1e-4")
+    plans = {f"{h}x{h}": card_stage_plan(FRAME64_FRAMES, h, h, c, torch.device("cuda"))._asdict()
+             for h, c in ((21, 256), (19, 512))}
+    return {"frames": FRAME64_FRAMES, "features_rel": rel, "plans": plans}
 
 
 def head_part(m: int, k: int, n: int, main_path: bool, gen: torch.Generator) -> dict:
@@ -459,6 +521,41 @@ def mlp_plan_sweep(layers, gen: torch.Generator) -> dict:
     fit = np.linalg.lstsq(np.array(rows, dtype=float), np.array(terms), rcond=None)[0]
     return {"chosen": chosen, "fit": {"fixed_s": fit[0], "s_per_thread_fma": fit[1], "s_per_weight_byte": fit[2]},
             "clusters_at_once": {f"{bm}x{c}": v for (bm, c), v in at_once.items()}, "ms": times}
+
+
+def stage_plan_sweep(n: int, gen: torch.Generator) -> dict:
+    """Kernel 2 at conv1's and conv2's shapes at the summarization batch's N under every whole-frame plan that
+    fits (frames per block, m_tiles, ring depth), timed beside the plan model's cost
+    (``ops/cuda/fused_stage.py::plan_cost``), with the chosen plan and the fastest."""
+    dev = torch.device("cuda")
+    sms, reg_blocks = stage_slots(dev)
+    regs = dict(zip(STAGE_M_TILES, reg_blocks))
+    out = {}
+    for hh, cin, cout in ((13, 64, 256), (11, 256, 512)):
+        x = torch.randn((n, hh, hh, cin), generator=gen, device=dev)
+        wt = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * 0.05
+        bs = torch.randn((hh, hh, cout), generator=gen, device=dev) * 0.1
+        ms, cost = {}, {}
+        for mi in STAGE_M_TILES:
+            for f in range(1, 64 * mi // (hh * hh) + 1):
+                for st in STAGE_COUNTS:
+                    plan = StagePlan(f, hh - 2, hh - 2, mi, st)
+                    if stage_smem_bytes(plan) > STAGE_BLOCK_SMEM or stage_blocks_per_sm(plan, regs) < 1:
+                        continue
+                    key = f"frames {f}, m_tiles {mi}, stages {st}"
+                    ms[key] = time_ms(lambda: fused_conv_pool_stage_planned(x, wt, bs, plan))
+                    cost[key] = plan_cost(plan, n, hh, hh, cout, sms, regs)
+        chosen = card_stage_plan(n, hh, hh, cout, dev)
+        key = f"frames {chosen.frames}, m_tiles {chosen.m_tiles}, stages {chosen.stages}"
+        if (chosen.rows, chosen.cols) != (hh - 2, hh - 2):   # a tiled plan: not among the whole-frame ones
+            key = f"{key}, tile {chosen.rows}x{chosen.cols}"
+            ms[key] = time_ms(lambda: fused_conv_pool_stage_planned(x, wt, bs, chosen))
+            cost[key] = plan_cost(chosen, n, hh, hh, cout, sms, regs)
+        best = min(ms, key=ms.get)
+        out[f"{hh}x{hh}x{cin}->{cout}"] = {"chosen": key, "chosen_ms": ms[key], "best": best, "best_ms": ms[best],
+                                            "ms": ms, "model_cost": cost}
+        del x, wt, bs
+    return out
 
 
 def make_videos(cfg: PipelineConfig, seed: int) -> list[dict]:
@@ -725,7 +822,7 @@ def attention_bwd_tc_bound(h: int, t: int, d: int) -> tuple[float, str]:
 
 def ptxas_report(name: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of csrc/<name>.cu from the ``-Xptxas -v`` report of its build;
-    kernels 5 and 6 under readable names."""
+    kernels 2, 5 and 6 under readable names."""
     report, fn = {}, None
     for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -736,6 +833,10 @@ def ptxas_report(name: str) -> dict:
                 fn = f"flash_fwd_tc_kernel<{k5.group(1)}>"
             elif "fwd_merge_kernel" in fn:
                 fn = "fwd_merge_kernel"
+            elif k2 := re.search(r"conv_pool_tc_kernelILi(\d+)ELi(\d+)E", fn):
+                fn = f"conv_pool_tc_kernel<{k2.group(1)}, {k2.group(2)}>"
+            elif "pack_weights_kernel" in fn:
+                fn = "pack_weights_kernel"
         elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and fn:
             report.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
@@ -1226,6 +1327,9 @@ def main() -> int:
     print(f"kernel 6 (flash_bwd) registers and spill bytes: {json.dumps(k6)}; blocks per SM (dK/dV, dQ) "
           f"{json.dumps({d: bwd_blocks_per_sm(d, dev) for d in BWD_STREAM})}, resident slots "
           f"{json.dumps({d: bwd_slots(d, dev) for d in BWD_STREAM})}", flush=True)
+    k2 = ptxas_report("fused_stage")
+    print(f"kernel 2 (fused_conv_pool_stage) registers and spill bytes: {json.dumps(k2)}; (SMs, blocks per SM by "
+          f"registers for m_tiles 2, 3, 4) {json.dumps(stage_slots(dev))}", flush=True)
     k3 = {fn: r for fn, r in ptxas_report("matmul").items() if "splitk_tc_gemm_kernel" in fn}
     print(f"kernel 3 (head_matmul) GEMM pass registers and spill bytes: {json.dumps(k3)}; (SMs, blocks per SM) "
           f"{json.dumps(head_slots(dev))}", flush=True)
@@ -1237,6 +1341,10 @@ def main() -> int:
     n_total = sum(VIDEO_LENGTHS)
 
     rows = check_kernels(n_total, cfg, params["fusion"], gen)
+    print(f"trunk at frame_size (64, 64), card vs CPU: {json.dumps(check_trunk_at_frame_size_64(args.seed))}",
+          flush=True)
+    print(f"fused_conv_pool_stage plans at N = {n_total} on {smi}: {json.dumps(stage_plan_sweep(n_total, gen))}",
+          flush=True)
     sweep = mlp_plan_sweep(params["fusion"], gen)
     print(f"fused_fusion_mlp plans on {smi}: chosen {json.dumps(sweep['chosen'])}; model refitted "
           f"{json.dumps(sweep['fit'])}; clusters at once {json.dumps(sweep['clusters_at_once'])}; "

@@ -56,10 +56,6 @@ constexpr int kWStage = kBK * kBN;                // floats of one w tile, rows 
 constexpr size_t kSmemBytes = sizeof(float) * kStages * (kXStage + kWStage);
 static_assert(kBM * kBK / 4 % kThreads == 0 && kBK * kBN / 4 % kThreads == 0, "whole copy rounds");
 
-__device__ __forceinline__ float lane_of(const float4& v, int j) {
-  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
-}
-
 __global__ void __launch_bounds__(kThreads, 1) splitk_tc_gemm_kernel(
     const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ part, int M, int K, int N,
     int k_chunk) {

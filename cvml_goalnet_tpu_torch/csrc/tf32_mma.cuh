@@ -1,6 +1,6 @@
 // Float32 products on the tensor cores in 3xTF32, and the cp.async copies
-// that feed them: shared by kernel 6 (csrc/flash_attention.cu) and kernel 3
-// (csrc/matmul.cu).
+// that feed them: shared by kernels 5 and 6 (csrc/flash_attention.cu), kernel 3
+// (csrc/matmul.cu) and kernel 2 (csrc/fused_stage.cu).
 //
 // One TF32 product keeps 10 bits of mantissa and breaks the float32 contracts
 // the kernels are held to, so each float32 operand x splits into big =
@@ -88,6 +88,11 @@ __device__ __forceinline__ void frag_a(const float* p, int ld, uint32_t (&big)[4
 __device__ __forceinline__ void frag_b(float lo, float hi, uint32_t (&big)[2], uint32_t (&small)[2]) {
   split_tf32(lo, big[0], small[0]);
   split_tf32(hi, big[1], small[1]);
+}
+
+// Component j of a float4: a B column picked from one vector load of a weight row.
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
 
 // An accumulator tile (rows g, g + 8; columns 2t, 2t + 1) as the A operand of

@@ -1,9 +1,14 @@
-"""conv(3×3, s1, p1) + spatial bias → ReLU → maxpool(3×3, s1): CUDA kernel and its plain version.
+"""conv(3×3, s1, p1) + spatial bias → ReLU → maxpool(3×3, s1): CUDA kernel, its plan and its plain version.
 
 Counterpart of ``cvml_goalnet_tpu/ops/pallas/fused_stage.py``; conv1 and conv2
 of the folded visual trunk run through it.  The kernel
-(``csrc/fused_stage.cu``) keeps the pre-pool conv tile in shared memory and
-writes only the pooled tile; its note says what bounds it.
+(``csrc/fused_stage.cu``) is an implicit GEMM on the tensor cores in 3xTF32:
+a block computes the conv tile that the pool of its R × C tile of pooled
+positions reads (with a recomputed halo when a frame is cut into tiles), for
+one or more frames and a slice of 64 output channels, keeps it in shared
+memory and writes only the pooled tile; its note says what bounds it.
+:func:`stage_plan` picks the tile for a shape and a card, so any H, W ≥ 3
+runs.
 
 The kernel has no backward (the JAX package's has no VJP either): on CUDA
 tensors that require grad with grad mode on, the wrapper raises rather than
@@ -13,6 +18,9 @@ return an output that would cut the gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +29,136 @@ from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"fused_conv_pool_stage": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
+_SIGNATURES = {
+    "fused_conv_pool_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fused_conv_pool_stage_blocks_per_sm": [_I, _I, _I, _P],
+}
+
+# the kernel's geometry (csrc/fused_stage.cu)
+BLOCK_N = 64                   # output channels per block
+CHUNK = 8                      # input channels per pipeline stage: one k-step at each of the 9 taps
+M_TILES = (2, 3, 4)            # built m16 tiles per warp; 4 warps along M hold 64 · m_tiles conv positions
+STAGE_COUNTS = (2, 3)          # built ring depths
+_W_STAGE = 9 * CHUNK * (BLOCK_N + 4)   # floats of one stage's weights (rows padded by 4)
+_C_PITCH = BLOCK_N + 4                 # floats per conv position in the epilogue's tile
+SM_SMEM = 233_472              # shared memory of an H100 SM (228 KB)
+BLOCK_SMEM = 232_448           # the most one block may take (227 KB)
+SMEM_PER_BLOCK = 1_024         # what the SM reserves for each resident block
+FIXED_MI = 1.0                 # a block's cost besides its MMAs (weight copies and splits, fill, epilogue),
+                               # in units of one m16 tile per warp
+
+
+class StagePlan(NamedTuple):
+    """How the kernel tiles (N, H, W): ``frames`` per block, each cut into tiles of ``rows`` × ``cols`` pooled
+    positions (the whole frame when they are H − 2 and W − 2), ``m_tiles`` m16 tiles per warp, and a ring of
+    ``stages``.  Each block takes one slice of :data:`BLOCK_N` output channels."""
+    frames: int
+    rows: int
+    cols: int
+    m_tiles: int
+    stages: int
+
+
+def block_positions(plan: StagePlan) -> tuple[int, int]:
+    """(conv positions, input positions) of one block: its conv tile carries the pool's halo of 2, its input
+    tile the conv's halo of 1 more on each side."""
+    f, r, c = plan.frames, plan.rows, plan.cols
+    return f * (r + 2) * (c + 2), f * (r + 4) * (c + 4)
+
+
+def smem_bytes(plan: StagePlan) -> int:
+    """Dynamic shared memory of a block: the ring (weights and raw input per stage), the split input
+    tile and the input offset table; the epilogue's conv tile reuses it."""
+    m, p = block_positions(plan)
+    ring = plan.stages * (_W_STAGE + p * CHUNK) + 2 * p * CHUNK + p
+    return 4 * max(ring, m * _C_PITCH)
+
+
+def blocks_per_sm(plan: StagePlan, reg_blocks: dict[int, int]) -> int:
+    """Resident blocks of ``plan`` on an SM: the register limit of its kernel (``reg_blocks[m_tiles]``, from
+    the occupancy calculator) or the shared-memory limit, whichever is lower."""
+    return min(reg_blocks[plan.m_tiles], SM_SMEM // (smem_bytes(plan) + SMEM_PER_BLOCK))
+
+
+def workspace_floats(cin: int, cout: int) -> int:
+    """Floats of the packed weights (zero-padded to whole stages and channel slices)."""
+    return math.ceil(cout / BLOCK_N) * math.ceil(cin / CHUNK) * 9 * CHUNK * BLOCK_N
+
+
+def block_count(plan: StagePlan, n: int, h: int, w: int, cout: int) -> int:
+    """Blocks of a launch: frame groups × tiles per frame × channel slices."""
+    tiles = math.ceil((h - 2) / plan.rows) * math.ceil((w - 2) / plan.cols)
+    return math.ceil(n / plan.frames) * tiles * math.ceil(cout / BLOCK_N)
+
+
+def _tiles(n: int, h: int, w: int, m_tiles: int):
+    """(frames, rows, cols) a block of ``m_tiles`` can hold: whole frames when one fits, else one frame's tiles
+    of every conv height from 3 up with the widest conv width that fits beside it."""
+    cap = 64 * m_tiles
+    if h * w <= cap:
+        for f in range(1, min(n, cap // (h * w)) + 1):
+            yield f, h - 2, w - 2
+        return
+    for rc in range(3, min(h, cap // 3) + 1):
+        yield 1, rc - 2, min(w, cap // rc) - 2
+
+
+def plan_cost(plan: StagePlan, n: int, h: int, w: int, cout: int, sms: int, reg_blocks: dict[int, int]) -> float:
+    """The plan model's time of ``plan``, in rounds of one m16 tile per warp: its blocks run c at a time on
+    each SM (c the resident blocks, or fewer when the blocks do not reach every SM), so it takes
+    ⌈blocks / (sms · c)⌉ · c rounds of (m_tiles + FIXED_MI)."""
+    blocks = block_count(plan, n, h, w, cout)
+    conc = min(blocks_per_sm(plan, reg_blocks), math.ceil(blocks / sms))
+    return math.ceil(blocks / (sms * conc)) * conc * (plan.m_tiles + FIXED_MI)
+
+
+@functools.lru_cache(maxsize=1024)   # a pure function of its ints, asked on every call
+def stage_plan(n: int, h: int, w: int, cout: int, sms: int, reg_blocks: tuple[int, ...]) -> StagePlan:
+    """The plan for x (n, h, w, ·) → (n, h − 2, w − 2, cout) on a card of ``sms`` SMs, where the kernel of
+    ``m_tiles = M_TILES[i]`` keeps ``reg_blocks[i]`` blocks per SM by its registers.
+
+    Every candidate tile of every built ``m_tiles`` gets the deepest ring that costs no resident block; the
+    plan takes the least :func:`plan_cost`, then the fewest blocks, then the smallest ``m_tiles``.
+    """
+    regs = dict(zip(M_TILES, reg_blocks))
+    best = None
+    for mi in M_TILES:
+        for f, r, c in _tiles(n, h, w, mi):
+            plans = [StagePlan(f, r, c, mi, s) for s in STAGE_COUNTS if smem_bytes(StagePlan(f, r, c, mi, s)) <= BLOCK_SMEM]
+            if not plans:
+                continue
+            plan = max(plans, key=lambda p: (blocks_per_sm(p, regs), p.stages))
+            if blocks_per_sm(plan, regs) < 1:
+                continue
+            key = (plan_cost(plan, n, h, w, cout, sms, regs), block_count(plan, n, h, w, cout), mi)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
+
+
+def card_stage_plan(n: int, h: int, w: int, cout: int, device: torch.device) -> StagePlan:
+    """:func:`stage_plan` with the SMs and register-limited resident blocks of the card ``device``."""
+    return stage_plan(n, h, w, cout, *stage_slots(device))
+
+
+def stage_slots(device: torch.device) -> tuple[int, tuple[int, ...]]:
+    """(SMs, blocks per SM of the kernel of each ``M_TILES`` by the CUDA occupancy calculator with no
+    dynamic shared memory, i.e. by registers and threads) of the card ``device``."""
+    index = _build.device_index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, tuple(card_blocks_per_sm(mi, STAGE_COUNTS[0], 0, index) for mi in M_TILES)
+
+
+@functools.lru_cache(maxsize=None)
+def card_blocks_per_sm(m_tiles: int, stages: int, smem: int, device: int) -> int:
+    """Resident blocks per SM of the kernel of (``m_tiles``, ``stages``) at ``smem`` bytes of dynamic shared
+    memory, by the CUDA occupancy calculator of card ``device``."""
+    lib = _build.load("fused_stage", _SIGNATURES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.fused_conv_pool_stage_blocks_per_sm(m_tiles, stages, smem, ctypes.byref(out))
+    _build.check(lib, code, "fused_conv_pool_stage: occupancy")
+    return out.value
 
 
 def fused_conv_pool_stage_plain(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
@@ -32,34 +169,54 @@ def fused_conv_pool_stage_plain(x: torch.Tensor, w: torch.Tensor, b_spatial: tor
     return F.max_pool2d(y, 3, 1).permute(0, 2, 3, 1).contiguous()
 
 
-def fused_conv_pool_stage(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
-    """x (N, H, W, C), w (3, 3, C, Co) HWIO, b_spatial (H, W, Co) → (N, H−2, W−2, Co).
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    """
-    if x.device.type == "cpu":
-        return fused_conv_pool_stage_plain(x, w, b_spatial)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv_pool_stage: unsupported device {x.device}")
+def _check_shapes(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> None:
     n, h, wd, cin = x.shape
     if w.shape[:3] != (3, 3, cin) or b_spatial.shape != (h, wd, w.shape[3]):
         raise ValueError(
             f"fused_conv_pool_stage: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
             f"b_spatial {tuple(b_spatial.shape)} do not match"
         )
-    if h < 3 or wd < 3 or h * wd > 256:
-        raise ValueError(f"fused_conv_pool_stage: the kernel takes 3 ≤ H, W and H·W ≤ 256, got {h}×{wd}")
+    if h < 3 or wd < 3:
+        raise ValueError(f"fused_conv_pool_stage: the pool needs 3 ≤ H, W, got {h}×{wd}")
+
+
+def fused_conv_pool_stage(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
+    """x (N, H, W, C), w (3, 3, C, Co) HWIO, b_spatial (H, W, Co) → (N, H−2, W−2, Co).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel with :func:`card_stage_plan`.
+    """
+    if x.device.type == "cpu":
+        return fused_conv_pool_stage_plain(x, w, b_spatial)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_pool_stage: unsupported device {x.device}")
+    _check_shapes(x, w, b_spatial)
+    n, h, wd, _ = x.shape
+    return _launch(x, w, b_spatial, card_stage_plan(max(n, 1), h, wd, w.shape[3], x.device))
+
+
+def fused_conv_pool_stage_planned(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor,
+                                  plan: StagePlan) -> torch.Tensor:
+    """The kernel with a given plan (the card tests and the plan sweep); CUDA tensors only."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_pool_stage_planned: CUDA tensors only, got {x.device}")
+    _check_shapes(x, w, b_spatial)
+    return _launch(x, w, b_spatial, plan)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor, plan: StagePlan) -> torch.Tensor:
     _build.refuse_grad("fused_conv_pool_stage", x, w, b_spatial)
     _build.require_f32("fused_conv_pool_stage", x.device, x=x, w=w, b_spatial=b_spatial)
+    n, h, wd, cin = x.shape
     cout = w.shape[3]
     out = torch.empty((n, h - 2, wd - 2, cout), dtype=torch.float32, device=x.device)
-    if n == 0:
+    if n == 0 or cout == 0:
         return out
+    wp = torch.empty(workspace_floats(cin, cout), dtype=torch.float32, device=x.device)
     lib = _build.load("fused_stage", _SIGNATURES)
     with _build.on_device(x):
         code = lib.fused_conv_pool_stage(
-            x.data_ptr(), w.data_ptr(), b_spatial.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-            _build.stream_of(x),
+            x.data_ptr(), w.data_ptr(), b_spatial.data_ptr(), wp.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+            plan.frames, plan.rows, plan.cols, plan.m_tiles, plan.stages, _build.stream_of(x),
         )
     _build.check(lib, code, "fused_conv_pool_stage")
     fused_conv_pool_stage.launches += 1

@@ -143,7 +143,9 @@ class TestFusedMLPTilePlan:
 
 
 class TestFusedConvPoolStage:
-    @pytest.mark.parametrize("shape", [(20, 13, 13, 8, 16), (9, 11, 11, 16, 32)])
+    # the reference's stage shapes; frame_size (64, 64)'s conv1 and conv2 (21×21, 19×19); a thin frame (3×40)
+    @pytest.mark.parametrize("shape", [(20, 13, 13, 8, 16), (9, 11, 11, 16, 32), (2, 21, 21, 8, 16),
+                                       (2, 19, 19, 8, 16), (2, 3, 40, 8, 16)])
     def test_plain_matches_pallas(self, shape):
         n, h, w, c, co = shape
         rng = np.random.default_rng(n)
