@@ -45,8 +45,12 @@ From the repository root, on a machine with a CUDA card:
    first 64 frames, and times the path;
 6. holds the two attention backwards (dq, dk, dv) against their plain
    versions at the same shapes as the forwards, with times, bounds and the
-   backward of ``scaled_dot_product_attention``; the band at T = 135,000 on
-   row and key slices;
+   backward of ``scaled_dot_product_attention``; the full (kernel 6) and the
+   banded (kernel 8) one at head widths up to 128 with their plans, the
+   traced times of their dK/dV, dQ and split-sum kernels, their tensor-core
+   bounds and equal bits on a repeat, and kernel 8 at scores near 1e3 beside
+   the plain version, both against float64; the band at T = 135,000 on row
+   and key slices;
 7. drives spotting training on the match's features: a seeded event sidecar
    read back with ``load_event_labels``, then three
    ``make_spotting_train_step`` steps from one seeded head for the banded,
@@ -99,6 +103,7 @@ from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     bwd_slots,
     card_bwd_plan,
     card_fwd_plan,
+    card_local_bwd_plan,
     flash_bwd,
     flash_bwd_plain,
     flash_fwd,
@@ -632,7 +637,7 @@ def profile_run(run) -> dict:
             "attention_kernel_ms": sum(v for k, v in by_name.items()
                                        if "flash_" in k or "split_sum" in k or "fwd_merge" in k),
             "mlp_kernel_ms": sum(v for k, v in by_name.items() if "fused_mlp" in k),
-            "device_ms_by_name": [[k[:70], round(v, 4)] for k, v in top]}
+            "device_ms_by_name": [[k[:100], round(v, 4)] for k, v in top]}
 
 
 def require(ok: bool, what: str) -> None:
@@ -812,23 +817,25 @@ def attention_bwd_bound(h: int, t: int, d: int, window: int | None) -> tuple[flo
     return bound_ms(4.0 * (8 * h * t * d + h * t), 10.0 * d * h * band_pairs(t, window))
 
 
-def attention_bwd_tc_bound(h: int, t: int, d: int) -> tuple[float, str]:
-    """The full backward's bound on the tensor cores, where kernel 6 computes: each of its 10·d FLOP per
-    pair as three TF32 products (3xTF32) at the dense TF32 rate, or its bytes, whichever takes longer."""
+def attention_bwd_tc_bound(h: int, t: int, d: int, window: int | None) -> tuple[float, str]:
+    """The backward's bound on the tensor cores, where kernels 6 and 8 compute: each of its 10·d FLOP per
+    valid pair (all T² for the full form, the band's for kernel 8) as three TF32 products (3xTF32) at the
+    dense TF32 rate, or its bytes, whichever takes longer."""
     t_bytes = 4.0 * (8 * h * t * d + h * t) / PEAK_BYTES_PER_S
-    t_ops = 30.0 * d * h * t * t / PEAK_TF32_FLOP_PER_S
+    t_ops = 30.0 * d * h * band_pairs(t, window) / PEAK_TF32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def ptxas_report(name: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of csrc/<name>.cu from the ``-Xptxas -v`` report of its build;
-    kernels 2, 5 and 6 under readable names."""
+    kernels 2, 5, 6 and 8 under readable names (kernel 8's as kernel 6's template with ", band")."""
     report, fn = {}, None
     for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
             fn = m.group(1)
-            if k6 := re.search(r"flash_bwd_tc_kernelILi(\d+)ELb([01])E", fn):
-                fn = f"flash_bwd_tc_kernel<{k6.group(1)}, {'dK/dV' if k6.group(2) == '1' else 'dQ'}>"
+            if k6 := re.search(r"flash_bwd_tc_kernelILi(\d+)ELb([01])E.*?(TcAllKeys|TcBand)", fn):
+                fn = (f"flash_bwd_tc_kernel<{k6.group(1)}, {'dK/dV' if k6.group(2) == '1' else 'dQ'}"
+                      f"{', band' if k6.group(3) == 'TcBand' else ''}>")
             elif k5 := re.search(r"flash_fwd_tc_kernelILi(\d+)E", fn):
                 fn = f"flash_fwd_tc_kernel<{k5.group(1)}>"
             elif "fwd_merge_kernel" in fn:
@@ -845,10 +852,11 @@ def ptxas_report(name: str) -> dict:
     return report
 
 
-def kernel6_parts(run) -> dict:
-    """Device ms of kernel 6's parts in one traced call: the dK/dV and dQ kernels and the split sums."""
+def bwd_tc_parts(run, mask: str) -> dict:
+    """Device ms of the parts of the tensor-core backward with mask policy ``mask`` in one traced call: the
+    dK/dV and dQ kernels and the split sums."""
     def part_of(name):
-        if "flash_bwd_tc_kernel" in name:
+        if "flash_bwd_tc_kernel" in name and mask in name:
             return "dkv_ms" if "true" in name else "dq_ms"
         return "reduction_ms" if "split_sum_kernel" in name else None
     return traced_parts(run, part_of, ("dkv_ms", "dq_ms", "reduction_ms"), ("dkv_ms", "dq_ms"))
@@ -868,6 +876,26 @@ def large_magnitude_case(dev: torch.device) -> dict:
             "plain_vs_float64": worst(plain, exact)}
     require(all(a <= b for a, b in zip(errs["kernel_vs_float64"], errs["plain_vs_float64"])),
             f"flash_fwd at scores near 1e3: further from float64 than the plain version: {errs}")
+    return errs
+
+
+def large_magnitude_bwd_case(dev: torch.device) -> dict:
+    """The banded backward (kernel 8) at the inputs of ``tests/test_torch_cuda_kernels.py::
+    test_flash_bwd_large_magnitudes_stay_finite[48]`` (scores near 1e3, W = 48): the worst |err| over (dq, dk,
+    dv), and its ratio to 1e-4·max(1, max|reference|), of the kernel against the plain version, of the kernel
+    against the plain version in float64, and of the float32 plain version against float64.  The kernel must
+    be within the tolerance of float64, and at least as close to it as the float32 plain version."""
+    q, k, v, do = (torch.as_tensor(np.random.default_rng(seed).standard_normal((1, 1000, 64)).astype(np.float32) * sc,
+                                   device=dev) for seed, sc in ((120, 10.0), (121, 10.0), (122, 1.0), (123, 1.0)))
+    out, lse = flash_local_fwd_plain(q, k, v, 0.125, 48)
+    got = flash_local_bwd(q, k, v, out, lse, do, 0.125, 48)
+    plain = flash_local_bwd_plain(q, k, v, out, lse, do, 0.125, 48)
+    exact = flash_local_bwd_plain(*(x.double() for x in (q, k, v, out, lse, do)), 0.125, 48)
+    worst = lambda xs, ys: grads_err([x.double() for x in xs], ys)
+    errs = {"kernel_vs_plain": worst(got, plain), "kernel_vs_float64": worst(got, exact),
+            "plain_vs_float64": worst(plain, exact)}
+    require(errs["kernel_vs_float64"][1] <= min(1.0, errs["plain_vs_float64"][1]),
+            f"flash_local_bwd at scores near 1e3: further from float64 than the tolerance or the plain version: {errs}")
     return errs
 
 
@@ -942,17 +970,28 @@ def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
         }
         if d > 256:
             part["padded_to"] = padded_head_dim(d)
-        if window is None and d in BWD_STREAM:   # kernel 6: plan, traced parts, held to the tensor cores' bound
-            tc_b, tc_kind = attention_bwd_tc_bound(h, t, d)
-            part.update(plan=card_bwd_plan(h, t, t, d, dev)._asdict(), parts_ms=kernel6_parts(run),
-                        bound_ms=tc_b, bound_by=tc_kind, f32_core_bound_ms=b)
-            print(f"flash_bwd (kernel 6) at {[h, t, d]}: {part['ms']:.4f} ms (library {part['library_ms']:.4f}); "
-                  f"plan {json.dumps(part['plan'])}; traced parts {json.dumps(part['parts_ms'])}; bound "
-                  f"{tc_b:.4f} ms tensor cores in 3xTF32 ({tc_kind}), {b:.4f} ms float32 cores", flush=True)
+        if d in BWD_STREAM:   # kernel 6 or 8: plan, traced parts, held to the tensor cores' bound
+            require(all(torch.equal(x, y) for x, y in zip(run(), run())), f"{name} {(h, t, d, window)}: two runs "
+                    "on the same inputs differ")
+            tc_b, tc_kind = attention_bwd_tc_bound(h, t, d, window)
+            if window is None:
+                label, plan, mask = "flash_bwd (kernel 6)", card_bwd_plan(h, t, t, d, dev), "TcAllKeys"
+            else:
+                label, mask = "flash_local_bwd (kernel 8)", "TcBand"
+                plan = card_local_bwd_plan(h, t, t, d, window, 0, t, 0, dev)
+            part.update(plan=plan._asdict(), parts_ms=bwd_tc_parts(run, mask), bound_ms=tc_b, bound_by=tc_kind,
+                        f32_core_bound_ms=b)
+            print(f"{label} at {[h, t, d]}{'' if window is None else f' W = {window}'}: {part['ms']:.4f} ms "
+                  f"(library {part['library_ms']:.4f}, plain {part['plain_ms']:.4f}); plan {json.dumps(part['plan'])}; "
+                  f"traced parts {json.dumps(part['parts_ms'])}; bound {tc_b:.4f} ms tensor cores in 3xTF32 "
+                  f"({tc_kind}), {b:.4f} ms float32 cores; max |err| {err:.3g} ({ratio:.3g} of tolerance)",
+                  flush=True)
         parts[name].append(part)
         del q, k, v, do, out, lse, mask, lq, lk, lv, lib_out
         torch.cuda.empty_cache()
 
+    print(f"flash_local_bwd (kernel 8) at scores near 1e3, max |err| of (dq, dk, dv) and its ratio to the "
+          f"tolerance: {json.dumps(large_magnitude_bwd_case(dev))}", flush=True)
     q, k, v, do = (torch.randn((2, 1000, PADDED_HEAD_DIM), generator=gen, device=dev) for _ in range(4))
     scale = PADDED_HEAD_DIM ** -0.5
     out, lse = flash_fwd_plain(q, k, v, scale)
@@ -983,11 +1022,14 @@ def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
         if r > 1.0:
             raise AssertionError(f"flash_local_bwd T={t} slice [{a}, {b}): max |err| {e}")
         err, ratio = max(err, e), max(ratio, r)
-    b, kind = attention_bwd_bound(1, t, d, w)
+    b, _ = attention_bwd_bound(1, t, d, w)
+    tc_b, tc_kind = attention_bwd_tc_bound(1, t, d, w)
     parts["flash_local_bwd"].append({
         "shape": [1, t, d], "window": w, "main_path": False,
         "ms": time_ms(lambda: flash_local_bwd(q, k, v, out, lse, do, d ** -0.5, w)), "plain_ms": None,
-        "library_ms": None, "bound_ms": b, "bound_by": kind, "max_abs_err": err, "err_over_tolerance": ratio,
+        "library_ms": None, "bound_ms": tc_b, "bound_by": tc_kind, "f32_core_bound_ms": b,
+        "plan": card_local_bwd_plan(1, t, t, d, w, 0, t, 0, dev)._asdict(), "max_abs_err": err,
+        "err_over_tolerance": ratio,
         "checked": f"dq of rows and dk, dv of keys {', '.join(f'[{a}, {b})' for a, b in slices)} against the "
                    "plain version on their slices; every output finite",
     })
@@ -1319,7 +1361,8 @@ def main() -> int:
 
     attention_regs = ptxas_report("flash_attention")
     k5 = {fn: r for fn, r in attention_regs.items() if fn.startswith(("flash_fwd_tc_kernel", "fwd_merge_kernel"))}
-    k6 = {fn: r for fn, r in attention_regs.items() if fn.startswith("flash_bwd_tc_kernel")}
+    k6 = {fn: r for fn, r in attention_regs.items() if fn.startswith("flash_bwd_tc_kernel") and "band" not in fn}
+    k8 = {fn: r for fn, r in attention_regs.items() if fn.startswith("flash_bwd_tc_kernel") and "band" in fn}
     dev = torch.device("cuda")
     print(f"kernel 5 (flash_fwd) registers and spill bytes: {json.dumps(k5)}; blocks per SM "
           f"{json.dumps({d: fwd_blocks_per_sm(d, dev) for d in FWD_STREAM})}, resident slots "
@@ -1327,6 +1370,9 @@ def main() -> int:
     print(f"kernel 6 (flash_bwd) registers and spill bytes: {json.dumps(k6)}; blocks per SM (dK/dV, dQ) "
           f"{json.dumps({d: bwd_blocks_per_sm(d, dev) for d in BWD_STREAM})}, resident slots "
           f"{json.dumps({d: bwd_slots(d, dev) for d in BWD_STREAM})}", flush=True)
+    print(f"kernel 8 (flash_local_bwd) registers and spill bytes: {json.dumps(k8)}; blocks per SM (dK/dV, dQ) "
+          f"{json.dumps({d: bwd_blocks_per_sm(d, dev, band=True) for d in BWD_STREAM})}, resident slots "
+          f"{json.dumps({d: bwd_slots(d, dev, band=True) for d in BWD_STREAM})}", flush=True)
     k2 = ptxas_report("fused_stage")
     print(f"kernel 2 (fused_conv_pool_stage) registers and spill bytes: {json.dumps(k2)}; (SMs, blocks per SM by "
           f"registers for m_tiles 2, 3, 4) {json.dumps(stage_slots(dev))}", flush=True)

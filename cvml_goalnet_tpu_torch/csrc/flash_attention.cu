@@ -1,7 +1,7 @@
 // Flash attention, float32, for the temporal transformer scorer: the two
-// forwards first, the two backwards (training) after them, then the two
-// kernels on the tensor cores (kernel 6, the full backward; kernel 5, the
-// full forward).
+// forwards first, the two backwards (training) after them, then the kernels
+// on the tensor cores (kernels 6 and 8, the full and the banded backward, one
+// template; kernel 5, the full forward).
 //
 // The forwards replace two kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_fwd (body _fwd_kernel): full non-causal attention of (H, Tq, d)
@@ -368,14 +368,14 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 //
 // Replaces two more kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_bwd (bodies _dkv_kernel and _dq_kernel): the full form, keys
-//     valid below t_valid, on the tensor cores (kernel 6, the section after
-//     this one) for head widths up to 128; at 256 and on the wide path with
-//     the templates of this section and the full mask, since the tensor-core
-//     kernel's dK and dV would not fit in registers there (128 a thread at
-//     128 already);
+//     valid below t_valid;
 //   * _flash_local_bwd (bodies _local_dkv_kernel and _local_dq_kernel): the
-//     band |i + q_offset - j| <= W with keys valid in [lo, hi), on the FP32
-//     cores with the templates of this section.
+//     band |i + q_offset - j| <= W with keys valid in [lo, hi).
+// Both run on the tensor cores (kernels 6 and 8, the section after this one)
+// at head widths up to 128.  At 256 and on the wide path they run the
+// templates of this section, with the full mask or the band, since the
+// tensor-core kernel's dK and dV would not fit in registers there (128 a
+// thread at 128 already).
 // The TPU grid carries dk/dv (or dq) scratch across sequential grid steps;
 // Hopper blocks run in no order, so each call is two kernels, no atomics, and
 // its results repeat exactly:
@@ -395,16 +395,13 @@ int local_for(const float* q, const float* k, const float* v, float* out, float*
 // valid (query, key) pair (s, dp, dv, dk, dq at 2d each); the two-kernel split
 // does 14d, since both kernels recompute s and dp.  Float32 on the FP32 cores,
 // as the forwards (one TF32 product would break the 1e-4 gradient contract;
-// the full form's 3xTF32 design follows this section).  Tiles are
-// B x B with B = 16R: 256 threads as a 16 x 16 grid, a thread owning R x R
-// entries of the score tile and R rows (or keys) x d/16 columns of the
-// accumulators.  At d = 128, R = 2 takes 75 KB of shared memory (three blocks
-// per SM), R = 4 takes 166 KB (one); R = 4 only when it gives at least two
-// blocks per SM, the forwards' rule, and fits: at d = 256, R = 2 takes 139 KB
-// and R = 4 would take 292 KB, so 256 runs R = 2 only, as does the wide path
-// (D = kDC; both operand sides of a tile are reloaded chunk by chunk, the
-// block's own column slice last, so that its columns of Q and dO, or of K,
-// are in shared memory for the sums into dK and dV, or dQ).
+// the 3xTF32 design follows this section).  Tiles are B x B with B = 16R:
+// 256 threads as a 16 x 16 grid, a thread owning R x R entries of the score
+// tile and R rows (or keys) x d/16 columns of the accumulators.  R = 2 (at
+// d = 256, 139 KB of shared memory; R = 4 would take 292 KB), as on the wide
+// path (D = kDC; both operand sides of a tile are reloaded chunk by chunk,
+// the block's own column slice last, so that its columns of Q and dO, or of
+// K, are in shared memory for the sums into dK and dV, or dQ).
 
 template <int D, int R>
 struct BwdGeom {
@@ -713,43 +710,22 @@ int tiles_of(int T) {
   return (T + 16 * R - 1) / (16 * R);
 }
 
-// The wide tiles: R = 4 where they fit a block's shared memory (every width but 256), else R = 2.
-template <int D>
-constexpr int kWideR = BwdGeom<D, 4>::kBytes <= kMaxSmemBytes ? 4 : 2;
-
-template <int D>
-int local_bwd_for(const BwdArgs& a, int H, int window, int lo, int hi, int q_offset, cudaStream_t s) {
-  constexpr int RW = kWideR<D>;
-  using W = BwdGeom<D, RW>;
+// The banded backward at a head width past the tensor-core kernel's (256, or the wide path with D = kDC):
+// R = 2 (the only tiles that fit at 256), no split.
+template <int D, bool W>
+int local_bwd_f32(const BwdArgs& a, int H, int window, int lo, int hi, int q_offset, cudaStream_t s) {
   using N = BwdGeom<D, 2>;
   static_assert(N::kBytes <= kMaxSmemBytes, "the backward's tiles must fit a block's shared memory");
-  const int err =
-      wide_tiles(H, a.Tk)
-          ? launch_bwd(flash_local_dkv_kernel<D, RW, false>, W::kBytes, tiles_of<RW>(a.Tk), H, 1, s, a, window, lo,
-                       hi, q_offset)
-          : launch_bwd(flash_local_dkv_kernel<D, 2, false>, N::kBytes, tiles_of<2>(a.Tk), H, 1, s, a, window, lo,
-                       hi, q_offset);
-  if (err) return err;
-  return wide_tiles(H, a.Tq)
-             ? launch_bwd(flash_local_dq_kernel<D, RW, false>, W::kBytes, tiles_of<RW>(a.Tq), H, 1, s, a, window,
-                          lo, hi, q_offset)
-             : launch_bwd(flash_local_dq_kernel<D, 2, false>, N::kBytes, tiles_of<2>(a.Tq), H, 1, s, a, window, lo,
-                          hi, q_offset);
-}
-
-// The banded backward on the wide path: R = 2, a.dw / kDC column slices.
-int local_bwd_wide(const BwdArgs& a, int H, int window, int lo, int hi, int q_offset, cudaStream_t s) {
-  using N = BwdGeom<kDC, 2>;
-  const int slices = a.dw / kDC;
-  const int err = launch_bwd(flash_local_dkv_kernel<kDC, 2, true>, N::kBytes, tiles_of<2>(a.Tk), H, slices, s, a,
+  const int slices = slices_of<D, W>(a.dw);
+  const int err = launch_bwd(flash_local_dkv_kernel<D, 2, W>, N::kBytes, tiles_of<2>(a.Tk), H, slices, s, a,
                              window, lo, hi, q_offset);
   if (err) return err;
-  return launch_bwd(flash_local_dq_kernel<kDC, 2, true>, N::kBytes, tiles_of<2>(a.Tq), H, slices, s, a, window, lo,
-                    hi, q_offset);
+  return launch_bwd(flash_local_dq_kernel<D, 2, W>, N::kBytes, tiles_of<2>(a.Tq), H, slices, s, a, window, lo, hi,
+                    q_offset);
 }
 
 // The full backward at a head width past the tensor-core kernel's (256, or the wide path with D = kDC): the
-// FP32-core templates with the full mask, R = 2 (the only tiles that fit at 256), no split.
+// FP32-core templates with the full mask, R = 2, no split.
 template <int D, bool W>
 int full_bwd_f32(const BwdArgs& a, int H, int kv_end, cudaStream_t s) {
   using N = BwdGeom<D, 2>;
@@ -771,12 +747,27 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, 
 
 
 // ---------------------------------------------------------------------------
-// Kernel 6, the full backward, on the tensor cores in 3xTF32.
+// Kernels 6 and 8, the full and the banded backward, on the tensor cores in
+// 3xTF32.
 //
-// Same function as the FP32-core templates above with the full mask (keys
-// valid below kv_end), same contract: float32 in and out, masked keys get
-// dk = dv = 0 exactly, dead rows dq = 0 exactly, no atomics, equal bits on a
-// repeat.
+// Same functions as the FP32-core templates above, same contract: float32 in
+// and out, masked keys get dk = dv = 0 exactly, dead rows dq = 0 exactly, no
+// atomics, equal bits on a repeat.  One template serves both; its mask policy
+// says which streamed chunks a stationary tile walks and which of their
+// (query, key) pairs are valid:
+//   * TcAllKeys (kernel 6): every chunk of the queries (dK/dV) or of the keys
+//     below kv_end (dQ); a key tile wholly past kv_end walks none;
+//   * TcBand (kernel 8): |query + q_offset - key| <= W with keys in [lo, hi),
+//     held as key - query in [d_lo, d_hi] and keys in [k_lo, kv_end).  A tile
+//     walks only the chunks that meet its band: for keys [kb, ke] (clipped to
+//     the valid ones) the queries [kb - d_hi, ke - d_lo], for rows
+//     [q0, last] the keys [q0 + d_lo, last + d_hi], each cut to what exists.
+//     At T = 5400 and W = 1024 that is at most 132 chunks of 16 a tile, not 338,
+//     and about 97 % of the pairs walked are in the band.  The rest are tested
+//     per element in the accumulator layout and get P = dS = 0 exactly.
+// The split plans come from the band too (ops/cuda/flash_attention.py::
+// local_bwd_plan, the specification of the walk): split i of s walks chunks
+// [i n / s, (i + 1) n / s) of its tile's n.
 //
 // What bounds it on an H100: operations.  The two-kernel split does 14d FLOP
 // per (query, key) pair (S and dP in both kernels, then dV, dK; dQ).  One TF32
@@ -811,7 +802,7 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, 
 //   * a small grid (one head of T = 5400 is 85 tiles for an H100's 264
 //     resident blocks) is filled by splitting each block's walk over the
 //     chunks into s parts (the wrapper's plan from the card's occupancy,
-//     ops/cuda/flash_attention.py::card_bwd_plan); split
+//     ops/cuda/flash_attention.py::card_bwd_plan, card_local_bwd_plan); split
 //     i writes float32 partials to scratch the wrapper allocates, and a last
 //     kernel adds them in split order.  With s = 1 the tile kernels write the
 //     outputs directly.
@@ -840,8 +831,46 @@ struct TcArgs {
   const float *q, *k, *v, *dout, *lse, *di;  // (H, Tq, D), (H, Tk, D) x 2, (H, Tq, D), (H, Tq) x 2
   float *dq, *dk, *dv;                       // (H, Tq, D), (H, Tk, D) x 2
   float *part_kv, *part_q;                   // (s_dkv, 2, H, Tk, D), (s_dq, H, Tq, D), or null when s = 1
-  int H, Tq, Tk, kv_end, s_dkv, s_dq;
+  int H, Tq, Tk, kv_end, s_dkv, s_dq;        // keys valid below kv_end (for the band, below min(hi, Tk))
   float scale;
+};
+
+// Kernel 6's mask: every query against the keys below kv_end.
+struct TcAllKeys {
+  // the streamed chunks [x, y) of BS rows that the stationary tile at r0 walks
+  template <bool Dkv, int BS>
+  __device__ __forceinline__ int2 chunks(const TcArgs& a, int r0) const {
+    // a key tile wholly past kv_end sees no query and writes zeros
+    if (Dkv) return make_int2(0, r0 >= a.kv_end ? 0 : (a.Tq + BS - 1) / BS);
+    return make_int2(0, (a.kv_end + BS - 1) / BS);
+  }
+  // whether a pair of an existing query and a key below kv_end is valid
+  __device__ __forceinline__ bool operator()(int, int) const { return true; }
+};
+
+// Kernel 8's band: keys in [k_lo, kv_end), key - query in [d_lo, d_hi] (q_offset -+ W, clamped to [-Tq, Tk]
+// so that they fit an int and keep every pair's test).
+struct TcBand {
+  int k_lo, d_lo, d_hi;
+  template <bool Dkv, int BS>
+  __device__ __forceinline__ int2 chunks(const TcArgs& a, int r0) const {
+    long long first, last;  // the streamed rows the tile's band reaches
+    if (Dkv) {              // stationary keys [kb, ke], streamed queries
+      const long long kb = max(r0, k_lo), ke = min(r0 + kTcTile, a.kv_end) - 1;
+      first = max(kb - d_hi, 0LL);
+      last = kb > ke ? -1 : min(ke - d_lo, a.Tq - 1LL);
+    } else {  // stationary rows [r0, last_row], streamed keys
+      const long long last_row = min(r0 + kTcTile, a.Tq) - 1;
+      first = max(static_cast<long long>(r0) + d_lo, static_cast<long long>(k_lo));
+      last = min(last_row + d_hi, a.kv_end - 1LL);
+    }
+    if (first > last) return make_int2(0, 0);
+    return make_int2(static_cast<int>(first / BS), static_cast<int>(last / BS + 1));
+  }
+  __device__ __forceinline__ bool operator()(int query, int key) const {
+    const int diff = key - query;
+    return key >= k_lo && diff >= d_lo && diff <= d_hi;
+  }
 };
 
 // Rows [r0, r0 + ROWS) of one head's (T, D) matrix into dst (pitch LD),
@@ -875,9 +904,9 @@ __device__ __forceinline__ void add_chunk_product(float (&acc)[4], const uint32_
   for (int e = 0; e < 4; ++e) acc[e] += part[e];
 }
 
-// One block of kernel 6: blockIdx = (stationary tile, head, split).
-template <int D, bool Dkv>
-__global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_tc_kernel(TcArgs a) {
+// One block of kernel 6 (Mask = TcAllKeys) or 8 (TcBand): blockIdx = (stationary tile, head, split).
+template <int D, bool Dkv, typename Mask>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_tc_kernel(TcArgs a, Mask mask) {
   using G = TcGeom<D>;
   constexpr int BS = G::BS, kLd = G::kLd;
   extern __shared__ float4 smem4[];
@@ -902,10 +931,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_tc_kernel(TcArgs a) {
   const int x_lim = Dkv ? a.Tk : a.Tq;
   const int y_lim = Dkv ? a.Tq : a.kv_end;  // streamed rows that exist (queries) or are valid (keys)
 
-  // this split's chunks; a key tile wholly past kv_end sees no query and writes zeros
-  const int chunks = (Dkv && r0 >= a.kv_end) ? 0 : (y_lim + BS - 1) / BS;
-  const int c_begin = static_cast<int>(static_cast<long long>(split) * chunks / n_split);
-  const int c_end = static_cast<int>(static_cast<long long>(split + 1) * chunks / n_split);
+  // this split's share of the tile's chunks; a tile that walks none writes zeros
+  const int2 range = mask.template chunks<Dkv, BS>(a, r0);
+  const int chunks = range.y - range.x;
+  const int c_begin = range.x + static_cast<int>(static_cast<long long>(split) * chunks / n_split);
+  const int c_end = range.x + static_cast<int>(static_cast<long long>(split + 1) * chunks / n_split);
 
   auto load_chunk = [&](int stage, int c) {
     const int y0 = c * BS;
@@ -988,17 +1018,16 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_bwd_tc_kernel(TcArgs a) {
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * n + 2 * t + (e & 1);  // streamed row within the chunk
         const int stat = e < 2 ? row_a : row_b;   // stationary row
+        const int query = Dkv ? y0 + col : stat, key = Dkv ? stat : y0 + col;
         float l, dd;
-        bool valid;
         if constexpr (Dkv) {  // stationary keys, streamed queries
           l = sl[stage * BS + col] * kLog2e;
           dd = sd[stage * BS + col];
-          valid = stat < a.kv_end && y0 + col < a.Tq;
         } else {    // stationary queries, streamed keys
           l = l_row[e >> 1];
           dd = d_row[e >> 1];
-          valid = y0 + col < a.kv_end && stat < a.Tq;
         }
+        const bool valid = key < a.kv_end && query < a.Tq && mask(query, key);
         const float p = valid ? exp2f(fmaf(s[n][e], scale_log2e, -l)) : 0.f;
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - dd);
@@ -1076,21 +1105,21 @@ int split_sum(SplitSum j0, SplitSum j1, SplitSum j2, int jobs, int s, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool Dkv>
-int launch_tc(const TcArgs& a, int tiles, int splits, cudaStream_t s) {
+template <int D, bool Dkv, typename Mask>
+int launch_tc(const TcArgs& a, Mask mask, int tiles, int splits, cudaStream_t s) {
   if (tiles == 0 || a.H == 0) return 0;
-  const int err = allow_dynamic_smem(flash_bwd_tc_kernel<D, Dkv>, TcGeom<D>::kBytes);
+  const int err = allow_dynamic_smem(flash_bwd_tc_kernel<D, Dkv, Mask>, TcGeom<D>::kBytes);
   if (err) return err;
-  flash_bwd_tc_kernel<D, Dkv><<<dim3(tiles, a.H, splits), kTcThreads, TcGeom<D>::kBytes, s>>>(a);
+  flash_bwd_tc_kernel<D, Dkv, Mask><<<dim3(tiles, a.H, splits), kTcThreads, TcGeom<D>::kBytes, s>>>(a, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dK/dV, then dQ, then (if either was split) the sums of the partials.
-template <int D>
-int full_bwd_tc(const TcArgs& a, cudaStream_t s) {
-  int err = launch_tc<D, true>(a, (a.Tk + kTcTile - 1) / kTcTile, a.s_dkv, s);
+template <int D, typename Mask>
+int bwd_tc(const TcArgs& a, Mask mask, cudaStream_t s) {
+  int err = launch_tc<D, true>(a, mask, (a.Tk + kTcTile - 1) / kTcTile, a.s_dkv, s);
   if (err) return err;
-  err = launch_tc<D, false>(a, (a.Tq + kTcTile - 1) / kTcTile, a.s_dq, s);
+  err = launch_tc<D, false>(a, mask, (a.Tq + kTcTile - 1) / kTcTile, a.s_dq, s);
   if (err) return err;
   const size_t nk4 = static_cast<size_t>(a.H) * a.Tk * D / 4, nq4 = static_cast<size_t>(a.H) * a.Tq * D / 4;
   const SplitSum dk{reinterpret_cast<const float4*>(a.part_kv), reinterpret_cast<float4*>(a.dk), nk4, 2 * nk4};
@@ -1103,9 +1132,15 @@ int full_bwd_tc(const TcArgs& a, cudaStream_t s) {
   return a.s_dq > 1 ? split_sum(dq, dq, dq, 1, a.s_dq, s) : 0;
 }
 
+// which: 0 and 1 kernel 6's dK/dV and dQ, 2 and 3 kernel 8's.
 template <int D>
 int tc_blocks_per_sm(int which, int* out) {
-  auto kernel = which == 0 ? flash_bwd_tc_kernel<D, true> : flash_bwd_tc_kernel<D, false>;
+  const void* kernels[] = {reinterpret_cast<const void*>(flash_bwd_tc_kernel<D, true, TcAllKeys>),
+                           reinterpret_cast<const void*>(flash_bwd_tc_kernel<D, false, TcAllKeys>),
+                           reinterpret_cast<const void*>(flash_bwd_tc_kernel<D, true, TcBand>),
+                           reinterpret_cast<const void*>(flash_bwd_tc_kernel<D, false, TcBand>)};
+  if (which < 0 || which > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = kernels[which];
   const int err = allow_dynamic_smem(kernel, TcGeom<D>::kBytes);
   if (err) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kTcThreads, TcGeom<D>::kBytes));
@@ -1463,9 +1498,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   if (D > 128 && (s_dkv != 1 || s_dq != 1)) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs f = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, D, scale);
   switch (D) {
-    case 32: return full_bwd_tc<32>(a, s);
-    case 64: return full_bwd_tc<64>(a, s);
-    case 128: return full_bwd_tc<128>(a, s);
+    case 32: return bwd_tc<32>(a, TcAllKeys{}, s);
+    case 64: return bwd_tc<64>(a, TcAllKeys{}, s);
+    case 128: return bwd_tc<128>(a, TcAllKeys{}, s);
     case 256: return full_bwd_f32<256, false>(f, H, kv_end, s);
     default:
       if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
@@ -1473,8 +1508,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   }
 }
 
-// Blocks of kernel 6's dK/dV (which = 0) or dQ (which = 1) kernel an SM of
-// the current card keeps resident, into *out.
+// Blocks of kernel 6's dK/dV (which = 0) or dQ (which = 1) kernel, or of
+// kernel 8's (2, 3), an SM of the current card keeps resident, into *out.
 extern "C" int flash_bwd_blocks_per_sm(int D, int which, int* out) {
   switch (D) {
     case 32: return tc_blocks_per_sm<32>(which, out);
@@ -1484,21 +1519,40 @@ extern "C" int flash_bwd_blocks_per_sm(int D, int which, int* out) {
   }
 }
 
-// As flash_bwd, with the band |i + q_offset - j| <= window (window >= 0) and
-// keys valid in [lo, hi) instead of t_valid; D as for flash_local_fwd.
+// The banded backward (kernel 8): as flash_bwd, with the band |i + q_offset - j| <= window (window >= 0) and
+// keys valid in [lo, hi) instead of t_valid.  D is 32, 64 or 128 (the tensor-core kernel, its walks split in
+// s_dkv and s_dq by the wrapper's plan, with part_kv and part_q as for flash_bwd), 256 or past 256 a multiple
+// of 128 (the FP32-core templates, unsplit).
 extern "C" int flash_local_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                const void* di, void* dq, void* dk, void* dv, int H, int Tq, int Tk, int D,
-                               float scale, int window, int lo, int hi, int q_offset, void* stream) {
+                               float scale, int window, int lo, int hi, int q_offset, int s_dkv, int s_dq,
+                               void* part_kv, void* part_q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, D, scale);
-  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (window < 0 || s_dkv < 1 || s_dq < 1 || (s_dkv > 1 && !part_kv) || (s_dq > 1 && !part_q) ||
+      (D > 128 && (s_dkv != 1 || s_dq != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // keys valid in [max(lo, 0), min(hi, Tk)); key - query in q_offset -+ window, in 64 bits, then clamped to
+  // [-Tq, Tk], past which no pair's difference lies
+  const auto diff = [&](long long x) {
+    return static_cast<int>(std::min(std::max(x, -static_cast<long long>(Tq)), static_cast<long long>(Tk)));
+  };
+  const TcBand band{std::max(lo, 0), diff(static_cast<long long>(q_offset) - window),
+                    diff(static_cast<long long>(q_offset) + window)};
+  const int kv_end = std::min(std::max(hi, 0), Tk);
+  const TcArgs a{static_cast<const float*>(q),    static_cast<const float*>(k),   static_cast<const float*>(v),
+                 static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
+                 static_cast<float*>(dq),         static_cast<float*>(dk),        static_cast<float*>(dv),
+                 static_cast<float*>(part_kv),    static_cast<float*>(part_q),    H,
+                 Tq,                              Tk,                             kv_end,
+                 s_dkv,                           s_dq,                           scale};
+  const BwdArgs f = bwd_args(q, k, v, dout, lse, di, dq, dk, dv, Tq, Tk, D, scale);
   switch (D) {
-    case 32: return local_bwd_for<32>(a, H, window, lo, hi, q_offset, s);
-    case 64: return local_bwd_for<64>(a, H, window, lo, hi, q_offset, s);
-    case 128: return local_bwd_for<128>(a, H, window, lo, hi, q_offset, s);
-    case 256: return local_bwd_for<256>(a, H, window, lo, hi, q_offset, s);
+    case 32: return bwd_tc<32>(a, band, s);
+    case 64: return bwd_tc<64>(a, band, s);
+    case 128: return bwd_tc<128>(a, band, s);
+    case 256: return local_bwd_f32<256, false>(f, H, window, lo, hi, q_offset, s);
     default:
       if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
-      return local_bwd_wide(a, H, window, lo, hi, q_offset, s);
+      return local_bwd_f32<kDC, true>(f, H, window, lo, hi, q_offset, s);
   }
 }

@@ -24,11 +24,14 @@ v are (H, T, d) float32 as in the JAX package.
   one column slice of the outputs per block (:func:`padded_head_dim`).
 * :func:`flash_fwd` runs on the tensor cores in 3xTF32 (kernel 5) at widths
   up to 128, with the plan of :func:`card_fwd_plan`; :func:`flash_bwd` too
-  (kernel 6), with the plan of :func:`card_bwd_plan`.  When one head's tiles
+  (kernel 6), with the plan of :func:`card_bwd_plan`, and
+  :func:`flash_local_bwd` (kernel 8, kernel 6's template with the band), with
+  the plan of :func:`card_local_bwd_plan`, whose tiles walk only the chunks
+  that meet their band (:func:`local_bwd_chunks`).  When one head's tiles
   leave the card's resident blocks (its occupancy calculator's) unfilled,
   each block's walk is split and float32 partials (scratch allocated here)
   are combined in split order by the entry's last kernel.  At 256 and on the
-  wide path both run FP32-core kernels with the full mask, unsplit.
+  wide path all three run FP32-core kernels, unsplit.
 * :func:`flash_attention` (also under the JAX name
   :func:`flash_attention_trainable`), :func:`flash_attention_with_lse`,
   :func:`flash_attention_local` and :func:`flash_attention_local_bounded`
@@ -64,7 +67,7 @@ _SIGNATURES = {
     "flash_fwd_blocks_per_sm": [_I, _P],
     "flash_local_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "flash_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P],
-    "flash_local_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "flash_local_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "flash_bwd_blocks_per_sm": [_I, _I, _P],
 }
 HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernels are built for; other heads are zero-padded
@@ -73,12 +76,12 @@ WIDE_CHUNK = 128                 # past 256: the wide path's chunk of d and colu
 # rows and streams the keys and values in chunks of FWD_STREAM[d].
 FWD_TILE = 64
 FWD_STREAM = {32: 64, 64: 64, 128: 32}
-# The full backward (csrc/flash_attention.cu, kernel 6) on the tensor cores, at the widths BWD_STREAM
-# names: a block owns 64 rows (keys for dK/dV, queries for dQ) and streams the other side through shared
-# memory in chunks of BWD_STREAM[d] rows.
+# The full and banded backwards (csrc/flash_attention.cu, kernels 6 and 8) on the tensor cores, at the
+# widths BWD_STREAM names: a block owns 64 rows (keys for dK/dV, queries for dQ) and streams the other side
+# through shared memory in chunks of BWD_STREAM[d] rows.
 BWD_TILE = 64
 BWD_STREAM = {32: 32, 64: 32, 128: 16}
-MAX_SPLIT = 8   # splits of a block's walk, kernels 5 and 6
+MAX_SPLIT = 8   # splits of a block's walk, kernels 5, 6 and 8
 
 
 def _default_scale(q: torch.Tensor, scale: float | None) -> float:
@@ -278,7 +281,7 @@ def fwd_blocks_per_sm(d: int, device: torch.device) -> int:
 
 
 class BwdPlan(NamedTuple):
-    """How kernel 6 runs: 64-row tiles, streamed in chunks of ``stream`` rows, each walk cut in splits."""
+    """How kernel 6 or 8 runs: 64-row tiles, streamed in chunks of ``stream`` rows, each walk cut in splits."""
     tile_q: int     # query rows per dQ block
     tile_k: int     # keys per dK/dV block
     stream: int     # rows per streamed chunk (queries for dK/dV, keys for dQ)
@@ -323,25 +326,25 @@ def card_bwd_plan(h: int, tq: int, tk: int, d: int, device: torch.device) -> Bwd
     return full_bwd_plan(h, tq, tk, d, bwd_slots(d, device))
 
 
-def bwd_slots(d: int, device: torch.device) -> tuple[int, int]:
-    """Blocks of kernel 6's (dK/dV, dQ) kernels the card ``device`` keeps resident at once: its SMs ×
-    :func:`bwd_blocks_per_sm`."""
-    return _slots_on_card(_build.device_index(device), d)
+def bwd_slots(d: int, device: torch.device, band: bool = False) -> tuple[int, int]:
+    """Blocks of kernel 6's (dK/dV, dQ) kernels, or with ``band`` of kernel 8's, the card ``device`` keeps
+    resident at once: its SMs × :func:`bwd_blocks_per_sm`."""
+    return _slots_on_card(_build.device_index(device), d, band)
 
 
 @functools.lru_cache(maxsize=None)
-def _slots_on_card(device: int, d: int) -> tuple[int, int]:
+def _slots_on_card(device: int, d: int, band: bool) -> tuple[int, int]:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm_dkv, per_sm_dq = bwd_blocks_per_sm(d, device)
+    per_sm_dkv, per_sm_dq = bwd_blocks_per_sm(d, device, band)
     return sms * per_sm_dkv, sms * per_sm_dq
 
 
-def bwd_blocks_per_sm(d: int, device: torch.device) -> tuple[int, int]:
-    """Blocks of kernel 6's (dK/dV, dQ) kernels the card ``device`` keeps resident per SM, by the CUDA
-    occupancy calculator (``d`` a built width)."""
+def bwd_blocks_per_sm(d: int, device: torch.device, band: bool = False) -> tuple[int, int]:
+    """Blocks of kernel 6's (dK/dV, dQ) kernels, or with ``band`` of kernel 8's, the card ``device`` keeps
+    resident per SM, by the CUDA occupancy calculator (``d`` a tensor-core width)."""
     lib = _build.load("flash_attention", _SIGNATURES)
     got = []
-    for which in (0, 1):
+    for which in ((2, 3) if band else (0, 1)):
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
             _build.check(lib, lib.flash_bwd_blocks_per_sm(d, which, ctypes.byref(out)), "flash_bwd: occupancy")
@@ -349,9 +352,67 @@ def bwd_blocks_per_sm(d: int, device: torch.device) -> tuple[int, int]:
     return got[0], got[1]
 
 
-def _launch_bwd(entry: str, q, k, v, out, lse, dout, g_lse, *args) -> tuple[torch.Tensor, ...]:
+def band_limits(tq: int, tk: int, window: int, lo: int, hi: int, q_offset: int) -> tuple[int, int, int, int]:
+    """Kernel 8's band as (k_lo, k_hi, d_lo, d_hi): keys valid in ``[k_lo, k_hi)`` and key − query in
+    ``[d_lo, d_hi]``, i.e. ``|query + q_offset − key| ≤ window`` with keys in ``[lo, hi) ∩ [0, tk)``.  The
+    differences are clamped to [−tq, tk], past which no pair's lies, as the kernel keeps them in an int."""
+    diff = lambda x: min(max(x, -tq), tk)
+    return max(lo, 0), min(max(hi, 0), tk), diff(q_offset - window), diff(q_offset + window)
+
+
+def local_chunk_range(dkv: bool, r0: int, tq: int, tk: int, limits: tuple[int, int, int, int],
+                      stream: int) -> tuple[int, int]:
+    """The streamed chunks ``[first, end)`` of ``stream`` rows that kernel 8's stationary tile at ``r0``
+    walks, as ``TcBand::chunks`` computes them: for a tile of keys (``dkv``) the query chunks its valid keys'
+    bands reach, for a tile of query rows the key chunks within their bands and ``[k_lo, k_hi)``; (0, 0)
+    when there are none.  ``limits`` is :func:`band_limits`'s."""
+    k_lo, k_hi, d_lo, d_hi = limits
+    if dkv:
+        kb, ke = max(r0, k_lo), min(r0 + BWD_TILE, k_hi) - 1
+        first, last = max(kb - d_hi, 0), (min(ke - d_lo, tq - 1) if kb <= ke else -1)
+    else:
+        first, last = max(r0 + d_lo, k_lo), min(min(r0 + BWD_TILE, tq) - 1 + d_hi, k_hi - 1)
+    return (0, 0) if first > last else (first // stream, last // stream + 1)
+
+
+def local_bwd_chunks(tq: int, tk: int, window: int, lo: int, hi: int, q_offset: int,
+                     stream: int) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
+    """Kernel 8's walk: for each 64-key tile (dK/dV) and each 64-row tile (dQ), the streamed chunks
+    ``[first, end)`` it walks (:func:`local_chunk_range`); split i of s walks chunks
+    ``first + [i·n // s, (i + 1)·n // s)`` of its tile's n (:func:`split_ranges`)."""
+    limits = band_limits(tq, tk, window, lo, hi, q_offset)
+    dkv = [local_chunk_range(True, r0, tq, tk, limits, stream) for r0 in range(0, tk, BWD_TILE)]
+    dq = [local_chunk_range(False, r0, tq, tk, limits, stream) for r0 in range(0, tq, BWD_TILE)]
+    return dkv, dq
+
+
+@functools.lru_cache(maxsize=256)
+def local_bwd_plan(h: int, tq: int, tk: int, d: int, window: int, lo: int, hi: int, q_offset: int,
+                   slots: tuple[int, int]) -> BwdPlan:
+    """Kernel 8's plan for the band ``|i + q_offset − j| ≤ window``, keys in ``[lo, hi)``, of (h, tq, d)
+    queries over (h, tk, d) keys (``d`` a tensor-core width) on a card that keeps ``slots`` = (dK/dV, dQ)
+    blocks resident at once: :func:`full_bwd_plan`'s rule with the band's chunks, the most any tile walks,
+    in place of T's."""
+    stream = BWD_STREAM[d]
+    dkv, dq = local_bwd_chunks(tq, tk, window, lo, hi, q_offset, stream)
+    most = lambda ranges: max((end - first for first, end in ranges), default=0)
+    return BwdPlan(BWD_TILE, BWD_TILE, stream, _splits(h * len(dkv), most(dkv), slots[0]),
+                   _splits(h * len(dq), most(dq), slots[1]))
+
+
+def card_local_bwd_plan(h: int, tq: int, tk: int, d: int, window: int, lo: int, hi: int, q_offset: int,
+                        device: torch.device) -> BwdPlan:
+    """:func:`local_bwd_plan` with kernel 8's resident slots on the card ``device`` (the input's): the plan
+    ``flash_local_bwd`` launches."""
+    return local_bwd_plan(h, tq, tk, d, window, lo, hi, q_offset, bwd_slots(d, device, band=True))
+
+
+def _launch_bwd(entry: str, q, k, v, out, lse, dout, g_lse, *args,
+                splits: tuple[int, int] | None = None) -> tuple[torch.Tensor, ...]:
     """Compute di, check what the backward kernels take, pad the head to a built width, allocate dq, dk,
-    dv (and for the full form the split partials), launch ``entry``; the gradients are sliced back."""
+    dv and the split partials, launch ``entry``; the gradients are sliced back.  ``args`` are the full
+    form's ``(scale, t_valid)`` or the band's ``(scale, window, lo, hi, q_offset)``; ``splits`` (None: the
+    card's plan) forces (s_dkv, s_dq) of kernel 6 or 8."""
     dout = dout.contiguous()
     di = _di(out, dout, g_lse).contiguous()
     _check_kernel_inputs(entry, q, k, v, dout=dout, lse=lse, di=di)
@@ -362,13 +423,18 @@ def _launch_bwd(entry: str, q, k, v, out, lse, dout, g_lse, *args) -> tuple[torc
     width = padded_head_dim(d)
     q, k, v, dout = (pad_head_dim(t, width) for t in (q, k, v, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if entry == "flash_bwd":
-        # kernel 6's splits at the tensor-core widths; past them the FP32-core kernels run unsplit
-        s_dkv, s_dq = card_bwd_plan(h, tq, tk, width, q.device)[3:] if width in BWD_STREAM else (1, 1)
-        # float32 partials of each split, added in split order by the entry's last kernel
-        part_kv = torch.empty((s_dkv, 2, h, tk, width), device=q.device) if s_dkv > 1 else None
-        part_q = torch.empty((s_dq, h, tq, width), device=q.device) if s_dq > 1 else None
-        args = (*args, s_dkv, s_dq, _ptr(part_kv), _ptr(part_q))
+    if splits is None:   # the plans of kernels 6 and 8 at the tensor-core widths; past them FP32-core kernels, unsplit
+        if width not in BWD_STREAM:
+            splits = (1, 1)
+        elif entry == "flash_bwd":
+            splits = card_bwd_plan(h, tq, tk, width, q.device)[3:]
+        else:
+            splits = card_local_bwd_plan(h, tq, tk, width, *args[1:], q.device)[3:]
+    s_dkv, s_dq = splits
+    # float32 partials of each split, added in split order by the entry's last kernel
+    part_kv = torch.empty((s_dkv, 2, h, tk, width), device=q.device) if s_dkv > 1 else None
+    part_q = torch.empty((s_dq, h, tq, width), device=q.device) if s_dq > 1 else None
+    args = (*args, s_dkv, s_dq, _ptr(part_kv), _ptr(part_q))
     lib = _build.load("flash_attention", _SIGNATURES)
     with _build.on_device(q):
         code = getattr(lib, entry)(
@@ -466,6 +532,21 @@ def flash_local_bwd(q, k, v, out, lse, dout, scale: float, window: int, lo=None,
 
 
 flash_local_bwd.launches = 0
+
+
+def flash_local_bwd_planned(q, k, v, out, lse, dout, scale: float, window: int, s_dkv: int, s_dq: int, lo=None,
+                            hi=None, q_offset: int = 0) -> tuple[torch.Tensor, ...]:
+    """:func:`flash_local_bwd` on CUDA tensors with kernel 8's walks cut in ``s_dkv`` and ``s_dq`` splits
+    (1 to :data:`MAX_SPLIT`) instead of the plan's, at head widths up to 128: for holding every split count
+    to the plain version.  Counts no launch."""
+    _check_qkv("flash_local_bwd_planned", q, k, v)
+    if (q.device.type != "cuda" or padded_head_dim(q.shape[-1]) not in BWD_STREAM or window < 0
+            or not (1 <= s_dkv <= MAX_SPLIT and 1 <= s_dq <= MAX_SPLIT)):
+        raise ValueError(f"flash_local_bwd_planned: CUDA tensors with head dims up to 128, a window ≥ 0 and 1 to "
+                         f"{MAX_SPLIT} splits, got {q.device}, d = {q.shape[-1]}, window {window}, splits "
+                         f"({s_dkv}, {s_dq})")
+    return _launch_bwd("flash_local_bwd", q, k, v, out, lse, dout, None, float(scale),
+                       *_band_args(q, k, window, lo, hi, q_offset), splits=(s_dkv, s_dq))
 
 
 class _FullAttention(torch.autograd.Function):

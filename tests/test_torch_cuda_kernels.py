@@ -9,8 +9,8 @@ The shapes include the ragged ones of ``tests/test_pallas.py`` (batch,
 channel and K edges) besides the reference widths, and for the flash-attention
 forwards and backwards ragged sequence lengths, every head width the kernels
 are built for and widths between and past them (the wide path), every split
-of the full forward, bands from 0 to past T, key bounds with dead rows and a
-query offset.  The forwards hold out to 3e-5 and lse to 1e-5 against the plain
+of the full forward and of the banded backward, bands from 0 to past T, key
+bounds with dead rows and a query offset.  The forwards hold out to 3e-5 and lse to 1e-5 against the plain
 versions, the backwards dq, dk and dv to 1e-4·max(1, max|plain|): the
 tolerances of ``tests/test_flash_attention.py``.  The spotting path and one
 train step per scorer are held against the CPU.
@@ -502,6 +502,55 @@ def test_flash_bwd_plan_takes_the_cards_slots(dev):
         assert FA.card_bwd_plan(1, 5400, 5400, d, dev) == FA.full_bwd_plan(1, 5400, 5400, d, slots[d])
     if "H100" in torch.cuda.get_device_name(dev) and sms == 132:
         assert slots == {32: (396, 396), 64: (264, 396), 128: (264, 264)}
+
+
+# kernel 8 with its walks forced into every split count on each side (s_dkv = s, s_dq = MAX_SPLIT + 1 − s),
+# at the main path's band and at ragged shapes with key bounds, query offsets of either sign, crossed bounds
+# and rows or keys that no pair reaches (those get exactly 0); equal bits on a repeat
+@pytest.mark.parametrize("splits", range(1, FA.MAX_SPLIT + 1))
+@pytest.mark.parametrize("h,tq,tk,d,window,lo,hi,q_offset", [
+    (1, 5400, 5400, 128, 1024, None, None, 0), (2, 300, 250, 32, 37, 5, 233, -20),
+    (2, 777, 451, 64, 37, 13, 400, 16), (1, 129, 63, 32, 5, -10, 1000, -100), (2, 200, 200, 64, 16, 150, 40, 0),
+    (1, 1500, 1100, 128, 100, 70, 1033, 300)])
+def test_flash_local_bwd_every_split(dev, splits, h, tq, tk, d, window, lo, hi, q_offset):
+    q, do = _rand((h, tq, d), 220), _rand((h, tq, d), 221)
+    k, v = _rand((h, tk, d), 222), _rand((h, tk, d), 223)
+    scale = d ** -0.5
+    out, lse = FA.flash_local_fwd_plain(q, k, v, scale, window, lo, hi, q_offset)
+    _poison_allocator(dev)
+    before = FA.flash_local_bwd.launches
+    run = lambda: FA.flash_local_bwd_planned(q, k, v, out, lse, do, scale, window, splits, FA.MAX_SPLIT + 1 - splits,
+                                             lo, hi, q_offset)
+    got = run()
+    assert FA.flash_local_bwd.launches == before
+    _bwd_check(got, FA.flash_local_bwd_plain(q, k, v, out, lse, do, scale, window, lo, hi, q_offset))
+    valid = FA._band_valid(q, k, window, lo, hi, q_offset)[0]
+    dq, dk, dv = got
+    assert not dq[:, ~valid.any(1)].any() and not dk[:, ~valid.any(0)].any() and not dv[:, ~valid.any(0)].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+def test_flash_local_bwd_plan_takes_the_cards_slots(dev):
+    """Kernel 8's resident slots are the card's SMs × the CUDA occupancy calculator's blocks per SM of its
+    band instantiations; on an H100 SXM they are the slots the CPU plan tests use
+    (tests/test_torch_attention_kernel8.py), and the wrapper launches the card's plan."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = {}
+    for d in FA.BWD_STREAM:
+        per_dkv, per_dq = FA.bwd_blocks_per_sm(d, dev, band=True)
+        slots[d] = FA.bwd_slots(d, dev, band=True)
+        assert slots[d] == (sms * per_dkv, sms * per_dq)
+        assert (FA.card_local_bwd_plan(1, 5400, 5400, d, 1024, 0, 5400, 0, dev)
+                == FA.local_bwd_plan(1, 5400, 5400, d, 1024, 0, 5400, 0, slots[d]))
+    if "H100" in torch.cuda.get_device_name(dev) and sms == 132:
+        assert slots == {32: (396, 396), 64: (264, 396), 128: (264, 264)}
+    # the wrapper's launch is the plan's: the same bits as the planned call with the plan's splits
+    q, k, v, do = (_rand((1, 5400, 128), 230 + i) for i in range(4))
+    out, lse = FA.flash_local_fwd_plain(q, k, v, 128 ** -0.5, 1024)
+    plan = FA.card_local_bwd_plan(1, 5400, 5400, 128, 1024, 0, 5400, 0, dev)
+    got = FA.flash_local_bwd(q, k, v, out, lse, do, 128 ** -0.5, 1024)
+    want = FA.flash_local_bwd_planned(q, k, v, out, lse, do, 128 ** -0.5, 1024, plan.s_dkv, plan.s_dq)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("d", [8, 16, 48, 96, 160, 192, 256, 257, 320, 512])
