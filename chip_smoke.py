@@ -21,10 +21,12 @@ From the repository root, on a machine with a CUDA card:
    traced times of its two passes and its tensor-core bound; the attention
    kernels also at T = 32,768, with one head of 256 and with one head of 512
    (the wide path), and the banded one at T = 135,000, where it is checked on
-   row slices; the full forward (kernel 5) with its plan, the traced times of
-   its tile and merge kernels and its tensor-core bound, and at scores near
-   1e3 its distance from the plain version and from float64 beside the plain
-   version's own; the fusion MLP also at
+   row slices; the full and the banded forward (kernels 5 and 7) with their
+   plans, the traced times of their tile and merge kernels, their tensor-core
+   bounds and equal bits on a repeat, and at scores near 1e3 their distance
+   from the plain version and from float64 beside the plain version's own;
+   kernel 7 also with its walk forced into every split count at head widths
+   32, 64 and 128, dead rows exactly 0; the fusion MLP also at
    each video's M and at the 5-way classifier's widths, with equal bits on a
    repeat, then every tile plan at the path's M timed and the plan's cost
    model refitted to those times;
@@ -99,11 +101,14 @@ from cvml_goalnet_tpu_torch.ops.cuda import _build
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     BWD_STREAM,
     FWD_STREAM,
+    MAX_SPLIT,
+    _band_valid,
     bwd_blocks_per_sm,
     bwd_slots,
     card_bwd_plan,
     card_fwd_plan,
     card_local_bwd_plan,
+    card_local_fwd_plan,
     flash_bwd,
     flash_bwd_plain,
     flash_fwd,
@@ -112,6 +117,7 @@ from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     flash_local_bwd_plain,
     flash_local_fwd,
     flash_local_fwd_plain,
+    flash_local_fwd_planned,
     fwd_blocks_per_sm,
     fwd_slots,
     padded_head_dim,
@@ -707,18 +713,65 @@ def attention_bound(h: int, t: int, d: int, window: int | None) -> tuple[float, 
     return bound_ms(4.0 * (4 * h * t * d + h * t), 4.0 * d * h * band_pairs(t, window))
 
 
-def attention_fwd_tc_bound(h: int, t: int, d: int) -> tuple[float, str]:
-    """The full forward's bound on the tensor cores, where kernel 5 computes: each of its 4·d FLOP per pair
-    as three TF32 products (3xTF32) at the dense TF32 rate, or its bytes, whichever takes longer."""
+def attention_fwd_tc_bound(h: int, t: int, d: int, window: int | None = None) -> tuple[float, str]:
+    """The forward's bound on the tensor cores, where kernels 5 and 7 compute: each of its 4·d FLOP per valid
+    pair (all T² for the full form, the band's for kernel 7) as three TF32 products (3xTF32) at the dense TF32
+    rate, or its bytes, whichever takes longer."""
     t_bytes = 4.0 * (4 * h * t * d + h * t) / PEAK_BYTES_PER_S
-    t_ops = 12.0 * d * h * t * t / PEAK_TF32_FLOP_PER_S
+    t_ops = 12.0 * d * h * band_pairs(t, window) / PEAK_TF32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel5_parts(run) -> dict:
-    """Device ms of kernel 5's parts in one traced call: the tile kernel and, when the plan splits, the merge."""
-    part_of = lambda n: "tile_ms" if "flash_fwd_tc_kernel" in n else "merge_ms" if "fwd_merge_kernel" in n else None
+def fwd_tc_parts(run, mask: str) -> dict:
+    """Device ms of the parts of the tensor-core forward with mask policy ``mask`` (kernel 5: TcAllKeys, kernel
+    7: TcBand) in one traced call: the tile kernel and, when the plan splits, the merge."""
+    def part_of(name):
+        if "flash_fwd_tc_kernel" in name and mask in name:
+            return "tile_ms"
+        return "merge_ms" if "fwd_merge_kernel" in name else None
     return traced_parts(run, part_of, ("tile_ms", "merge_ms"), ("tile_ms",))
+
+
+# (H, Tq, Tk, d, window, lo, hi, q_offset) of kernel 7's every-split check: the main path's two bands, then at
+# d = 32, 64 and 128 key bounds, a positive offset and Tq ≠ Tk, with rows 421–776 dead (tile 6 holds live and
+# dead rows), and crossed bounds (every row dead)
+LOCAL_FWD_SPLIT_CASES = [(1, MATCH_FRAMES, MATCH_FRAMES, 128, ATTN_WINDOW, None, None, 0),
+                         (2, MATCH_FRAMES, MATCH_FRAMES, 64, ATTN_WINDOW, None, None, 0),
+                         *((2, 777, 451, d, 37, 13, 400, 16) for d in (32, 64, 128)),
+                         (2, 200, 200, 64, 16, 150, 40, 0)]
+
+
+def local_fwd_every_split(gen: torch.Generator) -> dict:
+    """Kernel 7 with its walk forced into every split count (``flash_local_fwd_planned``) at
+    LOCAL_FWD_SPLIT_CASES, against the plain version at the forwards' tolerances: the worst |err| of out and lse
+    per case over the split counts, whether every dead row's out and lse are exactly 0 in every split count,
+    and whether two calls give equal bits."""
+    dev = torch.device("cuda")
+    report = []
+    for case in LOCAL_FWD_SPLIT_CASES:
+        h, tq, tk, d, window, lo, hi, q_offset = case
+        q = torch.randn((h, tq, d), generator=gen, device=dev)
+        k, v = (torch.randn((h, tk, d), generator=gen, device=dev) for _ in range(2))
+        scale = d ** -0.5
+        want_out, want_lse = flash_local_fwd_plain(q, k, v, scale, window, lo, hi, q_offset)
+        dead = ~_band_valid(q, k, window, lo, hi, q_offset)[0].any(1)   # rows with no valid key
+        err_out = err_lse = 0.0
+        for splits in range(1, MAX_SPLIT + 1):
+            out, lse = flash_local_fwd_planned(q, k, v, scale, window, splits, lo, hi, q_offset)
+            err_out, err_lse = max(err_out, max_err(out, want_out)), max(err_lse, max_err(lse, want_lse))
+            require(not out[:, dead].any() and not lse[:, dead].any(),
+                    f"flash_local_fwd {case}, {splits} splits: a dead row is not 0")
+            again = flash_local_fwd_planned(q, k, v, scale, window, splits, lo, hi, q_offset)
+            require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                    f"flash_local_fwd {case}, {splits} splits: two runs differ")
+        if err_out > 3e-5 or err_lse > 1e-5:
+            raise AssertionError(f"flash_local_fwd {case}: max |err| over the split counts out {err_out} > 3e-5 "
+                                 f"or lse {err_lse} > 1e-5")
+        report.append({"case": list(case), "splits": [1, MAX_SPLIT],
+                       "dead_rows": int(dead.sum()), "max_abs_err_out": err_out, "max_abs_err_lse": err_lse})
+        del q, k, v, want_out, want_lse
+    return {"cases": report, "dead_rows_exactly_0": True, "equal_bits_on_a_repeat": True}
+
 
 
 def check_attention_kernels(gen: torch.Generator) -> dict:
@@ -760,16 +813,22 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
         }
         if d > 256:
             part["padded_to"] = padded_head_dim(d)
-        if window is None and d in FWD_STREAM:   # kernel 5: plan, traced parts, held to the tensor cores' bound
+        if d in FWD_STREAM:   # kernel 5 or 7: plan, traced parts, held to the tensor cores' bound
             require(all(torch.equal(x, y) for x, y in zip(run(), (out, lse))),
-                    f"flash_fwd {(h, t, d)}: two runs on the same inputs differ")
-            tc_b, tc_kind = attention_fwd_tc_bound(h, t, d)
-            part.update(plan=card_fwd_plan(h, t, t, d, dev)._asdict(), parts_ms=kernel5_parts(run),
-                        bound_ms=tc_b, bound_by=tc_kind, f32_core_bound_ms=b)
-            print(f"flash_fwd (kernel 5) at {[h, t, d]}: {part['ms']:.4f} ms (library {part['library_ms']:.4f}, "
-                  f"plain {part['plain_ms']:.4f}); plan {json.dumps(part['plan'])}; traced parts "
-                  f"{json.dumps(part['parts_ms'])}; bound {tc_b:.4f} ms tensor cores in 3xTF32 ({tc_kind}), "
-                  f"{b:.4f} ms float32 cores; max |err| out {err_out:.3g}, lse {err_lse:.3g}", flush=True)
+                    f"{name} {(h, t, d, window)}: two runs on the same inputs differ")
+            tc_b, tc_kind = attention_fwd_tc_bound(h, t, d, window)
+            if window is None:
+                label, plan, mask = "flash_fwd (kernel 5)", card_fwd_plan(h, t, t, d, dev), "TcAllKeys"
+            else:
+                label, mask = "flash_local_fwd (kernel 7)", "TcBand"
+                plan = card_local_fwd_plan(h, t, t, d, window, 0, t, 0, dev)
+            part.update(plan=plan._asdict(), parts_ms=fwd_tc_parts(run, mask), bound_ms=tc_b, bound_by=tc_kind,
+                        f32_core_bound_ms=b, equal_bits_on_a_repeat=True)
+            print(f"{label} at {[h, t, d]}{'' if window is None else f' W = {window}'}: {part['ms']:.4f} ms "
+                  f"(library {part['library_ms']:.4f}, plain {part['plain_ms']:.4f}); plan {json.dumps(part['plan'])}; "
+                  f"traced parts {json.dumps(part['parts_ms'])}; bound {tc_b:.4f} ms tensor cores in 3xTF32 "
+                  f"({tc_kind}), {b:.4f} ms float32 cores; max |err| out {err_out:.3g}, lse {err_lse:.3g}; equal "
+                  f"bits on a repeat", flush=True)
         parts[name].append(part)
         del q, k, v, out, lse, want_out, want_lse, mask
         torch.cuda.empty_cache()
@@ -778,6 +837,10 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
     scale = PADDED_HEAD_DIM ** -0.5
     print(f"flash_fwd (kernel 5) at scores near 1e3, max |err| of (out, lse): "
           f"{json.dumps(large_magnitude_case(dev))}", flush=True)
+    print(f"flash_local_fwd (kernel 7) at scores near 1e3 (W = 48), max |err| of (out, lse): "
+          f"{json.dumps(large_magnitude_case(dev, 48))}", flush=True)
+    print(f"flash_local_fwd (kernel 7) every split count 1..{MAX_SPLIT}: {json.dumps(local_fwd_every_split(gen))}",
+          flush=True)
     parts["flash_fwd"].append(padded_case("flash_fwd", lambda: flash_fwd(q, k, v, scale),
                                           lambda: flash_fwd_plain(q, k, v, scale)))
     parts["flash_local_fwd"].append(padded_case("flash_local_fwd", lambda: flash_local_fwd(q, k, v, scale, 100),
@@ -800,11 +863,13 @@ def check_attention_kernels(gen: torch.Generator) -> dict:
         if e_out > 3e-5 or e_lse > 1e-5:
             raise AssertionError(f"flash_local_fwd T={t} rows [{a}, {b}): max |err| out {e_out}, lse {e_lse}")
         err = max(err, e_out, e_lse)
-    b, kind = attention_bound(1, t, d, ATTN_WINDOW)
+    b, _ = attention_bound(1, t, d, ATTN_WINDOW)
+    tc_b, tc_kind = attention_fwd_tc_bound(1, t, d, ATTN_WINDOW)
     parts["flash_local_fwd"].append({
         "shape": [1, t, d], "window": ATTN_WINDOW, "main_path": False,
         "ms": time_ms(lambda: flash_local_fwd(q, k, v, d ** -0.5, ATTN_WINDOW)), "plain_ms": None,
-        "library_ms": None, "bound_ms": b, "bound_by": kind, "max_abs_err": err,
+        "library_ms": None, "bound_ms": tc_b, "bound_by": tc_kind, "f32_core_bound_ms": b,
+        "plan": card_local_fwd_plan(1, t, t, d, ATTN_WINDOW, 0, t, 0, dev)._asdict(), "max_abs_err": err,
         "checked": "rows [0, 2048), [67500, 69548), [132952, 135000) against the plain version on their keys",
     })
     del q, k, v, out, lse
@@ -828,7 +893,8 @@ def attention_bwd_tc_bound(h: int, t: int, d: int, window: int | None) -> tuple[
 
 def ptxas_report(name: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of csrc/<name>.cu from the ``-Xptxas -v`` report of its build;
-    kernels 2, 5, 6 and 8 under readable names (kernel 8's as kernel 6's template with ", band")."""
+    kernels 2, 5, 6, 7 and 8 under readable names (kernel 8's as kernel 6's template with ", band", kernel 7's
+    as kernel 5's with ", band")."""
     report, fn = {}, None
     for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -836,8 +902,8 @@ def ptxas_report(name: str) -> dict:
             if k6 := re.search(r"flash_bwd_tc_kernelILi(\d+)ELb([01])E.*?(TcAllKeys|TcBand)", fn):
                 fn = (f"flash_bwd_tc_kernel<{k6.group(1)}, {'dK/dV' if k6.group(2) == '1' else 'dQ'}"
                       f"{', band' if k6.group(3) == 'TcBand' else ''}>")
-            elif k5 := re.search(r"flash_fwd_tc_kernelILi(\d+)E", fn):
-                fn = f"flash_fwd_tc_kernel<{k5.group(1)}>"
+            elif k5 := re.search(r"flash_fwd_tc_kernelILi(\d+)E.*?(TcAllKeys|TcBand)", fn):
+                fn = f"flash_fwd_tc_kernel<{k5.group(1)}{', band' if k5.group(2) == 'TcBand' else ''}>"
             elif "fwd_merge_kernel" in fn:
                 fn = "fwd_merge_kernel"
             elif k2 := re.search(r"conv_pool_tc_kernelILi(\d+)ELi(\d+)E", fn):
@@ -862,20 +928,27 @@ def bwd_tc_parts(run, mask: str) -> dict:
     return traced_parts(run, part_of, ("dkv_ms", "dq_ms", "reduction_ms"), ("dkv_ms", "dq_ms"))
 
 
-def large_magnitude_case(dev: torch.device) -> dict:
-    """The full forward at the inputs of ``tests/test_torch_cuda_kernels.py::test_flash_large_magnitudes_stay_finite``
-    (scores near 1e3): the worst |err| of (out, lse) of the kernel against the plain version, of the kernel against
-    the plain version in float64, and of the float32 plain version against float64 (ROADMAP §3).  The kernel must
-    be at least as close to float64 as the float32 plain version."""
+def large_magnitude_case(dev: torch.device, window: int | None = None) -> dict:
+    """The full forward (kernel 5), or with ``window`` the banded one (kernel 7), at the inputs of
+    ``tests/test_torch_cuda_kernels.py::test_flash_large_magnitudes_stay_finite`` (scores near 1e3): the worst
+    |err| of (out, lse) of the kernel against the plain version, of the kernel against the plain version in
+    float64, and of the float32 plain version against float64 (ROADMAP §3).  The kernel must be at least as close
+    to float64 as the float32 plain version."""
     q, k, v = (torch.as_tensor(np.random.default_rng(seed).standard_normal((1, 1000, 64)).astype(np.float32) * sc,
                                device=dev) for seed, sc in ((70, 10.0), (71, 10.0), (72, 1.0)))
-    got, plain = flash_fwd(q, k, v, 0.125), flash_fwd_plain(q, k, v, 0.125)
-    exact = flash_fwd_plain(q.double(), k.double(), v.double(), 0.125)
+    if window is None:
+        name, kernel, plain_of = "flash_fwd", flash_fwd, flash_fwd_plain
+    else:
+        name = "flash_local_fwd"
+        kernel = lambda *x: flash_local_fwd(*x, window)
+        plain_of = lambda *x: flash_local_fwd_plain(*x, window)
+    got, plain = kernel(q, k, v, 0.125), plain_of(q, k, v, 0.125)
+    exact = plain_of(q.double(), k.double(), v.double(), 0.125)
     worst = lambda xs, ys: [(x.double() - y.double()).abs().max().item() for x, y in zip(xs, ys)]
     errs = {"kernel_vs_plain": worst(got, plain), "kernel_vs_float64": worst(got, exact),
             "plain_vs_float64": worst(plain, exact)}
     require(all(a <= b for a, b in zip(errs["kernel_vs_float64"], errs["plain_vs_float64"])),
-            f"flash_fwd at scores near 1e3: further from float64 than the plain version: {errs}")
+            f"{name} at scores near 1e3: further from float64 than the plain version: {errs}")
     return errs
 
 
@@ -1360,13 +1433,18 @@ def main() -> int:
                     print(f"  ptxas {name}: {line.strip()}")
 
     attention_regs = ptxas_report("flash_attention")
-    k5 = {fn: r for fn, r in attention_regs.items() if fn.startswith(("flash_fwd_tc_kernel", "fwd_merge_kernel"))}
+    k5 = {fn: r for fn, r in attention_regs.items()
+          if fn.startswith(("flash_fwd_tc_kernel", "fwd_merge_kernel")) and "band" not in fn}
+    k7 = {fn: r for fn, r in attention_regs.items() if fn.startswith("flash_fwd_tc_kernel") and "band" in fn}
     k6 = {fn: r for fn, r in attention_regs.items() if fn.startswith("flash_bwd_tc_kernel") and "band" not in fn}
     k8 = {fn: r for fn, r in attention_regs.items() if fn.startswith("flash_bwd_tc_kernel") and "band" in fn}
     dev = torch.device("cuda")
     print(f"kernel 5 (flash_fwd) registers and spill bytes: {json.dumps(k5)}; blocks per SM "
           f"{json.dumps({d: fwd_blocks_per_sm(d, dev) for d in FWD_STREAM})}, resident slots "
           f"{json.dumps({d: fwd_slots(d, dev) for d in FWD_STREAM})}", flush=True)
+    print(f"kernel 7 (flash_local_fwd) registers and spill bytes: {json.dumps(k7)}; blocks per SM "
+          f"{json.dumps({d: fwd_blocks_per_sm(d, dev, band=True) for d in FWD_STREAM})}, resident slots "
+          f"{json.dumps({d: fwd_slots(d, dev, band=True) for d in FWD_STREAM})}", flush=True)
     print(f"kernel 6 (flash_bwd) registers and spill bytes: {json.dumps(k6)}; blocks per SM (dK/dV, dQ) "
           f"{json.dumps({d: bwd_blocks_per_sm(d, dev) for d in BWD_STREAM})}, resident slots "
           f"{json.dumps({d: bwd_slots(d, dev) for d in BWD_STREAM})}", flush=True)

@@ -1,18 +1,18 @@
 // Flash attention, float32, for the temporal transformer scorer: the two
 // forwards first, the two backwards (training) after them, then the kernels
 // on the tensor cores (kernels 6 and 8, the full and the banded backward, one
-// template; kernel 5, the full forward).
+// template; kernels 5 and 7, the full and the banded forward, another).
 //
 // The forwards replace two kernels of cvml_goalnet_tpu/ops/pallas/flash_attention.py:
 //   * _flash_fwd (body _fwd_kernel): full non-causal attention of (H, Tq, d)
 //     queries over (H, Tk, d) keys and values, keys valid below t_valid;
-//     writes out and the row log-sum-exp.  Head widths up to 128 run on the
-//     tensor cores (kernel 5, the last section); 256 and the wide path run
-//     the FP32-core template of this section;
+//     writes out and the row log-sum-exp;
 //   * _flash_local_fwd (body _local_fwd_kernel, mask _band_mask): banded
 //     attention |i + q_offset - j| <= W with keys valid in [lo, hi), visiting
 //     only the key tiles that meet each query tile's band, so the work is
 //     O(T*W*d) instead of O(T^2*d).
+// Head widths up to 128 run on the tensor cores (kernels 5 and 7, the last
+// section); 256 and the wide path run the FP32-core templates of this section.
 // In both, a row with no valid key gives out 0 and lse 0.
 //
 // What bounds it on an H100: operations.  Each valid (query, key) pair costs
@@ -35,13 +35,12 @@
 //   * masked entries get weight 0 instead of a large negative score: a row
 //     whose running max is still -inf has seen no valid key;
 //   * the banded kernel takes 64-row tiles (RQ = 4) when they give the card
-//     at least two blocks per SM, else 32-row tiles (one head of T = 5400 is
-//     85 tiles of 64 on 132 SMs), so that short timelines spread over more
-//     SMs.  Timing both heights in turns on an H100 chose this: 32-row tiles
-//     made short bands faster and everything else slower;
-//   * head widths 32, 64, 128 and 256 are built (the wrapper zero-pads the
-//     others up to 256).  At D = 256, RQ = 4 takes 210 KB of shared memory
-//     and RQ = 2 169 KB: one block per SM either way.
+//     at least two blocks per SM, else 32-row tiles, so that short timelines
+//     spread over more SMs.  Timing both heights in turns on an H100 chose
+//     this: 32-row tiles made short bands faster and everything else slower;
+//   * head width 256 is built here (the wrapper zero-pads the widths between
+//     128 and 256 up to it).  At D = 256, RQ = 4 takes 210 KB of shared
+//     memory and RQ = 2 169 KB: one block per SM either way.
 //   * the wide path: past 256 the wrapper zero-pads d to a multiple of kDC
 //     and the D = kDC templates run with rows of dw floats (a template flag
 //     W and the run-time width dw).  Nothing of width dw sits in shared
@@ -835,11 +834,12 @@ struct TcArgs {
   float scale;
 };
 
-// Kernel 6's mask: every query against the keys below kv_end.
+// Kernel 6's (and kernel 5's) mask: every query against the keys below kv_end.
 struct TcAllKeys {
-  // the streamed chunks [x, y) of BS rows that the stationary tile at r0 walks
-  template <bool Dkv, int BS>
-  __device__ __forceinline__ int2 chunks(const TcArgs& a, int r0) const {
+  // the streamed chunks [x, y) of BS rows that the stationary tile at r0 walks (Args: TcArgs, or TcFwdArgs with
+  // Dkv = false)
+  template <bool Dkv, int BS, typename Args>
+  __device__ __forceinline__ int2 chunks(const Args& a, int r0) const {
     // a key tile wholly past kv_end sees no query and writes zeros
     if (Dkv) return make_int2(0, r0 >= a.kv_end ? 0 : (a.Tq + BS - 1) / BS);
     return make_int2(0, (a.kv_end + BS - 1) / BS);
@@ -848,12 +848,12 @@ struct TcAllKeys {
   __device__ __forceinline__ bool operator()(int, int) const { return true; }
 };
 
-// Kernel 8's band: keys in [k_lo, kv_end), key - query in [d_lo, d_hi] (q_offset -+ W, clamped to [-Tq, Tk]
-// so that they fit an int and keep every pair's test).
+// Kernel 8's (and kernel 7's) band: keys in [k_lo, kv_end), key - query in [d_lo, d_hi] (q_offset -+ W,
+// clamped to [-Tq, Tk] so that they fit an int and keep every pair's test).
 struct TcBand {
   int k_lo, d_lo, d_hi;
-  template <bool Dkv, int BS>
-  __device__ __forceinline__ int2 chunks(const TcArgs& a, int r0) const {
+  template <bool Dkv, int BS, typename Args>
+  __device__ __forceinline__ int2 chunks(const Args& a, int r0) const {
     long long first, last;  // the streamed rows the tile's band reaches
     if (Dkv) {              // stationary keys [kb, ke], streamed queries
       const long long kb = max(r0, k_lo), ke = min(r0 + kTcTile, a.kv_end) - 1;
@@ -1147,17 +1147,44 @@ int tc_blocks_per_sm(int which, int* out) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 5, the full forward, on the tensor cores in 3xTF32.
+// Kernels 5 and 7, the full and the banded forward, on the tensor cores in
+// 3xTF32.
 //
-// Same function as flash_fwd_kernel with the full mask, at head widths up to
-// 128 (256 and the wide path keep that FP32-core template): keys valid below
-// kv_end, out and the row lse, a dead row out 0 and lse 0; no atomics, equal
-// bits on a repeat.
+// Same functions as flash_fwd_kernel and flash_local_fwd_kernel, at head
+// widths up to 128 (256 and the wide path keep those FP32-core templates):
+// out and the row lse, a dead row out 0 and lse 0; no atomics, equal bits on
+// a repeat.  One template serves both, with kernels 6 and 8's mask policies
+// on the query side (Dkv = false):
+//   * TcAllKeys (kernel 5): every key chunk below kv_end, every pair of an
+//     existing key valid: kernel 5's walk and arithmetic;
+//   * TcBand (kernel 7): each 64-row tile walks only the key chunks that meet
+//     its rows' bands ([q0 + d_lo, last + d_hi] cut to [k_lo, kv_end)), and
+//     each pair is tested in the accumulator layout (key >= k_lo, key - query
+//     in [d_lo, d_hi]).  At T = 5400, W = 1024 and d = 128 a tile walks at
+//     most 67 chunks of 32, where kernel 5 walks 169.
+// Where it breaks, and what holds it:
+//   1. rows that die inside a live tile: in the band, with [lo, hi) and
+//      q_offset, one row of a tile may see no valid key while its neighbour
+//      does.  Its running max stays -inf, the base it subtracts is 0, so its
+//      weights and alpha are exactly 0 (never NaN), and the store and the
+//      merge give it out 0 and lse 0.  A split that walks no chunk of its
+//      tile writes m = -inf and l = 0, and the merge weighs it exactly 0;
+//   2. summation order: the MMAs sum in another order than the float32 plain
+//      version, so at scores near 1e3 both are held to float64;
+//   3. offsets of either sign, bounds outside [0, Tk) or crossed, Tq != Tk
+//      and windows past T: the host clamps the band's limits in 64 bits
+//      (band_of), and the chunk range is computed in 64 bits;
+//   4. registers: the band test adds integer compares to the inner loop of a
+//      kernel at about 244 registers (chip_smoke.py reports both forms'
+//      registers and spills).  At d = 32 it takes the kernel past the 170
+//      registers of three blocks an SM, so kernel 7 keeps two there where
+//      kernel 5 keeps three; no config runs heads of 32.
 //
-// What bounds it on an H100: operations.  4d FLOP per (query, key) pair
-// (S = Q K^T, then P V), each product in 3xTF32 as in kernel 6: 12d per pair
-// at 495 TFLOP/s bounds (1, 5400, 128) at 0.090 ms, where the FP32 cores'
-// 67 TFLOP/s bound the template above at 0.223 ms.
+// What bounds it on an H100: operations.  4d FLOP per valid (query, key)
+// pair (S = Q K^T, then P V), each product in 3xTF32 as in kernel 6: 12d per
+// pair at 495 TFLOP/s bounds (1, 5400, 128) at 0.090 ms for full attention
+// and at 0.031 ms for the W = 1024 band, where the FP32 cores' 67 TFLOP/s
+// bound them at 0.223 and 0.077 ms.
 //
 // Design (kernel 6's pieces, in the shape of its dQ side):
 //   * a block of 4 warps owns 64 query rows of one head, 16 per warp.  Q
@@ -1177,11 +1204,13 @@ int tc_blocks_per_sm(int which, int* out) {
 //     O += P V runs per 8-column tile in a fresh accumulator per chunk (O is
 //     D / 2 registers a thread, 64 at d = 128);
 //   * one head of T = 5400 is 85 tiles for an H100's 264 resident blocks, so
-//     the wrapper's plan (ops/cuda/flash_attention.py::card_fwd_plan, from
-//     the card's occupancy) may split each block's walk over the chunks in s
-//     parts.  Split i writes its unnormalised out with its row max and sum to
-//     float32 scratch the wrapper allocates, and fwd_merge_kernel combines
-//     the splits in split order: out = sum_i e^(m_i - m) o_i / sum_i
+//     the wrapper's plan (ops/cuda/flash_attention.py::card_fwd_plan, and
+//     card_local_fwd_plan over the band's chunks, from the card's occupancy)
+//     may split each block's walk over its tile's n chunks in s parts (split
+//     i walks [i n / s, (i + 1) n / s) of them).  Split i writes its
+//     unnormalised out with its row max and sum to float32 scratch the
+//     wrapper allocates, and fwd_merge_kernel combines the splits in split
+//     order: out = sum_i e^(m_i - m) o_i / sum_i
 //     e^(m_i - m) l_i, lse = m + log l.  A split that saw no valid key has
 //     weight exactly 0.  With s = 1 the tile kernel writes out and lse.
 
@@ -1207,9 +1236,9 @@ struct TcFwdArgs {
   float scale;
 };
 
-// One block of kernel 5: blockIdx = (query tile, head, split).
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a) {
+// One block of kernel 5 (Mask = TcAllKeys) or 7 (TcBand): blockIdx = (query tile, head, split).
+template <int D, typename Mask>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a, Mask mask) {
   using G = TcFwdGeom<D>;
   constexpr int BS = G::BS, kLd = G::kLd, NT = G::NT, ND = G::ND;
   extern __shared__ float4 smem4[];
@@ -1223,10 +1252,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a
   const float* kh = a.k + koff * D;
   const float* vh = a.v + koff * D;
 
-  // this split's chunks of the valid keys
-  const int chunks = (a.kv_end + BS - 1) / BS;
-  const int c_begin = static_cast<int>(static_cast<long long>(split) * chunks / a.splits);
-  const int c_end = static_cast<int>(static_cast<long long>(split + 1) * chunks / a.splits);
+  // this split's share of the key chunks the tile walks; a split with none writes m = -inf, l = 0
+  const int2 range = mask.template chunks<false, BS>(a, r0);
+  const int chunks = range.y - range.x;
+  const int c_begin = range.x + static_cast<int>(static_cast<long long>(split) * chunks / a.splits);
+  const int c_end = range.x + static_cast<int>(static_cast<long long>(split + 1) * chunks / a.splits);
 
   auto load_chunk = [&](int stage, int c) {
     copy_rows<D, BS, kLd>(sk + stage * BS * kLd, kh, c * BS, a.kv_end);
@@ -1240,6 +1270,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a
 
   const float scale_log2e = a.scale * kLog2e;
   // rows g and g + 8 of the warp's 16: running max (log2 units), the thread's part of the sum, and out
+  const int row_a = r0 + warp * 16 + g, row_b = row_a + 8;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[ND][4] = {};
   const float* xq = sq + (warp * 16 + g) * G::kLdQ + 2 * t;
   for (int c = c_begin; c < c_end; ++c) {
@@ -1279,14 +1310,15 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a
         for (int e = 0; e < 4; ++e) s[n][e] += ps[n][e];
     }
 
-    // the online softmax in log2 units; keys at or past kv_end get weight exactly 0
+    // the online softmax in log2 units; keys at or past kv_end, and pairs the mask refuses, get weight exactly 0
     const int key0 = c * BS + 2 * t;
     float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = key0 + 8 * n + (e & 1) < a.kv_end ? s[n][e] * scale_log2e : -INFINITY;
+        const int key = key0 + 8 * n + (e & 1);
+        s[n][e] = key < a.kv_end && mask(e < 2 ? row_a : row_b, key) ? s[n][e] * scale_log2e : -INFINITY;
         mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
       }
     float alpha[2], base[2];
@@ -1296,7 +1328,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a
       mt[half] = fmaxf(mt[half], __shfl_xor_sync(0xffffffffu, mt[half], 1));
       mt[half] = fmaxf(mt[half], __shfl_xor_sync(0xffffffffu, mt[half], 2));
       const float m_new = fmaxf(m[half], mt[half]);
-      // no valid key yet: subtract 0, so every weight and alpha is 0, not NaN
+      // no valid key yet (also a row of the band that sees none while its neighbours do): subtract 0, so
+      // every weight and alpha is 0, not NaN
       base[half] = m_new == -INFINITY ? 0.f : m_new;
       alpha[half] = exp2f(m[half] - base[half]);
       m[half] = m_new;
@@ -1333,7 +1366,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = r0 + warp * 16 + g + 8 * half;
+    const int row = half ? row_b : row_a;
     if (row >= a.Tq) continue;
     const bool dead = m[half] == -INFINITY;
     if (a.splits == 1) {
@@ -1353,7 +1386,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_fwd_tc_kernel(TcFwdArgs a
   }
 }
 
-// out and lse of kernel 5 from its s splits' partials over `rows` rows of d4 float4s, combined in split
+// out and lse of kernel 5 or 7 from its s splits' partials over `rows` rows of d4 float4s, combined in split
 // order; one thread per float4 of out.  A row no split saw a valid key of is dead: out 0, lse 0.
 __global__ void __launch_bounds__(256)
     fwd_merge_kernel(const float4* __restrict__ part_o, const float2* __restrict__ part_ml, float4* __restrict__ out,
@@ -1386,13 +1419,13 @@ __global__ void __launch_bounds__(256)
 }
 
 // The tile kernel, then (when split) the merge.
-template <int D>
-int full_fwd_tc(const TcFwdArgs& a, cudaStream_t s) {
+template <int D, typename Mask>
+int fwd_tc(const TcFwdArgs& a, Mask mask, cudaStream_t s) {
   const int tiles = (a.Tq + kTcTile - 1) / kTcTile;
   if (tiles == 0 || a.H == 0) return 0;
-  int err = allow_dynamic_smem(flash_fwd_tc_kernel<D>, TcFwdGeom<D>::kBytes);
+  int err = allow_dynamic_smem(flash_fwd_tc_kernel<D, Mask>, TcFwdGeom<D>::kBytes);
   if (err) return err;
-  flash_fwd_tc_kernel<D><<<dim3(tiles, a.H, a.splits), kTcThreads, TcFwdGeom<D>::kBytes, s>>>(a);
+  flash_fwd_tc_kernel<D, Mask><<<dim3(tiles, a.H, a.splits), kTcThreads, TcFwdGeom<D>::kBytes, s>>>(a, mask);
   err = static_cast<int>(cudaGetLastError());
   if (err || a.splits == 1) return err;
   const int rows = a.H * a.Tq, d4 = D / 4;
@@ -1403,12 +1436,26 @@ int full_fwd_tc(const TcFwdArgs& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// band: 0 kernel 5's tile kernel, 1 kernel 7's.
 template <int D>
-int tc_fwd_blocks_per_sm(int* out) {
-  const int err = allow_dynamic_smem(flash_fwd_tc_kernel<D>, TcFwdGeom<D>::kBytes);
+int tc_fwd_blocks_per_sm(int band, int* out) {
+  const void* kernel = band ? reinterpret_cast<const void*>(flash_fwd_tc_kernel<D, TcBand>)
+                            : reinterpret_cast<const void*>(flash_fwd_tc_kernel<D, TcAllKeys>);
+  const int err = allow_dynamic_smem(kernel, TcFwdGeom<D>::kBytes);
   if (err) return err;
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, flash_fwd_tc_kernel<D>, kTcThreads, TcFwdGeom<D>::kBytes));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kTcThreads, TcFwdGeom<D>::kBytes));
+}
+
+// Kernel 7's band from the band's arguments: keys valid in [max(lo, 0), min(hi, Tk)) (kv_end); key - query
+// in q_offset -+ window, in 64 bits, then clamped to [-Tq, Tk], past which no pair's difference lies
+// (ops/cuda/flash_attention.py::band_limits).  Kernel 8 takes the same.
+TcBand band_of(int Tq, int Tk, int window, int lo, int q_offset) {
+  const auto diff = [&](long long x) {
+    return static_cast<int>(std::min(std::max(x, -static_cast<long long>(Tq)), static_cast<long long>(Tk)));
+  };
+  return TcBand{std::max(lo, 0), diff(static_cast<long long>(q_offset) - window),
+                diff(static_cast<long long>(q_offset) + window)};
 }
 
 }  // namespace
@@ -1431,9 +1478,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   const TcFwdArgs a{qf, kf, vf, of, lf, static_cast<float*>(part_o), static_cast<float*>(part_ml), H, Tq, Tk, kv_end,
                     splits, scale};
   switch (D) {
-    case 32: return full_fwd_tc<32>(a, s);
-    case 64: return full_fwd_tc<64>(a, s);
-    case 128: return full_fwd_tc<128>(a, s);
+    case 32: return fwd_tc<32>(a, TcAllKeys{}, s);
+    case 64: return fwd_tc<64>(a, TcAllKeys{}, s);
+    case 128: return fwd_tc<128>(a, TcAllKeys{}, s);
     case 256: return launch_full<256, 4>(qf, kf, vf, of, lf, H, Tq, Tk, kv_end, scale, D, s);
     default:
       if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
@@ -1441,33 +1488,39 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   }
 }
 
-// Blocks of kernel 5's tile kernel an SM of the current card keeps resident, into *out.
-extern "C" int flash_fwd_blocks_per_sm(int D, int* out) {
+// Blocks of kernel 5's tile kernel (band = 0) or kernel 7's (band = 1) an SM of the current card keeps
+// resident, into *out.
+extern "C" int flash_fwd_blocks_per_sm(int D, int band, int* out) {
   switch (D) {
-    case 32: return tc_fwd_blocks_per_sm<32>(out);
-    case 64: return tc_fwd_blocks_per_sm<64>(out);
-    case 128: return tc_fwd_blocks_per_sm<128>(out);
+    case 32: return tc_fwd_blocks_per_sm<32>(band, out);
+    case 64: return tc_fwd_blocks_per_sm<64>(band, out);
+    case 128: return tc_fwd_blocks_per_sm<128>(band, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// As flash_fwd, with the band |i + q_offset - j| <= window (window >= 0) and
-// keys valid in [lo, hi) instead of t_valid: D is 32, 64, 128, 256 or past
-// 256 a multiple of 128 (the wide path).
+// The banded forward (kernel 7): as flash_fwd, with the band |i + q_offset - j| <= window (window >= 0) and
+// keys valid in [lo, hi) instead of t_valid.  D is 32, 64 or 128 (the tensor-core kernel, its walk over each
+// tile's band split in `splits` by the wrapper's plan, with part_o and part_ml as for flash_fwd), 256 or past
+// 256 a multiple of 128 (the FP32-core templates, unsplit).
 extern "C" int flash_local_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int H, int Tq,
-                               int Tk, int D, float scale, int window, int lo, int hi, int q_offset,
-                               void* stream) {
+                               int Tk, int D, float scale, int window, int lo, int hi, int q_offset, int splits,
+                               void* part_o, void* part_ml, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   float* lf = static_cast<float*>(lse);
-  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (window < 0 || splits < 1 || (splits > 1 && (!part_o || !part_ml || D > 128)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TcBand band = band_of(Tq, Tk, window, lo, q_offset);
+  const TcFwdArgs a{qf, kf, vf, of, lf, static_cast<float*>(part_o), static_cast<float*>(part_ml), H, Tq, Tk,
+                    std::min(std::max(hi, 0), Tk), splits, scale};
   switch (D) {
-    case 32: return local_for<32>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
-    case 64: return local_for<64>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
-    case 128: return local_for<128>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
+    case 32: return fwd_tc<32>(a, band, s);
+    case 64: return fwd_tc<64>(a, band, s);
+    case 128: return fwd_tc<128>(a, band, s);
     case 256: return local_for<256>(qf, kf, vf, of, lf, H, Tq, Tk, scale, window, lo, hi, q_offset, s);
     default:
       if (D <= 256 || D % kDC) return static_cast<int>(cudaErrorInvalidValue);
@@ -1531,13 +1584,7 @@ extern "C" int flash_local_bwd(const void* q, const void* k, const void* v, cons
   if (window < 0 || s_dkv < 1 || s_dq < 1 || (s_dkv > 1 && !part_kv) || (s_dq > 1 && !part_q) ||
       (D > 128 && (s_dkv != 1 || s_dq != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // keys valid in [max(lo, 0), min(hi, Tk)); key - query in q_offset -+ window, in 64 bits, then clamped to
-  // [-Tq, Tk], past which no pair's difference lies
-  const auto diff = [&](long long x) {
-    return static_cast<int>(std::min(std::max(x, -static_cast<long long>(Tq)), static_cast<long long>(Tk)));
-  };
-  const TcBand band{std::max(lo, 0), diff(static_cast<long long>(q_offset) - window),
-                    diff(static_cast<long long>(q_offset) + window)};
+  const TcBand band = band_of(Tq, Tk, window, lo, q_offset);
   const int kv_end = std::min(std::max(hi, 0), Tk);
   const TcArgs a{static_cast<const float*>(q),    static_cast<const float*>(k),   static_cast<const float*>(v),
                  static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),

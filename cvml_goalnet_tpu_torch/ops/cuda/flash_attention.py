@@ -23,15 +23,18 @@ v are (H, T, d) float32 as in the JAX package.
   of the FP32-core kernels, which walk d in chunks of that width and write
   one column slice of the outputs per block (:func:`padded_head_dim`).
 * :func:`flash_fwd` runs on the tensor cores in 3xTF32 (kernel 5) at widths
-  up to 128, with the plan of :func:`card_fwd_plan`; :func:`flash_bwd` too
-  (kernel 6), with the plan of :func:`card_bwd_plan`, and
-  :func:`flash_local_bwd` (kernel 8, kernel 6's template with the band), with
-  the plan of :func:`card_local_bwd_plan`, whose tiles walk only the chunks
-  that meet their band (:func:`local_bwd_chunks`).  When one head's tiles
-  leave the card's resident blocks (its occupancy calculator's) unfilled,
-  each block's walk is split and float32 partials (scratch allocated here)
-  are combined in split order by the entry's last kernel.  At 256 and on the
-  wide path all three run FP32-core kernels, unsplit.
+  up to 128, with the plan of :func:`card_fwd_plan`, and
+  :func:`flash_local_fwd` (kernel 7, kernel 5's template with the band) with
+  that of :func:`card_local_fwd_plan`; :func:`flash_bwd` too (kernel 6), with
+  the plan of :func:`card_bwd_plan`, and :func:`flash_local_bwd` (kernel 8,
+  kernel 6's template with the band), with the plan of
+  :func:`card_local_bwd_plan`.  The banded kernels' tiles walk only the
+  chunks that meet their band (:func:`local_fwd_chunks`,
+  :func:`local_bwd_chunks`).  When one head's tiles leave the card's
+  resident blocks (its occupancy calculator's) unfilled, each block's walk
+  is split and float32 partials (scratch allocated here) are combined in
+  split order by the entry's last kernel.  At 256 and on the wide path all
+  four run FP32-core kernels, unsplit.
 * :func:`flash_attention` (also under the JAX name
   :func:`flash_attention_trainable`), :func:`flash_attention_with_lse`,
   :func:`flash_attention_local` and :func:`flash_attention_local_bounded`
@@ -64,24 +67,24 @@ from cvml_goalnet_tpu_torch.ops.cuda import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P],
-    "flash_fwd_blocks_per_sm": [_I, _P],
-    "flash_local_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "flash_fwd_blocks_per_sm": [_I, _I, _P],
+    "flash_local_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P, _P],
     "flash_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P],
     "flash_local_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "flash_bwd_blocks_per_sm": [_I, _I, _P],
 }
 HEAD_DIMS = (32, 64, 128, 256)  # the head widths the kernels are built for; other heads are zero-padded
 WIDE_CHUNK = 128                 # past 256: the wide path's chunk of d and column slice (csrc kDC)
-# The full forward (kernel 5) on the tensor cores, at the widths FWD_STREAM names: a block owns 64 query
-# rows and streams the keys and values in chunks of FWD_STREAM[d].
+# The full and banded forwards (kernels 5 and 7) on the tensor cores, at the widths FWD_STREAM names: a block
+# owns 64 query rows and streams the keys and values in chunks of FWD_STREAM[d].
 FWD_TILE = 64
 FWD_STREAM = {32: 64, 64: 64, 128: 32}
 # The full and banded backwards (csrc/flash_attention.cu, kernels 6 and 8) on the tensor cores, at the
 # widths BWD_STREAM names: a block owns 64 rows (keys for dK/dV, queries for dQ) and streams the other side
 # through shared memory in chunks of BWD_STREAM[d] rows.
-BWD_TILE = 64
+BWD_TILE = FWD_TILE   # csrc kTcTile, the stationary tile of all four (local_chunk_range serves kernels 7 and 8)
 BWD_STREAM = {32: 32, 64: 32, 128: 16}
-MAX_SPLIT = 8   # splits of a block's walk, kernels 5, 6 and 8
+MAX_SPLIT = 8   # splits of a block's walk, kernels 5 to 8
 
 
 def _default_scale(q: torch.Tensor, scale: float | None) -> float:
@@ -204,10 +207,10 @@ def _check_kernel_inputs(what: str, q, k, v, **more) -> None:
 
 
 def _launch(entry: str, q, k, v, *args, splits: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Check what the forward kernels take, pad the head to a built width, allocate out and lse (and for
-    the full form the split partials), launch ``entry``; out is sliced back to the true width.  For the
-    full form ``args`` end with ``t_valid``; ``splits`` (None: :func:`card_fwd_plan`'s) splits kernel 5's
-    walk."""
+    """Check what the forward kernels take, pad the head to a built width, allocate out, lse and the split
+    partials, launch ``entry``; out is sliced back to the true width.  ``args`` are the full form's
+    ``(scale, t_valid)`` or the band's ``(scale, window, lo, hi, q_offset)``; ``splits`` (None: the card's
+    plan, :func:`card_fwd_plan` or :func:`card_local_fwd_plan`) splits kernel 5's or 7's walk."""
     _build.refuse_grad(entry, q, k, v)
     _check_kernel_inputs(entry, q, k, v)
     h, tq, d = q.shape
@@ -217,13 +220,17 @@ def _launch(entry: str, q, k, v, *args, splits: int | None = None) -> tuple[torc
     lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
     if h * tq == 0:
         return out[..., :d], lse
-    if entry == "flash_fwd":
-        if splits is None:   # kernel 5's plan at the tensor-core widths; past them the FP32-core kernels, unsplit
-            splits = card_fwd_plan(h, tq, args[-1], width, q.device).splits if width in FWD_STREAM else 1
-        # each split's unnormalised out and its row max and sum, combined in split order by the entry's last kernel
-        part_o = torch.empty((splits, h, tq, width), device=q.device) if splits > 1 else None
-        part_ml = torch.empty((splits, h, tq, 2), device=q.device) if splits > 1 else None
-        args = (*args, splits, _ptr(part_o), _ptr(part_ml))
+    if splits is None:   # kernel 5's or 7's plan at the tensor-core widths; past them the FP32-core kernels, unsplit
+        if width not in FWD_STREAM:
+            splits = 1
+        elif entry == "flash_fwd":
+            splits = card_fwd_plan(h, tq, args[-1], width, q.device).splits
+        else:
+            splits = card_local_fwd_plan(h, tq, k.shape[1], width, *args[1:], q.device).splits
+    # each split's unnormalised out and its row max and sum, combined in split order by the entry's last kernel
+    part_o = torch.empty((splits, h, tq, width), device=q.device) if splits > 1 else None
+    part_ml = torch.empty((splits, h, tq, 2), device=q.device) if splits > 1 else None
+    args = (*args, splits, _ptr(part_o), _ptr(part_ml))
     lib = _build.load("flash_attention", _SIGNATURES)
     with _build.on_device(q):
         code = getattr(lib, entry)(
@@ -240,7 +247,8 @@ def split_ranges(n: int, s: int) -> list[tuple[int, int]]:
 
 
 class FwdPlan(NamedTuple):
-    """How kernel 5 runs: 64-row query tiles, keys streamed in chunks of ``stream``, each walk cut in splits."""
+    """How kernel 5 or 7 runs: 64-row query tiles, keys streamed in chunks of ``stream``, each walk cut in
+    splits."""
     tile: int       # query rows per block
     stream: int     # keys per streamed chunk
     splits: int     # splits of a block's walk over the key chunks
@@ -259,24 +267,24 @@ def card_fwd_plan(h: int, tq: int, kv_end: int, d: int, device: torch.device) ->
     return full_fwd_plan(h, tq, kv_end, d, fwd_slots(d, device))
 
 
-def fwd_slots(d: int, device: torch.device) -> int:
-    """Blocks of kernel 5's tile kernel the card ``device`` keeps resident at once: its SMs ×
-    :func:`fwd_blocks_per_sm`."""
-    return _fwd_slots_on_card(_build.device_index(device), d)
+def fwd_slots(d: int, device: torch.device, band: bool = False) -> int:
+    """Blocks of kernel 5's tile kernel, or with ``band`` of kernel 7's, the card ``device`` keeps resident at
+    once: its SMs × :func:`fwd_blocks_per_sm`."""
+    return _fwd_slots_on_card(_build.device_index(device), d, band)
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_slots_on_card(device: int, d: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count * fwd_blocks_per_sm(d, device)
+def _fwd_slots_on_card(device: int, d: int, band: bool) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count * fwd_blocks_per_sm(d, device, band)
 
 
-def fwd_blocks_per_sm(d: int, device: torch.device) -> int:
-    """Blocks of kernel 5's tile kernel the card ``device`` keeps resident per SM, by the CUDA occupancy
-    calculator (``d`` a tensor-core width)."""
+def fwd_blocks_per_sm(d: int, device: torch.device, band: bool = False) -> int:
+    """Blocks of kernel 5's tile kernel, or with ``band`` of kernel 7's, the card ``device`` keeps resident
+    per SM, by the CUDA occupancy calculator (``d`` a tensor-core width)."""
     lib = _build.load("flash_attention", _SIGNATURES)
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _build.check(lib, lib.flash_fwd_blocks_per_sm(d, ctypes.byref(out)), "flash_fwd: occupancy")
+        _build.check(lib, lib.flash_fwd_blocks_per_sm(d, int(band), ctypes.byref(out)), "flash_fwd: occupancy")
     return out.value
 
 
@@ -353,7 +361,7 @@ def bwd_blocks_per_sm(d: int, device: torch.device, band: bool = False) -> tuple
 
 
 def band_limits(tq: int, tk: int, window: int, lo: int, hi: int, q_offset: int) -> tuple[int, int, int, int]:
-    """Kernel 8's band as (k_lo, k_hi, d_lo, d_hi): keys valid in ``[k_lo, k_hi)`` and key − query in
+    """Kernel 7's and 8's band as (k_lo, k_hi, d_lo, d_hi): keys valid in ``[k_lo, k_hi)`` and key − query in
     ``[d_lo, d_hi]``, i.e. ``|query + q_offset − key| ≤ window`` with keys in ``[lo, hi) ∩ [0, tk)``.  The
     differences are clamped to [−tq, tk], past which no pair's lies, as the kernel keeps them in an int."""
     diff = lambda x: min(max(x, -tq), tk)
@@ -362,10 +370,10 @@ def band_limits(tq: int, tk: int, window: int, lo: int, hi: int, q_offset: int) 
 
 def local_chunk_range(dkv: bool, r0: int, tq: int, tk: int, limits: tuple[int, int, int, int],
                       stream: int) -> tuple[int, int]:
-    """The streamed chunks ``[first, end)`` of ``stream`` rows that kernel 8's stationary tile at ``r0``
-    walks, as ``TcBand::chunks`` computes them: for a tile of keys (``dkv``) the query chunks its valid keys'
-    bands reach, for a tile of query rows the key chunks within their bands and ``[k_lo, k_hi)``; (0, 0)
-    when there are none.  ``limits`` is :func:`band_limits`'s."""
+    """The streamed chunks ``[first, end)`` of ``stream`` rows that the stationary 64-row tile at ``r0`` of
+    kernel 8 (or, with ``dkv`` False, of kernel 7) walks, as ``TcBand::chunks`` computes them: for a tile of
+    keys (``dkv``) the query chunks its valid keys' bands reach, for a tile of query rows the key chunks within
+    their bands and ``[k_lo, k_hi)``; (0, 0) when there are none.  ``limits`` is :func:`band_limits`'s."""
     k_lo, k_hi, d_lo, d_hi = limits
     if dkv:
         kb, ke = max(r0, k_lo), min(r0 + BWD_TILE, k_hi) - 1
@@ -405,6 +413,35 @@ def card_local_bwd_plan(h: int, tq: int, tk: int, d: int, window: int, lo: int, 
     """:func:`local_bwd_plan` with kernel 8's resident slots on the card ``device`` (the input's): the plan
     ``flash_local_bwd`` launches."""
     return local_bwd_plan(h, tq, tk, d, window, lo, hi, q_offset, bwd_slots(d, device, band=True))
+
+
+def local_fwd_chunks(tq: int, tk: int, window: int, lo: int, hi: int, q_offset: int,
+                     stream: int) -> list[tuple[int, int]]:
+    """Kernel 7's walk: for each 64-row query tile, the key chunks ``[first, end)`` it walks
+    (:func:`local_chunk_range`); split i of s walks chunks ``first + [i·n // s, (i + 1)·n // s)`` of its
+    tile's n (:func:`split_ranges`)."""
+    limits = band_limits(tq, tk, window, lo, hi, q_offset)
+    return [local_chunk_range(False, r0, tq, tk, limits, stream) for r0 in range(0, tq, FWD_TILE)]
+
+
+@functools.lru_cache(maxsize=256)
+def local_fwd_plan(h: int, tq: int, tk: int, d: int, window: int, lo: int, hi: int, q_offset: int,
+                   slots: int) -> FwdPlan:
+    """Kernel 7's plan for the band ``|i + q_offset − j| ≤ window``, keys in ``[lo, hi)``, of (h, tq, d)
+    queries over (h, tk, d) keys (``d`` a tensor-core width) on a card that keeps ``slots`` of its blocks
+    resident at once: :func:`full_fwd_plan`'s rule with the most chunks any tile of the band walks in place
+    of the valid keys'."""
+    stream = FWD_STREAM[d]
+    ranges = local_fwd_chunks(tq, tk, window, lo, hi, q_offset, stream)
+    most = max((end - first for first, end in ranges), default=0)
+    return FwdPlan(FWD_TILE, stream, _splits(h * len(ranges), most, slots))
+
+
+def card_local_fwd_plan(h: int, tq: int, tk: int, d: int, window: int, lo: int, hi: int, q_offset: int,
+                        device: torch.device) -> FwdPlan:
+    """:func:`local_fwd_plan` with kernel 7's resident slots on the card ``device`` (the input's): the plan
+    ``flash_local_fwd`` launches."""
+    return local_fwd_plan(h, tq, tk, d, window, lo, hi, q_offset, fwd_slots(d, device, band=True))
 
 
 def _launch_bwd(entry: str, q, k, v, out, lse, dout, g_lse, *args,
@@ -501,6 +538,20 @@ def flash_local_fwd(q, k, v, scale: float, window: int, lo=None, hi=None,
 
 
 flash_local_fwd.launches = 0
+
+
+def flash_local_fwd_planned(q, k, v, scale: float, window: int, splits: int, lo=None, hi=None,
+                            q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_local_fwd` on CUDA tensors with kernel 7's walk cut in ``splits`` (1 to :data:`MAX_SPLIT`)
+    instead of the plan's, at head widths up to 128: for holding every split count to the plain version.
+    Counts no launch."""
+    _check_qkv("flash_local_fwd_planned", q, k, v)
+    if (q.device.type != "cuda" or padded_head_dim(q.shape[-1]) not in FWD_STREAM or window < 0
+            or not 1 <= splits <= MAX_SPLIT):
+        raise ValueError(f"flash_local_fwd_planned: CUDA tensors with head dims up to 128, a window ≥ 0 and 1 to "
+                         f"{MAX_SPLIT} splits, got {q.device}, d = {q.shape[-1]}, window {window}, {splits} splits")
+    return _launch("flash_local_fwd", q, k, v, float(scale), *_band_args(q, k, window, lo, hi, q_offset),
+                   splits=splits)
 
 
 def flash_bwd(q, k, v, out, lse, dout, scale: float, t_valid=None, g_lse=None) -> tuple[torch.Tensor, ...]:

@@ -29,9 +29,14 @@ Taps = tuple[torch.Tensor, torch.Tensor]
 
 
 def fused_preprocess_frames_plain(frames: torch.Tensor, taps_h: Taps, taps_w: Taps, eps: float = 1e-7) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: columns, then rows, then ``(v − lo) / (hi − lo + eps)``."""
+    """The kernel's arithmetic in plain PyTorch: columns, then rows, then ``(v − lo) / (hi − lo + eps)``.
+
+    No frames (a stream's empty tail) give an empty (0, h, w, C) float32 tensor, as the kernel's wrapper
+    returns."""
     n = frames.shape[0]
     (ih, wh), (iw, ww) = taps_h, taps_w
+    if n == 0:
+        return torch.empty((0, ih.shape[1], iw.shape[1], frames.shape[3]), dtype=torch.float32, device=frames.device)
     flat = frames.reshape(n, -1)
     lo = flat.amin(dim=1).to(torch.float32)[:, None, None, None]
     hi = flat.amax(dim=1).to(torch.float32)[:, None, None, None]

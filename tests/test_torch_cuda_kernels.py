@@ -64,6 +64,19 @@ def test_preprocess(dev, shape, out_hw, dtype):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_zero_frames_card_matches_cpu(dev, dtype):
+    """A stream's empty tail: extract_features on the card and on the CPU give the same empty (0, 40, 40, 3)
+    float32 visual."""
+    frames = np.zeros((0, 180, 320, 3), dtype)
+    got = extract_features(frames, None, PipelineConfig())
+    want = extract_features(frames, None, PipelineConfig(), device="cpu")
+    assert got["visual"].device.type == "cuda" and want["visual"].device.type == "cpu"
+    assert got["visual"].shape == want["visual"].shape == (0, 40, 40, 3)
+    assert got["visual"].dtype == want["visual"].dtype == torch.float32
+    assert got["audio"] is None and want["audio"] is None
+
+
 # the reference widths at one video, a batch and a match's worth of frames; frame_size (64, 64)'s conv1 and conv2
 # (21×21, 19×19) and 17×17, which a block cuts into tiles with a halo; thin frames (3×200, 40×3); ragged Cin
 # (3, 5, 20) and Cout (70)
@@ -312,11 +325,10 @@ def test_flash_local_fwd_bounds_dead_rows_and_offset(dev, lo, hi, q_offset):
 def test_flash_large_magnitudes_stay_finite(dev, window):
     q, k, v = _rand((1, 1000, 64), 70, 10.0), _rand((1, 1000, 64), 71, 10.0), _rand((1, 1000, 64), 72)
     got = FA.flash_local_fwd(q, k, v, 0.125, window) if window else FA.flash_fwd(q, k, v, 0.125)
-    # the band (FP32-core templates) sums in the plain version's own order and is held to it; the full forward
-    # sums on the tensor cores in another order, and at scores near 1e3 the float32 plain version's own rounding
-    # on out reaches about 1e-4, so it is held to the plain version in float64
+    # both forwards sum on the tensor cores in another order than the plain version, and at scores near 1e3 the
+    # float32 plain version's own rounding on out reaches about 1e-4, so they are held to it in float64
     if window:
-        want = FA.flash_local_fwd_plain(q, k, v, 0.125, window)
+        want = tuple(t.float() for t in FA.flash_local_fwd_plain(q.double(), k.double(), v.double(), 0.125, window))
     else:
         want = tuple(t.float() for t in FA.flash_fwd_plain(q.double(), k.double(), v.double(), 0.125))
     # scores up to ~1e3: lse carries float32 rounding of that size
@@ -620,6 +632,8 @@ def test_flash_wide_heads_masks_and_dead_rows(dev, kind, d):
 
 # kernel 5's tile kernel: blocks an H100 SXM keeps resident per width (tests/test_torch_attention_kernel5.py)
 H100_FWD_SLOTS = {32: 396, 64: 264, 128: 264}
+# kernel 7's: two blocks per SM at every width (tests/test_torch_attention_kernel7.py)
+H100_LOCAL_FWD_SLOTS = {32: 264, 64: 264, 128: 264}
 
 
 # each shape's plan as the card picks it (one head of a match splits in 3 on an H100, T = 32,768 does not);
@@ -656,6 +670,50 @@ def test_flash_fwd_every_split(dev, splits, h, tq, tk, d, t_valid):
     _attn_check(got, FA.flash_fwd_plain(q, k, v, d ** -0.5, t_valid))
     again = FA.flash_fwd_planned(q, k, v, d ** -0.5, splits, t_valid)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+# kernel 7 with its walk forced into every split count at d = 32, 64 and 128: the main path's band and ragged
+# shapes with key bounds, query offsets of either sign, crossed bounds and rows no key reaches (out and lse exactly
+# 0, also when they share a tile with live rows); equal bits on a repeat
+@pytest.mark.parametrize("splits", range(1, FA.MAX_SPLIT + 1))
+@pytest.mark.parametrize("h,tq,tk,d,window,lo,hi,q_offset", [
+    (1, 5400, 5400, 128, 1024, None, None, 0), (2, 5400, 5400, 64, 1024, None, None, 0),
+    (2, 300, 250, 32, 37, 5, 233, -20), (2, 777, 451, 64, 37, 13, 400, 16), (1, 129, 63, 32, 5, -10, 1000, -100),
+    (2, 200, 200, 64, 16, 150, 40, 0), (1, 1500, 1100, 128, 100, 70, 1033, 300), (1, 128, 128, 32, 4, 40, 60, 0)])
+def test_flash_local_fwd_every_split(dev, splits, h, tq, tk, d, window, lo, hi, q_offset):
+    q, k, v = _rand((h, tq, d), 240), _rand((h, tk, d), 241), _rand((h, tk, d), 242)
+    scale = d ** -0.5
+    _poison_allocator(dev)
+    before = FA.flash_local_fwd.launches
+    run = lambda: FA.flash_local_fwd_planned(q, k, v, scale, window, splits, lo, hi, q_offset)
+    got = run()
+    assert FA.flash_local_fwd.launches == before
+    _attn_check(got, FA.flash_local_fwd_plain(q, k, v, scale, window, lo, hi, q_offset))
+    dead = ~FA._band_valid(q, k, window, lo, hi, q_offset)[0].any(1)
+    assert not got[0][:, dead].any() and not got[1][:, dead].any()
+    again = run()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_flash_local_fwd_plan_takes_the_cards_slots(dev):
+    """Kernel 7's resident slots are the card's SMs × the CUDA occupancy calculator's blocks per SM of its band
+    instantiation; on an H100 SXM they are the slots the CPU plan tests use
+    (tests/test_torch_attention_kernel7.py), and the wrapper launches the card's plan."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = {}
+    for d in FA.FWD_STREAM:
+        slots[d] = FA.fwd_slots(d, dev, band=True)
+        assert slots[d] == sms * FA.fwd_blocks_per_sm(d, dev, band=True)
+        assert (FA.card_local_fwd_plan(1, 5400, 5400, d, 1024, 0, 5400, 0, dev)
+                == FA.local_fwd_plan(1, 5400, 5400, d, 1024, 0, 5400, 0, slots[d]))
+    if "H100" in torch.cuda.get_device_name(dev) and sms == 132:
+        assert slots == H100_LOCAL_FWD_SLOTS
+    # the wrapper's launch is the plan's: the same bits as the planned call with the plan's splits
+    q, k, v = (_rand((1, 5400, 128), 250 + i) for i in range(3))
+    plan = FA.card_local_fwd_plan(1, 5400, 5400, 128, 1024, 0, 5400, 0, dev)
+    got = FA.flash_local_fwd(q, k, v, 128 ** -0.5, 1024)
+    want = FA.flash_local_fwd_planned(q, k, v, 128 ** -0.5, 1024, plan.splits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_flash_fwd_plan_takes_the_cards_slots(dev):

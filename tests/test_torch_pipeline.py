@@ -169,6 +169,16 @@ class TestExtractFeatures:
         np.testing.assert_allclose(feats["audio"].numpy(), goldens["audio"], rtol=1e-3, atol=2e-3)
         assert feats["text"] is None
 
+    @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+    def test_zero_frames_match_jax(self, dtype):
+        # a stream's empty tail: no frames and no waveform give an empty (0, h, w, C) float32 visual
+        frames = np.zeros((0, 180, 320, 3), dtype)
+        want = JP.extract_features(frames, None, JaxPipelineConfig())
+        got = TP.extract_features(frames, None, PipelineConfig(), device=CPU)
+        assert tuple(got["visual"].shape) == want["visual"].shape == (0, 40, 40, 3)
+        assert got["visual"].dtype == torch.float32 and want["visual"].dtype == np.float32
+        assert got["audio"] is None and want["audio"] is None
+
     def test_synthetic_generators_match_jax_package(self):
         from cvml_goalnet_tpu.data import synthetic as S
 
