@@ -11,7 +11,13 @@ From the repository root, on a machine with a CUDA card:
 3. calls each kernel's wrapper at the shapes its main path gives it, holds
    the result against the kernel's plain PyTorch version on the same inputs,
    and times kernel, plain version and one library call (CUDA events, after
-   warm-up) beside the least time the card could take; the conv-pool stage
+   warm-up) beside the least time the card could take; the preprocess
+   (kernel 1) at each video's N and at a match's, with its plan (CTAs a
+   frame, clusters, rows a ring stage, shared memory), registers, the card's
+   clusters at once, its time, its plain version's and the library's back
+   to back, and beside them the kernel's time on the device alone (the
+   host's calls queued behind a spin), the host's time issuing one call and
+   one call with the L2 flushed; the conv-pool stage
    (kernel 2) at conv1's and conv2's shapes at the batch's and the match's N,
    with its plan, blocks per SM and tensor-core bound, and the visual trunk
    at frame_size (64, 64), where kernel 2 cuts frames into tiles, against the
@@ -33,14 +39,20 @@ From the repository root, on a machine with a CUDA card:
 4. drives the summarization path — ``extract_features`` → ``fuse_many`` →
    ``summarize`` — over three synthetic videos (600, 300 and 150 condensed
    180×320 frames with their audio) at the full width of
-   ``configs/reference_parity.json``; checks the outputs, holds the first 64
-   frames against the same port run on the CPU, and times the path;
+   ``configs/reference_parity.json``; prints the knapsack engine ``"auto"``
+   ran, checks the outputs, holds the first 64 frames against the same port
+   run on the CPU, and times the path;
+4a. runs the device, native and host knapsack engines at a match's shape
+   (540 clips, capacity 24,300), holds their selections equal and times them,
+   then sweeps tables of about 1e6 to 1e8 cells for the crossover where the
+   device engine (on the card) falls below the native one;
 5. drives the spotting path over one synthetic 5400-frame match with its
    audio: ``extract_features``, then ``summarize_match`` with
    ``configs/tpu_spotting.json`` (banded attention), the same with
    ``temporal_window = 0`` (full attention) and
    ``configs/tpu_spotting_quality.json`` (GRU + banded hybrid), then
-   ``spot_stream`` in 600-frame chunks; holds the stream to the offline
+   ``spot_stream`` in 600-frame chunks, printing the knapsack engine each
+   ``summarize_match`` ran; holds the stream to the offline
    scores, each scorer and the default GRU scorer to its CPU run on the
    card's features, a GRU timeline past ``temporal_chunk_threshold`` (scored
    chunked) to the CPU on seeded features, and the trunk to the CPU on the
@@ -72,6 +84,7 @@ does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -87,7 +100,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvml_goalnet_tpu_torch import weights
+from cvml_goalnet_tpu_torch import runtime, weights
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.data.synthetic import (
     synthetic_change_points,
@@ -134,7 +147,10 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import (
     plan_terms,
     smem_bytes,
 )
+from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import STAGES as PREPROCESS_STAGES
 from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import (
+    card_preprocess_plan,
+    clusters_at_once,
     fused_preprocess_frames,
     fused_preprocess_frames_plain,
 )
@@ -155,6 +171,8 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import block_count as stage_blo
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import blocks_per_sm as stage_blocks_per_sm
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import smem_bytes as stage_smem_bytes
 from cvml_goalnet_tpu_torch.ops.cuda.matmul import card_head_plan, head_matmul, head_matmul_plain, head_slots
+from cvml_goalnet_tpu_torch.ops import knapsack as knapsack_module
+from cvml_goalnet_tpu_torch.ops.knapsack import DEVICE_MS, NATIVE_MS, auto_engine, knapsack_select
 from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
 from cvml_goalnet_tpu_torch.spotting import (
@@ -188,6 +206,10 @@ TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
 LONG_GRU_EXTRA = 3_616            # frames past temporal_chunk_threshold for the chunked GRU check
 PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
 FRAME64_FRAMES = 6                # frames of the trunk check at frame_size (64, 64)
+# the knapsack sweep: matches of these condensed frames with their own clips and capacity, then with a match's
+# 540 clips capacities giving tables of about 1e6, 2.7e6, 1e7, 3e7 and 1e8 cells
+KNAPSACK_SWEEP_FRAMES = (600, 1_200, 2_400, 3_600, 5_400, 8_100, 10_800)
+KNAPSACK_SWEEP_CAPACITIES = (1_851, 5_000, 18_517, 55_000, 185_184)
 # (H, T, d, window, on a main path) of the attention kernels' checks: the spotting path's shapes, then
 # T = 32,768, then one head of 256, the widest built width, and one of 512, on the wide path
 ATTENTION_CASES = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
@@ -234,17 +256,42 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds per call on the card (CUDA events around ``reps`` calls)."""
+    """Mean milliseconds per call on the card (CUDA events around ``reps`` calls back to back)."""
+    return time_ms_and_host(fn, reps, warmup)[0]
+
+
+def time_ms_and_host(fn, reps: int = 10, warmup: int = 2, queued: bool = False) -> tuple[float, float]:
+    """:func:`time_ms`, and the host's wall milliseconds per call spent issuing them.  With ``queued`` the card
+    is kept busy while the host queues the calls, so the time is the device's alone, without the host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(10_000_000)   # a spin of some milliseconds ahead of the calls
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, 1e3 * host / reps
+
+
+def time_ms_cold(fn, reps: int = 10) -> float:
+    """Median milliseconds of one call after a write of 256 MB that leaves none of its inputs in the 50 MB L2."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        flush.add_(1)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -283,15 +330,18 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
     def record(name, parts):
         rows[name] = row_of(parts)
 
-    # preprocess, once per video as extract_features launches it: each output
-    # is a few float32 operations on exact uint8 values, so kernel and plain
-    # version differ only by rounding order
+    # preprocess, once per video as extract_features launches it and once for a match: each output is a few
+    # float32 operations on exact uint8 values rounded as the plain version rounds them, so the two agree to
+    # the bit; the tolerance is the goldens' 1e-5.  Kernel, plain version and library call are timed back to
+    # back, as every row is; beside them, the kernel's time on the device alone ("device_ms", the host's
+    # calls queued behind a spin), the host's wall time issuing one call ("host_call_ms") and one call with
+    # the L2 flushed ("cold_ms")
     h, w = RAW_HW
     oh, ow = cfg.preprocess.frame_size
     eps = cfg.preprocess.eps
     taps_h, taps_w = resize_taps_on(h, oh, dev), resize_taps_on(w, ow, dev)
     parts = []
-    for nv in VIDEO_LENGTHS:
+    for nv in (*VIDEO_LENGTHS, MATCH_FRAMES):
         frames = torch.randint(0, 256, (nv, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
         got = fused_preprocess_frames(frames, taps_h, taps_w, eps)
         want = fused_preprocess_frames_plain(frames, taps_h, taps_w, eps)
@@ -308,14 +358,31 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
 
         lib_err = max_err(library_preprocess().permute(0, 2, 3, 1), want)
         b, kind = bound_ms(nv * (h * w * 3 + oh * ow * 3 * 4), nv * (2 * h * w * 3 + 10 * oh * ow * 3))
+        plan = card_preprocess_plan(nv, h, w, 3, oh, ow, 1, dev)
+
+        def kernel():
+            return fused_preprocess_frames(frames, taps_h, taps_w, eps)
+
+        device_ms, host_call_ms = time_ms_and_host(kernel, queued=True)
         parts.append({
-            "shape": [nv, h, w, 3], "ms": time_ms(lambda: fused_preprocess_frames(frames, taps_h, taps_w, eps)),
+            "shape": [nv, h, w, 3], "ms": time_ms(kernel), "device_ms": device_ms, "host_call_ms": host_call_ms,
+            "cold_ms": time_ms_cold(kernel),
+            "plan": {"cta_per_frame": plan.cluster, "clusters": plan.clusters, "stages": PREPROCESS_STAGES,
+                     "rows_per_stage": plan.layout.rows_per_stage, "smem_bytes": plan.layout.smem_bytes},
             "plain_ms": time_ms(lambda: fused_preprocess_frames_plain(frames, taps_h, taps_w, eps)),
             "library_ms": time_ms(library_preprocess), "library_max_abs_err": lib_err,
             "bound_ms": b, "bound_by": kind, "max_abs_err": err,
         })
         del frames, got, want
     record("fused_preprocess_frames", parts)
+
+    torch.cuda.empty_cache()
+    layout = card_preprocess_plan(1, h, w, 3, oh, ow, 1, dev).layout
+    print(f"kernel 1 (fused_preprocess_frames) registers and spill bytes: {json.dumps(ptxas_report('fused_preprocess'))}; "
+          f"{layout.smem_bytes} bytes of shared memory a CTA, {layout.rows_per_stage} rows a stage; clusters of "
+          f"1, 2, 4, 8 CTAs at once {json.dumps(clusters_at_once(dev, True, layout.smem_bytes))}; plans and times "
+          f"{json.dumps([{k: p[k] for k in ('shape', 'plan', 'ms', 'device_ms', 'host_call_ms', 'cold_ms', 'bound_ms')} for p in parts])}",
+          flush=True)
 
     # conv-pool stages, conv1 and conv2 at the batch's N and at a match's (both on the main paths)
     record("fused_conv_pool_stage", [stage_part(m, hh, cin, cout, scale, gen) for m in (n, MATCH_FRAMES)
@@ -893,7 +960,7 @@ def attention_bwd_tc_bound(h: int, t: int, d: int, window: int | None) -> tuple[
 
 def ptxas_report(name: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of csrc/<name>.cu from the ``-Xptxas -v`` report of its build;
-    kernels 2, 5, 6, 7 and 8 under readable names (kernel 8's as kernel 6's template with ", band", kernel 7's
+    kernels 1, 2, 5, 6, 7 and 8 under readable names (kernel 8's as kernel 6's template with ", band", kernel 7's
     as kernel 5's with ", band")."""
     report, fn = {}, None
     for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
@@ -910,6 +977,8 @@ def ptxas_report(name: str) -> dict:
                 fn = f"conv_pool_tc_kernel<{k2.group(1)}, {k2.group(2)}>"
             elif "pack_weights_kernel" in fn:
                 fn = "pack_weights_kernel"
+            elif k1 := re.search(r"preprocess_cluster_kernelI([hf])E", fn):
+                fn = f"preprocess_cluster_kernel<{'uint8' if k1.group(1) == 'h' else 'float'}>"
         elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and fn:
             report.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
@@ -1111,6 +1180,100 @@ def check_attention_bwd_kernels(gen: torch.Generator) -> dict:
     return {name: row_of(p) for name, p in parts.items()}
 
 
+def match_knapsack(seed: int, frames: int = MATCH_FRAMES) -> tuple[np.ndarray, np.ndarray, int]:
+    """A match's knapsack as summarize_match gives it: for a match of ``frames`` condensed frames (30 raw each),
+    the frames // 10 clips of synthetic_change_points, each clip's summed importance (seeded integers 1 to 5 a
+    condensed frame, expanded) and its length, and the capacity of 15 % of the raw frames."""
+    full_n = frames * 30
+    iv = np.clip(synthetic_change_points(full_n, frames // 10, seed=seed + 300), 0, full_n)
+    per_frame = np.random.default_rng(seed + 300).integers(1, 6, frames).repeat(30)
+    prefix = np.concatenate([[0], np.cumsum(per_frame)])
+    lengths = np.maximum(iv[:, 1] - iv[:, 0], 0)
+    return (prefix[iv[:, 0] + lengths] - prefix[iv[:, 0]]).astype(np.float64), lengths.astype(np.float64), \
+        int(0.15 * full_n)
+
+
+def time_engine(values, weights, capacity: int, engine: str, reps: int) -> tuple[list[int], float]:
+    """One engine's selection and its median wall milliseconds (the device engine's ends when its mask is on the
+    host)."""
+    times, sel = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sel = knapsack_select(values, weights, capacity, scale_factor=1, engine=engine, device="cuda")
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sel, statistics.median(times)
+
+
+@contextlib.contextmanager
+def knapsack_engines_run():
+    """The knapsack engines that run inside the block, in order: this script wraps each engine's entry point
+    (the device engine's, the native solver's, the host table's) to record its name while the block runs."""
+    ran = []
+    entries = {"device": (knapsack_module, "knapsack_select_device"), "native": (runtime, "knapsack_native"),
+               "host": (knapsack_module, "knapsack_table_host")}
+    real = {engine: getattr(mod, fn) for engine, (mod, fn) in entries.items()}
+
+    def spy(engine):
+        return lambda *args: ran.append(engine) or real[engine](*args)
+
+    for engine, (mod, fn) in entries.items():
+        setattr(mod, fn, spy(engine))
+    try:
+        yield ran
+    finally:
+        for engine, (mod, fn) in entries.items():
+            setattr(mod, fn, real[engine])
+
+
+def fit_engine_model(sweep: list[dict]) -> tuple[tuple[float, float, float], tuple[float, float]]:
+    """The constants of knapsack.DEVICE_MS and knapsack.NATIVE_MS from the sweep: the device engine's ms as
+    fixed + per item · n + per cell · cells by least squares in relative error, the native one's as
+    scale · cells^power by least squares in log-log."""
+    n = np.array([r["clips"] for r in sweep], dtype=np.float64)
+    cells = np.array([r["cells"] for r in sweep], dtype=np.float64)
+    dev_ms = np.array([r["device_ms"] for r in sweep])
+    a = np.stack([np.ones_like(n), n, cells], axis=1) / dev_ms[:, None]
+    device = np.linalg.lstsq(a, np.ones_like(n), rcond=None)[0]
+    power, log_scale = np.polyfit(np.log(cells), np.log([r["native_ms"] for r in sweep]), 1)
+    return tuple(float(x) for x in device), (float(np.exp(log_scale)), float(power))
+
+
+def knapsack_phase(seed: int, smi: str) -> None:
+    """The device, native and host knapsack engines at a match's shape, their selections held equal, then the
+    sweep for "auto"'s cost model: matches of 600-10,800 frames with their own clips and capacity (the
+    pipeline's traffic), and capacities giving tables of about 1e6 to 1e8 cells at a match's 540 clips."""
+    values, weights, capacity = match_knapsack(seed)
+    knapsack_select(values, weights, capacity, scale_factor=1, engine="device", device="cuda")
+    at_match = {}
+    for engine in ("device", "native", "host"):
+        sel, ms = time_engine(values, weights, capacity, engine, reps=5)
+        at_match[engine] = {"ms": ms, "clips": len(sel)}
+        at_match.setdefault("selection", sel)
+        require(sel == at_match["selection"], f"knapsack at the match's shape: {engine} selects otherwise than device")
+    del at_match["selection"]
+    cells = len(values) * (capacity + 1)
+    print(f"knapsack engines at the match's shape ({len(values)} clips, capacity {capacity}, {cells} cells) on "
+          f"{smi}: selections equal; {json.dumps(at_match)}", flush=True)
+    points = [("match", frames, *match_knapsack(seed, frames)) for frames in KNAPSACK_SWEEP_FRAMES]
+    points += [("capacity", MATCH_FRAMES, values, weights, cap) for cap in KNAPSACK_SWEEP_CAPACITIES]
+    sweep = []
+    for kind, frames, v, wts, cap in points:
+        row = {"sweep": kind, "frames": frames, "clips": len(v), "capacity": cap, "cells": len(v) * (cap + 1)}
+        selections = []
+        for engine in ("device", "native", "host"):
+            sel, row[f"{engine}_ms"] = time_engine(v, wts, cap, engine, reps=1 if engine == "host" else 3)
+            selections.append(sel)
+        require(selections[0] == selections[1] == selections[2], f"knapsack sweep {row}: engines differ")
+        row["faster"] = "device" if row["device_ms"] < row["native_ms"] else "native"
+        row["auto"] = auto_engine(True, row["clips"], row["cells"], "cuda")
+        sweep.append(row)
+    fitted_device, fitted_native = fit_engine_model(sweep)
+    agree = sum(r["faster"] == r["auto"] for r in sweep)
+    print(f"knapsack engine sweep on {smi}: fitted DEVICE_MS = {json.dumps(fitted_device)}, NATIVE_MS = "
+          f"{json.dumps(fitted_native)} (in the code: {json.dumps(DEVICE_MS)}, {json.dumps(NATIVE_MS)}); \"auto\" "
+          f"picks the faster engine at {agree} of {len(sweep)} points; {json.dumps(sweep)}", flush=True)
+
+
 def make_match(cfg: PipelineConfig, seed: int) -> dict:
     """One synthetic match: 600-frame segments as uint8 (the generator's float64
     temporaries for 5400 frames at once would take about 22 GB), its audio and clips."""
@@ -1257,11 +1420,12 @@ def spotting_phase(seed: int, smi: str, launches_by_path: dict):
                   lambda: extract_features(match["frames"], match["waveform"], banded_cfg), launches_by_path)
     results = {}
     for label, cfg, tparams, _, kernel in runs:
-        results[label] = drive(label, [*TRUNK, kernel], lambda: summarize_match(
-            params, state, tparams, feats["visual"], feats["audio"], match["intervals"], cfg), launches_by_path)
+        with knapsack_engines_run() as engines:
+            results[label] = drive(label, [*TRUNK, kernel], lambda: summarize_match(
+                params, state, tparams, feats["visual"], feats["audio"], match["intervals"], cfg), launches_by_path)
         check_match(results[label], match)
-        print(f"{label}: {len(results[label].events)} events, "
-              f"{len(results[label].summary.selected_clips)} clips selected", flush=True)
+        print(f"{label}: {len(results[label].events)} events, {len(results[label].summary.selected_clips)} clips "
+              f"selected by the knapsack engine {json.dumps(engines)} (\"auto\")", flush=True)
 
     # the stream in 600-frame chunks equals the offline banded scorer (finite receptive field)
     chunks = [slice(i, i + SEGMENT_FRAMES) for i in range(0, MATCH_FRAMES, SEGMENT_FRAMES)]
@@ -1425,6 +1589,9 @@ def main() -> int:
     per_kernel = _build.build()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s wall ({json.dumps({k: round(v, 1) for k, v in per_kernel.items()})})")
+    t0 = time.perf_counter()
+    runtime.load()   # the native runtime (g++), which "auto" asks for at its first call, is set-up too
+    print(f"native runtime: built and loaded in {time.perf_counter() - t0:.1f} s ({runtime.lib_path().name})")
     for name in _build.KERNELS:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.exists():
@@ -1487,10 +1654,12 @@ def main() -> int:
 
     launches_by_path: dict[str, dict] = {}
     t0 = time.perf_counter()
-    feats, scores, results, _ = drive(
-        "summarize", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
-        lambda: run_path(videos, params, state, cfg), launches_by_path)
+    with knapsack_engines_run() as engines:
+        feats, scores, results, _ = drive(
+            "summarize", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+            lambda: run_path(videos, params, state, cfg), launches_by_path)
     first_s = time.perf_counter() - t0
+    print(f"summarize's knapsack (\"auto\") ran the engines {json.dumps(engines)}, one a video", flush=True)
     check_outputs(videos, feats, scores, results, cfg)
     errs = check_against_cpu(videos[0], feats[0], scores[0], params_np, state_np, cfg)
     print(f"card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(errs)}")
@@ -1516,6 +1685,7 @@ def main() -> int:
           f"timing loop {rows['fused_fusion_mlp']['ms']:.4f} ms")
     del videos, feats
 
+    knapsack_phase(args.seed, smi)
     enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)
     training_phase(enc, train_runs, args.seed, smi, rows, launches_by_path)
     print(f"total script {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,7 @@ Every C entry returns ``cudaGetLastError()`` after its launches;
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -138,13 +139,17 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device (the accessor compiled code uses:
+    ``torch.cuda.current_stream`` builds a Stream object, some microseconds of every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def on_device(t: torch.Tensor) -> torch.cuda.device:
+def on_device(t: torch.Tensor) -> contextlib.AbstractContextManager:
     """The scope that makes ``t``'s card current: a ctypes launch runs on the current device, and
-    :func:`stream_of` gives the stream of ``t``'s, so every launch enters this first."""
+    :func:`stream_of` gives the stream of ``t``'s, so every launch enters this first.  Nothing to do, and no
+    switch paid for, when the card is current already."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
     return torch.cuda.device(t.device)
 
 

@@ -1,7 +1,6 @@
 """Public entry points of the port: ``extract_features`` → ``fuse`` / ``fuse_many`` → ``summarize``.
 
-Port of ``cvml_goalnet_tpu/pipeline.py`` (``:37-252``, without the
-``"native-full"`` engine):
+Port of ``cvml_goalnet_tpu/pipeline.py`` (``:37-252``):
 
 * ``extract_features`` — raw frames and waveform in, model-ready tensors out
   (reference ``utils.py:274-292`` and ``:313-349``);
@@ -9,7 +8,8 @@ Port of ``cvml_goalnet_tpu/pipeline.py`` (``:37-252``, without the
   (reference ``AVM.forward``, ``utils.py:260-272``); ``fuse_many`` batches
   several videos into one forward;
 * ``summarize`` — scores in, knapsack keyshot mask out (reference
-  ``postprocess``, ``utils.py:606-643``).
+  ``postprocess``, ``utils.py:606-643``), staged or, with
+  ``knapsack_engine="native-full"``, in one call of the C++ runtime.
 
 Every entry point takes ``device``: ``None`` means the card, and raises when
 there is none; ``device="cpu"`` runs the plain PyTorch versions of the
@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cvml_goalnet_tpu_torch import runtime
 from cvml_goalnet_tpu_torch.config import KnapsackConfig, PipelineConfig
 from cvml_goalnet_tpu_torch.device import resolve_device
 from cvml_goalnet_tpu_torch.models.avm import avm_apply
@@ -130,8 +131,13 @@ def summarize(
     """Importance scores → keyshot summary: round → expand to the raw rate →
     per-clip sums → 0/1 knapsack at ``summary_ratio``·full_n_frames → frame mask.
 
-    Expansion and clip sums run on the device; the knapsack runs on the host
-    (``"auto"`` is the host engine in this slice).
+    Expansion and clip sums run on the device, then ``knapsack_engine`` picks
+    the knapsack (``ops/knapsack.py``: ``"auto"``, ``"host"``, ``"native"`` or
+    ``"device"``, the last on this device).  ``"native-full"`` runs the whole
+    postprocess in one C++ call (``runtime/postprocess.cc``), the same
+    semantics; it raises when the runtime cannot be built, and takes the
+    staged path with ``"auto"`` when the call refuses its arguments (no scores
+    or no frames), as the JAX package does.
     """
     dev = resolve_device(device)
     imp = importances.cpu().numpy() if isinstance(importances, torch.Tensor) else np.asarray(importances)
@@ -139,6 +145,19 @@ def summarize(
         if imp.shape[1] != 1:
             raise ValueError(f"importances must be (N,) or (N, 1), got {imp.shape}")
         imp = imp[:, 0]
+    if knapsack_engine == "native-full":
+        res = runtime.summarize_native(imp, clip_intervals, skip_frames, full_n_frames, kcfg.summary_ratio,
+                                       kcfg.inclusive_mask)
+        if res is not None:
+            selected, mask = res
+            iv = np.asarray(clip_intervals)
+            chosen = iv[selected] if selected else np.zeros((0, 2), iv.dtype)
+            summary_frames = None
+            if full_frames is not None and len(chosen):
+                summary_frames = np.concatenate([full_frames[int(a) : int(b)] for a, b in chosen], axis=0)
+            return SummaryResult(frame_mask=mask, selected_clips=selected, clip_intervals=chosen,
+                                 summary_frames=summary_frames)
+        knapsack_engine = "auto"
     imp = np.round(imp).astype(np.int8)  # round-half-even, like torch.round → int8
 
     expanded = expand_scores(torch.as_tensor(imp.astype(np.int64), device=dev), skip_frames, full_n_frames)
@@ -146,9 +165,8 @@ def summarize(
     clip_imps, clip_lens = clip_stats(intervals, expanded)
 
     capacity = int(kcfg.summary_ratio * full_n_frames)
-    selected = knapsack_select(
-        clip_imps.cpu().numpy(), clip_lens.cpu().numpy(), capacity, kcfg.scale_factor, engine=knapsack_engine
-    )
+    selected = knapsack_select(clip_imps.cpu().numpy(), clip_lens.cpu().numpy(), capacity, kcfg.scale_factor,
+                               engine=knapsack_engine, device=dev)
 
     iv = np.asarray(clip_intervals)
     chosen = iv[selected] if selected else np.zeros((0, 2), iv.dtype)

@@ -25,6 +25,7 @@ from cvml_goalnet_tpu_torch.config import ModelConfig, PipelineConfig, Preproces
 from cvml_goalnet_tpu_torch.data.synthetic import synthetic_video_frames, synthetic_waveform
 from cvml_goalnet_tpu_torch.ops.cuda import flash_attention as FA
 from cvml_goalnet_tpu_torch.ops.cuda import fused_mlp as mlp_plan
+from cvml_goalnet_tpu_torch.ops.cuda import fused_preprocess as pre_plan
 from cvml_goalnet_tpu_torch.ops.cuda import fused_stage as stage_plan
 from cvml_goalnet_tpu_torch.ops.cuda import matmul as head_plan
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp, fused_fusion_mlp_plain
@@ -48,20 +49,108 @@ def _rand(shape, seed, scale=1.0, dev="cuda"):
     return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * scale, device=dev)
 
 
-@pytest.mark.parametrize("shape,out_hw,dtype", [
+# clusters of 1, 2, 4 and 8 CTAs of kernel 1 an H100 SXM runs at once at the main path's layout
+H100_PREPROCESS_CLUSTERS = (396, 198, 92, 45)
+PREPROCESS_CASES = [
     ((5, 48, 64, 3), (24, 24), torch.float32),
     ((3, 36, 36, 3), (24, 24), torch.uint8),
     ((7, 180, 320, 3), (40, 40), torch.uint8),
     ((3, 7, 5, 3), (11, 13), torch.uint8),    # 105-byte frames: the unvectorised path
-])
+    ((1, 180, 320, 3), (40, 40), torch.uint8),          # N = 1: a cluster of 8 for one frame
+    ((150, 180, 320, 3), (40, 40), torch.uint8),        # the smallest video of the summarization path
+    ((9, 180, 320, 3), (40, 40), torch.float32),        # float32 rows: four times the bytes per row
+    ((4, 20, 30, 3), (40, 40), torch.uint8),            # an upscale: one row feeds several slots
+    ((6, 36, 36, 1), (24, 24), torch.uint8),            # C = 1
+    ((5, 48, 64, 4), (24, 24), torch.float32),          # C = 4
+    ((3, 3, 200, 3), (5, 8), torch.uint8),              # H < S: empty bands
+    ((2, 180, 320, 3), (160, 160), torch.uint8),        # slots past shared memory: the workspace
+]
+
+
+def _preprocess_inputs(dev, shape, out_hw, dtype, seed=0):
+    frames = torch.as_tensor(np.random.default_rng(seed).integers(0, 256, shape), device=dev).to(dtype)
+    return frames, (resize_taps_on(shape[1], out_hw[0], dev), resize_taps_on(shape[2], out_hw[1], dev))
+
+
+@pytest.mark.parametrize("shape,out_hw,dtype", PREPROCESS_CASES)
 def test_preprocess(dev, shape, out_hw, dtype):
-    frames = torch.as_tensor(np.random.default_rng(0).integers(0, 256, shape), device=dev).to(dtype)
-    taps = resize_taps_on(shape[1], out_hw[0], dev), resize_taps_on(shape[2], out_hw[1], dev)
+    frames, taps = _preprocess_inputs(dev, shape, out_hw, dtype)
     before = fused_preprocess_frames.launches
     got = fused_preprocess_frames(frames, *taps)
     assert fused_preprocess_frames.launches == before + 1
     want = fused_preprocess_frames_plain(frames, *taps)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("cluster", pre_plan.CLUSTER_SIZES)
+@pytest.mark.parametrize("shape,out_hw,dtype", [c for c in PREPROCESS_CASES if c[0][0] <= 9])
+def test_preprocess_every_cluster_size(dev, shape, out_hw, dtype, cluster):
+    """Every S the kernel takes, whatever the plan picks, one frame per cluster, held to the plain version."""
+    frames, taps = _preprocess_inputs(dev, shape, out_hw, dtype, seed=cluster)
+    layout = pre_plan.preprocess_layout(shape[1], shape[2], shape[3], *out_hw, frames.element_size())
+    plan = pre_plan.PreprocessPlan(cluster, shape[0], layout)
+    got = pre_plan.fused_preprocess_frames_planned(frames, *taps, 1e-7, plan)
+    torch.testing.assert_close(got, fused_preprocess_frames_plain(frames, *taps), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+@pytest.mark.parametrize("clusters", [1, 2, 3, 6])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_preprocess_clusters_loop_over_frames(dev, clusters, cluster, dtype):
+    """Fewer clusters than frames: each loops over its frames as one stream of ring stages, the next frame's
+    rows in flight during a frame's epilogue; with the slots in shared memory and in the workspace."""
+    for out_hw in ((24, 24), (96, 96)):
+        frames, taps = _preprocess_inputs(dev, (7, 36, 48, 3), out_hw, dtype, seed=clusters)
+        layout = pre_plan.preprocess_layout(36, 48, 3, *out_hw, frames.element_size())
+        if out_hw == (96, 96):   # force the workspace
+            layout = layout._replace(cols_in_smem=False, smem_bytes=pre_plan.smem_bytes(
+                36, layout.rows_per_stage, 48 * 3 * frames.element_size(), 96, 96 * 3, False))
+        got = pre_plan.fused_preprocess_frames_planned(frames, *taps, 1e-7, pre_plan.PreprocessPlan(cluster, clusters,
+                                                                                                    layout))
+        torch.testing.assert_close(got, fused_preprocess_frames_plain(frames, *taps), atol=1e-5, rtol=0)
+
+
+def test_preprocess_unaligned_frames(dev):
+    """A frame base off a 16-byte boundary takes the element copy."""
+    frames, taps = _preprocess_inputs(dev, (4, 36, 48, 3), (24, 24), torch.uint8)
+    shifted = torch.empty(frames.numel() + 1, dtype=torch.uint8, device=dev)[1:].view(frames.shape)
+    shifted.copy_(frames)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(fused_preprocess_frames(shifted, *taps), fused_preprocess_frames_plain(frames, *taps),
+                               atol=1e-5, rtol=0)
+
+
+def test_preprocess_plan_takes_the_cards_clusters(dev):
+    """The plan's clusters at once are the card's (cudaOccupancyMaxActiveClusters) at the layout; on an H100
+    SXM, the values the CPU plan tests use (tests/test_torch_preprocess_kernel1.py)."""
+    layout = pre_plan.preprocess_layout(180, 320, 3, 40, 40, 1)
+    at_once = pre_plan.clusters_at_once(dev, True, layout.smem_bytes)
+    assert len(at_once) == len(pre_plan.CLUSTER_SIZES) and all(a >= 1 for a in at_once)
+    for n in (1, 150, 300, 600, 5400):
+        assert pre_plan.card_preprocess_plan(n, 180, 320, 3, 40, 40, 1, dev) == pre_plan.preprocess_plan(
+            n, 180, 320, 3, 40, 40, 1, at_once)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if "H100" in torch.cuda.get_device_name(dev) and sms == 132:
+        assert at_once == H100_PREPROCESS_CLUSTERS
+
+
+@pytest.mark.parametrize("n,capacity", [(1, 5), (37, 400), (540, 24300)])
+def test_knapsack_device_engine_on_card(dev, n, capacity, monkeypatch):
+    """The device engine (DP and doubling traceback on the card) selects what the native and host engines do,
+    at a match's shape (540 clips, capacity 24,300) too."""
+    import cvml_goalnet_tpu_torch.ops.knapsack as knapsack
+    from cvml_goalnet_tpu_torch.ops.knapsack import knapsack_select
+
+    rng = np.random.default_rng(n)
+    values = rng.integers(30, 2000, n).astype(np.float64)
+    weights = rng.integers(30, 450, n).astype(np.float64)
+    on = []
+    real = knapsack.knapsack_select_device
+    monkeypatch.setattr(knapsack, "knapsack_select_device", lambda v, w, c: on.append(v.device.type) or real(v, w, c))
+    got = knapsack_select(values, weights, capacity, scale_factor=1, engine="device", device=dev)
+    assert on == ["cuda"]
+    assert got == knapsack_select(values, weights, capacity, scale_factor=1, engine="native")
+    assert got == knapsack_select(values, weights, capacity, scale_factor=1, engine="host")
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])

@@ -237,10 +237,6 @@ class TestSummarize:
         np.testing.assert_array_equal(got.clip_intervals, want.clip_intervals)
         np.testing.assert_array_equal(got.summary_frames, want.summary_frames)
 
-    def test_other_engines_wait_for_a_later_slice(self):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TP.summarize(np.ones(3), np.array([[0, 30], [30, 90]]), 30, 90, knapsack_engine="native-full", device=CPU)
-
 
 def _brute_force_best(values, weights, capacity):
     best = 0.0
@@ -313,8 +309,8 @@ class TestDevicePolicy:
 
     def test_port_imports_no_jax(self):
         """A fresh interpreter: every module of the port (the training modules
-        among them) and chip_smoke.py's imports leave jax and cvml_goalnet_tpu
-        out of sys.modules."""
+        and the native runtime's loader among them) and chip_smoke.py's imports
+        leave jax and cvml_goalnet_tpu out of sys.modules."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import cvml_goalnet_tpu_torch as pkg\n"
@@ -324,7 +320,8 @@ class TestDevicePolicy:
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cvml_goalnet_tpu' or m.startswith('cvml_goalnet_tpu.'))\n"
             "assert not bad, bad\n"
-            "for m in ('cvml_goalnet_tpu_torch.train.optim', 'cvml_goalnet_tpu_torch.train.spotting'):\n"
+            "for m in ('cvml_goalnet_tpu_torch.train.optim', 'cvml_goalnet_tpu_torch.train.spotting',\n"
+            "          'cvml_goalnet_tpu_torch.runtime', 'cvml_goalnet_tpu_torch.ops.knapsack'):\n"
             "    assert m in sys.modules, m\n"
             "print(len([m for m in sys.modules if m.startswith('cvml_goalnet_tpu_torch')]))\n"
         )
