@@ -33,9 +33,10 @@ From the repository root, on a machine with a CUDA card:
    from the plain version and from float64 beside the plain version's own;
    kernel 7 also with its walk forced into every split count at head widths
    32, 64 and 128, dead rows exactly 0; the fusion MLP also at
-   each video's M and at the 5-way classifier's widths, with equal bits on a
-   repeat, then every tile plan at the path's M timed and the plan's cost
-   model refitted to those times;
+   each video's M, at the 5-way classifier's widths and at the
+   ``--no-audio`` trunk's 512-wide input (150, 64 and 22 rows, as ``infer``
+   gives it), with equal bits on a repeat, then every tile plan at the
+   path's M timed and the plan's cost model refitted to those times;
 4. drives the summarization path — ``extract_features`` → ``fuse_many`` →
    ``summarize`` — over three synthetic videos (600, 300 and 150 condensed
    180×320 frames with their audio) at the full width of
@@ -72,8 +73,28 @@ From the repository root, on a machine with a CUDA card:
    every loss held to each other), ``save_spotting_checkpoint`` →
    ``weights.load_spotting_checkpoint`` → ``score_timeline_auto`` →
    ``spot_events``, with the median step time per scorer;
-8. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+8. reports which of cv2, imageio, h5py and matplotlib import on this
+   machine;
+9. the inference journey: ``cli.main(["infer", ...])`` in-process at the
+   full width of ``configs/reference_parity.json`` over one seeded video of
+   4,500 raw 180×320 frames saved as ``.npz`` (150 condensed frames) with
+   its ``.wav`` sidecar, the trunks (audio and ``--no-audio``) written by
+   the port's ``save_checkpoint``: offline (kernels 1–4; the export equal to
+   ``extract_features`` → ``fuse`` → ``summarize`` on the same inputs),
+   ``--no-audio --stream --stream-chunk 64`` (kernels 1–4; scores within
+   1e-4 of offline ``--no-audio`` scoring, the selection equal but for a
+   clip at a rounding boundary, reported), ``--host-preprocess`` with
+   ``--transfer-dtype`` unset, float16 and uint8 (kernels 2–4 and never 1;
+   the JAX package's bounds 1e-4, 1e-3, 2e-2), ``--follow`` over a
+   directory a writer thread fills (equal to the file run) and ``--follow``
+   on a file (exit 2); then offline and streamed runs in turns, their host
+   memory, and one traced run of each (busy share, pinned and pageable
+   copies).  ``data.video.export_video`` is replaced by a sink that keeps
+   the frames it is handed (this machine may have no mp4 writer; the run
+   says so), and ``streaming.score_video_stream`` is wrapped to keep its
+   scores;
+10. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+    as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and read
 just after; a kernel of the path that did not launch fails the run.  Any
@@ -93,6 +114,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -100,8 +122,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvml_goalnet_tpu_torch import runtime, weights
+from cvml_goalnet_tpu_torch import cli, runtime, streaming, weights
 from cvml_goalnet_tpu_torch.config import PipelineConfig
+from cvml_goalnet_tpu_torch.data import video as video_io
+from cvml_goalnet_tpu_torch.data.audio_io import load_waveform, write_wav
+from cvml_goalnet_tpu_torch.data.dataset import uniform_clip_intervals
 from cvml_goalnet_tpu_torch.data.synthetic import (
     synthetic_change_points,
     synthetic_video_frames,
@@ -184,7 +209,9 @@ from cvml_goalnet_tpu_torch.spotting import (
     spot_stream,
     summarize_match,
 )
+from cvml_goalnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from cvml_goalnet_tpu_torch.train.optim import tree_leaves
+from cvml_goalnet_tpu_torch.train.state import create_train_state
 from cvml_goalnet_tpu_torch.train.spotting import (
     init_spotting_opt,
     make_spotting_train_step,
@@ -206,6 +233,10 @@ TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
 LONG_GRU_EXTRA = 3_616            # frames past temporal_chunk_threshold for the chunked GRU check
 PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
 FRAME64_FRAMES = 6                # frames of the trunk check at frame_size (64, 64)
+INFER_SEGMENTS = (1_800, 1_500, 1_200)   # raw frames of the --follow segments: 4,500 in all, 2.5 minutes at 30 fps
+INFER_CHUNK = 64                         # --stream-chunk: 150 condensed frames in chunks of 64, 64 and 22
+INFER_REPEATS = 3                        # offline and streamed --no-audio runs timed in turns
+TRANSFER_BOUNDS = {None: 1e-4, "float16": 1e-3, "uint8": 2e-2}   # host preprocess vs device, the JAX package's
 # the knapsack sweep: matches of these condensed frames with their own clips and capacity, then with a match's
 # 540 clips capacities giving tables of about 1e6, 2.7e6, 1e7, 3e7 and 1e8 cells
 KNAPSACK_SWEEP_FRAMES = (600, 1_200, 2_400, 3_600, 5_400, 8_100, 10_800)
@@ -400,8 +431,15 @@ def check_kernels(n: int, cfg: PipelineConfig, fusion_layers, gen: torch.Generat
     k_last = fusion_layers[-1]["w"].shape[0]
     classifier = [*fusion_layers[:-1], {"w": torch.randn((k_last, 5), generator=gen, device=dev) * k_last ** -0.5,
                                         "b": torch.randn((5,), generator=gen, device=dev) * 0.1}]
+    # the no-audio trunk's 512-wide input (infer --no-audio): offline at one video's M, streamed at the chunk's
+    # and the tail's
+    dims = [cfg.model.vis_feature_dim, *cfg.model.fusion_hidden, 1]
+    no_audio = [{"w": torch.randn((a, b), generator=gen, device=dev) * a ** -0.5,
+                 "b": torch.randn((b,), generator=gen, device=dev) * 0.1} for a, b in zip(dims[:-1], dims[1:])]
+    n_infer = sum(INFER_SEGMENTS) // cfg.preprocess.skip_frames
     cases = [(n, fusion_layers, True, True), *((m, fusion_layers, True, False) for m in VIDEO_LENGTHS),
-             (n, classifier, False, False)]
+             (n, classifier, False, False), (n_infer, no_audio, True, True), (INFER_CHUNK, no_audio, True, False),
+             (n_infer % INFER_CHUNK, no_audio, True, False)]
     record("fused_fusion_mlp", [mlp_part(m, layers, squash, lo, hi, main, gen) for m, layers, squash, main in cases])
     return rows
 
@@ -710,6 +748,7 @@ def profile_run(run) -> dict:
             "attention_kernel_ms": sum(v for k, v in by_name.items()
                                        if "flash_" in k or "split_sum" in k or "fwd_merge" in k),
             "mlp_kernel_ms": sum(v for k, v in by_name.items() if "fused_mlp" in k),
+            "memcpy_ms": {k: v for k, v in by_name.items() if k.startswith("Memcpy")},
             "device_ms_by_name": [[k[:100], round(v, 4)] for k, v in top]}
 
 
@@ -1572,6 +1611,268 @@ def training_phase(enc: torch.Tensor, runs, seed: int, smi: str, kernel_rows: di
                 print(f"profile of one {label} step on {smi}: {json.dumps(prof)}", flush=True)
 
 
+def make_infer_inputs(cfg: PipelineConfig, seed: int, root: str) -> dict:
+    """One seeded raw video (4,500 frames of 180×320×3 uint8 in 500-frame generator calls) saved as ``.npz``,
+    its 22,050 Hz ``.wav`` sidecar written with the port's ``write_wav``, and the two trunks of
+    ``weights.init_params(cfg, seed)`` (with audio and ``--no-audio``) written with the port's
+    ``save_checkpoint`` under ``<root>/work/models/importance{,_no_audio}``."""
+    total = sum(INFER_SEGMENTS)
+    raw = np.concatenate([synthetic_video_frames(min(500, total - i), *RAW_HW, seed=seed + 300 + i // 500)
+                          for i in range(0, total, 500)])
+    video = os.path.join(root, "video.npz")
+    np.savez(video, frames=raw)
+    seconds = len(raw) / 30
+    write_wav(os.path.join(root, "video.wav"),
+              synthetic_waveform(int(seconds * cfg.audio.sample_rate), cfg.audio.sample_rate, seed=seed + 300),
+              cfg.audio.sample_rate)
+    cfg_path = os.path.join(root, "cfg.json")
+    cfg.save(cfg_path)
+    work = os.path.join(root, "work")
+    for audio in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, audio_included=audio))
+        save_checkpoint(cli._artifact_paths(work, audio)["ckp_dir"], create_train_state(seed, c, device="cpu"), c,
+                        tag="opt")
+    return {"raw": raw, "video": video, "cfg_path": cfg_path, "work": work}
+
+
+class ExportSink:
+    """Keeps the frames ``data.video.export_video`` is handed.  Where this machine has cv2 or imageio it also
+    writes the mp4 with the real ``export_video``; where it has neither it writes nothing (the real one, like
+    the JAX package's, raises ``ImportError`` there)."""
+
+    def __init__(self, write: bool):
+        self.frames: np.ndarray | None = None
+        self.path: str | None = None
+        self.writer = video_io.export_video
+        self.write = write
+
+    def __call__(self, frames, output_path, fps=30):
+        self.frames = np.array(frames, copy=True)
+        if self.write:
+            self.writer(frames, output_path, fps=fps)
+            self.path = output_path
+
+
+class ScoreSpy:
+    """Wraps ``streaming.score_video_stream`` as the CLI calls it: keeps its scores, stats and wall."""
+
+    def __init__(self):
+        self.fn = streaming.score_video_stream
+        self.calls: list[dict] = []
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        scores, stats = self.fn(*args, **kw)
+        self.calls.append({"scores": scores, "stats": stats, "wall_s": time.perf_counter() - t0})
+        return scores, stats
+
+
+def chosen_frames(raw: np.ndarray, intervals) -> np.ndarray:
+    return np.concatenate([raw[int(a):int(b)] for a, b in intervals])
+
+
+def rounding_flips(a: np.ndarray, b: np.ndarray, tol: float) -> list[dict]:
+    """Frames whose rounded scores differ between two runs; each must lie within ``tol`` of a .5 boundary."""
+    flips = []
+    for i in np.flatnonzero(np.round(a) != np.round(b)):
+        margin = abs(abs(float(b[i]) - np.floor(float(b[i]))) - 0.5)
+        require(margin <= tol, f"frame {i}: rounded scores {np.round(a[i])} and {np.round(b[i])} differ "
+                               f"{margin:.3g} from a rounding boundary (> {tol})")
+        flips.append({"frame": int(i), "scores": [float(a[i]), float(b[i])], "boundary_margin": margin})
+    return flips
+
+
+def traced_host_peak(run) -> float:
+    """Peak MB of host memory that Python and NumPy allocated during ``run()`` (tracemalloc; torch's own host
+    allocations are not traced)."""
+    import tracemalloc
+
+    tracemalloc.start()
+    try:
+        run()
+        return tracemalloc.get_traced_memory()[1] / 2**20
+    finally:
+        tracemalloc.stop()
+
+
+def infer_phase(seed: int, smi: str, launches_by_path: dict) -> None:
+    """Phase 9: ``cli.main(["infer", ...])`` in-process on the card at the full width of
+    ``configs/reference_parity.json``, offline and with ``--stream``, ``--host-preprocess``
+    (``--transfer-dtype`` unset, float16, uint8) and ``--follow``, each against the direct path."""
+    os.environ.pop("GOALNET_PLATFORM", None)   # the CLI runs on the card, as a user's call would
+    present = {}
+    for name in ("cv2", "imageio", "h5py", "matplotlib"):
+        try:
+            __import__(name)
+            present[name] = True
+        except ImportError:
+            present[name] = False
+    print(f"phase 8: packages on this machine: {json.dumps(present)}", flush=True)
+
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    no_audio = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, audio_included=False))
+    skip = cfg.preprocess.skip_frames
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        inp = make_infer_inputs(cfg, seed, root)
+        raw, video = inp["raw"], inp["video"]
+        full_n, n = len(raw), len(raw[::skip])
+        print(f"phase 9: video of {full_n} raw frames ({n} condensed) of {RAW_HW}, its wav and two trunks written "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        writes = present["cv2"] or present["imageio"]
+        sink, spy = ExportSink(writes), ScoreSpy()
+        if not writes:
+            try:
+                sink.writer(raw[:2], os.path.join(root, "probe.mp4"))
+            except ImportError as e:
+                print(f"phase 9: export_video raises ImportError here ({e}), as the JAX package's does", flush=True)
+            else:
+                raise AssertionError("export_video wrote an mp4 with neither cv2 nor imageio")
+        print(f"phase 9: data.video.export_video is wrapped by a sink that keeps the frames it is handed "
+              f"({'and writes the mp4: this machine has a writer' if writes else 'and writes nothing: this machine has neither cv2 nor imageio'}); "
+              "streaming.score_video_stream is wrapped to keep its scores", flush=True)
+        video_io.export_video, streaming.score_video_stream = sink, spy
+        base = ["infer", video, "--config", inp["cfg_path"], "--workdir", inp["work"]]
+        walls = {}
+
+        def infer(label, argv, expect, rc=0):
+            t0 = time.perf_counter()
+            got = drive(label, expect, lambda: cli.main(argv), launches_by_path) if expect else cli.main(argv)
+            walls[label] = time.perf_counter() - t0
+            require(got == rc, f"{label}: exit code {got}, expected {rc}")
+
+        try:
+            # the direct path on the same inputs: extract_features → fuse → summarize
+            intervals = uniform_clip_intervals(cfg, full_n)
+            waveform, _ = load_waveform(os.path.join(root, "video.wav"), cfg.audio.sample_rate)
+            direct = {}
+            for audio, c in ((True, cfg), (False, no_audio)):
+                p, s = weights.from_jax(*weights.init_params(c, seed))
+                scores = fuse(p, s, extract_features(raw[::skip], waveform if audio else None, c), c)
+                direct[audio] = (scores, summarize(scores, intervals, skip, full_n, c.knapsack))
+            for audio, (_, res) in direct.items():
+                require(len(res.clip_intervals) > 0, f"direct path (audio {audio}): no clip selected")
+
+            # 1. offline, the audio trunk: kernels 1-4
+            infer("infer offline", base, ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"])
+            require(np.array_equal(sink.frames, chosen_frames(raw, direct[True][1].clip_intervals)),
+                    "offline infer exported other frames than extract_features → fuse → summarize selects")
+            offline_frames = len(sink.frames)
+            if present["cv2"]:
+                written = len(video_io.decode_all_frames(sink.path))
+                require(written == offline_frames, f"the offline mp4 holds {written} frames, not {offline_frames}")
+                print(f"phase 9: the offline mp4 read back with cv2: {written} frames", flush=True)
+
+            # 2. --no-audio --stream: three chunks (64, 64, 22), kernels 1-4; scores against offline --no-audio
+            spy.calls.clear()
+            stream = base + ["--no-audio", "--stream", "--stream-chunk", str(INFER_CHUNK)]
+            infer("infer --stream", stream, ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"])
+            call = spy.calls[-1]
+            require((call["stats"].chunks, call["stats"].frames) == (-(-n // INFER_CHUNK), n),
+                    f"--stream: {call['stats'].chunks} chunks of {call['stats'].frames} frames")
+            stream_err = float(np.abs(call["scores"] - direct[False][0]).max())
+            require(stream_err <= 1e-4, f"--stream scores {stream_err} from offline --no-audio scoring (> 1e-4)")
+            flips = rounding_flips(call["scores"], direct[False][0], 1e-4)
+            stream_res = summarize(call["scores"], intervals, skip, full_n, no_audio.knapsack)
+            if not flips:
+                require(stream_res.selected_clips == direct[False][1].selected_clips,
+                        "--stream selects other clips than offline --no-audio with equal rounded scores")
+            require(np.array_equal(sink.frames, chosen_frames(raw, stream_res.clip_intervals)),
+                    "--stream exported other frames than its scores select")
+            stream_frames, stream_scores = sink.frames, call["scores"]
+            print(f"phase 9: --stream on {smi}: scores max |err| {stream_err:.3g} against offline --no-audio "
+                  f"(1e-4); clips flipped at a rounding boundary {json.dumps(flips)}; selection "
+                  f"{'equal' if stream_res.selected_clips == direct[False][1].selected_clips else 'differs'}; "
+                  f"{len(stream_frames)} frames exported (offline, audio trunk: {offline_frames}); "
+                  f"{call['stats'].frames / call['wall_s']:.1f} streamed frames/s; stages "
+                  f"{json.dumps(call['stats'].stage_seconds)}", flush=True)
+
+            # 3. --host-preprocess: kernels 2-4, never kernel 1; scores at the JAX package's bounds
+            for tdtype, bound in TRANSFER_BOUNDS.items():
+                label = f"infer --stream --host-preprocess{' --transfer-dtype ' + tdtype if tdtype else ''}"
+                spy.calls.clear()
+                infer(label, stream + ["--host-preprocess"] + (["--transfer-dtype", tdtype] if tdtype else []),
+                      [*TRUNK, "fused_fusion_mlp"])
+                require(launches_by_path[label]["fused_preprocess_frames"] == 0, f"{label}: kernel 1 launched")
+                call = spy.calls[-1]
+                err = float(np.abs(call["scores"] - stream_scores).max())
+                require(err <= bound, f"{label}: scores {err} from device preprocessing (> {bound})")
+                print(f"phase 9: {label} on {smi}: scores max |err| {err:.3g} against device preprocessing "
+                      f"({bound}); {call['stats'].frames / call['wall_s']:.1f} streamed frames/s; stages "
+                      f"{json.dumps(call['stats'].stage_seconds)}", flush=True)
+
+            # 4. --follow over a directory a writer thread fills with three segments, then END
+            live = os.path.join(root, "live")
+            os.makedirs(live)
+
+            def writer():
+                for i, part in enumerate(np.split(raw, np.cumsum(INFER_SEGMENTS)[:-1])):
+                    time.sleep(0.1)
+                    with open(os.path.join(live, f"{i:05d}.npz.part"), "wb") as f:
+                        np.savez(f, frames=part)
+                    os.replace(os.path.join(live, f"{i:05d}.npz.part"), os.path.join(live, f"{i:05d}.npz"))
+                open(os.path.join(live, "END"), "w").close()
+
+            spy.calls.clear()
+            w = threading.Thread(target=writer)
+            w.start()
+            try:
+                follow = ["infer", live, "--config", inp["cfg_path"], "--workdir", inp["work"], "--no-audio",
+                          "--stream", "--stream-chunk", str(INFER_CHUNK), "--follow", "--follow-poll", "0.05",
+                          "--follow-timeout", "60"]
+                infer("infer --stream --follow", follow, ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"])
+            finally:
+                w.join(60.0)
+            require(not w.is_alive(), "--follow: the writer thread did not finish")
+            require(spy.calls[-1]["stats"].frames == n, f"--follow streamed {spy.calls[-1]['stats'].frames} frames")
+            require(np.array_equal(sink.frames, stream_frames), "--follow exported other frames than the file run")
+
+            # 5. --follow on a file: exit 2
+            infer("infer --stream --follow FILE", stream + ["--follow"], None, rc=2)
+
+            # offline against streamed (--no-audio both), in turns
+            offline = base + ["--no-audio"]
+            turns = {"offline": [], "stream": []}
+            for _ in range(INFER_REPEATS):
+                for key, argv in (("offline", offline), ("stream", stream)):
+                    t0 = time.perf_counter()
+                    require(cli.main(argv) == 0, f"{key} run failed")
+                    turns[key].append(time.perf_counter() - t0)
+                    want = direct[False][1].clip_intervals if key == "offline" else stream_res.clip_intervals
+                    require(np.array_equal(sink.frames, chosen_frames(raw, want)),
+                            f"{key} --no-audio infer exported other frames than the direct path selects")
+            peaks = {key: traced_host_peak(lambda: cli.main(argv)) for key, argv in (("offline", offline),
+                                                                                     ("stream", stream))}
+            print(f"phase 9: infer walls on {smi} (s, one run each, cli.main in-process): "
+                  f"{json.dumps(walls)}", flush=True)
+            print(f"phase 9: --no-audio offline vs --stream on {smi}, {INFER_REPEATS} runs each in turns: offline "
+                  f"{json.dumps(turns['offline'])} (median {statistics.median(turns['offline']):.4f} s), stream "
+                  f"{json.dumps(turns['stream'])} (median {statistics.median(turns['stream']):.4f} s); traced "
+                  f"host peak MB (Python/NumPy allocations): {json.dumps(peaks)}; the raw video alone is "
+                  f"{raw.nbytes / 2**20:.1f} MB and offline infer loads it twice", flush=True)
+            # the host pieces every run pays, timed alone: the raw video read back, the template state, the trunk
+            pieces = {}
+            t0 = time.perf_counter()
+            np.load(video)["frames"]
+            pieces["npz_load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            template = create_train_state(no_audio.train.seed, no_audio)
+            torch.cuda.synchronize()
+            pieces["template_state_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            load_checkpoint(cli._artifact_paths(inp["work"], False)["ckp_dir"], template, tag="opt")
+            torch.cuda.synchronize()
+            pieces["checkpoint_load_s"] = time.perf_counter() - t0
+            del template
+            print(f"phase 9: host pieces of one run on {smi}: {json.dumps(pieces)}", flush=True)
+            for key, argv in (("offline", offline), ("stream", stream)):
+                prof = profile_run(lambda: cli.main(argv))
+                print(f"phase 9: profile of one --no-audio {key} infer on {smi}: {json.dumps(prof)}", flush=True)
+        finally:
+            video_io.export_video, streaming.score_video_stream = sink.writer, spy.fn
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1688,6 +1989,8 @@ def main() -> int:
     knapsack_phase(args.seed, smi)
     enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)
     training_phase(enc, train_runs, args.seed, smi, rows, launches_by_path)
+    del enc, train_runs
+    infer_phase(args.seed, smi, launches_by_path)
     print(f"total script {time.perf_counter() - t_start:.1f} s")
 
     table = []

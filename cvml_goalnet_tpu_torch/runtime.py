@@ -1,8 +1,10 @@
 """ctypes bindings to the native (C++) host runtime in the repository's ``runtime/``.
 
-Port of ``cvml_goalnet_tpu/runtime/__init__.py`` for the knapsack solver
-(``runtime/knapsack.cc``, reference ``utils.py:466-510``) and the whole
-summarize postprocess in one call (``runtime/postprocess.cc``).  At first use
+Port of ``cvml_goalnet_tpu/runtime/__init__.py``: the knapsack solver
+(``runtime/knapsack.cc``, reference ``utils.py:466-510``), the whole
+summarize postprocess in one call (``runtime/postprocess.cc``) and the WAV
+reader (``runtime/wav.cc``, the file-loading half of reference
+``utils.py:320``).  At first use
 the library is compiled from ``knapsack.cc``, ``wav.cc`` and
 ``postprocess.cc`` with ``g++`` and the flags of ``runtime/Makefile`` into
 ``cvml_goalnet_tpu_torch/_build/``, under a name that carries a hash of the
@@ -13,7 +15,8 @@ sources and flags, and loaded with ctypes.  Nothing is written to
 :func:`native_available` says whether the library builds here (the ``"auto"``
 engine asks it); :func:`load` raises when it cannot be built, so an explicit
 ``"native"`` or ``"native-full"`` engine never runs something else instead.
-The WAV reader of ``wav.cc`` is built in but not bound yet.
+:func:`wav_read_native` returns None when the library cannot be built, as the
+JAX package's does: ``data/audio_io.py`` then reads the file with scipy.
 """
 
 from __future__ import annotations
@@ -85,6 +88,10 @@ def load() -> ctypes.CDLL:
         ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_int32),
     ]
+    lib.goalnet_wav_info.restype = ctypes.c_int
+    lib.goalnet_wav_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
+    lib.goalnet_wav_read.restype = ctypes.c_int64
+    lib.goalnet_wav_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
     _lib = lib
     return lib
 
@@ -129,3 +136,19 @@ def summarize_native(importances, intervals, skip_frames: int, full_n_frames: in
     if count < 0:
         return None
     return selected[:count].tolist(), mask
+
+
+def wav_read_native(path: str) -> tuple[np.ndarray, int] | None:
+    """A WAV file → (mono float32 samples, sample rate) by ``runtime/wav.cc``; None when the library cannot be
+    built here or the file is not a WAV it reads (``data/audio_io.py`` then tries scipy)."""
+    try:
+        lib = load()
+    except RuntimeError:
+        return None
+    info = np.zeros((2,), dtype=np.int64)
+    if lib.goalnet_wav_info(path.encode(), _ptr(info, ctypes.c_int64)) != 0 or info[1] <= 0:
+        return None
+    out = np.empty((int(info[1]),), dtype=np.float32)
+    if lib.goalnet_wav_read(path.encode(), _ptr(out, ctypes.c_float), len(out)) < 0:
+        return None
+    return out, int(info[0])

@@ -1,0 +1,270 @@
+"""PyTorch port: ``cli.main(["infer", ...])`` in-process against the JAX package, on the CPU.
+
+``GOALNET_PLATFORM=cpu`` (the JAX package's variable) puts the port's CLI on
+the CPU.  The data is the suite's synthetic TVSum set (``synth_dir``), the
+trunks are written by the JAX package's ``save_checkpoint``, and the
+expected summaries come from the JAX package in-process: ``build_video_item
+→ fuse → summarize`` for offline ``infer``, ``score_video_stream →
+summarize`` for ``--stream``.  ``data.video.export_video`` is wrapped to
+keep the frames the CLI exports, so the selected intervals are compared
+frame for frame (the synthetic frames are noise, so equal frames mean equal
+intervals); the mp4s' own frame counts are read back with cv2.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+
+import jax
+import numpy as np
+import pytest
+
+from cvml_goalnet_tpu import streaming as JS
+from cvml_goalnet_tpu.data.annotations import AnnotationStore
+from cvml_goalnet_tpu.data.dataset import build_video_item
+from cvml_goalnet_tpu.data.video import stream_condensed_frames
+from cvml_goalnet_tpu.pipeline import fuse, summarize
+from cvml_goalnet_tpu.serve import _uniform_clip_intervals
+from cvml_goalnet_tpu.train.checkpoint import save_checkpoint
+from cvml_goalnet_tpu.train.state import create_train_state
+from cvml_goalnet_tpu_torch import cli
+from cvml_goalnet_tpu_torch.data import video as TV
+
+
+def _cfg(small_cfg, audio: bool):
+    return dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, audio_included=audio))
+
+
+@pytest.fixture(scope="module")
+def env(tmp_path_factory, small_cfg, synth_dir):
+    """A workdir with JAX-written trunks (audio and no-audio, tag ``opt``) and the config file."""
+    root = tmp_path_factory.mktemp("torch_cli")
+    small_cfg.save(str(root / "cfg.json"))
+    states = {}
+    for audio in (True, False):
+        c = _cfg(small_cfg, audio)
+        states[audio] = create_train_state(jax.random.PRNGKey(11), c)
+        save_checkpoint(str(root / "work" / "models" / f"importance{'' if audio else '_no_audio'}"), states[audio], c,
+                        tag="opt")
+    return {"root": root, "work": str(root / "work"), "cfg": str(root / "cfg.json"), "states": states,
+            "meta": synth_dir}
+
+
+@pytest.fixture(autouse=True)
+def on_cpu(monkeypatch):
+    monkeypatch.setenv("GOALNET_PLATFORM", "cpu")
+
+
+@pytest.fixture
+def exported(monkeypatch):
+    """The frames each ``export_video`` call was handed (the mp4 is still written)."""
+    got = []
+    real = TV.export_video
+
+    def keep(frames, output_path, fps=30):
+        got.append(np.asarray(frames).copy())
+        real(frames, output_path, fps=fps)
+
+    monkeypatch.setattr(TV, "export_video", keep)
+    return got
+
+
+def _args(env, *extra, store=True):
+    meta = env["meta"]
+    out = ["--config", env["cfg"], "--workdir", env["work"], *extra]
+    if store:
+        out += ["--mat-fp", meta["mat_file_path"], "--h5-fp", meta["h5_file_path"]]
+    else:
+        out += ["--data-root", str(env["root"] / "no-data")]
+    return out
+
+
+def _frame_count(fp):
+    import cv2
+
+    cap = cv2.VideoCapture(fp)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def _raw(video):
+    return np.load(video)["frames"]
+
+
+def _chosen_frames(frames, intervals):
+    return np.concatenate([frames[int(a):int(b)] for a, b in intervals])
+
+
+def _jax_offline(env, small_cfg, video, audio, store):
+    cfg = _cfg(small_cfg, audio)
+    meta = env["meta"]
+    st = AnnotationStore(meta["mat_file_path"], meta["h5_file_path"]) if store else None
+    item = build_video_item(video, cfg, None, st, audio)
+    state = env["states"][audio]
+    scores = fuse(state.params, state.model_state, {"visual": item.visual, "audio": item.audio, "text": item.text},
+                  cfg)
+    return summarize(scores, item.clip_intervals, cfg.preprocess.skip_frames, item.full_n_frames, cfg.knapsack,
+                     full_frames=_raw(video))
+
+
+def _jax_stream(env, small_cfg, video, chunk, store, **kw):
+    cfg = _cfg(small_cfg, False)
+    meta = env["meta"]
+    counter = {}
+    state = env["states"][False]
+    scores, _ = JS.score_video_stream(state.params, state.model_state,
+                                      stream_condensed_frames(video, cfg.preprocess.skip_frames, chunk, counter=counter),
+                                      cfg, chunk_size=chunk, **kw)
+    full_n = counter["full_n"]
+    vid = os.path.basename(video).rsplit(".", 1)[0]
+    iv = (AnnotationStore(meta["mat_file_path"], meta["h5_file_path"]).change_points(vid) if store
+          else _uniform_clip_intervals(cfg, full_n))
+    return summarize(scores, iv, cfg.preprocess.skip_frames, full_n, cfg.knapsack)
+
+
+@pytest.mark.parametrize("audio", [True, False])
+@pytest.mark.parametrize("store", [True, False])
+def test_offline_matches_jax(env, small_cfg, exported, audio, store, capsys):
+    video = env["meta"]["video_fps"][0]
+    extra = [] if audio else ["--no-audio"]
+    assert cli.main(["infer", video, *_args(env, *extra, store=store)]) == 0
+    want = _jax_offline(env, small_cfg, video, audio, store)
+    assert len(exported) == 1 and len(want.summary_frames) > 0
+    np.testing.assert_array_equal(exported[0], want.summary_frames)
+    out = os.path.join(env["work"], "tmp", "vidA.mp4")
+    assert _frame_count(out) == len(want.summary_frames)
+    assert "Exported video details" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 8, 9])
+@pytest.mark.parametrize("store", [True, False])
+def test_stream_matches_jax(env, small_cfg, exported, chunk, store, capsys):
+    video = env["meta"]["video_fps"][1]
+    assert cli.main(["infer", video, *_args(env, "--no-audio", "--stream", "--stream-chunk", str(chunk),
+                                            store=store)]) == 0
+    want = _jax_stream(env, small_cfg, video, chunk, store)
+    np.testing.assert_array_equal(exported[0], _chosen_frames(_raw(video), want.clip_intervals))
+    out = capsys.readouterr().out
+    assert f"streamed 9 condensed frames in {-(-9 // chunk)} chunks" in out   # 270 raw frames at skip 30
+    assert f"Frames: {len(exported[0])}" in out
+    assert _frame_count(os.path.join(env["work"], "tmp", "vidB.mp4")) == len(exported[0])
+
+
+@pytest.mark.parametrize("tdtype", [None, "float16", "uint8"])
+def test_stream_host_preprocess_matches_jax(env, small_cfg, exported, tdtype):
+    video = env["meta"]["video_fps"][0]
+    extra = ["--transfer-dtype", tdtype] if tdtype else []
+    assert cli.main(["infer", video, *_args(env, "--no-audio", "--stream", "--stream-chunk", "4",
+                                            "--host-preprocess", *extra)]) == 0
+    np_dtype = {"float16": np.float16, "uint8": np.uint8}.get(tdtype)
+    want = _jax_stream(env, small_cfg, video, 4, True, host_preprocess=True, transfer_dtype=np_dtype)
+    np.testing.assert_array_equal(exported[0], _chosen_frames(_raw(video), want.clip_intervals))
+
+
+def test_stream_offline_and_jax_select_alike(env, small_cfg, exported):
+    """JAX's own CLI test: streamed and offline exports of one trunk hold the same frames."""
+    video = env["meta"]["video_fps"][0]
+    assert cli.main(["infer", video, *_args(env, "--no-audio")]) == 0
+    assert cli.main(["infer", video, *_args(env, "--no-audio", "--stream", "--stream-chunk", "4")]) == 0
+    np.testing.assert_array_equal(exported[0], exported[1])
+
+
+def test_follow_live_directory_matches_the_file_run(env, exported, tmp_path, capsys):
+    video = env["meta"]["video_fps"][0]
+    common = _args(env, "--no-audio", "--stream", "--stream-chunk", "4", store=False)
+    assert cli.main(["infer", video, *common]) == 0
+    file_out = capsys.readouterr().out
+
+    d = str(tmp_path / "liveA")
+    os.makedirs(d)
+    parts = np.split(_raw(video), [100, 170])
+
+    def writer():
+        for i, p in enumerate(parts):
+            time.sleep(0.2)
+            tmp = os.path.join(d, f"{i:05d}.npz.part")
+            with open(tmp, "wb") as f:
+                np.savez(f, frames=p)
+            os.replace(tmp, os.path.join(d, f"{i:05d}.npz"))
+        open(os.path.join(d, "END"), "w").close()
+
+    w = threading.Thread(target=writer)
+    w.start()
+    try:
+        rc = cli.main(["infer", d, *common, "--follow", "--follow-poll", "0.05", "--follow-timeout", "20"])
+    finally:
+        w.join(20.0)
+    assert not w.is_alive() and rc == 0
+    follow_out = capsys.readouterr().out
+    assert "streamed 8 condensed frames in 2 chunks" in file_out and "streamed 8 condensed frames in 2 chunks" in follow_out
+    np.testing.assert_array_equal(exported[1], exported[0])
+    assert _frame_count(os.path.join(env["work"], "tmp", "liveA.mp4")) == len(exported[0])
+
+
+class TestRefusals:
+    def _refused(self, env, capsys, argv, message):
+        assert cli.main(argv) == 2
+        assert message in capsys.readouterr().err
+
+    def test_follow_requires_stream(self, env, tmp_path, capsys):
+        self._refused(env, capsys, ["infer", str(tmp_path), *_args(env, "--no-audio", "--follow")],
+                      "--follow is a --stream mode")
+
+    def test_follow_on_a_file(self, env, capsys):
+        self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0],
+                                    *_args(env, "--no-audio", "--stream", "--follow")],
+                      "is not one — stream a finished file without --follow")
+
+    def test_stream_rejects_an_audio_trunk(self, env, capsys):
+        self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0], *_args(env, "--stream")], "visual-only")
+
+    def test_transfer_dtype_requires_host_preprocess(self, env, capsys):
+        self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0],
+                                    *_args(env, "--no-audio", "--stream", "--transfer-dtype", "uint8")],
+                      "host-preprocess")
+
+    @pytest.mark.parametrize("flag,message", [(["--commentary"], "the text branch is not ported yet"),
+                                              (["--moe-experts", "4"], "the mixture-of-experts fusion")])
+    def test_unported_model_options(self, env, capsys, flag, message):
+        self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0], *_args(env, *flag)], message)
+
+    def test_orbax_backend_flag(self, env, capsys):
+        self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0],
+                                    *_args(env, "--no-audio", "--checkpoint-backend", "orbax")],
+                      "ROADMAP.md §1 item 6")
+
+    def test_orbax_only_checkpoint(self, env, small_cfg, tmp_path, capsys):
+        os.makedirs(tmp_path / "models" / "importance_no_audio" / "opt_orbax")
+        argv = ["infer", env["meta"]["video_fps"][0], "--config", env["cfg"], "--workdir", str(tmp_path), "--no-audio"]
+        self._refused(env, capsys, argv, "is an orbax checkpoint")
+
+    def test_checkpoint_of_another_structure(self, env, small_cfg, tmp_path, capsys):
+        other = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, audio_included=False,
+                                                                        fusion_hidden=(8,)))
+        save_checkpoint(str(tmp_path / "models" / "importance_no_audio"),
+                        create_train_state(jax.random.PRNGKey(0), other), other, tag="opt")
+        argv = ["infer", env["meta"]["video_fps"][0], "--config", env["cfg"], "--workdir", str(tmp_path), "--no-audio"]
+        self._refused(env, capsys, argv, "does not match the current config")
+
+    def test_no_checkpoint(self, env, tmp_path, capsys):
+        argv = ["infer", env["meta"]["video_fps"][0], "--config", env["cfg"], "--workdir", str(tmp_path), "--no-audio",
+                "--stream"]
+        self._refused(env, capsys, argv, "E: file not found: no opt/ckp checkpoint")
+        args = cli.build_parser().parse_args(argv)
+        with pytest.raises(FileNotFoundError, match="no opt/ckp checkpoint"):
+            cli._load_trunk(cli._artifact_paths(str(tmp_path), False), None, args)
+
+    def test_without_a_card_or_the_variable_it_raises(self, env, monkeypatch):
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        monkeypatch.delenv("GOALNET_PLATFORM")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["infer", env["meta"]["video_fps"][0], *_args(env, "--no-audio")])

@@ -949,3 +949,52 @@ def _leaves(tree):
     from cvml_goalnet_tpu_torch.train.optim import tree_leaves
 
     return tree_leaves(tree)
+
+
+def _parity_cfg(audio: bool):
+    import dataclasses
+    import os
+
+    cfg = PipelineConfig.load(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+                                           "reference_parity.json"))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, audio_included=audio))
+
+
+@pytest.mark.parametrize("rows", [3, 22, 64, 150])
+def test_fused_mlp_at_the_no_audio_trunks_512_wide_input(dev, rows):
+    """Kernel 4 with the fusion layers of a no-audio trunk at reference_parity width (512 → 512 → 512 → 256 →
+    128 → 1), at the row counts a stream gives it."""
+    p_np, _ = weights.init_params(_parity_cfg(False), seed=13)
+    layers = weights.tree_from_jax(p_np["fusion"])
+    assert layers[0]["w"].shape[0] == 512
+    x = torch.relu(_rand((rows, 512), 14))
+    before = fused_fusion_mlp.launches
+    got = fused_fusion_mlp(x, layers)
+    assert fused_fusion_mlp.launches == before + 1
+    torch.testing.assert_close(got, fused_fusion_mlp_plain(x, layers), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("staging", [1, 2, 3])
+@pytest.mark.parametrize("host_preprocess,tdtype", [(False, None), (True, None), (True, np.uint8)])
+def test_stream_card_matches_cpu(dev, staging, host_preprocess, tdtype, monkeypatch):
+    """score_video_stream at reference_parity width (no audio): 41 chunks of 3 distinct 180×320 frames, then
+    one of 2, through 1–3 pinned staging buffers, against the same stream on the CPU (1e-4).  A staging
+    buffer written before its copy landed would hand the card another chunk's frames.  Kernel 1 launches once
+    a chunk with device preprocessing and never with host preprocessing."""
+    from cvml_goalnet_tpu_torch import streaming
+    from cvml_goalnet_tpu_torch.streaming import score_video_stream
+
+    monkeypatch.setattr(streaming, "STAGING_BUFFERS", staging)
+    cfg = _parity_cfg(False)
+    p_np, s_np = weights.init_params(cfg, seed=15)
+    frames = np.random.default_rng(16).integers(0, 256, (125, 180, 320, 3), dtype=np.uint8)
+    chunks = lambda: (frames[i:i + 3] for i in range(0, len(frames), 3))
+    kw = dict(chunk_size=3, host_preprocess=host_preprocess, transfer_dtype=tdtype, max_inflight=2)
+    before = {f: f.launches for f in (fused_preprocess_frames, fused_conv_pool_stage, head_matmul, fused_fusion_mlp)}
+    got, stats = score_video_stream(*weights.from_jax(p_np, s_np), chunks(), cfg, **kw)
+    launched = {f: f.launches - n for f, n in before.items()}
+    want, _ = score_video_stream(*weights.from_jax(p_np, s_np, device="cpu"), chunks(), cfg, device="cpu", **kw)
+    assert stats.chunks == 42 and stats.frames == 125
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert launched[fused_preprocess_frames] == (0 if host_preprocess else 42)
+    assert launched[fused_conv_pool_stage] == 84 and launched[head_matmul] == 42 and launched[fused_fusion_mlp] == 42

@@ -308,9 +308,11 @@ class TestDevicePolicy:
             TP.summarize(np.ones(2), np.array([[0, 30], [30, 60]]), 30, 60)
 
     def test_port_imports_no_jax(self):
-        """A fresh interpreter: every module of the port (the training modules
-        and the native runtime's loader among them) and chip_smoke.py's imports
-        leave jax and cvml_goalnet_tpu out of sys.modules."""
+        """A fresh interpreter: every module of the port (the training modules,
+        the native runtime's loader, the data layer, the streaming scorer and
+        the CLI among them) and chip_smoke.py's imports leave jax and
+        cvml_goalnet_tpu out of sys.modules, and the optional media, HDF5 and
+        plotting packages too (imported only when a call needs them)."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import cvml_goalnet_tpu_torch as pkg\n"
@@ -320,9 +322,12 @@ class TestDevicePolicy:
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cvml_goalnet_tpu' or m.startswith('cvml_goalnet_tpu.'))\n"
             "assert not bad, bad\n"
-            "for m in ('cvml_goalnet_tpu_torch.train.optim', 'cvml_goalnet_tpu_torch.train.spotting',\n"
-            "          'cvml_goalnet_tpu_torch.runtime', 'cvml_goalnet_tpu_torch.ops.knapsack'):\n"
-            "    assert m in sys.modules, m\n"
+            "lazy = sorted(m for m in ('cv2', 'h5py', 'imageio', 'matplotlib') if m in sys.modules)\n"
+            "assert not lazy, lazy\n"
+            "for m in ('train.optim', 'train.spotting', 'runtime', 'ops.knapsack', 'cli', 'streaming',\n"
+            "          'data.audio_io', 'data.video', 'data.annotations', 'data.dataset', 'data.follow',\n"
+            "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling'):\n"
+            "    assert 'cvml_goalnet_tpu_torch.' + m in sys.modules, m\n"
             "print(len([m for m in sys.modules if m.startswith('cvml_goalnet_tpu_torch')]))\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
