@@ -93,7 +93,29 @@ From the repository root, on a machine with a CUDA card:
    the frames it is handed (this machine may have no mp4 writer; the run
    says so), and ``streaming.score_video_stream`` is wrapped to keep its
    scores;
-10. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+10. the training journey at the full width of ``configs/reference_parity.json``
+    (audio trunk, dropout 0.2) on four seeded videos ``vidA``–``vidD`` of
+    4,500–5,400 raw 72×96 frames (150–180 condensed) with their ``.wav``
+    sidecars and TVSum ``anno.tsv`` rows, three for training and one for
+    validation: ``cli.main(["train", ..., "--epochs", "2"])``, then ``train
+    --checkpoint --epochs 3`` (it must print "Resumed from epoch 2"),
+    ``eval`` and ``baseline --samples 2``, then ``train_importance_model``
+    with ``async_checkpoint`` and ``nan_guard="rollback"`` on a video whose
+    labels hold a NaN (its updates discarded exactly: the rolling
+    checkpoint equals a run without it bit for bit).  Kernel 1 launches
+    once per video built, kernels 2 (twice), 3 and 4 in every evaluation.
+    This machine may have no h5py and no matplotlib, so an in-memory
+    stand-in replaces ``data.dataset.AnnotationStore`` (change points and
+    annotator scores from the seeded arrays) and sinks replace
+    ``viz.generate_metric_plots`` and ``viz.export_indices``; the run says
+    so.  Then the card against the CPU from one seeded state at dropout 0:
+    first sub-batch gradients, eval predictions and F-scores, every
+    per-video loss of one epoch on the card against the CPU's at the
+    card's parameters, the trained state through a checkpoint; and the
+    step time, the epoch split into train, eval and checkpoint, steps per
+    second, one traced epoch's busy share and copies, the resident state's
+    bytes and each verb's wall;
+11. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
     as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and read
@@ -107,6 +129,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -122,8 +145,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvml_goalnet_tpu_torch import cli, runtime, streaming, weights
+from cvml_goalnet_tpu_torch import cli, runtime, streaming, viz, weights
 from cvml_goalnet_tpu_torch.config import PipelineConfig
+from cvml_goalnet_tpu_torch.data import dataset as dataset_io
 from cvml_goalnet_tpu_torch.data import video as video_io
 from cvml_goalnet_tpu_torch.data.audio_io import load_waveform, write_wav
 from cvml_goalnet_tpu_torch.data.dataset import uniform_clip_intervals
@@ -209,9 +233,11 @@ from cvml_goalnet_tpu_torch.spotting import (
     spot_stream,
     summarize_match,
 )
+from cvml_goalnet_tpu_torch.train import checkpoint as checkpoint_io
+from cvml_goalnet_tpu_torch.train import loop as train_loop
 from cvml_goalnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from cvml_goalnet_tpu_torch.train.optim import tree_leaves
-from cvml_goalnet_tpu_torch.train.state import create_train_state
+from cvml_goalnet_tpu_torch.train.optim import tree_leaves, tree_map
+from cvml_goalnet_tpu_torch.train.state import TrainState, create_train_state
 from cvml_goalnet_tpu_torch.train.spotting import (
     init_spotting_opt,
     make_spotting_train_step,
@@ -237,6 +263,11 @@ INFER_SEGMENTS = (1_800, 1_500, 1_200)   # raw frames of the --follow segments: 
 INFER_CHUNK = 64                         # --stream-chunk: 150 condensed frames in chunks of 64, 64 and 22
 INFER_REPEATS = 3                        # offline and streamed --no-audio runs timed in turns
 TRANSFER_BOUNDS = {None: 1e-4, "float16": 1e-3, "uint8": 2e-2}   # host preprocess vs device, the JAX package's
+TRAIN_VIDEO_FRAMES = (4_500, 4_800, 5_100, 5_400)   # raw frames of vidA-vidD: 150-180 condensed at skip 30
+TRAIN_RAW_HW = (72, 96)                             # synthetic_video_frames' raw size (the model runs on 40×40)
+TRAIN_ANNOTATORS = 20                               # TVSum's annotators per video
+TRAIN_CLIP_FRAMES = 60                              # about 2-second clips (shots) at 30 fps raw
+TRAIN_EPOCHS = 2                                    # `train --epochs`; the resume runs one more
 # the knapsack sweep: matches of these condensed frames with their own clips and capacity, then with a match's
 # 540 clips capacities giving tables of about 1e6, 2.7e6, 1e7, 3e7 and 1e8 cells
 KNAPSACK_SWEEP_FRAMES = (600, 1_200, 2_400, 3_600, 5_400, 8_100, 10_800)
@@ -1873,6 +1904,368 @@ def infer_phase(seed: int, smi: str, launches_by_path: dict) -> None:
             video_io.export_video, streaming.score_video_stream = sink.writer, spy.fn
 
 
+class Tee:
+    """A stream that writes to several: a verb's output is printed and kept."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+    def isatty(self):
+        return False
+
+
+class AnnotationStand:
+    """In-memory stand-in for ``data.dataset.AnnotationStore`` (this machine may have no h5py to read the
+    ``.mat``/``.h5`` pair): each video's annotator scores and change points from the seeded arrays
+    :func:`make_train_inputs` writes into ``anno.tsv``, the rule ``synthetic_dataset_dir`` writes them by."""
+
+    arrays: dict = {}
+
+    def __init__(self, mat_file_path=None, h5_file_path=None):
+        pass
+
+    def user_annotations(self, video_id: str) -> np.ndarray:
+        return self.arrays[video_id]["anno"]
+
+    def change_points(self, video_id: str) -> np.ndarray:
+        return self.arrays[video_id]["change_points"]
+
+
+class PlotSink:
+    """Keeps what ``viz.generate_metric_plots`` and ``viz.export_indices`` are handed (this machine may have
+    no matplotlib; the JAX package's ``train`` needs it too)."""
+
+    def __init__(self):
+        self.curves: list[int] = []
+        self.indices: list[tuple] = []
+
+    def metric_plots(self, history, out_fp, opt_val_loss=None):
+        self.curves.append(len(history["train_loss"]))
+
+    def export_indices(self, pred_mask, gd_masks, out_fp):
+        self.indices.append((pred_mask.shape, gd_masks.shape, int(pred_mask.sum())))
+
+
+def make_train_inputs(cfg: PipelineConfig, seed: int, root: str) -> dict:
+    """Four seeded videos vidA-vidD (``TRAIN_VIDEO_FRAMES`` raw 72×96 uint8 frames as ``.npz``, the 22,050 Hz
+    ``.wav`` sidecars), ``anno.tsv`` with 20 annotators' 1-5 grades per raw frame and ``info.tsv``, as
+    ``synthetic_dataset_dir`` lays them out; the annotator arrays and change points go to
+    :class:`AnnotationStand`."""
+    rng = np.random.default_rng(seed)
+    ids = [f"vid{c}" for c in "ABCD"[:len(TRAIN_VIDEO_FRAMES)]]
+    fps, rows, arrays = [], [], {}
+    for i, (vid, n) in enumerate(zip(ids, TRAIN_VIDEO_FRAMES)):
+        path = os.path.join(root, f"{vid}.npz")
+        np.savez(path, frames=synthetic_video_frames(n, *TRAIN_RAW_HW, seed=seed + 400 + i))
+        write_wav(os.path.join(root, f"{vid}.wav"),
+                  synthetic_waveform(int(n / 30 * cfg.audio.sample_rate), cfg.audio.sample_rate, seed=seed + 400 + i),
+                  cfg.audio.sample_rate)
+        anno = rng.integers(1, 6, size=(TRAIN_ANNOTATORS, n)).astype(np.float64)
+        rows += [f"{vid}\tcategory\t{','.join(str(int(x)) for x in a)}" for a in anno]
+        arrays[vid] = {"anno": anno,
+                       "change_points": synthetic_change_points(n - 1, n // TRAIN_CLIP_FRAMES, seed=seed + 400 + i)}
+        fps.append(path)
+    with open(os.path.join(root, "anno.tsv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "info.tsv"), "w") as f:
+        f.write("video_id\ttitle\n" + "".join(f"{v}\tTitle of {v}\n" for v in ids))
+    AnnotationStand.arrays = arrays
+    return {"videos": fps, "annotation_fp": os.path.join(root, "anno.tsv"), "info_fp": os.path.join(root, "info.tsv"),
+            "mat_fp": os.path.join(root, "gt.mat"), "h5_fp": os.path.join(root, "gt.h5")}
+
+
+class EvalLaunches:
+    """Wraps ``train.loop.eval_video``: every evaluation must launch kernel 2 twice and kernels 3 and 4 once
+    (the eval forward on the card); counts the evaluations."""
+
+    EXPECT = {"fused_conv_pool_stage": 2, "head_matmul": 1, "fused_fusion_mlp": 1}
+
+    def __init__(self):
+        self.fn = train_loop.eval_video
+        self.calls = 0
+
+    def __call__(self, *args, **kw):
+        before = {name: KERNELS[name][0].launches for name in self.EXPECT}
+        out = self.fn(*args, **kw)
+        got = {name: KERNELS[name][0].launches - before[name] for name in self.EXPECT}
+        require(got == self.EXPECT, f"an evaluation launched {got}, not {self.EXPECT}")
+        self.calls += 1
+        return out
+
+
+class EpochClock:
+    """Times the pieces of ``train_importance_model``'s epochs: each video's train function (synchronised),
+    each ``evaluate_dataset`` and each checkpoint write, and the end of each epoch."""
+
+    def __init__(self):
+        self.make_fn, self.evaluate, self.save = (train_loop.make_train_video_fn, train_loop.evaluate_dataset,
+                                                  checkpoint_io.save_checkpoint)
+        self.events: list[tuple[str, float, float]] = []   # (what, start, end)
+
+    def _timed(self, what, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.events.append((what, t0, time.perf_counter()))
+            return out
+        return run
+
+    def __enter__(self):
+        train_loop.make_train_video_fn = lambda *a, **kw: self._timed("train", self.make_fn(*a, **kw))
+        train_loop.evaluate_dataset = self._timed("eval", self.evaluate)
+        checkpoint_io.save_checkpoint = self._timed("checkpoint", self.save)
+        return self
+
+    def __exit__(self, *exc):
+        train_loop.make_train_video_fn, train_loop.evaluate_dataset, checkpoint_io.save_checkpoint = (
+            self.make_fn, self.evaluate, self.save)
+
+    def epoch_end(self, epoch, history, best):
+        self.events.append(("epoch_end", time.perf_counter(), time.perf_counter()))
+
+    def split(self) -> list[dict]:
+        """Per epoch: wall from the end of the one before (of the initial checkpoint for the first) to its end,
+        and the seconds in train, eval and checkpoint inside it."""
+        out, start, acc = [], None, {"train": 0.0, "eval": 0.0, "checkpoint": 0.0}
+        for what, t0, t1 in self.events:
+            if what == "epoch_end":
+                out.append({"wall_s": t1 - start, **{f"{k}_s": v for k, v in acc.items()}})
+                start, acc = t1, {k: 0.0 for k in acc}
+            elif start is None:
+                start = t1 if what == "checkpoint" else start   # the initial opt checkpoint opens epoch 0
+            else:
+                acc[what] += t1 - t0
+        return out
+
+
+def state_bytes(state) -> dict:
+    """Bytes of the training state resident on the card: parameters, batchnorm statistics, Adam's moments."""
+    size = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))   # noqa: E731
+    return {"params": size(state.params), "batchnorm": size(state.model_state), "adam_mu": size(state.opt_state.mu),
+            "adam_nu": size(state.opt_state.nu)}
+
+
+def on_cpu(item):
+    return dataclasses.replace(item, visual=item.visual.cpu(), audio=None if item.audio is None else item.audio.cpu())
+
+
+def train_against_cpu(cfg: PipelineConfig, train_ds, val_ds, seed: int) -> dict:
+    """From one seeded state at dropout 0, the card against the CPU on the same items: first sub-batch gradients;
+    eval predictions and F-scores; one epoch on the card with the CPU's loss at every sub-batch taken at the
+    card's parameters and batchnorm state, per video; a checkpoint of the trained state saved and reloaded.
+
+    The CPU follows the card's trajectory rather than its own: two free-running float32 trajectories part at
+    max-pool windows whose two largest values lie within rounding of each other (the gradient takes the other
+    one), and Adam carries that on: on the CPU alone, frames scaled by 1 + 1.2e-7 move the twelfth sub-batch's
+    loss of a 150-frame video by a quarter, where float32 and float64 agree within 2e-6
+    (``tools/train_divergence.py``).  The loss itself has no such jump."""
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+    dev, cpu = train_ds[0].visual.device, torch.device("cpu")
+    S = cfg.train.subbatch_size
+    items = {"card": list(train_ds) + list(val_ds), "cpu": [on_cpu(it) for it in list(train_ds) + list(val_ds)]}
+    states = {"card": create_train_state(seed, cfg, device=dev), "cpu": create_train_state(seed, cfg, device=cpu)}
+    fn = train_loop.make_train_video_fn(cfg)
+    grads, evals, fscores = {}, {}, {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        st = states[name]
+        v, a, lab, valid, _ = train_loop._pad_video(items[name][0], S, d)
+        grads[name] = [g.cpu() for g in tree_leaves(
+            fn.value_and_grad(st.params, st.model_state, v[:S], a[:S], lab[:S], valid[:S], None)[3])]
+        evals[name] = [train_loop.eval_video(st, it, cfg) for it in items[name]]
+        fscores[name] = [train_loop._video_fscores(it, p, cfg, d) for it, (p, _) in zip(items[name], evals[name])]
+    grad_ratio = max((a - b).abs().max().item() / (1e-4 * max(1.0, b.abs().max().item()))
+                     for a, b in zip(grads["card"], grads["cpu"]))
+    require(grad_ratio <= 1.0, f"training: card vs CPU first gradients beyond 1e-4·max(1, max|g|) ({grad_ratio:.3g}×)")
+    pred_err = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(evals["card"], evals["cpu"]))
+    require(pred_err <= 1e-4, f"training: card eval predictions {pred_err} from the CPU's (> 1e-4)")
+    flips = {}
+    for it, (pa, _), (pb, _), fa, fb in zip(items["card"], evals["card"], evals["cpu"], fscores["card"],
+                                          fscores["cpu"]):
+        f = rounding_flips(pa, pb, 1e-4)
+        if f:
+            flips[it.video_id] = {"frames": f, "fscores": [fa, fb]}
+        else:
+            require(fa == fb, f"training: {it.video_id} F-scores {fa} (card) and {fb} (CPU) with equal rounded scores")
+
+    # one epoch on the card; the CPU's loss of each sub-batch at the card's parameters before its step
+    st = states["card"]
+    params, ms, opt = st.params, st.model_state, st.opt_state
+    losses = {"card": [], "cpu": []}
+    to_cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)   # noqa: E731
+    for it_card, it_cpu in zip(train_ds, items["cpu"]):
+        v, a, lab, valid, _ = train_loop._pad_video(it_card, S, dev)
+        vh, ah, labh, validh, _ = train_loop._pad_video(it_cpu, S, cpu)
+        card, host = [], []
+        for i in range(len(v) // S):
+            sl = slice(i * S, (i + 1) * S)
+            host.append(float(fn.value_and_grad(to_cpu(params), to_cpu(ms), vh[sl], ah[sl], labh[sl], validh[sl],
+                                                None)[0]))
+            params, ms, opt, _, loss = fn(params, ms, opt, v[sl], a[sl], lab[sl], valid[sl], None)
+            card.append(loss)
+        losses["card"].append(float(torch.stack(card).mean()))
+        losses["cpu"].append(float(np.mean(host)))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+    require(loss_rel <= 1e-4, f"training: card losses {losses['card']} vs CPU {losses['cpu']}")
+
+    # the trained state through a checkpoint file and back evaluates bit for bit as the state in memory
+    trained = TrainState(params, ms, opt, 1)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, trained, cfg, tag="ckp")
+        loaded = load_checkpoint(d, create_train_state(seed + 1, cfg, device=dev), tag="ckp")
+    reloaded_equal = loaded.epoch == 1 and loaded.opt_state.step == opt.step and all(
+        np.array_equal(train_loop.eval_video(loaded, it, cfg)[0], train_loop.eval_video(trained, it, cfg)[0])
+        for it in items["card"])
+    require(reloaded_equal, "training: the reloaded checkpoint evaluates differently from the state in memory")
+    return {"first_grads_err_over_tolerance": grad_ratio, "eval_pred_max_abs_err": pred_err,
+            "fscores_card": fscores["card"], "fscores_cpu": fscores["cpu"], "rounding_flips": flips,
+            "epoch_losses_card": losses["card"], "epoch_losses_cpu_at_the_cards_parameters": losses["cpu"],
+            "loss_max_rel_err": loss_rel, "adam_steps": opt.step, "reloaded_checkpoint_evaluates_bit_equal": True}
+
+
+def training_journey_phase(seed: int, smi: str, launches_by_path: dict) -> None:
+    """Phase 10: the training verbs in-process on the card at the full width of ``configs/reference_parity.json``,
+    the loop's recovery paths, the card against the CPU, and the journey's numbers."""
+    os.environ.pop("GOALNET_PLATFORM", None)   # the CLI runs on the card, as a user's call would
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    n_videos = len(TRAIN_VIDEO_FRAMES)
+    kernels = ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = make_train_inputs(cfg, seed, root)
+        cfg_path = os.path.join(root, "cfg.json")
+        cfg.save(cfg_path)
+        print(f"phase 10: {n_videos} videos of {list(TRAIN_VIDEO_FRAMES)} raw frames of {TRAIN_RAW_HW} with their "
+              f"wav and anno.tsv rows written in {time.perf_counter() - t0:.1f} s", flush=True)
+        print("phase 10: data.dataset.AnnotationStore is replaced by an in-memory stand-in (change points and "
+              "annotator scores from the seeded arrays; the .mat/.h5 pair needs h5py, which the CPU tests read), "
+              "and viz.generate_metric_plots / viz.export_indices by sinks that keep what they are handed "
+              "(matplotlib; the plots are drawn by the CPU tests)", flush=True)
+        store, plots, evals = dataset_io.AnnotationStore, PlotSink(), EvalLaunches()
+        saved = (viz.generate_metric_plots, viz.export_indices, train_loop.eval_video)
+        dataset_io.AnnotationStore = AnnotationStand
+        viz.generate_metric_plots, viz.export_indices, train_loop.eval_video = (plots.metric_plots,
+                                                                                 plots.export_indices, evals)
+        work = os.path.join(root, "work")
+        args = ["--videos", *data["videos"], "--annotation-fp", data["annotation_fp"], "--mat-fp", data["mat_fp"],
+                "--h5-fp", data["h5_fp"], "--info-fp", data["info_fp"], "--config", cfg_path, "--workdir", work]
+        walls = {}
+        try:
+            def verb(label, argv):
+                evals.calls = 0
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(Tee(buf, sys.stdout)):
+                    rc = drive(label, kernels, lambda: cli.main(argv), launches_by_path)
+                walls[label] = time.perf_counter() - t0
+                require(rc == 0, f"{label}: exit code {rc}")
+                got = launches_by_path[label]
+                require(got["fused_preprocess_frames"] == n_videos,
+                        f"{label}: kernel 1 launched {got['fused_preprocess_frames']} times for {n_videos} videos")
+                require(evals.calls > 0 and got["head_matmul"] == evals.calls,
+                        f"{label}: {got['head_matmul']} head launches for {evals.calls} evaluations")
+                print(f"phase 10: {label}: {evals.calls} evaluations, each launching kernel 2 twice and kernels "
+                      f"3 and 4 once; wall {walls[label]:.3f} s on {smi}", flush=True)
+                return buf.getvalue()
+
+            out = verb("train", ["train", *args, "--epochs", str(TRAIN_EPOCHS)])
+            require(f"Number of train videos: {n_videos - 1}" in out and "Number of val videos: 1" in out,
+                    "train: the split is not three videos and one")
+            require("Optimal epoch: " in out, "train printed no optimal epoch")
+            require(plots.curves == list(range(2, TRAIN_EPOCHS + 2)), f"train drew the curves {plots.curves}")
+            out = verb("train --checkpoint", ["train", *args, "--checkpoint", "--epochs", str(TRAIN_EPOCHS + 1)])
+            require(f"Resumed from epoch {TRAIN_EPOCHS}" in out, "train --checkpoint did not resume at the epoch")
+            events = [json.loads(ln) for ln in open(os.path.join(work, "tmp", "events.jsonl"))]
+            require([e["epoch"] for e in events if e["event"] == "epoch"]
+                    == list(range(-1, TRAIN_EPOCHS)) + [-1, TRAIN_EPOCHS], "events.jsonl epochs")
+            out = verb("eval", ["eval", *args])
+            require(evals.calls == n_videos and out.count("[eval]") == 2, "eval: not one evaluation a video")
+            out = verb("baseline", ["baseline", *args, "--samples", "2"])
+            require(evals.calls == 2 * n_videos and "mean_train_loss" in out, "baseline: not two samples")
+            print(f"phase 10: curves drawn {plots.curves}, summary masks exported {json.dumps(plots.indices)}",
+                  flush=True)
+
+            # the loop's recovery paths on the datasets the verbs built, card only
+            train_ds, val_ds = dataset_io.build_datasets(data["videos"], cfg, data["annotation_fp"], data["mat_fp"],
+                                                         data["h5_fp"], data["info_fp"])
+            rollback = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, nan_guard="rollback"))
+            good, bad = train_ds[0], train_ds[1]
+            labels = bad.labels.copy()
+            labels[len(labels) // 2] = np.nan
+            poisoned = dataclasses.replace(bad, video_id="poisoned", labels=labels)
+            state0 = create_train_state(seed, cfg)
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True   # bit-equal runs: deterministic cuDNN backward algorithms
+            try:
+                dirs = {k: os.path.join(root, k) for k in ("rollback", "clean")}
+                t0 = time.perf_counter()
+                _, hist = drive("train_importance_model rollback + async", kernels[1:], lambda: train_loop.train_importance_model(
+                    rollback, dataset_io.VideoDataset([good, poisoned]), val_ds, state0, num_epochs=1,
+                    checkpoint_dir=dirs["rollback"], verbose=False, async_checkpoint=True), launches_by_path)
+                walls["train_importance_model rollback + async"] = time.perf_counter() - t0
+                _, clean = train_loop.train_importance_model(rollback, dataset_io.VideoDataset([good]), val_ds, state0,
+                                                             num_epochs=1, checkpoint_dir=dirs["clean"],
+                                                             verbose=False)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            require(hist.get("nan_rollbacks") == 1 and "nan_rollbacks" not in clean, f"rollbacks {hist.get('nan_rollbacks')}")
+            a, b = (load_checkpoint(dirs[k], create_train_state(seed + 1, cfg), tag="ckp") for k in ("rollback", "clean"))
+            require(a.epoch == b.epoch == 1 and a.opt_state.step == b.opt_state.step, "rollback: other steps or epochs")
+            diffs = [(x - y).abs().max().item() for x, y in zip(
+                tree_leaves((a.params, a.model_state, a.opt_state.mu, a.opt_state.nu)),
+                tree_leaves((b.params, b.model_state, b.opt_state.mu, b.opt_state.nu)))]
+            require(max(diffs) == 0.0, f"rollback: the NaN video's updates were not discarded exactly "
+                                       f"(max |diff| {max(diffs)})")
+            print(f"phase 10: nan_guard rollback with async checkpoints: 1 video rolled back, the rolling "
+                  f"checkpoint bit-equal to a run without it ({a.opt_state.step} Adam steps)", flush=True)
+        finally:
+            dataset_io.AnnotationStore = store
+            viz.generate_metric_plots, viz.export_indices, train_loop.eval_video = saved
+
+        # card against CPU
+        record = train_against_cpu(cfg, train_ds, val_ds, seed)
+        print(f"phase 10: card vs CPU on {smi}: {json.dumps(record)}", flush=True)
+
+        # numbers: one video's steps, one epoch split, one traced epoch, the resident state
+        S = cfg.train.subbatch_size
+        state = create_train_state(seed, cfg)
+        fn = train_loop.make_train_video_fn(cfg)
+        gen = torch.Generator(device=state0.params["fusion"][0]["w"].device).manual_seed(seed)
+        v, a_, lab, valid, _ = train_loop._pad_video(train_ds[0], S, gen.device)
+        params, ms, opt, step_ms = state.params, state.model_state, state.opt_state, []
+        for i in range(len(v) // S):
+            sl = slice(i * S, (i + 1) * S)
+            t0 = time.perf_counter()
+            params, ms, opt, _, loss = fn(params, ms, opt, v[sl], a_[sl], lab[sl], valid[sl], gen)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        n_steps = sum(-(-len(it.visual) // S) for it in train_ds)
+        with EpochClock() as clock, tempfile.TemporaryDirectory() as ckdir:
+            train_loop.train_importance_model(cfg, train_ds, val_ds, create_train_state(seed, cfg), num_epochs=1,
+                                              checkpoint_dir=ckdir, on_epoch_end=clock.epoch_end, verbose=False)
+        split = clock.split()[0]
+        fresh = create_train_state(seed, cfg)   # made outside the traced runs: its 94 MB cross as pageable HtoD
+        prof = profile_run(lambda: train_loop.train_importance_model(cfg, train_ds, val_ds, fresh, num_epochs=1,
+                                                                     verbose=False))
+        numbers = {
+            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms[1:] or step_ms),   # the first warms the allocator
+            "epoch_split_s": split, "steps_per_epoch": n_steps, "steps_per_s": n_steps / split["train_s"],
+            "resident_state_bytes": state_bytes(state), "verb_walls_s": walls,
+        }
+        print(f"phase 10: training numbers on {smi}: {json.dumps(numbers)}", flush=True)
+        print(f"phase 10: profile of one traced epoch (train + val eval, no checkpoint) on {smi}: {json.dumps(prof)}",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1991,6 +2384,7 @@ def main() -> int:
     training_phase(enc, train_runs, args.seed, smi, rows, launches_by_path)
     del enc, train_runs
     infer_phase(args.seed, smi, launches_by_path)
+    training_journey_phase(args.seed, smi, launches_by_path)
     print(f"total script {time.perf_counter() - t_start:.1f} s")
 
     table = []

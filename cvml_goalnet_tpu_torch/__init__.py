@@ -10,8 +10,11 @@ neither it nor JAX.  Public API, as in the JAX package:
 ``weights.init_temporal_params`` / ``weights.load_spotting_checkpoint``; and
 training of those heads, ``make_spotting_train_step`` / ``init_spotting_opt``
 / ``save_spotting_checkpoint`` (``train/spotting.py``, Adam from
-``train/optim.py``).  Entry points run on the card unless the caller passes
-``device="cpu"``; the training step runs where its tensors are.
+``train/optim.py``); and training of the summarization model,
+``train/loop.py::train_importance_model`` (with ``train/resilience.py``,
+``baseline.py`` and the CLI verbs ``train``, ``eval`` and ``baseline``).
+Entry points run on the card unless the caller passes ``device="cpu"``; the
+training steps run where their tensors are.
 """
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig

@@ -1,26 +1,38 @@
-"""CLI of the port: ``goalnet-torch infer VIDEO`` summarizes one video.
+"""CLI of the port: ``goalnet-torch {train,eval,baseline,infer}``.
 
-Port of the ``infer`` verb of ``cvml_goalnet_tpu/cli.py`` (reference
-``main.py:351-373``) with every flag of the JAX parser:
+Port of the ``train``, ``eval``, ``baseline`` and ``infer`` verbs of
+``cvml_goalnet_tpu/cli.py`` (reference ``main.py:351-373``) with the JAX
+parser's flags:
 
-* offline: decode, ``extract_features`` (kernel 1 and the MFCC frontend on
-  the card), ``fuse`` (kernels 2–4), ``summarize``, then the selected raw
-  frames exported as ``<workdir>/tmp/<title>.mp4``;
-* ``--stream``: chunked decode → ``streaming.score_video_stream`` (decode,
+* ``train``: ``build_datasets`` (kernel 1 once a video on the card), then
+  ``train/loop.py::train_importance_model`` with the ``opt`` and ``ckp``
+  checkpoints under ``<workdir>/models/importance[_no_audio]``, the curves
+  and the summary-mask image redrawn under ``<workdir>/tmp`` each epoch, and
+  ``<workdir>/tmp/events.jsonl``; ``--checkpoint`` resumes from ``ckp``;
+* ``eval``: a trained trunk's loss and F-scores on the train and val splits
+  (kernels 2–4 on the card); no trunk, or one of another structure, exits 2;
+* ``baseline``: the random-init chance floor over ``--samples`` models;
+* ``infer``: offline, decode, ``extract_features`` (kernel 1 and the MFCC
+  frontend on the card), ``fuse`` (kernels 2–4), ``summarize``, then the
+  selected raw frames exported as ``<workdir>/tmp/<title>.mp4``;
+  ``--stream``: chunked decode → ``streaming.score_video_stream`` (decode,
   host work, copies and compute overlapped) → knapsack → one more pass that
-  writes only the selected clips; visual-only trunks;
-* ``--host-preprocess`` / ``--transfer-dtype``: normalise and resize on the
-  host and ship small frames (kernel 1 does not run);
-* ``--follow``: VIDEO is a live segment directory (``data/follow.py``).
+  writes only the selected clips, visual-only trunks; ``--host-preprocess``
+  / ``--transfer-dtype``: normalise and resize on the host and ship small
+  frames (kernel 1 does not run); ``--follow``: VIDEO is a live segment
+  directory (``data/follow.py``).
 
-The other verbs of the JAX CLI are later slices of the port.  The trunk is
-the npz checkpoint the JAX package's ``train`` writes (the same layout,
-``train/checkpoint.py``); the orbax backend is not ported yet.
+The trunk is the npz checkpoint the JAX package's ``train`` writes (the
+same layout both ways, ``train/checkpoint.py``).  Flags for what the port
+does not run yet exit 2 before any decode, naming the ROADMAP item that
+brings it: the orbax backend and ``--dp`` (item 6), ``--commentary`` and
+``--moe-experts`` (item 5).  The JAX CLI's other verbs are later slices.
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
 variable it raises.
 
+    python -m cvml_goalnet_tpu_torch.cli train --videos A.npz B.npz --annotation-fp anno.tsv ...
     python -m cvml_goalnet_tpu_torch.cli infer VIDEO [--no-audio] [--stream] ...
 """
 
@@ -40,6 +52,10 @@ ORBAX_NOT_PORTED = (
     "the orbax checkpoint backend is not ported yet (ROADMAP.md §1 item 6, with the multi-GPU "
     "paths); the port reads the npz layout (<tag>_state.npz + <tag>_manifest.json) that "
     "`goalnet train` writes by default"
+)
+DP_NOT_PORTED = (
+    "--dp (mesh data-parallel training, train/dp_loop.py) is not ported yet (ROADMAP.md §1 item 6, with the "
+    "multi-GPU paths); the port trains on one device"
 )
 
 
@@ -132,10 +148,24 @@ def _resolve_data(args) -> dict:
     }
 
 
-def _refusal(args, cfg) -> str | None:
-    """Why these flags cannot run together, before any decode or checkpoint discovery; None when they can."""
+def _unported(args, cfg) -> str | None:
+    """Why the port cannot run these flags or this config yet (naming the ROADMAP item), or None."""
     from cvml_goalnet_tpu_torch.models.avm import check_supported
 
+    if getattr(args, "dp", False):
+        return DP_NOT_PORTED
+    if getattr(args, "checkpoint_backend", None) == "orbax":
+        return ORBAX_NOT_PORTED
+    try:
+        check_supported(cfg.model)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _refusal(args, cfg) -> str | None:
+    """Why these ``infer`` flags cannot run together, before any decode or checkpoint discovery; None when
+    they can."""
     if args.follow and not args.stream:
         return ("--follow is a --stream mode (a live segment directory "
                 "cannot be summarized offline — the footage isn't finished)")
@@ -148,13 +178,122 @@ def _refusal(args, cfg) -> str | None:
                 "stream a finished file without --follow")
     if args.transfer_dtype and not args.host_preprocess:
         return "--transfer-dtype only applies with --host-preprocess (device preprocess ships raw frames)"
-    if args.checkpoint_backend == "orbax":
-        return ORBAX_NOT_PORTED
+    return _unported(args, cfg)
+
+
+def _refused(message: str | None) -> bool:
+    if message is None:
+        return False
+    print(f"E: {message}", file=sys.stderr)
+    return True
+
+
+def cmd_train(args) -> int:
+    from cvml_goalnet_tpu_torch import viz
+    from cvml_goalnet_tpu_torch.data.dataset import build_datasets
+    from cvml_goalnet_tpu_torch.pipeline import summarize
+    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError, load_checkpoint
+    from cvml_goalnet_tpu_torch.train.loop import eval_video, train_importance_model
+    from cvml_goalnet_tpu_torch.train.state import create_train_state
+    from cvml_goalnet_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = _load_cfg(args)
+    if _refused(_unported(args, cfg)):
+        return 2
+    data = _resolve_data(args)
+    paths = _artifact_paths(args.workdir, cfg.model.audio_included)
+    os.makedirs(os.path.dirname(paths["curves"]), exist_ok=True)
+    device = _device()
+
+    train_ds, val_ds = build_datasets(
+        data["videos"], cfg, data["annotation_fp"], data["mat_fp"], data["h5_fp"],
+        data["info_fp"], audio_included=cfg.model.audio_included, device=device,
+    )
+    print(f"Number of train videos: {len(train_ds)}")
+    print(f"Number of val videos: {len(val_ds)}")
+
+    state = create_train_state(cfg.train.seed, cfg, device=device)
+    if args.checkpoint:
+        try:
+            state = load_checkpoint(paths["ckp_dir"], state, tag="ckp")
+        except CheckpointMismatchError as e:
+            print(f"E: {e}\nE: pass the matching --config/--no-audio combination", file=sys.stderr)
+            return 2
+        print(f"Resumed from epoch {state.epoch}")
+
+    metrics_logger = MetricsLogger(os.path.join(args.workdir, "tmp", "events.jsonl"))
+
+    def on_epoch_end(epoch, history, best):
+        # the curves each epoch (reference visualization.py:5-41), the summary-mask image on each new optimum
+        # (main.py:265-280); both need matplotlib, as the JAX package's do
+        viz.generate_metric_plots(history, paths["curves"])
+        if best["epoch"] == epoch and len(train_ds):
+            item = train_ds[len(train_ds) - 1]
+            preds, _ = eval_video(best["state"], item, cfg)
+            res = summarize(preds, item.clip_intervals, cfg.preprocess.skip_frames, item.full_n_frames,
+                            cfg.knapsack, device=device)
+            viz.export_indices(res.frame_mask, item.gd_summary_masks, paths["indices"])
+
+    _, history = train_importance_model(
+        cfg, train_ds, val_ds, state,
+        num_epochs=args.epochs, checkpoint_dir=paths["ckp_dir"],
+        on_epoch_end=on_epoch_end, metrics_logger=metrics_logger,
+    )
+    print(f"Optimal epoch: {history['best_epoch']}")
+    print("Operation completed")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """A trained trunk's eval-mode loss and F-scores per split, no training; never a random trunk."""
+    from cvml_goalnet_tpu_torch.data.dataset import build_datasets
+    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
+    from cvml_goalnet_tpu_torch.train.loop import evaluate_dataset
+    from cvml_goalnet_tpu_torch.train.state import create_train_state
+
+    cfg = _load_cfg(args)
+    if _refused(_unported(args, cfg)):
+        return 2
+    data = _resolve_data(args)
+    paths = _artifact_paths(args.workdir, cfg.model.audio_included)
+    device = _device()
+
+    train_ds, val_ds = build_datasets(
+        data["videos"], cfg, data["annotation_fp"], data["mat_fp"], data["h5_fp"],
+        data["info_fp"], audio_included=cfg.model.audio_included, device=device,
+    )
+    state = create_train_state(cfg.train.seed, cfg, device=device)
     try:
-        check_supported(cfg.model)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+        state = _load_trunk(paths, state, args)
+    except (FileNotFoundError, CheckpointBackendError) as e:
+        print(f"E: {e}", file=sys.stderr)
+        return 2
+    except CheckpointMismatchError as e:
+        print(f"E: {e}\nE: pass the matching --config/--no-audio/--commentary combination", file=sys.stderr)
+        return 2
+
+    for name, ds in (("train", train_ds), ("val", val_ds)):
+        res = evaluate_dataset(state, ds, cfg)
+        if res is None:
+            print(f"[eval] {name:5s} - (empty split)")
+        else:
+            print(f"[eval] {name:5s} - loss: {res[0]:.4f} - F-avg: {res[1]:.4f} - F-max: {res[2]:.4f}")
+    print("Operation completed")
+    return 0
+
+
+def cmd_baseline(args) -> int:
+    from cvml_goalnet_tpu_torch.baseline import run_random_baseline
+
+    cfg = _load_cfg(args)
+    if _refused(_unported(args, cfg)):
+        return 2
+    data = _resolve_data(args)
+    report = run_random_baseline(cfg, data["videos"], data["annotation_fp"], data["mat_fp"], data["h5_fp"],
+                                 n_samples=args.samples, device=_device())
+    for k, v in report.items():
+        print(f"{k}: {v:.4f}")
+    return 0
 
 
 def cmd_infer(args) -> int:
@@ -172,9 +311,7 @@ def cmd_infer(args) -> int:
              if os.path.exists(data["mat_fp"]) and os.path.exists(data["h5_fp"]) else None)
 
     print("Input video:\n", args.video)
-    refusal = _refusal(args, cfg)
-    if refusal is not None:
-        print(f"E: {refusal}", file=sys.stderr)
+    if _refused(_refusal(args, cfg)):
         return 2
     device = _device()
     item = None
@@ -260,6 +397,32 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="goalnet-torch", description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("train", help="train the importance model")
+    _add_data_args(p)
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--commentary", action="store_true",
+                   help="enable the text branch (reads <video>.commentary.jsonl sidecars)")
+    p.add_argument("--checkpoint", action="store_true", help="resume from rolling ckp")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"], default="npz",
+                   help="npz (portable default) or orbax (sharded-aware "
+                        "save/restore for multi-chip jobs)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--dp", action="store_true", help="mesh data-parallel training")
+    p.add_argument("--global-batch", type=int, default=None)
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="swap the first fusion hidden layer for a top-k "
+                        "gated mixture of this many experts")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("eval", help="evaluate a trained checkpoint (no training)")
+    _add_data_args(p)
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--commentary", action="store_true",
+                   help="the checkpoint was trained with the text branch")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"], default=None,
+                   help="pin the checkpoint layout (default: auto-detect)")
+    p.set_defaults(fn=cmd_eval)
+
     p = sub.add_parser("infer", help="summarize one video")
     _add_data_args(p)
     p.add_argument("video")
@@ -295,6 +458,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--follow-end", default="END",
                    help="--follow: end-of-stream sentinel filename")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("baseline", help="random-init chance baseline")
+    _add_data_args(p)
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--samples", type=int, default=10)
+    p.set_defaults(fn=cmd_baseline)
     return parser
 
 

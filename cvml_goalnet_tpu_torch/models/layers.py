@@ -1,8 +1,10 @@
 """Functional layers in the JAX package's layouts (NHWC / NWC activations).
 
-Port of the eval-time primitives of ``cvml_goalnet_tpu/models/layers.py``:
-conv2d (HWIO weights), conv1d (WIO), maxpool2d, the eval batchnorm as a
-per-channel affine, linear (``(in, out)`` weights) and layernorm.  Each takes and returns
+Port of the primitives of ``cvml_goalnet_tpu/models/layers.py``: conv2d
+(HWIO weights), conv1d (WIO), maxpool2d, the eval batchnorm as a per-channel
+affine, linear (``(in, out)`` weights), layernorm, and the train-time
+batchnorm (batch statistics, an optional mask of valid rows) and dropout
+(masks drawn from an explicit ``torch.Generator``).  Each takes and returns
 the JAX layout and permutes to PyTorch's channel-first layout only around the
 library call.  Library convolutions and products run with TF32 off.
 """
@@ -55,3 +57,51 @@ def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
 def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis: biased variance, ``(x − mean)·rsqrt(var + eps)·scale + bias``."""
     return F.layer_norm(x, (x.shape[-1],), params["scale"], params["bias"], eps)
+
+
+def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float = 0.1, eps: float = 1e-5,
+                    mask: torch.Tensor | None = None):
+    """BatchNorm over every axis but the last (channel) → ``(y, new_state)``.
+
+    Train mode normalises by the biased batch statistics and moves the
+    running ones toward the unbiased variance, as PyTorch's batchnorm does;
+    eval mode normalises by the running statistics.  ``mask`` (N,) marks the
+    valid leading rows of a zero-padded batch: the statistics count only
+    those (``count = Σmask · per_frame``, the unbiased variance over
+    ``max(count − 1, 1)``), while padded rows are still normalised.  Every
+    result is a new tensor: ``state`` is left as it was.
+    """
+    dims = tuple(range(x.dim() - 1))
+    if train:
+        if mask is None:
+            mean = x.mean(dim=dims)
+            var = torch.square(x - mean).mean(dim=dims)
+            count = x.numel() // x.shape[-1]
+            unbiased = var * (count / max(count - 1, 1))
+        else:
+            m = mask.reshape(mask.shape[:1] + (1,) * (x.dim() - 1)).to(x.dtype)
+            per_frame = x.numel() // x.shape[-1] // x.shape[0]
+            count = mask.to(torch.float32).sum() * per_frame
+            mean = (x * m).sum(dim=dims) / count
+            var = (m * torch.square(x - mean)).sum(dim=dims) / count
+            unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+        new_state = {
+            "mean": (1 - momentum) * state["mean"] + momentum * mean,
+            "var": (1 - momentum) * state["var"] + momentum * unbiased,
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y, new_state
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability ``1 − rate`` (a uniform draw from ``generator``, a
+    generator on ``x``'s device) and scale the kept ones by ``1/keep``; ``x`` itself when not training or
+    ``rate <= 0``."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep
+    return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,7 +1,8 @@
-"""Visual branch, eval path with batchnorm folded into the next layer.
+"""Visual branch: the eval path with batchnorm folded into the next layer, and the train forward.
 
-Port of the folded eval path of ``cvml_goalnet_tpu/models/visual.py``
-(``:93-162``; reference ``VisBl``, ``utils.py:145-195``): three
+Port of ``cvml_goalnet_tpu/models/visual.py`` (reference ``VisBl``,
+``utils.py:145-195``).  :func:`visual_encoder_apply` is the folded eval path
+(JAX ``:93-162``): three
 conv → ReLU → maxpool(3, s1) → batchnorm stages, channels (64, 256, 512),
 spatial sizes 40→15→13→13→11→11→9, then flatten → linear(512) → ReLU.
 
@@ -18,6 +19,13 @@ Mapping onto the port's kernels:
 * head → ``head_matmul`` on the NHWC flatten (N, 9·9·512) with the last
   batchnorm folded in; the flatten is channel-last, so the scale tiles as
   ``repeat(s, H·W)``.  Activations stay NHWC end to end.
+
+:func:`visual_encoder_train_apply` is the unfolded train forward (JAX
+``:57-81``): conv → ReLU → maxpool → batchnorm on batch statistics, three
+times, then the head, ReLU and dropout, all plain differentiable PyTorch ops
+(``F.conv2d``, ``F.max_pool2d``, ``torch.matmul``).  The kernels have no
+backward and their wrappers refuse tensors that require grad, so training
+never reaches them.
 """
 
 from __future__ import annotations
@@ -68,3 +76,23 @@ def visual_encoder_apply(params, state, x: torch.Tensor) -> torch.Tensor:
     b_folded = L.linear_apply({"w": w, "b": params["head"]["b"]}, t_prev.repeat(hw)[None])[0]
     flat = x.contiguous().reshape(n, hw * x.shape[3])
     return head_matmul(flat, w_folded.contiguous(), b_folded.contiguous(), relu=True)
+
+
+def visual_encoder_train_apply(params, state, x: torch.Tensor, *, generator: torch.Generator | None,
+                               dropout_rate: float, mask: torch.Tensor | None = None):
+    """x (N, H, W, C) normalised frames → ``((N, vis_feature_dim) features, new_state)`` in train mode.
+
+    ``mask`` (N,) keeps padded rows out of the batchnorm statistics; the head's dropout draws from
+    ``generator``.
+    """
+    new_state = {}
+    for i in range(len(STAGE_GEOM)):
+        name = f"conv{i}"
+        if name not in params:
+            break
+        _, stride, pad = STAGE_GEOM[i]
+        x = L.maxpool2d(torch.relu(L.conv2d_apply(params[name], x, stride, pad)), *POOL)
+        x, new_state[f"bn{i}"] = L.batchnorm_apply(params[f"bn{i}"], state[f"bn{i}"], x, True, mask=mask)
+    x = x.reshape(x.shape[0], x.shape[1] * x.shape[2] * x.shape[3])
+    x = torch.relu(L.linear_apply(params["head"], x))
+    return L.dropout(x, dropout_rate, True, generator), new_state

@@ -1,6 +1,6 @@
 """Checkpoints of the training state: one ``.npz`` of every leaf and a JSON manifest.
 
-Port of the save and load side of ``cvml_goalnet_tpu/train/checkpoint.py``
+Port of ``cvml_goalnet_tpu/train/checkpoint.py``
 (reference ``torch.save(state_dict)``, ``main.py:251-282``, which kept neither
 Adam's moments nor the epoch).  The layout is the JAX package's, so a
 checkpoint moves both ways:
@@ -14,18 +14,20 @@ Writes are atomic (a temporary file, then a rename), so a crash mid-save
 leaves the previous checkpoint whole.  :func:`load_checkpoint` checks every
 leaf's key and shape against a template state built from the current config
 and raises :class:`CheckpointMismatchError` on the first that differs.
+:class:`AsyncCheckpointer` writes on a worker thread.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 
 import numpy as np
 import torch
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig
-from cvml_goalnet_tpu_torch.train.optim import AdamState
+from cvml_goalnet_tpu_torch.train.optim import AdamState, tree_map
 from cvml_goalnet_tpu_torch.train.state import TrainState
 from cvml_goalnet_tpu_torch.weights import _map_with_paths
 
@@ -92,3 +94,66 @@ def load_checkpoint(directory: str, template: TrainState, tag: str = "ckp") -> T
         epoch = int(data["__epoch__"]) if "__epoch__" in files else int(manifest["epoch"])
     return TrainState(params=payload["params"], model_state=payload["model_state"],
                       opt_state=AdamState(**payload["opt_state"]), epoch=epoch)
+
+
+def _host_copy(leaf):
+    return leaf.detach().to("cpu", copy=True) if isinstance(leaf, torch.Tensor) else leaf
+
+
+class AsyncCheckpointer:
+    """Checkpoints written on a worker thread, so training does not wait for the disk.
+
+    :meth:`save` copies the state to host memory at once (``.cpu()`` copies:
+    the training thread pays only the device-to-host copy) and the npz and
+    manifest are written by a worker.  One write is pending per tag: a newer
+    snapshot for a tag replaces an older one still queued, so a slow disk
+    builds no backlog.  :meth:`wait` blocks until every queued write has
+    landed and re-raises the first write error.  Writes are atomic, as
+    :func:`save_checkpoint`'s.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pending: dict[str, tuple] = {}
+        self._thread: threading.Thread | None = None
+        self._errors: list[BaseException] = []
+
+    def save(self, directory: str, state: TrainState, cfg: PipelineConfig, tag: str = "ckp") -> None:
+        opt = state.opt_state
+        host_state = TrainState(
+            params=tree_map(_host_copy, state.params),
+            model_state=tree_map(_host_copy, state.model_state),
+            opt_state=AdamState(step=opt.step, mu=tree_map(_host_copy, opt.mu), nu=tree_map(_host_copy, opt.nu)),
+            epoch=state.epoch,
+        )
+        with self._lock:
+            self._pending[tag] = (directory, host_state, cfg)
+            # the worker clears self._thread under this lock as it decides to exit, so None here means no
+            # worker will see this item: start one (a worker still alive but leaving would drop it)
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._drain, daemon=True)
+                self._thread.start()
+
+    def _drain(self) -> None:
+        while True:
+            with self._lock:
+                if not self._pending:
+                    self._thread = None   # atomic with the decision to exit
+                    return
+                tag, (directory, state, cfg) = next(iter(self._pending.items()))
+                del self._pending[tag]
+            try:
+                save_checkpoint(directory, state, cfg, tag)
+            except BaseException as e:  # surfaced by wait()
+                self._errors.append(e)
+
+    def wait(self) -> None:
+        """Block until every queued write has landed; re-raise the first failure."""
+        while True:
+            with self._lock:
+                t = self._thread
+            if t is None:
+                break
+            t.join()   # a save racing this worker's exit may have started another: loop until none is left
+        if self._errors:
+            raise self._errors[0]

@@ -1,1 +1,1 @@
-"""Cross-cutting utilities of the port: stage timing."""
+"""Cross-cutting utilities of the port: stage timing, console logging and the jsonl metrics log."""

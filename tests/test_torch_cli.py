@@ -268,3 +268,176 @@ class TestRefusals:
         monkeypatch.delenv("GOALNET_PLATFORM")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["infer", env["meta"]["video_fps"][0], *_args(env, "--no-audio")])
+
+
+# ------------------------------------------------------------ train, eval, baseline
+
+
+def _train_cfg(small_cfg, root):
+    """The suite's small config at dropout 0 with Adam's eps at 1e-4, written where both CLIs read it (the
+    dropout masks cannot be JAX's; at the default eps, Adam's lr·sign(g) steps on gradient noise part the
+    packages' histories by more than 1e-5 within two epochs: ``tests/test_torch_summarization_train.py``)."""
+    cfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, dropout_rate=0.0),
+                              train=dataclasses.replace(small_cfg.train, eps=1e-4))
+    path = str(root / "train_cfg.json")
+    cfg.save(path)
+    return path
+
+
+def _data_args(meta, cfg_path, work, *extra):
+    return ["--videos", *meta["video_fps"], "--annotation-fp", meta["annotation_fp"], "--mat-fp",
+            meta["mat_file_path"], "--h5-fp", meta["h5_file_path"], "--info-fp", meta["info_fp"], "--config",
+            cfg_path, "--workdir", work, *extra]
+
+
+def _epochs(work):
+    from cvml_goalnet_tpu_torch.utils.metrics import MetricsLogger
+
+    return [e for e in MetricsLogger.read(os.path.join(work, "tmp", "events.jsonl")) if e["event"] == "epoch"]
+
+
+class TestTrainVerbs:
+    def test_train_resume_eval_baseline(self, env, small_cfg, tmp_path, capsys):
+        """The port's own journey on the synthetic TVSum set with its .mat/.h5 files and plots: train two
+        epochs, resume to three, evaluate the trunk, then the random baseline."""
+        meta = env["meta"]
+        work = str(tmp_path / "work")
+        args = _data_args(meta, env["cfg"], work)
+        assert cli.main(["train", *args, "--epochs", "2"]) == 0
+        out = capsys.readouterr().out
+        assert "Number of train videos: 1" in out and "Number of val videos: 1" in out
+        assert "Optimal epoch: " in out and "Operation completed" in out
+        ckp = os.path.join(work, "models", "importance")
+        for name in ("opt_state.npz", "opt_manifest.json", "ckp_state.npz", "ckp_manifest.json"):
+            assert os.path.exists(os.path.join(ckp, name)), name
+        assert os.path.getsize(os.path.join(work, "tmp", "train_states.png")) > 0
+        assert [e["epoch"] for e in _epochs(work)] == [-1, 0, 1]
+
+        assert cli.main(["train", *args, "--checkpoint", "--epochs", "3"]) == 0
+        out = capsys.readouterr().out
+        assert "Resumed from epoch 2" in out
+        assert [e["epoch"] for e in _epochs(work)] == [-1, 0, 1, -1, 2]
+
+        assert cli.main(["eval", *args]) == 0
+        lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[eval]")]
+        assert len(lines) == 2 and lines[0].startswith("[eval] train - loss: ") and "F-avg" in lines[1]
+
+        assert cli.main(["baseline", *args, "--samples", "2"]) == 0
+        report = dict(ln.split(": ") for ln in capsys.readouterr().out.splitlines() if ": " in ln)
+        assert {f"{a}_{k}" for a in ("mean", "opt") for k in ("train_loss", "val_f_avg")} <= set(report)
+        assert float(report["opt_train_loss"]) <= float(report["mean_train_loss"])
+
+    def test_on_epoch_end_draws_the_curves_and_the_optimum(self, env, tmp_path, monkeypatch):
+        from cvml_goalnet_tpu_torch import viz
+
+        drawn = []
+        monkeypatch.setattr(viz, "generate_metric_plots", lambda h, fp: drawn.append(("curves", len(h["train_loss"]))))
+        monkeypatch.setattr(viz, "export_indices", lambda p, g, fp: drawn.append(("indices", p.shape, g.shape)))
+        work = str(tmp_path / "work")
+        assert cli.main(["train", *_data_args(env["meta"], env["cfg"], work, "--epochs", "2")]) == 0
+        assert [d for d in drawn if d[0] == "curves"] == [("curves", 2), ("curves", 3)]
+        best = _epochs(work)
+        assert all(d[1][0] == 240 and d[2][1] == 240 for d in drawn if d[0] == "indices")
+        assert any(d[0] == "indices" for d in drawn) or all(e["train_f_avg"] <= best[0]["train_f_avg"]
+                                                            for e in best[1:])
+
+    @pytest.mark.parametrize("writer", ["jax", "port"])
+    def test_checkpoint_resumed_across_packages(self, env, small_cfg, tmp_path, capsys, writer):
+        """One package's ``train --epochs 1`` writes the rolling checkpoint; both packages' ``train --checkpoint
+        --epochs 2`` resume it and log the same epoch (1e-5 relative; F-scores equal)."""
+        import shutil
+
+        from cvml_goalnet_tpu import cli as jcli
+
+        meta = env["meta"]
+        cfg_path = _train_cfg(small_cfg, tmp_path)
+        first = str(tmp_path / "first")
+        run = {"jax": jcli.main, "port": cli.main}
+        assert run[writer](["train", *_data_args(meta, cfg_path, first, "--epochs", "1")]) == 0
+        logs = {}
+        for name, main in run.items():
+            work = str(tmp_path / name)
+            shutil.copytree(os.path.join(first, "models"), os.path.join(work, "models"))
+            capsys.readouterr()
+            assert main(["train", *_data_args(meta, cfg_path, work, "--checkpoint", "--epochs", "2")]) == 0
+            assert "Resumed from epoch 1" in capsys.readouterr().out
+            logs[name] = _epochs(work)
+        assert [e["epoch"] for e in logs["port"]] == [e["epoch"] for e in logs["jax"]] == [-1, 1]
+        for got, want in zip(logs["port"], logs["jax"]):
+            for k in ("train_loss", "val_loss"):
+                assert got[k] == pytest.approx(want[k], rel=1e-5), k
+            for k in ("train_f_avg", "train_f_max", "val_f_avg", "val_f_max"):
+                assert got[k] == want[k], k
+        from cvml_goalnet_tpu_torch.train.checkpoint import load_checkpoint as port_load
+        from cvml_goalnet_tpu_torch.train.state import create_train_state as port_state
+
+        cfg = cli._load_cfg(cli.build_parser().parse_args(["eval", "--config", cfg_path]))
+        for name in run:
+            st = port_load(os.path.join(str(tmp_path / name), "models", "importance"),
+                           port_state(0, cfg, device="cpu"), tag="ckp")
+            assert st.epoch == 2 and st.opt_state.step == 4
+
+
+class TestTrainRefusals:
+    @pytest.fixture(autouse=True)
+    def no_decode(self, monkeypatch):
+        from cvml_goalnet_tpu_torch.data import dataset
+
+        def refuse(*a, **kw):
+            raise AssertionError("a refused run decoded its videos")
+
+        monkeypatch.setattr(dataset, "build_datasets", refuse)
+
+    @pytest.mark.parametrize("verb,flags,message", [
+        ("train", ["--dp"], "ROADMAP.md §1 item 6"),
+        ("train", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
+        ("train", ["--commentary"], "ROADMAP.md §1 item 5"),
+        ("train", ["--moe-experts", "4"], "ROADMAP.md §1 item 5"),
+        ("eval", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
+        ("eval", ["--commentary"], "ROADMAP.md §1 item 5"),
+    ])
+    def test_unported_flags_exit_2_before_any_decode(self, env, capsys, verb, flags, message):
+        assert cli.main([verb, *_data_args(env["meta"], env["cfg"], env["work"], *flags)]) == 2
+        assert message in capsys.readouterr().err
+
+    def test_baseline_refuses_an_unported_config(self, env, small_cfg, tmp_path, capsys):
+        path = str(tmp_path / "moe.json")
+        dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, fusion_moe_experts=4)).save(path)
+        assert cli.main(["baseline", *_data_args(env["meta"], path, env["work"])]) == 2
+        assert "ROADMAP.md §1 item 5" in capsys.readouterr().err
+
+
+class TestEvalTrunk:
+    def test_eval_matches_jax(self, env, small_cfg, capsys):
+        """``eval`` of the JAX-written trunk prints the JAX package's numbers (loss 1e-5 relative, F equal)."""
+        from cvml_goalnet_tpu import cli as jcli
+
+        args = _data_args(env["meta"], env["cfg"], env["work"])
+        outs = []
+        for main in (jcli.main, cli.main):
+            assert main(["eval", *args]) == 0
+            outs.append([ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[eval]")])
+        for got, want in zip(*outs[::-1]):
+            g, w = got.split(" - "), want.split(" - ")
+            assert g[0] == w[0] and g[2:] == w[2:]
+            assert float(g[1].split(": ")[1]) == pytest.approx(float(w[1].split(": ")[1]), rel=1e-3)   # 4 decimals
+
+    def test_missing_trunk(self, env, tmp_path, capsys):
+        assert cli.main(["eval", *_data_args(env["meta"], env["cfg"], str(tmp_path))]) == 2
+        assert "no opt/ckp checkpoint" in capsys.readouterr().err
+
+    def test_trunk_of_another_structure(self, env, small_cfg, tmp_path, capsys):
+        other = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, fusion_hidden=(8,)))
+        save_checkpoint(str(tmp_path / "models" / "importance"), create_train_state(jax.random.PRNGKey(0), other),
+                        other, tag="opt")
+        assert cli.main(["eval", *_data_args(env["meta"], env["cfg"], str(tmp_path))]) == 2
+        assert "does not match the current config" in capsys.readouterr().err
+
+    def test_train_without_a_card_or_the_variable_raises(self, env, tmp_path, monkeypatch):
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        monkeypatch.delenv("GOALNET_PLATFORM")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["train", *_data_args(env["meta"], env["cfg"], str(tmp_path), "--epochs", "1")])

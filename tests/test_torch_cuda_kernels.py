@@ -12,8 +12,9 @@ are built for and widths between and past them (the wide path), every split
 of the full forward and of the banded backward, bands from 0 to past T, key
 bounds with dead rows and a query offset.  The forwards hold out to 3e-5 and lse to 1e-5 against the plain
 versions, the backwards dq, dk and dv to 1e-4·max(1, max|plain|): the
-tolerances of ``tests/test_flash_attention.py``.  The spotting path and one
-train step per scorer are held against the CPU.
+tolerances of ``tests/test_flash_attention.py``.  The spotting path, one
+train step per scorer and one video of the summarization train function are
+held against the CPU.
 """
 
 import numpy as np
@@ -943,6 +944,80 @@ def test_spotting_train_step_card_matches_cpu(dev):
         np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
         for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
             torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, b.abs().max().item()), rtol=0)
+
+
+def _summarization_train_setup(classifier=False):
+    """A small summarization config at dropout 0 (Adam's eps 1e-4, as the CPU parity runs), a seeded state on
+    each device, and one 13-frame video's items (3 sub-batches of 5)."""
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch.config import AudioConfig, TrainConfig
+    from cvml_goalnet_tpu_torch.data.dataset import VideoItem
+    from cvml_goalnet_tpu_torch.data.synthetic import synthetic_change_points
+    from cvml_goalnet_tpu_torch.train.state import create_train_state
+
+    cfg = PipelineConfig(
+        preprocess=PreprocessConfig(frame_size=(24, 24)),
+        audio=AudioConfig(n_fft=512, hop_length=128, n_mels=40, n_mfcc=13, bin_length=12),
+        model=ModelConfig(vis_channels=(8, 16, 16), vis_feature_dim=32, aud_channels=(8, 16), aud_feature_dim=16,
+                          fusion_hidden=(32, 16), dropout_rate=0.0),
+        train=TrainConfig(subbatch_size=5, eps=1e-4))
+    rng = np.random.default_rng(150)
+    n = 13
+    item = VideoItem(video_id="v", title="v", visual=torch.as_tensor(rng.random((n, 24, 24, 3)).astype(np.float32)),
+                     audio=torch.as_tensor(rng.random((n, 12, 13)).astype(np.float32)),
+                     labels=rng.integers(1, 6, n).astype(np.float32),
+                     gd_summary_masks=(rng.random((20, n * 30)) < 0.15).astype(np.uint8), full_n_frames=n * 30,
+                     clip_intervals=synthetic_change_points(n * 30, 6, seed=150))
+    states = {d: create_train_state(151, cfg, classifier, device=d) for d in ("cuda", "cpu")}
+    items = {"cpu": item, "cuda": dataclasses.replace(item, visual=item.visual.cuda(), audio=item.audio.cuda())}
+    return cfg, states, items
+
+
+@pytest.mark.parametrize("classifier", [False, True])
+def test_summarization_train_step_card_matches_cpu(dev, classifier):
+    """One video through the summarization train function on the card (plain ops forward and backward, TF32 off
+    in both) against the CPU: first sub-batch gradients 1e-4·max(1, max|g|) per leaf, the video's loss 1e-4
+    relative; the train forward launches no kernel."""
+    from cvml_goalnet_tpu_torch.train import loop as TL
+
+    cfg, states, items = _summarization_train_setup(classifier)
+    fn = TL.make_train_video_fn(cfg, classifier)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        st = states[where]
+        v, a, lab, valid, _ = TL._pad_video(items[where], 5, torch.device(where))
+        g = fn.value_and_grad(st.params, st.model_state, v[:5], a[:5], lab[:5], valid[:5], None)[3]
+        before = (fused_conv_pool_stage.launches, head_matmul.launches, fused_fusion_mlp.launches)
+        out = fn(st.params, st.model_state, st.opt_state, v, a, lab, valid, None)
+        assert (fused_conv_pool_stage.launches, head_matmul.launches, fused_fusion_mlp.launches) == before
+        runs[where] = ([t.cpu() for t in _leaves(g)], float(out[4]), out[2].step)
+    assert runs["cuda"][2] == runs["cpu"][2] == 3
+    assert runs["cuda"][1] == pytest.approx(runs["cpu"][1], rel=1e-4)
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, b.abs().max().item()), rtol=0)
+
+
+def test_summarization_eval_launches_kernels_2_to_4(dev):
+    """``eval_video`` on the card runs the eval forward under no grad: kernel 2 twice, kernels 3 and 4 once, and
+    its predictions within 1e-4 of the CPU's (the eval-mode train-batchnorm compat path launches none)."""
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch.train import loop as TL
+
+    cfg, states, items = _summarization_train_setup()
+    before = (fused_conv_pool_stage.launches, head_matmul.launches, fused_fusion_mlp.launches)
+    got, loss = TL.eval_video(states["cuda"], items["cuda"], cfg)
+    assert (fused_conv_pool_stage.launches, head_matmul.launches, fused_fusion_mlp.launches) == tuple(
+        b + k for b, k in zip(before, (2, 1, 1)))
+    want, want_loss = TL.eval_video(states["cpu"], items["cpu"], cfg)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert loss == pytest.approx(want_loss, rel=1e-4)
+    compat = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, eval_train_mode_compat=True))
+    before = (fused_conv_pool_stage.launches, head_matmul.launches, fused_fusion_mlp.launches)
+    got, _ = TL.eval_video(states["cuda"], items["cuda"], compat)
+    assert (fused_conv_pool_stage.launches, head_matmul.launches, fused_fusion_mlp.launches) == before
+    np.testing.assert_allclose(got, TL.eval_video(states["cpu"], items["cpu"], compat)[0], atol=1e-4)
 
 
 def _leaves(tree):
