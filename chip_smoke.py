@@ -115,7 +115,31 @@ From the repository root, on a machine with a CUDA card:
     step time, the epoch split into train, eval and checkpoint, steps per
     second, one traced epoch's busy share and copies, the resident state's
     bytes and each verb's wall;
-11. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+11. serving (``serve.py`` and the verbs that reach it) at the full width of
+    ``configs/reference_parity.json``: (a) ``Summarizer.summarize_path`` on
+    a video of phase 9's shape with its ``.wav`` against ``extract_features``
+    → ``fuse`` → ``summarize(native-full)``; (b) a warmed ``DynamicBatcher``
+    (buckets 256–2048, 5 ms) taking 24 requests of 30–300 condensed 180×320
+    frames with audio from 8 threads, each against ``summarize_frames`` of
+    the same request, kernel 1 never launched there, then a 0-frame and a
+    grayscale rider and the request after them, with frames/s and the split
+    between the requests' host work and the batched fuse; (c)
+    ``Spotter.spot_frames`` on phase 5's match (``configs/tpu_spotting.json``,
+    p50 of three) against the path run directly, and the hybrid of
+    ``configs/tpu_spotting_quality.json`` once; (d) two HTTP servers on
+    ``127.0.0.1:0`` over one Summarizer, one with the batcher, and a
+    ``--no-audio`` banded spotter: 32 ``/summarize`` requests from 8 clients
+    to each (p50/p95, requests/s, every answer against ``summarize_path``),
+    ``/spot`` and ``/spot-stream`` (time to the first line, streamed scores
+    against the offline ones) on a 300-frame video, ``/reload`` in the middle
+    of a load after the trunk's npz is rewritten, ``/metrics`` counts, a 403
+    and a 404; (e) ``cli.main`` of ``spot-train`` (banded, ``--val-videos``,
+    ``--early-stop``), ``spot`` and ``spot --stream`` with its head against
+    the direct path, ``serve --max-requests 3`` driven by a client thread,
+    and ``profile --repeats 3 --trace-dir`` with its trace's busy share.
+    The videos of (d) and (e) are 72×96 raw, as in phase 10 (cut: the model
+    resizes to 40×40 either way), and repeat one seeded block of 500 frames;
+12. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
     as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and read
@@ -1344,9 +1368,20 @@ def knapsack_phase(seed: int, smi: str) -> None:
           f"picks the faster engine at {agree} of {len(sweep)} points; {json.dumps(sweep)}", flush=True)
 
 
+_matches: dict = {}
+
+
 def make_match(cfg: PipelineConfig, seed: int) -> dict:
     """One synthetic match: 600-frame segments as uint8 (the generator's float64
-    temporaries for 5400 frames at once would take about 22 GB), its audio and clips."""
+    temporaries for 5400 frames at once would take about 22 GB), its audio and clips.
+    Made once per seed and shape: phase 11 serves the match phase 5 spots (about a minute to make)."""
+    key = (seed, cfg.preprocess.skip_frames, cfg.audio.sample_rate, MATCH_FRAMES)
+    if key not in _matches:
+        _matches[key] = _make_match(cfg, seed)
+    return _matches[key]
+
+
+def _make_match(cfg: PipelineConfig, seed: int) -> dict:
     skip = cfg.preprocess.skip_frames
     per_frame = cfg.audio.sample_rate * skip // 30
     frames = np.concatenate([synthetic_video_frames(SEGMENT_FRAMES, *RAW_HW, seed=seed + 100 + i)
@@ -2266,6 +2301,553 @@ def training_journey_phase(seed: int, smi: str, launches_by_path: dict) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------- phase 11: serving
+
+SERVE_REQUESTS = 24                               # batcher requests of 30-300 condensed 180×320 frames
+SERVE_THREADS = 8                                 # client threads, in the batcher and over HTTP
+HTTP_VIDEO_FRAMES = (1_800, 2_700, 3_600, 4_500)  # raw 72×96 frames of the HTTP videos: 60-150 condensed
+HTTP_SPOT_FRAMES = 9_000                          # raw frames of the /spot video: 300 condensed
+HTTP_REQUESTS = 32                                # /summarize requests per server
+SPOT_WINDOW = 64                                  # --attn-window of the --no-audio banded spotter and the CLI verbs
+
+
+def write_video(path: str, n: int, hw, seed: int, cfg: PipelineConfig | None = None) -> np.ndarray:
+    """``n`` raw frames saved as ``.npz``, with a ``.wav`` sidecar when ``cfg`` is given → the raw frames.  The
+    frames repeat one seeded block of 500 (the generator takes about 10 ms a 180×320 frame); 500 is no multiple
+    of ``skip_frames``, so the condensed frames seldom repeat."""
+    raw = np.resize(synthetic_video_frames(min(n, 500), *hw, seed=seed), (n, *hw, 3))
+    np.savez(path, frames=raw)
+    if cfg is not None:
+        write_wav(path[:-4] + ".wav", synthetic_waveform(int(n / 30 * cfg.audio.sample_rate), cfg.audio.sample_rate,
+                                                         seed=seed), cfg.audio.sample_rate)
+    return raw
+
+
+def write_events(path: str, n_condensed: int, skip: int, seed: int) -> None:
+    """A seeded ``.events.json`` sidecar: about one event per 20 condensed frames, in raw frame indices."""
+    rng = np.random.default_rng(seed)
+    picked = np.sort(rng.choice(n_condensed, max(2, n_condensed // 20), replace=False))
+    with open(path[:-4] + ".events.json", "w") as f:
+        json.dump([int(i * skip + rng.integers(0, skip)) for i in picked], f)
+
+
+def same_summary(got_scores, got_clips, want_scores, want_clips, tol: float, what: str) -> list[dict]:
+    """Scores within ``tol``; clips equal, or else every frame whose rounded score differs lies within ``tol`` of
+    a .5 boundary (a flip, reported)."""
+    got_scores, want_scores = np.asarray(got_scores), np.asarray(want_scores)
+    require(got_scores.shape == want_scores.shape, f"{what}: scores {got_scores.shape} vs {want_scores.shape}")
+    err = float(np.abs(got_scores - want_scores).max()) if len(got_scores) else 0.0
+    require(err <= tol, f"{what}: scores max |err| {err} > {tol}")
+    flips = rounding_flips(want_scores, got_scores, tol)
+    require(np.array_equal(np.asarray(got_clips), np.asarray(want_clips)) or flips,
+            f"{what}: clips differ with no score at a rounding boundary")
+    return flips
+
+
+def percentiles(walls: list[float]) -> dict:
+    w = sorted(walls)
+    return {"p50_ms": 1e3 * w[len(w) // 2], "p95_ms": 1e3 * w[min(len(w) - 1, int(len(w) * 0.95))],
+            "max_ms": 1e3 * w[-1], "n": len(w)}
+
+
+def http(port: int, path: str, body: dict | None = None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method="GET" if body is None else "POST",
+                                 data=None if body is None else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def http_stream(port: int, body: dict) -> tuple[list[dict], float]:
+    """A /spot-stream response's lines and the seconds to its first line."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/spot-stream", data=json.dumps(body).encode(),
+                                 method="POST")
+    t0, first, lines = time.perf_counter(), None, []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if first is None:
+                first = time.perf_counter() - t0
+            if line.strip():
+                lines.append(json.loads(line))
+    return lines, first
+
+
+def verb_payload(text: str) -> dict:
+    """The indented JSON payload a verb prints (the lines around it are left)."""
+    return json.JSONDecoder().raw_decode(text[text.index("{\n"):])[0]
+
+
+class PortWatch:
+    """A stdout that keeps what is written and finds the port in the ``serve`` verb's "serving on" line."""
+
+    def __init__(self, echo):
+        self.echo, self.text, self.port = echo, "", None
+        self.ready = threading.Event()
+
+    def write(self, text):
+        self.echo.write(text)
+        self.text += text
+        m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", self.text)
+        if m and not self.ready.is_set():
+            self.port = int(m.group(1))
+            self.ready.set()
+        return len(text)
+
+    def flush(self):
+        self.echo.flush()
+
+    def isatty(self):
+        return False
+
+
+def trace_busy_share(path: str) -> dict:
+    """From a Chrome trace of ``torch.profiler``: the card's busy time (the union of its kernels, copies and sets)
+    over the trace's span, and the stage regions' walls."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, cur = 0.0, None
+    for a, b in device:
+        if cur is None or a > cur[1]:
+            busy += (cur[1] - cur[0]) if cur else 0.0
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += (cur[1] - cur[0]) if cur else 0.0
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    stages = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in ("decode", "audio_load", "features", "score",
+                                                               "postprocess"):
+            stages[e["name"]] = stages.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {"device_busy_ms": busy / 1e3, "span_ms": span / 1e3, "busy_share": busy / span if span else None,
+            "device_events": len(device), "stage_region_ms": stages}
+
+
+def summarizer_check(s, video: str, raw: np.ndarray, cfg: PipelineConfig, launches_by_path: dict) -> dict:
+    """11a: ``Summarizer.summarize_path`` against ``extract_features`` → ``fuse`` → ``summarize(native-full)``."""
+    from cvml_goalnet_tpu_torch.data.audio_io import load_waveform
+
+    skip = cfg.preprocess.skip_frames
+    got = drive("serve_summarizer", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                lambda: s.summarize_path(video), launches_by_path)
+    frames = raw[::skip]
+    waveform, _ = load_waveform(video[:-4] + ".wav", cfg.audio.sample_rate)
+    feats = extract_features(frames, waveform, cfg)
+    scores = fuse(s.state.params, s.state.model_state, feats, cfg)
+    want = summarize(scores, uniform_clip_intervals(cfg, len(raw)), skip, len(raw), cfg.knapsack,
+                     knapsack_engine="native-full")
+    flips = same_summary(got.scores, got.clips, scores, want.clip_intervals, 1e-4, "11a summarize_path")
+    require(got.frame_mask.shape == (len(raw),) and (flips or np.array_equal(got.frame_mask, want.frame_mask)),
+            "11a: the mask differs")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s.summarize_path(video)
+        walls.append(time.perf_counter() - t0)
+    return {"max_abs_err": float(np.abs(got.scores - scores).max()), "rounding_flips": flips,
+            "summarize_path": percentiles(walls), "clips": len(got.clips)}
+
+
+def batcher_check(s, match: dict, cfg: PipelineConfig, seed: int, launches_by_path: dict) -> dict:
+    """11b: ``SERVE_REQUESTS`` requests from ``SERVE_THREADS`` threads through a warmed ``DynamicBatcher``, each
+    against ``summarize_frames`` of the same request; then a 0-frame and a grayscale rider."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cvml_goalnet_tpu_torch.serve import DynamicBatcher
+
+    rng = np.random.default_rng(seed + 500)
+    per = match["per_frame"]
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        n = int(rng.integers(30, 301))
+        a = int(rng.integers(0, MATCH_FRAMES - n))
+        reqs.append((match["frames"][a:a + n], match["waveform"][a * per:(a + n) * per]))
+    batcher = DynamicBatcher(s)
+    out = {"buckets": list(batcher.buckets), "max_wait_ms": batcher.max_wait_ms}
+    try:
+        t0 = time.perf_counter()
+        batcher.warmup()
+        out["warmup_s"] = time.perf_counter() - t0
+        fuse_s = []
+        real_chunked = batcher._scores_chunked
+
+        def timed_chunked(visual, audio):
+            t = time.perf_counter()
+            r = real_chunked(visual, audio)
+            fuse_s.append(time.perf_counter() - t)
+            return r
+
+        batcher._scores_chunked = timed_chunked
+        submit_s = [0.0] * len(reqs)
+
+        def one(i):
+            t = time.perf_counter()
+            fut = batcher.submit(f"r{i}", reqs[i][0], waveform=reqs[i][1])
+            submit_s[i] = time.perf_counter() - t
+            return fut.result()
+
+        def run():
+            with ThreadPoolExecutor(SERVE_THREADS) as pool:
+                return list(pool.map(one, range(len(reqs))))
+
+        t0 = time.perf_counter()
+        got = drive("serve_batcher", TRUNK + ("fused_fusion_mlp",), run, launches_by_path)
+        wall = time.perf_counter() - t0
+        require(launches_by_path["serve_batcher"]["fused_preprocess_frames"] == 0,
+                "11b: kernel 1 launched in the batcher (it preprocesses on the host)")
+        frames = sum(len(r[0]) for r in reqs)
+        st = dict(batcher.stats)
+        require(st["requests"] == len(reqs) and st["batches"] < st["requests"] and st["batched_frames"] == frames,
+                f"11b: batcher stats {st}")
+        errs, flips = [], []
+        for i, (g, (fr, wave)) in enumerate(zip(got, reqs)):
+            want = s.summarize_frames(f"r{i}", fr, waveform=wave)
+            errs.append(float(np.abs(g.scores - want.scores).max()))
+            flips += same_summary(g.scores, g.clips, want.scores, want.clips, 1e-4, f"11b request {i}")
+        out.update({"requests": len(reqs), "frames": frames, "wall_s": wall, "frames_per_s": frames / wall,
+                    "stats": st, "max_abs_err": max(errs), "rounding_flips": flips,
+                    "submit_s_sum": sum(submit_s), "submit_s_max": max(submit_s),
+                    "batched_fuse_s_sum": sum(fuse_s), "batched_fuse_calls": len(fuse_s)})
+        empty = batcher.submit("empty", match["frames"][:0], waveform=match["waveform"][:per]).result()
+        require(empty.scores.shape == (0,) and empty.frame_mask.shape == (0,), "11b: the 0-frame rider")
+        gray = batcher.submit("gray", match["frames"][:20, :, :, :1])
+        try:
+            gray.result()
+        except Exception as e:   # the worker's error, carried by the rider's future
+            out["grayscale_rider"] = repr(e)[:160]
+        require("grayscale_rider" in out, "11b: a grayscale rider was answered")
+        nxt = batcher.submit("next", reqs[0][0], waveform=reqs[0][1]).result()
+        require(np.array_equal(nxt.scores, got[0].scores) or float(np.abs(nxt.scores - got[0].scores).max()) <= 1e-4,
+                "11b: the request after the bad riders")
+    finally:
+        batcher.close()
+    return out
+
+
+def spotter_check(seed: int, match: dict, launches_by_path: dict) -> dict:
+    """11c: ``Spotter.spot_frames`` on the banded config against the path run directly; the hybrid once."""
+    from cvml_goalnet_tpu_torch.serve import Spotter
+
+    banded = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+    hybrid = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting_quality.json"))
+    sp = Spotter(banded, state=create_train_state(seed, banded))
+    t0 = time.perf_counter()
+    sp.warmup()
+    out = {"warmup_s": time.perf_counter() - t0}
+    full_n = match["full_n"]
+    walls = []
+    t0 = time.perf_counter()
+    got = drive("serve_spotter", ["fused_preprocess_frames", *TRUNK, "flash_local_fwd"],
+                lambda: sp.spot_frames("match", match["frames"], full_n, match["waveform"]), launches_by_path)
+    walls.append(time.perf_counter() - t0)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sp.spot_frames("match", match["frames"], full_n, match["waveform"])
+        walls.append(time.perf_counter() - t0)
+    feats = extract_features(match["frames"], match["waveform"], banded)
+    enc = encode_timeline(sp.state.params, sp.state.model_state, feats["visual"], feats["audio"], banded)
+    scores = score_timeline_auto(sp.temporal_params, enc, banded).cpu().numpy()
+    tol = score_tolerance(scores)
+    err = float(np.abs(got.scores - scores).max())
+    require(err <= tol, f"11c: spot_frames scores max |err| {err} > {tol}")
+    near = compare_events(got.scores, scores, tol)   # raises unless every differing event is a near tie
+    want = summarize(scores_to_importance(scores), uniform_clip_intervals(banded, full_n), banded.preprocess.skip_frames,
+                     full_n, banded.knapsack, knapsack_engine="native-full")
+    out.update({"max_abs_err": err, "tolerance": tol, "near_tie_events": near, "events": len(got.events),
+                "summary_clips_equal": bool(np.array_equal(got.summary_clips, want.clip_intervals)),
+                "spot_frames": percentiles(walls)})
+    hy = Spotter(hybrid, state=sp.state)
+    res = drive("serve_spotter_hybrid", [*TRUNK, "flash_local_fwd"],
+                lambda: hy.spot_frames("match", match["frames"], full_n, match["waveform"]), launches_by_path)
+    require(res.scores.shape == (MATCH_FRAMES,) and bool(np.isfinite(res.scores).all()), "11c: hybrid scores")
+    out["hybrid_events"] = len(res.events)
+    return out
+
+
+def http_check(cfg: PipelineConfig, seed: int, root: str, launches_by_path: dict) -> dict:
+    """11d: two servers on 127.0.0.1:0 over one Summarizer (one with the batcher) and a --no-audio banded spotter:
+    /summarize under load, /spot, /spot-stream, /reload mid-load, /metrics, 403 and 404."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cvml_goalnet_tpu_torch.serve import DynamicBatcher, Spotter, Summarizer, start_http_background
+
+    media = os.path.join(root, "media")
+    os.makedirs(media)
+    videos = []
+    for i, n in enumerate(HTTP_VIDEO_FRAMES):
+        path = os.path.join(media, f"h{i}.npz")
+        write_video(path, n, TRAIN_RAW_HW, seed + 600 + 10 * i, cfg)
+        videos.append(path)
+    spot_video = os.path.join(media, "match.npz")
+    write_video(spot_video, HTTP_SPOT_FRAMES, TRAIN_RAW_HW, seed + 700)
+    np.savez(os.path.join(root, "outside.npz"), frames=np.zeros((30, 8, 8, 3), np.uint8))
+    ckp = cli._artifact_paths(os.path.join(root, "work"), True)["ckp_dir"]
+    save_checkpoint(ckp, create_train_state(seed, cfg, device="cpu"), cfg, tag="opt")
+    spot_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, audio_included=False, temporal_model="transformer", temporal_window=SPOT_WINDOW))
+
+    s = Summarizer(cfg, checkpoint_dir=ckp)
+    sp = Spotter(spot_cfg, state=create_train_state(seed, spot_cfg))
+    batcher = DynamicBatcher(s)
+    t0 = time.perf_counter()
+    s.warmup()
+    batcher.warmup()
+    sp.warmup()
+    out = {"warmup_s": time.perf_counter() - t0}
+    refs = {v: s.summarize_path(v) for v in videos}
+    spot_ref = sp.spot_path(spot_video)
+    plain = start_http_background(s, port=0, media_root=media, spotter=sp)
+    batched = start_http_background(s, port=0, media_root=media, batcher=batcher)
+    sent = {"plain": {"/summarize": 0, "/spot": 0, "/spot-stream": 0, "/reload": 0}, "batched": {"/summarize": 0}}
+    try:
+        def load(name, port, n=HTTP_REQUESTS):
+            def one(i):
+                v = videos[i % len(videos)]
+                t = time.perf_counter()
+                code, payload = http(port, "/summarize", {"video": os.path.basename(v)})
+                return v, code, payload, time.perf_counter() - t
+
+            t = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_THREADS) as pool:
+                res = list(pool.map(one, range(n)))
+            wall = time.perf_counter() - t
+            sent[name]["/summarize"] += n
+            return res, wall
+
+        def phase():
+            results = {}
+            for name, server in (("plain", plain), ("batched", batched)):
+                res, wall = load(name, server.server_address[1])
+                flips = []
+                for v, code, payload, _ in res:
+                    require(code == 200, f"11d {name}: /summarize answered {code}: {payload}")
+                    ref = refs[v]
+                    require(payload["mask_frames"] == int(ref.frame_mask.sum()) or name == "batched",
+                            f"11d {name}: mask frames differ")
+                    # the wire rounds to 4 decimals: 1e-4 of host preprocess (batched) plus one unit of it
+                    flips += same_summary(payload["scores"], payload["clips"], ref.scores, ref.clips.tolist(),
+                                          2e-4 if name == "batched" else 5e-5 + 1e-6, f"11d {name}")
+                results[name] = {**percentiles([r[3] for r in res]), "requests_per_s": len(res) / wall,
+                                 "wall_s": wall, "rounding_flips": flips}
+            port = plain.server_address[1]
+            code, payload = http(port, "/spot", {"video": "match.npz"})
+            sent["plain"]["/spot"] += 1
+            require(code == 200 and payload["events_condensed_frames"] == spot_ref.events.tolist()
+                    and payload["summary_clips"] == spot_ref.summary_clips.tolist(), f"11d /spot: {code}")
+            lines, first = http_stream(port, {"video": "match.npz", "emit_scores": True})
+            sent["plain"]["/spot-stream"] += 1
+            streamed = np.concatenate([line["scores"] for line in lines if "scores" in line])
+            tol = score_tolerance(spot_ref.scores) + 1e-6
+            err = float(np.abs(streamed - spot_ref.scores).max())
+            require(lines[-1]["streamed_frames"] == len(spot_ref.scores) and err <= tol,
+                    f"11d /spot-stream: scores max |err| {err} > {tol}")
+            near = compare_events(streamed, spot_ref.scores, tol)
+            results["spot_stream"] = {"time_to_first_line_s": first, "lines": len(lines), "max_abs_err": err,
+                                      "near_tie_events": near}
+            return results
+
+        out.update(drive("serve_http", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp", "flash_local_fwd"],
+                         phase, launches_by_path))
+
+        # /reload in the middle of a load, after the trunk's npz is rewritten with other weights
+        port = plain.server_address[1]
+        save_checkpoint(ckp, create_train_state(seed + 1, cfg, device="cpu"), cfg, tag="opt")
+        with ThreadPoolExecutor(1) as pool:
+            during = pool.submit(load, "plain", port, 2 * SERVE_THREADS)
+            time.sleep(0.2)
+            code, payload = http(port, "/reload", {})
+            sent["plain"]["/reload"] += 1
+            res, _ = during.result()
+        require(code == 200 and payload["reloaded"] == {"summarizer": 1} and "spotter" in payload["skipped"],
+                f"11d /reload: {code} {payload}")
+        require(all(c == 200 for _, c, _, _ in res), "11d: a request failed during the reload")
+        new = Summarizer(cfg, checkpoint_dir=ckp).summarize_path(videos[0])
+        code, after = http(port, "/summarize", {"video": os.path.basename(videos[0])})
+        sent["plain"]["/summarize"] += 1
+        same_summary(after["scores"], after["clips"], new.scores, new.clips.tolist(), 5e-5 + 1e-6, "11d after reload")
+        require(s.reload_count == 1, f"11d: reload count {s.reload_count}")
+        outside = http(port, "/summarize", {"video": "../outside.npz"})[0]
+        missing = http(port, "/summarize", {"video": "missing.npz"})[0]
+        sent["plain"]["/summarize"] += 2
+        require((outside, missing) == (403, 404), f"11d: {outside} and {missing} for 403 and 404")
+        for name, server in (("plain", plain), ("batched", batched)):
+            m = http(server.server_address[1], "/metrics")[1]["endpoints"]
+            got = {ep: m.get(ep, {}).get("requests", 0) for ep in sent[name]}
+            require(got == sent[name], f"11d {name}: /metrics counts {got} != sent {sent[name]}")
+            if name == "plain":
+                require(m["/summarize"]["errors"] == 2, f"11d: /metrics errors {m['/summarize']}")
+                out["metrics_plain"] = m
+        out["reload"] = {"requests_during": len(res), "count": s.reload_count}
+        out["batcher_stats"] = dict(batcher.stats)
+    finally:
+        for server in (plain, batched):
+            server.shutdown()
+            server.server_close()
+        batcher.close()
+    return out
+
+
+def cli_check(cfg: PipelineConfig, seed: int, root: str, launches_by_path: dict) -> dict:
+    """11e: the verbs ``spot-train``, ``spot``, ``spot --stream``, ``serve --max-requests 3`` and ``profile``
+    in-process, ``--no-audio``, on the 72×96 videos of 11d with seeded ``.events.json`` sidecars."""
+    from cvml_goalnet_tpu_torch import spotting
+    from cvml_goalnet_tpu_torch.data.dataset import build_video_item
+    from cvml_goalnet_tpu_torch.serve import trunk_feature_dim
+
+    media = os.path.join(root, "media")
+    videos = [os.path.join(media, f"h{i}.npz") for i in range(len(HTTP_VIDEO_FRAMES))]
+    skip = cfg.preprocess.skip_frames
+    for i, (v, n) in enumerate(zip(videos, HTTP_VIDEO_FRAMES)):
+        write_events(v, n // skip, skip, seed + 800 + i)
+    no_audio = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, audio_included=False))
+    work = os.path.join(root, "cli")
+    save_checkpoint(cli._artifact_paths(work, False)["ckp_dir"], create_train_state(seed, no_audio, device="cpu"),
+                    no_audio, tag="opt")
+    cfg_path = os.path.join(root, "cfg.json")
+    cfg.save(cfg_path)
+    head = os.path.join(root, "head.npz")
+    common = ["--config", cfg_path, "--workdir", work, "--no-audio"]
+    temporal = ["--temporal-model", "transformer", "--attn-window", str(SPOT_WINDOW)]
+    band_cfg = dataclasses.replace(no_audio, model=dataclasses.replace(
+        no_audio.model, temporal_model="transformer", temporal_window=SPOT_WINDOW))
+    out, walls = {}, {}
+
+    def verb(label, expect, argv, stdout=None):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout or Tee(buf, sys.stdout)):
+            rc = drive(label, expect, lambda: cli.main(argv), launches_by_path)
+        walls[label] = time.perf_counter() - t0
+        require(rc == 0, f"{label}: exit code {rc}")
+        return buf.getvalue()
+
+    text = verb("cli_spot_train", ["fused_preprocess_frames", *TRUNK, "flash_local_fwd", "flash_local_bwd"],
+                ["spot-train", "--videos", *videos[:2], "--val-videos", videos[2], *common, *temporal,
+                 "--epochs", "3", "--early-stop", "2", "--out", head])
+    epochs = re.findall(r"^epoch (\d+): loss ([-\d.]+) val-loss ([-\d.]+) val-mAP ([-\d.]+)$", text, re.M)
+    require(len(epochs) >= 1 and os.path.exists(head), "11e: spot-train printed no epochs or saved no head")
+    out["spot_train_epochs"] = [[float(x) for x in e] for e in epochs]
+
+    target = videos[3]
+    text = verb("cli_spot", ["fused_preprocess_frames", *TRUNK, "flash_local_fwd"],
+                ["spot", target, *common, *temporal, "--temporal-checkpoint", head])
+    payload = verb_payload(text)
+    state = load_checkpoint(cli._artifact_paths(work, False)["ckp_dir"], create_train_state(seed, no_audio), tag="opt")
+    tparams = weights.tree_from_jax(weights.load_spotting_checkpoint(
+        head, weights.init_temporal_params(band_cfg.model, trunk_feature_dim(band_cfg), seed=1)))
+    item = build_video_item(target, band_cfg, None, None, False)
+    direct = summarize_match(state.params, state.model_state, tparams, item.visual, None, item.clip_intervals,
+                             band_cfg, full_n_frames=item.full_n_frames)
+    require(payload["events_condensed_frames"] == direct.events.tolist(), "11e: spot's events differ from the path's")
+    out["spot_events"] = len(direct.events)
+
+    kept = []
+    real_stream = spotting.spot_stream
+
+    def keep(*a, **kw):
+        for u in real_stream(*a, **kw):
+            kept.append(np.asarray(u.scores))
+            yield u
+
+    spotting.spot_stream = keep
+    try:
+        text = verb("cli_spot_stream", [*TRUNK, "flash_local_fwd"],
+                    ["spot", target, *common, *temporal, "--temporal-checkpoint", head, "--stream",
+                     "--stream-chunk", "64"])
+    finally:
+        spotting.spot_stream = real_stream
+    summary = verb_payload(text)
+    streamed = np.concatenate(kept)
+    tol = score_tolerance(direct.scores)
+    require(float(np.abs(streamed - direct.scores).max()) <= tol, "11e: streamed scores differ from offline")
+    near = compare_events(streamed, direct.scores, tol)
+    require(near or summary["events_condensed_frames"] == payload["events_condensed_frames"],
+            "11e: --stream's events differ from offline")
+    out["spot_stream_near_ties"] = near
+
+    watch = PortWatch(sys.stdout)
+    answers = {}
+
+    def client():
+        if not watch.ready.wait(600):
+            return
+        answers["healthz"] = http(watch.port, "/healthz")
+        answers["summarize"] = http(watch.port, "/summarize", {"video": os.path.basename(target)})
+        answers["spot"] = http(watch.port, "/spot", {"video": os.path.basename(target)})
+
+    c = threading.Thread(target=client)
+    c.start()
+    try:
+        verb("cli_serve", [*TRUNK, "fused_fusion_mlp", "flash_local_fwd"],
+             ["serve", *common, *temporal, "--port", "0", "--media-root", media, "--batch", "--spot",
+              "--temporal-checkpoint", head, "--warmup", "--max-requests", "3"], stdout=watch)
+    finally:
+        watch.ready.set()
+        c.join()
+    require(answers.get("healthz", (0,))[0] == 200 and answers.get("summarize", (0,))[0] == 200
+            and answers.get("spot", (0,))[0] == 200, f"11e: serve answered {({k: v[0] for k, v in answers.items()})}")
+    require(answers["spot"][1]["events_condensed_frames"] == direct.events.tolist(), "11e: serve's /spot events")
+
+    tdir = os.path.join(root, "trace")
+    text = verb("cli_profile", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                ["profile", target, *common, "--repeats", "3", "--trace-dir", tdir])
+    prof = verb_payload(text)
+    require(set(prof["stages_mean_s"]) == {"decode", "features", "score", "postprocess"}
+            and prof["backend"] == "cuda" and os.path.exists(prof["trace_file"]), f"11e: profile {prof}")
+    out["profile"] = {k: prof[k] for k in ("stages_mean_s", "first_pass_s", "total_mean_s", "condensed_fps")}
+    out["profile_trace"] = trace_busy_share(prof["trace_file"])
+    out["walls_s"] = walls
+    return out
+
+
+def serving_phase(seed: int, smi: str, launches_by_path: dict) -> None:
+    """Phase 11: serving on the card — ``Summarizer``, ``DynamicBatcher``, ``Spotter``, the HTTP server and the
+    verbs ``spot-train``, ``spot``, ``serve`` and ``profile`` — each against the path it wraps."""
+    from cvml_goalnet_tpu_torch.serve import Summarizer
+
+    os.environ.pop("GOALNET_PLATFORM", None)   # the CLI runs on the card, as a user's call would
+    t_phase = time.perf_counter()
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        video = os.path.join(root, "video.npz")
+        raw = write_video(video, sum(INFER_SEGMENTS), RAW_HW, seed + 300, cfg)
+        ckp = cli._artifact_paths(os.path.join(root, "work"), True)["ckp_dir"]
+        save_checkpoint(ckp, create_train_state(seed, cfg, device="cpu"), cfg, tag="opt")
+        print(f"phase 11: a video of phase 9's shape ({len(raw)} raw frames of {RAW_HW}) with its wav, and a trunk, "
+              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+        s = Summarizer(cfg, checkpoint_dir=ckp)
+        t0 = time.perf_counter()
+        s.warmup()
+        warm = time.perf_counter() - t0
+        res = summarizer_check(s, video, raw, cfg, launches_by_path)
+        print(f"phase 11a: Summarizer on {smi}: warmup {warm:.2f} s; {json.dumps(res)}", flush=True)
+        del raw
+        t0 = time.perf_counter()
+        match = make_match(PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json")), seed)
+        print(f"phase 11: phase 5's match in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"phase 11b: DynamicBatcher on {smi}: {json.dumps(batcher_check(s, match, cfg, seed, launches_by_path))}",
+              flush=True)
+        print(f"phase 11c: Spotter on {smi}: {json.dumps(spotter_check(seed, match, launches_by_path))}", flush=True)
+        del match
+        _matches.clear()
+        t0 = time.perf_counter()
+        res = http_check(cfg, seed, root, launches_by_path)
+        print(f"phase 11d: HTTP on {smi} (raw frames {TRAIN_RAW_HW}; made and served in "
+              f"{time.perf_counter() - t0:.1f} s): {json.dumps(res)}", flush=True)
+        print(f"phase 11e: CLI verbs on {smi}: {json.dumps(cli_check(cfg, seed, root, launches_by_path))}", flush=True)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2385,6 +2967,7 @@ def main() -> int:
     del enc, train_runs
     infer_phase(args.seed, smi, launches_by_path)
     training_journey_phase(args.seed, smi, launches_by_path)
+    serving_phase(args.seed, smi, launches_by_path)
     print(f"total script {time.perf_counter() - t_start:.1f} s")
 
     table = []

@@ -12,9 +12,15 @@ training of those heads, ``make_spotting_train_step`` / ``init_spotting_opt``
 / ``save_spotting_checkpoint`` (``train/spotting.py``, Adam from
 ``train/optim.py``); and training of the summarization model,
 ``train/loop.py::train_importance_model`` (with ``train/resilience.py``,
-``baseline.py`` and the CLI verbs ``train``, ``eval`` and ``baseline``).
-Entry points run on the card unless the caller passes ``device="cpu"``; the
-training steps run where their tensors are.
+``baseline.py`` and the CLI verbs ``train``, ``eval`` and ``baseline``); and
+serving (``serve.py``): the long-lived ``Summarizer`` and ``Spotter``, the
+cross-request ``DynamicBatcher`` and the JSON-over-HTTP server
+``serve_http`` (``/summarize``, ``/spot``, ``/spot-stream``, ``/reload``,
+``/metrics``, ``/healthz``).  The CLI (``cli.py``, ``goalnet-torch``) has
+the verbs ``train``, ``eval``, ``baseline``, ``infer``, ``profile``,
+``spot``, ``spot-train`` and ``serve``.  Entry points run on the card unless
+the caller passes ``device="cpu"``; the training steps run where their
+tensors are.
 """
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig

@@ -1,8 +1,7 @@
-"""CLI of the port: ``goalnet-torch {train,eval,baseline,infer}``.
+"""CLI of the port: ``goalnet-torch {train,eval,baseline,infer,profile,spot,spot-train,serve}``.
 
-Port of the ``train``, ``eval``, ``baseline`` and ``infer`` verbs of
-``cvml_goalnet_tpu/cli.py`` (reference ``main.py:351-373``) with the JAX
-parser's flags:
+Port of those verbs of ``cvml_goalnet_tpu/cli.py`` (reference
+``main.py:351-373``) with the JAX parser's flags:
 
 * ``train``: ``build_datasets`` (kernel 1 once a video on the card), then
   ``train/loop.py::train_importance_model`` with the ``opt`` and ``ckp``
@@ -20,13 +19,32 @@ parser's flags:
   writes only the selected clips, visual-only trunks; ``--host-preprocess``
   / ``--transfer-dtype``: normalise and resize on the host and ship small
   frames (kernel 1 does not run); ``--follow``: VIDEO is a live segment
-  directory (``data/follow.py``).
+  directory (``data/follow.py``);
+* ``profile``: the summarize path's stages (decode, audio_load, features,
+  score, postprocess) timed over ``--repeats`` passes, each stage ending on
+  ``torch.cuda.synchronize()`` on the card; ``--trace-dir`` writes a
+  ``torch.profiler`` trace whose regions carry the stage names;
+* ``spot``: event spotting over one video with a ``spot-train`` head
+  (``--temporal-checkpoint``): the trunk (kernels 1–3), the GRU,
+  transformer (kernel 5, or 7 banded) or hybrid head, peaks, and a knapsack
+  highlight summary; ``--classes`` per class; ``--eval-events`` against the
+  ``.events.json`` sidecar; ``--stream`` emits each event as a jsonl line the
+  moment it is final, ``--follow`` over a live segment directory;
+* ``spot-train``: trains the temporal head on ``.events.json`` labels on one
+  device (kernels 5 and 6, or 7 and 8 banded, for the transformer), with
+  ``--val-videos`` and ``--early-stop``; saves the head for ``spot``;
+* ``serve``: the HTTP service of ``serve.py`` (``/summarize``, ``/spot``,
+  ``/spot-stream``, ``/reload``, ``/metrics``, ``/healthz``), ``--batch``
+  for cross-request batching, ``--warmup`` to build every kernel first,
+  ``--max-requests N`` to exit after N requests.
 
 The trunk is the npz checkpoint the JAX package's ``train`` writes (the
 same layout both ways, ``train/checkpoint.py``).  Flags for what the port
 does not run yet exit 2 before any decode, naming the ROADMAP item that
-brings it: the orbax backend and ``--dp`` (item 6), ``--commentary`` and
-``--moe-experts`` (item 5).  The JAX CLI's other verbs are later slices.
+brings it: the orbax backend, ``train --dp``, ``serve --dp`` and
+``spot-train --cp/--dp-timelines/--tp/--pp`` (item 6), ``--commentary`` and
+``--moe-experts`` (item 5).  The JAX CLI's ``import-torch`` and
+``export-torch`` are not ported.
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
@@ -34,6 +52,8 @@ variable it raises.
 
     python -m cvml_goalnet_tpu_torch.cli train --videos A.npz B.npz --annotation-fp anno.tsv ...
     python -m cvml_goalnet_tpu_torch.cli infer VIDEO [--no-audio] [--stream] ...
+    python -m cvml_goalnet_tpu_torch.cli spot VIDEO --temporal-checkpoint head.npz [--stream] ...
+    python -m cvml_goalnet_tpu_torch.cli serve --workdir work [--batch] [--spot] [--warmup] ...
 """
 
 from __future__ import annotations
@@ -393,6 +413,581 @@ def _run_infer_stream(args, cfg, state, store, device) -> int:
     return 0
 
 
+SERVE_DP_NOT_PORTED = (
+    "serve --dp (data-parallel serving over a device mesh) is not ported yet (ROADMAP.md §1 item 6, with the "
+    "multi-GPU paths); the port serves on one device"
+)
+SPOT_MESH_NOT_PORTED = (
+    "{flag} (mesh training of the temporal head: context, DP×CP, 3-D or pipeline parallel) is not ported yet "
+    "(ROADMAP.md §1 item 6, with the multi-GPU paths); the port trains the head on one device"
+)
+
+
+def _sync(device) -> None:
+    """Wait for the card's queued work, so a stage's wall is the card's work and not its launches."""
+    if device is None or str(device).startswith("cuda"):
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def cmd_profile(args) -> int:
+    """Per-stage wall-clock profile of the summarize path on one video.
+
+    decode → audio_load → features (kernel 1 and the MFCC frontend) → score
+    (kernels 2–4) → postprocess (the knapsack), each timed over ``--repeats``
+    passes; the first pass, which carries the kernels' first loads, is
+    reported apart when ``--repeats > 1``.  On the card every stage ends with
+    ``torch.cuda.synchronize()``, so a stage's wall is the card's work and not
+    only its launches.  ``--trace-dir`` also writes a ``torch.profiler`` trace
+    (``<dir>/trace.json``, Chrome format) whose regions carry the stage names.
+    """
+    import json
+
+    import torch
+
+    from cvml_goalnet_tpu_torch.data.annotations import AnnotationStore
+    from cvml_goalnet_tpu_torch.data.audio_io import demux_audio, load_waveform
+    from cvml_goalnet_tpu_torch.data.dataset import _load_frames, uniform_clip_intervals
+    from cvml_goalnet_tpu_torch.device import resolve_device
+    from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, summarize
+    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
+    from cvml_goalnet_tpu_torch.train.state import create_train_state
+    from cvml_goalnet_tpu_torch.utils.profiling import StageTimer, start_trace, stop_trace
+
+    cfg = _load_cfg(args)
+    if _refused(_unported(args, cfg)):
+        return 2
+    data = _resolve_data(args)
+    paths = _artifact_paths(args.workdir, cfg.model.audio_included)
+    device = _device()
+    dev = resolve_device(device)
+    state = create_train_state(cfg.train.seed, cfg, device=device)
+    try:
+        state = _load_trunk(paths, state, args)
+    except FileNotFoundError:
+        print("W: no trained importance checkpoint; profiling a random-init trunk")
+    except (CheckpointMismatchError, CheckpointBackendError) as e:
+        print(f"E: {e}", file=sys.stderr)
+        return 2
+
+    video_id = os.path.basename(args.video).rsplit(".", 1)[0]
+    store = (AnnotationStore(data["mat_fp"], data["h5_fp"])
+             if os.path.exists(data["mat_fp"]) and os.path.exists(data["h5_fp"]) else None)
+    repeats = max(1, args.repeats)
+    if args.trace_dir:
+        start_trace(args.trace_dir)
+    timer = StageTimer()
+    first = StageTimer()  # pass 0 carries the kernels' first loads: reported apart
+    try:
+        for rep in range(repeats):
+            t = first if (rep == 0 and repeats > 1) else timer
+            with t.stage("decode"):
+                frames, full_n = _load_frames(args.video, cfg.preprocess.skip_frames)
+            waveform = None
+            if cfg.model.audio_included:
+                with t.stage("audio_load"):
+                    audio_fp = args.video.rsplit(".", 1)[0] + ".wav"
+                    if not os.path.exists(audio_fp):
+                        demux_audio(args.video, audio_fp)
+                    waveform, _ = load_waveform(audio_fp, cfg.audio.sample_rate)
+            with t.stage("features"):
+                feats = extract_features(frames, waveform, cfg, device=device)
+                _sync(device)
+            with t.stage("score"):
+                scores = fuse(state.params, state.model_state, feats, cfg, device=device)
+                _sync(device)
+            with t.stage("postprocess"):
+                intervals = (np.asarray(store.change_points(video_id)) if store is not None
+                             else uniform_clip_intervals(cfg, full_n))
+                res = summarize(scores, intervals, cfg.preprocess.skip_frames, full_n, cfg.knapsack, device=device)
+                _sync(device)
+    finally:
+        trace_file = stop_trace() if args.trace_dir else None
+
+    summary = timer.summary()
+    total_s = sum(v["mean_s"] for v in summary.values())
+    payload = {
+        "video_id": video_id,
+        "backend": dev.type,
+        "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "repeats": repeats,
+        "condensed_frames": int(len(scores)),
+        "full_n_frames": int(full_n),
+        "stages_mean_s": {k: round(v["mean_s"], 4) for k, v in summary.items()},
+        "total_mean_s": round(total_s, 4),
+        "condensed_fps": round(len(scores) / total_s, 1) if total_s else None,
+        "selected_clips": int(len(res.clip_intervals)),
+    }
+    if repeats > 1:
+        payload["first_pass_s"] = {k: round(v["mean_s"], 4) for k, v in first.summary().items()}
+    if args.trace_dir:
+        payload["trace_dir"] = args.trace_dir
+        payload["trace_file"] = trace_file
+    print(json.dumps(payload, indent=2))
+    return 0
+
+
+def _apply_temporal_overrides(cfg, args):
+    """Fold --temporal-model / --attn-window / --heads into the config."""
+    mc = cfg.model
+    if getattr(args, "temporal_model", None):
+        mc = dataclasses.replace(mc, temporal_model=args.temporal_model)
+    if getattr(args, "attn_window", None) is not None:
+        mc = dataclasses.replace(mc, temporal_window=args.attn_window)
+    if getattr(args, "heads", None) is not None:
+        mc = dataclasses.replace(mc, temporal_num_heads=args.heads)
+    return dataclasses.replace(cfg, model=mc)
+
+
+def _classes(args) -> "list[str] | None":
+    return args.classes.split(",") if getattr(args, "classes", None) else None
+
+
+def _spot_refusal(args, cfg) -> str | None:
+    """Why these ``spot`` flags cannot run together, before any decode; None when they can."""
+    if args.follow and not args.stream:
+        return ("--follow is a --stream mode (a live segment directory "
+                "cannot be spotted offline — the footage isn't finished)")
+    unported = _unported(args, cfg)
+    if unported is not None or not args.stream:
+        return unported
+    if args.follow and not os.path.isdir(args.video):
+        return (f"--follow takes a live segment DIRECTORY and {args.video!r} is not one — "
+                "stream a finished file without --follow")
+    if args.eval_events:
+        return ("--eval-events is an offline option (it compares against "
+                "a complete sidecar); run spot without --stream to evaluate")
+    if cfg.model.temporal_model in ("transformer", "hybrid") and cfg.model.temporal_window <= 0:
+        return (f"--stream with the {cfg.model.temporal_model} scorer needs "
+                "a banded window (--attn-window N): full attention has an "
+                "unbounded receptive field so streamed scores could never be "
+                "final; band it or spot offline")
+    if cfg.model.audio_included and not args.follow:
+        return ("audio trunks stream via --follow (a live segment directory "
+                "where each segment ships its .wav span) — a single complete "
+                "file has no per-chunk audio contract; use --follow, a "
+                "--no-audio trunk, or spot offline")
+    return None
+
+
+def _load_spot_trunk(cfg, args, device, what: str):
+    """The trunk for spotting (tag ``opt``; a random one, with a warning, when there is none) → (state, exit
+    code or None)."""
+    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
+    from cvml_goalnet_tpu_torch.train.state import create_train_state
+
+    paths = _artifact_paths(args.workdir, cfg.model.audio_included)
+    state = create_train_state(cfg.train.seed, cfg, device=device)
+    try:
+        return _load_trunk(paths, state, args, tags=("opt",)), None
+    except FileNotFoundError:
+        print(f"W: no trained importance checkpoint; {what} a random-init trunk")
+        return state, None
+    except CheckpointMismatchError as e:
+        # a checkpoint exists but does not fit the flags: scoring with a random trunk would mean nothing
+        print(f"E: {e}\nE: re-train with the current flags or pass the matching "
+              "--config/--no-audio/--commentary/--moe-experts combination", file=sys.stderr)
+        return None, 2
+    except CheckpointBackendError as e:
+        print(f"E: {e}", file=sys.stderr)
+        return None, 2
+
+
+def _temporal_head(cfg, classes):
+    """The configured temporal head as a numpy tree, seeded (``weights.init_temporal_params``, seed 1)."""
+    from cvml_goalnet_tpu_torch import weights
+    from cvml_goalnet_tpu_torch.serve import trunk_feature_dim
+
+    return weights.init_temporal_params(cfg.model, trunk_feature_dim(cfg), seed=1,
+                                        n_classes=len(classes) if classes else 1)
+
+
+def cmd_spot(args) -> int:
+    """Temporal event spotting over one video: offline, or ``--stream`` (``--follow``) with events as jsonl."""
+    import json
+
+    from cvml_goalnet_tpu_torch import weights
+    from cvml_goalnet_tpu_torch.data.annotations import AnnotationStore
+    from cvml_goalnet_tpu_torch.data.dataset import build_video_item
+    from cvml_goalnet_tpu_torch.data.video import probe_video_fps
+    from cvml_goalnet_tpu_torch.pipeline import summarize
+    from cvml_goalnet_tpu_torch.serve import event_seconds
+    from cvml_goalnet_tpu_torch.spotting import (
+        encode_timeline,
+        load_event_labels,
+        score_timeline_auto,
+        scores_to_importance,
+        spot_events_multi,
+        summarize_match,
+    )
+
+    cfg = _apply_temporal_overrides(_load_cfg(args), args)
+    if _refused(_spot_refusal(args, cfg)):
+        return 2
+    data = _resolve_data(args)
+    store = (AnnotationStore(data["mat_fp"], data["h5_fp"])
+             if os.path.exists(data["mat_fp"]) and os.path.exists(data["h5_fp"]) else None)
+    device = _device()
+    # --stream never holds the whole timeline (that is its point), so it skips the one-shot decode
+    item = None
+    if not args.stream:
+        item = build_video_item(args.video, cfg, None, store, cfg.model.audio_included, device=device)
+    state, rc = _load_spot_trunk(cfg, args, device, "using")
+    if rc is not None:
+        return rc
+
+    classes = _classes(args)
+    tparams = _temporal_head(cfg, classes)
+    if args.temporal_checkpoint:
+        tparams = weights.load_spotting_checkpoint(args.temporal_checkpoint, tparams, classes=classes)
+    else:
+        print("W: no --temporal-checkpoint; scoring with a random-init temporal head")
+    tparams = weights.tree_from_jax(tparams, device=device)
+
+    # frame → seconds at the container's fps (production footage is 25 fps); 30.0 only for fps-less archives
+    fps = probe_video_fps(args.video) or 30.0
+    if args.stream:
+        return _run_spot_stream(args, cfg, state, tparams, classes, fps, device)
+
+    skip = cfg.preprocess.skip_frames
+    events_fp = args.video.rsplit(".", 1)[0] + ".events.json"
+    evaluate = args.eval_events and os.path.exists(events_fp)
+    if classes:
+        # per-class events; the knapsack summary takes the class-agnostic eventness (the max over classes)
+        feats = encode_timeline(state.params, state.model_state, item.visual, item.audio, cfg, device=device)
+        scores_mc = score_timeline_auto(tparams, feats, cfg).cpu().numpy()
+        if scores_mc.ndim == 1:   # a one-channel head (--classes with one name)
+            scores_mc = scores_mc[:, None]
+        events_by_class = spot_events_multi(scores_mc, args.peak_window, args.peak_threshold)
+        summary = summarize(scores_to_importance(scores_mc.max(axis=1)), item.clip_intervals, skip,
+                            item.full_n_frames, cfg.knapsack, device=device)
+        payload = {
+            "video_id": item.video_id,
+            "classes": classes,
+            "events_condensed_frames": {c: ev.tolist() for c, ev in zip(classes, events_by_class)},
+            "events_seconds": {c: event_seconds(ev, skip, fps) for c, ev in zip(classes, events_by_class)},
+            "summary_clips": np.asarray(summary.clip_intervals).tolist(),
+            "summary_frames": int(summary.frame_mask.sum()),
+        }
+        if evaluate:
+            from cvml_goalnet_tpu_torch.ops.spotting_metrics import multiclass_average_map, spotting_pr
+
+            gt_mc = load_event_labels(events_fp, len(item.visual), skip, classes)
+            gt_by_class = [np.nonzero(gt_mc[:, c])[0] for c in range(len(classes))]
+            score_by_class = [scores_mc[ev, c] if len(ev) else np.zeros((0,)) for c, ev in enumerate(events_by_class)]
+            mm = multiclass_average_map(events_by_class, score_by_class, gt_by_class)
+            per_class = {}
+            for i, c in enumerate(classes):
+                pr, rc, f1 = spotting_pr(events_by_class[i], score_by_class[i], gt_by_class[i],
+                                         tolerance=args.eval_tolerance)
+                per_class[c] = {"precision": round(pr, 4), "recall": round(rc, 4), "f1": round(f1, 4),
+                                **mm["per_class"][i]}
+            payload["eval"] = {
+                "gt_events": {c: g.tolist() for c, g in zip(classes, gt_by_class)},
+                "tolerance": args.eval_tolerance,
+                "average_map": mm["average_map"],
+                "per_class": per_class,
+            }
+        print(json.dumps(payload, indent=2))
+        return 0
+
+    result = summarize_match(state.params, state.model_state, tparams, item.visual, item.audio,
+                             item.clip_intervals, cfg, full_n_frames=item.full_n_frames,
+                             peak_window=args.peak_window, peak_threshold=args.peak_threshold, device=device)
+    payload = {
+        "video_id": item.video_id,
+        "events_condensed_frames": result.events.tolist(),
+        "events_seconds": event_seconds(result.events, skip, fps),
+        "summary_clips": np.asarray(result.summary.clip_intervals).tolist(),
+        "summary_frames": int(result.summary.frame_mask.sum()),
+    }
+    if evaluate:   # against the events sidecar: tolerance P/R and average-mAP
+        from cvml_goalnet_tpu_torch.ops.spotting_metrics import average_map, spotting_pr
+
+        gt = np.nonzero(load_event_labels(events_fp, len(item.visual), skip))[0]
+        pred = result.events
+        scores = np.asarray(result.scores)[pred] if len(pred) else np.zeros((0,))
+        p, r, f1 = spotting_pr(pred, scores, gt, tolerance=args.eval_tolerance)
+        payload["eval"] = {
+            "gt_events": gt.tolist(),
+            "tolerance": args.eval_tolerance,
+            "precision": round(p, 4), "recall": round(r, 4), "f1": round(f1, 4),
+            **average_map(pred, scores, gt),
+        }
+    print(json.dumps(payload, indent=2))
+    return 0
+
+
+def _run_spot_stream(args, cfg, state, tparams, classes, fps, device) -> int:
+    """``spot --stream``: bounded-latency live spotting.  One jsonl line per event the moment it is final
+    (``spotting.spot_stream``: scores wait for a halo of right context, events for their peak window), then a
+    closing summary.  The input is a finished file decoded in chunks (visual-only trunks), or with
+    ``--follow`` a live segment directory, where each segment's ``.wav`` lets audio trunks stream too."""
+    import json
+
+    from cvml_goalnet_tpu_torch.serve import file_chunks, follow_chunks, stream_lines
+    from cvml_goalnet_tpu_torch.spotting import spot_stream
+
+    skip = cfg.preprocess.skip_frames
+    if args.follow:
+        chunks, audio_chunks = follow_chunks(args.video, cfg, args.stream_chunk, poll_interval=args.follow_poll,
+                                             timeout=args.follow_timeout, end_sentinel=args.follow_end)
+    else:
+        chunks, audio_chunks = file_chunks(args.video, cfg, args.stream_chunk), None
+
+    updates = spot_stream(state.params, state.model_state, tparams, chunks, cfg, halo=args.stream_halo,
+                          peak_window=args.peak_window, peak_threshold=args.peak_threshold,
+                          audio_chunks=audio_chunks, device=device)
+    video_id = os.path.basename(args.video).rsplit(".", 1)[0]
+    for kind, item in stream_lines(updates, classes or [None], skip, fps):
+        if kind == "event":
+            print(json.dumps(item), flush=True)
+        elif kind == "summary":
+            print(json.dumps({"video_id": video_id, **item}, indent=2))
+    return 0
+
+
+def _spot_opt_kwargs(tc) -> dict:
+    """Schedule and clip arguments of the spotting step from ``TrainConfig``, so ``spot-train`` honours the
+    optimizer controls ``train`` does (the base lr stays ``--lr``; the schedule scales it)."""
+    kw = {}
+    if tc.lr_schedule != "constant" or tc.lr_warmup_steps or tc.lr_decay_steps:
+        kw["lr_schedule"] = (tc.lr_schedule, tc.lr_warmup_steps, tc.lr_decay_steps, tc.lr_min_ratio)
+    if tc.grad_clip_norm:
+        kw["grad_clip_norm"] = tc.grad_clip_norm
+    return kw
+
+
+def _spot_train_refusal(args, cfg) -> str | None:
+    """Why these ``spot-train`` flags cannot run, before any decode; None when they can."""
+    unported = _unported(args, cfg)
+    if unported is not None:
+        return unported
+    if not args.cp and (max(1, args.dp_timelines or 1) > 1 or max(1, args.tp or 1) > 1):
+        # these flags only pick mesh axes of the CP layouts: ignoring them would train on one device while the
+        # user believes the run is parallel
+        return "--dp-timelines/--tp require --cp"
+    if args.cp:
+        return SPOT_MESH_NOT_PORTED.format(flag="--cp")
+    if max(1, args.pp or 1) > 1:
+        return SPOT_MESH_NOT_PORTED.format(flag=f"--pp {args.pp}")
+    if args.early_stop and not args.val_videos:
+        return "--early-stop needs --val-videos (a held-out metric to stop on)"
+    return None
+
+
+def cmd_spot_train(args) -> int:
+    """Train the temporal spotting head on event-labelled videos, on one device.
+
+    Each video's labels are its ``<video>.events.json`` sidecar (raw frame
+    indices of events).  The trunk encodes each timeline once (kernels 1–3
+    on the card); the GRU, transformer (kernels 5 and 6, or 7 and 8 banded)
+    or hybrid head trains on weighted BCE
+    (``train/spotting.make_spotting_train_step``); with ``--val-videos`` the
+    best-val head is kept, and ``--early-stop N`` stops after N epochs
+    without a better val loss.  The head is saved with
+    ``save_spotting_checkpoint`` for ``spot --temporal-checkpoint``.
+    """
+    import torch
+
+    from cvml_goalnet_tpu_torch import weights
+    from cvml_goalnet_tpu_torch.data.annotations import AnnotationStore
+    from cvml_goalnet_tpu_torch.data.dataset import build_video_item
+    from cvml_goalnet_tpu_torch.ops.spotting_metrics import multiclass_average_map
+    from cvml_goalnet_tpu_torch.spotting import encode_timeline, load_event_labels, score_timeline_auto, spot_events_multi
+    from cvml_goalnet_tpu_torch.train.spotting import (
+        init_spotting_opt,
+        make_spotting_train_step,
+        save_spotting_checkpoint,
+        weighted_bce,
+    )
+
+    cfg = _apply_temporal_overrides(_load_cfg(args), args)
+    if _refused(_spot_train_refusal(args, cfg)):
+        return 2
+    data = _resolve_data(args)
+    val_fps = list(args.val_videos or [])
+    # held out by resolved path, not by the string: `--videos data/vidA.npz --val-videos ./data/vidA.npz` must
+    # not train on the val video
+    val_real = {os.path.realpath(fp) for fp in val_fps}
+    train_fps = [fp for fp in data["videos"] if os.path.realpath(fp) not in val_real]
+    if val_fps and not train_fps:
+        print("E: every --videos path is held out by --val-videos; nothing left to train on", file=sys.stderr)
+        return 2
+    for fp in val_fps:
+        if not os.path.exists(fp.rsplit(".", 1)[0] + ".events.json"):
+            # a val video without labels validates nothing; skipping it would select on less than was asked
+            print(f"E: val video {fp}: no .events.json sidecar", file=sys.stderr)
+            return 2
+    device = _device()
+    store = (AnnotationStore(data["mat_fp"], data["h5_fp"])
+             if os.path.exists(data["mat_fp"]) and os.path.exists(data["h5_fp"]) else None)
+    state, rc = _load_spot_trunk(cfg, args, device, "encoding with")
+    if rc is not None:
+        return rc
+    classes = _classes(args)
+
+    def encode_pairs(video_fps):
+        out = []
+        for fp in video_fps:
+            events_fp = fp.rsplit(".", 1)[0] + ".events.json"
+            if not os.path.exists(events_fp):
+                print(f"W: {fp}: no events sidecar, skipping")
+                continue
+            item = build_video_item(fp, cfg, None, store, cfg.model.audio_included, device=device)
+            feats = encode_timeline(state.params, state.model_state, item.visual, item.audio, cfg, device=device)
+            labels = load_event_labels(events_fp, len(item.visual), cfg.preprocess.skip_frames, classes)
+            out.append((item.video_id, feats, torch.as_tensor(labels, device=feats.device)))
+        return out
+
+    pairs = encode_pairs(train_fps)
+    val_pairs = encode_pairs(val_fps)
+    if not pairs:
+        print("E: no videos with .events.json sidecars", file=sys.stderr)
+        return 2
+
+    tparams = weights.tree_from_jax(_temporal_head(cfg, classes), device=device)
+    mc = cfg.model
+    opt_kw = _spot_opt_kwargs(cfg.train)
+    if mc.temporal_model == "transformer":
+        step = make_spotting_train_step(0, lr=args.lr, pos_weight=args.pos_weight, scorer="transformer",
+                                        num_heads=mc.temporal_num_heads, window=mc.temporal_window, **opt_kw)
+    elif mc.temporal_model == "hybrid":
+        step = make_spotting_train_step(mc.temporal_hidden, lr=args.lr, pos_weight=args.pos_weight, scorer="hybrid",
+                                        num_heads=mc.temporal_num_heads, window=mc.temporal_window, **opt_kw)
+    else:
+        step = make_spotting_train_step(mc.temporal_hidden, lr=args.lr, pos_weight=args.pos_weight, **opt_kw)
+
+    def val_loss_of(tp) -> float:
+        # the held-out loss on the objective the steps train (a one-name --classes head scores (T,) against
+        # (T, 1) labels: reshaped, never broadcast to (T, T))
+        with torch.no_grad():
+            return float(np.mean([
+                float(weighted_bce(score_timeline_auto(tp, f, cfg).reshape(l.shape), l, args.pos_weight))
+                for _, f, l in val_pairs]))
+
+    def val_map_of(tp) -> float:
+        # the field's quality metric beside the loss: peaks of each val timeline at the peak window and
+        # threshold `spot` deploys with, average-mAP against the labelled events (classes without any excluded)
+        maps = []
+        with torch.no_grad():
+            for _, f, l in val_pairs:
+                l2 = l.cpu().numpy()
+                if l2.ndim == 1:
+                    l2 = l2[:, None]
+                s2 = score_timeline_auto(tp, f, cfg).cpu().numpy().reshape(l2.shape)
+                pred = spot_events_multi(s2, args.peak_window, args.peak_threshold)
+                gt = [np.nonzero(l2[:, c] > 0.5)[0] for c in range(l2.shape[1])]
+                sc = [s2[ev, c] if len(ev) else np.zeros((0,)) for c, ev in enumerate(pred)]
+                maps.append(multiclass_average_map(pred, sc, gt)["average_map"])
+        return float(np.mean(maps))
+
+    opt = init_spotting_opt(tparams)
+    best = {"val": float("inf"), "params": tparams, "epoch": -1}
+    for epoch in range(args.epochs):
+        losses = []
+        for _, feats, labels in pairs:
+            tparams, opt, loss = step(tparams, opt, feats, labels)
+            losses.append(float(loss))
+        if val_pairs:
+            vloss = val_loss_of(tparams)
+            print(f"epoch {epoch}: loss {np.mean(losses):.4f} val-loss {vloss:.4f} val-mAP {val_map_of(tparams):.4f}")
+            if vloss < best["val"]:
+                best = {"val": vloss, "params": tparams, "epoch": epoch}
+            elif args.early_stop and epoch - best["epoch"] >= args.early_stop:
+                print(f"Early stop: no val-loss improvement in {args.early_stop} epochs (best epoch {best['epoch']}).")
+                break
+        else:
+            print(f"epoch {epoch}: loss {np.mean(losses):.4f}")
+
+    if val_pairs:
+        tparams = best["params"]   # held-out selection: the best-val head, not the last
+        print(f"best val-loss {best['val']:.4f} at epoch {best['epoch']}")
+    out_fp = args.out or os.path.join(args.workdir, "models", "spotting_head.npz")
+    save_spotting_checkpoint(out_fp, tparams, classes=classes)
+    print(f"Saved temporal head: {out_fp}")
+    print("Operation completed")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """The long-lived HTTP service (``serve.py``): /summarize, /reload, /metrics, /healthz, and with ``--spot``
+    /spot and /spot-stream.  The trunk loads once (npz auto-detected as ``infer`` does); ``--batch`` adds
+    cross-request batching; ``--warmup`` builds every kernel and runs each production shape before the first
+    request."""
+    import zipfile
+
+    from cvml_goalnet_tpu_torch.serve import DynamicBatcher, Spotter, Summarizer, serve_http
+    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
+    from cvml_goalnet_tpu_torch.train.state import create_train_state
+
+    cfg = _apply_temporal_overrides(_load_cfg(args), args)
+    if _refused(SERVE_DP_NOT_PORTED if args.dp else _unported(args, cfg)):
+        return 2
+    paths = _artifact_paths(args.workdir, cfg.model.audio_included)
+    device = _device()
+    state = create_train_state(cfg.train.seed, cfg, device=device)
+    try:
+        state = _load_trunk(paths, state, args, tags=("opt", "ckp"))
+    except FileNotFoundError:
+        print("W: no trained importance checkpoint; serving a random-init trunk")
+    except (CheckpointMismatchError, CheckpointBackendError) as e:
+        print(f"E: {e}", file=sys.stderr)
+        return 2
+
+    def trunk_reloader():
+        # POST /reload runs the same auto-detecting load the server booted with (never a path from a request);
+        # a random-init boot picks up the first opt_* a training job writes
+        template = create_train_state(cfg.train.seed, cfg, device=device)
+        return _load_trunk(paths, template, args, tags=("opt", "ckp"))
+
+    summarizer = Summarizer(cfg, state=state, reloader=trunk_reloader, device=device)
+    spotter = None
+    if args.spot:
+        if not args.temporal_checkpoint:
+            print("W: /spot will use a random-init temporal head (pass --temporal-checkpoint)")
+        try:
+            spotter = Spotter(cfg, state=state, temporal_checkpoint=args.temporal_checkpoint,
+                              classes=_classes(args), reloader=trunk_reloader, device=device)
+        except (ValueError, OSError, zipfile.BadZipFile) as e:
+            # a missing, unreadable or corrupt --temporal-checkpoint is a configuration error, not a traceback
+            print(f"E: {e}", file=sys.stderr)
+            return 2
+    batcher = DynamicBatcher(summarizer) if args.batch else None
+    try:
+        if args.warmup:
+            summarizer.warmup()
+            if batcher is not None:
+                batcher.warmup()
+            if spotter is not None:
+                spotter.warmup()
+        try:
+            server = serve_http(summarizer, args.host, args.port, media_root=args.media_root, batcher=batcher,
+                                spotter=spotter)
+        except ValueError as e:  # a non-loopback host without --media-root
+            print(f"E: {e}", file=sys.stderr)
+            return 2
+        print(f"serving on http://{args.host}:{server.server_address[1]}"
+              f" (spot={'on' if spotter else 'off'}, batch={'on' if batcher else 'off'}, dp=off)", flush=True)
+        if args.max_requests:
+            # handle_request() returns once it has handed the request to a handler thread, and
+            # ThreadingHTTPServer does not join daemon handlers on close: non-daemon handlers are joined by
+            # server_close(), so the last response is written before this returns
+            server.daemon_threads = False
+            try:
+                for _ in range(args.max_requests):
+                    server.handle_request()
+            finally:
+                server.server_close()
+        else:  # pragma: no cover - interactive mode
+            server.serve_forever()
+    finally:
+        if batcher is not None:
+            batcher.close()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="goalnet-torch", description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -458,6 +1053,154 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--follow-end", default="END",
                    help="--follow: end-of-stream sentinel filename")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("profile", help="per-stage wall-clock profile of the summarize pipeline on one video")
+    _add_data_args(p)
+    p.add_argument("video")
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--commentary", action="store_true",
+                   help="enable the text branch (reads <video>.commentary.jsonl)")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"], default=None,
+                   help="pin the checkpoint layout (default: auto-detect)")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="match a trunk trained with --moe-experts N")
+    p.add_argument("--repeats", type=int, default=3,
+                   help="timed passes; the first carries the kernels' first loads and is "
+                        "reported separately when repeats > 1")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace (trace.json, Chrome format) here, "
+                        "its regions named by the stages")
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("spot", help="temporal event spotting over one video")
+    _add_data_args(p)
+    p.add_argument("video")
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--commentary", action="store_true",
+                   help="3-modality trunk (trained with train --commentary); "
+                        "reads <video>.commentary.jsonl sidecars")
+    p.add_argument("--temporal-checkpoint", default=None)
+    p.add_argument("--temporal-model", choices=["gru", "transformer", "hybrid"], default=None)
+    p.add_argument("--attn-window", type=int, default=None,
+                   help="transformer attention band radius in condensed frames "
+                        "(sliding-window flash kernel; 0/default = full attention)")
+    p.add_argument("--heads", type=int, default=None,
+                   help="override temporal_num_heads (must match the trained head)")
+    p.add_argument("--classes", default=None,
+                   help="comma-separated event classes (goal,card,...) for "
+                        "multi-class spotting; requires a head trained with "
+                        "the same classes")
+    p.add_argument("--peak-window", type=int, default=5)
+    p.add_argument("--peak-threshold", type=float, default=0.0)
+    p.add_argument("--stream", action="store_true",
+                   help="LIVE bounded-latency spotting: decode in chunks and "
+                        "emit each event as a jsonl line the moment it is "
+                        "final (GRU or banded-transformer scorer)")
+    p.add_argument("--stream-chunk", type=int, default=256,
+                   help="condensed frames per decoded chunk in --stream mode")
+    p.add_argument("--stream-halo", type=int, default=64,
+                   help="right-context frames an emission waits for "
+                        "(--stream; bounds the streamed-vs-offline drift for "
+                        "the GRU; the banded transformer raises it to its "
+                        "layers*window exactness floor)")
+    p.add_argument("--follow", action="store_true",
+                   help="--stream: VIDEO is a LIVE segment DIRECTORY still "
+                        "being written (finalized lexicographic segments, "
+                        ".part scratch names, END sentinel — data/follow.py);"
+                        " audio trunks stream here via per-segment .wav "
+                        "sidecars")
+    p.add_argument("--follow-timeout", type=float, default=60.0,
+                   help="--follow: seconds without a new segment or sentinel "
+                        "before failing loudly")
+    p.add_argument("--follow-poll", type=float, default=0.25,
+                   help="--follow: directory poll interval in seconds")
+    p.add_argument("--follow-end", default="END",
+                   help="--follow: end-of-stream sentinel filename")
+    p.add_argument("--eval-events", action="store_true",
+                   help="evaluate vs <video>.events.json (tolerance P/R + average-mAP)")
+    p.add_argument("--eval-tolerance", type=int, default=5,
+                   help="matching tolerance in condensed frames")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"], default=None,
+                   help="pin the trunk checkpoint layout (default: auto-detect)")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="match a trunk trained with --moe-experts N")
+    p.set_defaults(fn=cmd_spot)
+
+    p = sub.add_parser("spot-train", help="train the temporal spotting head on event labels")
+    _add_data_args(p)
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--commentary", action="store_true",
+                   help="3-modality trunk (trained with train --commentary); "
+                        "reads <video>.commentary.jsonl sidecars")
+    p.add_argument("--temporal-model", choices=["gru", "transformer", "hybrid"], default=None)
+    p.add_argument("--attn-window", type=int, default=None,
+                   help="transformer attention band radius in condensed frames")
+    p.add_argument("--cp", action="store_true",
+                   help="context-parallel training over all devices (not ported: ROADMAP §1 item 6)")
+    p.add_argument("--dp-timelines", type=int, default=1, metavar="N",
+                   help="with --cp: batch N timelines over a 'data' mesh axis (not ported: item 6)")
+    p.add_argument("--tp", type=int, default=1, metavar="N",
+                   help="with --cp: split heads and MLP N-way over a 'model' mesh axis (not ported: item 6)")
+    p.add_argument("--pp", type=int, default=1, metavar="N",
+                   help="pipeline-parallel training over N devices (not ported: item 6)")
+    p.add_argument("--heads", type=int, default=None,
+                   help="override temporal_num_heads for the transformer scorer")
+    p.add_argument("--classes", default=None,
+                   help="comma-separated event classes (goal,card,...) — "
+                        "trains a multi-class head from labelled sidecars")
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--pos-weight", type=float, default=10.0)
+    p.add_argument("--val-videos", nargs="*", default=None,
+                   help="held-out videos (with .events.json sidecars): "
+                        "per-epoch val loss, best-val head selection; any "
+                        "path also in --videos is removed from training")
+    p.add_argument("--early-stop", type=int, default=0, metavar="N",
+                   help="stop after N epochs without val-loss improvement "
+                        "(needs --val-videos); 0 = off")
+    p.add_argument("--peak-window", type=int, default=5,
+                   help="val-mAP peak detection window (match the value "
+                        "`spot` will deploy with)")
+    p.add_argument("--peak-threshold", type=float, default=0.0,
+                   help="val-mAP peak detection threshold on the logit scores")
+    p.add_argument("--out", default=None, help="output npz for the temporal head")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"], default=None,
+                   help="pin the trunk checkpoint layout (default: auto-detect)")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="match a trunk trained with --moe-experts N")
+    p.set_defaults(fn=cmd_spot_train)
+
+    p = sub.add_parser("serve", help="HTTP serving: /summarize, /reload, /metrics, /healthz (+ /spot, /spot-stream)")
+    p.add_argument("--config", default=None, help="PipelineConfig JSON path")
+    p.add_argument("--workdir", default=".", help="artifact root with models/")
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--commentary", action="store_true")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8765, help="0 = OS-assigned")
+    p.add_argument("--media-root", default=None,
+                   help="confine requested video paths to this directory "
+                        "(REQUIRED for non-loopback --host)")
+    p.add_argument("--batch", action="store_true",
+                   help="cross-request dynamic batching (serve.DynamicBatcher)")
+    p.add_argument("--dp", type=int, default=0, metavar="N",
+                   help="data-parallel serving over N devices (not ported: ROADMAP §1 item 6)")
+    p.add_argument("--spot", action="store_true",
+                   help="also serve POST /spot and /spot-stream (event spotting)")
+    p.add_argument("--temporal-checkpoint", default=None,
+                   help="spot-train head npz for /spot")
+    p.add_argument("--temporal-model", choices=["gru", "transformer", "hybrid"], default=None)
+    p.add_argument("--attn-window", type=int, default=None)
+    p.add_argument("--classes", default=None,
+                   help="comma-separated event classes for /spot")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"], default=None,
+                   help="pin the trunk checkpoint layout (default: auto-detect)")
+    p.add_argument("--warmup", action="store_true",
+                   help="build every kernel and run the production shapes before accepting requests")
+    p.add_argument("--max-requests", type=int, default=0,
+                   help="serve N requests then exit (0 = forever)")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="match a trunk trained with --moe-experts N")
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("baseline", help="random-init chance baseline")
     _add_data_args(p)

@@ -154,14 +154,21 @@ def slot_boundaries(n_samples: int, n_frames: int) -> list[tuple[int, int]]:
 def extract_audio_features(
     y: np.ndarray, n_frames: int, cfg: AudioConfig, device: torch.device
 ) -> torch.Tensor:
-    """Waveform → (n_frames, B, n_mfcc) per-video-frame MFCCs on ``device`` (NWC, time-major)."""
+    """Waveform → (n_frames, B, n_mfcc) per-video-frame MFCCs on ``device`` (NWC, time-major).
+
+    Zero frames give an empty (0, B, n_mfcc) tensor: a 0-frame request with a
+    waveform then answers as one without (the JAX package divides by zero in
+    ``slot_boundaries`` there).
+    """
+    depth = cfg.n_mels if cfg.log_mel else cfg.n_mfcc
+    out = torch.empty((n_frames, cfg.bin_length, depth), dtype=torch.float32, device=device)
+    if n_frames == 0:
+        return out
     y = np.asarray(y, dtype=np.float32)
     bounds = slot_boundaries(len(y), n_frames)
     groups: dict[int, list[int]] = {}
     for i, (a, b) in enumerate(bounds):
         groups.setdefault(b - a, []).append(i)
-    depth = cfg.n_mels if cfg.log_mel else cfg.n_mfcc
-    out = torch.empty((n_frames, cfg.bin_length, depth), dtype=torch.float32, device=device)
     for idxs in groups.values():
         stack = np.stack([y[bounds[i][0] : bounds[i][1]] for i in idxs])
         feats = mfcc_slots(torch.as_tensor(stack, device=device), cfg)            # (S, T, D)

@@ -5,6 +5,8 @@ C interface (``-gencode arch=compute_90a,code=sm_90a``), at first use, into
 ``cvml_goalnet_tpu_torch/_build/``.  A library's file name carries a hash of
 its sources and flags, so an edited kernel is rebuilt and a stale one is never
 loaded.  :func:`build` starts one ``nvcc`` per missing library, all at once.
+Both :func:`build` and :func:`load` hold a lock per kernel, so however many
+threads ask for a kernel at once, one ``nvcc`` builds it and all get it.
 
 There is no fallback: without ``nvcc``, or when a build fails, this raises.
 Every C entry returns ``cudaGetLastError()`` after its launches;
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +37,14 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_locks: dict[str, threading.RLock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock(name: str) -> threading.RLock:
+    """The lock of one kernel's build and load (reentrant: :func:`load` builds under it)."""
+    with _locks_guard:
+        return _locks.setdefault(name, threading.RLock())
 
 
 def _nvcc() -> str:
@@ -64,7 +75,13 @@ def build(names=KERNELS) -> dict[str, float]:
     built).  The ``-Xptxas -v`` report (registers, shared memory, spills) of
     each build is kept in ``_build/<name>.log``.
     """
-    todo = [n for n in names if not lib_path(n).exists()]
+    with contextlib.ExitStack() as held:
+        for n in sorted(set(names)):   # one order for every thread: no deadlock between overlapping sets
+            held.enter_context(_lock(n))
+        return _build_locked([n for n in names if not lib_path(n).exists()])
+
+
+def _build_locked(todo: list[str]) -> dict[str, float]:
     if not todo:
         return {}
     nvcc = _nvcc()
@@ -73,7 +90,7 @@ def build(names=KERNELS) -> dict[str, float]:
     procs, seconds, failed = {}, {}, []
     try:
         for n in todo:
-            tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            tmp = lib_path(n).with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")   # unique per thread
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
         for n, (proc, tmp) in procs.items():
@@ -102,15 +119,19 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     an ``int`` CUDA error code.
     """
     lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.goalnet_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.goalnet_cuda_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _lock(name):
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.goalnet_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.goalnet_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
 
 

@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +39,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-Wextra", 
 
 _lib: ctypes.CDLL | None = None
 _failure: str | None = None   # why the library could not be built, kept so a failed build is tried once
+_lock = threading.Lock()      # one build and load per process, however many threads ask at once
 
 
 def lib_path() -> Path:
@@ -53,7 +55,7 @@ def _build(path: Path) -> None:
     if cxx is None:
         raise RuntimeError("g++ not found: the native runtime is built from runtime/*.cc at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")   # unique per process and thread
     cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), *(str(RUNTIME_DIR / name) for name in SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
@@ -63,37 +65,44 @@ def _build(path: Path) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded runtime library, built first if missing; raises when it cannot be built."""
+    """The loaded runtime library, built first if missing; raises when it cannot be built.
+
+    Thread-safe: the first caller builds and loads under a lock, and callers
+    that waited on it get that library (or that build's failure).
+    """
     global _lib, _failure
     if _lib is not None:
         return _lib
-    if _failure is not None:
-        raise RuntimeError(_failure)
-    try:
-        path = lib_path()
-        if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
-    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
-        _failure = f"native runtime unavailable: {exc}"
-        raise RuntimeError(_failure) from exc
-    lib.goalnet_knapsack.restype = ctypes.c_int32
-    lib.goalnet_knapsack.argtypes = [
-        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64), ctypes.c_int32, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.goalnet_summarize.restype = ctypes.c_int32
-    lib.goalnet_summarize.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.goalnet_wav_info.restype = ctypes.c_int
-    lib.goalnet_wav_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
-    lib.goalnet_wav_read.restype = ctypes.c_int64
-    lib.goalnet_wav_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
-    _lib = lib
-    return lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _failure is not None:
+            raise RuntimeError(_failure)
+        try:
+            path = lib_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+            _failure = f"native runtime unavailable: {exc}"
+            raise RuntimeError(_failure) from exc
+        lib.goalnet_knapsack.restype = ctypes.c_int32
+        lib.goalnet_knapsack.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64), ctypes.c_int32, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.goalnet_summarize.restype = ctypes.c_int32
+        lib.goalnet_summarize.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int64, ctypes.c_double, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.goalnet_wav_info.restype = ctypes.c_int
+        lib.goalnet_wav_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
+        lib.goalnet_wav_read.restype = ctypes.c_int64
+        lib.goalnet_wav_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+        _lib = lib
+        return lib
 
 
 def native_available() -> bool:

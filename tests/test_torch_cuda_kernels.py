@@ -17,6 +17,8 @@ train step per scorer and one video of the summarization train function are
 held against the CPU.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1073,3 +1075,81 @@ def test_stream_card_matches_cpu(dev, staging, host_preprocess, tdtype, monkeypa
     np.testing.assert_allclose(got, want, atol=1e-4)
     assert launched[fused_preprocess_frames] == (0 if host_preprocess else 42)
     assert launched[fused_conv_pool_stage] == 84 and launched[head_matmul] == 42 and launched[fused_fusion_mlp] == 42
+
+
+def _serving_cfg() -> PipelineConfig:
+    return PipelineConfig(
+        preprocess=PreprocessConfig(skip_frames=30, frame_size=(24, 24)),
+        model=ModelConfig(vis_channels=(8, 16, 16), vis_feature_dim=32, aud_channels=(8, 16), aud_feature_dim=16,
+                          fusion_hidden=(32, 16), audio_included=False),
+    )
+
+
+def test_batcher_on_the_card_matches_summarize_frames(dev):
+    """The batcher (host preprocess, kernels 2–4 on bucket-padded batches) against ``summarize_frames`` (kernel 1
+    on the card) on the same requests: scores within 1e-4, the host-preprocess bound of the stream tests."""
+    from cvml_goalnet_tpu_torch.serve import DynamicBatcher, Summarizer
+
+    cfg = _serving_cfg()
+    s = Summarizer(cfg)
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, 255, (n, 72, 96, 3), dtype=np.uint8) for n in (30, 7, 64, 0, 100)]
+    with DynamicBatcher(s, max_batch_frames=128, max_wait_ms=200.0, buckets=(32, 64, 128)) as batcher:
+        batcher.warmup()
+        futs = [batcher.submit(f"v{i}", r) for i, r in enumerate(reqs)]
+        for r, f in zip(reqs, futs):
+            got, want = f.result(timeout=300), s.summarize_frames("v", r)
+            assert got.scores.shape == want.scores.shape == (len(r),)
+            np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
+        assert batcher.stats["batches"] < batcher.stats["requests"]
+
+
+def test_cold_server_answers_two_concurrent_first_requests(tmp_path):
+    """A server started without a warmup, on a fresh build directory, in a fresh process: two requests at
+    once both answer 200 with the same scores, each kernel library is built once and no temporary file stays."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    repo = Path(__file__).resolve().parents[1]
+    np.savez(str(tmp_path / "v.npz"), frames=np.random.default_rng(1).integers(0, 255, (900, 72, 96, 3), np.uint8))
+    code = f"""
+import json, sys, threading, urllib.request
+from pathlib import Path
+from cvml_goalnet_tpu_torch import runtime
+from cvml_goalnet_tpu_torch.ops.cuda import _build
+fresh = Path({str(tmp_path / 'build')!r})
+_build.BUILD_DIR = runtime.BUILD_DIR = fresh
+sys.path.insert(0, {str(repo / 'tests')!r})
+from test_torch_cuda_kernels import _serving_cfg
+from cvml_goalnet_tpu_torch.serve import Summarizer, start_http_background
+server = start_http_background(Summarizer(_serving_cfg()), port=0, media_root={str(tmp_path)!r})
+port = server.server_address[1]
+out = [None, None]
+gate = threading.Barrier(2)
+def post(i):
+    gate.wait()
+    req = urllib.request.Request(f"http://127.0.0.1:{{port}}/summarize", data=b'{{"video": "v.npz"}}', method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out[i] = (r.status, json.load(r))
+    except urllib.error.HTTPError as e:
+        out[i] = (e.code, json.load(e))
+threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+[t.start() for t in threads]
+[t.join() for t in threads]
+server.shutdown()
+print(json.dumps({{"out": out, "files": sorted(p.name for p in fresh.iterdir())}}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    (s0, p0), (s1, p1) = res["out"]
+    assert s0 == s1 == 200, res["out"]
+    assert p0 == p1
+    libs = [f for f in res["files"] if f.endswith(".so")]
+    assert sorted(f.split("-")[0] for f in libs) == sorted(
+        ["libfused_preprocess", "libfused_stage", "libmatmul", "libfused_mlp", "libgoalnet_runtime"]), res["files"]
+    assert not [f for f in res["files"] if f.endswith(".tmp")]

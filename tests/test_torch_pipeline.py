@@ -309,10 +309,11 @@ class TestDevicePolicy:
 
     def test_port_imports_no_jax(self):
         """A fresh interpreter: every module of the port (the training modules,
-        the native runtime's loader, the data layer, the streaming scorer and
-        the CLI among them) and chip_smoke.py's imports leave jax and
-        cvml_goalnet_tpu out of sys.modules, and the optional media, HDF5 and
-        plotting packages too (imported only when a call needs them)."""
+        the native runtime's loader, the data layer, the streaming scorer, the
+        serving layer and the CLI with its serving and spotting verbs among
+        them) and chip_smoke.py's imports leave jax and cvml_goalnet_tpu out
+        of sys.modules, and the optional media, HDF5 and plotting packages
+        too (imported only when a call needs them)."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import cvml_goalnet_tpu_torch as pkg\n"
@@ -326,8 +327,11 @@ class TestDevicePolicy:
             "assert not lazy, lazy\n"
             "for m in ('train.optim', 'train.spotting', 'runtime', 'ops.knapsack', 'cli', 'streaming',\n"
             "          'data.audio_io', 'data.video', 'data.annotations', 'data.dataset', 'data.follow',\n"
-            "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling'):\n"
+            "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling', 'serve'):\n"
             "    assert 'cvml_goalnet_tpu_torch.' + m in sys.modules, m\n"
+            "from cvml_goalnet_tpu_torch import cli\n"
+            "verbs = set(cli.build_parser()._subparsers._group_actions[0].choices)\n"
+            "assert verbs >= {'train', 'eval', 'baseline', 'infer', 'serve', 'spot', 'spot-train', 'profile'}, verbs\n"
             "print(len([m for m in sys.modules if m.startswith('cvml_goalnet_tpu_torch')]))\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
