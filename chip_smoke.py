@@ -77,8 +77,9 @@ From the repository root, on a machine with a CUDA card:
    machine;
 9. the inference journey: ``cli.main(["infer", ...])`` in-process at the
    full width of ``configs/reference_parity.json`` over one seeded video of
-   4,500 raw 180×320 frames saved as ``.npz`` (150 condensed frames) with
-   its ``.wav`` sidecar, the trunks (audio and ``--no-audio``) written by
+   4,500 raw 180×320 frames saved as ``.npz`` (150 condensed frames; one
+   500-frame generator block repeated, as in phase 11) with its ``.wav``
+   sidecar, the trunks (audio and ``--no-audio``) written by
    the port's ``save_checkpoint``: offline (kernels 1–4; the export equal to
    ``extract_features`` → ``fuse`` → ``summarize`` on the same inputs),
    ``--no-audio --stream --stream-chunk 64`` (kernels 1–4; scores within
@@ -139,7 +140,23 @@ From the repository root, on a machine with a CUDA card:
     and ``profile --repeats 3 --trace-dir`` with its trace's busy share.
     The videos of (d) and (e) are 72×96 raw, as in phase 10 (cut: the model
     resizes to 40×40 either way), and repeat one seeded block of 500 frames;
-12. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+12. bf16 and int8 inference at the full width of ``configs/tpu_serving.json``
+    (``reference_parity.json``'s widths in bf16 with int8 conv1 and conv2),
+    before phase 11: (a) the four low-precision forms (2-bf16, 2-int8 in
+    float32 and bf16, 3-bf16, 4-bf16) against their plain versions at the
+    main paths' shapes, with times, bounds on the bf16 and int8 tensor cores
+    and the library calls (cuDNN's bf16 chain beside the int8 convolution,
+    which no one PyTorch call computes); (b) phase 1's three videos in bf16,
+    int8 and both (each with its forms launched and the float32 kernels it
+    replaces not), card against CPU on 64 frames, the drift from the card's
+    float32 scores (0.1), batch time, per-video p50 and stage split; (c)
+    ``infer --config tpu_serving.json`` offline and ``--no-audio --stream`` on
+    phase 9's video against the direct path (the stream's chunks zero-padded
+    as the int8 scale needs); (d) the preset's ``Summarizer`` and one
+    ``DynamicBatcher`` request against its bucket scored directly; (e) a
+    quantized ``Spotter`` (2-int8 at T = 5400) on phase 5's match; (f) three
+    bf16 mixed-precision train steps, card against CPU;
+13. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
     as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and read
@@ -214,6 +231,8 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import (
     SMEM_LIMIT,
     card_plan,
     fused_fusion_mlp,
+    fused_fusion_mlp_bf16,
+    fused_fusion_mlp_bf16_plain,
     fused_fusion_mlp_plain,
     fused_fusion_mlp_planned,
     max_active_clusters,
@@ -233,8 +252,13 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
     STAGE_COUNTS,
     StagePlan,
     card_blocks_per_sm,
+    card_lowp_stage_plan,
     card_stage_plan,
     fused_conv_pool_stage,
+    fused_conv_pool_stage_bf16,
+    fused_conv_pool_stage_bf16_plain,
+    fused_conv_pool_stage_int8,
+    fused_conv_pool_stage_int8_plain,
     fused_conv_pool_stage_plain,
     fused_conv_pool_stage_planned,
     plan_cost,
@@ -243,7 +267,15 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import block_count as stage_block_count
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import blocks_per_sm as stage_blocks_per_sm
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import smem_bytes as stage_smem_bytes
-from cvml_goalnet_tpu_torch.ops.cuda.matmul import card_head_plan, head_matmul, head_matmul_plain, head_slots
+from cvml_goalnet_tpu_torch.ops.cuda.matmul import (
+    card_head_bf16_plan,
+    card_head_plan,
+    head_matmul,
+    head_matmul_bf16,
+    head_matmul_bf16_plain,
+    head_matmul_plain,
+    head_slots,
+)
 from cvml_goalnet_tpu_torch.ops import knapsack as knapsack_module
 from cvml_goalnet_tpu_torch.ops.knapsack import DEVICE_MS, NATIVE_MS, auto_engine, knapsack_select
 from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
@@ -329,7 +361,17 @@ KERNELS = {
                         "cvml_goalnet_tpu/ops/pallas/flash_attention.py:609"),
     "flash_local_bwd": (flash_local_bwd, "cvml_goalnet_tpu_torch/csrc/flash_attention.cu",
                         "cvml_goalnet_tpu/ops/pallas/flash_attention.py:661"),
+    # the low-precision forms (phase 12): kernels 2-4 at bf16, and the int8 conv in kernel 2's place
+    "fused_conv_pool_stage_bf16": (fused_conv_pool_stage_bf16, "cvml_goalnet_tpu_torch/csrc/fused_stage_lowp.cu",
+                                   "cvml_goalnet_tpu/ops/pallas/fused_stage.py:65"),
+    "fused_conv_pool_stage_int8": (fused_conv_pool_stage_int8, "cvml_goalnet_tpu_torch/csrc/fused_stage_lowp.cu",
+                                   "cvml_goalnet_tpu/ops/quant.py:53"),
+    "head_matmul_bf16": (head_matmul_bf16, "cvml_goalnet_tpu_torch/csrc/matmul.cu",
+                         "cvml_goalnet_tpu/ops/pallas/matmul.py:50"),
+    "fused_fusion_mlp_bf16": (fused_fusion_mlp_bf16, "cvml_goalnet_tpu_torch/csrc/fused_mlp.cu",
+                              "cvml_goalnet_tpu/ops/pallas/fused_mlp.py:38"),
 }
+LOWP_FORMS = ("fused_conv_pool_stage_bf16", "fused_conv_pool_stage_int8", "head_matmul_bf16", "fused_fusion_mlp_bf16")
 TRUNK = ("fused_conv_pool_stage", "head_matmul")
 
 
@@ -380,8 +422,8 @@ def time_ms_cold(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_F32_FLOP_PER_S
+def bound_ms(n_bytes: float, n_flops: float, peak_flop_per_s: float = PEAK_F32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1678,19 +1720,12 @@ def training_phase(enc: torch.Tensor, runs, seed: int, smi: str, kernel_rows: di
 
 
 def make_infer_inputs(cfg: PipelineConfig, seed: int, root: str) -> dict:
-    """One seeded raw video (4,500 frames of 180×320×3 uint8 in 500-frame generator calls) saved as ``.npz``,
-    its 22,050 Hz ``.wav`` sidecar written with the port's ``write_wav``, and the two trunks of
-    ``weights.init_params(cfg, seed)`` (with audio and ``--no-audio``) written with the port's
-    ``save_checkpoint`` under ``<root>/work/models/importance{,_no_audio}``."""
-    total = sum(INFER_SEGMENTS)
-    raw = np.concatenate([synthetic_video_frames(min(500, total - i), *RAW_HW, seed=seed + 300 + i // 500)
-                          for i in range(0, total, 500)])
+    """One seeded raw video (4,500 frames of 180×320×3 uint8, one 500-frame generator block repeated, as
+    :func:`write_video` makes it) saved as ``.npz``, its 22,050 Hz ``.wav`` sidecar written with the port's
+    ``write_wav``, and the two trunks of ``weights.init_params(cfg, seed)`` (with audio and ``--no-audio``)
+    written with the port's ``save_checkpoint`` under ``<root>/work/models/importance{,_no_audio}``."""
     video = os.path.join(root, "video.npz")
-    np.savez(video, frames=raw)
-    seconds = len(raw) / 30
-    write_wav(os.path.join(root, "video.wav"),
-              synthetic_waveform(int(seconds * cfg.audio.sample_rate), cfg.audio.sample_rate, seed=seed + 300),
-              cfg.audio.sample_rate)
+    raw = write_video(video, sum(INFER_SEGMENTS), RAW_HW, seed + 300, cfg)
     cfg_path = os.path.join(root, "cfg.json")
     cfg.save(cfg_path)
     work = os.path.join(root, "work")
@@ -2848,6 +2883,413 @@ def serving_phase(seed: int, smi: str, launches_by_path: dict) -> None:
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
 
 
+# ---------------------------------------------------------------- phase 12: bf16 and int8 inference
+
+PEAK_BF16_FLOP_PER_S = 989e12    # H100 SXM tensor cores, dense (NVIDIA data sheet), at 700 W
+PEAK_INT8_OP_PER_S = 1_979e12
+PRESET_MODES = {"bf16": ("bfloat16", False), "int8": ("float32", True), "bf16_int8": ("bfloat16", True)}
+LOWP_TRAIN_FRAMES = 30           # three sub-batches of 10: three bf16 Adam steps
+LOWP_BATCH_REQUEST = 100         # condensed frames of the batcher's request (bucket 256)
+
+
+def preset_cfg(mode: str = "bf16_int8") -> PipelineConfig:
+    """``configs/tpu_serving.json`` (``reference_parity.json``'s widths in bf16 with int8 conv1 and conv2),
+    with the dtype and quantization of ``mode``."""
+    cfg = PipelineConfig.load(str(REPO / "configs" / "tpu_serving.json"))
+    dtype, quant = PRESET_MODES[mode]
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype, quantized_inference=quant))
+
+
+def bf16_ulps_past(got: torch.Tensor, want: torch.Tensor, scale) -> float:
+    """The largest |got − want| in bf16 ulps of max(|got|, |want|, scale), plus a floor of 1e-6·max|want| for
+    signs that flip at ReLU's 0: the bf16 forms' tolerance is 2 (``tests/test_torch_cuda_kernels.py``)."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("non-finite kernel output")
+    ref = torch.maximum(torch.maximum(g.abs(), w.abs()), torch.as_tensor(scale, device=g.device).float())
+    ulp = torch.exp2(torch.floor(torch.log2(ref.clamp_min(2.0 ** -126))) - 7)
+    return float(((g - w).abs() - 1e-6 * w.abs().max()).clamp_min(0).div(ulp).max())
+
+
+def lowp_stage_part(form: str, n: int, hh: int, cin: int, cout: int, dtype: torch.dtype, gen) -> dict:
+    """A low-precision form of kernel 2 at (n, hh, hh, cin) → cout against its plain version, timed beside it
+    and beside cuDNN's bf16 convolution + bias + ReLU + pool (for the int8 form no one PyTorch call computes an
+    int8 convolution, so its library time is None and cuDNN's bf16 chain stands beside it)."""
+    dev = torch.device("cuda")
+    x = torch.randn((n, hh, hh, cin), generator=gen, device=dev).relu().to(dtype)
+    w32 = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (0.05 if cin == 64 else 0.02)
+    b = (torch.randn((hh, hh, cout), generator=gen, device=dev) * 0.1).to(dtype)
+    if form == "bf16":
+        w = w32.to(torch.bfloat16)
+        run, plain = (lambda: fused_conv_pool_stage_bf16(x, w, b)), (lambda: fused_conv_pool_stage_bf16_plain(x, w, b))
+    else:
+        run, plain = (lambda: fused_conv_pool_stage_int8(x, w32, b)), (lambda: fused_conv_pool_stage_int8_plain(x, w32, b))
+    got, want = run(), plain()
+    if form == "bf16":
+        window = F.max_pool2d(b.float().abs().permute(2, 0, 1)[None], 3, 1)[0].permute(1, 2, 0)[None]
+        err, tol = bf16_ulps_past(got, want, 2 * window), 2.0
+        require(err <= tol, f"fused_conv_pool_stage_bf16 {[n, hh, cin, cout]}: {err} bf16 ulps past (> 2)")
+        err_abs = max_err(got.float(), want.float())
+    else:
+        err_abs = max_err(got.float(), want.float())
+        err, tol = err_abs, 1e-6 * want.float().abs().max().item()
+        require(err <= tol, f"fused_conv_pool_stage_int8 {[n, hh, cin, cout, str(dtype)]}: max |err| {err} > {tol}")
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = w32.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+    bb = b.to(torch.bfloat16).permute(2, 0, 1)[None]
+
+    def cudnn_bf16():
+        return F.max_pool2d(F.relu(F.conv2d(xb, wb, padding=1) + bb), 3, 1)
+
+    macs = 1.0 * n * hh * hh * cin * cout * 9
+    # each input read once (x and the bias in their dtype; w in bf16, or float32 for the int8 form, which
+    # quantizes it), the output written once
+    n_bytes = (x.element_size() * (n * hh * hh * cin + hh * hh * cout + n * (hh - 2) ** 2 * cout)
+               + (2 if form == "bf16" else 4) * 9 * cin * cout)
+    bound, kind = bound_ms(n_bytes, 2 * macs, PEAK_BF16_FLOP_PER_S if form == "bf16" else PEAK_INT8_OP_PER_S)
+    ms, cudnn_ms = time_ms(run), time_ms(cudnn_bf16)
+    device_ms, host_call_ms = time_ms_and_host(run, queued=True)
+    part = {"shape": [n, hh, hh, cin, cout], "dtype": str(dtype).removeprefix("torch."), "main_path": True,
+            "ms": ms, "device_ms": device_ms, "host_call_ms": host_call_ms, "plain_ms": time_ms(plain), "library_ms": cudnn_ms if form == "bf16" else None,
+            "bound_ms": bound, "bound_by": kind, "max_abs_err": err_abs,
+            ("bf16_ulps" if form == "bf16" else "tolerance"): err if form == "bf16" else tol,
+            "plan": card_lowp_stage_plan(n, hh, hh, cout, dev)._asdict()}
+    if form != "bf16":
+        part["bf16_cudnn_ms"] = cudnn_ms
+    print(f"fused_conv_pool_stage_{form} at {part['shape']} {part['dtype']}: {ms:.4f} ms (device alone "
+          f"{device_ms:.4f}, host call {host_call_ms:.4f}; plain {part['plain_ms']:.4f}, "
+          f"cuDNN bf16 {cudnn_ms:.4f}); bound {bound:.4f} ms ({kind}); plan {json.dumps(part['plan'])}; "
+          f"max |err| {err_abs:.3g}", flush=True)
+    del x, w32, b, got, want
+    torch.cuda.empty_cache()
+    return part
+
+
+def lowp_head_part(m: int, k: int, n: int, gen) -> dict:
+    x = torch.rand((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.005).to(torch.bfloat16)
+    b = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    run, plain = (lambda: head_matmul_bf16(x, w, b)), (lambda: head_matmul_bf16_plain(x, w, b))
+    got, want = run(), plain()
+    ulps = bf16_ulps_past(got, want, 2 * b.float().abs()[None])
+    require(ulps <= 2, f"head_matmul_bf16 at M = {m}: {ulps} bf16 ulps past (> 2)")
+    require(torch.equal(got, run()), f"head_matmul_bf16 at M = {m}: two runs on the same inputs differ")
+    bound, kind = bound_ms(2.0 * (m * k + k * n + n + m * n), 2.0 * m * k * n, PEAK_BF16_FLOP_PER_S)
+    device_ms, host_call_ms = time_ms_and_host(run, queued=True)
+    part = {"shape": [m, k, n], "main_path": True, "ms": time_ms(run), "device_ms": device_ms,
+            "host_call_ms": host_call_ms, "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lambda: torch.relu(torch.addmm(b, x, w))), "bound_ms": bound, "bound_by": kind,
+            "max_abs_err": max_err(got.float(), want.float()), "bf16_ulps": ulps,
+            "plan": card_head_bf16_plan(m, k, n, x.device)._asdict()}
+    print(f"head_matmul_bf16 at {part['shape']}: {part['ms']:.4f} ms (device alone {device_ms:.4f}; plain "
+          f"{part['plain_ms']:.4f}, library "
+          f"{part['library_ms']:.4f}); bound {bound:.4f} ms ({kind}); plan {json.dumps(part['plan'])}", flush=True)
+    del x, w, b, got, want
+    torch.cuda.empty_cache()
+    return part
+
+
+def lowp_mlp_part(m: int, layers, lo: float, hi: float, gen) -> dict:
+    dims = mlp_dims(layers)
+    x = torch.rand((m, dims[0]), generator=gen, device="cuda").to(torch.bfloat16)
+    run, plain = (lambda: fused_fusion_mlp_bf16(x, layers, lo, hi)), (lambda: fused_fusion_mlp_bf16_plain(x, layers, lo, hi))
+    got, want = run(), plain()
+    err = max_err(got.float(), want.float())
+    require(err <= 0.0625, f"fused_fusion_mlp_bf16 at M = {m}: max |err| {err} > 0.0625 (2 bf16 ulps on [4, 5])")
+
+    def library():
+        h = x
+        for i, lp in enumerate(layers):
+            h = torch.addmm(lp["b"], h, lp["w"])
+            if i < len(layers) - 1:
+                h = torch.relu(h)
+        return (hi - lo) * torch.sigmoid(h) + lo
+
+    macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    n_bytes = 2.0 * (m * (dims[0] + dims[-1]) + sum(lp["w"].numel() + lp["b"].numel() for lp in layers))
+    bound, kind = bound_ms(n_bytes, 2.0 * m * macs, PEAK_BF16_FLOP_PER_S)
+    device_ms, host_call_ms = time_ms_and_host(run, 100, queued=True)
+    part = {"shape": [m, *dims], "main_path": True, "ms": time_ms(run, 100), "device_ms": device_ms,
+            "host_call_ms": host_call_ms, "plain_ms": time_ms(plain, 100),
+            "library_ms": time_ms(library, 100), "bound_ms": bound, "bound_by": kind, "max_abs_err": err}
+    print(f"fused_fusion_mlp_bf16 at {part['shape']}: {part['ms']:.4f} ms (device alone {device_ms:.4f}, host call "
+          f"{host_call_ms:.4f}; plain {part['plain_ms']:.4f}, library "
+          f"{part['library_ms']:.4f}); bound {bound:.4f} ms ({kind}); max |err| {err:.3g}", flush=True)
+    return part
+
+
+def lowp_row(parts: list[dict]) -> dict:
+    row = row_of([{**p, "library_ms": p["library_ms"] or 0.0} for p in parts])
+    if any(p["library_ms"] is None for p in parts):
+        row["library_ms"] = None
+        row["library_note"] = ("no one PyTorch call computes an int8 convolution; cuDNN's bf16 convolution + bias + "
+                               "ReLU + pool at the same shapes: bf16_cudnn_ms")
+        row["bf16_cudnn_ms"] = sum(p["bf16_cudnn_ms"] for p in parts if p.get("main_path", True))
+    row["parts"] = parts
+    return row
+
+
+def lowp_kernel_rows(n: int, cfg: PipelineConfig, fusion_layers, gen) -> dict:
+    """12a: each form at the main paths' shapes: 2-bf16 at the batch's N; 2-int8 at the batch's N in float32
+    and bf16 and at a match's N in float32 (the quantized Spotter); 3-bf16 and 4-bf16 at the batch's M."""
+    stages = ((13, 64, 256), (11, 256, 512))
+    rows = {
+        "fused_conv_pool_stage_bf16": lowp_row([lowp_stage_part("bf16", n, hh, ci, co, torch.bfloat16, gen)
+                                                for hh, ci, co in stages]),
+        "fused_conv_pool_stage_int8": lowp_row([lowp_stage_part("int8", m, hh, ci, co, dt, gen)
+                                                for m, dt in ((n, torch.float32), (n, torch.bfloat16),
+                                                              (MATCH_FRAMES, torch.float32))
+                                                for hh, ci, co in stages]),
+        "head_matmul_bf16": lowp_row([lowp_head_part(n, 9 * 9 * cfg.model.vis_channels[-1],
+                                                     cfg.model.vis_feature_dim, gen)]),
+        "fused_fusion_mlp_bf16": lowp_row([lowp_mlp_part(n, [{k: v.to(torch.bfloat16) for k, v in lp.items()}
+                                                             for lp in fusion_layers],
+                                                         cfg.model.out_lo, cfg.model.out_hi, gen)]),
+    }
+    return rows
+
+
+LOWP_KERNELS = {
+    "bf16": ["fused_preprocess_frames", "fused_conv_pool_stage_bf16", "head_matmul_bf16", "fused_fusion_mlp_bf16"],
+    "int8": ["fused_preprocess_frames", "fused_conv_pool_stage_int8", "head_matmul", "fused_fusion_mlp"],
+    "bf16_int8": ["fused_preprocess_frames", "fused_conv_pool_stage_int8", "head_matmul_bf16", "fused_fusion_mlp_bf16"],
+}
+
+
+def require_not_launched(label: str, names, launches_by_path: dict) -> None:
+    ran = {k: launches_by_path[label][k] for k in names if launches_by_path[label][k]}
+    require(not ran, f"{label}: {ran} launched")
+
+
+def lowp_videos_check(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> dict:
+    """12b: phase 1's three videos through extract_features → fuse_many → summarize in each mode, with the same
+    weights as a float32 run: launches, card against CPU on 64 frames (the card's features on both sides),
+    drift from the card's float32 scores, batch time, per-video p50 and the stage split."""
+    f32_cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    params_np, state_np = weights.init_params(f32_cfg, seed)
+    params, state = weights.from_jax(params_np, state_np)
+    cpu_params, cpu_state = weights.from_jax(params_np, state_np, device="cpu")
+    _, f32_scores, _, _ = run_path(videos, params, state, f32_cfg)
+    out = {}
+    for mode in PRESET_MODES:
+        cfg = preset_cfg(mode)
+        label = f"summarize_{mode}"
+        feats, scores, results, _ = drive(label, LOWP_KERNELS[mode], lambda: run_path(videos, params, state, cfg),
+                                          launches_by_path)
+        f32_forms = {"bf16": TRUNK + ("fused_fusion_mlp",), "int8": ("fused_conv_pool_stage",),
+                     "bf16_int8": TRUNK + ("fused_fusion_mlp",)}[mode]
+        require_not_launched(label, f32_forms, launches_by_path)
+        check_outputs(videos, feats, scores, results, cfg)
+        bf16 = cfg.model.dtype == "bfloat16"
+        if bf16:
+            for s in scores:
+                require(np.array_equal(torch.from_numpy(s).to(torch.bfloat16).float().numpy(), s),
+                        f"{label}: scores off the bf16 grid")
+        m = CPU_CHECK_FRAMES
+        sub = {"visual": feats[0]["visual"][:m], "audio": feats[0]["audio"][:m]}
+        card = fuse(params, state, sub, cfg)
+        cpu = fuse(cpu_params, cpu_state, {k: v.cpu() for k, v in sub.items()}, cfg, device="cpu")
+        tol = 0.0625 if bf16 else 1e-4
+        err = float(np.abs(card - cpu).max())
+        require(err <= tol, f"{label}: card vs CPU on {m} frames, max |err| {err} > {tol}")
+        drift = max(float(np.abs(a - b).max()) for a, b in zip(scores, f32_scores))
+        require(drift <= 0.1, f"{label}: scores {drift} from the card's float32 scores (> 0.1, the drift gate)")
+        walls, stages, per_video = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            stages.append(run_path(videos, params, state, cfg)[3])
+            walls.append(time.perf_counter() - t0)
+            for v in videos:
+                t0 = time.perf_counter()
+                run_path([v], params, state, cfg)
+                per_video.append(time.perf_counter() - t0)
+        n_total = sum(VIDEO_LENGTHS)
+        wall = statistics.median(walls)
+        out[mode] = {"card_vs_cpu_max_abs_err": err, "tolerance": tol, "drift_from_f32": drift,
+                     "distinct_scores": int(len(np.unique(np.concatenate(scores)))),
+                     "batch_s": wall, "frames_per_s": n_total / wall,
+                     "per_video_p50_ms": 1e3 * statistics.median(per_video),
+                     "stage_ms": {k: 1e3 * statistics.median(st[k] for st in stages) for k in stages[0]}}
+        print(f"phase 12b: {mode} on {smi}: {json.dumps(out[mode])}", flush=True)
+    f32_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_path(videos, params, state, f32_cfg)
+        f32_walls.append(time.perf_counter() - t0)
+    out["f32_batch_s"] = statistics.median(f32_walls)
+    print(f"phase 12b: float32 batch of the same three videos in the same call: {out['f32_batch_s']:.4f} s", flush=True)
+    return out
+
+
+def lowp_infer_check(seed: int, smi: str, launches_by_path: dict) -> dict:
+    """12c: ``infer --config`` the preset on phase 9's video, offline (audio trunk) and ``--no-audio --stream``,
+    each against the direct path on the same inputs (the stream's chunks zero-padded to ``--stream-chunk`` as
+    the int8 scale needs); then 12d, the preset's ``Summarizer`` and ``DynamicBatcher`` once each."""
+    from cvml_goalnet_tpu_torch.serve import DynamicBatcher, Summarizer
+
+    os.environ.pop("GOALNET_PLATFORM", None)
+    cfg = preset_cfg()
+    no_audio = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, audio_included=False))
+    skip = cfg.preprocess.skip_frames
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        inp = make_infer_inputs(cfg, seed, root)
+        raw, video = inp["raw"], inp["video"]
+        full_n = len(raw)
+        frames = raw[::skip]
+        sink, spy = ExportSink(False), ScoreSpy()
+        video_io.export_video, streaming.score_video_stream = sink, spy
+        try:
+            intervals = uniform_clip_intervals(cfg, full_n)
+            waveform, _ = load_waveform(os.path.join(root, "video.wav"), cfg.audio.sample_rate)
+            p, s = weights.from_jax(*weights.init_params(cfg, seed))
+            scores = fuse(p, s, extract_features(frames, waveform, cfg), cfg)
+            direct = summarize(scores, intervals, skip, full_n, cfg.knapsack)
+            base = ["infer", video, "--config", inp["cfg_path"], "--workdir", inp["work"]]
+            t0 = time.perf_counter()
+            rc = drive("infer_preset", LOWP_KERNELS["bf16_int8"], lambda: cli.main(base), launches_by_path)
+            out["offline_s"] = time.perf_counter() - t0
+            require(rc == 0, f"12c: infer --config tpu_serving.json exited {rc}")
+            require(np.array_equal(sink.frames, chosen_frames(raw, direct.clip_intervals)),
+                    "12c: offline infer exported other frames than the direct path selects")
+            stream = base + ["--no-audio", "--stream", "--stream-chunk", str(INFER_CHUNK)]
+            t0 = time.perf_counter()
+            rc = drive("infer_preset_stream", LOWP_KERNELS["bf16_int8"], lambda: cli.main(stream), launches_by_path)
+            out["stream_s"] = time.perf_counter() - t0
+            require(rc == 0, f"12c: infer --stream --config tpu_serving.json exited {rc}")
+            got = spy.calls[-1]["scores"]
+            pn, sn = weights.from_jax(*weights.init_params(no_audio, seed))
+            want = []
+            for a in range(0, len(frames), INFER_CHUNK):
+                chunk = frames[a:a + INFER_CHUNK]
+                padded = np.concatenate([chunk, np.zeros((INFER_CHUNK - len(chunk),) + chunk.shape[1:], chunk.dtype)])
+                want.append(fuse(pn, sn, extract_features(padded, None, no_audio), no_audio)[:len(chunk)])
+            err = float(np.abs(got - np.concatenate(want)).max())
+            require(err <= 0.0625, f"12c: --stream scores {err} from the padded chunks scored directly (> 0.0625)")
+            out.update({"stream_max_abs_err": err, "stream_stages": spy.calls[-1]["stats"].stage_seconds,
+                        "exported_frames": int(len(sink.frames))})
+            print(f"phase 12c: infer --config tpu_serving.json on {smi}: {json.dumps(out)}", flush=True)
+
+            ckp = cli._artifact_paths(inp["work"], True)["ckp_dir"]
+            summ = Summarizer(cfg, checkpoint_dir=ckp)
+            res = drive("serve_preset_summarizer", LOWP_KERNELS["bf16_int8"], lambda: summ.summarize_path(video),
+                        launches_by_path)
+            serr = float(np.abs(res.scores - scores).max())
+            require(serr <= 0.0625, f"12d: Summarizer scores {serr} from the direct path (> 0.0625)")
+            batcher = DynamicBatcher(summ)
+            try:
+                n = LOWP_BATCH_REQUEST
+                per = len(waveform) // len(frames)
+                req = drive("serve_preset_batcher", LOWP_KERNELS["bf16_int8"][1:],
+                            lambda: batcher.submit("r", frames[:n], waveform=waveform[:n * per]).result(),
+                            launches_by_path)
+            finally:
+                batcher.close()
+            bucket = batcher._bucket(n)
+            f = extract_features(frames[:n], waveform[:n * per], cfg)
+            v = torch.cat([f["visual"], f["visual"].new_zeros((bucket - n,) + tuple(f["visual"].shape[1:]))])
+            a = torch.cat([f["audio"], f["audio"].new_zeros((bucket - n,) + tuple(f["audio"].shape[1:]))])
+            berr = float(np.abs(req.scores - fuse(summ.state.params, summ.state.model_state,
+                                                  {"visual": v, "audio": a}, cfg)[:n]).max())
+            require(berr <= 0.0625, f"12d: the batcher's scores {berr} from its bucket scored directly (> 0.0625)")
+            out.update({"summarizer_max_abs_err": serr, "batcher_bucket": bucket, "batcher_max_abs_err": berr})
+            print(f"phase 12d: preset Summarizer and DynamicBatcher on {smi}: summarize_path max |err| {serr:.3g}, "
+                  f"a {n}-frame request in bucket {bucket} max |err| {berr:.3g}", flush=True)
+        finally:
+            video_io.export_video, streaming.score_video_stream = sink.writer, spy.fn
+    return out
+
+
+def lowp_spotter_check(seed: int, smi: str, launches_by_path: dict) -> dict:
+    """12e: a quantized ``Spotter`` (``configs/tpu_spotting.json`` with ``quantized_inference``; the trunk in
+    float32 with int8 conv1 and conv2 at T = 5400) on phase 5's match, against the path run directly."""
+    from cvml_goalnet_tpu_torch.serve import Spotter
+
+    banded = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+    cfg = dataclasses.replace(banded, model=dataclasses.replace(banded.model, quantized_inference=True))
+    match = make_match(banded, seed)
+    sp = Spotter(cfg, state=create_train_state(seed, cfg))
+    sp.warmup()
+    walls = []
+    t0 = time.perf_counter()
+    got = drive("serve_spotter_int8", ["fused_preprocess_frames", "fused_conv_pool_stage_int8", "head_matmul",
+                                       "flash_local_fwd"],
+                lambda: sp.spot_frames("match", match["frames"], match["full_n"], match["waveform"]), launches_by_path)
+    walls.append(time.perf_counter() - t0)
+    require_not_launched("serve_spotter_int8", ("fused_conv_pool_stage",), launches_by_path)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sp.spot_frames("match", match["frames"], match["full_n"], match["waveform"])
+        walls.append(time.perf_counter() - t0)
+    feats = extract_features(match["frames"], match["waveform"], cfg)
+    enc = encode_timeline(sp.state.params, sp.state.model_state, feats["visual"], feats["audio"], cfg)
+    scores = score_timeline_auto(sp.temporal_params, enc, cfg).cpu().numpy()
+    tol = score_tolerance(scores)
+    err = float(np.abs(got.scores - scores).max())
+    require(err <= tol, f"12e: quantized spot_frames scores max |err| {err} > {tol}")
+    f32 = encode_timeline(sp.state.params, sp.state.model_state, feats["visual"], feats["audio"], banded)
+    rel = float(((enc - f32).abs().max() / f32.abs().max()).item())
+    out = {"max_abs_err": err, "tolerance": tol, "near_tie_events": compare_events(got.scores, scores, tol),
+           "events": len(got.events), "features_rel_from_f32": rel, "spot_frames": percentiles(walls)}
+    print(f"phase 12e: quantized Spotter on {smi}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def lowp_train_check(seed: int, smi: str, launches_by_path: dict) -> dict:
+    """12f: three bf16 mixed-precision train steps (``compute_dtype = "bfloat16"``, dropout 0) at phase 10's
+    width on a 30-frame video, on the card and on the CPU from the same state: the first loss within 1e-2
+    relative, the master params float32, and no kernel launched (the train forward is plain PyTorch)."""
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, dropout_rate=0.0),
+                              train=dataclasses.replace(base.train, compute_dtype="bfloat16"))
+    rng = np.random.default_rng(seed + 700)
+    n = LOWP_TRAIN_FRAMES
+    arrays = [rng.random((n, *cfg.preprocess.frame_size, 3)).astype(np.float32),
+              rng.random((n, cfg.audio.bin_length, cfg.audio.n_mfcc)).astype(np.float32),
+              rng.integers(1, 6, n).astype(np.float32), np.ones(n, np.float32)]
+    fn = train_loop.make_train_video_fn(cfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = create_train_state(seed, cfg, device=device)
+        ins = [torch.from_numpy(a).to(device) for a in arrays]
+        S = cfg.train.subbatch_size
+        loss0 = float(fn.value_and_grad(st.params, st.model_state, *(t[:S] for t in ins), None)[0])
+        t0 = time.perf_counter()
+        if device == "cuda":
+            p, ms, opt, preds, loss = drive("train_bf16", [], lambda: fn(st.params, st.model_state, st.opt_state,
+                                                                         *ins, None), launches_by_path)
+            require_not_launched("train_bf16", list(KERNELS), launches_by_path)
+        else:
+            p, ms, opt, preds, loss = fn(st.params, st.model_state, st.opt_state, *ins, None)
+        out[device] = {"first_loss": loss0, "mean_loss": float(loss), "steps": opt.step,
+                       "wall_s": time.perf_counter() - t0}
+        require(opt.step == n // S and all(t.dtype == torch.float32 for t in tree_leaves(p)),
+                f"12f: {opt.step} steps or master params not float32 on {device}")
+    rel = abs(out["cuda"]["first_loss"] - out["cpu"]["first_loss"]) / abs(out["cpu"]["first_loss"])
+    require(rel <= 1e-2, f"12f: the first bf16 loss card vs CPU {rel} relative (> 1e-2)")
+    out["first_loss_rel"] = rel
+    print(f"phase 12f: three bf16 train steps on {smi}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def lowp_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> dict:
+    """Phase 12: bf16 and int8 inference at the preset's full width (``configs/tpu_serving.json``) on phase 1's
+    ``videos`` and the rest, and bf16 training; returns the kernel rows of the four low-precision forms."""
+    t_phase = time.perf_counter()
+    cfg = preset_cfg()
+    fusion = weights.from_jax(*weights.init_params(cfg, seed))[0]["fusion"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    rows = lowp_kernel_rows(sum(VIDEO_LENGTHS), cfg, fusion, gen)
+    print(f"phase 12a: the four forms on {smi}: {json.dumps({k: {x: r[x] for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by', 'max_abs_err')} for k, r in rows.items()})}",
+          flush=True)
+    lowp_videos_check(seed, smi, launches_by_path, videos)
+    lowp_infer_check(seed, smi, launches_by_path)
+    lowp_spotter_check(seed, smi, launches_by_path)
+    lowp_train_check(seed, smi, launches_by_path)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2918,7 +3360,7 @@ def main() -> int:
           f"ms by M:plan {json.dumps(sweep['ms'])}", flush=True)
     rows.update(check_attention_kernels(gen))
     rows.update(check_attention_bwd_kernels(gen))
-    rows = {name: rows[name] for name in KERNELS}
+    rows = {name: rows[name] for name in KERNELS if name not in LOWP_FORMS}
     for name, r in rows.items():
         print(f"kernel {name} on {smi}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
@@ -2959,7 +3401,7 @@ def main() -> int:
     print(f"profile of one batch run: {json.dumps(prof)}")
     print(f"fused_fusion_mlp at M = {n_total} on {smi}: traced in the path {prof.get('mlp_kernel_ms')} ms, "
           f"timing loop {rows['fused_fusion_mlp']['ms']:.4f} ms")
-    del videos, feats
+    del feats   # phase 12 runs the videos again
 
     knapsack_phase(args.seed, smi)
     enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)
@@ -2967,7 +3409,18 @@ def main() -> int:
     del enc, train_runs
     infer_phase(args.seed, smi, launches_by_path)
     training_journey_phase(args.seed, smi, launches_by_path)
+    rows.update(lowp_phase(args.seed, smi, launches_by_path, videos))
+    del videos
     serving_phase(args.seed, smi, launches_by_path)
+    for label, got in launches_by_path.items():   # the float32 paths never take a low-precision form
+        if not label.startswith(("summarize_", "infer_preset", "serve_preset", "serve_spotter_int8", "train_bf16")):
+            require_not_launched(label, LOWP_FORMS, launches_by_path)
+    rows = {name: rows[name] for name in KERNELS}
+    for name in LOWP_FORMS:
+        r = rows[name]
+        print(f"kernel {name} on {smi}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
     print(f"total script {time.perf_counter() - t_start:.1f} s")
 
     table = []

@@ -47,6 +47,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "lowp_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -379,4 +380,179 @@ extern "C" int fused_mlp_max_clusters(int n_layers, const int* dims, int block_r
     case 32: return max_clusters<32>(args, cluster, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bf16 form: replaces fused_fusion_mlp at bf16 inputs, as the JAX package's bf16 eval forward runs the
+// chain (XLA, models/avm.py:163-175 via layers.py:53-56): each layer bf16(bf16(x . w) + b) from float32
+// sums, ReLU between, then the squash in bf16 op by op: e = bf16(exp(-x)), d = bf16(1 + e),
+// s = bf16(1 / d), out = bf16(bf16((hi - lo) s) + lo), so the scores lie on the bf16 grid.
+// What bounds it on an H100: the weights' path to each block (1.5 MB of bf16 weights through L2 per block
+// of rows); 1.58 GFLOP at M = 1050 is 1.6 us of bf16 tensor cores.  Design (a simple first form): one block
+// of 8 warps owns 16 rows (one m16 tile), or 8 when 16-row blocks would leave SMs idle, for the whole
+// chain; activations stay in shared memory as bf16 (rows padded to an odd count of 16-byte chunks, so
+// ldmatrix's 8 rows hit distinct banks); each warp takes n8 tiles of a layer eight at a time and walks K
+// in chunks of 32 with two mma.sync m16n8k16 each.  The B fragments come straight from the weights, which
+// a first launch (prep_bf16_kernel) lays out transposed ((out, in), each row k-contiguous) and zero-padded
+// to multiples of 32 in a workspace (one launch for all layers: the wrapper's host work stays two calls): one
+// 16-byte load gives a thread both k-steps of a chunk (physical k 8t .. 8t + 7), and the activations are
+// stored with each 32-column group permuted (kPermPos) so that ldmatrix hands A the same k order.
+namespace {
+
+constexpr int kB16Rows = 16;   // rows of the MMA tile; a block owns 8 or 16 of them
+
+struct MlpBf16Args {
+  const __nv_bfloat16* wt[kMaxLayers];  // (np[l], kp[l]) row-major: w transposed, zero-padded
+  const __nv_bfloat16* b[kMaxLayers];   // (np[l],), zero-padded
+  int kp[kMaxLayers], np[kMaxLayers];   // multiples of 32, np[l] == kp[l + 1]
+  int n_layers, d_in, n_out, pitch;     // pitch: bf16 values per activation row in shared memory
+};
+
+// Where physical column q of a 32-column group is stored: q = 8t + 4s + 2h + e is logical k 8h + 2t + e of
+// k-step s, the k that thread t's 16-byte weight load (physical 8t .. 8t + 7) feeds.
+__device__ __forceinline__ int perm_pos(int q) {
+  return 16 * ((q >> 2) & 1) + 8 * ((q >> 1) & 1) + 2 * (q >> 3) + (q & 1);
+}
+
+__device__ __forceinline__ int act_pos(int col) { return (col & ~31) + perm_pos(col & 31); }
+
+__device__ __forceinline__ float squash_bf16(float v, float scale, float lo) {
+  const float e = bf16_round(expf(-v));
+  const float d = bf16_round(__fadd_rn(1.f, e));
+  const float s = bf16_round(__fdiv_rn(1.f, d));
+  return bf16_round(__fadd_rn(bf16_round(__fmul_rn(scale, s)), lo));
+}
+
+__global__ void __launch_bounds__(kThreads) fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                                                  __nv_bfloat16* __restrict__ y, int M, int rows,
+                                                                  const MlpBf16Args a, int squash, float scale,
+                                                                  float lo) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem4);   // two buffers [16][pitch]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int r0 = blockIdx.x * rows;
+  const int k0 = a.kp[0];
+  for (int e = tid; e < kB16Rows * k0; e += kThreads) {
+    const int r = e / k0, c = e % k0;
+    act[r * a.pitch + act_pos(c)] = r < rows && r0 + r < M && c < a.d_in ? x[static_cast<size_t>(r0 + r) * a.d_in + c]
+                                                                          : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+  for (int l = 0; l < a.n_layers; ++l) {
+    const __nv_bfloat16* in = act + (l & 1) * kB16Rows * a.pitch;
+    __nv_bfloat16* next = act + ((l + 1) & 1) * kB16Rows * a.pitch;
+    const bool last = l == a.n_layers - 1;
+    const int kp = a.kp[l], n_tiles = a.np[l] / 8;
+    const __nv_bfloat16* wt = a.wt[l];
+    const __nv_bfloat16* bias = a.b[l];
+    const __nv_bfloat16* arow = in + (lane % 16) * a.pitch + 8 * (lane / 16);
+    for (int tile0 = warp; tile0 < n_tiles; tile0 += 64) {   // tiles tile0 + 8q, q < 8, of this warp
+      float acc[8][4] = {};
+#pragma unroll 2
+      for (int kc = 0; kc < kp; kc += 32) {
+        uint32_t a0[4], a1[4];
+        ldsm_x4(a0, arow + kc);
+        ldsm_x4(a1, arow + kc + 16);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int tile = tile0 + 8 * q;
+          if (tile < n_tiles) {   // the same for the whole warp
+            const uint4 u = __ldg(reinterpret_cast<const uint4*>(wt + static_cast<size_t>(8 * tile + g) * kp + kc + 8 * t));
+            mma_bf16(acc[q], a0, u.x, u.y);
+            mma_bf16(acc[q], a1, u.z, u.w);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int tile = tile0 + 8 * q;
+        if (tile >= n_tiles) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = g + 8 * (e / 2), col = 8 * tile + 2 * t + e % 2;
+          float v = bf16_round(__fadd_rn(bf16_round(acc[q][e]), __bfloat162float(bias[col])));
+          if (!last) {
+            next[row * a.pitch + act_pos(col)] = __float2bfloat16_rn(fmaxf(v, 0.f));
+          } else if (row < rows && r0 + row < M && col < a.n_out) {
+            if (squash) v = squash_bf16(v, scale, lo);
+            y[static_cast<size_t>(r0 + row) * a.n_out + col] = __float2bfloat16_rn(v);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The weights as the MMAs read them, in one launch: wt[l] (np, kp) = w[l] (k, n) transposed and zero-padded,
+// bp[l] (np,) = b[l] zero-padded; layer l's pair starts at element off[l] of one workspace.
+struct MlpBf16Prep {
+  const __nv_bfloat16* w[kMaxLayers];
+  const __nv_bfloat16* b[kMaxLayers];
+  int k[kMaxLayers], n[kMaxLayers], kp[kMaxLayers], np[kMaxLayers];
+  long long off[kMaxLayers + 1];
+  int n_layers;
+};
+
+__global__ void __launch_bounds__(256) prep_bf16_kernel(__nv_bfloat16* __restrict__ ws, const MlpBf16Prep p) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= p.off[p.n_layers]) return;
+  int l = 0;
+  while (e >= p.off[l + 1]) ++l;
+  const long long r = e - p.off[l];
+  const int kp = p.kp[l], np = p.np[l];
+  __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+  if (r < static_cast<long long>(np) * kp) {
+    const int n = static_cast<int>(r / kp), k = static_cast<int>(r % kp);
+    if (n < p.n[l] && k < p.k[l]) v = p.w[l][static_cast<size_t>(k) * p.n[l] + n];
+  } else {
+    const int n = static_cast<int>(r - static_cast<long long>(np) * kp);
+    if (n < p.n[l]) v = p.b[l][n];
+  }
+  ws[e] = v;
+}
+
+}  // namespace
+
+// The bf16 form.  x: (M, dims[0]) bf16; y: (M, dims[n_layers]) bf16; w_ptrs[l]: (dims[l], dims[l + 1]) bf16;
+// b_ptrs[l]: (dims[l + 1],) bf16; ws: a 16-byte aligned workspace of sum over l of np * (kp + 1) bf16 values
+// (kp, np: dims[l], dims[l + 1] rounded up to 32) that the first launch fills with the weights transposed and
+// zero-padded, then the biases; rows per block 8 or 16; scale = bf16(hi - lo), lo = bf16(lo).  Two launches,
+// each checked.
+extern "C" int fused_mlp_bf16(const void* x, void* y, int M, int n_layers, const void* const* w_ptrs,
+                              const void* const* b_ptrs, const int* dims, void* ws, int rows, int squash,
+                              float scale, float lo, void* stream) {
+  if (M < 1 || n_layers < 1 || n_layers > kMaxLayers || (rows != 8 && rows != kB16Rows) ||
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MlpBf16Prep p;
+  MlpBf16Args a;
+  p.off[0] = 0;
+  int widest = 0;
+  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(ws);
+  for (int l = 0; l < n_layers; ++l) {
+    if (dims[l] < 1 || dims[l + 1] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    p.w[l] = static_cast<const __nv_bfloat16*>(w_ptrs[l]);
+    p.b[l] = static_cast<const __nv_bfloat16*>(b_ptrs[l]);
+    p.k[l] = dims[l], p.n[l] = dims[l + 1];
+    p.kp[l] = a.kp[l] = (dims[l] + 31) / 32 * 32;
+    p.np[l] = a.np[l] = (dims[l + 1] + 31) / 32 * 32;
+    a.wt[l] = base + p.off[l];
+    a.b[l] = base + p.off[l] + static_cast<long long>(a.np[l]) * a.kp[l];
+    p.off[l + 1] = p.off[l] + static_cast<long long>(a.np[l]) * a.kp[l] + a.np[l];
+    widest = a.kp[l] > widest ? a.kp[l] : widest;
+  }
+  p.n_layers = a.n_layers = n_layers;
+  a.d_in = dims[0], a.n_out = dims[n_layers];
+  a.pitch = widest + 8;   // an odd count of 16-byte chunks
+  const size_t bytes = sizeof(__nv_bfloat16) * 2 * kB16Rows * a.pitch;
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  prep_bf16_kernel<<<static_cast<unsigned>((p.off[n_layers] + 255) / 256), 256, 0, s>>>(base, p);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  err = allow_dynamic_smem(fused_mlp_bf16_kernel, bytes);
+  if (err) return err;
+  fused_mlp_bf16_kernel<<<(M + rows - 1) / rows, kThreads, bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), M, rows, a, squash, scale, lo);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -44,6 +44,7 @@
 // K and N must be multiples of 4 and every pointer 16-byte aligned (the
 // wrapper pads smaller operands that are not).
 #include "common.cuh"
+#include "lowp_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -195,6 +196,132 @@ __global__ void __launch_bounds__(256) reduce_bias_kernel(const float4* __restri
   y[e] = s;
 }
 
+// The bf16 form: replaces head_matmul_pallas at bf16 (the JAX package's bf16 eval forward computes the
+// head as XLA's bf16 convolution, models/visual.py:151-162: float32 sums over K rounded once to bf16, + the
+// bf16 bias rounded again, ReLU).  What bounds it: operations, 989 TFLOP/s of bf16 tensor cores, dense
+// (85 MB of w... 42.5 MB in bf16, read once per batch through L2).  Design: kernel 3's split-K scheme with
+// mma.sync m16n8k16 bf16: 128 x 128 tiles, 8 warps of 64 x 32, K steps of 32 through a 4-stage cp.async
+// ring (x rows padded to 80 bytes, w rows to 272, so ldmatrix's 8 rows hit distinct banks; w [k][n] feeds
+// ldmatrix .trans), float32 partials per split, then a pass that adds the splits in a fixed order and
+// rounds as above.  K and N multiples of 8.
+constexpr int kLStages = 4;
+constexpr int kLXRow = 2 * kBK + 16;                  // bytes per x row of a stage
+constexpr int kLWRow = 2 * kBN + 16;                  // bytes per w row of a stage
+constexpr int kLXStage = kBM * kLXRow, kLWStage = kBK * kLWRow;
+constexpr size_t kLSmemBytes = static_cast<size_t>(kLStages) * (kLXStage + kLWStage);
+static_assert(kBM * (2 * kBK / 16) == 2 * kThreads && kBK * (2 * kBN / 16) == 2 * kThreads, "two copies a thread");
+
+__global__ void __launch_bounds__(kThreads, 2) splitk_bf16_gemm_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w, float* __restrict__ part, int M,
+    int K, int N, int k_chunk) {
+  extern __shared__ float4 smem4[];
+  char* sx = reinterpret_cast<char*>(smem4);   // [kLStages][kBM][kLXRow]
+  char* sw = sx + kLStages * kLXStage;         // [kLStages][kBK][kLWRow]
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const int n_k = k_begin < k_end ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  // copies: x rows tid / 4 (+ 64) at 16-byte chunk tid % 4; w rows tid / 16 (+ 16) at chunk tid % 16
+  const int xr = tid / 4, xc = tid % 4, wr = tid / 16, wc = tid % 16;
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = k_begin + kt * kBK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = xr + 64 * i;
+      const bool in = m0 + row < M && k0 + 8 * xc < k_end;
+      lp_cp_async16(sx + stage * kLXStage + row * kLXRow + 16 * xc,
+                    in ? x + static_cast<size_t>(m0 + row) * K + k0 + 8 * xc : x, in);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = wr + 16 * i;
+      const bool in = n0 + 8 * wc < N && k0 + row < k_end;
+      lp_cp_async16(sw + stage * kLWStage + row * kLWRow + 16 * wc,
+                    in ? w + static_cast<size_t>(k0 + row) * N + n0 + 8 * wc : w, in);
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int a_off = (64 * wm + lane % 16) * kLXRow + 16 * (lane / 16);
+  const int b_off = (lane % 8 + 8 * ((lane / 8) % 2)) * kLWRow + 2 * (32 * wn + 8 * (lane / 16));
+
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int st = 0; st < kLStages - 1; ++st) {
+    if (st < n_k) load_stage(st, st);
+    lp_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    lp_wait<kLStages - 2>();
+    __syncthreads();  // stage kt has landed for every thread, and stage kt - 1 is free
+    if (kt + kLStages - 1 < n_k) load_stage((kt + kLStages - 1) % kLStages, kt + kLStages - 1);
+    lp_commit();
+
+    const char* xs = sx + (kt % kLStages) * kLXStage;
+    const char* ws = sw + (kt % kLStages) * kLWStage;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t bf[2][4];
+      ldsm_x4_trans(bf[0], ws + b_off + 16 * kk * kLWRow);
+      ldsm_x4_trans(bf[1], ws + b_off + 16 * kk * kLWRow + 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t af[4];
+        ldsm_x4(af, xs + a_off + 16 * i * kLXRow + 32 * kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af, bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
+      }
+    }
+  }
+  lp_wait<0>();
+
+  // acc[i][j][e]: row 64 wm + 16 i + g + 8 (e / 2), column 32 wn + 8 j + 2 t + e % 2
+  float* p = part + static_cast<size_t>(blockIdx.z) * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 64 * wm + 16 * i + g + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + 32 * wn + 8 * j + 2 * t;
+        if (col < N)
+          *reinterpret_cast<float2*>(p + static_cast<size_t>(row) * N + col) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// y = ReLU?(bf16(bf16(sum of the splits in order) + b)), four outputs a thread.
+__global__ void __launch_bounds__(256) reduce_bias_bf16_kernel(const float4* __restrict__ part,
+                                                               const __nv_bfloat16* __restrict__ b,
+                                                               __nv_bfloat16* __restrict__ y, int N, long long total4,
+                                                               int splits, int relu) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= total4) return;
+  float4 s = part[e];
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = part[z * total4 + e];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const int col = static_cast<int>((4 * e) % N);
+  const float in[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float v = bf16_round(__fadd_rn(bf16_round(in[c]), __bfloat162float(b[col + c])));
+    if (relu) v = fmaxf(v, 0.f);
+    y[4 * e + c] = __float2bfloat16_rn(v);
+  }
+}
+
 }  // namespace
 
 // x: (M, K); w: (K, N); b: (N,); part: (splits, M, N) workspace; y: (M, N);
@@ -227,4 +354,36 @@ extern "C" int head_matmul_blocks_per_sm(int* out) {
   if (err) return err;
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, splitk_tc_gemm_kernel, kThreads, kSmemBytes));
+}
+
+// The bf16 form: x (M, K), w (K, N), b (N,), y (M, N) bf16; part: (splits, M, N) float32 workspace;
+// K and N multiples of 8, every pointer 16-byte aligned; k_chunk a multiple of 32 with
+// splits * k_chunk >= K.  Two launches, each checked.
+extern "C" int head_matmul_bf16(const void* x, const void* w, const void* b, void* part, void* y, int M, int K,
+                                int N, int splits, int k_chunk, int relu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || splits < 1 || k_chunk <= 0 || k_chunk % kBK != 0 ||
+      static_cast<long long>(splits) * k_chunk < K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = allow_dynamic_smem(splitk_bf16_gemm_kernel, kLSmemBytes);
+  if (err) return err;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  splitk_bf16_gemm_kernel<<<grid, kThreads, kLSmemBytes, s>>>(static_cast<const __nv_bfloat16*>(x),
+                                                              static_cast<const __nv_bfloat16*>(w),
+                                                              static_cast<float*>(part), M, K, N, k_chunk);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long long total4 = static_cast<long long>(M) * N / 4;
+  reduce_bias_bf16_kernel<<<static_cast<unsigned>((total4 + 255) / 256), 256, 0, s>>>(
+      static_cast<const float4*>(part), static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y), N,
+      total4, splits, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the bf16 GEMM pass an SM of the current card keeps resident, into *out.
+extern "C" int head_matmul_bf16_blocks_per_sm(int* out) {
+  const int err = allow_dynamic_smem(splitk_bf16_gemm_kernel, kLSmemBytes);
+  if (err) return err;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, splitk_bf16_gemm_kernel, kThreads, kLSmemBytes));
 }

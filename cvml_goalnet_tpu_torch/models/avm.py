@@ -8,7 +8,10 @@ MLP 640→512→512→256→128→1 and ``(hi − lo)·σ + lo``.  ``classifier=
 returns the raw 5-way logits.
 
 * :func:`avm_apply` is the eval forward: the folded visual trunk (kernels 2
-  and 3) and the fusion MLP in one launch of ``fused_fusion_mlp`` (kernel 4).
+  and 3) and the fusion MLP in one launch of ``fused_fusion_mlp`` (kernel 4),
+  in the dtype of its inputs (float32, or bf16 once the caller has cast
+  params, state and features as ``pipeline.fuse`` does), with conv1 and
+  conv2 through int8 under ``cfg.quantized_inference``.
 * :func:`avm_train_apply` is JAX's ``avm_apply(train=True, rng=…,
   valid=…)``: the unfolded visual trunk with batch-statistics batchnorm
   (``valid`` keeps padded rows out of them), linear → ReLU → dropout per
@@ -46,23 +49,22 @@ def check_supported(cfg: ModelConfig) -> None:
         "vis_backbone": (cfg.vis_backbone != "reference", "the resnet and vit families"),
         "fusion_moe_experts": (cfg.fusion_moe_experts > 0, "the mixture-of-experts fusion"),
         "text_included": (cfg.text_included, "the text branch"),
-        "quantized_inference": (cfg.quantized_inference, "int8 inference"),
-        "dtype": (cfg.dtype != "float32", "bf16"),
     }
     for name, (unsupported, what) in later.items():
         if unsupported:
             raise NotImplementedError(
                 f"ModelConfig.{name}={getattr(cfg, name)!r}: {what} is not ported yet "
-                "(ROADMAP.md §1 item 5, a later slice of the PyTorch port; the port runs the float32 "
-                "reference backbone)"
+                "(ROADMAP.md §1 item 5, a later slice of the PyTorch port; the port runs the reference "
+                "backbone)"
             )
 
 
 def avm_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, *,
               cfg: ModelConfig, classifier: bool = False) -> torch.Tensor:
-    """Eval forward → (N, 1) scores in [out_lo, out_hi], or (N, 5) logits with ``classifier``."""
+    """Eval forward → (N, 1) scores in [out_lo, out_hi], or (N, 5) logits with ``classifier``, in the inputs'
+    dtype."""
     check_supported(cfg)
-    parts = [visual_encoder_apply(params["visual"], state["visual"], visual)]
+    parts = [visual_encoder_apply(params["visual"], state["visual"], visual, quant=cfg.quantized_inference)]
     if cfg.audio_included:
         parts.insert(0, audio_encoder_apply(params["audio"], audio))
     x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]

@@ -7,6 +7,12 @@ batchnorm (batch statistics, an optional mask of valid rows) and dropout
 (masks drawn from an explicit ``torch.Generator``).  Each takes and returns
 the JAX layout and permutes to PyTorch's channel-first layout only around the
 library call.  Library convolutions and products run with TF32 off.
+
+On bf16 inputs conv2d, conv1d and linear round where the JAX package's bf16
+forward rounds: the weights and bias are cast to bf16, the contraction runs
+on the upcast operands in strict float32 and is rounded to bf16, and the
+bias is added in bf16 (rounded again).  Every cast is differentiable, so the
+bf16 train forward uses the same functions.
 """
 
 from __future__ import annotations
@@ -21,8 +27,19 @@ def conv_out_size(size: int, kernel: int, stride: int, padding: int) -> int:
     return (size + 2 * padding - kernel) // stride + 1
 
 
+def _bf16_sum(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A float32 contraction of bf16 operands rounded to bf16, + ``b`` in bf16 (rounded again)."""
+    return y.to(torch.bfloat16) + b.to(torch.bfloat16)
+
+
 def conv2d_apply(params, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """x (N, H, W, C) NHWC, params ``{"w": HWIO, "b": (O,)}`` → NHWC."""
+    """x (N, H, W, C) NHWC, params ``{"w": HWIO, "b": (O,)}`` → NHWC, in x's dtype (float32 or bf16)."""
+    if x.dtype == torch.bfloat16:
+        w = params["w"].to(torch.bfloat16).to(torch.float32)
+        with strict_f32():
+            y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
+                         padding=padding)
+        return _bf16_sum(y, params["b"][:, None, None]).permute(0, 2, 3, 1)
     with strict_f32():
         y = F.conv2d(x.permute(0, 3, 1, 2), params["w"].permute(3, 2, 0, 1), params["b"],
                      stride=stride, padding=padding)
@@ -30,7 +47,12 @@ def conv2d_apply(params, x: torch.Tensor, stride: int = 1, padding: int = 0) -> 
 
 
 def conv1d_apply(params, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """x (N, W, C) NWC, params ``{"w": WIO, "b": (O,)}`` → NWC."""
+    """x (N, W, C) NWC, params ``{"w": WIO, "b": (O,)}`` → NWC, in x's dtype (float32 or bf16)."""
+    if x.dtype == torch.bfloat16:
+        w = params["w"].to(torch.bfloat16).to(torch.float32)
+        with strict_f32():
+            y = F.conv1d(x.to(torch.float32).permute(0, 2, 1), w.permute(2, 1, 0), stride=stride, padding=padding)
+        return _bf16_sum(y, params["b"][:, None]).permute(0, 2, 1)
     with strict_f32():
         y = F.conv1d(x.permute(0, 2, 1), params["w"].permute(2, 1, 0), params["b"],
                      stride=stride, padding=padding)
@@ -43,13 +65,19 @@ def maxpool2d(x: torch.Tensor, kernel: int = 3, stride: int = 1) -> torch.Tensor
 
 
 def bn_affine(bn_params, bn_state, eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
-    """Eval batchnorm as per-channel (s, t) with y = s·x + t."""
-    s = bn_params["scale"] * torch.rsqrt(bn_state["var"] + eps)
-    return s, bn_params["bias"] - bn_state["mean"] * s
+    """Eval batchnorm as per-channel float32 (s, t) with y = s·x + t (from bf16 statistics upcast, as in the
+    JAX package)."""
+    f32 = torch.float32
+    s = bn_params["scale"].to(f32) * torch.rsqrt(bn_state["var"].to(f32) + eps)
+    return s, bn_params["bias"].to(f32) - bn_state["mean"].to(f32) * s
 
 
 def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """x (N, in) @ w (in, out) + b."""
+    """x (N, in) @ w (in, out) + b, in x's dtype (float32 or bf16)."""
+    if x.dtype == torch.bfloat16:
+        with strict_f32():
+            y = torch.matmul(x.to(torch.float32), params["w"].to(torch.bfloat16).to(torch.float32))
+        return _bf16_sum(y, params["b"])
     with strict_f32():
         return torch.matmul(x, params["w"]) + params["b"]
 

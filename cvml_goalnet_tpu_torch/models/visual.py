@@ -20,6 +20,13 @@ Mapping onto the port's kernels:
   batchnorm folded in; the flatten is channel-last, so the scale tiles as
   ``repeat(s, H·W)``.  Activations stay NHWC end to end.
 
+The eval path runs in the input's dtype, as JAX's ``:93-162`` does: on bf16
+frames (the caller casts params and state to bf16 first) the fold runs in
+float32 from the bf16 statistics and weights, and the folded weights, ``corr``
+and every activation are rounded to bf16, so kernels 2 and 3 take their bf16
+forms.  ``quant`` (``quantized_inference``) routes conv1 and conv2 through
+the int8 form of kernel 2 with the float32 folded weights, at float32 or bf16.
+
 :func:`visual_encoder_train_apply` is the unfolded train forward (JAX
 ``:57-81``): conv → ReLU → maxpool → batchnorm on batch statistics, three
 times, then the head, ReLU and dropout, all plain differentiable PyTorch ops
@@ -33,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from cvml_goalnet_tpu_torch.models import layers as L
-from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import fused_conv_pool_stage, fused_conv_pool_stage_int8
 from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul
 
 # (kernel, stride, padding) per conv stage — reference utils.py:151-163.
@@ -54,28 +61,33 @@ def visual_spatial_trace(hw: tuple[int, int], n_stages: int) -> list[tuple[int, 
     return sizes
 
 
-def visual_encoder_apply(params, state, x: torch.Tensor) -> torch.Tensor:
-    """x (N, H, W, C) normalised frames → (N, vis_feature_dim), eval mode."""
-    n = x.shape[0]
+def visual_encoder_apply(params, state, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+    """x (N, H, W, C) normalised frames → (N, vis_feature_dim) in x's dtype (float32 or bf16), eval mode;
+    ``quant`` takes conv1 and conv2 through int8."""
+    n, dt = x.shape[0], x.dtype
     n_stages = sum(1 for i in range(len(STAGE_GEOM)) if f"conv{i}" in params)
     s_prev = t_prev = None
     for i in range(n_stages):
         _, stride, pad = STAGE_GEOM[i]
-        conv = params[f"conv{i}"]
+        w, b = params[f"conv{i}"]["w"].to(torch.float32), params[f"conv{i}"]["b"].to(torch.float32)
+        conv = {"w": w.to(dt), "b": b.to(dt)}
         if s_prev is None:
             x = L.maxpool2d(torch.relu(L.conv2d_apply(conv, x, stride, pad)), *POOL)
         else:
-            t_map = t_prev.expand(1, x.shape[1], x.shape[2], conv["w"].shape[2])
-            corr = L.conv2d_apply(conv, t_map, stride, pad)
-            w_folded = conv["w"] * s_prev[None, None, :, None]
-            x = fused_conv_pool_stage(x.contiguous(), w_folded.contiguous(), corr[0].contiguous())
+            t_map = t_prev.to(dt).expand(1, x.shape[1], x.shape[2], w.shape[2])
+            corr = L.conv2d_apply(conv, t_map, stride, pad)[0].contiguous()
+            w_folded = (w * s_prev[None, None, :, None]).contiguous()
+            if quant:
+                x = fused_conv_pool_stage_int8(x.contiguous(), w_folded, corr)
+            else:
+                x = fused_conv_pool_stage(x.contiguous(), w_folded.to(dt), corr)
         s_prev, t_prev = L.bn_affine(params[f"bn{i}"], state[f"bn{i}"])
     hw = x.shape[1] * x.shape[2]
-    w = params["head"]["w"]
-    w_folded = w * s_prev.repeat(hw)[:, None]
-    b_folded = L.linear_apply({"w": w, "b": params["head"]["b"]}, t_prev.repeat(hw)[None])[0]
+    w = params["head"]["w"].to(torch.float32)
+    w_folded = (w * s_prev.repeat(hw)[:, None]).to(dt)
+    b_folded = L.linear_apply({"w": w, "b": params["head"]["b"].to(torch.float32)}, t_prev.repeat(hw)[None])[0]
     flat = x.contiguous().reshape(n, hw * x.shape[3])
-    return head_matmul(flat, w_folded.contiguous(), b_folded.contiguous(), relu=True)
+    return head_matmul(flat, w_folded.contiguous(), b_folded.to(dt).contiguous(), relu=True)
 
 
 def visual_encoder_train_apply(params, state, x: torch.Tensor, *, generator: torch.Generator | None,

@@ -30,7 +30,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_preprocess", "fused_stage", "matmul", "fused_mlp", "flash_attention")
+KERNELS = ("fused_preprocess", "fused_stage", "fused_stage_lowp", "matmul", "fused_mlp", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -142,11 +142,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def require_f32(what: str, device: torch.device, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is contiguous float32 on ``device``: what the kernels take."""
+def require_dtype(what: str, device: torch.device, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous ``dtype`` on ``device``: what a form of a kernel takes (no
+    tensor is ever cast for it)."""
     for name, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
-            raise ValueError(f"{what}: {name} must be contiguous float32 on {device}, got {t.dtype} on {t.device}")
+        if t.dtype != dtype or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{what}: {name} must be contiguous {str(dtype).removeprefix('torch.')} on {device}, "
+                             f"got {t.dtype} on {t.device}")
 
 
 def refuse_grad(what: str, *tensors: torch.Tensor) -> None:

@@ -201,7 +201,7 @@ def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def _check_kernel_inputs(what: str, q, k, v, **more) -> None:
-    _build.require_f32(what, q.device, q=q, k=k, v=v, **more)
+    _build.require_dtype(what, q.device, torch.float32, q=q, k=k, v=v, **more)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{what}: q, k and v must start on 16-byte boundaries")
 

@@ -17,6 +17,12 @@ picks (BM, C) from M, the widths and how many clusters the card runs at once:
 16 rows by 2 blocks (132 blocks) at M = 1050, where the kernel took
 0.08–0.10 ms on an H100 (``chip_smoke.py``'s kernel phase; ``PERF.md``).
 
+The bf16 form (:func:`fused_fusion_mlp_bf16`, the same source) runs the
+chain on the tensor cores in bf16 and rounds each layer and the squash as the
+JAX package's bf16 forward does, so its scores lie on the bf16 grid;
+:func:`fused_fusion_mlp` dispatches by dtype, and a CUDA tensor of a dtype no
+form takes raises.
+
 The kernel has no backward (the JAX package's has no VJP either): on CUDA
 tensors that require grad with grad mode on, the wrapper raises rather than
 return an output that would cut the gradient.
@@ -32,11 +38,13 @@ import torch
 
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.ops.cuda import _build
+from cvml_goalnet_tpu_torch.utils import bf16_rounded
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_mlp": [_P, _P, _I, _I, _P, _P, _P, _I, ctypes.c_float, ctypes.c_float, _I, _I, _P],
     "fused_mlp_max_clusters": [_I, _P, _I, _I, _P],
+    "fused_mlp_bf16": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P],
 }
 MAX_LAYERS = 8
 SMEM_LIMIT = 232_448             # shared memory one block may use on Hopper
@@ -138,6 +146,8 @@ def fused_fusion_mlp(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel with :func:`tile_plan`'s
     plan for its M and widths on this card.
     """
+    if x.dtype == torch.bfloat16:
+        return fused_fusion_mlp_bf16(x, layers, out_lo, out_hi, squash)
     if x.device.type == "cpu":
         return fused_fusion_mlp_plain(x, layers, out_lo, out_hi, squash)
     if x.device.type != "cuda":
@@ -188,7 +198,7 @@ def _dims_of(x: torch.Tensor, layers) -> list[int]:
             raise ValueError(f"fused_fusion_mlp: layer {i} w {tuple(w.shape)} b {tuple(b.shape)} does not chain from {dims[-1]}")
         dims.append(w.shape[1])
     _build.refuse_grad("fused_fusion_mlp", x, *(t for lp in layers for t in (lp["w"], lp["b"])))
-    _build.require_f32("fused_fusion_mlp", x.device, x=x,
+    _build.require_dtype("fused_fusion_mlp", x.device, torch.float32, x=x,
                        **{f"layer{i}.{k}": lp[k] for i, lp in enumerate(layers) for k in ("w", "b")})
     return dims
 
@@ -223,3 +233,93 @@ def _clusters_at_once(device: int, dims: tuple[int, ...], block_rows: int, clust
 
 
 fused_fusion_mlp.launches = 0
+
+
+# ---------------------------------------------------------------- the bf16 form
+
+
+def squash_bf16(x: torch.Tensor, out_lo: float, out_hi: float) -> torch.Tensor:
+    """``(hi − lo)·σ(x) + lo`` on float32 tensors of bf16 values, rounded to bf16 after each operation as the
+    JAX package's bf16 forward computes it: e = exp(−x), d = 1 + e, s = 1 / d, then bf16(hi − lo)·s and + lo."""
+    scale, lo = _bf16_value(out_hi - out_lo), _bf16_value(out_lo)
+    e = bf16_rounded(torch.exp(-x))
+    s = bf16_rounded(1.0 / bf16_rounded(1.0 + e))
+    return bf16_rounded(bf16_rounded(scale * s) + lo)
+
+
+def fused_fusion_mlp_bf16_plain(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float = 5.0,
+                                squash: bool = True) -> torch.Tensor:
+    """The bf16 form in plain PyTorch: each layer bf16(bf16(x·w in strict float32) + b), ReLU between, then
+    :func:`squash_bf16`; bf16 out."""
+    h = x.to(torch.float32)
+    for i, lp in enumerate(layers):
+        with strict_f32():
+            h = torch.matmul(h, lp["w"].to(torch.float32))
+        h = bf16_rounded(bf16_rounded(h) + lp["b"].to(torch.float32))
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return (squash_bf16(h, out_lo, out_hi) if squash else h).to(torch.bfloat16)
+
+
+def fused_fusion_mlp_bf16(x: torch.Tensor, layers, out_lo: float = 1.0, out_hi: float = 5.0,
+                          squash: bool = True) -> torch.Tensor:
+    """The bf16 form: (N, D) bf16 features and bf16 layers → (N, out) bf16 scores (or logits).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel, one block per 16 rows (per 8
+    when blocks of 16 would not reach every SM), after a launch that lays each weight out transposed to
+    (out, in) and zero-padded to multiples of 32 in a workspace (the layout its MMAs read).
+    """
+    if x.device.type == "cpu":
+        return fused_fusion_mlp_bf16_plain(x, layers, out_lo, out_hi, squash)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_fusion_mlp_bf16: unsupported device {x.device}")
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"fused_fusion_mlp_bf16: the kernel takes 1 to {MAX_LAYERS} layers, got {len(layers)}")
+    dims = [x.shape[1]]
+    for i, lp in enumerate(layers):
+        if lp["w"].shape[0] != dims[-1] or lp["b"].shape != (lp["w"].shape[1],):
+            raise ValueError(f"fused_fusion_mlp_bf16: layer {i} w {tuple(lp['w'].shape)} b {tuple(lp['b'].shape)} "
+                             f"does not chain from {dims[-1]}")
+        dims.append(lp["w"].shape[1])
+    _build.refuse_grad("fused_fusion_mlp_bf16", x, *(t for lp in layers for t in (lp["w"], lp["b"])))
+    _build.require_dtype("fused_fusion_mlp_bf16", x.device, torch.bfloat16, x=x,
+                         **{f"layer{i}.{k}": lp[k] for i, lp in enumerate(layers) for k in ("w", "b")})
+    m = x.shape[0]
+    y = torch.empty((m, dims[-1]), dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    n_layers = len(layers)
+    w_ptrs = (ctypes.c_void_p * n_layers)(*[lp["w"].data_ptr() for lp in layers])
+    b_ptrs = (ctypes.c_void_p * n_layers)(*[lp["b"].data_ptr() for lp in layers])
+    c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
+    pad = [-(-d // 32) * 32 for d in dims]   # the kernel's transposed weights and biases, zero-padded
+    ws = torch.empty(sum(n * (k + 1) for k, n in zip(pad[:-1], pad[1:])), dtype=torch.bfloat16, device=x.device)
+    lib = _build.load("fused_mlp", _SIGNATURES)
+    scale, lo = _bf16_value(out_hi - out_lo), _bf16_value(out_lo)
+    rows = 16 if -(-m // 16) >= _sm_count(x.device) else 8
+    with _build.on_device(x):
+        code = lib.fused_mlp_bf16(
+            x.data_ptr(), y.data_ptr(), m, n_layers, ctypes.cast(w_ptrs, _P), ctypes.cast(b_ptrs, _P),
+            ctypes.cast(c_dims, _P), ws.data_ptr(), rows, int(squash), scale, lo, _build.stream_of(x),
+        )
+    _build.check(lib, code, "fused_fusion_mlp_bf16")
+    fused_fusion_mlp_bf16.launches += 1
+    return y
+
+
+fused_fusion_mlp_bf16.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _bf16_value(v: float) -> float:
+    """``v`` rounded to bf16 (the squash's constants, as the JAX package's bf16 forward casts them)."""
+    return float(torch.tensor(v).to(torch.bfloat16))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _sm_count(device: torch.device) -> int:
+    return _sms(_build.device_index(device))

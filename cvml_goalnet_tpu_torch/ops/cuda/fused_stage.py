@@ -10,8 +10,17 @@ memory and writes only the pooled tile; its note says what bounds it.
 :func:`stage_plan` picks the tile for a shape and a card, so any H, W ≥ 3
 runs.
 
-The kernel has no backward (the JAX package's has no VJP either): on CUDA
-tensors that require grad with grad mode on, the wrapper raises rather than
+Two low-precision forms run on the tensor cores too (``csrc/fused_stage_lowp.cu``):
+:func:`fused_conv_pool_stage_bf16` (bf16 in and out, float32 sums rounded where
+the JAX package's bf16 forward rounds) and :func:`fused_conv_pool_stage_int8`
+(the ``quantized_inference`` stage: int8 activations and weights, exact int32
+sums, dequantized to float32 or bf16).  :func:`fused_conv_pool_stage`
+dispatches by dtype: float32 takes the float32 kernel, bf16 the bf16 form.
+Each form has its own plain version and launch count; a CUDA tensor of a
+dtype no form takes raises, and nothing is cast for a kernel.
+
+The kernels have no backward (the JAX package's has no VJP either): on CUDA
+tensors that require grad with grad mode on, the wrappers raise rather than
 return an output that would cut the gradient.
 """
 
@@ -26,12 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from cvml_goalnet_tpu_torch.device import strict_f32
+from cvml_goalnet_tpu_torch.ops import quant
 from cvml_goalnet_tpu_torch.ops.cuda import _build
+from cvml_goalnet_tpu_torch.utils import bf16_rounded
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_conv_pool_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fused_conv_pool_stage_blocks_per_sm": [_I, _I, _I, _P],
+}
+_LOWP_SIGNATURES = {
+    "fused_conv_pool_stage_lowp": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "quantize_activations": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
 }
 
 # the kernel's geometry (csrc/fused_stage.cu)
@@ -181,10 +196,13 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> 
 
 
 def fused_conv_pool_stage(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
-    """x (N, H, W, C), w (3, 3, C, Co) HWIO, b_spatial (H, W, Co) → (N, H−2, W−2, Co).
+    """x (N, H, W, C), w (3, 3, C, Co) HWIO, b_spatial (H, W, Co) → (N, H−2, W−2, Co), in x's dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel with :func:`card_stage_plan`.
+    float32 takes this kernel, bf16 :func:`fused_conv_pool_stage_bf16`.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel with :func:`card_stage_plan`.
     """
+    if x.dtype == torch.bfloat16:
+        return fused_conv_pool_stage_bf16(x, w, b_spatial)
     if x.device.type == "cpu":
         return fused_conv_pool_stage_plain(x, w, b_spatial)
     if x.device.type != "cuda":
@@ -205,7 +223,7 @@ def fused_conv_pool_stage_planned(x: torch.Tensor, w: torch.Tensor, b_spatial: t
 
 def _launch(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor, plan: StagePlan) -> torch.Tensor:
     _build.refuse_grad("fused_conv_pool_stage", x, w, b_spatial)
-    _build.require_f32("fused_conv_pool_stage", x.device, x=x, w=w, b_spatial=b_spatial)
+    _build.require_dtype("fused_conv_pool_stage", x.device, torch.float32, x=x, w=w, b_spatial=b_spatial)
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     out = torch.empty((n, h - 2, wd - 2, cout), dtype=torch.float32, device=x.device)
@@ -224,3 +242,165 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor, plan: Sta
 
 
 fused_conv_pool_stage.launches = 0
+
+
+# ---------------------------------------------------------------- the bf16 and int8 forms (csrc/fused_stage_lowp.cu)
+
+LOWP_CHUNK_BYTES = 32          # bytes of input channels per pipeline stage: one MMA k-step at each tap
+LOWP_STAGES = 3                # the ring's depth
+_LOWP_X_PITCH = LOWP_CHUNK_BYTES + 16           # bytes per input position of a stage
+_LOWP_W_STAGE = BLOCK_N * (9 * LOWP_CHUNK_BYTES + 16)   # bytes of one stage's weights
+LOWP_REG_BLOCKS = {2: 2, 3: 2, 4: 1}            # the kernels' __launch_bounds__ minimum blocks per SM, by m_tiles
+
+
+def lowp_smem_bytes(plan: StagePlan) -> int:
+    """Dynamic shared memory of a block of the low-precision forms: the ring (weights and input per stage)
+    and the input offset table; the epilogue's float32 conv tile reuses it."""
+    m, p = block_positions(plan)
+    return max(LOWP_STAGES * (_LOWP_W_STAGE + p * _LOWP_X_PITCH) + 4 * p, 4 * m * _C_PITCH)
+
+
+@functools.lru_cache(maxsize=1024)
+def lowp_stage_plan(n: int, h: int, w: int, cout: int, sms: int) -> StagePlan:
+    """The tile of the low-precision forms for x (n, h, w, ·) → (n, h − 2, w − 2, cout) on a card of ``sms``
+    SMs: every candidate tile of each ``m_tiles`` in 2, 3, 4 that fits, by :func:`plan_cost` with the
+    kernels' blocks per SM (their launch bounds, or fewer where shared memory binds), then the fewest
+    blocks, then the smallest ``m_tiles``.  (``stages`` is the fixed ring depth.)"""
+    best = None
+    for mi in M_TILES:
+        for f, r, c in _tiles(n, h, w, mi):
+            plan = StagePlan(f, r, c, mi, LOWP_STAGES)
+            smem = lowp_smem_bytes(plan)
+            if smem > BLOCK_SMEM:
+                continue
+            regs = {mi: min(LOWP_REG_BLOCKS[mi], SM_SMEM // (smem + SMEM_PER_BLOCK))}
+            key = (plan_cost(plan, n, h, w, cout, sms, regs), block_count(plan, n, h, w, cout), mi)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
+
+
+def card_lowp_stage_plan(n: int, h: int, w: int, cout: int, device: torch.device) -> StagePlan:
+    """:func:`lowp_stage_plan` with the SMs of the card ``device``."""
+    sms = torch.cuda.get_device_properties(_build.device_index(device)).multi_processor_count
+    return lowp_stage_plan(n, h, w, cout, sms)
+
+
+def _relu_pool(y: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(torch.relu(y), 3, 1).permute(0, 2, 3, 1)
+
+
+def fused_conv_pool_stage_bf16_plain(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
+    """The bf16 form in plain PyTorch: the bf16 operands upcast, the convolution in strict float32, rounded to
+    bf16, + the bias rounded again (the JAX package's bf16 conv then ``+ corr``), ReLU, pool; bf16 out."""
+    with strict_f32():
+        y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), w.to(torch.float32).permute(3, 2, 0, 1), padding=1)
+    y = bf16_rounded(bf16_rounded(y) + b_spatial.to(torch.float32).permute(2, 0, 1)[None])
+    return _relu_pool(y).to(torch.bfloat16).contiguous()
+
+
+def fused_conv_pool_stage_int8_plain(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
+    """The int8 form in plain PyTorch: ``quantized_conv2d(x, w) + b_spatial`` in x's dtype (float32 or bf16),
+    ReLU, pool.  ``w`` is the float32 (folded) weight: the form quantizes it per output channel."""
+    n, h, wd, _ = x.shape
+    if n == 0:   # no activation scale without activations
+        return x.new_empty((0, h - 2, wd - 2, w.shape[3]))
+    y = quant.quantized_conv2d(x, w, 1, 1) + b_spatial.to(x.dtype)
+    return _relu_pool(y.permute(0, 3, 1, 2)).contiguous()
+
+
+def _check_lowp(what: str, x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check_shapes(x, w, b_spatial)
+    _build.refuse_grad(what, x, w, b_spatial)
+
+
+def _launch_lowp(form: int, xk: torch.Tensor, wq: torch.Tensor, b_spatial: torch.Tensor, s_x, s_w, out: torch.Tensor,
+                 plan: StagePlan) -> None:
+    """One launch of form 0 (bf16), 1 (int8, float32 out) or 2 (int8, bf16 out) on xk (N, H, W, Cin padded)."""
+    n, h, wd, cin_p = xk.shape
+    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
+    with _build.on_device(xk):
+        code = lib.fused_conv_pool_stage_lowp(
+            form, xk.data_ptr(), wq.data_ptr(), b_spatial.data_ptr(), None if s_x is None else s_x.data_ptr(),
+            None if s_w is None else s_w.data_ptr(), out.data_ptr(), n, h, wd, cin_p, out.shape[3],
+            plan.frames, plan.rows, plan.cols, plan.m_tiles, _build.stream_of(xk),
+        )
+    _build.check(lib, code, "fused_conv_pool_stage_lowp")
+
+
+def _padded(t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``t`` (a view in any layout) zero-padded at the end of each axis to ``shape``, contiguous; ``t`` itself
+    when it is contiguous at that shape already."""
+    if tuple(t.shape) == shape and t.is_contiguous():
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, d) for d in t.shape)] = t
+    return out
+
+
+def fused_conv_pool_stage_bf16(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
+    """The bf16 form: x (N, H, W, C), w (3, 3, C, Co), b_spatial (H, W, Co), all bf16 → (N, H−2, W−2, Co) bf16.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel with
+    :func:`card_lowp_stage_plan`.  Cin is zero-padded to a multiple of 16 and Co to a multiple of 64.
+    """
+    if x.device.type == "cpu":
+        return fused_conv_pool_stage_bf16_plain(x, w, b_spatial)
+    _check_lowp("fused_conv_pool_stage_bf16", x, w, b_spatial)
+    _build.require_dtype("fused_conv_pool_stage_bf16", x.device, torch.bfloat16, x=x, w=w, b_spatial=b_spatial)
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((n, h - 2, wd - 2, cout), dtype=torch.bfloat16, device=x.device)
+    if n == 0 or cout == 0:
+        return out
+    cin_p, cout_p = -(-cin // 16) * 16, -(-cout // BLOCK_N) * BLOCK_N
+    xk = _padded(x, (n, h, wd, cin_p))
+    wq = _padded(w.permute(3, 0, 1, 2), (cout_p, 3, 3, cin_p))
+    _launch_lowp(0, xk, wq, b_spatial, None, None, out, card_lowp_stage_plan(n, h, wd, cout, x.device))
+    fused_conv_pool_stage_bf16.launches += 1
+    return out
+
+
+fused_conv_pool_stage_bf16.launches = 0
+
+
+def fused_conv_pool_stage_int8(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
+    """The int8 form: x (N, H, W, C) float32 or bf16, w (3, 3, C, Co) float32 (folded, quantized here per output
+    channel), b_spatial (H, W, Co) in x's dtype → (N, H−2, W−2, Co) in x's dtype.
+
+    The activation scale is one ``amax`` over the whole batch tensor (plain PyTorch: the JAX package leaves
+    it to XLA too), so every frame's output depends on the batch.  A CPU tensor takes the plain version; a
+    CUDA tensor quantizes x in a kernel, zero-padding C to a multiple of 32, and launches the conv kernel.
+    """
+    if x.device.type == "cpu":
+        return fused_conv_pool_stage_int8_plain(x, w, b_spatial)
+    _check_lowp("fused_conv_pool_stage_int8", x, w, b_spatial)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_conv_pool_stage_int8: x must be float32 or bfloat16, got {x.dtype}")
+    _build.require_dtype("fused_conv_pool_stage_int8", x.device, x.dtype, x=x, b_spatial=b_spatial)
+    _build.require_dtype("fused_conv_pool_stage_int8", x.device, torch.float32, w=w)
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((n, h - 2, wd - 2, cout), dtype=x.dtype, device=x.device)
+    if n == 0 or cout == 0:
+        return out
+    cin_p, cout_p = -(-cin // LOWP_CHUNK_BYTES) * LOWP_CHUNK_BYTES, -(-cout // BLOCK_N) * BLOCK_N
+    w_q, s_w = quant.quantize_weights_per_channel(w, axis=3)
+    wq = _padded(w_q.permute(3, 0, 1, 2), (cout_p, 3, 3, cin_p))
+    sw = _padded(s_w.reshape(-1), (cout_p,))
+    s_x = quant.act_scale(x)
+    xq = torch.empty((n, h, wd, cin_p), dtype=torch.int8, device=x.device)
+    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
+    with _build.on_device(x):
+        code = lib.quantize_activations(x.data_ptr(), xq.data_ptr(), s_x.data_ptr(), n * h * wd, cin, cin_p,
+                                        int(x.dtype == torch.bfloat16), _build.stream_of(x))
+    _build.check(lib, code, "fused_conv_pool_stage_int8: quantize")
+    form = 1 if x.dtype == torch.float32 else 2
+    _launch_lowp(form, xq, wq, b_spatial, s_x, sw, out, card_lowp_stage_plan(n, h, wd, cout, x.device))
+    fused_conv_pool_stage_int8.launches += 1
+    return out
+
+
+fused_conv_pool_stage_int8.launches = 0

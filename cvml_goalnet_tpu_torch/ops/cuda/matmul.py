@@ -11,6 +11,12 @@ The kernel takes K and N that are multiples of 4 and 16-byte aligned
 operands; other operands (only ever small ones here) are copied zero-padded
 into scratch first, and the output is sliced back.
 
+The bf16 form (:func:`head_matmul_bf16`, the same source) runs the products
+as bf16 MMAs with float32 partial sums, reduced in the same fixed order, and
+rounds as the JAX package's bf16 forward does: the sum to bf16, + the bf16
+bias to bf16, ReLU.  :func:`head_matmul` dispatches by dtype; a CUDA tensor
+of a dtype no form takes raises.
+
 The kernel has no backward (the JAX package's has no VJP either): on CUDA
 tensors that require grad with grad mode on, the wrapper raises rather than
 return an output that would cut the gradient.
@@ -27,11 +33,14 @@ import torch
 
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.ops.cuda import _build
+from cvml_goalnet_tpu_torch.utils import bf16_rounded
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "head_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "head_matmul_blocks_per_sm": [_P],
+    "head_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "head_matmul_bf16_blocks_per_sm": [_P],
 }
 
 BLOCK_M, BLOCK_N, BLOCK_K = 128, 128, 32   # the kernel's output tile and K step (csrc/matmul.cu)
@@ -102,7 +111,7 @@ def _aligned(t: torch.Tensor, *shape: int) -> torch.Tensor:
 
 
 def head_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True) -> torch.Tensor:
-    """x (M, K) @ w (K, N) + b (N,), then ReLU when ``relu``; float32.
+    """x (M, K) @ w (K, N) + b (N,), then ReLU when ``relu``; float32, or bf16 through :func:`head_matmul_bf16`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
@@ -112,12 +121,14 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = 
         raise ValueError(f"contraction mismatch: x K={k}, w K={kw}")
     if b.shape != (n,):
         raise ValueError(f"bias shape {tuple(b.shape)} does not match N={n}")
+    if x.dtype == torch.bfloat16:
+        return head_matmul_bf16(x, w, b, relu)
     if x.device.type == "cpu":
         return head_matmul_plain(x, w, b, relu)
     if x.device.type != "cuda":
         raise ValueError(f"head_matmul: unsupported device {x.device}")
     _build.refuse_grad("head_matmul", x, w, b)
-    _build.require_f32("head_matmul", x.device, x=x, w=w, b=b)
+    _build.require_dtype("head_matmul", x.device, torch.float32, x=x, w=w, b=b)
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=torch.float32, device=x.device)
     k4, n4 = -(-k // 4) * 4, -(-n // 4) * 4
@@ -137,3 +148,64 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = 
 
 
 head_matmul.launches = 0
+
+
+# ---------------------------------------------------------------- the bf16 form
+
+
+def head_matmul_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """The bf16 form in plain PyTorch: the bf16 operands upcast, the product in strict float32, rounded to bf16,
+    + the bias rounded again, ReLU; bf16 out."""
+    with strict_f32():
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    y = (bf16_rounded(y) + b.to(torch.float32)).to(torch.bfloat16)
+    return torch.relu(y) if relu else y
+
+
+def card_head_bf16_plan(m: int, k: int, n: int, device: torch.device) -> HeadPlan:
+    """:func:`head_plan` with the SMs and resident blocks of the bf16 GEMM pass on the card ``device``."""
+    return head_plan(m, k, n, *_bf16_slots_on_card(_build.device_index(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_slots_on_card(device: int) -> tuple[int, int]:
+    lib = _build.load("matmul", _SIGNATURES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(lib, lib.head_matmul_bf16_blocks_per_sm(ctypes.byref(out)), "head_matmul_bf16: occupancy")
+    return torch.cuda.get_device_properties(device).multi_processor_count, out.value
+
+
+def head_matmul_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """The bf16 form: x (M, K) @ w (K, N) + b (N,), ReLU when ``relu``; all bf16.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel (K and N zero-padded to
+    multiples of 8 where they are not).
+    """
+    m, k = x.shape
+    n = w.shape[1]
+    if x.device.type == "cpu":
+        return head_matmul_bf16_plain(x, w, b, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"head_matmul_bf16: unsupported device {x.device}")
+    _build.refuse_grad("head_matmul_bf16", x, w, b)
+    _build.require_dtype("head_matmul_bf16", x.device, torch.bfloat16, x=x, w=w, b=b)
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+    x, w, b = _aligned(x, m, k8), _aligned(w, k8, n8), _aligned(b, n8)
+    y = torch.empty((m, n8), dtype=torch.bfloat16, device=x.device)
+    plan = card_head_bf16_plan(m, k8, n8, x.device)
+    part = torch.empty((plan.splits, m, n8), dtype=torch.float32, device=x.device)
+    lib = _build.load("matmul", _SIGNATURES)
+    with _build.on_device(x):
+        code = lib.head_matmul_bf16(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), part.data_ptr(), y.data_ptr(),
+            m, k8, n8, plan.splits, plan.k_chunk, int(relu), _build.stream_of(x),
+        )
+    _build.check(lib, code, "head_matmul_bf16")
+    head_matmul_bf16.launches += 1
+    return y if n8 == n else y[:, :n].contiguous()
+
+
+head_matmul_bf16.launches = 0

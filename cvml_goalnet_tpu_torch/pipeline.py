@@ -32,6 +32,7 @@ from cvml_goalnet_tpu_torch.ops.clips import clip_stats
 from cvml_goalnet_tpu_torch.ops.expand import expand_scores
 from cvml_goalnet_tpu_torch.ops.knapsack import knapsack_select
 from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames
+from cvml_goalnet_tpu_torch.utils import compute_dtype, tree_cast
 
 
 def extract_features(frames, waveform, cfg: PipelineConfig, commentary=None, device=None) -> dict:
@@ -62,7 +63,11 @@ def fuse(params, state, features: dict, cfg: PipelineConfig, device=None) -> np.
     """Modality features → (N,) per-frame importance scores in [out_lo, out_hi].
 
     ``params`` and ``state`` are the port's tensors (``weights.from_jax``) on
-    the same device.
+    the same device.  As the JAX package's ``_jitted_fuse`` does, the forward
+    runs in ``cfg.model.dtype``: for bf16, params, state and features are cast
+    to bf16 first and the scores come back as float32 of the bf16 outputs;
+    ``quantized_inference`` takes conv1 and conv2 through int8, with one
+    activation scale over the whole batch.
     """
     dev = resolve_device(device)
     if len(features["visual"]) == 0:
@@ -77,9 +82,11 @@ def fuse(params, state, features: dict, cfg: PipelineConfig, device=None) -> np.
                 "audio features (zeros of (N, bin_length, n_mfcc))"
             )
         audio = _on(features["audio"], dev)
+    dt = compute_dtype(cfg.model.dtype)
     with torch.no_grad():
-        out = avm_apply(params, state, _on(features["visual"], dev), audio, cfg=cfg.model)
-    return out[:, 0].cpu().numpy()
+        out = avm_apply(tree_cast(params, dt), tree_cast(state, dt), _on(features["visual"], dev).to(dt),
+                        None if audio is None else audio.to(dt), cfg=cfg.model)
+    return out[:, 0].to(torch.float32).cpu().numpy()
 
 
 def fuse_many(params, state, features_list: list[dict], cfg: PipelineConfig, device=None) -> list[np.ndarray]:

@@ -76,9 +76,9 @@ MESH_NOT_PORTED = (
 )
 
 # the CUDA sources each service launches (ops/cuda/_build.KERNELS names), built by warmup() before any request
-SUMMARIZER_SOURCES = ("fused_preprocess", "fused_stage", "matmul", "fused_mlp")
-BATCHER_SOURCES = ("fused_stage", "matmul", "fused_mlp")
-SPOTTER_SOURCES = ("fused_preprocess", "fused_stage", "matmul", "flash_attention")
+SUMMARIZER_SOURCES = ("fused_preprocess", "fused_stage", "fused_stage_lowp", "matmul", "fused_mlp")
+BATCHER_SOURCES = ("fused_stage", "fused_stage_lowp", "matmul", "fused_mlp")
+SPOTTER_SOURCES = ("fused_preprocess", "fused_stage", "fused_stage_lowp", "matmul", "flash_attention")
 
 
 def _build_sources(device: torch.device, sources) -> None:
@@ -137,7 +137,7 @@ def _fresh_state(cfg: PipelineConfig, checkpoint: tuple, device: torch.device):
 def _check_service(cfg: PipelineConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(MESH_NOT_PORTED)
-    check_supported(cfg.model)   # the text branch, MoE and bf16 raise here, naming ROADMAP §1 item 5
+    check_supported(cfg.model)   # the text branch, MoE, resnet and vit raise here, naming ROADMAP §1 item 5
 
 
 class Summarizer:

@@ -44,11 +44,15 @@ def encode_timeline(params, state, visual, audio, cfg: PipelineConfig, device=No
 
     ``params``/``state`` are the port's tensors (``weights.from_jax``).  The
     audio features lead when ``cfg.model.audio_included`` and audio is given.
+    The trunk runs in float32 whatever ``cfg.model.dtype`` says, as the JAX
+    package's ``trunk_fn`` casts nothing; ``quantized_inference`` takes conv1
+    and conv2 through int8, with one activation scale over all T frames.
     """
     check_supported(cfg.model)
     dev = resolve_device(device)
     with torch.no_grad():
-        feats = visual_encoder_apply(params["visual"], state["visual"], _on(visual, dev))
+        feats = visual_encoder_apply(params["visual"], state["visual"], _on(visual, dev),
+                                     quant=cfg.model.quantized_inference)
         if cfg.model.audio_included and audio is not None:
             feats = torch.cat([audio_encoder_apply(params["audio"], _on(audio, dev)), feats], dim=-1)
     return feats

@@ -25,10 +25,21 @@ then does not hand its memory out again until the compute stream is past it.
 At most ``max_inflight`` chunks are pending: the host waits on the event of
 the oldest beyond that, as the JAX scorer blocks on its oldest program.
 
-Only the ``k`` real rows of a chunk are scored.  The JAX scorer pads every
-chunk to ``chunk_size`` so that one compiled program serves the run; the port
-compiles nothing per shape, and its eval forward treats rows independently
-(batchnorm folded), so the real rows' scores are the same without the pad.
+Only the ``k`` real rows of a chunk are scored, unless
+``quantized_inference`` is on.  The JAX scorer pads every chunk to
+``chunk_size`` so that one compiled program serves the run; the port compiles
+nothing per shape, and its eval forward treats rows independently (batchnorm
+folded), so the real rows' scores are the same without the pad.  Under int8
+they are not: the activation scale is one maximum over the whole chunk, pad
+rows included (zero frames become ReLU(bias) after conv0), so there a chunk
+is zero-padded to ``chunk_size`` as the JAX scorer pads it, and the scores of
+its real rows are kept.
+
+The chunk scorer runs in ``cfg.model.dtype`` as the JAX one does: for bf16,
+params and state are cast once, kernel 1 stays float32 and its output is
+rounded to bf16 (the JAX scorer resizes in bf16: the two differ by about one
+bf16 ulp of a [0, 1] pixel, 0.0039), host-preprocessed frames are cast to bf16,
+and uint8 ones rescaled by bf16(1/255) in bf16.
 
 On the CPU (``device="cpu"``) the same threads run, without streams or pinned
 memory, and the kernels' plain versions score the chunks.
@@ -48,6 +59,7 @@ from cvml_goalnet_tpu_torch.device import resolve_device
 from cvml_goalnet_tpu_torch.models.avm import avm_apply, check_supported
 from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames, preprocess_frames_host
 from cvml_goalnet_tpu_torch.pipeline import SummaryResult, summarize
+from cvml_goalnet_tpu_torch.utils import compute_dtype, tree_cast
 from cvml_goalnet_tpu_torch.utils.profiling import StageTimer
 
 STAGING_BUFFERS = 3   # page-locked buffers per modality that thread B cycles through
@@ -107,6 +119,10 @@ def _on_compute(t: torch.Tensor | None, event, stream) -> torch.Tensor | None:
     return t
 
 
+def _zero_padded(a: np.ndarray, rows: int) -> np.ndarray:
+    return np.concatenate([a, np.zeros((rows - len(a),) + a.shape[1:], a.dtype)])
+
+
 def score_video_stream(
     params,
     state,
@@ -131,7 +147,7 @@ def score_video_stream(
     on ``device`` (``None``: the card).
 
     ``chunk_size`` bounds k: a longer chunk raises ``ValueError`` (the JAX
-    scorer fails padding it).  Chunks are not padded (see the module's notes).
+    scorer fails padding it).  Chunks are padded only under int8 (see the module's notes).
 
     ``host_preprocess=True`` normalises and resizes on the host in thread A
     and ships the (h, w, C) float32 frames (at 40×40 from 180×320 uint8, 9×
@@ -155,6 +171,8 @@ def score_video_stream(
     audio_iter = iter(audio_chunks) if audio_chunks is not None else None
     text_iter = iter(text_chunks) if text_chunks is not None else None
     quantized = transfer_dtype is not None and np.dtype(transfer_dtype) == np.uint8
+    pad_chunks = cfg.model.quantized_inference   # the int8 scale spans the chunk: pad it as the JAX scorer does
+    dt = compute_dtype(cfg.model.dtype)
 
     def _next_aligned(it, name, k):
         """Pull one modality chunk and hold it to the frame chunk's boundary."""
@@ -198,6 +216,9 @@ def score_video_stream(
                         chunk = chunk.astype(transfer_dtype)
                 audio = _next_aligned(audio_iter, "audio_chunks", k) if audio_iter is not None else None
                 text = _next_aligned(text_iter, "text_chunks", k) if text_iter is not None else None
+                if pad_chunks and 0 < k < chunk_size:
+                    chunk = _zero_padded(chunk, chunk_size)
+                    audio = None if audio is None else _zero_padded(np.asarray(audio, np.float32), chunk_size)
             yield chunk, audio, text, k
 
     frames_up = _Uploader(dev, STAGING_BUFFERS)
@@ -211,6 +232,7 @@ def score_video_stream(
                 audio = audio_up(np.asarray(audio, np.float32)) if audio is not None else (None, None)
             yield frames, audio, text, k
 
+    params, state = tree_cast(params, dt), tree_cast(state, dt)
     compute = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
     if compute is not None:
         compute.wait_stream(torch.cuda.current_stream(dev))   # the weights were written on the caller's stream
@@ -234,12 +256,13 @@ def score_video_stream(
                 chunk_dev = _on_compute(chunk_dev, chunk_ev, compute)
                 audio_dev = _on_compute(audio_dev, audio_ev, compute)
                 if host_preprocess:
-                    visual = chunk_dev.to(torch.float32)
+                    visual = chunk_dev.to(dt)
                     if quantized:
-                        visual = visual * (1.0 / 255.0)
+                        visual = visual * torch.tensor(1.0 / 255.0, dtype=dt, device=visual.device)
                 else:
-                    visual = preprocess_frames(chunk_dev, cfg.preprocess.frame_size, cfg.preprocess.eps)
-                out = avm_apply(params, state, visual, audio_dev, cfg=cfg.model)[:, 0]
+                    visual = preprocess_frames(chunk_dev, cfg.preprocess.frame_size, cfg.preprocess.eps).to(dt)
+                audio_dev = None if audio_dev is None else audio_dev.to(dt)
+                out = avm_apply(params, state, visual, audio_dev, cfg=cfg.model)[:k, 0].to(torch.float32)
                 host = torch.empty((k,), dtype=torch.float32, pin_memory=compute is not None)
                 host.copy_(out, non_blocking=compute is not None)
                 done = None

@@ -53,11 +53,8 @@ from cvml_goalnet_tpu_torch.train.optim import (
     tree_unflatten,
 )
 from cvml_goalnet_tpu_torch.train.state import TrainState
+from cvml_goalnet_tpu_torch.utils import compute_dtype, tree_cast
 from cvml_goalnet_tpu_torch.utils.logging import log_epoch_header, log_metrics, log_val_delta
-
-BF16_NOT_PORTED = ("TrainConfig.compute_dtype='bfloat16' is not ported yet (ROADMAP.md §1 item 5, bf16 with the "
-                   "other model families); the port trains in float32")
-
 
 def _loss_fn(preds, labels, mask, *, broadcast_compat: bool, classifier: bool) -> torch.Tensor:
     if classifier:
@@ -91,23 +88,29 @@ def make_train_video_fn(cfg: PipelineConfig, classifier: bool = False):
 
     ``fn.value_and_grad(params, model_state, visual, audio, labels, valid, generator)`` is one sub-batch's
     ``(loss, preds, new_model_state, grads)``, the step ``fn`` takes.
+
+    With ``compute_dtype = "bfloat16"`` it trains in mixed precision as the JAX package does: params, model
+    state and inputs are cast to bf16 inside the loss, the forward and backward run in bf16, the loss in
+    float32, and the gradients come back to the float32 master params through the casts; the new
+    batchnorm statistics are cast back to float32.
     """
     tc, mc = cfg.train, cfg.model
-    if tc.compute_dtype == "bfloat16":
-        raise NotImplementedError(BF16_NOT_PORTED)
     check_supported(mc)
+    dt = compute_dtype(tc.compute_dtype)
     S, K = tc.subbatch_size, tc.grad_accum_steps
     lr_fn = schedule_from_config(tc)
 
     def value_and_grad(params, model_state, vis, aud, lab, msk, generator):
         with torch.enable_grad(), strict_f32():   # TF32 off in the backward's convolutions and products too
             leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-            preds, new_ms = avm_train_apply(tree_unflatten(params, leaves), model_state, vis, aud, cfg=mc,
+            preds, new_ms = avm_train_apply(tree_cast(tree_unflatten(params, leaves), dt), tree_cast(model_state, dt),
+                                            vis.to(dt), None if aud is None else aud.to(dt), cfg=mc,
                                             generator=generator, classifier=classifier, valid=msk)
+            preds = preds.to(torch.float32)
             loss = _loss_fn(preds, lab, msk, broadcast_compat=tc.broadcast_loss_compat, classifier=classifier)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return (loss.detach(), preds.detach(), tree_map(torch.Tensor.detach, new_ms),
+        return (loss.detach(), preds.detach(), tree_cast(tree_map(torch.Tensor.detach, new_ms), torch.float32),
                 tree_unflatten(params, grads))
 
     def apply(grads, opt_state, params, scale: float = 1.0):

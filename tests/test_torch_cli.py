@@ -156,6 +156,27 @@ def test_stream_matches_jax(env, small_cfg, exported, chunk, store, capsys):
     assert _frame_count(os.path.join(env["work"], "tmp", "vidB.mp4")) == len(exported[0])
 
 
+@pytest.mark.parametrize("stream", [False, True])
+def test_serving_preset_options_match_jax(env, small_cfg, exported, tmp_path, stream):
+    """``configs/tpu_serving.json``'s model options (bf16 with int8 conv1 and conv2) at the suite's widths: the
+    same trunks, offline (audio) and ``--no-audio --stream`` (chunks of 4, the last zero-padded under int8 as
+    the JAX scorer pads it), select the frames the JAX package selects."""
+    cfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, dtype="bfloat16",
+                                                                   quantized_inference=True))
+    path = str(tmp_path / "preset.json")
+    cfg.save(path)
+    video = env["meta"]["video_fps"][1 if stream else 0]
+    extra = ["--no-audio", "--stream", "--stream-chunk", "4"] if stream else []
+    args = ["--config", path, "--workdir", env["work"], *extra, "--mat-fp", env["meta"]["mat_file_path"],
+            "--h5-fp", env["meta"]["h5_file_path"]]
+    assert cli.main(["infer", video, *args]) == 0
+    if stream:
+        want = _jax_stream(env, cfg, video, 4, True)
+        np.testing.assert_array_equal(exported[0], _chosen_frames(_raw(video), want.clip_intervals))
+    else:
+        np.testing.assert_array_equal(exported[0], _jax_offline(env, cfg, video, True, True).summary_frames)
+
+
 @pytest.mark.parametrize("tdtype", [None, "float16", "uint8"])
 def test_stream_host_preprocess_matches_jax(env, small_cfg, exported, tdtype):
     video = env["meta"]["video_fps"][0]

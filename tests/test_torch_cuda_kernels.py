@@ -14,7 +14,10 @@ bounds with dead rows and a query offset.  The forwards hold out to 3e-5 and lse
 versions, the backwards dq, dk and dv to 1e-4·max(1, max|plain|): the
 tolerances of ``tests/test_flash_attention.py``.  The spotting path, one
 train step per scorer and one video of the summarization train function are
-held against the CPU.
+held against the CPU.  The bf16 and int8 forms of kernels 2-4 are held to
+their plain versions at the main paths' shapes, an odd shape and N = 0, and
+``fuse`` under the serving preset's modes to the CPU (tolerances where they
+are defined below).
 """
 
 import json
@@ -1153,3 +1156,171 @@ print(json.dumps({{"out": out, "files": sorted(p.name for p in fresh.iterdir())}
     assert sorted(f.split("-")[0] for f in libs) == sorted(
         ["libfused_preprocess", "libfused_stage", "libmatmul", "libfused_mlp", "libgoalnet_runtime"]), res["files"]
     assert not [f for f in res["files"] if f.endswith(".tmp")]
+
+
+# ---------------------------------------------------------------- the bf16 and int8 forms of kernels 2-4
+#
+# bf16 forms against their plain versions (the same roundings; float32 sums in another order): each output
+# within 2 bf16 ulps of max(|output|, 2·|bias|), the bias over the pool window for kernel 2 (a float32 sum
+# that lands on a bf16 tie rounds one way or the other, and an ulp of a sum the bias then cancels counts at
+# the sum's size), plus 1e-6·max|plain| for signs that flip at ReLU's 0.  int8 forms: the int32 sums are
+# exact on both sides, so outputs agree to 1e-6 relative of max|plain| (in practice to the bit).
+
+from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp_bf16, fused_fusion_mlp_bf16_plain
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (fused_conv_pool_stage_bf16, fused_conv_pool_stage_bf16_plain,
+                                                         fused_conv_pool_stage_int8, fused_conv_pool_stage_int8_plain)
+from cvml_goalnet_tpu_torch.ops.cuda.matmul import head_matmul_bf16, head_matmul_bf16_plain
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (8 significant bits), at least that of the smallest normal."""
+    e = torch.floor(torch.log2(v.abs().to(torch.float32).clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def assert_bf16_close(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor, what: str) -> None:
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, what
+    if not want.numel():
+        return
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    assert torch.isfinite(g).all(), what
+    ref = torch.maximum(torch.maximum(g.abs(), w.abs()), scale.to(torch.float32))
+    tol = 2 * bf16_ulp(ref) + 1e-6 * w.abs().max()
+    bad = (g - w).abs() > tol
+    assert not bad.any(), f"{what}: {int(bad.sum())} outputs past 2 bf16 ulps, worst {float((g - w).abs().max())}"
+
+
+STAGE_LOWP_CASES = [
+    (64, 13, 64, 256),     # conv1
+    (64, 11, 256, 512),    # conv2
+    (5, 9, 20, 70),        # Cin and Cout off the padding multiples
+    (3, 21, 32, 64),       # a frame past one block: tiles with a recomputed halo
+    (2, 3, 16, 64),        # the smallest frame
+    (0, 13, 64, 256),      # no frames
+]
+
+
+def _stage_inputs(dev, n, hh, cin, cout, seed):
+    x = _rand((n, hh, hh, cin), seed, dev=dev).relu()
+    w = _rand((3, 3, cin, cout), seed + 1, 0.05, dev)
+    b = _rand((hh, hh, cout), seed + 2, 0.1, dev)
+    return x, w, b
+
+
+@pytest.mark.parametrize("n,hh,cin,cout", STAGE_LOWP_CASES)
+def test_stage_bf16_matches_plain(dev, n, hh, cin, cout):
+    x, w, b = (t.to(torch.bfloat16) for t in _stage_inputs(dev, n, hh, cin, cout, 3))
+    before = fused_conv_pool_stage.launches, fused_conv_pool_stage_bf16.launches
+    got = fused_conv_pool_stage(x, w, b)   # dispatches to the bf16 form
+    torch.cuda.synchronize()
+    assert (fused_conv_pool_stage.launches, fused_conv_pool_stage_bf16.launches) == (before[0], before[1] + (n > 0))
+    want = fused_conv_pool_stage_bf16_plain(x, w, b)
+    bias_window = torch.nn.functional.max_pool2d(b.to(torch.float32).abs().permute(2, 0, 1)[None], 3, 1)[0]
+    assert_bf16_close(got, want, 2 * bias_window.permute(1, 2, 0)[None], f"stage bf16 {[n, hh, cin, cout]}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hh,cin,cout", STAGE_LOWP_CASES)
+def test_stage_int8_matches_plain(dev, dtype, n, hh, cin, cout):
+    x, w, b = _stage_inputs(dev, n, hh, cin, cout, 5)
+    x, b = x.to(dtype), b.to(dtype)
+    before = fused_conv_pool_stage_int8.launches
+    got = fused_conv_pool_stage_int8(x, w, b)
+    torch.cuda.synchronize()
+    assert fused_conv_pool_stage_int8.launches == before + (n > 0)
+    want = fused_conv_pool_stage_int8_plain(x, w, b)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if n:
+        err = (got.to(torch.float32) - want.to(torch.float32)).abs().max().item()
+        assert err <= 1e-6 * want.to(torch.float32).abs().max().item(), err
+
+
+@pytest.mark.parametrize("m,k,n", [(150, 41472, 512), (1050, 41472, 512), (37, 1000, 60), (5, 24, 8), (0, 64, 64)])
+def test_head_bf16_matches_plain(dev, m, k, n):
+    x = _rand((m, k), 7, dev=dev).relu().to(torch.bfloat16)
+    w = _rand((k, n), 8, k ** -0.5, dev).to(torch.bfloat16)
+    b = _rand((n,), 9, 0.1, dev).to(torch.bfloat16)
+    before = head_matmul.launches, head_matmul_bf16.launches
+    got = head_matmul(x, w, b)
+    torch.cuda.synchronize()
+    assert (head_matmul.launches, head_matmul_bf16.launches) == (before[0], before[1] + (m > 0))
+    want = head_matmul_bf16_plain(x, w, b)
+    assert_bf16_close(got, want, 2 * b.abs()[None], f"head bf16 {[m, k, n]}")
+    if m:
+        assert torch.equal(got, head_matmul(x, w, b)), "two runs on the same inputs differ"
+
+
+@pytest.mark.parametrize("m,dims,squash", [(1050, (640, 512, 512, 256, 128, 1), True),
+                                           (5400, (640, 512, 512, 256, 128, 1), True),   # blocks of 16 rows
+                                           (7, (48, 33, 17, 1), True),
+                                           (40, (640, 512, 512, 256, 128, 5), False),
+                                           (0, (640, 512, 1), True)])
+def test_mlp_bf16_matches_plain(dev, m, dims, squash):
+    gen = np.random.default_rng(11)
+    layers = [{"w": torch.as_tensor(gen.standard_normal((a, c)) * a ** -0.5 * 2, dtype=torch.bfloat16, device=dev),
+               "b": torch.as_tensor(gen.standard_normal(c) * 0.1, dtype=torch.bfloat16, device=dev)}
+              for a, c in zip(dims[:-1], dims[1:])]
+    x = torch.as_tensor(gen.random((m, dims[0])), dtype=torch.bfloat16, device=dev)
+    before = fused_fusion_mlp.launches, fused_fusion_mlp_bf16.launches
+    got = fused_fusion_mlp(x, layers, 1.0, 5.0, squash)
+    torch.cuda.synchronize()
+    assert (fused_fusion_mlp.launches, fused_fusion_mlp_bf16.launches) == (before[0], before[1] + (m > 0))
+    want = fused_fusion_mlp_bf16_plain(x, layers, 1.0, 5.0, squash)
+    assert_bf16_close(got, want, torch.zeros(()), f"mlp bf16 {[m, *dims]}")
+    if squash and m:
+        g = got.to(torch.float32)
+        assert ((g >= 1) & (g <= 5)).all()
+
+
+def test_lowp_forms_refuse_other_dtypes(dev):
+    x = torch.zeros((2, 13, 13, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="must be contiguous float32"):
+        fused_conv_pool_stage(x, torch.zeros((3, 3, 64, 64), device=dev, dtype=torch.float16),
+                              torch.zeros((13, 13, 64), device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_conv_pool_stage_int8(x, torch.zeros((3, 3, 64, 64), device=dev),
+                                   torch.zeros((13, 13, 64), device=dev, dtype=torch.float16))
+    xb = torch.zeros((2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be contiguous bfloat16"):
+        head_matmul(xb, torch.zeros((64, 8), device=dev), torch.zeros((8,), device=dev))
+    with pytest.raises(ValueError, match="must be contiguous bfloat16"):
+        fused_fusion_mlp(xb, [{"w": torch.zeros((64, 1), device=dev), "b": torch.zeros((1,), device=dev)}])
+
+
+def _preset_cfg():
+    import dataclasses
+    from pathlib import Path
+
+    cfg = PipelineConfig.load(str(Path(__file__).resolve().parents[1] / "configs" / "tpu_serving.json"))
+    return cfg, dataclasses
+
+
+@pytest.mark.parametrize("dtype,quant", [("bfloat16", False), ("float32", True), ("bfloat16", True)])
+def test_preset_fuse_card_matches_cpu_and_launches_the_forms(dev, dtype, quant):
+    """fuse at the preset's full width on 64 frames, card against CPU (the same roundings; one bf16 ulp of
+    [4, 5] is 0.03125), with the forms of this dtype launched and the float32 kernels 2-4 not in bf16."""
+    cfg, dataclasses = _preset_cfg()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype, quantized_inference=quant))
+    p_np, s_np = weights.init_params(cfg, 0)
+    gen = np.random.default_rng(4)
+    feats = {"visual": gen.random((64, 40, 40, 3)).astype(np.float32),
+             "audio": gen.standard_normal((64, 30, 30)).astype(np.float32)}
+    tp, ts = weights.from_jax(p_np, s_np)
+    counted = (fused_conv_pool_stage, fused_conv_pool_stage_bf16, fused_conv_pool_stage_int8, head_matmul,
+               head_matmul_bf16, fused_fusion_mlp, fused_fusion_mlp_bf16)
+    for f in counted:
+        f.launches = 0
+    card = fuse(tp, ts, feats, cfg)
+    got = {f.__name__: f.launches for f in counted}
+    cp, cs = weights.from_jax(p_np, s_np, device="cpu")
+    cpu = fuse(cp, cs, feats, cfg, device="cpu")
+    tol = 1e-4 if dtype == "float32" else 0.0625
+    assert np.abs(card - cpu).max() <= tol
+    bf16 = dtype == "bfloat16"
+    want = {"fused_conv_pool_stage": 0 if bf16 or quant else 2, "fused_conv_pool_stage_bf16": 2 if bf16 and not quant else 0,
+            "fused_conv_pool_stage_int8": 2 if quant else 0, "head_matmul": 0 if bf16 else 1,
+            "head_matmul_bf16": 1 if bf16 else 0, "fused_fusion_mlp": 0 if bf16 else 1,
+            "fused_fusion_mlp_bf16": 1 if bf16 else 0}
+    assert got == want
+    if bf16:   # the scores lie on the bf16 grid
+        assert torch.equal(torch.from_numpy(card).to(torch.bfloat16).to(torch.float32), torch.from_numpy(card))

@@ -194,11 +194,15 @@ class TestWrappersAndBuild:
             fused_conv_pool_stage(x, torch.empty((3, 3, 8, 16), device="meta"), torch.empty((13, 13, 16), device="meta"))
 
     def test_require_f32_names_the_bad_tensor(self):
-        _build.require_f32("k", torch.device("cpu"), x=torch.zeros(2, 3))
+        cpu, f32, bf16 = torch.device("cpu"), torch.float32, torch.bfloat16
+        _build.require_dtype("k", cpu, f32, x=torch.zeros(2, 3))
+        _build.require_dtype("k", cpu, bf16, x=torch.zeros(2, 3, dtype=bf16))
         with pytest.raises(ValueError, match="k: w must be contiguous float32"):
-            _build.require_f32("k", torch.device("cpu"), x=torch.zeros(2, 3), w=torch.zeros(2, 3, dtype=torch.float64))
+            _build.require_dtype("k", cpu, f32, x=torch.zeros(2, 3), w=torch.zeros(2, 3, dtype=torch.float64))
         with pytest.raises(ValueError, match="k: x must be contiguous float32"):
-            _build.require_f32("k", torch.device("cpu"), x=torch.zeros(3, 2).t())
+            _build.require_dtype("k", cpu, f32, x=torch.zeros(3, 2).t())
+        with pytest.raises(ValueError, match="k: x must be contiguous bfloat16"):
+            _build.require_dtype("k", cpu, bf16, x=torch.zeros(2, 3))
 
     def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)

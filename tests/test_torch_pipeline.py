@@ -146,15 +146,23 @@ class TestFuse:
 
     @pytest.mark.parametrize("config", ["tpu_serving.json", "vit", "text", "moe"])
     def test_later_slices_raise(self, small_cfg, config):
+        """The model families of later slices raise; the serving preset (bf16 with int8 conv1 and conv2, this
+        slice) runs, its scores on the bf16 grid in [1, 5] (held to the JAX package in test_torch_bf16.py)."""
         import dataclasses
 
         if config.endswith(".json"):
             cfg = PipelineConfig.load(os.path.join(REPO, "configs", config))
-        else:
-            field = {"vit": {"vis_backbone": "vit"}, "text": {"text_included": True},
-                     "moe": {"fusion_moe_experts": 4}}[config]
-            cfg = _port_cfg(small_cfg)
-            cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **field))
+            jcfg = JaxPipelineConfig.load(os.path.join(REPO, "configs", config))
+            params, state = avm_init(jax.random.PRNGKey(0), jcfg.model, jcfg.preprocess, jcfg.audio)
+            tp, ts = W.from_jax(params, state, device=CPU)
+            out = TP.fuse(tp, ts, _random_features(cfg, 2, seed=0), cfg, device=CPU)
+            assert out.shape == (2,) and ((out >= 1) & (out <= 5)).all()
+            assert np.array_equal(torch.from_numpy(out).to(torch.bfloat16).to(torch.float32).numpy(), out)
+            return
+        field = {"vit": {"vis_backbone": "vit"}, "text": {"text_included": True},
+                 "moe": {"fusion_moe_experts": 4}}[config]
+        cfg = _port_cfg(small_cfg)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **field))
         feats = _random_features(cfg, 2, seed=0)
         with pytest.raises(NotImplementedError, match="later slice"):
             TP.fuse({}, {}, feats, cfg, device=CPU)

@@ -446,8 +446,17 @@ class TestTrainVideoFn:
         assert kept > 0.5 * total, f"only {kept} of {total} entries compared"
 
     def test_bf16_is_refused(self, small_cfg):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TL.make_train_video_fn(_pcfg(_jcfg(small_cfg, {"compute_dtype": "bfloat16"})))
+        """bf16 mixed precision is no longer refused: one sub-batch's loss and gradients come back float32 for
+        the float32 master params (five steps against the JAX package: test_torch_bf16.py)."""
+        jc = _jcfg(small_cfg, {"compute_dtype": "bfloat16"})
+        ts = _port_state(jax_state(jax.random.PRNGKey(4), jc))
+        _, titems = _items(jc, [(5, 8)])
+        tv, ta, tlab, tvalid, _ = TL._pad_video(titems[0], jc.train.subbatch_size, torch.device(CPU))
+        loss, preds, ms, grads = TL.make_train_video_fn(_pcfg(jc)).value_and_grad(
+            ts.params, ts.model_state, tv, ta, tlab, tvalid, None)
+        assert loss.dtype == preds.dtype == torch.float32 and torch.isfinite(loss)
+        assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in tree_leaves(grads))
+        assert all(s.dtype == torch.float32 for s in tree_leaves(ms))
 
     def test_loss_fn_matches_jax(self):
         rng = np.random.default_rng(9)
