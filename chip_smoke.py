@@ -146,7 +146,10 @@ From the repository root, on a machine with a CUDA card:
     float32 and bf16, 3-bf16, 4-bf16) against their plain versions at the
     main paths' shapes, with times, bounds on the bf16 and int8 tensor cores
     and the library calls (cuDNN's bf16 chain beside the int8 convolution,
-    which no one PyTorch call computes); (b) phase 1's three videos in bf16,
+    which no one PyTorch call computes); for the two forms on ``wgmma``
+    (3-bf16 and 2-int8) their registers, spills, shared memory and SASS
+    wgmma counts, device time alone and host call, 3-bf16's plan and a part
+    at a match's M, and 2-int8's weight pack and amax pass timed alone; (b) phase 1's three videos in bf16,
     int8 and both (each with its forms launched and the float32 kernels it
     replaces not), card against CPU on 64 frames, the drift from the card's
     float32 scores (0.1), batch time, per-video p50 and stage split; (c)
@@ -251,7 +254,10 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import M_TILES as STAGE_M_TILES
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
     STAGE_COUNTS,
     StagePlan,
+    act_scale_int8,
+    act_scale_int8_plain,
     card_blocks_per_sm,
+    card_int8_stage_plan,
     card_lowp_stage_plan,
     card_stage_plan,
     fused_conv_pool_stage,
@@ -261,6 +267,10 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
     fused_conv_pool_stage_int8_plain,
     fused_conv_pool_stage_plain,
     fused_conv_pool_stage_planned,
+    int8_cin,
+    int8_smem_bytes,
+    pack_weights_int8,
+    pack_weights_int8_plain,
     plan_cost,
     stage_slots,
 )
@@ -268,12 +278,18 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import block_count as stage_blo
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import blocks_per_sm as stage_blocks_per_sm
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import smem_bytes as stage_smem_bytes
 from cvml_goalnet_tpu_torch.ops.cuda.matmul import (
+    BF16_BLOCK_K,
+    BF16_BLOCK_M,
+    BF16_BLOCK_N,
+    BF16_SMEM,
+    BF16_STAGES,
     card_head_bf16_plan,
     card_head_plan,
     head_matmul,
     head_matmul_bf16,
     head_matmul_bf16_plain,
     head_matmul_plain,
+    head_bf16_slots,
     head_slots,
 )
 from cvml_goalnet_tpu_torch.ops import knapsack as knapsack_module
@@ -2924,6 +2940,12 @@ def lowp_stage_part(form: str, n: int, hh: int, cin: int, cout: int, dtype: torc
         run, plain = (lambda: fused_conv_pool_stage_bf16(x, w, b)), (lambda: fused_conv_pool_stage_bf16_plain(x, w, b))
     else:
         run, plain = (lambda: fused_conv_pool_stage_int8(x, w32, b)), (lambda: fused_conv_pool_stage_int8_plain(x, w32, b))
+        wq, sw = pack_weights_int8(w32)
+        wq_plain, sw_plain = pack_weights_int8_plain(w32)
+        require(torch.equal(wq, wq_plain) and torch.equal(sw, sw_plain),
+                f"pack_weights_int8 {[cin, cout]}: the packed weights or scales differ from the plain pack")
+        require(torch.equal(act_scale_int8(x), act_scale_int8_plain(x)),
+                f"act_scale_int8 {[n, hh, cin, str(dtype)]}: s_x differs from the plain amax pass")
     got, want = run(), plain()
     if form == "bf16":
         window = F.max_pool2d(b.float().abs().permute(2, 0, 1)[None], 3, 1)[0].permute(1, 2, 0)[None]
@@ -2952,20 +2974,30 @@ def lowp_stage_part(form: str, n: int, hh: int, cin: int, cout: int, dtype: torc
     part = {"shape": [n, hh, hh, cin, cout], "dtype": str(dtype).removeprefix("torch."), "main_path": True,
             "ms": ms, "device_ms": device_ms, "host_call_ms": host_call_ms, "plain_ms": time_ms(plain), "library_ms": cudnn_ms if form == "bf16" else None,
             "bound_ms": bound, "bound_by": kind, "max_abs_err": err_abs,
-            ("bf16_ulps" if form == "bf16" else "tolerance"): err if form == "bf16" else tol,
-            "plan": card_lowp_stage_plan(n, hh, hh, cout, dev)._asdict()}
-    if form != "bf16":
+            ("bf16_ulps" if form == "bf16" else "tolerance"): err if form == "bf16" else tol}
+    if form == "bf16":
+        part["plan"] = card_lowp_stage_plan(n, hh, hh, cout, dev)._asdict()
+    else:
+        plan = card_int8_stage_plan(n, hh, hh, cin, cout, dev)
+        part["plan"] = {**plan._asdict(), "smem_bytes": int8_smem_bytes(plan, int8_cin(cin))}
         part["bf16_cudnn_ms"] = cudnn_ms
+        # the passes around the conv, each timed alone on the device (queued behind a spin)
+        part["pack_device_ms"] = time_ms_and_host(lambda: pack_weights_int8(w32), 20, queued=True)[0]
+        part["amax_device_ms"] = time_ms_and_host(lambda: act_scale_int8(x), 20, queued=True)[0]
+    extra = (f"; weight pack alone {part['pack_device_ms']:.4f} ms, amax pass alone {part['amax_device_ms']:.4f} ms"
+             if form != "bf16" else "")
     print(f"fused_conv_pool_stage_{form} at {part['shape']} {part['dtype']}: {ms:.4f} ms (device alone "
           f"{device_ms:.4f}, host call {host_call_ms:.4f}; plain {part['plain_ms']:.4f}, "
           f"cuDNN bf16 {cudnn_ms:.4f}); bound {bound:.4f} ms ({kind}); plan {json.dumps(part['plan'])}; "
-          f"max |err| {err_abs:.3g}", flush=True)
+          f"max |err| {err_abs:.3g}{extra}", flush=True)
     del x, w32, b, got, want
     torch.cuda.empty_cache()
     return part
 
 
-def lowp_head_part(m: int, k: int, n: int, gen) -> dict:
+def lowp_head_part(m: int, k: int, n: int, gen, main_path: bool = True) -> dict:
+    """3-bf16 at (m, k) @ (k, n) against its plain version (2 bf16 ulps, equal bits on a repeat), timed beside
+    cuBLAS's addmm + ReLU, with its device time alone, its host call and its plan."""
     x = torch.rand((m, k), generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn((k, n), generator=gen, device="cuda") * 0.005).to(torch.bfloat16)
     b = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
@@ -2976,13 +3008,16 @@ def lowp_head_part(m: int, k: int, n: int, gen) -> dict:
     require(torch.equal(got, run()), f"head_matmul_bf16 at M = {m}: two runs on the same inputs differ")
     bound, kind = bound_ms(2.0 * (m * k + k * n + n + m * n), 2.0 * m * k * n, PEAK_BF16_FLOP_PER_S)
     device_ms, host_call_ms = time_ms_and_host(run, queued=True)
-    part = {"shape": [m, k, n], "main_path": True, "ms": time_ms(run), "device_ms": device_ms,
+    plan = card_head_bf16_plan(m, k, n, x.device)
+    tiles = -(-m // BF16_BLOCK_M) * -(-n // BF16_BLOCK_N)
+    part = {"shape": [m, k, n], "main_path": main_path, "ms": time_ms(run), "device_ms": device_ms,
             "host_call_ms": host_call_ms, "plain_ms": time_ms(plain),
             "library_ms": time_ms(lambda: torch.relu(torch.addmm(b, x, w))), "bound_ms": bound, "bound_by": kind,
             "max_abs_err": max_err(got.float(), want.float()), "bf16_ulps": ulps,
-            "plan": card_head_bf16_plan(m, k, n, x.device)._asdict()}
-    print(f"head_matmul_bf16 at {part['shape']}: {part['ms']:.4f} ms (device alone {device_ms:.4f}; plain "
-          f"{part['plain_ms']:.4f}, library "
+            "plan": {**plan._asdict(), "tile": [BF16_BLOCK_M, BF16_BLOCK_N, BF16_BLOCK_K], "stages": BF16_STAGES,
+                     "cluster": 1, "blocks": tiles * plan.splits, "waves": tiles * plan.splits / head_bf16_slots(x.device)[0]}}
+    print(f"head_matmul_bf16 at {part['shape']}{'' if main_path else ' (not on the main path)'}: {part['ms']:.4f} ms "
+          f"(device alone {device_ms:.4f}, host call {host_call_ms:.4f}; plain {part['plain_ms']:.4f}, library "
           f"{part['library_ms']:.4f}); bound {bound:.4f} ms ({kind}); plan {json.dumps(part['plan'])}", flush=True)
     del x, w, b, got, want
     torch.cuda.empty_cache()
@@ -3018,6 +3053,46 @@ def lowp_mlp_part(m: int, layers, lo: float, hi: float, gen) -> dict:
     return part
 
 
+def sass_mma_counts(name: str) -> dict:
+    """{kernel: {opcode: count}} of the HGMMA / IGMMA (wgmma) and HMMA / IMMA (mma.sync) instructions in the
+    built library of csrc/<name>.cu, by ``cuobjdump -sass`` (beside nvcc)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(name))], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and (op := re.search(r"\b(HGMMA|IGMMA|HMMA|IMMA)\.", line)):
+            counts.setdefault(fn, {}).setdefault(op.group(1), 0)
+            counts[fn][op.group(1)] += 1
+    return counts
+
+
+def wgmma_forms_report() -> dict:
+    """3-bf16's and 2-int8's kernels: registers and spill bytes (ptxas), shared memory a block (their plans at the
+    main paths' shapes), and their wgmma instructions in the SASS (each must issue some)."""
+    report = {}
+    for lib, key, short in (("matmul", "head_bf16_wgmma_kernel", "head_bf16_wgmma_kernel"),
+                            ("fused_stage_lowp", "conv_pool_int8_kernel", "conv_pool_int8_kernel")):
+        regs = {fn: r for fn, r in ptxas_report(lib).items() if key in fn}
+        sass = {fn: c for fn, c in sass_mma_counts(lib).items() if key in fn}
+        require(bool(sass) and all(c.get("HGMMA", 0) + c.get("IGMMA", 0) > 0 for c in sass.values()),
+                f"{short}: no wgmma (HGMMA / IGMMA) in its SASS: {sass}")
+        for fn in set(regs) | set(sass):
+            inst = re.search(r"conv_pool_int8_kernelILi(\d)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)", fn)
+            label = (f"{short}<{inst.group(1)}, {inst.group(2)}, {inst.group(3)}, "
+                     f"{'float' if inst.group(4) == 'f' else 'bf16'}>" if inst else short)
+            report[label] = {**regs.get(fn, {}), "sass": sass.get(fn, {})}
+    report["head_bf16_wgmma_kernel"]["smem_bytes"] = BF16_SMEM
+    for hh, ci, co in ((13, 64, 256), (11, 256, 512)):
+        plan = card_int8_stage_plan(sum(VIDEO_LENGTHS), hh, hh, ci, co, torch.device("cuda"))
+        k_bytes = 128 if plan.m_tiles == 2 and int8_cin(ci) % 128 == 0 else 64   # the C entry's stage depth
+        label = f"conv_pool_int8_kernel<{plan.m_tiles}, {plan.block_n}, {k_bytes}, float>"
+        report.setdefault(label, {}).setdefault("smem_bytes", {})[f"{hh}x{hh}, {ci}->{co}"] = int8_smem_bytes(plan, int8_cin(ci))
+    return report
+
+
 def lowp_row(parts: list[dict]) -> dict:
     row = row_of([{**p, "library_ms": p["library_ms"] or 0.0} for p in parts])
     if any(p["library_ms"] is None for p in parts):
@@ -3031,7 +3106,8 @@ def lowp_row(parts: list[dict]) -> dict:
 
 def lowp_kernel_rows(n: int, cfg: PipelineConfig, fusion_layers, gen) -> dict:
     """12a: each form at the main paths' shapes: 2-bf16 at the batch's N; 2-int8 at the batch's N in float32
-    and bf16 and at a match's N in float32 (the quantized Spotter); 3-bf16 and 4-bf16 at the batch's M."""
+    and bf16 and at a match's N in float32 (the quantized Spotter); 3-bf16 and 4-bf16 at the batch's M (3-bf16
+    also at a match's M, a part off the main path, so its scaling is on record)."""
     stages = ((13, 64, 256), (11, 256, 512))
     rows = {
         "fused_conv_pool_stage_bf16": lowp_row([lowp_stage_part("bf16", n, hh, ci, co, torch.bfloat16, gen)
@@ -3040,8 +3116,8 @@ def lowp_kernel_rows(n: int, cfg: PipelineConfig, fusion_layers, gen) -> dict:
                                                 for m, dt in ((n, torch.float32), (n, torch.bfloat16),
                                                               (MATCH_FRAMES, torch.float32))
                                                 for hh, ci, co in stages]),
-        "head_matmul_bf16": lowp_row([lowp_head_part(n, 9 * 9 * cfg.model.vis_channels[-1],
-                                                     cfg.model.vis_feature_dim, gen)]),
+        "head_matmul_bf16": lowp_row([lowp_head_part(m, 9 * 9 * cfg.model.vis_channels[-1], cfg.model.vis_feature_dim,
+                                                     gen, main_path=m == n) for m in (n, MATCH_FRAMES)]),
         "fused_fusion_mlp_bf16": lowp_row([lowp_mlp_part(n, [{k: v.to(torch.bfloat16) for k, v in lp.items()}
                                                              for lp in fusion_layers],
                                                          cfg.model.out_lo, cfg.model.out_hi, gen)]),
@@ -3279,6 +3355,8 @@ def lowp_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) 
     cfg = preset_cfg()
     fusion = weights.from_jax(*weights.init_params(cfg, seed))[0]["fusion"]
     gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    print(f"phase 12a: 3-bf16's and 2-int8's wgmma kernels (registers, spill bytes, shared memory a block, SASS "
+          f"MMA instructions): {json.dumps(wgmma_forms_report())}", flush=True)
     rows = lowp_kernel_rows(sum(VIDEO_LENGTHS), cfg, fusion, gen)
     print(f"phase 12a: the four forms on {smi}: {json.dumps({k: {x: r[x] for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by', 'max_abs_err')} for k, r in rows.items()})}",
           flush=True)

@@ -55,6 +55,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "hopper.cuh"   // smem_u32, the mbarrier helpers and bulk_copy
 
 #include <algorithm>
 #include <atomic>
@@ -71,38 +72,6 @@ constexpr size_t kStaticSmem = 256;  // at least the kernel's static shared memo
 
 __device__ __forceinline__ float to_f(uint8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// One bulk copy (TMA) of `bytes` (a multiple of 16, both addresses 16-byte aligned) into shared memory,
-// completing on `bar`, which expects it.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
-}
-
-// Wait for phase `parity` of `bar`; a copy that never lands traps rather than hangs.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (spins == (1u << 24)) __trap();
-  }
-}
 
 // Running min/max of frame values.  uint8: the even and the odd bytes of each word spread into two 16-bit
 // lanes (one byte permute each), folded two at a time by Hopper's three-input 16x2 min/max (DPX), which
@@ -259,7 +228,7 @@ __global__ void __launch_bounds__(kThreads) preprocess_cluster_kernel(Args args)
   };
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) mbar_init(&s_full[i], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   issue();

@@ -44,7 +44,8 @@
 // K and N must be multiples of 4 and every pointer 16-byte aligned (the
 // wrapper pads smaller operands that are not).
 #include "common.cuh"
-#include "lowp_mma.cuh"
+#include "hopper.cuh"
+#include "lowp_mma.cuh"   // bf16_round
 #include "tf32_mma.cuh"
 
 namespace {
@@ -196,105 +197,116 @@ __global__ void __launch_bounds__(256) reduce_bias_kernel(const float4* __restri
   y[e] = s;
 }
 
-// The bf16 form: replaces head_matmul_pallas at bf16 (the JAX package's bf16 eval forward computes the
-// head as XLA's bf16 convolution, models/visual.py:151-162: float32 sums over K rounded once to bf16, + the
-// bf16 bias rounded again, ReLU).  What bounds it: operations, 989 TFLOP/s of bf16 tensor cores, dense
-// (85 MB of w... 42.5 MB in bf16, read once per batch through L2).  Design: kernel 3's split-K scheme with
-// mma.sync m16n8k16 bf16: 128 x 128 tiles, 8 warps of 64 x 32, K steps of 32 through a 4-stage cp.async
-// ring (x rows padded to 80 bytes, w rows to 272, so ldmatrix's 8 rows hit distinct banks; w [k][n] feeds
-// ldmatrix .trans), float32 partials per split, then a pass that adds the splits in a fixed order and
-// rounds as above.  K and N multiples of 8.
-constexpr int kLStages = 4;
-constexpr int kLXRow = 2 * kBK + 16;                  // bytes per x row of a stage
-constexpr int kLWRow = 2 * kBN + 16;                  // bytes per w row of a stage
-constexpr int kLXStage = kBM * kLXRow, kLWStage = kBK * kLWRow;
-constexpr size_t kLSmemBytes = static_cast<size_t>(kLStages) * (kLXStage + kLWStage);
-static_assert(kBM * (2 * kBK / 16) == 2 * kThreads && kBK * (2 * kBN / 16) == 2 * kThreads, "two copies a thread");
+// The bf16 form (3-bf16): replaces head_matmul_pallas at bf16 (the JAX package's bf16 eval forward computes the
+// head as XLA's bf16 convolution, models/visual.py:140-163: float32 sums over K rounded once to bf16, + the bf16
+// bias rounded again, ReLU).  What bounds it: operations, 989 TFLOP/s of bf16 tensor cores, dense, against
+// 130 MB of x and w at 3.35 TB/s (0.045 and 0.039 ms at M = 1050): x and w each have to come from memory
+// about once, and the products have to run on wgmma, the only way to the tensor cores' full rate.
+// Design (csrc/hopper.cuh's machinery):
+//   * a block computes a 128 x 256 output tile over its split of K: two consumer warpgroups, each one
+//     wgmma m64n256k16 per 16 of K into 128 float32 accumulators a thread, and a producer warpgroup whose
+//     one thread keeps the ring full;
+//   * the ring: 4 stages of 64 of K, each an x box (128 rows x 128 bytes) and four w boxes (64 of K x 64
+//     columns), 48 KB, loaded by TMA in the 128-byte swizzle, completing on the stage's full mbarrier; each
+//     consumer warp arrives on its empty mbarrier once the wgmma that read it are done (one group stays in
+//     flight);
+//   * x is K-major as stored; w is used as stored, (K, N) row-major, that is N-major, through the
+//     descriptor's transpose bit, so the 42.5 MB of w are never repacked;
+//   * zero fill past M, N and K replaces padding; a split's K range is a whole number of 64-deep steps, so
+//     splits never overlap;
+//   * split-K from the card's SMs (ops/cuda/matmul.py::head_bf16_plan: tiles x splits about one wave of
+//     one block an SM, 9 x 2 x 7 = 126 at M = 1050); float32 partials go to the caller's workspace and
+//     reduce_bias_bf16_kernel adds them in split order, so results repeat bit for bit;
+//   * the grid walks n fastest, so the two column tiles of a row tile share its x through L2, and all the
+//     row tiles of a split run together and share its w;
+//   * 128 x 128 tiles (m64n128, 6 stages) ran slower at M = 1050 and 5400 in a variant build.
+// K and N multiples of 8 (16-byte row strides for TMA), x and w 16-byte aligned.
+constexpr int kHBM = 128, kHBN = 256, kHBK = 64, kHStages = 4;
+constexpr int kHThreads = 384;                       // warpgroups 0, 1: consumers; 2: the producer
+constexpr int kHAStage = kHBM * kHBK * 2;            // 16 KB: x rows of 128 bytes
+constexpr int kHWBox = kHBK * 64 * 2;                // 8 KB: 64 of K x 64 columns
+constexpr int kHStage = kHAStage + 4 * kHWBox;       // 48 KB
+constexpr size_t kHSmemBytes = 1024 + static_cast<size_t>(kHStages) * kHStage + 2 * kHStages * sizeof(uint64_t);
+static_assert(kHSmemBytes <= kMaxSmemBytes, "the ring fits a block");
 
-__global__ void __launch_bounds__(kThreads, 2) splitk_bf16_gemm_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w, float* __restrict__ part, int M,
-    int K, int N, int k_chunk) {
+__global__ void __launch_bounds__(kHThreads, 1) head_bf16_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap, float* __restrict__ part,
+    int M, int N, int steps, int steps_per_split) {
   extern __shared__ float4 smem4[];
-  char* sx = reinterpret_cast<char*>(smem4);   // [kLStages][kBM][kLXRow]
-  char* sw = sx + kLStages * kLXStage;         // [kLStages][kBK][kLWRow]
+  uint8_t* ring = smem_align(reinterpret_cast<uint8_t*>(smem4), 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kHStages * kHStage);
+  uint64_t* empty = full + kHStages;
 
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
-  const int n_k = k_begin < k_end ? (k_end - k_begin + kBK - 1) / kBK : 0;
-
-  // copies: x rows tid / 4 (+ 64) at 16-byte chunk tid % 4; w rows tid / 16 (+ 16) at chunk tid % 16
-  const int xr = tid / 4, xc = tid % 4, wr = tid / 16, wc = tid % 16;
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = k_begin + kt * kBK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = xr + 64 * i;
-      const bool in = m0 + row < M && k0 + 8 * xc < k_end;
-      lp_cp_async16(sx + stage * kLXStage + row * kLXRow + 16 * xc,
-                    in ? x + static_cast<size_t>(m0 + row) * K + k0 + 8 * xc : x, in);
+  const int n0 = blockIdx.x * kHBN, m0 = blockIdx.y * kHBM;
+  const int s0 = blockIdx.z * steps_per_split;
+  const int n_k = min(steps, s0 + steps_per_split) - s0;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // the 8 consumer warps
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = wr + 16 * i;
-      const bool in = n0 + 8 * wc < N && k0 + row < k_end;
-      lp_cp_async16(sw + stage * kLWStage + row * kLWRow + 16 * wc,
-                    in ? w + static_cast<size_t>(k0 + row) * N + n0 + 8 * wc : w, in);
-    }
-  };
-
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const int a_off = (64 * wm + lane % 16) * kLXRow + 16 * (lane / 16);
-  const int b_off = (lane % 8 + 8 * ((lane / 8) % 2)) * kLWRow + 2 * (32 * wn + 8 * (lane / 16));
-
-  float acc[4][4][4] = {};
-#pragma unroll
-  for (int st = 0; st < kLStages - 1; ++st) {
-    if (st < n_k) load_stage(st, st);
-    lp_commit();
+    mbar_init_fence();
   }
-  for (int kt = 0; kt < n_k; ++kt) {
-    lp_wait<kLStages - 2>();
-    __syncthreads();  // stage kt has landed for every thread, and stage kt - 1 is free
-    if (kt + kLStages - 1 < n_k) load_stage((kt + kLStages - 1) % kLStages, kt + kLStages - 1);
-    lp_commit();
+  __syncthreads();
 
-    const char* xs = sx + (kt % kLStages) * kLXStage;
-    const char* ws = sw + (kt % kLStages) * kLWStage;
+  if (wg == 2) {   // the producer: one thread issues every load; the rest of the warpgroup leaves
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % kHStages;
+        if (i >= kHStages) mbar_wait(&empty[s], ((i / kHStages) & 1) ^ 1);   // its last use was read
+        uint8_t* st = ring + s * kHStage;
+        const int k = (s0 + i) * kHBK;
+        mbar_expect_tx(&full[s], kHStage);
+        tma_load_2d(st, &xmap, k, m0, &full[s]);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t bf[2][4];
-      ldsm_x4_trans(bf[0], ws + b_off + 16 * kk * kLWRow);
-      ldsm_x4_trans(bf[1], ws + b_off + 16 * kk * kLWRow + 32);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t af[4];
-        ldsm_x4(af, xs + a_off + 16 * i * kLXRow + 32 * kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af, bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
+        for (int c = 0; c < 4; ++c) tma_load_2d(st + kHAStage + c * kHWBox, &wmap, n0 + 64 * c, k, &full[s]);
       }
     }
+    return;
   }
-  lp_wait<0>();
 
-  // acc[i][j][e]: row 64 wm + 16 i + g + 8 (e / 2), column 32 wn + 8 j + 2 t + e % 2
+  setmaxnreg_inc<232>();
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < n_k; ++i) {
+    const int s = i % kHStages;
+    mbar_wait(&full[s], (i / kHStages) & 1);
+    const uint8_t* st = ring + s * kHStage;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHBK / 16; ++kk) {
+      // x: this warpgroup's 64 rows, 16 of K at byte 32 kk of each 128-byte row; w: rows 16 kk .. of each box
+      const uint64_t da = smem_desc(st + wg * 64 * 128 + 32 * kk, 16, 1024, kSwizzle128B);
+      const uint64_t db = smem_desc(st + kHAStage + 16 * kk * 128, kHWBox, 1024, kSwizzle128B);
+      wgmma_m64n256k16_bf16_ss_bmn(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's group is done: release it
+    if (i > 0) mbar_arrive_if(&empty[(i - 1) % kHStages], lane == 0);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+
+  // acc[4j + e]: row 64 wg + 16 w + g + 8 (e / 2), column 8 j + 2 q + e % 2
+  const int t = threadIdx.x % 128, w = t / 32, g = (t % 32) / 4, q = t % 4;
   float* p = part + static_cast<size_t>(blockIdx.z) * M * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + 64 * wg + 16 * w + g + 8 * h;
+    if (row >= M) continue;
+    float* out = p + static_cast<size_t>(row) * N + n0 + 2 * q;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + 64 * wm + 16 * i + g + 8 * h;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + 32 * wn + 8 * j + 2 * t;
-        if (col < N)
-          *reinterpret_cast<float2*>(p + static_cast<size_t>(row) * N + col) =
-              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
+    for (int j = 0; j < 32; ++j)
+      if (n0 + 8 * j + 2 * q < N)
+        *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
 }
 
 // y = ReLU?(bf16(bf16(sum of the splits in order) + b)), four outputs a thread.
@@ -357,20 +369,26 @@ extern "C" int head_matmul_blocks_per_sm(int* out) {
 }
 
 // The bf16 form: x (M, K), w (K, N), b (N,), y (M, N) bf16; part: (splits, M, N) float32 workspace;
-// K and N multiples of 8, every pointer 16-byte aligned; k_chunk a multiple of 32 with
-// splits * k_chunk >= K.  Two launches, each checked.
+// K and N multiples of 8, x and w 16-byte aligned; k_chunk a multiple of 64 with every split non-empty
+// (splits * k_chunk >= K > (splits - 1) * k_chunk).  Two launches, each checked.
 extern "C" int head_matmul_bf16(const void* x, const void* w, const void* b, void* part, void* y, int M, int K,
                                 int N, int splits, int k_chunk, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || splits < 1 || k_chunk <= 0 || k_chunk % kBK != 0 ||
-      static_cast<long long>(splits) * k_chunk < K)
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || splits < 1 || k_chunk <= 0 || k_chunk % kHBK != 0 ||
+      static_cast<long long>(splits) * k_chunk < K || static_cast<long long>(splits - 1) * k_chunk >= K)
     return static_cast<int>(cudaErrorInvalidValue);
-  int err = allow_dynamic_smem(splitk_bf16_gemm_kernel, kLSmemBytes);
+  CUtensorMap xmap, wmap;
+  int err = make_tensor_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M, 2ull * K, kHBK, kHBM,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  splitk_bf16_gemm_kernel<<<grid, kThreads, kLSmemBytes, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                                              static_cast<const __nv_bfloat16*>(w),
-                                                              static_cast<float*>(part), M, K, N, k_chunk);
+  err = make_tensor_map_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, K, 2ull * N, 64, kHBK,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  err = allow_dynamic_smem(head_bf16_wgmma_kernel, kHSmemBytes);
+  if (err) return err;
+  const dim3 grid((N + kHBN - 1) / kHBN, (M + kHBM - 1) / kHBM, splits);
+  head_bf16_wgmma_kernel<<<grid, kHThreads, kHSmemBytes, s>>>(xmap, wmap, static_cast<float*>(part), M, N,
+                                                               (K + kHBK - 1) / kHBK, k_chunk / kHBK);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const long long total4 = static_cast<long long>(M) * N / 4;
@@ -382,8 +400,8 @@ extern "C" int head_matmul_bf16(const void* x, const void* w, const void* b, voi
 
 // Blocks of the bf16 GEMM pass an SM of the current card keeps resident, into *out.
 extern "C" int head_matmul_bf16_blocks_per_sm(int* out) {
-  const int err = allow_dynamic_smem(splitk_bf16_gemm_kernel, kLSmemBytes);
+  const int err = allow_dynamic_smem(head_bf16_wgmma_kernel, kHSmemBytes);
   if (err) return err;
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, splitk_bf16_gemm_kernel, kThreads, kLSmemBytes));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, head_bf16_wgmma_kernel, kHThreads, kHSmemBytes));
 }

@@ -14,8 +14,13 @@ Two low-precision forms run on the tensor cores too (``csrc/fused_stage_lowp.cu`
 :func:`fused_conv_pool_stage_bf16` (bf16 in and out, float32 sums rounded where
 the JAX package's bf16 forward rounds) and :func:`fused_conv_pool_stage_int8`
 (the ``quantized_inference`` stage: int8 activations and weights, exact int32
-sums, dequantized to float32 or bf16).  :func:`fused_conv_pool_stage`
-dispatches by dtype: float32 takes the float32 kernel, bf16 the bf16 form.
+sums, dequantized to float32 or bf16).  The int8 form runs on ``wgmma`` with
+its weights streamed by TMA, tiled by :func:`int8_stage_plan`; the activation
+scale, the activations' and the weights' quantization are kernels of the same
+call (:func:`act_scale_int8` and :func:`pack_weights_int8` run the last two
+passes alone), so no op of ``ops/quant.py`` runs on the card.
+:func:`fused_conv_pool_stage` dispatches by dtype: float32 takes the float32
+kernel, bf16 the bf16 form.
 Each form has its own plain version and launch count; a CUDA tensor of a
 dtype no form takes raises, and nothing is cast for a kernel.
 
@@ -45,8 +50,10 @@ _SIGNATURES = {
     "fused_conv_pool_stage_blocks_per_sm": [_I, _I, _I, _P],
 }
 _LOWP_SIGNATURES = {
-    "fused_conv_pool_stage_lowp": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "quantize_activations": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    "fused_conv_pool_stage_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fused_conv_pool_stage_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "int8_pack_weights": [_P, _P, _P, _I, _I, _P],
+    "int8_act_scale": [_P, _P, _P, ctypes.c_longlong, _I, _P],
 }
 
 # the kernel's geometry (csrc/fused_stage.cu)
@@ -246,8 +253,8 @@ fused_conv_pool_stage.launches = 0
 
 # ---------------------------------------------------------------- the bf16 and int8 forms (csrc/fused_stage_lowp.cu)
 
-LOWP_CHUNK_BYTES = 32          # bytes of input channels per pipeline stage: one MMA k-step at each tap
-LOWP_STAGES = 3                # the ring's depth
+LOWP_CHUNK_BYTES = 32          # the bf16 form's bytes of input channels per pipeline stage: one MMA k-step a tap
+LOWP_STAGES = 3                # the bf16 form's ring depth
 _LOWP_X_PITCH = LOWP_CHUNK_BYTES + 16           # bytes per input position of a stage
 _LOWP_W_STAGE = BLOCK_N * (9 * LOWP_CHUNK_BYTES + 16)   # bytes of one stage's weights
 LOWP_REG_BLOCKS = {2: 2, 3: 2, 4: 1}            # the kernels' __launch_bounds__ minimum blocks per SM, by m_tiles
@@ -316,20 +323,6 @@ def _check_lowp(what: str, x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Te
     _build.refuse_grad(what, x, w, b_spatial)
 
 
-def _launch_lowp(form: int, xk: torch.Tensor, wq: torch.Tensor, b_spatial: torch.Tensor, s_x, s_w, out: torch.Tensor,
-                 plan: StagePlan) -> None:
-    """One launch of form 0 (bf16), 1 (int8, float32 out) or 2 (int8, bf16 out) on xk (N, H, W, Cin padded)."""
-    n, h, wd, cin_p = xk.shape
-    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
-    with _build.on_device(xk):
-        code = lib.fused_conv_pool_stage_lowp(
-            form, xk.data_ptr(), wq.data_ptr(), b_spatial.data_ptr(), None if s_x is None else s_x.data_ptr(),
-            None if s_w is None else s_w.data_ptr(), out.data_ptr(), n, h, wd, cin_p, out.shape[3],
-            plan.frames, plan.rows, plan.cols, plan.m_tiles, _build.stream_of(xk),
-        )
-    _build.check(lib, code, "fused_conv_pool_stage_lowp")
-
-
 def _padded(t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """``t`` (a view in any layout) zero-padded at the end of each axis to ``shape``, contiguous; ``t`` itself
     when it is contiguous at that shape already."""
@@ -358,7 +351,14 @@ def fused_conv_pool_stage_bf16(x: torch.Tensor, w: torch.Tensor, b_spatial: torc
     cin_p, cout_p = -(-cin // 16) * 16, -(-cout // BLOCK_N) * BLOCK_N
     xk = _padded(x, (n, h, wd, cin_p))
     wq = _padded(w.permute(3, 0, 1, 2), (cout_p, 3, 3, cin_p))
-    _launch_lowp(0, xk, wq, b_spatial, None, None, out, card_lowp_stage_plan(n, h, wd, cout, x.device))
+    plan = card_lowp_stage_plan(n, h, wd, cout, x.device)
+    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
+    with _build.on_device(xk):
+        code = lib.fused_conv_pool_stage_bf16(
+            xk.data_ptr(), wq.data_ptr(), b_spatial.data_ptr(), out.data_ptr(), n, h, wd, cin_p, cout,
+            plan.frames, plan.rows, plan.cols, plan.m_tiles, _build.stream_of(xk),
+        )
+    _build.check(lib, code, "fused_conv_pool_stage_bf16")
     fused_conv_pool_stage_bf16.launches += 1
     return out
 
@@ -366,13 +366,170 @@ def fused_conv_pool_stage_bf16(x: torch.Tensor, w: torch.Tensor, b_spatial: torc
 fused_conv_pool_stage_bf16.launches = 0
 
 
+# ---------------------------------------------------------------- 2-int8 on wgmma
+
+INT8_SHAPES = ((2, 128), (4, 64))   # built (m_tiles, block_n): m64 tiles per consumer warpgroup, channels a block
+INT8_K_BYTES = 64                   # Cin is padded to a multiple of this many int8 channels (a weight stage's least)
+INT8_RING_BYTES = 64 * 1024         # weights in flight: stages of 64 or 128 input channels at one tap
+INT8_FIXED = 64                     # a block's cost besides its MMAs (input tile, epilogue), in m64n128k32 wgmma
+
+
+class Int8Plan(NamedTuple):
+    """How the int8 kernel tiles (N, H, W): ``frames`` per block, each cut into tiles of ``rows`` × ``cols``
+    pooled positions (the whole frame when they are H − 2 and W − 2); two consumer warpgroups of ``m_tiles``
+    m64 tiles each, so frames · (rows + 2) · (cols + 2) ≤ 128 · m_tiles conv positions; ``block_n`` output
+    channels a block."""
+    frames: int
+    rows: int
+    cols: int
+    m_tiles: int
+    block_n: int
+
+
+def int8_cin(cin: int) -> int:
+    """Input channels as the int8 kernel lays them out: ``cin`` rounded up to :data:`INT8_K_BYTES`."""
+    return -(-cin // INT8_K_BYTES) * INT8_K_BYTES
+
+
+def int8_smem_bytes(plan: Int8Plan, cin_p: int) -> int:
+    """Dynamic shared memory of a block (csrc/fused_stage_lowp.cu::int8_smem): 1024 bytes of alignment slack; the
+    weight ring and the input tile (rows of cin_p + 16 bytes), which the epilogue's float32 conv tile reuses; one
+    frame's bias tile (rows of 4 · block_n + 16 bytes), the block_n scales and the ring's barriers."""
+    m, p = block_positions(plan)
+    body = INT8_RING_BYTES + p * (cin_p + 16)
+    conv = 4 * m * (plan.block_n + 4)
+    per_frame = (plan.rows + 2) * (plan.cols + 2)
+    barriers = 2 * 8 * (INT8_RING_BYTES // (plan.block_n * INT8_K_BYTES))   # room for the most stages
+    return 1024 + -(-max(body, conv) // 16) * 16 + per_frame * (4 * plan.block_n + 16) + 4 * plan.block_n + barriers
+
+
+def int8_block_count(plan: Int8Plan, n: int, h: int, w: int, cout: int) -> int:
+    """Blocks of a launch: frame groups × tiles per frame × channel slices."""
+    tiles = math.ceil((h - 2) / plan.rows) * math.ceil((w - 2) / plan.cols)
+    return math.ceil(n / plan.frames) * tiles * math.ceil(cout / plan.block_n)
+
+
+def int8_plan_cost(plan: Int8Plan, n: int, h: int, w: int, cin: int, cout: int, sms: int) -> float:
+    """The plan model's time: blocks run one an SM (256 threads at over 128 registers each), each its m64 tiles'
+    wgmma (in m64n128k32 units: 2 k-steps at each of 9 taps per 64 input channels) plus :data:`INT8_FIXED`."""
+    m, _ = block_positions(plan)
+    mma = math.ceil(m / 64) * plan.block_n / 128 * 2 * 9 * int8_cin(cin) // INT8_K_BYTES
+    return math.ceil(int8_block_count(plan, n, h, w, cout) / sms) * (mma + INT8_FIXED)
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_stage_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int) -> Int8Plan:
+    """The int8 kernel's plan for x (n, h, w, cin) → (n, h − 2, w − 2, cout) on a card of ``sms`` SMs: every
+    tile of every built shape that fits a block's shared memory, by :func:`int8_plan_cost`, then the fewest
+    blocks, then the smaller ``m_tiles``."""
+    cin_p = int8_cin(cin)
+    best = None
+    for mt, bn in INT8_SHAPES:
+        for f, r, c in _tiles(n, h, w, 2 * mt):
+            plan = Int8Plan(f, r, c, mt, bn)
+            if int8_smem_bytes(plan, cin_p) > BLOCK_SMEM:
+                continue
+            key = (int8_plan_cost(plan, n, h, w, cin, cout, sms), int8_block_count(plan, n, h, w, cout), mt)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is None:
+        raise ValueError(f"fused_conv_pool_stage_int8: no tile of {cin} input channels fits a block")
+    return best[1]
+
+
+def card_int8_stage_plan(n: int, h: int, w: int, cin: int, cout: int, device: torch.device) -> Int8Plan:
+    """:func:`int8_stage_plan` with the SMs of the card ``device``."""
+    sms = torch.cuda.get_device_properties(_build.device_index(device)).multi_processor_count
+    return int8_stage_plan(n, h, w, cin, cout, sms)
+
+
+def int8_workspace_bytes(n: int, h: int, w: int, cin: int, cout: int) -> int:
+    """Bytes of one call's workspace (csrc/fused_stage_lowp.cu::int8_workspace), each part at a 256-byte
+    boundary: the packed weights (cout, 3, 3, cin_p) int8, their scales (cout,) float32, the quantized
+    activations (n, h, w, cin_p) int8, and 16 bytes for the amax bits, a block count and s_x."""
+    cin_p = int8_cin(cin)
+
+    def r(b):
+        return -(-b // 256) * 256
+
+    return r(cout * 9 * cin_p) + r(4 * cout) + r(n * h * w * cin_p) + 16
+
+
+def pack_weights_int8_plain(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The weight pass in plain PyTorch, computed as the kernel computes it: per output channel the largest bit
+    pattern of |w| (non-negative floats order as their bits), s = max(amax / 127, 1e-12) and q = clip(round(w / s),
+    −127, 127) in float32, written into (Cout, 3, 3, Cin_p) with zeros in the padded channels; and s (Cout,)."""
+    cin, cout = w.shape[2], w.shape[3]
+    wf = w.to(torch.float32).permute(3, 0, 1, 2).contiguous()   # (Cout, 3, 3, Cin)
+    s = quant.amax_scale(wf.abs().view(torch.int32).reshape(cout, -1).amax(dim=1).view(torch.float32))
+    wq = torch.zeros((cout, 3, 3, int8_cin(cin)), dtype=torch.int8, device=w.device)
+    wq[..., :cin] = torch.clamp(torch.round(wf / s.reshape(-1, 1, 1, 1)), -127, 127).to(torch.int8)
+    return wq, s
+
+
+def act_scale_int8_plain(x: torch.Tensor) -> torch.Tensor:
+    """The activation scale in plain PyTorch, computed as the kernel computes it: the largest bit pattern of |x|
+    in float32, then max(amax / 127, 1e-12); a float32 scalar."""
+    return quant.amax_scale(x.abs().to(torch.float32).contiguous().view(torch.int32).amax().view(torch.float32))
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) itself on a 16-byte boundary, else a copy that is: the kernels read x in 16-byte words."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def pack_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 form's weight pass alone (the card tests and the timing of its own device time): w (3, 3, Cin,
+    Cout) float32 → (wq (Cout, 3, 3, Cin_p) int8, s_w (Cout,) float32).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel."""
+    if w.device.type == "cpu":
+        return pack_weights_int8_plain(w)
+    _build.require_dtype("pack_weights_int8", w.device, torch.float32, w=w)
+    cin, cout = w.shape[2], w.shape[3]
+    wq = torch.empty((cout, 3, 3, int8_cin(cin)), dtype=torch.int8, device=w.device)
+    s_w = torch.empty((cout,), dtype=torch.float32, device=w.device)
+    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
+    with _build.on_device(w):
+        code = lib.int8_pack_weights(w.data_ptr(), wq.data_ptr(), s_w.data_ptr(), cin, cout, _build.stream_of(w))
+    _build.check(lib, code, "pack_weights_int8")
+    pack_weights_int8.launches += 1
+    return wq, s_w
+
+
+pack_weights_int8.launches = 0
+
+
+def act_scale_int8(x: torch.Tensor) -> torch.Tensor:
+    """The int8 form's activation scale alone: max(max|x| / 127, 1e-12) for float32 or bf16 x, a float32 scalar.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if x.device.type == "cpu":
+        return act_scale_int8_plain(x)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"act_scale_int8: x must be float32 or bfloat16, got {x.dtype}")
+    _build.require_dtype("act_scale_int8", x.device, x.dtype, x=x)
+    x = _aligned16(x)
+    scratch = torch.empty(2, dtype=torch.int32, device=x.device)
+    s_x = torch.empty((), dtype=torch.float32, device=x.device)
+    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
+    with _build.on_device(x):
+        code = lib.int8_act_scale(x.data_ptr(), scratch.data_ptr(), s_x.data_ptr(), x.numel(),
+                                  int(x.dtype == torch.bfloat16), _build.stream_of(x))
+    _build.check(lib, code, "act_scale_int8")
+    act_scale_int8.launches += 1
+    return s_x
+
+
+act_scale_int8.launches = 0
+
+
 def fused_conv_pool_stage_int8(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
     """The int8 form: x (N, H, W, C) float32 or bf16, w (3, 3, C, Co) float32 (folded, quantized here per output
     channel), b_spatial (H, W, Co) in x's dtype → (N, H−2, W−2, Co) in x's dtype.
 
-    The activation scale is one ``amax`` over the whole batch tensor (plain PyTorch: the JAX package leaves
-    it to XLA too), so every frame's output depends on the batch.  A CPU tensor takes the plain version; a
-    CUDA tensor quantizes x in a kernel, zero-padding C to a multiple of 32, and launches the conv kernel.
+    The activation scale is one ``amax`` over the whole batch tensor, so every frame's output depends on the
+    batch.  A CPU tensor takes the plain version; a CUDA tensor runs one C entry: the scale, the activations'
+    and the weights' quantization (C zero-padded to a multiple of 64) and the conv kernel with
+    :func:`card_int8_stage_plan`, in a workspace allocated here (x off a 16-byte boundary is copied first).
     """
     if x.device.type == "cpu":
         return fused_conv_pool_stage_int8_plain(x, w, b_spatial)
@@ -386,19 +543,17 @@ def fused_conv_pool_stage_int8(x: torch.Tensor, w: torch.Tensor, b_spatial: torc
     out = torch.empty((n, h - 2, wd - 2, cout), dtype=x.dtype, device=x.device)
     if n == 0 or cout == 0:
         return out
-    cin_p, cout_p = -(-cin // LOWP_CHUNK_BYTES) * LOWP_CHUNK_BYTES, -(-cout // BLOCK_N) * BLOCK_N
-    w_q, s_w = quant.quantize_weights_per_channel(w, axis=3)
-    wq = _padded(w_q.permute(3, 0, 1, 2), (cout_p, 3, 3, cin_p))
-    sw = _padded(s_w.reshape(-1), (cout_p,))
-    s_x = quant.act_scale(x)
-    xq = torch.empty((n, h, wd, cin_p), dtype=torch.int8, device=x.device)
+    x = _aligned16(x)
+    plan = card_int8_stage_plan(n, h, wd, cin, cout, x.device)
+    ws = torch.empty(int8_workspace_bytes(n, h, wd, cin, cout), dtype=torch.uint8, device=x.device)
     lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
     with _build.on_device(x):
-        code = lib.quantize_activations(x.data_ptr(), xq.data_ptr(), s_x.data_ptr(), n * h * wd, cin, cin_p,
-                                        int(x.dtype == torch.bfloat16), _build.stream_of(x))
-    _build.check(lib, code, "fused_conv_pool_stage_int8: quantize")
-    form = 1 if x.dtype == torch.float32 else 2
-    _launch_lowp(form, xq, wq, b_spatial, s_x, sw, out, card_lowp_stage_plan(n, h, wd, cout, x.device))
+        code = lib.fused_conv_pool_stage_int8(
+            x.data_ptr(), w.data_ptr(), b_spatial.data_ptr(), out.data_ptr(), ws.data_ptr(), n, h, wd, cin, cout,
+            int(x.dtype == torch.bfloat16), plan.frames, plan.rows, plan.cols, plan.m_tiles, plan.block_n,
+            _build.stream_of(x),
+        )
+    _build.check(lib, code, "fused_conv_pool_stage_int8")
     fused_conv_pool_stage_int8.launches += 1
     return out
 

@@ -12,10 +12,13 @@ operands; other operands (only ever small ones here) are copied zero-padded
 into scratch first, and the output is sliced back.
 
 The bf16 form (:func:`head_matmul_bf16`, the same source) runs the products
-as bf16 MMAs with float32 partial sums, reduced in the same fixed order, and
-rounds as the JAX package's bf16 forward does: the sum to bf16, + the bf16
-bias to bf16, ReLU.  :func:`head_matmul` dispatches by dtype; a CUDA tensor
-of a dtype no form takes raises.
+on ``wgmma`` fed by TMA (128 × 256 tiles, split over K by
+:func:`head_bf16_plan`) with float32 partial sums, reduced in the same fixed
+order, and rounds as the JAX package's bf16 forward does: the sum to bf16, +
+the bf16 bias to bf16, ReLU.  TMA takes 16-byte-aligned bases and row
+strides: K and N are zero-padded to multiples of 8 and an operand off a
+16-byte boundary is copied to an aligned buffer first.  :func:`head_matmul`
+dispatches by dtype; a CUDA tensor of a dtype no form takes raises.
 
 The kernel has no backward (the JAX package's has no VJP either): on CUDA
 tensors that require grad with grad mode on, the wrapper raises rather than
@@ -47,11 +50,20 @@ BLOCK_M, BLOCK_N, BLOCK_K = 128, 128, 32   # the kernel's output tile and K step
 FILL_STEPS = 8     # the plan's fixed cost of a block (pipeline fill, partial write) in K steps
 MAX_SPLITS = 64    # the most splits the plan tries
 
+# the bf16 form's wgmma kernel (csrc/matmul.cu, head_bf16_wgmma_kernel): its output tile, its K step (one ring
+# stage: 64 of K, an x box of 128 rows x 128 bytes and four w boxes of 64 x 64, each box one 128-byte swizzle
+# span wide), its ring and its shared memory
+BF16_BLOCK_M, BF16_BLOCK_N, BF16_BLOCK_K = 128, 256, 64
+BF16_STAGES = 4
+BF16_STAGE_BYTES = 2 * BF16_BLOCK_K * (BF16_BLOCK_M + BF16_BLOCK_N)
+BF16_SMEM = 1024 + BF16_STAGES * BF16_STAGE_BYTES + 2 * BF16_STAGES * 8   # + alignment slack and the barriers
+BF16_FILL_STEPS = 4   # the plan's fixed cost of a block in K steps
+
 
 class HeadPlan(NamedTuple):
     """How the kernel splits K: ``splits`` blocks per output tile, each over ``k_chunk`` of K."""
     splits: int
-    k_chunk: int   # a multiple of BLOCK_K; splits · k_chunk ≥ K > (splits − 1) · k_chunk
+    k_chunk: int   # a multiple of the kernel's K step; splits · k_chunk ≥ K > (splits − 1) · k_chunk
 
 
 @functools.lru_cache(maxsize=1024)   # a pure function of its ints, asked on every call
@@ -63,16 +75,31 @@ def head_plan(m: int, k: int, n: int, sms: int, blocks_per_sm: int) -> HeadPlan:
     smallest on a tie.
     """
     tiles = math.ceil(m / BLOCK_M) * math.ceil(n / BLOCK_N)
-    steps = max(1, math.ceil(k / BLOCK_K))
-    slots = sms * blocks_per_sm
+    return _split_plan(tiles, k, BLOCK_K, sms * blocks_per_sm, FILL_STEPS)
+
+
+@functools.lru_cache(maxsize=1024)
+def head_bf16_plan(m: int, k: int, n: int, sms: int, blocks_per_sm: int = 1) -> HeadPlan:
+    """The split of K for the bf16 form's (m, k) @ (k, n): :func:`head_plan`'s rule over its 128 × 256 tiles
+    and 64-deep steps, with :data:`BF16_FILL_STEPS`; one block an SM (its ring takes most of the shared memory).
+    At M = 1050 on 132 SMs: 9 × 2 tiles × 7 splits = 126 blocks, one wave."""
+    tiles = math.ceil(m / BF16_BLOCK_M) * math.ceil(n / BF16_BLOCK_N)
+    return _split_plan(tiles, k, BF16_BLOCK_K, sms * blocks_per_sm, BF16_FILL_STEPS)
+
+
+def _split_plan(tiles: int, k: int, block_k: int, slots: int, fill: int) -> HeadPlan:
+    """Each of ``tiles`` output tiles gets s blocks of ⌈steps/s⌉ K steps of ``block_k``; blocks run in rounds of
+    ``slots``.  The s of least rounds · (steps per block + ``fill``), the smallest on a tie; every split
+    non-empty."""
+    steps = max(1, math.ceil(k / block_k))
     best = None
     for s in range(1, min(steps, MAX_SPLITS) + 1):
         per = math.ceil(steps / s)
         used = math.ceil(steps / per)   # splits that get any K
-        cost = math.ceil(tiles * used / slots) * (per + FILL_STEPS)
+        cost = math.ceil(tiles * used / slots) * (per + fill)
         if best is None or cost < best[0]:
             best = (cost, used, per)
-    return HeadPlan(best[1], best[2] * BLOCK_K)
+    return HeadPlan(best[1], best[2] * block_k)
 
 
 def card_head_plan(m: int, k: int, n: int, device: torch.device) -> HeadPlan:
@@ -163,8 +190,13 @@ def head_matmul_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, re
 
 
 def card_head_bf16_plan(m: int, k: int, n: int, device: torch.device) -> HeadPlan:
-    """:func:`head_plan` with the SMs and resident blocks of the bf16 GEMM pass on the card ``device``."""
-    return head_plan(m, k, n, *_bf16_slots_on_card(_build.device_index(device)))
+    """:func:`head_bf16_plan` with the SMs and resident blocks of the bf16 GEMM pass on the card ``device``."""
+    return head_bf16_plan(m, k, n, *head_bf16_slots(device))
+
+
+def head_bf16_slots(device: torch.device) -> tuple[int, int]:
+    """(SMs, resident blocks of the bf16 GEMM pass per SM by the CUDA occupancy calculator) of the card."""
+    return _bf16_slots_on_card(_build.device_index(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,7 +212,7 @@ def head_matmul_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bo
     """The bf16 form: x (M, K) @ w (K, N) + b (N,), ReLU when ``relu``; all bf16.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel (K and N zero-padded to
-    multiples of 8 where they are not).
+    multiples of 8 where they are not, and an operand off a 16-byte boundary copied, as TMA needs).
     """
     m, k = x.shape
     n = w.shape[1]

@@ -9,7 +9,8 @@ scale product formed first, then a cast to the activation dtype.
 
 These are the plain versions.  On the card conv1 and conv2 take the int8
 form of kernel 2 (``ops/cuda/fused_stage.py::fused_conv_pool_stage_int8``),
-which quantizes the activations in a kernel and sums in int32 on the tensor
+which computes the scales and quantizes the activations and the weights in
+kernels (none of these ops runs there) and sums in int32 on the tensor
 cores; :func:`conv2d_int8` here sums in float64, which is exact: a sum of at
 most 2^53 / 127² products (float32 is not: conv2's K = 2304 sums reach
 2304 · 127² > 2^24).
@@ -21,19 +22,26 @@ import torch
 import torch.nn.functional as F
 
 
+def amax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax / 127, 1e-12)`` in float32, the quotient correctly rounded on every device: PyTorch divides a
+    CUDA tensor by a Python scalar as a product with the scalar's reciprocal, one bit off the quotient that the
+    JAX package and the CPU give, so the divisor is a tensor on ``amax``'s device."""
+    return torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
+
+
 def quantize_weights_per_channel(w: torch.Tensor, axis: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per-channel quantization → ``(w_q int8, scales float32)``; ``scales`` keeps ``w``'s rank
     with size 1 everywhere but ``axis``."""
     axis %= w.dim()
     dims = tuple(i for i in range(w.dim()) if i != axis)
     wf = w.to(torch.float32)
-    s = torch.clamp_min(wf.abs().amax(dim=dims, keepdim=True) / 127.0, 1e-12)
+    s = amax_scale(wf.abs().amax(dim=dims, keepdim=True))
     return torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8), s
 
 
 def act_scale(x: torch.Tensor) -> torch.Tensor:
     """The per-tensor activation scale ``max(max|x| / 127, 1e-12)``, a float32 scalar on ``x``'s device."""
-    return torch.clamp_min(x.abs().amax().to(torch.float32) / 127.0, 1e-12)
+    return amax_scale(x.abs().amax().to(torch.float32))
 
 
 def quantize_act_per_tensor(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1197,6 +1197,7 @@ STAGE_LOWP_CASES = [
     (3, 21, 32, 64),       # a frame past one block: tiles with a recomputed halo
     (2, 3, 16, 64),        # the smallest frame
     (0, 13, 64, 256),      # no frames
+    (1, 13, 64, 256),      # one frame: the int8 kernel's block holds less than its m64 tiles
 ]
 
 
@@ -1235,7 +1236,9 @@ def test_stage_int8_matches_plain(dev, dtype, n, hh, cin, cout):
         assert err <= 1e-6 * want.to(torch.float32).abs().max().item(), err
 
 
-@pytest.mark.parametrize("m,k,n", [(150, 41472, 512), (1050, 41472, 512), (37, 1000, 60), (5, 24, 8), (0, 64, 64)])
+@pytest.mark.parametrize("m,k,n", [(150, 41472, 512), (1050, 41472, 512), (37, 1000, 60), (5, 24, 8), (0, 64, 64),
+                                   (1, 41472, 512), (64, 41472, 512), (65, 41472, 512), (5400, 41472, 512),
+                                   (65, 1000, 512)])   # K = 1000: a ragged last 64-deep box
 def test_head_bf16_matches_plain(dev, m, k, n):
     x = _rand((m, k), 7, dev=dev).relu().to(torch.bfloat16)
     w = _rand((k, n), 8, k ** -0.5, dev).to(torch.bfloat16)
@@ -1270,6 +1273,68 @@ def test_mlp_bf16_matches_plain(dev, m, dims, squash):
     if squash and m:
         g = got.to(torch.float32)
         assert ((g >= 1) & (g <= 5)).all()
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 256), (256, 512), (20, 70)])
+def test_int8_weight_pack_matches_plain(dev, cin, cout):
+    """The int8 form's weight kernel: packed weights (Cout, 3, 3, Cin_p) and per-channel scales bit-equal to the
+    plain pack (which equals ops/quant.py's, tests/test_torch_lowp_plans.py)."""
+    w = _rand((3, 3, cin, cout), 21, 0.05, dev)
+    w[..., 1] = 0.0   # an all-zero channel takes the 1e-12 floor
+    before = stage_plan.pack_weights_int8.launches
+    wq, s_w = stage_plan.pack_weights_int8(w)
+    torch.cuda.synchronize()
+    assert stage_plan.pack_weights_int8.launches == before + 1
+    wq_plain, s_plain = stage_plan.pack_weights_int8_plain(w)
+    assert torch.equal(wq, wq_plain) and torch.equal(s_w, s_plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1050, 13, 13, 64), (64, 11, 11, 256), (3, 7, 5, 3)])
+def test_int8_act_scale_matches_plain(dev, dtype, shape):
+    """The amax pass: s_x bit-equal to ops/quant.py's act_scale (and the plain amax pass)."""
+    from cvml_goalnet_tpu_torch.ops import quant
+
+    x = _rand(shape, 22, 3.0, dev).relu().to(dtype)
+    before = stage_plan.act_scale_int8.launches
+    s_x = stage_plan.act_scale_int8(x)
+    torch.cuda.synchronize()
+    assert stage_plan.act_scale_int8.launches == before + 1
+    assert torch.equal(s_x, quant.act_scale(x)) and torch.equal(s_x, stage_plan.act_scale_int8_plain(x))
+
+
+def test_quant_scale_divides_on_the_card_as_on_the_cpu(dev):
+    """ops/quant.py's scale max(amax / 127, 1e-12) on the card is the CPU's (and JAX's) quotient: PyTorch divides a
+    CUDA tensor by a Python scalar as a product with the scalar's reciprocal, one bit off on these values."""
+    from cvml_goalnet_tpu_torch.ops import quant
+
+    amax = torch.tensor([3.1848085, 2.7073061, 1.5512094], dtype=torch.float32)
+    for a in amax:
+        x = torch.stack([a, -a / 2])
+        assert torch.equal(quant.act_scale(x.to(dev)).cpu(), quant.act_scale(x))
+    w = torch.stack([amax, -amax / 3]).reshape(1, 1, 2, 3)
+    q_card, s_card = quant.quantize_weights_per_channel(w.to(dev), axis=3)
+    q_cpu, s_cpu = quant.quantize_weights_per_channel(w, axis=3)
+    assert torch.equal(s_card.cpu(), s_cpu) and torch.equal(q_card.cpu(), q_cpu)
+
+
+def test_wgmma_forms_take_views_off_16_byte_alignment(dev):
+    """TMA takes no base off a 16-byte boundary: the head copies such an operand to an aligned buffer, the int8
+    form copies x; each gives what the aligned input gives."""
+    x = _rand((65, 1000), 23, dev=dev).relu().to(torch.bfloat16)
+    w = _rand((1000, 64), 24, 1000 ** -0.5, dev).to(torch.bfloat16)
+    b = _rand((64,), 25, 0.1, dev).to(torch.bfloat16)
+    xs = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 != 0
+    assert torch.equal(head_matmul_bf16(xs, w, b), head_matmul_bf16(x, w, b))
+    xi, wi, bi = _stage_inputs(dev, 3, 13, 64, 256, 26)
+    shifted = torch.empty(xi.numel() + 1, device=dev)[1:].view(xi.shape)
+    shifted.copy_(xi)
+    assert shifted.data_ptr() % 16 != 0
+    got = fused_conv_pool_stage_int8(shifted, wi, bi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_conv_pool_stage_int8(xi, wi, bi))
 
 
 def test_lowp_forms_refuse_other_dtypes(dev):
