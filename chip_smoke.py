@@ -228,14 +228,20 @@ from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     fwd_slots,
     padded_head_dim,
 )
+from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import BF16_ROWS as MLP_BF16_ROWS
+from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import bf16_smem_bytes as mlp_bf16_smem_bytes
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import (
     BLOCK_ROWS,
     MAX_CLUSTER,
     SMEM_LIMIT,
+    bf16_clusters_at_once,
+    bf16_cta_work,
+    card_bf16_mlp_plan,
     card_plan,
     fused_fusion_mlp,
     fused_fusion_mlp_bf16,
     fused_fusion_mlp_bf16_plain,
+    fused_fusion_mlp_bf16_planned,
     fused_fusion_mlp_plain,
     fused_fusion_mlp_planned,
     max_active_clusters,
@@ -257,8 +263,9 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
     act_scale_int8,
     act_scale_int8_plain,
     card_blocks_per_sm,
+    bf16_cin,
+    card_bf16_stage_plan,
     card_int8_stage_plan,
-    card_lowp_stage_plan,
     card_stage_plan,
     fused_conv_pool_stage,
     fused_conv_pool_stage_bf16,
@@ -267,6 +274,7 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
     fused_conv_pool_stage_int8_plain,
     fused_conv_pool_stage_plain,
     fused_conv_pool_stage_planned,
+    int8_block_count,
     int8_cin,
     int8_smem_bytes,
     pack_weights_int8,
@@ -274,6 +282,7 @@ from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import (
     plan_cost,
     stage_slots,
 )
+from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import bf16_smem_bytes as stage_bf16_smem_bytes
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import block_count as stage_block_count
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import blocks_per_sm as stage_blocks_per_sm
 from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import smem_bytes as stage_smem_bytes
@@ -2951,6 +2960,8 @@ def lowp_stage_part(form: str, n: int, hh: int, cin: int, cout: int, dtype: torc
         window = F.max_pool2d(b.float().abs().permute(2, 0, 1)[None], 3, 1)[0].permute(1, 2, 0)[None]
         err, tol = bf16_ulps_past(got, want, 2 * window), 2.0
         require(err <= tol, f"fused_conv_pool_stage_bf16 {[n, hh, cin, cout]}: {err} bf16 ulps past (> 2)")
+        require(torch.equal(got, run()), f"fused_conv_pool_stage_bf16 {[n, hh, cin, cout]}: two runs on the same "
+                                         "inputs differ")
         err_abs = max_err(got.float(), want.float())
     else:
         err_abs = max_err(got.float(), want.float())
@@ -2976,7 +2987,9 @@ def lowp_stage_part(form: str, n: int, hh: int, cin: int, cout: int, dtype: torc
             "bound_ms": bound, "bound_by": kind, "max_abs_err": err_abs,
             ("bf16_ulps" if form == "bf16" else "tolerance"): err if form == "bf16" else tol}
     if form == "bf16":
-        part["plan"] = card_lowp_stage_plan(n, hh, hh, cout, dev)._asdict()
+        plan = card_bf16_stage_plan(n, hh, hh, cin, cout, dev)
+        part["plan"] = {**plan._asdict(), "smem_bytes": stage_bf16_smem_bytes(plan, bf16_cin(cin)),
+                        "blocks": int8_block_count(plan, n, hh, hh, cout)}
     else:
         plan = card_int8_stage_plan(n, hh, hh, cin, cout, dev)
         part["plan"] = {**plan._asdict(), "smem_bytes": int8_smem_bytes(plan, int8_cin(cin))}
@@ -3024,13 +3037,16 @@ def lowp_head_part(m: int, k: int, n: int, gen, main_path: bool = True) -> dict:
     return part
 
 
-def lowp_mlp_part(m: int, layers, lo: float, hi: float, gen) -> dict:
+def lowp_mlp_part(m: int, layers, lo: float, hi: float, gen, main_path: bool = True) -> dict:
+    """4-bf16 at (m, widths) against its plain version (0.0625: 2 bf16 ulps on [4, 5]; equal bits on a repeat),
+    timed beside the bf16 addmm chain, with its device time alone, its host call and its plan."""
     dims = mlp_dims(layers)
     x = torch.rand((m, dims[0]), generator=gen, device="cuda").to(torch.bfloat16)
     run, plain = (lambda: fused_fusion_mlp_bf16(x, layers, lo, hi)), (lambda: fused_fusion_mlp_bf16_plain(x, layers, lo, hi))
     got, want = run(), plain()
     err = max_err(got.float(), want.float())
     require(err <= 0.0625, f"fused_fusion_mlp_bf16 at M = {m}: max |err| {err} > 0.0625 (2 bf16 ulps on [4, 5])")
+    require(torch.equal(got, run()), f"fused_fusion_mlp_bf16 at M = {m}: two runs on the same inputs differ")
 
     def library():
         h = x
@@ -3044,13 +3060,44 @@ def lowp_mlp_part(m: int, layers, lo: float, hi: float, gen) -> dict:
     n_bytes = 2.0 * (m * (dims[0] + dims[-1]) + sum(lp["w"].numel() + lp["b"].numel() for lp in layers))
     bound, kind = bound_ms(n_bytes, 2.0 * m * macs, PEAK_BF16_FLOP_PER_S)
     device_ms, host_call_ms = time_ms_and_host(run, 100, queued=True)
-    part = {"shape": [m, *dims], "main_path": True, "ms": time_ms(run, 100), "device_ms": device_ms,
+    rows, c = card_bf16_mlp_plan(m, dims, x.device)
+    part = {"shape": [m, *dims], "main_path": main_path, "ms": time_ms(run, 100), "device_ms": device_ms,
             "host_call_ms": host_call_ms, "plain_ms": time_ms(plain, 100),
-            "library_ms": time_ms(library, 100), "bound_ms": bound, "bound_by": kind, "max_abs_err": err}
-    print(f"fused_fusion_mlp_bf16 at {part['shape']}: {part['ms']:.4f} ms (device alone {device_ms:.4f}, host call "
-          f"{host_call_ms:.4f}; plain {part['plain_ms']:.4f}, library "
-          f"{part['library_ms']:.4f}); bound {bound:.4f} ms ({kind}); max |err| {err:.3g}", flush=True)
+            "library_ms": time_ms(library, 100), "bound_ms": bound, "bound_by": kind, "max_abs_err": err,
+            "plan": {"rows": rows, "cluster": c, "ctas": -(-m // rows) * c,
+                     "clusters_at_once": bf16_clusters_at_once(torch.cuda.current_device(), tuple(dims), rows, c),
+                     "smem_bytes": mlp_bf16_smem_bytes(rows, dims)}}
+    print(f"fused_fusion_mlp_bf16 at {part['shape']}{'' if main_path else ' (not on the main path)'}: {part['ms']:.4f} ms "
+          f"(device alone {device_ms:.4f}, host call {host_call_ms:.4f}; plain {part['plain_ms']:.4f}, library "
+          f"{part['library_ms']:.4f}); bound {bound:.4f} ms ({kind}); plan {json.dumps(part['plan'])}; max |err| "
+          f"{err:.3g}", flush=True)
     return part
+
+
+def lowp_mlp_plan_sweep(layers, gen) -> dict:
+    """4-bf16 under every plan (rows per tile × cluster) at the batch's M and at each video's, timed on the device
+    alone, beside the plan the wrapper picks; and the plan model (``ops/cuda/fused_mlp.py::bf16_plan_seconds``:
+    rounds × (fixed + the busiest CTA's weight bytes · a + its wgmma · b)) fitted to them by least squares."""
+    dims = mlp_dims(layers)
+    dev = torch.cuda.current_device()
+    at_once = {(r, c): bf16_clusters_at_once(dev, tuple(dims), r, c) for r in MLP_BF16_ROWS
+               for c in range(1, MAX_CLUSTER + 1) if mlp_bf16_smem_bytes(r, dims) <= SMEM_LIMIT}
+    times, chosen, rows_, terms = {}, {}, [], []
+    for m in (sum(VIDEO_LENGTHS), *VIDEO_LENGTHS):
+        x = torch.rand((m, dims[0]), generator=gen, device="cuda").to(torch.bfloat16)
+        for (r, c), n_at_once in at_once.items():
+            t = time_ms_and_host(lambda: fused_fusion_mlp_bf16_planned(x, layers, r, c), 50, queued=True)[0]
+            times[f"{m}:{r}x{c}"] = t
+            rounds = -(-(-(-m // r)) // n_at_once)
+            weight_bytes, mma = bf16_cta_work(dims, r, c)
+            rows_.append([rounds, rounds * weight_bytes, rounds * mma])
+            terms.append(t * 1e-3)
+        r, c = card_bf16_mlp_plan(m, dims, "cuda")
+        best = min((t, k) for k, t in times.items() if k.startswith(f"{m}:"))
+        chosen[m] = {"plan": f"{r}x{c}", "ms": times[f"{m}:{r}x{c}"], "best": best[1], "best_ms": best[0]}
+    fit = np.linalg.lstsq(np.array(rows_, dtype=float), np.array(terms), rcond=None)[0]
+    return {"chosen": chosen, "fit": {"fixed_s": fit[0], "s_per_weight_byte": fit[1], "s_per_mma": fit[2]},
+            "clusters_at_once": {f"{r}x{c}": v for (r, c), v in at_once.items()}, "device_ms": times}
 
 
 def sass_mma_counts(name: str) -> dict:
@@ -3069,27 +3116,49 @@ def sass_mma_counts(name: str) -> dict:
     return counts
 
 
-def wgmma_forms_report() -> dict:
-    """3-bf16's and 2-int8's kernels: registers and spill bytes (ptxas), shared memory a block (their plans at the
-    main paths' shapes), and their wgmma instructions in the SASS (each must issue some)."""
+def wgmma_label(fn: str) -> str:
+    """A readable name of a wgmma kernel's mangled one."""
+    if k := re.search(r"conv_pool_wgmma_kernelINS_8(Int8FormIf|Int8FormI13__nv_bfloat16|Bf16Form)EE?Li(\d)ELi(\d+)ELi(\d+)E", fn):
+        form = {"Int8FormIf": "Int8Form<float>", "Int8FormI13__nv_bfloat16": "Int8Form<bf16>",
+                "Bf16Form": "Bf16Form"}[k.group(1)]
+        return f"conv_pool_wgmma_kernel<{form}, {k.group(2)}, {k.group(3)}, {k.group(4)}>"
+    if k := re.search(r"fused_mlp_bf16_kernelILi(\d+)E", fn):
+        return f"fused_mlp_bf16_kernel<{k.group(1)}>"
+    return "head_bf16_wgmma_kernel" if "head_bf16_wgmma_kernel" in fn else fn
+
+
+def wgmma_forms_report(n: int, fusion_dims) -> dict:
+    """The wgmma kernels of the four forms (3-bf16's head, the conv-pool template of 2-bf16 and 2-int8, 4-bf16's
+    MLP): registers and spill bytes (ptxas), shared memory a block (their plans at the main paths' shapes: the
+    batch's N and M), and their wgmma instructions in the SASS (each must issue some, and ptxas must have
+    serialized none: no C7510-C7519 note in their builds' reports)."""
     report = {}
-    for lib, key, short in (("matmul", "head_bf16_wgmma_kernel", "head_bf16_wgmma_kernel"),
-                            ("fused_stage_lowp", "conv_pool_int8_kernel", "conv_pool_int8_kernel")):
+    for lib, key in (("matmul", "head_bf16_wgmma_kernel"), ("fused_stage_lowp", "conv_pool_wgmma_kernel"),
+                     ("fused_mlp", "fused_mlp_bf16_kernel")):
         regs = {fn: r for fn, r in ptxas_report(lib).items() if key in fn}
         sass = {fn: c for fn, c in sass_mma_counts(lib).items() if key in fn}
         require(bool(sass) and all(c.get("HGMMA", 0) + c.get("IGMMA", 0) > 0 for c in sass.values()),
-                f"{short}: no wgmma (HGMMA / IGMMA) in its SASS: {sass}")
+                f"{key}: no wgmma (HGMMA / IGMMA) in its SASS: {sass}")
         for fn in set(regs) | set(sass):
-            inst = re.search(r"conv_pool_int8_kernelILi(\d)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)", fn)
-            label = (f"{short}<{inst.group(1)}, {inst.group(2)}, {inst.group(3)}, "
-                     f"{'float' if inst.group(4) == 'f' else 'bf16'}>" if inst else short)
-            report[label] = {**regs.get(fn, {}), "sass": sass.get(fn, {})}
+            report[wgmma_label(fn)] = {**regs.get(fn, {}), "sass": sass.get(fn, {})}
+    require(any("Bf16Form" in k and v["sass"].get("HGMMA", 0) > 0 for k, v in report.items()),
+            f"conv_pool_wgmma_kernel<Bf16Form, ...>: no HGMMA in its SASS: {report}")
+    serialized = [line.strip() for lib in ("matmul", "fused_stage_lowp", "fused_mlp")
+                  for line in (_build.BUILD_DIR / f"{lib}.log").read_text().splitlines() if "C75" in line]
+    require(not serialized, f"ptxas serialized wgmma: {serialized}")
     report["head_bf16_wgmma_kernel"]["smem_bytes"] = BF16_SMEM
+    dev = torch.device("cuda")
     for hh, ci, co in ((13, 64, 256), (11, 256, 512)):
-        plan = card_int8_stage_plan(sum(VIDEO_LENGTHS), hh, hh, ci, co, torch.device("cuda"))
-        k_bytes = 128 if plan.m_tiles == 2 and int8_cin(ci) % 128 == 0 else 64   # the C entry's stage depth
-        label = f"conv_pool_int8_kernel<{plan.m_tiles}, {plan.block_n}, {k_bytes}, float>"
+        plan = card_int8_stage_plan(n, hh, hh, ci, co, dev)
+        kb = 128 if plan.m_tiles == 2 and int8_cin(ci) % 128 == 0 else 64   # the C entry's stage depth
+        label = f"conv_pool_wgmma_kernel<Int8Form<float>, {plan.m_tiles}, {plan.block_n}, {kb}>"
         report.setdefault(label, {}).setdefault("smem_bytes", {})[f"{hh}x{hh}, {ci}->{co}"] = int8_smem_bytes(plan, int8_cin(ci))
+        plan = card_bf16_stage_plan(n, hh, hh, ci, co, dev)
+        label = f"conv_pool_wgmma_kernel<Bf16Form, {plan.m_tiles}, {plan.block_n}, {128 if plan.m_tiles == 2 else 64}>"
+        report.setdefault(label, {}).setdefault("smem_bytes", {})[f"{hh}x{hh}, {ci}->{co}"] = \
+            stage_bf16_smem_bytes(plan, bf16_cin(ci))
+    rows, _ = card_bf16_mlp_plan(n, fusion_dims, dev)
+    report.setdefault(f"fused_mlp_bf16_kernel<{rows}>", {})["smem_bytes"] = mlp_bf16_smem_bytes(rows, fusion_dims)
     return report
 
 
@@ -3107,8 +3176,14 @@ def lowp_row(parts: list[dict]) -> dict:
 def lowp_kernel_rows(n: int, cfg: PipelineConfig, fusion_layers, gen) -> dict:
     """12a: each form at the main paths' shapes: 2-bf16 at the batch's N; 2-int8 at the batch's N in float32
     and bf16 and at a match's N in float32 (the quantized Spotter); 3-bf16 and 4-bf16 at the batch's M (3-bf16
-    also at a match's M, a part off the main path, so its scaling is on record)."""
+    also at a match's M and 4-bf16 also 512 wide (``--no-audio``), parts off this phase's main path, so their
+    scaling is on record)."""
     stages = ((13, 64, 256), (11, 256, 512))
+    bf16_layers = [{k: v.to(torch.bfloat16) for k, v in lp.items()} for lp in fusion_layers]
+    # the --no-audio chain's 512-wide input (its first layer takes the visual features alone)
+    gen_w = torch.Generator(device="cuda").manual_seed(512)
+    no_audio = [{"w": (torch.randn((512, bf16_layers[0]["w"].shape[1]), generator=gen_w, device="cuda")
+                       * 512 ** -0.5).to(torch.bfloat16), "b": bf16_layers[0]["b"]}, *bf16_layers[1:]]
     rows = {
         "fused_conv_pool_stage_bf16": lowp_row([lowp_stage_part("bf16", n, hh, ci, co, torch.bfloat16, gen)
                                                 for hh, ci, co in stages]),
@@ -3118,9 +3193,9 @@ def lowp_kernel_rows(n: int, cfg: PipelineConfig, fusion_layers, gen) -> dict:
                                                 for hh, ci, co in stages]),
         "head_matmul_bf16": lowp_row([lowp_head_part(m, 9 * 9 * cfg.model.vis_channels[-1], cfg.model.vis_feature_dim,
                                                      gen, main_path=m == n) for m in (n, MATCH_FRAMES)]),
-        "fused_fusion_mlp_bf16": lowp_row([lowp_mlp_part(n, [{k: v.to(torch.bfloat16) for k, v in lp.items()}
-                                                             for lp in fusion_layers],
-                                                         cfg.model.out_lo, cfg.model.out_hi, gen)]),
+        "fused_fusion_mlp_bf16": lowp_row([lowp_mlp_part(n, bf16_layers, cfg.model.out_lo, cfg.model.out_hi, gen),
+                                           lowp_mlp_part(n, no_audio, cfg.model.out_lo, cfg.model.out_hi, gen,
+                                                         main_path=False)]),
     }
     return rows
 
@@ -3355,9 +3430,15 @@ def lowp_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) 
     cfg = preset_cfg()
     fusion = weights.from_jax(*weights.init_params(cfg, seed))[0]["fusion"]
     gen = torch.Generator(device="cuda").manual_seed(seed + 12)
-    print(f"phase 12a: 3-bf16's and 2-int8's wgmma kernels (registers, spill bytes, shared memory a block, SASS "
-          f"MMA instructions): {json.dumps(wgmma_forms_report())}", flush=True)
+    fusion_dims = mlp_dims(fusion)
+    print(f"phase 12a: the wgmma kernels of 3-bf16, 2-bf16, 2-int8 and 4-bf16 (registers, spill bytes, shared memory "
+          f"a block, SASS MMA instructions): {json.dumps(wgmma_forms_report(sum(VIDEO_LENGTHS), fusion_dims))}",
+          flush=True)
     rows = lowp_kernel_rows(sum(VIDEO_LENGTHS), cfg, fusion, gen)
+    sweep = lowp_mlp_plan_sweep([{k: v.to(torch.bfloat16) for k, v in lp.items()} for lp in fusion], gen)
+    print(f"fused_fusion_mlp_bf16 plans on {smi}: chosen {json.dumps(sweep['chosen'])}; model fitted "
+          f"{json.dumps(sweep['fit'])}; clusters at once {json.dumps(sweep['clusters_at_once'])}; device ms by "
+          f"M:plan {json.dumps(sweep['device_ms'])}", flush=True)
     print(f"phase 12a: the four forms on {smi}: {json.dumps({k: {x: r[x] for x in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by', 'max_abs_err')} for k, r in rows.items()})}",
           flush=True)
     lowp_videos_check(seed, smi, launches_by_path, videos)

@@ -47,7 +47,8 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
-#include "lowp_mma.cuh"
+#include "hopper.cuh"
+#include "lowp_mma.cuh"   // bf16_round
 
 namespace cg = cooperative_groups;
 
@@ -302,10 +303,10 @@ size_t smem_bytes(int block_rows, const MlpArgs& args) {
 }
 
 cudaLaunchConfig_t launch_config(int blocks, size_t bytes, int cluster, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
+                                 cudaLaunchAttribute* attr, int threads = kThreads) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -382,38 +383,55 @@ extern "C" int fused_mlp_max_clusters(int n_layers, const int* dims, int block_r
   }
 }
 
-// The bf16 form: replaces fused_fusion_mlp at bf16 inputs, as the JAX package's bf16 eval forward runs the
-// chain (XLA, models/avm.py:163-175 via layers.py:53-56): each layer bf16(bf16(x . w) + b) from float32
-// sums, ReLU between, then the squash in bf16 op by op: e = bf16(exp(-x)), d = bf16(1 + e),
+// The bf16 form (4-bf16): replaces fused_fusion_mlp at bf16 inputs, as the JAX package's bf16 eval forward
+// runs the chain (XLA, models/avm.py:163-175 via layers.py:53-56): each layer bf16(bf16(x . w) + b) from
+// float32 sums, ReLU between, then the squash in bf16 op by op: e = bf16(exp(-x)), d = bf16(1 + e),
 // s = bf16(1 / d), out = bf16(bf16((hi - lo) s) + lo), so the scores lie on the bf16 grid.
-// What bounds it on an H100: the weights' path to each block (1.5 MB of bf16 weights through L2 per block
-// of rows); 1.58 GFLOP at M = 1050 is 1.6 us of bf16 tensor cores.  Design (a simple first form): one block
-// of 8 warps owns 16 rows (one m16 tile), or 8 when 16-row blocks would leave SMs idle, for the whole
-// chain; activations stay in shared memory as bf16 (rows padded to an odd count of 16-byte chunks, so
-// ldmatrix's 8 rows hit distinct banks); each warp takes n8 tiles of a layer eight at a time and walks K
-// in chunks of 32 with two mma.sync m16n8k16 each.  The B fragments come straight from the weights, which
-// a first launch (prep_bf16_kernel) lays out transposed ((out, in), each row k-contiguous) and zero-padded
-// to multiples of 32 in a workspace (one launch for all layers: the wrapper's host work stays two calls): one
-// 16-byte load gives a thread both k-steps of a chunk (physical k 8t .. 8t + 7), and the activations are
-// stored with each 32-column group permuted (kPermPos) so that ldmatrix hands A the same k order.
+// What bounds it on an H100: 1.58 GFLOP at M = 1050 is 1.6 us of bf16 tensor cores and its 1.5 MB of
+// weights 0.5 us from HBM, so what a design can lose is the weights' path through L2 (a block of a few rows
+// that streams all 1.5 MB is bound by it) and the chain's serial steps.  So, as the float32 form:
+//   * a thread-block cluster of C CTAs (C <= 8) owns a tile of R rows (16, 32 or 64), and each CTA computes
+//     the 64-column tiles t = rank, rank + C, ... of every layer but the last, streaming only those columns
+//     of w: each weight crosses L2 once per row tile;
+//   * the products are wgmma with the roles swapped: A is w's 64 output columns, read by TMA from w as stored
+//     ((in, out) row-major: M-major, through the transpose bit), B is the tile's activations, K-major, so
+//     wgmma's N is the row tile and a tile can be 16 or 32 rows where 64 would leave the card idle
+//     (m64nRk16, float32 accumulators, R / 2 a thread); each 64 of K goes into a fresh accumulator added to
+//     the sum in float32 (one accumulator over K = 640 left several times as many outputs past 2 bf16 ulps
+//     of a float64-sum chain as the plain version; tools/mlp_bf16_accuracy.py measures both sides);
+//   * activations live in shared memory as bf16 in wgmma's canonical K-major layout, 128-byte swizzle: a
+//     panel of R rows x 64 columns (R x 128 bytes) per 64 of K; the input tile arrives by TMA in that layout
+//     (zero past M and past the width), and a CTA's output tile t of a layer is the next layer's panel t, so
+//     it writes it, bias, rounding and ReLU applied, into its own buffer and copies it to every other CTA of
+//     the cluster through distributed shared memory, then the cluster synchronises;
+//   * the weights stream through a ring of 8 stages of 64 K x 64 columns (8 KB) across layers and tiles: one
+//     thread keeps it 8 stages ahead, predicated (csrc/hopper.cuh: no branch on the thread with wgmma in
+//     flight), so the next layer's weights load during a layer's epilogue and cluster sync;
+//   * the last layer (128 -> 1: a 2-byte row stride TMA cannot take, and N below wgmma's least) runs on the
+//     CUDA cores from the shared activations: its R x N outputs are spread over the cluster's CTAs, each
+//     summed by a group of up to 32 lanes in a fixed order (strided partial sums, then a shuffle tree);
+//   * one launch a call, no workspace, no atomics: two calls on the same inputs give equal bits.
+// (R, C) comes from ops/cuda/fused_mlp.py::bf16_mlp_plan with the card's count of clusters at once.
 namespace {
 
-constexpr int kB16Rows = 16;   // rows of the MMA tile; a block owns 8 or 16 of them
+constexpr int kB16Threads = 128;                // one warpgroup; its thread 0 also issues the weight loads
+constexpr int kB16Stages = 8;                   // the weight ring
+constexpr int kB16StageBytes = 64 * 64 * 2;     // 64 of K x 64 output columns, bf16
+constexpr int kB16MaxLast = 16;                 // the widest last layer (CUDA cores)
 
 struct MlpBf16Args {
-  const __nv_bfloat16* wt[kMaxLayers];  // (np[l], kp[l]) row-major: w transposed, zero-padded
-  const __nv_bfloat16* b[kMaxLayers];   // (np[l],), zero-padded
-  int kp[kMaxLayers], np[kMaxLayers];   // multiples of 32, np[l] == kp[l + 1]
-  int n_layers, d_in, n_out, pitch;     // pitch: bf16 values per activation row in shared memory
+  const __nv_bfloat16* b[kMaxLayers];   // (dims[l + 1],)
+  const __nv_bfloat16* w_last;          // (dims[L - 1], dims[L]) row-major
+  int dims[kMaxLayers + 1];             // the chain's widths
+  int n_layers;
+  int panels[2];                        // 64-wide K panels of the two activation buffers
 };
 
-// Where physical column q of a 32-column group is stored: q = 8t + 4s + 2h + e is logical k 8h + 2t + e of
-// k-step s, the k that thread t's 16-byte weight load (physical 8t .. 8t + 7) feeds.
-__device__ __forceinline__ int perm_pos(int q) {
-  return 16 * ((q >> 2) & 1) + 8 * ((q >> 1) & 1) + 2 * (q >> 3) + (q & 1);
-}
-
-__device__ __forceinline__ int act_pos(int col) { return (col & ~31) + perm_pos(col & 31); }
+// x: (M, x_cols) in boxes of 64 columns x R rows; w[l] (l < L - 1): (dims[l], cols[l]) in boxes of 64 x 64
+struct MlpBf16Maps {
+  CUtensorMap x;
+  CUtensorMap w[kMaxLayers - 1];
+};
 
 __device__ __forceinline__ float squash_bf16(float v, float scale, float lo) {
   const float e = bf16_round(expf(-v));
@@ -422,137 +440,303 @@ __device__ __forceinline__ float squash_bf16(float v, float scale, float lo) {
   return bf16_round(__fadd_rn(bf16_round(__fmul_rn(scale, s)), lo));
 }
 
-__global__ void __launch_bounds__(kThreads) fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                                                  __nv_bfloat16* __restrict__ y, int M, int rows,
-                                                                  const MlpBf16Args a, int squash, float scale,
-                                                                  float lo) {
+// Byte offset of (row r, column k < 64) in a K-major panel in the 128-byte swizzle: 16-byte chunk k / 8 of
+// row r is stored at chunk (k / 8) ^ (r % 8).
+__device__ __forceinline__ int panel_offset(int r, int k) { return r * 128 + ((((k >> 3) ^ (r & 7)) << 4) | ((k & 7) << 1)); }
+
+template <int R>
+__device__ __forceinline__ void wgmma_rows(float (&d)[R / 2], uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (R == 64)
+    wgmma_m64n64k16_bf16_ss_amn(d, da, db, accumulate);
+  else if constexpr (R == 32)
+    wgmma_m64n32k16_bf16_ss_amn(d, da, db, accumulate);
+  else
+    wgmma_m64n16k16_bf16_ss_amn(d, da, db, accumulate);
+}
+
+// The ring's position in this CTA's stream of weight stages: layer l (< L - 1), its tile t, K chunk kc.
+struct Cursor {
+  int l, t, kc;
+};
+
+template <int R>
+__global__ void __launch_bounds__(kB16Threads, 1) fused_mlp_bf16_kernel(const __grid_constant__ MlpBf16Maps maps,
+                                                                        __nv_bfloat16* __restrict__ y, int M,
+                                                                        const MlpBf16Args a, int squash,
+                                                                        float scale, float lo) {
+  constexpr int PB = R * 128;   // bytes of one panel
+  constexpr int S = kB16Stages, SB = kB16StageBytes;
   extern __shared__ float4 smem4[];
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem4);   // two buffers [16][pitch]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * rows;
-  const int k0 = a.kp[0];
-  for (int e = tid; e < kB16Rows * k0; e += kThreads) {
-    const int r = e / k0, c = e % k0;
-    act[r * a.pitch + act_pos(c)] = r < rows && r0 + r < M && c < a.d_in ? x[static_cast<size_t>(r0 + r) * a.d_in + c]
-                                                                          : __float2bfloat16_rn(0.f);
+  uint8_t* base = smem_align(reinterpret_cast<uint8_t*>(smem4), 1024);
+  uint8_t* const buf0 = base;
+  uint8_t* const buf1 = base + a.panels[0] * PB;
+  uint8_t* const ring = buf1 + a.panels[1] * PB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * SB);
+  uint64_t* empty = full + S;
+  uint64_t* xbar = empty + S;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = static_cast<int>(blockIdx.x) / C * R;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int n_tc = a.n_layers - 1;   // layers on the tensor cores
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // the 4 warps
+    }
+    mbar_init(xbar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  for (int l = 0; l < a.n_layers; ++l) {
-    const __nv_bfloat16* in = act + (l & 1) * kB16Rows * a.pitch;
-    __nv_bfloat16* next = act + ((l + 1) & 1) * kB16Rows * a.pitch;
-    const bool last = l == a.n_layers - 1;
-    const int kp = a.kp[l], n_tiles = a.np[l] / 8;
-    const __nv_bfloat16* wt = a.wt[l];
-    const __nv_bfloat16* bias = a.b[l];
-    const __nv_bfloat16* arow = in + (lane % 16) * a.pitch + 8 * (lane / 16);
-    for (int tile0 = warp; tile0 < n_tiles; tile0 += 64) {   // tiles tile0 + 8q, q < 8, of this warp
-      float acc[8][4] = {};
-#pragma unroll 2
-      for (int kc = 0; kc < kp; kc += 32) {
-        uint32_t a0[4], a1[4];
-        ldsm_x4(a0, arow + kc);
-        ldsm_x4(a1, arow + kc + 16);
+  // the tile's input, panel by panel
+  const int xp = (a.dims[0] + 63) / 64;
+  mbar_expect_tx_if(tid == 0, xbar, xp * PB);
+  for (int p = 0; p < xp; ++p) tma_load_2d_if(tid == 0, buf0 + p * PB, &maps.x, 64 * p, row0, xbar);
+
+  // the weight stream: every thread walks it (the same for all), thread 0 issues
+  auto settle = [&](Cursor& c) {   // past the layers where this CTA has no tile
+    while (c.l < n_tc && c.t >= (a.dims[c.l + 1] + 63) / 64) {
+      ++c.l;
+      c.t = rank;
+    }
+  };
+  auto advance = [&](Cursor& c) {
+    if (++c.kc == (a.dims[c.l] + 63) / 64) {
+      c.kc = 0;
+      c.t += C;
+      settle(c);
+    }
+  };
+  auto issue = [&](const Cursor& c, int slot) {
+    tma_expect_load_2d_if(tid == 0, ring + slot * SB, &maps.w[c.l], 64 * c.t, 64 * c.kc, &full[slot], SB);
+  };
+  Cursor pc = {0, rank, 0};
+  settle(pc);
+  for (int s = 0; s < S && pc.l < n_tc; ++s) {
+    issue(pc, s);
+    advance(pc);
+  }
+  // stage j's slot is free once every warp's wgmma that read it are done: refill it with stage j + S
+  auto release = [&](int j) {
+    mbar_arrive_if(&empty[j % S], lane == 0);
+    if (pc.l < n_tc) {
+      mbar_wait(&empty[j % S], (j / S) & 1);
+      issue(pc, j % S);
+      advance(pc);
+    }
+  };
+  cluster.sync();   // every CTA of the cluster runs (its shared memory exists) before any remote write
+  mbar_wait(xbar, 0);
+
+  const int w = tid / 32, g = lane / 4, q = lane % 4;
+  int i = 0;   // weight stages consumed
+  for (int l = 0; l < n_tc; ++l) {
+    const uint8_t* in = (l & 1) ? buf1 : buf0;
+    uint8_t* next = (l & 1) ? buf0 : buf1;
+    const int N = a.dims[l + 1], n_k = (a.dims[l] + 63) / 64, n_t = (N + 63) / 64;
+    for (int t = rank; t < n_t; t += C) {
+      // each 64-deep chunk into a fresh accumulator (p0, p1 in turns), added to acc in float32 once its group is
+      // done: one accumulator over all of K drifts from float32 sums (wgmma's adds do not round to nearest)
+      float acc[R / 2], p0[R / 2], p1[R / 2];
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int tile = tile0 + 8 * q;
-          if (tile < n_tiles) {   // the same for the whole warp
-            const uint4 u = __ldg(reinterpret_cast<const uint4*>(wt + static_cast<size_t>(8 * tile + g) * kp + kc + 8 * t));
-            mma_bf16(acc[q], a0, u.x, u.y);
-            mma_bf16(acc[q], a1, u.z, u.w);
-          }
-        }
+      for (int j = 0; j < R / 2; ++j) {
+        acc[j] = p0[j] = p1[j] = 0.f;
+        fence_operand(acc[j]);
+        fence_operand(p0[j]);
+        fence_operand(p1[j]);
       }
+      // no register of a group in flight is touched, and no branch holds a register op (C7518): prev is the
+      // previous chunk's, zero before the first
+      auto chunk = [&](int kc, float (&p)[R / 2], float (&prev)[R / 2]) {
+        const int s = i % S;
+        mbar_wait(&full[s], (i / S) & 1);
+        wgmma_fence();
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int tile = tile0 + 8 * q;
-        if (tile >= n_tiles) continue;
+        for (int kk = 0; kk < 4; ++kk) {
+          // A: w's 16 K rows kk of the stage (M-major, one 64-column atom); B: 16 K of every row of panel kc
+          const uint64_t da = smem_desc(ring + s * SB + 16 * 128 * kk, SB, 1024, kSwizzle128B);
+          const uint64_t db = smem_desc(in + kc * PB + 32 * kk, 16, 1024, kSwizzle128B);
+          wgmma_rows<R>(p, da, db, kk);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+#pragma unroll
+        for (int j = 0; j < R / 2; ++j) {
+          fence_operand(prev[j]);
+          acc[j] += prev[j];
+        }
+        if (kc > 0) release(i - 1);
+        ++i;
+      };
+      int kc = 0;
+      for (; kc + 1 < n_k; kc += 2) {
+        chunk(kc, p0, p1);
+        chunk(kc + 1, p1, p0);
+      }
+      if (kc < n_k) chunk(kc, p0, p1);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < R / 2; ++j) {
+        fence_operand(p0[j]);
+        fence_operand(p1[j]);
+        acc[j] += (n_k & 1) ? p0[j] : p1[j];
+      }
+      release(i - 1);
+      // acc[4j + e]: output column 64t + 16w + g + 8(e / 2) of row 8j + 2q + e % 2: into panel t of `next`
+      const __nv_bfloat16* bias = a.b[l];
+      float bv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = 64 * t + 16 * w + g + 8 * h;
+        bv[h] = n < N ? __bfloat162float(bias[n]) : 0.f;   // columns past N are zero: w's are zero-filled
+      }
+      uint8_t* panel = next + t * PB;
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = g + 8 * (e / 2), col = 8 * tile + 2 * t + e % 2;
-          float v = bf16_round(__fadd_rn(bf16_round(acc[q][e]), __bfloat162float(bias[col])));
-          if (!last) {
-            next[row * a.pitch + act_pos(col)] = __float2bfloat16_rn(fmaxf(v, 0.f));
-          } else if (row < rows && r0 + row < M && col < a.n_out) {
-            if (squash) v = squash_bf16(v, scale, lo);
-            y[static_cast<size_t>(r0 + row) * a.n_out + col] = __float2bfloat16_rn(v);
-          }
+          const int r = 8 * j + 2 * q + (e & 1), k = 16 * w + g + 8 * (e >> 1);
+          const float v = bf16_round(__fadd_rn(bf16_round(acc[4 * j + e]), bv[e >> 1]));
+          *reinterpret_cast<__nv_bfloat16*>(panel + panel_offset(r, k)) = __float2bfloat16_rn(fmaxf(v, 0.f));
         }
+    }
+    __syncthreads();   // this CTA's panels of layer l are whole: copy them to the rest of the cluster
+    for (int t = rank; t < n_t; t += C) {
+      const uint4* src = reinterpret_cast<const uint4*>(next + t * PB);
+      for (int e = tid; e < (PB / 16) * (C - 1); e += kB16Threads) {
+        const int pi = e / (PB / 16), c = e % (PB / 16);
+        uint4* dst = reinterpret_cast<uint4*>(cluster.map_shared_rank(next + t * PB, pi < rank ? pi : pi + 1));
+        dst[c] = src[c];
       }
     }
-    __syncthreads();
+    fence_proxy_async();   // the panels, local and remote, are read next by wgmma (the async proxy)
+    cluster.sync();        // every panel of layer l is in every CTA, and nobody reads layer l's input any more
+    fence_proxy_async();
+  }
+
+  // the last layer on the CUDA cores: output o = rank + C u (row o / N, column o % N) of this CTA, summed by G
+  // lanes over K strided by G, then a shuffle tree; rows past M are not stored
+  const int l = a.n_layers - 1, K = a.dims[l], N = a.dims[l + 1];
+  const uint8_t* in = (l & 1) ? buf1 : buf0;
+  const int outs = (R * N - rank + C - 1) / C;
+  int G = 1;
+  while (G < 32 && 2 * G * outs <= kB16Threads) G *= 2;
+  const int sub = tid % G;
+  for (int u0 = 0; u0 < outs; u0 += kB16Threads / G) {
+    const int u = u0 + tid / G, o = rank + C * u;
+    const bool live = u < outs;
+    const int r = live ? o / N : 0, n = live ? o % N : 0;
+    float sum = 0.f;
+    for (int k = sub; live && k < K; k += G) {
+      const float v = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(in + (k >> 6) * PB + panel_offset(r, k & 63)));
+      sum = fmaf(v, __bfloat162float(a.w_last[static_cast<size_t>(k) * N + n]), sum);
+    }
+    for (int d = G / 2; d >= 1; d /= 2) sum += __shfl_down_sync(0xffffffffu, sum, d, G);
+    if (live && sub == 0 && row0 + r < M) {
+      float v = bf16_round(__fadd_rn(bf16_round(sum), __bfloat162float(a.b[l][n])));
+      if (squash) v = squash_bf16(v, scale, lo);
+      y[static_cast<size_t>(row0 + r) * N + n] = __float2bfloat16_rn(v);
+    }
   }
 }
 
-// The weights as the MMAs read them, in one launch: wt[l] (np, kp) = w[l] (k, n) transposed and zero-padded,
-// bp[l] (np,) = b[l] zero-padded; layer l's pair starts at element off[l] of one workspace.
-struct MlpBf16Prep {
-  const __nv_bfloat16* w[kMaxLayers];
-  const __nv_bfloat16* b[kMaxLayers];
-  int k[kMaxLayers], n[kMaxLayers], kp[kMaxLayers], np[kMaxLayers];
-  long long off[kMaxLayers + 1];
-  int n_layers;
-};
-
-__global__ void __launch_bounds__(256) prep_bf16_kernel(__nv_bfloat16* __restrict__ ws, const MlpBf16Prep p) {
-  const long long e = blockIdx.x * 256LL + threadIdx.x;
-  if (e >= p.off[p.n_layers]) return;
-  int l = 0;
-  while (e >= p.off[l + 1]) ++l;
-  const long long r = e - p.off[l];
-  const int kp = p.kp[l], np = p.np[l];
-  __nv_bfloat16 v = __float2bfloat16_rn(0.f);
-  if (r < static_cast<long long>(np) * kp) {
-    const int n = static_cast<int>(r / kp), k = static_cast<int>(r % kp);
-    if (n < p.n[l] && k < p.k[l]) v = p.w[l][static_cast<size_t>(k) * p.n[l] + n];
-  } else {
-    const int n = static_cast<int>(r - static_cast<long long>(np) * kp);
-    if (n < p.n[l]) v = p.b[l][n];
+// The widths and panels of a chain (the same checks as ops/cuda/fused_mlp.py::bf16_dims).
+int fill_bf16_args(MlpBf16Args* a, int n_layers, const void* const* b_ptrs, const void* w_last, const int* dims) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
+  *a = {};
+  a->n_layers = n_layers;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    a->dims[l] = dims[l];
+    if (l < n_layers && (dims[l] + 63) / 64 > a->panels[l & 1]) a->panels[l & 1] = (dims[l] + 63) / 64;
   }
-  ws[e] = v;
+  if (dims[n_layers] > kB16MaxLast) return static_cast<int>(cudaErrorInvalidValue);
+  for (int l = 0; l < n_layers && b_ptrs; ++l) a->b[l] = static_cast<const __nv_bfloat16*>(b_ptrs[l]);
+  a->w_last = static_cast<const __nv_bfloat16*>(w_last);
+  return 0;
+}
+
+// The same count as ops/cuda/fused_mlp.py::bf16_smem_bytes.
+size_t bf16_smem_bytes(int rows, const MlpBf16Args& a) {
+  return 1024 + static_cast<size_t>(a.panels[0] + a.panels[1]) * rows * 128 +
+         static_cast<size_t>(kB16Stages) * kB16StageBytes + (2 * kB16Stages + 1) * sizeof(uint64_t);
+}
+
+template <int R>
+int launch_bf16(const MlpBf16Maps& maps, void* y, int M, const MlpBf16Args& a, int cluster, int squash, float scale,
+                float lo, cudaStream_t stream) {
+  const size_t bytes = bf16_smem_bytes(R, a);
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  int err = allow_dynamic_smem(fused_mlp_bf16_kernel<R>, bytes);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config((M + R - 1) / R * cluster, bytes, cluster, stream, &attr, kB16Threads);
+  err = static_cast<int>(cudaLaunchKernelEx(&cfg, fused_mlp_bf16_kernel<R>, maps, static_cast<__nv_bfloat16*>(y), M,
+                                            a, squash, scale, lo));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int max_clusters_bf16(const MlpBf16Args& a, int cluster, int* out) {
+  const size_t bytes = bf16_smem_bytes(R, a);
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = allow_dynamic_smem(fused_mlp_bf16_kernel<R>, bytes);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(cluster, bytes, cluster, nullptr, &attr, kB16Threads);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fused_mlp_bf16_kernel<R>, &cfg));
 }
 
 }  // namespace
 
-// The bf16 form.  x: (M, dims[0]) bf16; y: (M, dims[n_layers]) bf16; w_ptrs[l]: (dims[l], dims[l + 1]) bf16;
-// b_ptrs[l]: (dims[l + 1],) bf16; ws: a 16-byte aligned workspace of sum over l of np * (kp + 1) bf16 values
-// (kp, np: dims[l], dims[l + 1] rounded up to 32) that the first launch fills with the weights transposed and
-// zero-padded, then the biases; rows per block 8 or 16; scale = bf16(hi - lo), lo = bf16(lo).  Two launches,
-// each checked.
-extern "C" int fused_mlp_bf16(const void* x, void* y, int M, int n_layers, const void* const* w_ptrs,
-                              const void* const* b_ptrs, const int* dims, void* ws, int rows, int squash,
-                              float scale, float lo, void* stream) {
-  if (M < 1 || n_layers < 1 || n_layers > kMaxLayers || (rows != 8 && rows != kB16Rows) ||
-      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  MlpBf16Prep p;
+// The bf16 form, one launch.  x: (M, x_cols) bf16 (x_cols a multiple of 8 >= dims[0], its columns past dims[0]
+// zero); y: (M, dims[n_layers]) bf16; w_ptrs[l]: (dims[l], cols[l]) bf16, where cols[l] >= dims[l + 1] is a
+// multiple of 8 for every layer but the last (its columns past dims[l + 1] zero) and the last layer's is
+// dims[n_layers] <= 16; b_ptrs[l]: (dims[l + 1],) bf16; x and every w but the last 16-byte aligned; rows (16, 32
+// or 64) and cluster (1 to 8) the plan; scale = bf16(hi - lo), lo = bf16(lo).  w_ptrs, b_ptrs, dims and cols are
+// HOST arrays.  Checked.
+extern "C" int fused_mlp_bf16(const void* x, void* y, int M, int x_cols, int n_layers, const void* const* w_ptrs,
+                              const int* cols, const void* const* b_ptrs, const int* dims, int rows, int cluster,
+                              int squash, float scale, float lo, void* stream) {
   MlpBf16Args a;
-  p.off[0] = 0;
-  int widest = 0;
-  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(ws);
-  for (int l = 0; l < n_layers; ++l) {
-    if (dims[l] < 1 || dims[l + 1] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    p.w[l] = static_cast<const __nv_bfloat16*>(w_ptrs[l]);
-    p.b[l] = static_cast<const __nv_bfloat16*>(b_ptrs[l]);
-    p.k[l] = dims[l], p.n[l] = dims[l + 1];
-    p.kp[l] = a.kp[l] = (dims[l] + 31) / 32 * 32;
-    p.np[l] = a.np[l] = (dims[l + 1] + 31) / 32 * 32;
-    a.wt[l] = base + p.off[l];
-    a.b[l] = base + p.off[l] + static_cast<long long>(a.np[l]) * a.kp[l];
-    p.off[l + 1] = p.off[l] + static_cast<long long>(a.np[l]) * a.kp[l] + a.np[l];
-    widest = a.kp[l] > widest ? a.kp[l] : widest;
+  int err = fill_bf16_args(&a, n_layers, b_ptrs, w_ptrs[n_layers - 1], dims);
+  if (err) return err;
+  if (M < 1 || cluster < 1 || cluster > kMaxCluster || x_cols < dims[0] || x_cols % 8 != 0 ||
+      (rows != 16 && rows != 32 && rows != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MlpBf16Maps maps;
+  err = make_tensor_map_2d(&maps.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x_cols, M, 2ull * x_cols, 64, rows,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  for (int l = 0; l + 1 < n_layers; ++l) {
+    if (cols[l] < dims[l + 1] || cols[l] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = make_tensor_map_2d(&maps.w[l], w_ptrs[l], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols[l], dims[l],
+                             2ull * cols[l], 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err) return err;
   }
-  p.n_layers = a.n_layers = n_layers;
-  a.d_in = dims[0], a.n_out = dims[n_layers];
-  a.pitch = widest + 8;   // an odd count of 16-byte chunks
-  const size_t bytes = sizeof(__nv_bfloat16) * 2 * kB16Rows * a.pitch;
-  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  prep_bf16_kernel<<<static_cast<unsigned>((p.off[n_layers] + 255) / 256), 256, 0, s>>>(base, p);
-  int err = static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 16: return launch_bf16<16>(maps, y, M, a, cluster, squash, scale, lo, s);
+    case 32: return launch_bf16<32>(maps, y, M, a, cluster, squash, scale, lo, s);
+    default: return launch_bf16<64>(maps, y, M, a, cluster, squash, scale, lo, s);
+  }
+}
+
+// How many clusters of the bf16 form's plan (rows, cluster) the card runs at once, into *out.
+extern "C" int fused_mlp_bf16_max_clusters(int n_layers, const int* dims, int rows, int cluster, int* out) {
+  MlpBf16Args a;
+  const int err = fill_bf16_args(&a, n_layers, nullptr, nullptr, dims);
   if (err) return err;
-  err = allow_dynamic_smem(fused_mlp_bf16_kernel, bytes);
-  if (err) return err;
-  fused_mlp_bf16_kernel<<<(M + rows - 1) / rows, kThreads, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), M, rows, a, squash, scale, lo);
-  return static_cast<int>(cudaGetLastError());
+  if (cluster < 1 || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  switch (rows) {
+    case 16: return max_clusters_bf16<16>(a, cluster, out);
+    case 32: return max_clusters_bf16<32>(a, cluster, out);
+    case 64: return max_clusters_bf16<64>(a, cluster, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

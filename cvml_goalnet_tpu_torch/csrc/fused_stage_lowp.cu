@@ -25,37 +25,40 @@
 // float32 activations is bound by its bytes (45 MB in, 130 MB out at
 // N = 1050).
 //
-// 2-bf16 (a first form, not yet redesigned): kernel 2's shifted-window
-// implicit GEMM on mma.sync m16n8k16 fed by cp.async and ldmatrix, M = the
-// conv positions of a block's tile, N = 64 output channels, K = 9 taps x Cin,
-// with the tiling of ops/cuda/fused_stage.py::lowp_stage_plan (whole frames
-// when 64 * MI conv positions hold them, else tiles of a frame with a
-// recomputed 2-wide halo); 8 warps, 4 along M x 2 along N; a 3-stage ring of
-// 32 bytes of input channels at every tap; the rounding above into a conv
-// tile in shared memory (reusing the ring), max-pooled there.
-//
-// 2-int8 (redesigned on wgmma fed by TMA, csrc/hopper.cuh): four launches a
-// call, all from one C entry.
-//   * amax_scale_kernel: |x|'s largest bit pattern by an exact atomicMax
-//     (non-negative floats order as their bits), then in the last block the
-//     scale, as the plain version's float32 division and clamp;
-//   * quantize_kernel: x -> int8 (n, H, W, Cin_p), zero in the padded
-//     channels (Cin_p: Cin rounded up to 64);
-//   * pack_int8_weights_kernel: per output channel the amax, the scale and
-//     the values, written straight into the (Cout, 3, 3, Cin_p) layout the
-//     conv reads, with the scales; weights are packed every call (the JAX
-//     package quantizes them every call; a cache would be state a reload
-//     must invalidate);
-//   * conv_pool_int8_kernel<MT, BN, TOut>: a block computes the conv tile of
-//     its pooled tile (frames, or a tile of a frame with a recomputed halo:
-//     ops/cuda/fused_stage.py::int8_stage_plan) for BN output channels.  Two
+// Both forms run one kernel, conv_pool_wgmma_kernel<Form, MT, BN, KB>, on
+// wgmma fed by TMA (csrc/hopper.cuh); the form (Int8Form<TOut>, Bf16Form)
+// gives the element type, the weight stage's TMA boxes and descriptor, the
+// wgmma instruction and the epilogue's rounding.
+//   * A block computes the conv tile of its pooled tile (frames, or a tile
+//     of a frame with a recomputed halo: ops/cuda/fused_stage.py::
+//     int8_stage_plan and bf16_stage_plan) for BN output channels.  Two
 //     warpgroups own m64 tiles 2i + wg (i < MT) of the conv positions and
-//     run wgmma m64nBNk32 s8 into int32 accumulators, one stage's group in
-//     flight while the next stage's A fragments load (two register sets).
-//   * The weights stream through a ring of (64 input channels x 1 tap x BN
-//     channels) stages by TMA in the 64-byte swizzle (Cin = 64 is conv1's
-//     whole K a tap, so a 128-byte stage would double its K with zeros).
-//     Thread 0 refills a slot once all 8 warps have released it; every
+//     run wgmma (m64nBNk32 s8 into int32, m64nBNk16 bf16 into float32), one
+//     stage's group in flight while the next stage's A fragments load (two
+//     register sets).  A stage is KB bytes of input channels (32 channels of
+//     bf16 at KB = 64, 64 at 128) at one tap.
+//   * The block's input tile (its frames' positions from (oy0 - 1, ox0 - 1)
+//     with the conv's halo, zero outside the frames: the conv's padding)
+//     arrives by TMA, one KB-byte chunk of channels at a time, as a 4-D box
+//     (KB bytes, Ci, Ri, frames) of x as stored, in the KB-byte swizzle,
+//     through a ring of two chunk buffers: chunk c + 2 loads once every warp
+//     has read chunk c.  A tap shifts the A rows by 1 or 2 positions, not a
+//     whole number of 8-row core matrices, so A cannot be a canonical
+//     shared-memory operand: each warp loads its 16 rows of A by ldmatrix
+//     from the shifted rows (the swizzle undone in the address), as
+//     mma.sync's A fragment, which is wgmma's register-A layout for 32 bytes
+//     of K in both element types (TMA's im2col mode would need a box per tap
+//     and row band of the tile; the staged chunk serves all 9 taps).
+//   * The weights stream through a ring of stages by TMA.  int8: the packed
+//     (Cout, 9, Cin_p) weights, K-major, one box of KB bytes x BN rows in the
+//     KB-byte swizzle (Cin = 64 is conv1's whole K a tap, so a 128-byte stage
+//     would double its K with zeros).  bf16: w as stored, HWIO, which as a
+//     matrix is (9 Cin, Cout) row-major: N-major, BN / 64 boxes of 64
+//     columns (128 bytes, the 128-byte swizzle) x KB / 2 rows of K, read
+//     through wgmma's transpose bit (LBO = the step between 64-column boxes,
+//     SBO = 8 rows of K), so w is never repacked; Cin a multiple of KB / 2
+//     keeps a box inside its tap.
+//   * Thread 0 refills a slot once all 8 warps have released it; every
 //     thread waits for that and thread 0 issues the copy under a predicate,
 //     since a branch on the thread with wgmma in flight makes ptxas
 //     serialize them (C7518).  There is no producer warpgroup: with one,
@@ -63,24 +66,18 @@
 //     and two A sets (it serialized the wgmma, C7512); 256 threads may take
 //     255.  A cluster of 2 CTAs sharing each stage by TMA multicast halved
 //     the weights' L2 traffic but ran slower (the two CTAs step in lockstep).
-//   * The block's whole int8 input tile (all its channels, zero outside the
-//     frames: the conv's padding) is staged once by cp.async, rows padded to
-//     Cin_p + 16 bytes.  A tap shifts the A rows by 1 or 2 positions, not a
-//     whole number of 8-row core matrices, so A cannot be a canonical
-//     shared-memory operand: each warp loads its 16 rows of A by ldmatrix
-//     from the shifted rows, as mma.sync's A fragment, which is wgmma's
-//     register-A layout (TMA's im2col mode would need a box per tap and row
-//     band of the tile; the staged tile serves all 9 taps and every channel
-//     slice from one copy).
-//   * Epilogue: the dequantization (the scales and one frame's bias tile are
-//     staged in shared memory with the input tile) into a float32 conv tile
-//     (reusing the ring and the input tile), max-pooled there separably: a
-//     thread walks a pooled column of four channels down the rows.
-//   * What holds it back on an H100 (variant builds, PERF.md section 6): a
-//     block re-reads its 295 KB of weights, its input and bias tiles from L2
-//     (about 3.7 TB/s across the card with the products switched off), and
-//     one block an SM leaves the epilogue unoverlapped.
-// The bf16 wrapper pads Cin to a multiple of 16 and Cout to one of 64.
+//   * Epilogue into a float32 conv tile (reusing the ring and the input
+//     tile), max-pooled there separably: a thread walks a pooled column of
+//     four channels down the rows.  int8 dequantizes (the scales and one
+//     frame's bias tile are staged in shared memory by cp.async); bf16
+//     rounds bf16(bf16(acc) + corr) with one frame's corr tile brought by
+//     TMA at the block's start (read from global memory in the epilogue, it
+//     made conv1's epilogue far slower than the int8 form's).
+//   * What holds them back on an H100 (variant builds, tools/lowp_variants.py,
+//     PERF.md section 6): a block re-reads its weights (295 KB at conv2 in
+//     int8, 590 KB in bf16), its input and bias tiles from L2, and one block
+//     an SM leaves the epilogue unoverlapped.  The plans weigh rows a block
+//     against those bytes.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "lowp_mma.cuh"
@@ -91,224 +88,57 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// ---------------------------------------------------------------- 2-bf16
+constexpr int kWThreads = 256;   // two warpgroups; thread 0 also issues the weight and input loads
 
-constexpr int kThreads = 256;               // 8 warps: 4 along M x 2 along N
-constexpr int kWarpsM = 4;
-constexpr int kBN = 64;                     // output channels per block
-constexpr int kKB = 32;                     // bytes of input channels per stage
-constexpr int kStages = 3;
-constexpr int kXPitch = kKB + 16;           // bytes per input position of a stage
-constexpr int kWRow = 9 * kKB + 16;         // bytes per output channel of a stage's weights
-constexpr int kWStage = kBN * kWRow;        // bytes of one stage's weights
-constexpr int kCPitch = kBN + 4;            // floats per conv position in the epilogue
-
-struct Geometry {
-  int n, H, W, Cin, Cout;  // Cin padded (a multiple of 32 bytes), Cout the real count
-  int frames, rows, cols;  // the pooled tile of a block
-  int tiles_y, tiles_x, co_tiles, n_steps;
-};
-
-// Bytes of the block's dynamic shared memory (ops/cuda/fused_stage.py::lowp_smem_bytes mirrors it).
-inline size_t lowp_stage_bytes(int frames, int rows, int cols) {
-  const size_t m = static_cast<size_t>(frames) * (rows + 2) * (cols + 2);
-  const size_t p = static_cast<size_t>(frames) * (rows + 4) * (cols + 4);
-  const size_t ring = kStages * (kWStage + p * kXPitch) + 4 * p;  // + the input offset table
-  const size_t epi = 4 * m * kCPitch;
-  return ring > epi ? ring : epi;
-}
-
-template <int MI>
-__global__ void __launch_bounds__(kThreads, MI == 4 ? 1 : 2) conv_pool_bf16_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ wq, const bf16* __restrict__ bias, bf16* __restrict__ out,
-    const Geometry g) {
-  constexpr int kE = kKB / 2;   // channels per stage
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const int Rc = g.rows + 2, Cc = g.cols + 2, Ri = g.rows + 4, Ci = g.cols + 4;
-  const int m_blk = g.frames * Rc * Cc, p_in = g.frames * Ri * Ci;
-  const int slot = kWStage + p_in * kXPitch;
-  char* ring = smem;                                               // kStages x [weights | input]
-  int* src_of = reinterpret_cast<int*>(ring + kStages * slot);     // [p_in]: the input position in x, or -1
-
-  int b = blockIdx.x;
-  const int ct = b % g.co_tiles;
-  b /= g.co_tiles;
-  const int tx = b % g.tiles_x;
-  b /= g.tiles_x;
-  const int ty = b % g.tiles_y;
-  const int frame0 = (b / g.tiles_y) * g.frames, oy0 = ty * g.rows, ox0 = tx * g.cols, co0 = ct * kBN;
-  const int tid = threadIdx.x;
-
-  for (int p = tid; p < p_in; p += kThreads) {
-    const int f = p / (Ri * Ci), r = p % (Ri * Ci);
-    const int yy = oy0 - 1 + r / Ci, xx = ox0 - 1 + r % Ci, fr = frame0 + f;
-    src_of[p] = fr < g.n && yy >= 0 && yy < g.H && xx >= 0 && xx < g.W ? (fr * g.H + yy) * g.W + xx : -1;
-  }
-  __syncthreads();
-
-  // (a copy that is out of range reads nothing; its source is x's first element)
-  const bf16* w_block = wq + static_cast<long long>(co0) * 9 * g.Cin;
-  auto load_stage = [&](int s, int step) {
-    const int c0 = step * kE;
-    char* ws = ring + s * slot;
-    char* xs = ws + kWStage;
-    for (int e = tid; e < kBN * 9 * 2; e += kThreads) {   // (channel, tap, half)
-      const int half = e & 1, tap = (e >> 1) % 9, co = (e >> 1) / 9;
-      lp_cp_async16(ws + co * kWRow + tap * kKB + 16 * half,
-                    w_block + (static_cast<long long>(co) * 9 + tap) * g.Cin + c0 + half * (kE / 2), true);
-    }
-    for (int e = tid; e < p_in * 2; e += kThreads) {
-      const int src = src_of[e >> 1], half = e & 1;
-      const bool in = src >= 0;
-      lp_cp_async16(xs + (e >> 1) * kXPitch + 16 * half,
-                    in ? x + static_cast<long long>(src) * g.Cin + c0 + half * (kE / 2) : x, in);
-    }
-  };
-
-  // ldmatrix rows: A row (lane % 16) of each m-tile at byte half lane / 16; B rows of two n8 tiles
-  const int warp = tid / 32, lane = tid % 32, gq = lane / 4, t = lane % 4;
-  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
-  int arow[MI];
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    int m = (wm * MI + i) * 16 + lane % 16;
-    if (m >= m_blk) m = 0;  // padding rows compute a copy of row 0, never read
-    const int f = m / (Rc * Cc), r = m % (Rc * Cc);
-    arow[i] = ((f * Ri + r / Cc) * Ci + r % Cc) * kXPitch + 16 * (lane / 16);
-  }
-  const int q = lane / 8;
-  const int b_off = (32 * wn + 8 * (q / 2) + lane % 8) * kWRow + 16 * (q % 2);   // + 16 * kWRow for n-tiles 2, 3
-
-  float acc[MI][4][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int n_steps = g.n_steps;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_steps) load_stage(s, s);
-    lp_commit();
-  }
-  for (int step = 0; step < n_steps; ++step) {
-    lp_wait<kStages - 2>();
-    __syncthreads();  // stage `step` has landed for every thread, and stage step - 1 is free
-    if (step + kStages - 1 < n_steps) load_stage((step + kStages - 1) % kStages, step + kStages - 1);
-    lp_commit();
-
-    const char* ws = ring + (step % kStages) * slot;
-    const char* xs = ws + kWStage;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * Ci + tap % 3) * kXPitch;
-      uint32_t bf[2][4];
-      ldsm_x4(bf[0], ws + b_off + tap * kKB);
-      ldsm_x4(bf[1], ws + b_off + 16 * kWRow + tap * kKB);
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        uint32_t af[4];
-        ldsm_x4(af, xs + arow[i] + toff);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af, bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
-      }
-    }
-  }
-  lp_wait<0>();
-  __syncthreads();  // every copy has landed and every warp is done with the ring: the conv tile reuses it
-
-  // epilogue: acc[i][j][e] is row g + 8 (e / 2) of m-tile i, channel 32 wn + 8 j + 2 t + e % 2
-  float* conv = reinterpret_cast<float*>(smem);  // [m_blk][kCPitch]
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = (wm * MI + i) * 16 + gq + 8 * h;
-      if (m >= m_blk) continue;
-      const int r = m % (Rc * Cc), cy = oy0 + r / Cc, cx = ox0 + r % Cc;
-      const bool pos_in = cy < g.H && cx < g.W;  // conv rows past the frame feed no pooled output
-      const bf16* bp = bias + (static_cast<long long>(cy) * g.W + cx) * g.Cout;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cl = 32 * wn + 8 * j + 2 * t + e, co = co0 + cl;
-          const bool live = pos_in && co < g.Cout;
-          const float bias_v = live ? __bfloat162float(bp[co]) : 0.f;
-          const float v = bf16_round(__fadd_rn(bf16_round(acc[i][j][2 * h + e]), bias_v));
-          conv[m * kCPitch + cl] = fmaxf(v, 0.f);
-        }
-    }
-  __syncthreads();
-
-  const int OH = g.H - 2, OW = g.W - 2, per_frame = g.rows * g.cols;
-  for (int e = tid; e < g.frames * per_frame * kBN; e += kThreads) {
-    const int co = e % kBN, qq = e / kBN;
-    const int f = qq / per_frame, r = qq % per_frame, py = r / g.cols, px = r % g.cols;
-    const int fr = frame0 + f, oy = oy0 + py, ox = ox0 + px;
-    if (fr >= g.n || oy >= OH || ox >= OW || co0 + co >= g.Cout) continue;
-    const float* c = conv + ((f * Rc + py) * Cc + px) * kCPitch + co;
-    float mx = -FLT_MAX;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) mx = fmaxf(mx, c[(dy * Cc + dx) * kCPitch]);
-    out[((static_cast<long long>(fr) * OH + oy) * OW + ox) * g.Cout + co0 + co] = __float2bfloat16_rn(mx);
-  }
-}
-
-
-// ---------------------------------------------------------------- 2-int8
-
-constexpr int kIThreads = 256;   // two warpgroups; thread 0 also issues the weight loads
-constexpr int kIKC = 64;         // Cin is padded to a multiple of this many bytes (int8 channels)
-constexpr int kIRingBytes = 64 * 1024;   // weights in flight
-
-// A weight stage: KC bytes of input channels (64 or 128, where Cin_p allows) at one tap for BN output channels,
-// in the KC-byte swizzle; stages of 64 KB in all.
-template <int BN, int KC>
-struct I8Ring {
-  static constexpr int kStageBytes = BN * KC;
-  static constexpr int kStages = kIRingBytes / kStageBytes;
-  static constexpr unsigned kLayout = KC == 128 ? kSwizzle128B : kSwizzle64B;
-};
-
-struct I8Geometry {
-  int n, H, W, Cin_p, Cout;  // Cin_p: Cin rounded up to 64
+struct WgGeometry {
+  int n, H, W, Cin, Cout;    // Cin: channels a position as stored (int8: Cin_p, a multiple of 64; bf16: of 64)
   int frames, rows, cols;    // the pooled tile of a block
   int tiles_y, tiles_x, co_tiles;
 };
 
 // The parts of a block's dynamic shared memory after 1024 bytes of alignment slack
-// (ops/cuda/fused_stage.py::int8_smem_bytes mirrors them): the weight ring and the input tile, which the
-// epilogue's float32 conv tile [positions][BN + 4] reuses; then the bias tile of one frame's conv positions
-// [Rc * Cc][BN + 16 bytes] (room for float32), the BN dequantization scales and the barriers.
-struct I8Smem {
-  size_t body, bias, scales, barriers, total;
+// (ops/cuda/fused_stage.py::int8_smem_bytes and bf16_smem_bytes mirror them): the weight ring and the input ring
+// (min(2, chunks) buffers of one chunk of the input tile: KB bytes x its positions, each a multiple of 1024),
+// which the epilogue's float32 conv tile [positions][BN + 4] reuses; then the bias tile of one frame's conv
+// positions: the int8 form's [Rc * Cc][BN + 16 bytes] (room for float32) and its BN dequantization scales, or
+// the bf16 form's BN / 64 TMA boxes of [Rc * Cc][64 channels] in the 128-byte swizzle, each a multiple of 1024;
+// then the barriers (the weight ring's full and empty ones, room for the most stages, the input ring's and the
+// bias tile's).
+enum BiasTile { kStagedBias = 1, kTmaBias = 2 };
+
+struct WgSmem {
+  size_t input, input_buf, body, bias, bias_box, scales, barriers, total;
 };
 
-__host__ __device__ inline I8Smem int8_smem(int bn, int frames, int rows, int cols, int cin_p) {
-  const size_t stages = kIRingBytes / (bn * kIKC);   // the most barriers a ring of stages of KC >= 64 takes
+__host__ __device__ inline WgSmem wg_smem(int ring_bytes, int bias_tile, int bn, int kb, int frames, int rows,
+                                          int cols, int row_bytes) {
+  const size_t stages = ring_bytes / (bn * 64);   // the most barriers a ring of stages of KB >= 64 takes
   const size_t per_frame = static_cast<size_t>(rows + 2) * (cols + 2);
   const size_t p = static_cast<size_t>(frames) * (rows + 4) * (cols + 4);
-  const size_t ring_and_input = kIRingBytes + p * (cin_p + 16);
+  const size_t bufs = row_bytes / kb < 2 ? 1 : 2;
   const size_t conv = 4 * frames * per_frame * (bn + 4);
-  I8Smem s;
-  s.body = ((ring_and_input > conv ? ring_and_input : conv) + 15) / 16 * 16;
-  s.bias = s.body;
-  s.scales = s.bias + per_frame * (4 * bn + 16);
-  s.barriers = s.scales + 4 * bn;
-  s.total = 1024 + s.barriers + 2 * stages * sizeof(uint64_t);
+  WgSmem s;
+  s.input = ring_bytes;
+  s.input_buf = (kb * p + 1023) / 1024 * 1024;
+  const size_t rings = s.input + bufs * s.input_buf;
+  s.body = ((rings > conv ? rings : conv) + 15) / 16 * 16;
+  s.bias_box = (per_frame * 128 + 1023) / 1024 * 1024;
+  if (bias_tile == kTmaBias) {
+    s.bias = (s.body + 1023) / 1024 * 1024;
+    s.scales = s.bias + bn / 64 * s.bias_box;
+  } else {
+    s.bias = s.body;
+    s.scales = s.bias + per_frame * (4 * bn + 16);
+  }
+  s.barriers = s.scales + (bias_tile == kStagedBias ? 4 * bn : 0);
+  s.total = 1024 + s.barriers + (2 * stages + 5) * sizeof(uint64_t);
   return s;
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-// The conv value before ReLU, rounded where the JAX package rounds: float32 out, or bf16 (the product
+// The int8 conv value before ReLU, rounded where the JAX package rounds: float32 out, or bf16 (the product
 // rounded, then the sum with the bias).
 __device__ __forceinline__ float conv_value(int acc, float scale, float bias, float*) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
@@ -332,36 +162,99 @@ __device__ __forceinline__ float scale_of(unsigned amax_bits) {
   return fmaxf(__fdiv_rn(__uint_as_float(amax_bits), 127.f), 1e-12f);
 }
 
-template <int BN>
-__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc_b);
-template <>
-__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n128k32_s8_rs(d, a, desc_b);
-}
-template <>
-__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n64k32_s8_rs(d, a, desc_b);
-}
+// ---------------------------------------------------------------- the two forms
 
-// xq: (n, H, W, Cin_p) int8; wmap: the packed weights (Cout rows of 9 * Cin_p bytes) in boxes of 64 bytes x BN
-// rows; bias (H, W, Cout) and out (n, H - 2, W - 2, Cout) in TOut; s_x one float, s_w (Cout,) floats.
-template <int MT, int BN, int KC, typename TOut>
-__global__ void __launch_bounds__(kIThreads, 1) conv_pool_int8_kernel(
-    const __grid_constant__ CUtensorMap wmap, const int8_t* __restrict__ xq, const TOut* __restrict__ bias,
-    const float* __restrict__ s_x, const float* __restrict__ s_w, TOut* __restrict__ out, const I8Geometry g) {
-  constexpr int S = I8Ring<BN, KC>::kStages, SB = I8Ring<BN, KC>::kStageBytes, KK = KC / 32;
+// 2-int8: int8 x (quantized), packed int8 weights (Cout rows of 9 * Cin_p bytes) in boxes of KB bytes x BN rows;
+// int32 sums; bias (H, W, Cout) and out in TOut (float32 or bf16); the scales s_x (one float) and s_w (Cout,).
+template <typename TOut>
+struct Int8Form {
+  using Elem = int8_t;
+  using Acc = int;
+  using Out = TOut;
+  static constexpr int kRingBytes = 64 * 1024;   // weights in flight
+  static constexpr int kBias = kStagedBias;   // cp.async into a padded tile, beside the scales
+
+  template <int BN, int KB>
+  __device__ static void load(bool pred, uint8_t* dst, const CUtensorMap* map, int tap, int chunk,
+                              const WgGeometry& g, int co0, uint64_t* bar) {
+    tma_expect_load_2d_if(pred, dst, map, tap * g.Cin + chunk * KB, co0, bar, BN * KB);
+  }
+  // K-major: k32 step kk is 32 bytes into each BN row of KB bytes; SBO = 8 rows
+  template <int BN, int KB>
+  __device__ static uint64_t desc(const uint8_t* stage, int kk) {
+    return smem_desc(stage + 32 * kk, 16, 8 * KB, KB == 128 ? kSwizzle128B : kSwizzle64B);
+  }
+  template <int BN>
+  __device__ static void mma(int (&d)[BN / 2], const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (BN == 128)
+      wgmma_m64n128k32_s8_rs(d, a, db);
+    else
+      wgmma_m64n64k32_s8_rs(d, a, db);
+  }
+};
+
+// 2-bf16: bf16 x and w (w as stored, HWIO: (9 Cin, Cout) row-major) in boxes of 64 columns x KB / 2 rows of K;
+// float32 sums; bias (H, W, Cout) and out bf16.
+struct Bf16Form {
+  using Elem = bf16;
+  using Acc = float;
+  using Out = bf16;
+  static constexpr int kRingBytes = 96 * 1024;   // weights in flight
+  static constexpr int kBias = kTmaBias;         // TMA boxes of 64 channels
+
+  template <int BN, int KB>
+  __device__ static void load(bool pred, uint8_t* dst, const CUtensorMap* map, int tap, int chunk,
+                              const WgGeometry& g, int co0, uint64_t* bar) {
+    mbar_expect_tx_if(pred, bar, BN * KB);
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c)
+      tma_load_2d_if(pred, dst + c * 64 * KB, map, co0 + 64 * c, tap * g.Cin + chunk * (KB / 2), bar);
+  }
+  // N-major (transposed): k16 step kk is 16 rows of 128 bytes into each box; LBO = a box, SBO = 8 rows
+  template <int BN, int KB>
+  __device__ static uint64_t desc(const uint8_t* stage, int kk) {
+    return smem_desc(stage + 16 * 128 * kk, 64 * KB, 1024, kSwizzle128B);
+  }
+  template <int BN>
+  __device__ static void mma(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (BN == 128)
+      wgmma_m64n128k16_bf16_rs_bmn(d, a, db);
+    else
+      wgmma_m64n64k16_bf16_rs_bmn(d, a, db);
+  }
+};
+
+// ---------------------------------------------------------------- the kernel
+
+// xmap: x (n, H, W, Cin) in the form's element type as a 4-D map in boxes of (KB bytes of channels, Ci, Ri,
+// frames) in the KB-byte swizzle; wmap: the form's weight map; bias (H, W, Cout) and out (n, H - 2, W - 2, Cout)
+// in the form's output type; bmap: the bf16 form's bias, (H, W, C) with C a multiple of 8, in boxes of (64
+// channels, Cc, Rc) in the 128-byte swizzle; s_x, s_w: the int8 form's scales (unused by bf16).
+template <class Form, int MT, int BN, int KB>
+__global__ void __launch_bounds__(kWThreads, 1) conv_pool_wgmma_kernel(
+    const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap bmap, const typename Form::Out* __restrict__ bias, const float* __restrict__ s_x, const float* __restrict__ s_w,
+    typename Form::Out* __restrict__ out, const WgGeometry g) {
+  using TOut = typename Form::Out;
+  using Acc = typename Form::Acc;
+  constexpr int SB = BN * KB, S = Form::kRingBytes / SB, KK = KB / 32;
+  constexpr int kElems = KB / static_cast<int>(sizeof(typename Form::Elem));   // channels of a chunk
   extern __shared__ float4 smem4[];
   uint8_t* base = smem_align(reinterpret_cast<uint8_t*>(smem4), 1024);
   const int Rc = g.rows + 2, Cc = g.cols + 2, Ri = g.rows + 4, Ci = g.cols + 4;
-  const int m_blk = g.frames * Rc * Cc, p_in = g.frames * Ri * Ci, pitch = g.Cin_p + 16;
-  const I8Smem lay = int8_smem(BN, g.frames, g.rows, g.cols, g.Cin_p);
-  constexpr int kBP = BN + 16 / static_cast<int>(sizeof(TOut));   // bias tile pitch, elements
-  uint8_t* ring = base;                                            // S stages of BN rows x 64 bytes
-  uint8_t* xs = base + S * SB;                                     // the input tile, [p_in][pitch]
-  TOut* bias_s = reinterpret_cast<TOut*>(base + lay.bias);         // [Rc * Cc][kBP]
-  float* scale_s = reinterpret_cast<float*>(base + lay.scales);    // [BN]: s_x * s_w[co]
+  const int row_bytes = g.Cin * static_cast<int>(sizeof(typename Form::Elem));
+  const int m_blk = g.frames * Rc * Cc;
+  const WgSmem lay = wg_smem(Form::kRingBytes, Form::kBias, BN, KB, g.frames, g.rows, g.cols, row_bytes);
+  constexpr int kBP = BN + 16 / static_cast<int>(sizeof(TOut));   // staged bias tile pitch, elements
+  uint8_t* ring = base;                                            // S stages of SB bytes
+  uint8_t* xin = base + lay.input;                                 // the input ring, [2][input_buf]
+  TOut* bias_s = reinterpret_cast<TOut*>(base + lay.bias);         // int8: [Rc * Cc][kBP]; bf16: TMA boxes
+  float* scale_s = reinterpret_cast<float*>(base + lay.scales);    // int8: [BN]: s_x * s_w[co]
   uint64_t* full = reinterpret_cast<uint64_t*>(base + lay.barriers);
   uint64_t* empty = full + S;
+  uint64_t* xfull = full + 2 * (Form::kRingBytes / (BN * 64));     // [2]
+  uint64_t* xempty = xfull + 2;                                    // [2]
+  uint64_t* bbar = xempty + 2;                                     // the bf16 form's bias tile
 
   int b = blockIdx.x;
   const int ct = b % g.co_tiles;
@@ -370,72 +263,85 @@ __global__ void __launch_bounds__(kIThreads, 1) conv_pool_int8_kernel(
   b /= g.tiles_x;
   const int ty = b % g.tiles_y;
   const int frame0 = (b / g.tiles_y) * g.frames, oy0 = ty * g.rows, ox0 = tx * g.cols, co0 = ct * BN;
-  const int n_stages = 9 * (g.Cin_p / KC);   // channel chunk major, then tap
+  const int chunks = row_bytes / KB, n_stages = 9 * chunks;   // channel chunk major, then tap
+  const int xbytes = KB * g.frames * Ri * Ci;                 // one chunk of the input tile
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);   // the 8 warps
     }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&xfull[i], 1);
+      mbar_init(&xempty[i], 8);
+    }
+    mbar_init(bbar, 1);
     mbar_init_fence();
   }
   __syncthreads();
-  // thread 0 keeps the weight ring S stages ahead: stage i lands in slot i % S once every warp has released
-  // that slot's previous stage
+  // thread 0 keeps the weight ring S stages ahead (stage i lands in slot i % S once every warp has released that
+  // slot's previous stage) and the input ring two chunks ahead: chunk c of the tile (its channels c * kElems ..,
+  // positions from (oy0 - 1, ox0 - 1) of frame0 on, zero outside the frames: the conv's padding) lands in buffer
+  // c % 2 once every warp has loaded its A fragments from chunk c - 2
   auto load_stage = [&](int i) {
-    tma_expect_load_2d_if(threadIdx.x == 0, ring + (i % S) * SB, &wmap, (i % 9) * g.Cin_p + (i / 9) * KC, co0,
-                          &full[i % S], SB);
+    Form::template load<BN, KB>(threadIdx.x == 0, ring + (i % S) * SB, &wmap, i % 9, i / 9, g, co0, &full[i % S]);
+  };
+  auto load_chunk = [&](int c) {
+    mbar_expect_tx_if(threadIdx.x == 0, &xfull[c % 2], xbytes);
+    tma_load_4d_if(threadIdx.x == 0, xin + (c % 2) * lay.input_buf, &xmap, c * kElems, ox0 - 1, oy0 - 1, frame0,
+                   &xfull[c % 2]);
   };
   const int tid = threadIdx.x, wg = tid / 128;
+  for (int c = 0; c < 2 && c < chunks; ++c) load_chunk(c);
   for (int i = 0; i < S && i < n_stages; ++i) load_stage(i);
 
-  // the input tile, every channel: 16-byte copies, zero outside the frames
-  const int per_pos = g.Cin_p / 16;
-  for (int e = tid; e < p_in * per_pos; e += kIThreads) {
-    const int p = e / per_pos, c16 = e % per_pos;
-    const int f = p / (Ri * Ci), r = p % (Ri * Ci);
-    const int yy = oy0 - 1 + r / Ci, xx = ox0 - 1 + r % Ci, fr = frame0 + f;
-    const bool in = fr < g.n && yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
-    lp_cp_async16(xs + p * pitch + 16 * c16,
-                  in ? xq + (static_cast<long long>(fr * g.H + yy) * g.W + xx) * g.Cin_p + 16 * c16 : xq, in);
-  }
-  // the bias of one frame's conv positions (the same for every frame), zero outside the frame and past Cout
-  const bool vec_bias = (g.Cout * sizeof(TOut)) % 16 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
-  if (vec_bias) {
-    constexpr int kPer16 = 16 / static_cast<int>(sizeof(TOut));
-    for (int e = tid; e < Rc * Cc * (BN / kPer16); e += kIThreads) {
-      const int r = e / (BN / kPer16), c = kPer16 * (e % (BN / kPer16));
-      const int cy = oy0 + r / Cc, cx = ox0 + r % Cc;
-      const bool in = cy < g.H && cx < g.W && co0 + c < g.Cout;
-      const TOut* src = in ? bias + (static_cast<long long>(cy) * g.W + cx) * g.Cout + co0 + c : bias;
-      lp_cp_async16(bias_s + r * kBP + c, src, in);
-    }
+  if constexpr (Form::kBias == kTmaBias) {
+    // the bias of one frame's conv positions (the same for every frame) from (oy0, ox0), zero outside the frame
+    mbar_expect_tx_if(tid == 0, bbar, BN / 64 * Rc * Cc * 128);
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c)
+      tma_load_4d_if(tid == 0, base + lay.bias + c * lay.bias_box, &bmap, co0 + 64 * c, ox0, oy0, 0, bbar);
   } else {
-    for (int e = tid; e < Rc * Cc * BN; e += kIThreads) {
-      const int r = e / BN, c = e % BN;
-      const int cy = oy0 + r / Cc, cx = ox0 + r % Cc;
-      bias_s[r * kBP + c] = cy < g.H && cx < g.W && co0 + c < g.Cout
-                                ? bias[(static_cast<long long>(cy) * g.W + cx) * g.Cout + co0 + c]
-                                : TOut{};
+    // the bias of one frame's conv positions (the same for every frame), zero outside the frame and past Cout
+    const bool vec_bias = (g.Cout * sizeof(TOut)) % 16 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+    if (vec_bias) {
+      constexpr int kPer16 = 16 / static_cast<int>(sizeof(TOut));
+      for (int e = tid; e < Rc * Cc * (BN / kPer16); e += kWThreads) {
+        const int r = e / (BN / kPer16), c = kPer16 * (e % (BN / kPer16));
+        const int cy = oy0 + r / Cc, cx = ox0 + r % Cc;
+        const bool in = cy < g.H && cx < g.W && co0 + c < g.Cout;
+        const TOut* src = in ? bias + (static_cast<long long>(cy) * g.W + cx) * g.Cout + co0 + c : bias;
+        lp_cp_async16(bias_s + r * kBP + c, src, in);
+      }
+    } else {
+      for (int e = tid; e < Rc * Cc * BN; e += kWThreads) {
+        const int r = e / BN, c = e % BN;
+        const int cy = oy0 + r / Cc, cx = ox0 + r % Cc;
+        bias_s[r * kBP + c] = cy < g.H && cx < g.W && co0 + c < g.Cout
+                                  ? bias[(static_cast<long long>(cy) * g.W + cx) * g.Cout + co0 + c]
+                                  : TOut{};
+      }
     }
+    if (tid < BN) scale_s[tid] = co0 + tid < g.Cout ? __fmul_rn(*s_x, s_w[co0 + tid]) : 0.f;
+    lp_commit();
+    lp_wait<0>();
+    __syncthreads();   // the bias tile and the scales are in place for both warpgroups
   }
-  if (tid < BN) scale_s[tid] = co0 + tid < g.Cout ? __fmul_rn(*s_x, s_w[co0 + tid]) : 0.f;
-  lp_commit();
-  lp_wait<0>();
-  __syncthreads();   // the whole tile, the bias tile and the scales are in place for both warpgroups
 
-  // A rows: this warp's 16 rows of each m64 tile 2i + wg, at byte half lane / 16 of a k32 step
+  // A rows: the input position of this warp's row lane % 16 of each m64 tile 2i + wg (tap 0), read at 16-byte
+  // chunk lane / 16 of a 32-byte k-step; the tile's chunk buffer holds position p at p * KB bytes, its 16-byte
+  // chunk j at j ^ (p * KB / 128 mod KB / 16) (TMA's KB-byte swizzle)
   const int w = (tid % 128) / 32, lane = tid % 32;
-  int arow[MT];
+  int prow[MT];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     int m = (2 * i + wg) * 64 + 16 * w + lane % 16;
     if (m >= m_blk) m = 0;   // padding rows compute a copy of row 0, never read
     const int f = m / (Rc * Cc), r = m % (Rc * Cc);
-    arow[i] = ((f * Ri + r / Cc) * Ci + r % Cc) * pitch + 16 * (lane / 16);
+    prow[i] = (f * Ri + r / Cc) * Ci + r % Cc;
   }
 
-  int acc[MT][BN / 2];
+  Acc acc[MT][BN / 2];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -446,19 +352,29 @@ __global__ void __launch_bounds__(kIThreads, 1) conv_pool_int8_kernel(
   // one stage: its A fragments into `af` (free: the stage two back is done), its wgmma, then once the previous
   // stage's wgmma are done its slot is released and thread 0 refills it
   auto stage = [&](int st, uint32_t (&af)[MT][KK][4]) {
-    const int s = st % S, tap = st % 9;
-    const int aoff = ((tap / 3) * Ci + tap % 3) * pitch + (st / 9) * KC;
+    const int s = st % S, tap = st % 9, c = st / 9;
+    const int toff = (tap / 3) * Ci + tap % 3;
+    const uint8_t* xs = xin + (c % 2) * lay.input_buf;
+    mbar_wait(&xfull[c % 2], (c / 2) & 1);   // this stage's chunk of the input tile has landed
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < MT; ++i) {
+      const int p = prow[i] + toff;
+      const int sw = (p * KB / 128) & (KB / 16 - 1);
 #pragma unroll
-      for (int kk = 0; kk < KK; ++kk) ldsm_x4(af[i][kk], xs + arow[i] + aoff + 32 * kk);
+      for (int kk = 0; kk < KK; ++kk) ldsm_x4(af[i][kk], xs + p * KB + 16 * ((2 * kk + lane / 16) ^ sw));
+    }
+    if (tap == 8 && c + 2 < chunks) {   // every warp is done with this chunk: thread 0 loads chunk c + 2 in its place
+      mbar_arrive_if(&xempty[c % 2], lane == 0);
+      mbar_wait(&xempty[c % 2], (c / 2) & 1);
+      load_chunk(c + 2);
+    }
     mbar_wait(&full[s], (st / S) & 1);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
-      const uint64_t db = smem_desc(ring + s * SB + 32 * kk, 16, 8 * KC, I8Ring<BN, KC>::kLayout);
+      const uint64_t db = Form::template desc<BN, KB>(ring + s * SB, kk);
 #pragma unroll
-      for (int i = 0; i < MT; ++i) wgmma_s8<BN>(acc[i], af[i][kk], db);
+      for (int i = 0; i < MT; ++i) Form::template mma<BN>(acc[i], af[i][kk], db);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -486,6 +402,7 @@ __global__ void __launch_bounds__(kIThreads, 1) conv_pool_int8_kernel(
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) fence_operand(acc[i][j]);
   __syncthreads();   // both warpgroups are done with the ring and the input tile: the conv tile reuses them
+  if constexpr (Form::kBias == kTmaBias) mbar_wait(bbar, 0);
 
   // acc[i][4j + e]: row 16 w + gq + 8 (e / 2) of m64 tile 2i + wg, channel 8 j + 2 q + e % 2
   constexpr int kCP = BN + 4;    // floats per conv position
@@ -497,14 +414,30 @@ __global__ void __launch_bounds__(kIThreads, 1) conv_pool_int8_kernel(
     for (int h = 0; h < 2; ++h) {
       const int m = (2 * i + wg) * 64 + 16 * w + gq + 8 * h;
       if (m >= m_blk) continue;
-      const TOut* bp = bias_s + (m % (Rc * Cc)) * kBP;
+      const int r = m % (Rc * Cc);
+      if constexpr (Form::kBias == kStagedBias) {
+        const TOut* bp = bias_s + r * kBP;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int cl = 8 * j + 2 * q;
-        const float v0 = conv_value(acc[i][4 * j + 2 * h], scale_s[cl], to_f32(bp[cl]), static_cast<TOut*>(nullptr));
-        const float v1 =
-            conv_value(acc[i][4 * j + 2 * h + 1], scale_s[cl + 1], to_f32(bp[cl + 1]), static_cast<TOut*>(nullptr));
-        *reinterpret_cast<float2*>(conv + m * kCP + cl) = make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        for (int j = 0; j < BN / 8; ++j) {
+          const int cl = 8 * j + 2 * q;
+          const float v0 = conv_value(acc[i][4 * j + 2 * h], scale_s[cl], to_f32(bp[cl]), static_cast<TOut*>(nullptr));
+          const float v1 =
+              conv_value(acc[i][4 * j + 2 * h + 1], scale_s[cl + 1], to_f32(bp[cl + 1]), static_cast<TOut*>(nullptr));
+          *reinterpret_cast<float2*>(conv + m * kCP + cl) = make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
+      } else {
+        // bf16(bf16(acc) + corr): channels cl, cl + 1 of position r are 4 bytes of 16-byte chunk (cl % 64) / 8 of
+        // its 128-byte row in box cl / 64, stored at chunk ((cl % 64) / 8) ^ (r % 8)
+        const uint8_t* bb = base + lay.bias + r * 128;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int cl = 8 * j + 2 * q;
+          const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(
+              bb + (cl >> 6) * lay.bias_box + ((((cl & 63) >> 3) ^ (r & 7)) << 4) + (cl & 7) * 2);
+          const float v0 = bf16_round(__fadd_rn(bf16_round(acc[i][4 * j + 2 * h]), __bfloat162float(b2.x)));
+          const float v1 = bf16_round(__fadd_rn(bf16_round(acc[i][4 * j + 2 * h + 1]), __bfloat162float(b2.y)));
+          *reinterpret_cast<float2*>(conv + m * kCP + cl) = make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
       }
     }
   }
@@ -519,7 +452,7 @@ __global__ void __launch_bounds__(kIThreads, 1) conv_pool_int8_kernel(
     return make_float4(fmaxf(fmaxf(a.x, b.x), d.x), fmaxf(fmaxf(a.y, b.y), d.y), fmaxf(fmaxf(a.z, b.z), d.z),
                        fmaxf(fmaxf(a.w, b.w), d.w));
   };
-  for (int e = tid; e < g.frames * g.cols * (BN / 4); e += kIThreads) {
+  for (int e = tid; e < g.frames * g.cols * (BN / 4); e += kWThreads) {
     const int c4 = 4 * (e % (BN / 4)), qq = e / (BN / 4);
     const int f = qq / g.cols, px = qq % g.cols;
     const int fr = frame0 + f, ox = ox0 + px, co = co0 + c4;
@@ -543,6 +476,56 @@ __global__ void __launch_bounds__(kIThreads, 1) conv_pool_int8_kernel(
     }
   }
 }
+
+// One launch of the kernel for `wmap` (the form's weight map) on x (n, H, W, Cin) in the form's element type,
+// checked.
+template <class Form, int MT, int BN, int KB>
+int launch_wgmma(const CUtensorMap& wmap, const CUtensorMap& bmap, const void* x, const void* b, const float* s_x,
+                 const float* s_w, void* out, const WgGeometry& g, cudaStream_t s) {
+  using Elem = typename Form::Elem;
+  const int row_bytes = g.Cin * static_cast<int>(sizeof(Elem));
+  const size_t bytes = wg_smem(Form::kRingBytes, Form::kBias, BN, KB, g.frames, g.rows, g.cols, row_bytes).total;
+  if (bytes > kMaxSmemBytes || row_bytes % KB != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks =
+      static_cast<long long>((g.n + g.frames - 1) / g.frames) * g.tiles_y * g.tiles_x * g.co_tiles;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap;
+  const uint64_t dims[4] = {static_cast<uint64_t>(g.Cin), static_cast<uint64_t>(g.W), static_cast<uint64_t>(g.H),
+                            static_cast<uint64_t>(g.n)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(row_bytes), static_cast<uint64_t>(row_bytes) * g.W,
+                               static_cast<uint64_t>(row_bytes) * g.W * g.H};
+  const uint32_t box[4] = {static_cast<uint32_t>(KB / sizeof(Elem)), static_cast<uint32_t>(g.cols + 4),
+                           static_cast<uint32_t>(g.rows + 4), static_cast<uint32_t>(g.frames)};
+  int err = make_tensor_map_4d(&xmap, x, sizeof(Elem) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                               dims, strides, box, KB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err) return err;
+  auto kernel = conv_pool_wgmma_kernel<Form, MT, BN, KB>;
+  err = allow_dynamic_smem(kernel, bytes);
+  if (err) return err;
+  using TOut = typename Form::Out;
+  kernel<<<static_cast<unsigned>(blocks), kWThreads, bytes, s>>>(wmap, xmap, bmap, static_cast<const TOut*>(b), s_x,
+                                                                 s_w, static_cast<TOut*>(out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+WgGeometry geometry(int n, int H, int W, int cin, int cout, int frames, int rows, int cols, int block_n) {
+  WgGeometry g;
+  g.n = n, g.H = H, g.W = W, g.Cin = cin, g.Cout = cout;
+  g.frames = frames, g.rows = rows, g.cols = cols;
+  g.tiles_y = (H - 2 + rows - 1) / rows, g.tiles_x = (W - 2 + cols - 1) / cols;
+  g.co_tiles = (cout + block_n - 1) / block_n;
+  return g;
+}
+
+bool tile_ok(int n, int H, int W, int frames, int rows, int cols, int m_tiles) {
+  return n >= 1 && H >= 3 && W >= 3 && frames >= 1 && rows >= 1 && rows <= H - 2 && cols >= 1 && cols <= W - 2 &&
+         frames * (rows + 2) * (cols + 2) <= 128 * m_tiles && static_cast<long long>(n) * H * W < (1LL << 31);
+}
+
+// ---------------------------------------------------------------- the int8 form's passes around the conv
+
+constexpr int kIKC = 64;   // Cin is padded to a multiple of this many bytes (int8 channels)
+
 
 // The activation scale: ws[0] = the largest bit pattern of |x| (zeroed before the launch), ws[1] = blocks
 // done; the last block writes *s_x = max(amax / 127, 1e-12).  x 16-byte aligned.
@@ -708,58 +691,44 @@ int launch_pack(const void* w, int8_t* wq, float* s_w, int cin, int cin_p, int c
 }
 
 template <int MT, int BN, int KC, typename TOut>
-int launch_int8(const I8Workspace& p, const void* b, void* out, const I8Geometry& g, cudaStream_t s) {
+int launch_int8(const I8Workspace& p, const void* b, void* out, const WgGeometry& g, cudaStream_t s) {
   CUtensorMap wmap;
-  int err = make_tensor_map_2d(&wmap, p.wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 9ull * g.Cin_p, g.Cout, 9ull * g.Cin_p,
-                               KC, BN, KC == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  const int err = make_tensor_map_2d(&wmap, p.wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 9ull * g.Cin, g.Cout, 9ull * g.Cin,
+                                     KC, BN, KC == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
   if (err) return err;
-  const size_t bytes = int8_smem(BN, g.frames, g.rows, g.cols, g.Cin_p).total;
-  if (bytes > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks =
-      static_cast<long long>((g.n + g.frames - 1) / g.frames) * g.tiles_y * g.tiles_x * g.co_tiles;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = conv_pool_int8_kernel<MT, BN, KC, TOut>;
-  err = allow_dynamic_smem(kernel, bytes);
-  if (err) return err;
-  kernel<<<static_cast<unsigned>(blocks), kIThreads, bytes, s>>>(wmap, p.xq, static_cast<const TOut*>(b), p.s_x,
-                                                                 p.s_w, static_cast<TOut*>(out), g);
-  return static_cast<int>(cudaGetLastError());
+  return launch_wgmma<Int8Form<TOut>, MT, BN, KC>(wmap, wmap, p.xq, b, p.s_x, p.s_w, out, g, s);   // (no bias map)
 }
-
 
 }  // namespace
 
-// The bf16 form: x (n, H, W, Cin) with Cin a multiple of 16; wq: (Cout rounded up to 64, 3, 3, Cin); b: (H, W,
-// Cout); out: (n, H-2, W-2, Cout); all bf16.  The plan (ops/cuda/fused_stage.py::lowp_stage_plan): `frames`
-// per block, pooled tiles of rows x cols, m_tiles in {2, 3, 4} with frames * (rows + 2) * (cols + 2) <=
-// 64 * m_tiles.  One launch, checked.
-extern "C" int fused_conv_pool_stage_bf16(const void* x, const void* wq, const void* b, void* out, int n, int H,
-                                          int W, int Cin, int Cout, int frames, int rows, int cols, int m_tiles,
-                                          void* stream) {
-  if (n < 1 || H < 3 || W < 3 || Cin < 1 || (Cin * 2) % kKB != 0 || Cout < 1 || frames < 1 || rows < 1 ||
-      rows > H - 2 || cols < 1 || cols > W - 2 || m_tiles < 2 || m_tiles > 4 ||
-      frames * (rows + 2) * (cols + 2) > 64 * m_tiles || static_cast<long long>(n) * H * W >= (1LL << 31) ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wq) % 16 != 0)
+// The bf16 form: x (n, H, W, Cin) bf16 with Cin a multiple of 64; w (3, 3, Cin, c_cols) and b (H, W, c_cols) bf16
+// (w in HWIO; c_cols >= Cout a multiple of 8, w's and b's channels past Cout zero); out (n, H-2, W-2, Cout) bf16;
+// x, w and b 16-byte aligned.  The plan (ops/cuda/fused_stage.py::bf16_stage_plan): `frames` per block, pooled
+// tiles of rows x cols, (m_tiles, block_n) in {(2, 128), (4, 64)} with frames * (rows + 2) * (cols + 2) <=
+// 128 * m_tiles.  One launch, checked.
+extern "C" int fused_conv_pool_stage_bf16(const void* x, const void* w, const void* b, void* out, int n, int H,
+                                          int W, int Cin, int Cout, int c_cols, int frames, int rows, int cols,
+                                          int m_tiles, int block_n, void* stream) {
+  const bool shape_ok = (m_tiles == 2 && block_n == 128) || (m_tiles == 4 && block_n == 64);
+  if (!shape_ok || !tile_ok(n, H, W, frames, rows, cols, m_tiles) || Cin < 64 || Cin % 64 != 0 || Cout < 1 ||
+      c_cols < Cout || c_cols % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Geometry g;
-  g.n = n, g.H = H, g.W = W, g.Cin = Cin, g.Cout = Cout;
-  g.frames = frames, g.rows = rows, g.cols = cols;
-  g.tiles_y = (H - 2 + rows - 1) / rows, g.tiles_x = (W - 2 + cols - 1) / cols, g.co_tiles = (Cout + kBN - 1) / kBN;
-  g.n_steps = Cin * 2 / kKB;
-  using Kernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, const Geometry);
-  Kernel kernel = m_tiles == 2   ? conv_pool_bf16_kernel<2>
-                  : m_tiles == 3 ? conv_pool_bf16_kernel<3>
-                                 : conv_pool_bf16_kernel<4>;
-  const size_t bytes = lowp_stage_bytes(g.frames, g.rows, g.cols);
-  if (bytes > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>((n + frames - 1) / frames) * g.tiles_y * g.tiles_x * g.co_tiles;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  int err = allow_dynamic_smem(kernel, bytes);
+  // (2, 128) takes stages of 64 channels (128 bytes of A); (4, 64) 32 channels (four m64 tiles' two A register
+  // sets would not fit at 64)
+  const int kb = m_tiles == 2 ? 128 : 64;
+  CUtensorMap wmap, bmap;
+  int err = make_tensor_map_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, c_cols, 9ull * Cin, 2ull * c_cols, 64,
+                               kb / 2, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wq), static_cast<const bf16*>(b), static_cast<bf16*>(out),
-      g);
-  return static_cast<int>(cudaGetLastError());
+  const uint64_t dims[4] = {static_cast<uint64_t>(c_cols), static_cast<uint64_t>(W), static_cast<uint64_t>(H), 1};
+  const uint64_t strides[3] = {2ull * c_cols, 2ull * c_cols * W, 2ull * c_cols * W * H};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(cols + 2), static_cast<uint32_t>(rows + 2), 1};
+  err = make_tensor_map_4d(&bmap, b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const WgGeometry g = geometry(n, H, W, Cin, Cout, frames, rows, cols, block_n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m_tiles == 2) return launch_wgmma<Bf16Form, 2, 128, 128>(wmap, bmap, x, b, nullptr, nullptr, out, g, s);
+  return launch_wgmma<Bf16Form, 4, 64, 64>(wmap, bmap, x, b, nullptr, nullptr, out, g, s);
 }
 
 // The int8 form, the whole call: x (n, H, W, Cin) float32 (is_bf16 = 0) or bf16, 16-byte aligned; w (3, 3, Cin,
@@ -771,10 +740,8 @@ extern "C" int fused_conv_pool_stage_int8(const void* x, const void* w, const vo
                                           int H, int W, int Cin, int Cout, int is_bf16, int frames, int rows, int cols,
                                           int m_tiles, int block_n, void* stream) {
   const bool shape_ok = (m_tiles == 2 && block_n == 128) || (m_tiles == 4 && block_n == 64);
-  if (!shape_ok || n < 1 || H < 3 || W < 3 || Cin < 1 || Cout < 1 || frames < 1 || rows < 1 || rows > H - 2 ||
-      cols < 1 || cols > W - 2 || frames * (rows + 2) * (cols + 2) > 128 * m_tiles ||
-      static_cast<long long>(n) * H * W >= (1LL << 31) || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(ws) % 256 != 0)
+  if (!shape_ok || !tile_ok(n, H, W, frames, rows, cols, m_tiles) || Cin < 1 || Cout < 1 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cin_p = (Cin + kIKC - 1) / kIKC * kIKC;
   const long long positions = static_cast<long long>(n) * H * W;
@@ -792,11 +759,7 @@ extern "C" int fused_conv_pool_stage_int8(const void* x, const void* w, const vo
   if (err) return err;
   err = launch_pack(w, p.wq, p.s_w, Cin, cin_p, Cout, s);
   if (err) return err;
-  I8Geometry g;
-  g.n = n, g.H = H, g.W = W, g.Cin_p = cin_p, g.Cout = Cout;
-  g.frames = frames, g.rows = rows, g.cols = cols;
-  g.tiles_y = (H - 2 + rows - 1) / rows, g.tiles_x = (W - 2 + cols - 1) / cols;
-  g.co_tiles = (Cout + block_n - 1) / block_n;
+  const WgGeometry g = geometry(n, H, W, cin_p, Cout, frames, rows, cols, block_n);
   // (2, 128) takes stages of 128 bytes of channels where Cin_p allows (half the stages and their barriers; its two
   // A register sets are then 64 registers); (4, 64) keeps 64 (four m64 tiles' sets would not fit)
   if (m_tiles == 2 && cin_p % 128 == 0)

@@ -1,7 +1,9 @@
 // Hopper's machinery for kernels that feed wgmma from TMA, shared by the
-// redesigned head (csrc/matmul.cu, 3-bf16) and int8 conv-pool stage
-// (csrc/fused_stage_lowp.cu, 2-int8); kernel 1 (csrc/fused_preprocess.cu)
-// takes its mbarrier helpers and bulk copy from here too.
+// redesigned head (csrc/matmul.cu, 3-bf16), the conv-pool stage's bf16 and
+// int8 forms (csrc/fused_stage_lowp.cu, 2-bf16 and 2-int8) and the bf16
+// fusion MLP (csrc/fused_mlp.cu, 4-bf16); kernel 1
+// (csrc/fused_preprocess.cu) takes its mbarrier helpers and bulk copy from
+// here too.
 //
 //   * Tensor maps are encoded on the host by the driver's
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so a
@@ -18,7 +20,7 @@
 //     a stage's swizzle atom must start on a 1024-byte boundary for the
 //     descriptor's base offset of 0 to hold), fence / commit / wait, and
 //     setmaxnreg to move registers from the head's producer warpgroup to its
-//     consumers (the int8 kernel has no producer warpgroup: see its note).
+//     consumers (the conv-pool template has no producer warpgroup: see its note).
 //     The descriptor's swizzle must be the TMA box's.
 //   * ptxas serializes wgmma (C7518) around any branch on the thread while
 //     a group is in flight, so the waits spin inside one asm block and the
@@ -69,6 +71,29 @@ inline int make_tensor_map_2d(CUtensorMap* map, const void* base, CUtensorMapDat
   const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 4-D map of an array of dims[0] x dims[1] x dims[2] x dims[3] elements (dims[0] innermost, contiguous;
+// strides[i] bytes between steps of dims[i + 1]), read in boxes of box[0..3] elements (box[0] * element
+// size the swizzle's span), zero outside the array: box coordinates may be negative.
+inline int make_tensor_map_4d(CUtensorMap* map, const void* base, CUtensorMapDataType type, const uint64_t* dims,
+                              const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cuuint64_t d[4], st[3];
+  cuuint32_t b[4];
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    if (dims[i] == 0 || box[i] == 0 || box[i] > 256 || (i < 3 && strides[i] % 16 != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i < 3) st[i] = strides[i];
+  }
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), d, st, b, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -162,6 +187,45 @@ __device__ __forceinline__ void tma_expect_load_2d_if(bool pred, void* dst, cons
       : "memory");
 }
 
+// The arrival with expect_tx of `bytes` alone, by the threads where `pred` holds (the copies follow with
+// tma_load_2d_if), without a branch around it.
+__device__ __forceinline__ void mbar_expect_tx_if(bool pred, uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %1, 0;\n @p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %2;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(static_cast<int>(pred)), "r"(bytes)
+      : "memory");
+}
+
+// tma_load_2d by the threads where `pred` holds, without a branch around it.
+__device__ __forceinline__ void tma_load_2d_if(bool pred, void* dst, const CUtensorMap* map, int c0, int c1,
+                                               uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %5, 0;\n"
+      " @p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// The box of 4-D `map` at element coordinates c0..c3 (c0 innermost) by the threads where `pred` holds, completing
+// on `bar`, without a branch around it.
+__device__ __forceinline__ void tma_load_4d_if(bool pred, void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                               int c3, uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %7, 0;\n"
+      " @p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// Orders this thread's ordinary (generic-proxy) writes to shared memory, its own block's or a cluster
+// peer's, before later reads by the async proxy (wgmma operands, TMA): a kernel that stores an operand
+// with st.shared fences before the barrier that hands it on.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async;\n" ::: "memory"); }
+
 // ---------------------------------------------------------------- device: wgmma
 
 constexpr unsigned kSwizzle128B = 1, kSwizzle64B = 2;   // a descriptor's layout type
@@ -200,8 +264,9 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // The accumulator layout of m64nN (float32 or int32): thread t of the warpgroup (warp w = t / 32, g = (t % 32)
 // / 4, q = t % 4) holds d[4j + e] at row 16w + g + 8(e / 2), column 8j + 2q + e % 2.  For register A (8-bit,
-// k32) each warp gives its 16 rows as mma.sync m16n8k32's A fragment: a0 rows g, bytes 4q..4q+3; a1 rows
-// g + 8; a2, a3 the same at bytes 16 + 4q: what ldmatrix x4 loads from rows lane % 16 at byte 16(lane / 16).
+// k32, or 16-bit, k16: 32 bytes of K either way) each warp gives its 16 rows as mma.sync's A fragment
+// (m16n8k32 s8, m16n8k16 bf16): a0 rows g, bytes 4q..4q+3; a1 rows g + 8; a2, a3 the same at bytes
+// 16 + 4q: what ldmatrix x4 loads from rows lane % 16 at byte 16(lane / 16).
 
 // D (64 x 256 float32, 128 a thread) += A (64 x 16 bf16, K-major) * B (16 x 256 bf16, N-major), both in
 // shared memory through their descriptors (B transposed: imm-trans-b = 1).
@@ -273,4 +338,89 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const uint32
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 128 float32, 64 a thread) += A (64 x 16 bf16, K-major, in registers: the m16n8k16 fragment of
+// each warp's 16 rows) * B (16 x 128 bf16, N-major, in shared memory through its descriptor: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_bmn(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 64 float32, 32 a thread) += A (64 x 16 bf16, K-major, in registers: the m16n8k16 fragment of
+// each warp's 16 rows) * B (16 x 64 bf16, N-major, in shared memory through its descriptor: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs_bmn(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 64 float32, 32 a thread) += A (64 x 16 bf16, M-major: imm-trans-a = 1) * B (16 x 64 bf16,
+// K-major), both in shared memory through their descriptors; D is overwritten (not added to) where
+// `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss_amn(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 32 float32, 16 a thread) += A (64 x 16 bf16, M-major: imm-trans-a = 1) * B (16 x 32 bf16,
+// K-major), both in shared memory through their descriptors; D is overwritten (not added to) where
+// `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n32k16_bf16_ss_amn(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 16 float32, 8 a thread) += A (64 x 16 bf16, M-major: imm-trans-a = 1) * B (16 x 16 bf16,
+// K-major), both in shared memory through their descriptors; D is overwritten (not added to) where
+// `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n16k16_bf16_ss_amn(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }

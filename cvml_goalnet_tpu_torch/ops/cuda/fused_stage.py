@@ -14,8 +14,9 @@ Two low-precision forms run on the tensor cores too (``csrc/fused_stage_lowp.cu`
 :func:`fused_conv_pool_stage_bf16` (bf16 in and out, float32 sums rounded where
 the JAX package's bf16 forward rounds) and :func:`fused_conv_pool_stage_int8`
 (the ``quantized_inference`` stage: int8 activations and weights, exact int32
-sums, dequantized to float32 or bf16).  The int8 form runs on ``wgmma`` with
-its weights streamed by TMA, tiled by :func:`int8_stage_plan`; the activation
+sums, dequantized to float32 or bf16).  Both run one kernel template on
+``wgmma`` with the weights streamed by TMA (the bf16 form's straight from w as
+stored), tiled by :func:`bf16_stage_plan` and :func:`int8_stage_plan`; the activation
 scale, the activations' and the weights' quantization are kernels of the same
 call (:func:`act_scale_int8` and :func:`pack_weights_int8` run the last two
 passes alone), so no op of ``ops/quant.py`` runs on the card.
@@ -50,7 +51,7 @@ _SIGNATURES = {
     "fused_conv_pool_stage_blocks_per_sm": [_I, _I, _I, _P],
 }
 _LOWP_SIGNATURES = {
-    "fused_conv_pool_stage_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fused_conv_pool_stage_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fused_conv_pool_stage_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "int8_pack_weights": [_P, _P, _P, _I, _I, _P],
     "int8_act_scale": [_P, _P, _P, ctypes.c_longlong, _I, _P],
@@ -253,45 +254,6 @@ fused_conv_pool_stage.launches = 0
 
 # ---------------------------------------------------------------- the bf16 and int8 forms (csrc/fused_stage_lowp.cu)
 
-LOWP_CHUNK_BYTES = 32          # the bf16 form's bytes of input channels per pipeline stage: one MMA k-step a tap
-LOWP_STAGES = 3                # the bf16 form's ring depth
-_LOWP_X_PITCH = LOWP_CHUNK_BYTES + 16           # bytes per input position of a stage
-_LOWP_W_STAGE = BLOCK_N * (9 * LOWP_CHUNK_BYTES + 16)   # bytes of one stage's weights
-LOWP_REG_BLOCKS = {2: 2, 3: 2, 4: 1}            # the kernels' __launch_bounds__ minimum blocks per SM, by m_tiles
-
-
-def lowp_smem_bytes(plan: StagePlan) -> int:
-    """Dynamic shared memory of a block of the low-precision forms: the ring (weights and input per stage)
-    and the input offset table; the epilogue's float32 conv tile reuses it."""
-    m, p = block_positions(plan)
-    return max(LOWP_STAGES * (_LOWP_W_STAGE + p * _LOWP_X_PITCH) + 4 * p, 4 * m * _C_PITCH)
-
-
-@functools.lru_cache(maxsize=1024)
-def lowp_stage_plan(n: int, h: int, w: int, cout: int, sms: int) -> StagePlan:
-    """The tile of the low-precision forms for x (n, h, w, ·) → (n, h − 2, w − 2, cout) on a card of ``sms``
-    SMs: every candidate tile of each ``m_tiles`` in 2, 3, 4 that fits, by :func:`plan_cost` with the
-    kernels' blocks per SM (their launch bounds, or fewer where shared memory binds), then the fewest
-    blocks, then the smallest ``m_tiles``.  (``stages`` is the fixed ring depth.)"""
-    best = None
-    for mi in M_TILES:
-        for f, r, c in _tiles(n, h, w, mi):
-            plan = StagePlan(f, r, c, mi, LOWP_STAGES)
-            smem = lowp_smem_bytes(plan)
-            if smem > BLOCK_SMEM:
-                continue
-            regs = {mi: min(LOWP_REG_BLOCKS[mi], SM_SMEM // (smem + SMEM_PER_BLOCK))}
-            key = (plan_cost(plan, n, h, w, cout, sms, regs), block_count(plan, n, h, w, cout), mi)
-            if best is None or key < best[0]:
-                best = (key, plan)
-    return best[1]
-
-
-def card_lowp_stage_plan(n: int, h: int, w: int, cout: int, device: torch.device) -> StagePlan:
-    """:func:`lowp_stage_plan` with the SMs of the card ``device``."""
-    sms = torch.cuda.get_device_properties(_build.device_index(device)).multi_processor_count
-    return lowp_stage_plan(n, h, w, cout, sms)
-
 
 def _relu_pool(y: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(torch.relu(y), 3, 1).permute(0, 2, 3, 1)
@@ -323,62 +285,24 @@ def _check_lowp(what: str, x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Te
     _build.refuse_grad(what, x, w, b_spatial)
 
 
-def _padded(t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """``t`` (a view in any layout) zero-padded at the end of each axis to ``shape``, contiguous; ``t`` itself
-    when it is contiguous at that shape already."""
-    if tuple(t.shape) == shape and t.is_contiguous():
-        return t
-    out = t.new_zeros(shape)
-    out[tuple(slice(0, d) for d in t.shape)] = t
-    return out
+# ---------------------------------------------------------------- the wgmma plans: 2-int8 and 2-bf16
 
-
-def fused_conv_pool_stage_bf16(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
-    """The bf16 form: x (N, H, W, C), w (3, 3, C, Co), b_spatial (H, W, Co), all bf16 → (N, H−2, W−2, Co) bf16.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel with
-    :func:`card_lowp_stage_plan`.  Cin is zero-padded to a multiple of 16 and Co to a multiple of 64.
-    """
-    if x.device.type == "cpu":
-        return fused_conv_pool_stage_bf16_plain(x, w, b_spatial)
-    _check_lowp("fused_conv_pool_stage_bf16", x, w, b_spatial)
-    _build.require_dtype("fused_conv_pool_stage_bf16", x.device, torch.bfloat16, x=x, w=w, b_spatial=b_spatial)
-    n, h, wd, cin = x.shape
-    cout = w.shape[3]
-    out = torch.empty((n, h - 2, wd - 2, cout), dtype=torch.bfloat16, device=x.device)
-    if n == 0 or cout == 0:
-        return out
-    cin_p, cout_p = -(-cin // 16) * 16, -(-cout // BLOCK_N) * BLOCK_N
-    xk = _padded(x, (n, h, wd, cin_p))
-    wq = _padded(w.permute(3, 0, 1, 2), (cout_p, 3, 3, cin_p))
-    plan = card_lowp_stage_plan(n, h, wd, cout, x.device)
-    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
-    with _build.on_device(xk):
-        code = lib.fused_conv_pool_stage_bf16(
-            xk.data_ptr(), wq.data_ptr(), b_spatial.data_ptr(), out.data_ptr(), n, h, wd, cin_p, cout,
-            plan.frames, plan.rows, plan.cols, plan.m_tiles, _build.stream_of(xk),
-        )
-    _build.check(lib, code, "fused_conv_pool_stage_bf16")
-    fused_conv_pool_stage_bf16.launches += 1
-    return out
-
-
-fused_conv_pool_stage_bf16.launches = 0
-
-
-# ---------------------------------------------------------------- 2-int8 on wgmma
-
-INT8_SHAPES = ((2, 128), (4, 64))   # built (m_tiles, block_n): m64 tiles per consumer warpgroup, channels a block
+WGMMA_SHAPES = ((2, 128), (4, 64))  # built (m_tiles, block_n): m64 tiles per consumer warpgroup, channels a block
+INT8_SHAPES = WGMMA_SHAPES
 INT8_K_BYTES = 64                   # Cin is padded to a multiple of this many int8 channels (a weight stage's least)
-INT8_RING_BYTES = 64 * 1024         # weights in flight: stages of 64 or 128 input channels at one tap
-INT8_FIXED = 64                     # a block's cost besides its MMAs (input tile, epilogue), in m64n128k32 wgmma
+INT8_RING_BYTES = 64 * 1024         # int8 weights in flight: stages of 64 or 128 input channels at one tap
+BF16_K = 64                         # bf16: Cin a multiple of this (a stage's box of K stays inside its tap)
+BF16_RING_BYTES = 96 * 1024         # bf16 weights in flight
+WGMMA_FIXED = 64                    # a block's cost besides its MMAs and weight bytes (input tile, epilogue), in
+                                    # units of one wgmma m64n128 of 32 bytes of K
+WGMMA_BYTES_PER_UNIT = 1024         # L2 bytes of weights a block takes in the time of one such unit
 
 
 class Int8Plan(NamedTuple):
-    """How the int8 kernel tiles (N, H, W): ``frames`` per block, each cut into tiles of ``rows`` × ``cols``
-    pooled positions (the whole frame when they are H − 2 and W − 2); two consumer warpgroups of ``m_tiles``
-    m64 tiles each, so frames · (rows + 2) · (cols + 2) ≤ 128 · m_tiles conv positions; ``block_n`` output
-    channels a block."""
+    """How a wgmma conv-pool kernel (either form) tiles (N, H, W): ``frames`` per block, each cut into tiles of
+    ``rows`` × ``cols`` pooled positions (the whole frame when they are H − 2 and W − 2); two consumer
+    warpgroups of ``m_tiles`` m64 tiles each, so frames · (rows + 2) · (cols + 2) ≤ 128 · m_tiles conv
+    positions; ``block_n`` output channels a block."""
     frames: int
     rows: int
     cols: int
@@ -386,21 +310,51 @@ class Int8Plan(NamedTuple):
     block_n: int
 
 
+
 def int8_cin(cin: int) -> int:
     """Input channels as the int8 kernel lays them out: ``cin`` rounded up to :data:`INT8_K_BYTES`."""
     return -(-cin // INT8_K_BYTES) * INT8_K_BYTES
 
 
-def int8_smem_bytes(plan: Int8Plan, cin_p: int) -> int:
-    """Dynamic shared memory of a block (csrc/fused_stage_lowp.cu::int8_smem): 1024 bytes of alignment slack; the
-    weight ring and the input tile (rows of cin_p + 16 bytes), which the epilogue's float32 conv tile reuses; one
-    frame's bias tile (rows of 4 · block_n + 16 bytes), the block_n scales and the ring's barriers."""
+def bf16_cin(cin: int) -> int:
+    """Input channels as the bf16 kernel takes them: ``cin`` rounded up to :data:`BF16_K` (the wrapper pads x
+    and w only off that multiple)."""
+    return -(-cin // BF16_K) * BF16_K
+
+
+def wgmma_k_bytes(plan: Int8Plan, cin_p: int, elem_bytes: int) -> int:
+    """Bytes of input channels a stage of the kernel takes (KB): 128 on (2, 128) where the channels' bytes are a
+    multiple of 128, else 64 (four m64 tiles' two A register sets take no more)."""
+    return 128 if plan.m_tiles == 2 and (elem_bytes * cin_p) % 128 == 0 else 64
+
+
+def _wgmma_smem(plan: Int8Plan, ring: int, row_bytes: int, kb: int, staged_bias: bool) -> int:
+    """csrc/fused_stage_lowp.cu::wg_smem: 1024 bytes of alignment slack; the weight ring and the input ring (one
+    or two buffers of one kb-byte chunk of the input tile, each a multiple of 1024), which the epilogue's float32
+    conv tile reuses; one frame's bias tile: the int8 form's (rows of 4 · block_n + 16 bytes) and its block_n
+    scales, or the bf16 form's block_n / 64 TMA boxes of 128 bytes a position (each a multiple of 1024, from a
+    1024-byte boundary); the barriers (the weight ring's, room for the most stages, the input ring's and the
+    bias tile's)."""
     m, p = block_positions(plan)
-    body = INT8_RING_BYTES + p * (cin_p + 16)
-    conv = 4 * m * (plan.block_n + 4)
+    input_buf = -(-kb * p // 1024) * 1024
+    body = -(-max(ring + (1 if row_bytes // kb < 2 else 2) * input_buf, 4 * m * (plan.block_n + 4)) // 16) * 16
     per_frame = (plan.rows + 2) * (plan.cols + 2)
-    barriers = 2 * 8 * (INT8_RING_BYTES // (plan.block_n * INT8_K_BYTES))   # room for the most stages
-    return 1024 + -(-max(body, conv) // 16) * 16 + per_frame * (4 * plan.block_n + 16) + 4 * plan.block_n + barriers
+    barriers = 8 * (2 * (ring // (plan.block_n * 64)) + 5)
+    if staged_bias:
+        return 1024 + body + per_frame * (4 * plan.block_n + 16) + 4 * plan.block_n + barriers
+    return 1024 + -(-body // 1024) * 1024 + plan.block_n // 64 * -(-per_frame * 128 // 1024) * 1024 + barriers
+
+
+def int8_smem_bytes(plan: Int8Plan, cin_p: int) -> int:
+    """Dynamic shared memory of an int8 block: the ring of :data:`INT8_RING_BYTES`, the input ring of ``cin_p``
+    bytes a position, the staged bias tile and scales (:func:`_wgmma_smem`)."""
+    return _wgmma_smem(plan, INT8_RING_BYTES, cin_p, wgmma_k_bytes(plan, cin_p, 1), True)
+
+
+def bf16_smem_bytes(plan: Int8Plan, cin_p: int) -> int:
+    """Dynamic shared memory of a bf16 block: the ring of :data:`BF16_RING_BYTES`, the input ring of 2 · ``cin_p``
+    bytes a position and the bias tile's TMA boxes (:func:`_wgmma_smem`)."""
+    return _wgmma_smem(plan, BF16_RING_BYTES, 2 * cin_p, wgmma_k_bytes(plan, cin_p, 2), False)
 
 
 def int8_block_count(plan: Int8Plan, n: int, h: int, w: int, cout: int) -> int:
@@ -410,11 +364,37 @@ def int8_block_count(plan: Int8Plan, n: int, h: int, w: int, cout: int) -> int:
 
 
 def int8_plan_cost(plan: Int8Plan, n: int, h: int, w: int, cin: int, cout: int, sms: int) -> float:
-    """The plan model's time: blocks run one an SM (256 threads at over 128 registers each), each its m64 tiles'
-    wgmma (in m64n128k32 units: 2 k-steps at each of 9 taps per 64 input channels) plus :data:`INT8_FIXED`."""
+    """The int8 plan model's time: blocks run one an SM (256 threads at over 128 registers each), each its m64 tiles'
+    wgmma (in m64n128k32 units: 2 k-steps at each of 9 taps per 64 input channels) plus :data:`WGMMA_FIXED`."""
     m, _ = block_positions(plan)
     mma = math.ceil(m / 64) * plan.block_n / 128 * 2 * 9 * int8_cin(cin) // INT8_K_BYTES
-    return math.ceil(int8_block_count(plan, n, h, w, cout) / sms) * (mma + INT8_FIXED)
+    return math.ceil(int8_block_count(plan, n, h, w, cout) / sms) * (mma + WGMMA_FIXED)
+
+
+def bf16_plan_cost(plan: Int8Plan, n: int, h: int, w: int, cin: int, cout: int, sms: int) -> float:
+    """The bf16 plan model's time: blocks run one an SM, each the larger of its wgmma (every m64 tile of both
+    warpgroups, in m64n128k16 units: 4 k-steps at each of 9 taps per 64 input channels) and its weight bytes
+    through L2 (9 · Cin · block_n · 2, at :data:`WGMMA_BYTES_PER_UNIT` a unit), plus :data:`WGMMA_FIXED`: so a
+    block of more rows pays its weights over more products."""
+    cin_p = bf16_cin(cin)
+    mma = 2 * plan.m_tiles * plan.block_n / 128 * 9 * cin_p / 16
+    weight_units = 9 * cin_p * plan.block_n * 2 / WGMMA_BYTES_PER_UNIT
+    return math.ceil(int8_block_count(plan, n, h, w, cout) / sms) * (max(mma, weight_units) + WGMMA_FIXED)
+
+
+def _wgmma_plan(what: str, n: int, h: int, w: int, cin: int, cout: int, sms: int, smem, cost) -> Int8Plan:
+    best = None
+    for mt, bn in WGMMA_SHAPES:
+        for f, r, c in _tiles(n, h, w, 2 * mt):
+            plan = Int8Plan(f, r, c, mt, bn)
+            if smem(plan) > BLOCK_SMEM:
+                continue
+            key = (cost(plan, n, h, w, cin, cout, sms), int8_block_count(plan, n, h, w, cout), mt)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is None:
+        raise ValueError(f"{what}: no tile of {cin} input channels fits a block's {BLOCK_SMEM} bytes of shared memory")
+    return best[1]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -423,18 +403,83 @@ def int8_stage_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int) -> In
     tile of every built shape that fits a block's shared memory, by :func:`int8_plan_cost`, then the fewest
     blocks, then the smaller ``m_tiles``."""
     cin_p = int8_cin(cin)
-    best = None
-    for mt, bn in INT8_SHAPES:
-        for f, r, c in _tiles(n, h, w, 2 * mt):
-            plan = Int8Plan(f, r, c, mt, bn)
-            if int8_smem_bytes(plan, cin_p) > BLOCK_SMEM:
-                continue
-            key = (int8_plan_cost(plan, n, h, w, cin, cout, sms), int8_block_count(plan, n, h, w, cout), mt)
-            if best is None or key < best[0]:
-                best = (key, plan)
-    if best is None:
-        raise ValueError(f"fused_conv_pool_stage_int8: no tile of {cin} input channels fits a block")
-    return best[1]
+    return _wgmma_plan("fused_conv_pool_stage_int8", n, h, w, cin, cout, sms,
+                       lambda p: int8_smem_bytes(p, cin_p), int8_plan_cost)
+
+
+@functools.lru_cache(maxsize=1024)
+def bf16_stage_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int) -> Int8Plan:
+    """The bf16 kernel's plan, as :func:`int8_stage_plan` with :func:`bf16_smem_bytes` (two bytes a channel, no
+    staged bias) and :func:`bf16_plan_cost` (which weighs a block's rows against its weight bytes); a
+    ``ValueError`` when no tile fits."""
+    cin_p = bf16_cin(cin)
+    return _wgmma_plan("fused_conv_pool_stage_bf16", n, h, w, cin, cout, sms,
+                       lambda p: bf16_smem_bytes(p, cin_p), bf16_plan_cost)
+
+
+def stage_sms(device: torch.device) -> int:
+    """SMs of the card ``device`` (the wgmma plans' one card input)."""
+    return torch.cuda.get_device_properties(_build.device_index(device)).multi_processor_count
+
+
+def card_bf16_stage_plan(n: int, h: int, w: int, cin: int, cout: int, device: torch.device) -> Int8Plan:
+    """:func:`bf16_stage_plan` with the SMs of the card ``device``."""
+    return bf16_stage_plan(n, h, w, cin, cout, stage_sms(device))
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) itself on a 16-byte boundary, else a copy that is: the kernels read x in 16-byte words."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fused_conv_pool_stage_bf16(x: torch.Tensor, w: torch.Tensor, b_spatial: torch.Tensor) -> torch.Tensor:
+    """The bf16 form: x (N, H, W, C), w (3, 3, C, Co) HWIO, b_spatial (H, W, Co), all bf16 → (N, H−2, W−2, Co) bf16.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel once with
+    :func:`card_bf16_stage_plan`, its weights read by TMA from w as stored.  Only off the kernel's multiples is
+    anything copied: C off a multiple of 64 (x and w zero-padded), Co off a multiple of 8 (w's and b_spatial's
+    channels), a tensor off a 16-byte boundary.  More than 2^31 positions raise ``ValueError`` before any
+    launch; any C fits (the input tile arrives a chunk of channels at a time).
+    """
+    if x.device.type == "cpu":
+        return fused_conv_pool_stage_bf16_plain(x, w, b_spatial)
+    _check_shapes(x, w, b_spatial)
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if n * h * wd >= 2**31:
+        raise ValueError(f"fused_conv_pool_stage_bf16: {n}×{h}×{wd} positions pass the kernel's 32-bit offsets")
+    plan = card_bf16_stage_plan(max(n, 1), h, wd, cin, cout, x.device)
+    _check_lowp("fused_conv_pool_stage_bf16", x, w, b_spatial)
+    _build.require_dtype("fused_conv_pool_stage_bf16", x.device, torch.bfloat16, x=x, w=w, b_spatial=b_spatial)
+    out = torch.empty((n, h - 2, wd - 2, cout), dtype=torch.bfloat16, device=x.device)
+    if n == 0 or cout == 0:
+        return out
+    cin_p, c_cols = bf16_cin(cin), -(-cout // 8) * 8
+    xk = _aligned16(_padded(x, (n, h, wd, cin_p)))
+    wk = _aligned16(_padded(w, (3, 3, cin_p, c_cols)))
+    bk = _aligned16(_padded(b_spatial, (h, wd, c_cols)))
+    lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
+    with _build.on_device(xk):
+        code = lib.fused_conv_pool_stage_bf16(
+            xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), n, h, wd, cin_p, cout, c_cols,
+            plan.frames, plan.rows, plan.cols, plan.m_tiles, plan.block_n, _build.stream_of(xk),
+        )
+    _build.check(lib, code, "fused_conv_pool_stage_bf16")
+    fused_conv_pool_stage_bf16.launches += 1
+    return out
+
+
+fused_conv_pool_stage_bf16.launches = 0
+
+
+def _padded(t: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``t`` zero-padded at the end of each axis to ``shape``, contiguous; ``t`` itself when it is contiguous at
+    that shape already."""
+    if tuple(t.shape) == shape and t.is_contiguous():
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, d) for d in t.shape)] = t
+    return out
 
 
 def card_int8_stage_plan(n: int, h: int, w: int, cin: int, cout: int, device: torch.device) -> Int8Plan:
@@ -471,11 +516,6 @@ def act_scale_int8_plain(x: torch.Tensor) -> torch.Tensor:
     """The activation scale in plain PyTorch, computed as the kernel computes it: the largest bit pattern of |x|
     in float32, then max(amax / 127, 1e-12); a float32 scalar."""
     return quant.amax_scale(x.abs().to(torch.float32).contiguous().view(torch.int32).amax().view(torch.float32))
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (contiguous) itself on a 16-byte boundary, else a copy that is: the kernels read x in 16-byte words."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def pack_weights_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -15,9 +15,9 @@ versions, the backwards dq, dk and dv to 1e-4·max(1, max|plain|): the
 tolerances of ``tests/test_flash_attention.py``.  The spotting path, one
 train step per scorer and one video of the summarization train function are
 held against the CPU.  The bf16 and int8 forms of kernels 2-4 are held to
-their plain versions at the main paths' shapes, an odd shape and N = 0, and
-``fuse`` under the serving preset's modes to the CPU (tolerances where they
-are defined below).
+their plain versions at the main paths' shapes, odd shapes and N = 0 (4-bf16
+also under every plan), with equal bits on a repeat, and ``fuse`` under the
+serving preset's modes to the CPU (tolerances where they are defined below).
 """
 
 import json
@@ -1208,7 +1208,15 @@ def _stage_inputs(dev, n, hh, cin, cout, seed):
     return x, w, b
 
 
-@pytest.mark.parametrize("n,hh,cin,cout", STAGE_LOWP_CASES)
+STAGE_BF16_CASES = STAGE_LOWP_CASES + [
+    (1050, 13, 64, 256),   # conv1 at the summarization batch's N
+    (1050, 11, 256, 512),  # conv2 at the summarization batch's N
+    (2, 11, 64, 200),      # Cout off both block widths but a multiple of 8 (no copy of w)
+    (2, 64, 256, 512),     # a frame past one block: tiles with a recomputed halo, TMA boxes across the edges
+]
+
+
+@pytest.mark.parametrize("n,hh,cin,cout", STAGE_BF16_CASES)
 def test_stage_bf16_matches_plain(dev, n, hh, cin, cout):
     x, w, b = (t.to(torch.bfloat16) for t in _stage_inputs(dev, n, hh, cin, cout, 3))
     before = fused_conv_pool_stage.launches, fused_conv_pool_stage_bf16.launches
@@ -1218,6 +1226,21 @@ def test_stage_bf16_matches_plain(dev, n, hh, cin, cout):
     want = fused_conv_pool_stage_bf16_plain(x, w, b)
     bias_window = torch.nn.functional.max_pool2d(b.to(torch.float32).abs().permute(2, 0, 1)[None], 3, 1)[0]
     assert_bf16_close(got, want, 2 * bias_window.permute(1, 2, 0)[None], f"stage bf16 {[n, hh, cin, cout]}")
+    if n:
+        assert torch.equal(got, fused_conv_pool_stage_bf16(x, w, b)), "two runs on the same inputs differ"
+
+
+def test_stage_bf16_reads_w_as_stored(dev, monkeypatch):
+    """At the path's shapes (Cin 64 and 256, Cout a multiple of 8) the bf16 form hands the kernel x, w and b as
+    they are: no copy, no repack."""
+    for n, hh, cin, cout in ((3, 13, 64, 256), (2, 11, 256, 512)):
+        x, w, b = (t.to(torch.bfloat16) for t in _stage_inputs(dev, n, hh, cin, cout, 4))
+        seen = []
+        real = stage_plan._aligned16
+        monkeypatch.setattr(stage_plan, "_aligned16", lambda t: seen.append(t) or real(t))
+        fused_conv_pool_stage_bf16(x, w, b)
+        monkeypatch.setattr(stage_plan, "_aligned16", real)
+        assert [t.data_ptr() for t in seen] == [x.data_ptr(), w.data_ptr(), b.data_ptr()]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1254,10 +1277,17 @@ def test_head_bf16_matches_plain(dev, m, k, n):
 
 
 @pytest.mark.parametrize("m,dims,squash", [(1050, (640, 512, 512, 256, 128, 1), True),
-                                           (5400, (640, 512, 512, 256, 128, 1), True),   # blocks of 16 rows
-                                           (7, (48, 33, 17, 1), True),
+                                           (5400, (640, 512, 512, 256, 128, 1), True),
+                                           (7, (48, 33, 17, 1), True),   # widths off 8: zero-padded for TMA
                                            (40, (640, 512, 512, 256, 128, 5), False),
-                                           (0, (640, 512, 1), True)])
+                                           (0, (640, 512, 1), True),
+                                           (1050, (512, 512, 512, 256, 128, 1), True),   # --no-audio's input
+                                           (1, (640, 512, 512, 256, 128, 1), True),
+                                           (63, (640, 512, 512, 256, 128, 1), True),
+                                           (65, (640, 512, 512, 256, 128, 1), True),
+                                           (9, (640, 1), True),    # one layer: the CUDA-core layer alone
+                                           (33, (64, 128, 64, 192, 64, 96, 64, 64, 1), False),   # eight layers
+                                           (150, (640, 512, 512, 256, 128, 16), True)])   # the widest last layer
 def test_mlp_bf16_matches_plain(dev, m, dims, squash):
     gen = np.random.default_rng(11)
     layers = [{"w": torch.as_tensor(gen.standard_normal((a, c)) * a ** -0.5 * 2, dtype=torch.bfloat16, device=dev),
@@ -1273,6 +1303,28 @@ def test_mlp_bf16_matches_plain(dev, m, dims, squash):
     if squash and m:
         g = got.to(torch.float32)
         assert ((g >= 1) & (g <= 5)).all()
+        assert (g - want.to(torch.float32)).abs().max() <= 0.0625   # 2 bf16 ulps on [4, 5]
+    if m:
+        assert torch.equal(got, fused_fusion_mlp(x, layers, 1.0, 5.0, squash)), "two runs on the same inputs differ"
+
+
+@pytest.mark.parametrize("rows", mlp_plan.BF16_ROWS)
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_mlp_bf16_every_plan(dev, rows, cluster):
+    """4-bf16 under every (rows per tile, cluster) at M = 1050 with the fusion widths: within 2 bf16 ulps of the
+    plain version, one launch, equal bits on a repeat."""
+    gen = np.random.default_rng(12)
+    dims = (640, 512, 512, 256, 128, 1)
+    layers = [{"w": torch.as_tensor(gen.standard_normal((a, c)) * a ** -0.5 * 2, dtype=torch.bfloat16, device=dev),
+               "b": torch.as_tensor(gen.standard_normal(c) * 0.1, dtype=torch.bfloat16, device=dev)}
+              for a, c in zip(dims[:-1], dims[1:])]
+    x = torch.as_tensor(gen.random((1050, 640)), dtype=torch.bfloat16, device=dev)
+    before = fused_fusion_mlp_bf16.launches
+    got = mlp_plan.fused_fusion_mlp_bf16_planned(x, layers, rows, cluster)
+    torch.cuda.synchronize()
+    assert fused_fusion_mlp_bf16.launches == before + 1
+    assert_bf16_close(got, fused_fusion_mlp_bf16_plain(x, layers), torch.zeros(()), f"mlp bf16 plan {rows}x{cluster}")
+    assert torch.equal(got, mlp_plan.fused_fusion_mlp_bf16_planned(x, layers, rows, cluster))
 
 
 @pytest.mark.parametrize("cin,cout", [(64, 256), (256, 512), (20, 70)])
