@@ -159,7 +159,25 @@ From the repository root, on a machine with a CUDA card:
     ``DynamicBatcher`` request against its bucket scored directly; (e) a
     quantized ``Spotter`` (2-int8 at T = 5400) on phase 5's match; (f) three
     bf16 mixed-precision train steps, card against CPU;
-13. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+13. the text (commentary) branch and the mixture-of-experts fusion at the
+    full width of ``configs/reference_parity.json`` (vocab 32,768, two
+    128-wide layers of 4 heads, 64 tokens; 4 experts, top 2), with seeded
+    commentary sidecars (a line of 3-12 words every 150 raw frames), after
+    phase 12: (a) kernel 4 and 4-bf16 at M = 1050 on the 768-wide chain and
+    on the chain after an MoE first layer (parts of their rows, off the
+    rows' totals); (b) phase 1's three videos with commentary, with MoE and
+    with both (card vs CPU on 64 frames ≤ 1e-4, the text encoder's and the
+    MoE layer's share of the fuse); (c) ``infer --commentary --moe-experts
+    4`` on phase 9's video against the direct path, and ``--stream
+    --commentary`` exiting 2; (d) ``train --commentary --moe-experts 4
+    --epochs 1`` and ``eval --commentary`` on phase 10's videos, and the
+    first sub-batch's gradients with the auxiliary loss card vs CPU; (e)
+    the ``Summarizer`` and a batcher request with commentary, and a banded
+    ``Spotter`` on a 3-modality trunk over phase 5's match, its trunk vs
+    the CPU on 64 frames; (f) the serving preset with both flags, card vs
+    CPU ≤ 0.0625 (a frame beyond only where the gate routes it to other
+    experts on the two sides, reported);
+14. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
     as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and read
@@ -195,6 +213,7 @@ from cvml_goalnet_tpu_torch.data import dataset as dataset_io
 from cvml_goalnet_tpu_torch.data import video as video_io
 from cvml_goalnet_tpu_torch.data.audio_io import load_waveform, write_wav
 from cvml_goalnet_tpu_torch.data.dataset import uniform_clip_intervals
+from cvml_goalnet_tpu_torch.data.text import commentary_per_frame, tokenize
 from cvml_goalnet_tpu_torch.data.synthetic import (
     synthetic_change_points,
     synthetic_video_frames,
@@ -202,6 +221,8 @@ from cvml_goalnet_tpu_torch.data.synthetic import (
 )
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
+from cvml_goalnet_tpu_torch.models.avm import _fused_input, _moe_layer
+from cvml_goalnet_tpu_torch.models.text import text_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.ops.cuda import _build
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
@@ -303,7 +324,8 @@ from cvml_goalnet_tpu_torch.ops.cuda.matmul import (
 )
 from cvml_goalnet_tpu_torch.ops import knapsack as knapsack_module
 from cvml_goalnet_tpu_torch.ops.knapsack import DEVICE_MS, NATIVE_MS, auto_engine, knapsack_select
-from cvml_goalnet_tpu_torch.ops.preprocess import resize_taps_on
+from cvml_goalnet_tpu_torch.ops.audio import extract_audio_features
+from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames_host, resize_taps_on
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, fuse_many, summarize
 from cvml_goalnet_tpu_torch.spotting import (
     encode_timeline,
@@ -319,6 +341,7 @@ from cvml_goalnet_tpu_torch.train import loop as train_loop
 from cvml_goalnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from cvml_goalnet_tpu_torch.train.optim import tree_leaves, tree_map
 from cvml_goalnet_tpu_torch.train.state import TrainState, create_train_state
+from cvml_goalnet_tpu_torch.utils import compute_dtype, tree_cast
 from cvml_goalnet_tpu_torch.train.spotting import (
     init_spotting_opt,
     make_spotting_train_step,
@@ -812,10 +835,12 @@ def make_videos(cfg: PipelineConfig, seed: int) -> list[dict]:
     return videos
 
 
-def run_path(videos, params, state, cfg):
-    """The main path over ``videos``; also returns the wall seconds of its three stages."""
+def run_path(videos, params, state, cfg, commentary=None):
+    """The main path over ``videos`` (with each video's per-frame ``commentary`` for the text branch); also
+    returns the wall seconds of its three stages."""
     t0 = time.perf_counter()
-    feats = [extract_features(v["frames"], v["waveform"], cfg) for v in videos]
+    feats = [extract_features(v["frames"], v["waveform"], cfg, commentary=None if commentary is None else c)
+             for v, c in zip(videos, commentary or [None] * len(videos))]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     scores = fuse_many(params, state, feats, cfg)   # NumPy scores: waits for the card
@@ -2151,7 +2176,8 @@ def state_bytes(state) -> dict:
 
 
 def on_cpu(item):
-    return dataclasses.replace(item, visual=item.visual.cpu(), audio=None if item.audio is None else item.audio.cpu())
+    return dataclasses.replace(item, visual=item.visual.cpu(), audio=None if item.audio is None else item.audio.cpu(),
+                               text=None if item.text is None else item.text.cpu())
 
 
 def train_against_cpu(cfg: PipelineConfig, train_ds, val_ds, seed: int) -> dict:
@@ -2540,9 +2566,9 @@ def batcher_check(s, match: dict, cfg: PipelineConfig, seed: int, launches_by_pa
         fuse_s = []
         real_chunked = batcher._scores_chunked
 
-        def timed_chunked(visual, audio):
+        def timed_chunked(visual, audio, text=None):
             t = time.perf_counter()
-            r = real_chunked(visual, audio)
+            r = real_chunked(visual, audio, text)
             fuse_s.append(time.perf_counter() - t)
             return r
 
@@ -3448,6 +3474,346 @@ def lowp_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) 
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
     return rows
 
+# ---------------------------------------------------------------- phase 13: the text branch and the MoE fusion
+
+TEXT_LINE_EVERY = 150    # raw frames between two lines of a seeded commentary sidecar (5 s at 30 fps)
+TEXT_WORDS = ("goal", "shot", "save", "corner", "keeper", "header", "cross", "free", "kick", "penalty", "offside",
+              "tackle", "yellow", "card", "counter", "attack", "box", "post", "bar", "what", "a", "strike", "o'neill's")
+MOE_EXPERTS = 4          # --moe-experts of the JAX package's own CLI and MoE tests
+TEXT_MODES = {"text": (True, 0), "moe": (False, MOE_EXPERTS), "text_moe": (True, MOE_EXPERTS)}
+TEXT_FLAGS = ["--commentary", "--moe-experts", str(MOE_EXPERTS)]
+TEXT_BATCH_REQUEST = 100   # condensed frames of phase 13e's batcher request (bucket 256)
+
+
+def text_moe_cfg(base: PipelineConfig, mode: str = "text_moe") -> PipelineConfig:
+    """``base`` with the text branch (``--commentary``), the MoE fusion (``--moe-experts 4``) or both."""
+    text, experts = TEXT_MODES[mode]
+    return dataclasses.replace(base, model=dataclasses.replace(base.model, text_included=text,
+                                                               fusion_moe_experts=experts))
+
+
+def synthetic_commentary(full_n: int, seed: int) -> list[tuple[int, str]]:
+    """Seeded commentary: a line of 3-12 words from :data:`TEXT_WORDS` every :data:`TEXT_LINE_EVERY` raw frames."""
+    rng = np.random.default_rng(seed)
+    return [(f, " ".join(rng.choice(TEXT_WORDS, int(rng.integers(3, 13))))) for f in range(0, full_n, TEXT_LINE_EVERY)]
+
+
+def write_commentary(video_fp: str, full_n: int, seed: int) -> list[tuple[int, str]]:
+    """:func:`synthetic_commentary` written as the video's ``.commentary.jsonl`` sidecar; returns its lines."""
+    entries = synthetic_commentary(full_n, seed)
+    with open(video_fp.rsplit(".", 1)[0] + ".commentary.jsonl", "w") as f:
+        for frame, line in entries:
+            f.write(json.dumps({"frame": frame, "text": line}) + "\n")
+    return entries
+
+
+def text_moe_mlp_parts(n: int, seed: int, smi: str, gen) -> tuple[list[dict], list[dict]]:
+    """13a: kernel 4 and 4-bf16 at M = ``n`` on the 768-wide chain of the text branch and on the chain after an
+    MoE first layer (parts off the rows' totals, so the rows stay comparable with earlier runs)."""
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    chains = {"768-wide": weights.from_jax(*weights.init_params(text_moe_cfg(base, "text"), seed))[0]["fusion"],
+              "post-MoE": weights.from_jax(*weights.init_params(text_moe_cfg(base, "moe"), seed))[0]["fusion"][1:]}
+    lo, hi = base.model.out_lo, base.model.out_hi
+    f32, bf16 = [], []
+    for chain, layers in chains.items():
+        part = {**mlp_part(n, layers, True, lo, hi, False, gen), "chain": chain, "phase": 13}
+        f32.append(part)
+        print(f"phase 13a: fused_fusion_mlp at {part['shape']} ({chain}) on {smi}: {part['ms']:.4f} ms (plain "
+              f"{part['plain_ms']:.4f}, library {part['library_ms']:.4f}); bound {part['bound_ms']:.4f} ms "
+              f"({part['bound_by']}); plan {json.dumps(part['plan'])}; max |err| {part['max_abs_err']:.3g}", flush=True)
+        blayers = [{k: v.to(torch.bfloat16) for k, v in lp.items()} for lp in layers]
+        bf16.append({**lowp_mlp_part(n, blayers, lo, hi, gen, main_path=False), "chain": chain, "phase": 13})
+    return f32, bf16
+
+
+def moe_routing(params, state, feats: dict, cfg: PipelineConfig, n: int) -> torch.Tensor:
+    """The MoE gate's kept experts (n, E) of the first ``n`` frames of ``feats``, in ``cfg``'s dtype as ``fuse``
+    computes them."""
+    dt = compute_dtype(cfg.model.dtype)
+    p, s = tree_cast(params, dt), tree_cast(state, dt)
+    dev = feats["visual"].device
+    with torch.no_grad():
+        vis = visual_encoder_apply(p["visual"], s["visual"], feats["visual"][:n].to(dt),
+                                   quant=cfg.model.quantized_inference)
+        x = _fused_input(p, vis, feats["audio"][:n].to(dt), feats["text"][:n].to(dev), cfg.model)
+        return _moe_layer(p["fusion"][0], x, cfg.model)[1] > 0
+
+
+def text_moe_videos_check(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> dict:
+    """13b and 13f: phase 1's three videos with seeded commentary through ``extract_features(commentary=)`` →
+    ``fuse_many`` → ``summarize`` with the text branch, the MoE fusion and both, and the serving preset with
+    both: launches, card against CPU on 64 frames, the stage walls and the text encoder's and the MoE layer's
+    share of the fuse."""
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    skip = base.preprocess.skip_frames
+    comm = [commentary_per_frame(synthetic_commentary(v["full_n"], seed + 500 + i), len(v["frames"]), skip)
+            for i, v in enumerate(videos)]
+    m, n_total = CPU_CHECK_FRAMES, sum(VIDEO_LENGTHS)
+    v0 = videos[0]
+    out = {}
+    for mode in (*TEXT_MODES, "preset_text_moe"):
+        preset = mode.startswith("preset")
+        cfg = text_moe_cfg(preset_cfg()) if preset else text_moe_cfg(base, mode)
+        params_np, state_np = weights.init_params(cfg, seed)
+        params, state = weights.from_jax(params_np, state_np)
+        c = comm if cfg.model.text_included else None
+        label = "summarize_bf16_int8_text_moe" if preset else f"text_moe_summarize_{mode}"
+        kernels = LOWP_KERNELS["bf16_int8"] if preset else ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"]
+        feats, scores, results, _ = drive(label, kernels, lambda: run_path(videos, params, state, cfg, c),
+                                          launches_by_path)
+        check_outputs(videos, feats, scores, results, cfg)
+        if cfg.model.text_included:
+            require(all(tuple(f["text"].shape) == (len(v["frames"]), cfg.model.text_max_len)
+                        and f["text"].dtype == torch.int32 for f, v in zip(feats, videos)), f"{label}: token ids")
+        cpu_feats = extract_features(v0["frames"][:m], v0["waveform"][: m * v0["per_frame"]], cfg,
+                                     commentary=None if c is None else c[0][:m], device="cpu")
+        tp, ts = weights.from_jax(params_np, state_np, device="cpu")
+        cpu = fuse(tp, ts, cpu_feats, cfg, device="cpu")
+        card = scores[0][:m]
+        tol = 0.0625 if preset else 1e-4
+        err = float(np.abs(card - cpu).max())
+        rec = {"card_vs_cpu_max_abs_err": err, "tolerance": tol}
+        if preset:
+            require(np.array_equal(torch.from_numpy(card).to(torch.bfloat16).float().numpy(), card),
+                    f"{label}: scores off the bf16 grid")
+            # a gate whose k-th logit ties under one rounding and not the other routes a frame to other experts:
+            # allowed only there, and reported
+            parted = np.nonzero(np.abs(card - cpu) > tol)[0]
+            if len(parted):
+                routed = (moe_routing(params, state, feats[0], cfg, m).cpu()
+                          != moe_routing(tp, ts, cpu_feats, cfg, m)).any(dim=1).numpy()
+                require(bool(routed[parted].all()), f"{label}: card vs CPU {err} > {tol} on frames "
+                                                    f"{parted.tolist()} routed alike")
+                rec["rerouted_frames"] = parted.tolist()
+        else:
+            require(err <= tol, f"{label}: card vs CPU on {m} frames, max |err| {err} > {tol}")
+        if cfg.model.text_included and not preset:
+            with torch.no_grad():
+                gt = text_encoder_apply(params["text"], feats[0]["text"][:m], cfg=cfg.model).cpu()
+                ct = text_encoder_apply(tp["text"], cpu_feats["text"], cfg=cfg.model)
+            rel = float(((gt - ct).abs().max() / ct.abs().max().clamp_min(1.0)).item())
+            require(rel <= 1e-4, f"{label}: text features card vs CPU {rel} relative (> 1e-4)")
+            rec["text_features_rel"] = rel
+        walls, stages = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            stages.append(run_path(videos, params, state, cfg, c)[3])
+            walls.append(time.perf_counter() - t0)
+        dt = compute_dtype(cfg.model.dtype)
+        pc = tree_cast(params, dt)
+        with torch.no_grad():
+            rec["fuse_ms"] = time_ms(lambda: fuse_many(params, state, feats, cfg), 5)
+            if cfg.model.text_included:
+                tokens = torch.cat([f["text"] for f in feats])
+                rec["text_encoder_ms"] = time_ms(lambda: text_encoder_apply(pc["text"], tokens, cfg=cfg.model), 5)
+            if cfg.model.fusion_moe_experts:
+                x = torch.rand((n_total, pc["fusion"][0]["gate"]["w"].shape[0]), device="cuda").to(dt)
+                rec["moe_layer_ms"] = time_ms(lambda: _moe_layer(pc["fusion"][0], x, cfg.model), 5)
+        rec.update({"batch_s": statistics.median(walls), "frames_per_s": n_total / statistics.median(walls),
+                    "stage_ms": {k: 1e3 * statistics.median(st[k] for st in stages) for k in stages[0]}})
+        for k in ("text_encoder_ms", "moe_layer_ms"):
+            if k in rec:
+                rec[k.replace("_ms", "_share_of_fuse")] = rec[k] / rec["fuse_ms"]
+        out[mode] = rec
+        print(f"phase 13{'f' if preset else 'b'}: {mode} on {smi}: {json.dumps(rec)}", flush=True)
+    return out
+
+
+def text_moe_infer_check(seed: int, smi: str, launches_by_path: dict) -> dict:
+    """13c: ``cli.main(["infer", ..., "--commentary", "--moe-experts", "4"])`` offline on phase 9's video with a
+    seeded commentary sidecar and a trunk of that structure, against the direct path; ``--stream --commentary``
+    exits 2."""
+    os.environ.pop("GOALNET_PLATFORM", None)
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    cfg = text_moe_cfg(base)
+    skip = cfg.preprocess.skip_frames
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        inp = make_infer_inputs(cfg, seed, root)
+        base.save(inp["cfg_path"])   # the flags add the branch and the experts, as a user passes them
+        raw, video = inp["raw"], inp["video"]
+        full_n = len(raw)
+        entries = write_commentary(video, full_n, seed + 600)
+        sink = ExportSink(False)
+        video_io.export_video = sink
+        try:
+            argv = ["infer", video, "--config", inp["cfg_path"], "--workdir", inp["work"], *TEXT_FLAGS]
+            t0 = time.perf_counter()
+            rc = drive("infer_text_moe", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                       lambda: cli.main(argv), launches_by_path)
+            out["offline_s"] = time.perf_counter() - t0
+            require(rc == 0, f"13c: infer --commentary --moe-experts 4 exited {rc}")
+            frames = raw[::skip]
+            waveform, _ = load_waveform(video[:-4] + ".wav", cfg.audio.sample_rate)
+            p, s = weights.from_jax(*weights.init_params(cfg, seed))
+            feats = extract_features(frames, waveform, cfg, commentary=commentary_per_frame(entries, len(frames), skip))
+            direct = summarize(fuse(p, s, feats, cfg), uniform_clip_intervals(cfg, full_n), skip, full_n, cfg.knapsack)
+            require(np.array_equal(sink.frames, chosen_frames(raw, direct.clip_intervals)),
+                    "13c: infer --commentary --moe-experts 4 exported other frames than the direct path selects")
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main([*argv, "--no-audio", "--stream"])
+            require(rc == 2 and "commentary alignment" in err.getvalue(),
+                    f"13c: infer --stream --commentary exited {rc}: {err.getvalue()[-300:]}")
+            out.update({"exported_frames": int(len(sink.frames)), "stream_refusal": err.getvalue().strip()})
+        finally:
+            video_io.export_video = sink.writer
+    print(f"phase 13c: infer {' '.join(TEXT_FLAGS)} on {smi}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def text_moe_train_check(seed: int, smi: str, launches_by_path: dict) -> dict:
+    """13d: ``train --commentary --moe-experts 4 --epochs 1``, then ``eval --commentary`` with a config of 4
+    experts (``eval`` takes no ``--moe-experts``, as the JAX CLI's), on phase 10's videos (vidA and vidC
+    with seeded commentary sidecars, vidB and vidD without: empty commentary); then the first sub-batch's
+    gradients, the load-balance auxiliary loss included, card against CPU from one seeded state at dropout 0."""
+    os.environ.pop("GOALNET_PLATFORM", None)
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    cfg = text_moe_cfg(base)
+    kernels = ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        data = make_train_inputs(base, seed, root)
+        for i, fp in enumerate(data["videos"]):
+            if i % 2 == 0:
+                write_commentary(fp, TRAIN_VIDEO_FRAMES[i], seed + 700 + i)
+        cfg_path, moe_path = os.path.join(root, "cfg.json"), os.path.join(root, "moe.json")
+        base.save(cfg_path)
+        text_moe_cfg(base, "moe").save(moe_path)   # eval takes --commentary only (as the JAX CLI): MoE by config
+        store, plots = dataset_io.AnnotationStore, PlotSink()
+        saved = (viz.generate_metric_plots, viz.export_indices)
+        dataset_io.AnnotationStore = AnnotationStand
+        viz.generate_metric_plots, viz.export_indices = plots.metric_plots, plots.export_indices
+        args = ["--videos", *data["videos"], "--annotation-fp", data["annotation_fp"], "--mat-fp", data["mat_fp"],
+                "--h5-fp", data["h5_fp"], "--info-fp", data["info_fp"], "--workdir", os.path.join(root, "work")]
+        try:
+            verbs = (("train_text_moe", ["train", *args, "--config", cfg_path, *TEXT_FLAGS, "--epochs", "1"]),
+                     ("eval_text_moe", ["eval", *args, "--config", moe_path, "--commentary"]))
+            for label, argv in verbs:
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = drive(label, kernels, lambda: cli.main(argv), launches_by_path)
+                out[f"{label}_s"] = time.perf_counter() - t0
+                require(rc == 0 and "Operation completed" in buf.getvalue(), f"13d: {label} exited {rc}")
+                out[f"{label}_lines"] = [ln for ln in buf.getvalue().splitlines()
+                                         if ln.startswith(("[eval]", "Optimal"))]
+            dcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+            train_ds, _ = dataset_io.build_datasets(data["videos"], dcfg, data["annotation_fp"], data["mat_fp"],
+                                                    data["h5_fp"], data["info_fp"])
+        finally:
+            dataset_io.AnnotationStore = store
+            viz.generate_metric_plots, viz.export_indices = saved
+    item = train_ds[0]
+    require(item.text is not None and bool(item.text.any()), "13d: vidA's commentary did not reach its item")
+    fn = train_loop.make_train_video_fn(dcfg)
+    S = dcfg.train.subbatch_size
+    grads, losses = {}, {}
+    for name, it in (("card", item), ("cpu", on_cpu(item))):
+        d = it.visual.device
+        st = create_train_state(seed, dcfg, device=d)
+        v, a, lab, valid, _ = train_loop._pad_video(it, S, d)
+        text = train_loop._pad_text(it, len(v), d, dcfg)
+        loss, _, _, g = fn.value_and_grad(st.params, st.model_state, v[:S], a[:S], lab[:S], valid[:S], None, text[:S])
+        grads[name], losses[name] = [t.cpu() for t in tree_leaves(g)], float(loss)
+    ratio = max((a - b).abs().max().item() / (1e-4 * max(1.0, b.abs().max().item()))
+                for a, b in zip(grads["card"], grads["cpu"]))
+    require(ratio <= 1.0, f"13d: card vs CPU first gradients beyond 1e-4·max(1, max|g|) ({ratio:.3g}×)")
+    out.update({"first_loss": losses, "grad_ratio_of_tolerance": ratio, "leaves": len(grads["card"])})
+    print(f"phase 13d: train and eval {' '.join(TEXT_FLAGS)} on {smi}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def text_moe_serving_check(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> dict:
+    """13e: the ``Summarizer`` with commentary and one ``DynamicBatcher`` request with commentary, each against
+    the path scored directly; a banded ``Spotter`` on a 3-modality trunk (``configs/tpu_spotting.json`` with
+    ``--commentary``) over phase 5's match with seeded commentary, its trunk against the CPU on 64 frames."""
+    from cvml_goalnet_tpu_torch.serve import DynamicBatcher, Spotter, Summarizer
+
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    cfg = text_moe_cfg(base)
+    skip = cfg.preprocess.skip_frames
+    v = videos[0]
+    comm = commentary_per_frame(synthetic_commentary(v["full_n"], seed + 800), len(v["frames"]), skip)
+    summ = Summarizer(cfg, state=create_train_state(seed, cfg))
+    summ.warmup(((16, *RAW_HW),))
+    res = drive("serve_text_moe_summarizer", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                lambda: summ.summarize_frames("v", v["frames"], v["intervals"], v["full_n"], v["waveform"],
+                                              commentary=comm), launches_by_path)
+    p, s = summ.state.params, summ.state.model_state
+    direct = fuse(p, s, extract_features(v["frames"], v["waveform"], cfg, commentary=comm), cfg)
+    serr = float(np.abs(res.scores - direct).max())
+    require(serr <= 1e-5, f"13e: Summarizer with commentary {serr} from the direct path (> 1e-5)")
+    n = TEXT_BATCH_REQUEST
+    wave = v["waveform"][: n * v["per_frame"]]
+    batcher = DynamicBatcher(summ)
+    try:
+        req = drive("serve_text_moe_batcher", [*TRUNK, "fused_fusion_mlp"],
+                    lambda: batcher.submit("r", v["frames"][:n], waveform=wave, commentary=comm[:n]).result(),
+                    launches_by_path)
+    finally:
+        batcher.close()
+    bucket = batcher._bucket(n)
+    pad = bucket - n
+    vis = preprocess_frames_host(v["frames"][:n], cfg.preprocess.frame_size, cfg.preprocess.eps)
+    aud = extract_audio_features(wave, n, cfg.audio, torch.device("cuda"))
+    tok = tokenize(comm[:n], cfg.model.text_vocab_size, cfg.model.text_max_len)
+    want = fuse(p, s, {"visual": np.concatenate([vis, np.zeros((pad,) + vis.shape[1:], vis.dtype)]),
+                       "audio": torch.cat([aud, aud.new_zeros((pad,) + tuple(aud.shape[1:]))]),
+                       "text": np.concatenate([tok, np.zeros((pad,) + tok.shape[1:], tok.dtype)])}, cfg)[:n]
+    berr = float(np.abs(req.scores - want).max())
+    require(berr <= 1e-5, f"13e: the batcher's scores with commentary {berr} from its bucket scored directly")
+
+    banded = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+    scfg = text_moe_cfg(banded, "text")
+    match = make_match(banded, seed)
+    mcomm = commentary_per_frame(synthetic_commentary(match["full_n"], seed + 900), MATCH_FRAMES, skip)
+    sp = Spotter(scfg, state=create_train_state(seed, scfg))
+    sp.warmup(64)
+    walls = []
+    t0 = time.perf_counter()
+    got = drive("serve_text_spotter", ["fused_preprocess_frames", *TRUNK, "flash_local_fwd"],
+                lambda: sp.spot_frames("match", match["frames"], match["full_n"], match["waveform"], commentary=mcomm),
+                launches_by_path)
+    walls.append(time.perf_counter() - t0)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sp.spot_frames("match", match["frames"], match["full_n"], match["waveform"], commentary=mcomm)
+        walls.append(time.perf_counter() - t0)
+    require(got.scores.shape == (MATCH_FRAMES,) and bool(np.isfinite(got.scores).all()), "13e: spotter scores")
+    m = CPU_CHECK_FRAMES
+    wv = match["waveform"][: m * match["per_frame"]]
+    encs = []
+    for dev in (None, "cpu"):
+        f = extract_features(match["frames"][:m], wv, scfg, commentary=mcomm[:m], device=dev)
+        st = sp.state if dev is None else create_train_state(seed, scfg, device="cpu")
+        encs.append(encode_timeline(st.params, st.model_state, f["visual"], f["audio"], scfg, device=dev,
+                                    text=f["text"]).cpu())
+    rel = float(((encs[0] - encs[1]).abs().max() / encs[1].abs().max()).item())
+    require(rel <= 1e-4, f"13e: 3-modality trunk card vs CPU {rel} relative (> 1e-4)")
+    out = {"summarizer_max_abs_err": serr, "batcher_bucket": bucket, "batcher_max_abs_err": berr,
+           "spotter_trunk_width": int(encs[0].shape[1]), "spotter_trunk_rel": rel, "spotter_events": len(got.events),
+           "spot_frames": percentiles(walls)}
+    print(f"phase 13e: serving with commentary on {smi}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def text_moe_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dict], rows: dict) -> None:
+    """Phase 13: the text (commentary) branch and the MoE fusion at ``reference_parity.json``'s full width
+    (vocab 32,768, 2 layers of 128 wide with 4 heads, 64 tokens; 4 experts, top 2), and the serving preset with
+    both; adds 13a's parts to the rows of kernel 4 and 4-bf16."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    f32, bf16 = text_moe_mlp_parts(sum(VIDEO_LENGTHS), seed, smi, gen)
+    rows["fused_fusion_mlp"] = row_of(rows["fused_fusion_mlp"]["parts"] + f32)
+    rows["fused_fusion_mlp_bf16"] = lowp_row(rows["fused_fusion_mlp_bf16"]["parts"] + bf16)
+    text_moe_videos_check(seed, smi, launches_by_path, videos)
+    text_moe_infer_check(seed, smi, launches_by_path)
+    text_moe_train_check(seed, smi, launches_by_path)
+    text_moe_serving_check(seed, smi, launches_by_path, videos)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3569,6 +3935,7 @@ def main() -> int:
     infer_phase(args.seed, smi, launches_by_path)
     training_journey_phase(args.seed, smi, launches_by_path)
     rows.update(lowp_phase(args.seed, smi, launches_by_path, videos))
+    text_moe_phase(args.seed, smi, launches_by_path, videos, rows)
     del videos
     serving_phase(args.seed, smi, launches_by_path)
     for label, got in launches_by_path.items():   # the float32 paths never take a low-precision form

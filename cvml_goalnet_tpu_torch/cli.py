@@ -39,12 +39,15 @@ Port of those verbs of ``cvml_goalnet_tpu/cli.py`` (reference
   ``--max-requests N`` to exit after N requests.
 
 The trunk is the npz checkpoint the JAX package's ``train`` writes (the
-same layout both ways, ``train/checkpoint.py``).  Flags for what the port
-does not run yet exit 2 before any decode, naming the ROADMAP item that
-brings it: the orbax backend, ``train --dp``, ``serve --dp`` and
-``spot-train --cp/--dp-timelines/--tp/--pp`` (item 6), ``--commentary`` and
-``--moe-experts`` (item 5).  The JAX CLI's ``import-torch`` and
-``export-torch`` are not ported.
+same layout both ways, ``train/checkpoint.py``).  ``--commentary`` (the text
+branch, reading ``<video>.commentary.jsonl`` sidecars) and ``--moe-experts
+N`` (the mixture-of-experts fusion) run in every verb that takes them;
+``infer --stream`` and ``spot --stream`` refuse ``--commentary`` as the JAX
+CLI does.  Flags for what the port does not run yet exit 2 before any
+decode, naming the ROADMAP item that brings it: the orbax backend, ``train
+--dp``, ``serve --dp`` and ``spot-train --cp/--dp-timelines/--tp/--pp``
+(item 6), and the resnet and vit backbones (item 5).  The JAX CLI's
+``import-torch`` and ``export-torch`` are not ported.
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
@@ -449,6 +452,7 @@ def cmd_profile(args) -> int:
     from cvml_goalnet_tpu_torch.data.annotations import AnnotationStore
     from cvml_goalnet_tpu_torch.data.audio_io import demux_audio, load_waveform
     from cvml_goalnet_tpu_torch.data.dataset import _load_frames, uniform_clip_intervals
+    from cvml_goalnet_tpu_torch.data.text import commentary_sidecar
     from cvml_goalnet_tpu_torch.device import resolve_device
     from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, summarize
     from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
@@ -491,8 +495,12 @@ def cmd_profile(args) -> int:
                     if not os.path.exists(audio_fp):
                         demux_audio(args.video, audio_fp)
                     waveform, _ = load_waveform(audio_fp, cfg.audio.sample_rate)
+            commentary = None
+            if cfg.model.text_included:
+                commentary = (commentary_sidecar(args.video, len(frames), cfg.preprocess.skip_frames)
+                              or [""] * len(frames))
             with t.stage("features"):
-                feats = extract_features(frames, waveform, cfg, device=device)
+                feats = extract_features(frames, waveform, cfg, commentary=commentary, device=device)
                 _sync(device)
             with t.stage("score"):
                 scores = fuse(state.params, state.model_state, feats, cfg, device=device)
@@ -563,6 +571,11 @@ def _spot_refusal(args, cfg) -> str | None:
                 "a banded window (--attn-window N): full attention has an "
                 "unbounded receptive field so streamed scores could never be "
                 "final; band it or spot offline")
+    if cfg.model.text_included:
+        return ("--stream supports trunks without --commentary — there is "
+                "no live ingest protocol for commentary tokens (documented "
+                "contract, docs/ARCHITECTURE.md); use a visual(/audio) trunk "
+                "or spot offline")
     if cfg.model.audio_included and not args.follow:
         return ("audio trunks stream via --follow (a live segment directory "
                 "where each segment ships its .wav span) — a single complete "
@@ -655,7 +668,8 @@ def cmd_spot(args) -> int:
     evaluate = args.eval_events and os.path.exists(events_fp)
     if classes:
         # per-class events; the knapsack summary takes the class-agnostic eventness (the max over classes)
-        feats = encode_timeline(state.params, state.model_state, item.visual, item.audio, cfg, device=device)
+        feats = encode_timeline(state.params, state.model_state, item.visual, item.audio, cfg, device=device,
+                                text=item.text)
         scores_mc = score_timeline_auto(tparams, feats, cfg).cpu().numpy()
         if scores_mc.ndim == 1:   # a one-channel head (--classes with one name)
             scores_mc = scores_mc[:, None]
@@ -694,7 +708,8 @@ def cmd_spot(args) -> int:
 
     result = summarize_match(state.params, state.model_state, tparams, item.visual, item.audio,
                              item.clip_intervals, cfg, full_n_frames=item.full_n_frames,
-                             peak_window=args.peak_window, peak_threshold=args.peak_threshold, device=device)
+                             peak_window=args.peak_window, peak_threshold=args.peak_threshold, device=device,
+                             text=item.text)
     payload = {
         "video_id": item.video_id,
         "events_condensed_frames": result.events.tolist(),
@@ -836,7 +851,8 @@ def cmd_spot_train(args) -> int:
                 print(f"W: {fp}: no events sidecar, skipping")
                 continue
             item = build_video_item(fp, cfg, None, store, cfg.model.audio_included, device=device)
-            feats = encode_timeline(state.params, state.model_state, item.visual, item.audio, cfg, device=device)
+            feats = encode_timeline(state.params, state.model_state, item.visual, item.audio, cfg, device=device,
+                                    text=item.text)
             labels = load_event_labels(events_fp, len(item.visual), cfg.preprocess.skip_frames, classes)
             out.append((item.video_id, feats, torch.as_tensor(labels, device=feats.device)))
         return out

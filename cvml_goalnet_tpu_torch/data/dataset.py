@@ -16,8 +16,10 @@ by the same knapsack ``summarize`` as at eval (``utils.py:104-116``).
 * :class:`Prefetcher` produces item i+1 on a thread while the caller works
   on item i.
 
-Commentary (``ModelConfig.text_included``) raises ``NotImplementedError``:
-the text branch is a later slice of the port.
+With ``ModelConfig.text_included`` each video's commentary comes from its
+``<video>.commentary.jsonl`` sidecar, aligned per condensed frame
+(``data/text.py``), or ``""`` for every frame without one: the model still
+expects the modality, and empty commentary is the pattern it trains on.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from cvml_goalnet_tpu_torch.data.video import (
     decode_condensed_frames_parallel,
     resolve_decode_workers,
 )
-from cvml_goalnet_tpu_torch.models.avm import check_supported
+from cvml_goalnet_tpu_torch.data.text import commentary_sidecar
 from cvml_goalnet_tpu_torch.pipeline import extract_features, summarize
 
 
@@ -52,7 +54,7 @@ class VideoItem:
     gd_summary_masks: np.ndarray | None  # (A, full_n) knapsack ground-truth masks
     full_n_frames: int
     clip_intervals: np.ndarray          # (K, 2)
-    text: np.ndarray | None = None      # (N, text_max_len) commentary token ids (a later slice)
+    text: torch.Tensor | None = None    # (N, text_max_len) int32 commentary token ids, on the device
 
 
 class VideoDataset:
@@ -116,8 +118,6 @@ def build_video_item(
     device=None,
 ) -> VideoItem:
     """Assemble one video's tensors on ``device`` (reference ``utils.py:86-122``, the per-video body)."""
-    if cfg.model.text_included:
-        check_supported(cfg.model)   # raises: commentary sidecars feed the text branch, a later slice
     video_id = os.path.basename(video_fp).rsplit(".", 1)[0]
     skip = cfg.preprocess.skip_frames
     frames_raw, full_n = _load_frames(video_fp, skip)
@@ -129,7 +129,10 @@ def build_video_item(
             demux_audio(video_fp, audio_fp)
         waveform, _ = load_waveform(audio_fp, cfg.audio.sample_rate)
 
-    feats = extract_features(frames_raw, waveform, cfg, device=device)
+    commentary = None
+    if cfg.model.text_included:   # without a sidecar every frame is "": the model expects the modality
+        commentary = commentary_sidecar(video_fp, len(frames_raw), skip) or [""] * len(frames_raw)
+    feats = extract_features(frames_raw, waveform, cfg, commentary=commentary, device=device)
 
     labels = gd_masks = None
     if store is None:
@@ -145,6 +148,8 @@ def build_video_item(
             feats["visual"] = feats["visual"][:n]
             if feats["audio"] is not None:
                 feats["audio"] = feats["audio"][:n]
+            if feats["text"] is not None:
+                feats["text"] = feats["text"][:n]
         # ground-truth summaries: each annotator's importances through the
         # same expand → clips → knapsack pipeline (reference utils.py:104-116)
         masks = [summarize(annotator_gd, clip_intervals, skip_frames=skip, full_n_frames=full_n,

@@ -3,22 +3,30 @@
 Port of ``cvml_goalnet_tpu/models/avm.py`` (reference ``AVM``,
 ``utils.py:229-272``) for the reference visual backbone: visual features
 (512) with audio features (128) concatenated in front when
-``cfg.audio_included`` ([audio ‖ visual], ``utils.py:266``), then the fusion
-MLP 640→512→512→256→128→1 and ``(hi − lo)·σ + lo``.  ``classifier=True``
-returns the raw 5-way logits.
+``cfg.audio_included`` ([audio ‖ visual], ``utils.py:266``) and the text
+branch's features (128) behind when ``cfg.text_included`` ([audio ‖ visual
+‖ text]), then the fusion MLP (640 or 768 → 512 → 512 → 256 → 128 → 1) and
+``(hi − lo)·σ + lo``.  ``classifier=True`` returns the raw 5-way logits.
+With ``cfg.fusion_moe_experts > 0`` the fusion's first layer is a mixture
+of experts (``models/moe.py``).
 
 * :func:`avm_apply` is the eval forward: the folded visual trunk (kernels 2
-  and 3) and the fusion MLP in one launch of ``fused_fusion_mlp`` (kernel 4),
-  in the dtype of its inputs (float32, or bf16 once the caller has cast
-  params, state and features as ``pipeline.fuse`` does), with conv1 and
-  conv2 through int8 under ``cfg.quantized_inference``.
+  and 3), the text encoder and the MoE layer in plain PyTorch, and the
+  fusion MLP in one launch of ``fused_fusion_mlp`` (kernel 4): the whole
+  chain, or after an MoE layer and its ReLU the chain's remaining layers.
+  It runs in the dtype of its inputs (float32, or bf16 once the caller has
+  cast params, state and features as ``pipeline.fuse`` does), with conv1
+  and conv2 through int8 under ``cfg.quantized_inference``.
 * :func:`avm_train_apply` is JAX's ``avm_apply(train=True, rng=…,
   valid=…)``: the unfolded visual trunk with batch-statistics batchnorm
-  (``valid`` keeps padded rows out of them), linear → ReLU → dropout per
-  hidden fusion layer, all plain differentiable ops, and the new batchnorm
-  state.  Where JAX splits its key into one key for the visual branch and
-  one per hidden fusion layer, the dropouts here draw from one generator in
-  that order.
+  (``valid`` keeps padded rows out of them), the text encoder, linear (or
+  MoE) → ReLU → dropout per hidden fusion layer, all plain differentiable
+  ops, and the new batchnorm state; ``return_moe_probs`` adds the gate's
+  combine weights for the load-balance loss.  Where JAX splits its key into
+  one key for the visual branch and one per hidden fusion layer, the
+  dropouts here draw from one generator in that order.
+
+Only the resnet and vit backbones are refused (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import torch
 from cvml_goalnet_tpu_torch.config import ModelConfig
 from cvml_goalnet_tpu_torch.models import layers as L
 from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
+from cvml_goalnet_tpu_torch.models.moe import moe_apply, moe_gate_probs
+from cvml_goalnet_tpu_torch.models.text import text_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply, visual_encoder_train_apply
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp
 
@@ -44,37 +54,53 @@ def fusion_input_dim(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model options this slice of the port does not run yet."""
-    later = {
-        "vis_backbone": (cfg.vis_backbone != "reference", "the resnet and vit families"),
-        "fusion_moe_experts": (cfg.fusion_moe_experts > 0, "the mixture-of-experts fusion"),
-        "text_included": (cfg.text_included, "the text branch"),
-    }
-    for name, (unsupported, what) in later.items():
-        if unsupported:
-            raise NotImplementedError(
-                f"ModelConfig.{name}={getattr(cfg, name)!r}: {what} is not ported yet "
-                "(ROADMAP.md §1 item 5, a later slice of the PyTorch port; the port runs the reference "
-                "backbone)"
-            )
+    """Raise for the model options this port does not run yet: the resnet and vit backbones."""
+    if cfg.vis_backbone != "reference":
+        raise NotImplementedError(
+            f"ModelConfig.vis_backbone={cfg.vis_backbone!r}: the resnet and vit families are not ported yet "
+            "(ROADMAP.md §1 item 5, a later slice of the PyTorch port; the port runs the reference backbone)"
+        )
 
 
-def avm_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, *,
-              cfg: ModelConfig, classifier: bool = False) -> torch.Tensor:
-    """Eval forward → (N, 1) scores in [out_lo, out_hi], or (N, 5) logits with ``classifier``, in the inputs'
-    dtype."""
-    check_supported(cfg)
-    parts = [visual_encoder_apply(params["visual"], state["visual"], visual, quant=cfg.quantized_inference)]
+def _fused_input(params, feats: torch.Tensor, audio, text, cfg: ModelConfig) -> torch.Tensor:
+    """[audio ‖ visual ‖ text]: the fusion MLP's input."""
+    parts = [feats]
     if cfg.audio_included:
         parts.insert(0, audio_encoder_apply(params["audio"], audio))
-    x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
-    return fused_fusion_mlp(x.contiguous(), params["fusion"], cfg.out_lo, cfg.out_hi, squash=not classifier)
+    if cfg.text_included:
+        if text is None:
+            raise ValueError("cfg.text_included=True but no text token ids were given")
+        parts.append(text_encoder_apply(params["text"], text, cfg=cfg))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
 
-def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, *, cfg: ModelConfig,
-                    generator: torch.Generator | None = None, classifier: bool = False,
-                    valid: torch.Tensor | None = None):
-    """Train-mode forward → ``((N, 1) scores or (N, 5) logits, new_state)``.
+def _moe_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE first layer → (its output before the ReLU, the gate's (N, E) combine weights)."""
+    probs = moe_gate_probs(lp, x, cfg.fusion_moe_top_k)
+    return moe_apply(lp, x, cfg.fusion_moe_top_k, probs=probs), probs
+
+
+def avm_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, text=None, *,
+              cfg: ModelConfig, classifier: bool = False) -> torch.Tensor:
+    """Eval forward → (N, 1) scores in [out_lo, out_hi], or (N, 5) logits with ``classifier``, in the inputs'
+    dtype.  ``text`` (N, text_max_len) token ids, with ``cfg.text_included``."""
+    check_supported(cfg)
+    feats = visual_encoder_apply(params["visual"], state["visual"], visual, quant=cfg.quantized_inference)
+    x = _fused_input(params, feats, audio, text, cfg)
+    layers = params["fusion"]
+    if cfg.fusion_moe_experts > 0:
+        x, _ = _moe_layer(layers[0], x, cfg)
+        layers = layers[1:]
+        if layers:   # ReLU after a hidden layer; with no hidden layer the MoE layer gives the logits
+            x = torch.relu(x)
+    return fused_fusion_mlp(x.contiguous(), layers, cfg.out_lo, cfg.out_hi, squash=not classifier)
+
+
+def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, text=None, *,
+                    cfg: ModelConfig, generator: torch.Generator | None = None, classifier: bool = False,
+                    valid: torch.Tensor | None = None, return_moe_probs: bool = False):
+    """Train-mode forward → ``((N, 1) scores or (N, 5) logits, new_state)``, and the MoE gate's (N, E)
+    combine weights third with ``return_moe_probs`` (which needs ``fusion_moe_experts > 0``).
 
     ``valid`` (N,) marks the real rows of a zero-padded batch (the batchnorm
     statistics count only those).  The dropouts draw from ``generator``: the
@@ -87,14 +113,20 @@ def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | N
         raise ValueError("avm_train_apply with dropout_rate > 0 requires a generator")
     feats, vis_state = visual_encoder_train_apply(params["visual"], state["visual"], visual, generator=generator,
                                                   dropout_rate=cfg.dropout_rate, mask=valid)
-    parts = [feats]
-    if cfg.audio_included:
-        parts.insert(0, audio_encoder_apply(params["audio"], audio))
-    x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    x = _fused_input(params, feats, audio, text, cfg)
     n_hidden = len(cfg.fusion_hidden)
+    moe_probs = None
     for i, lp in enumerate(params["fusion"]):
-        x = L.linear_apply(lp, x)
+        if i == 0 and cfg.fusion_moe_experts > 0:
+            x, moe_probs = _moe_layer(lp, x, cfg)
+        else:
+            x = L.linear_apply(lp, x)
         if i < n_hidden:
             x = L.dropout(torch.relu(x), cfg.dropout_rate, True, generator)
     out = x if classifier else (cfg.out_hi - cfg.out_lo) * torch.sigmoid(x) + cfg.out_lo
-    return out, {**state, "visual": vis_state}
+    new_state = {**state, "visual": vis_state}
+    if return_moe_probs:
+        if moe_probs is None:
+            raise ValueError("return_moe_probs requires fusion_moe_experts > 0")
+        return out, new_state, moe_probs
+    return out, new_state

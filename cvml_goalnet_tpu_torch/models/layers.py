@@ -4,7 +4,8 @@ Port of the primitives of ``cvml_goalnet_tpu/models/layers.py``: conv2d
 (HWIO weights), conv1d (WIO), maxpool2d, the eval batchnorm as a per-channel
 affine, linear (``(in, out)`` weights), layernorm, and the train-time
 batchnorm (batch statistics, an optional mask of valid rows) and dropout
-(masks drawn from an explicit ``torch.Generator``).  Each takes and returns
+(masks drawn from an explicit ``torch.Generator``), and the text branch's
+``multihead_attention`` with its ``softmax`` and ``gelu_tanh``.  Each takes and returns
 the JAX layout and permutes to PyTorch's channel-first layout only around the
 library call.  Library convolutions and products run with TF32 off.
 
@@ -16,6 +17,8 @@ bf16 train forward uses the same functions.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -82,9 +85,78 @@ def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, params["w"]) + params["b"]
 
 
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant as a 0-d tensor of ``like``'s dtype: rounded to bf16 first for bf16, as the JAX
+    package's weakly typed constants are, before the operation that takes them."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
 def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis: biased variance, ``(x − mean)·rsqrt(var + eps)·scale + bias``."""
-    return F.layer_norm(x, (x.shape[-1],), params["scale"], params["bias"], eps)
+    """LayerNorm over the last axis: biased variance, ``(x − mean)·rsqrt(var + eps)·scale + bias``.
+
+    On bf16 it rounds where the JAX package's bf16 layernorm does: the mean and the variance are computed in
+    float32 and rounded to bf16, then each of the five operations rounds to bf16."""
+    if x.dtype != torch.bfloat16:
+        return F.layer_norm(x, (x.shape[-1],), params["scale"], params["bias"], eps)
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + _const(eps, x))
+    return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation); on bf16 each operation of its formula
+    ``x·0.5·(1 + tanh(√(2/π)·(x + 0.044715·x·x²)))`` rounds to bf16, as in the JAX package."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    inner = _const(math.sqrt(2.0 / math.pi), x) * (x + _const(0.044715, x) * (x * (x * x)))
+    return x * (_const(0.5, x) * (_const(1.0, x) + torch.tanh(inner)))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax``; on bf16 ``exp(x − max)`` rounds per operation and the sum is taken in float32 and
+    rounded, as in the JAX package."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.to(torch.float32).sum(dim=dim, keepdim=True).to(x.dtype)
+
+
+def _contract(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` in strict float32, rounded once to bf16 when the operands are bf16 (as the JAX package's
+    bf16 einsum)."""
+    with strict_f32():
+        y = torch.einsum(equation, a.to(torch.float32), b.to(torch.float32))
+    return y.to(a.dtype)
+
+
+def multihead_attention(layer, x: torch.Tensor, num_heads: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-head self-attention over (N, T, D) token sequences with the (T, T) logits materialised.
+
+    Port of ``cvml_goalnet_tpu/models/layers.py:188-218`` (the text
+    branch's attention; the timeline scorer uses the flash kernels):
+    ``layer`` holds ``wq/wk/wv/wo``; ``mask`` (N, T) marks the valid key
+    positions.  Masked logits are −1e30, not −inf, so a row with no valid
+    key (empty commentary) is a uniform average over its padding, never NaN.
+    In x's dtype; on bf16 every step rounds where the JAX package's does
+    (the logits are divided by ``bf16(√hd)``).
+    """
+    n, t, d = x.shape
+    hd = d // num_heads
+
+    def split(h):
+        return h.reshape(n, t, num_heads, hd).permute(0, 2, 1, 3)
+
+    q = split(linear_apply(layer["wq"], x))
+    k = split(linear_apply(layer["wk"], x))
+    v = split(linear_apply(layer["wv"], x))
+    scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(device=x.device, dtype=x.dtype)
+    logits = _contract("nhqd,nhkd->nhqk", q, k) / scale
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :], logits, _const(-1e30, logits))
+    out = _contract("nhqk,nhkd->nhqd", softmax(logits), v)
+    return linear_apply(layer["wo"], out.permute(0, 2, 1, 3).reshape(n, t, d))
 
 
 def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float = 0.1, eps: float = 1e-5,

@@ -2,8 +2,9 @@
 
 Port of ``cvml_goalnet_tpu/pipeline.py`` (``:37-252``):
 
-* ``extract_features`` — raw frames and waveform in, model-ready tensors out
-  (reference ``utils.py:274-292`` and ``:313-349``);
+* ``extract_features`` — raw frames, waveform and commentary in, model-ready
+  tensors out (reference ``utils.py:274-292`` and ``:313-349``; the
+  commentary's token ids, ``data/text.py``);
 * ``fuse`` — features in, per-frame importance scores in [1, 5] out
   (reference ``AVM.forward``, ``utils.py:260-272``); ``fuse_many`` batches
   several videos into one forward;
@@ -25,6 +26,7 @@ import torch
 
 from cvml_goalnet_tpu_torch import runtime
 from cvml_goalnet_tpu_torch.config import KnapsackConfig, PipelineConfig
+from cvml_goalnet_tpu_torch.data.text import tokenize
 from cvml_goalnet_tpu_torch.device import resolve_device
 from cvml_goalnet_tpu_torch.models.avm import avm_apply
 from cvml_goalnet_tpu_torch.ops.audio import extract_audio_features
@@ -36,13 +38,13 @@ from cvml_goalnet_tpu_torch.utils import compute_dtype, tree_cast
 
 
 def extract_features(frames, waveform, cfg: PipelineConfig, commentary=None, device=None) -> dict:
-    """Decimated frames (N, H, W, C) + waveform → ``{"visual", "audio", "text"}`` tensors on the device.
+    """Decimated frames (N, H, W, C) + waveform (+ commentary) → ``{"visual", "audio", "text"}`` on the device.
 
     ``visual`` is (N, h, w, C) float32, ``audio`` (N, B, n_mfcc) float32 or
-    None without a waveform, ``text`` None (the text branch is a later slice).
+    None without a waveform, ``text`` the (N, text_max_len) int32 token ids
+    of ``commentary`` (one string per frame, ``data/text.py::tokenize``) or
+    None without it.
     """
-    if commentary is not None:
-        raise NotImplementedError("the text branch (commentary) is not ported yet: a later slice")
     dev = resolve_device(device)
     frames = np.asarray(frames)
     if frames.dtype != np.uint8:
@@ -52,22 +54,33 @@ def extract_features(frames, waveform, cfg: PipelineConfig, commentary=None, dev
     audio = None
     if waveform is not None:
         audio = extract_audio_features(waveform, len(frames), cfg.audio, dev)
-    return {"visual": visual, "audio": audio, "text": None}
+    text = None
+    if commentary is not None:
+        if len(commentary) != len(frames):
+            raise ValueError(f"one commentary string per frame: {len(commentary)} strings for {len(frames)} frames")
+        text = torch.from_numpy(tokenize(commentary, cfg.model.text_vocab_size, cfg.model.text_max_len)).to(dev)
+    return {"visual": visual, "audio": audio, "text": text}
 
 
 def _on(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).to(dev)
 
 
-def fuse(params, state, features: dict, cfg: PipelineConfig, device=None) -> np.ndarray:
+def _tokens(x, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x).to(device=dev, dtype=torch.int32)
+
+
+def fuse(params, state, features: dict, cfg: PipelineConfig, device=None, text=None) -> np.ndarray:
     """Modality features → (N,) per-frame importance scores in [out_lo, out_hi].
 
     ``params`` and ``state`` are the port's tensors (``weights.from_jax``) on
-    the same device.  As the JAX package's ``_jitted_fuse`` does, the forward
-    runs in ``cfg.model.dtype``: for bf16, params, state and features are cast
-    to bf16 first and the scores come back as float32 of the bf16 outputs;
-    ``quantized_inference`` takes conv1 and conv2 through int8, with one
-    activation scale over the whole batch.
+    the same device.  [audio ‖ visual ‖ text] are fused as the model was
+    trained; ``text`` (token ids) takes the place of ``features["text"]``
+    when given.  As the JAX package's ``_jitted_fuse`` does, the forward
+    runs in ``cfg.model.dtype``: for bf16, params, state and features are
+    cast to bf16 first (token ids stay integers) and the scores come back as
+    float32 of the bf16 outputs; ``quantized_inference`` takes conv1 and
+    conv2 through int8, with one activation scale over the whole batch.
     """
     dev = resolve_device(device)
     if len(features["visual"]) == 0:
@@ -79,13 +92,23 @@ def fuse(params, state, features: dict, cfg: PipelineConfig, device=None) -> np.
             raise ValueError(
                 "cfg.model.audio_included=True but features['audio'] is None — "
                 "pass a waveform to extract_features, or substitute silent-"
-                "audio features (zeros of (N, bin_length, n_mfcc))"
+                "audio features (zeros of (N, bin_length, n_mfcc)) as "
+                "serve.Summarizer does"
             )
         audio = _on(features["audio"], dev)
+    if text is None and cfg.model.text_included:
+        if features.get("text") is None:
+            raise ValueError(
+                "cfg.model.text_included=True but features['text'] is None — "
+                "pass commentary to extract_features (the model's text branch "
+                "cannot run on a missing modality)"
+            )
+        text = features["text"]
+    text = _tokens(text, dev) if cfg.model.text_included else None
     dt = compute_dtype(cfg.model.dtype)
     with torch.no_grad():
         out = avm_apply(tree_cast(params, dt), tree_cast(state, dt), _on(features["visual"], dev).to(dt),
-                        None if audio is None else audio.to(dt), cfg=cfg.model)
+                        None if audio is None else audio.to(dt), text, cfg=cfg.model)
     return out[:, 0].to(torch.float32).cpu().numpy()
 
 
@@ -95,20 +118,22 @@ def fuse_many(params, state, features_list: list[dict], cfg: PipelineConfig, dev
         return []
     dev = resolve_device(device)
 
-    def stack(key):
+    def stack(key, to=_on):
         vals = [f.get(key) for f in features_list]
         missing = [i for i, v in enumerate(vals) if v is None]
         if missing:
             raise ValueError(
                 f"cfg.model.{key}_included=True but features_list"
                 f"[{missing[0]}]['{key}'] is None — every batched video "
-                f"needs the {key} modality (substitute silence explicitly if intended)"
+                f"needs the {key} modality (substitute silence/empty "
+                "commentary explicitly if intended)"
             )
-        return torch.cat([_on(v, dev) for v in vals])
+        return torch.cat([to(v, dev) for v in vals])
 
     visual = stack("visual")
     audio = stack("audio") if cfg.model.audio_included else None
-    scores = fuse(params, state, {"visual": visual, "audio": audio}, cfg, device=dev)
+    text = stack("text", _tokens) if cfg.model.text_included else None
+    scores = fuse(params, state, {"visual": visual, "audio": audio, "text": text}, cfg, device=dev)
     out, off = [], 0
     for f in features_list:
         n = len(f["visual"])

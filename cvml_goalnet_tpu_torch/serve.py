@@ -28,8 +28,12 @@ and ``warmup`` builds them before the first request.  A kernel that fails to
 build or launch raises, and the request that hit it answers 500: nothing
 falls back to the plain version or the CPU.
 
+Trunks with the text branch read each video's ``<video>.commentary.jsonl``
+sidecar (``""`` for every frame without one, as in training); the text
+encoder runs in plain PyTorch.  ``/spot-stream`` refuses them, as the JAX
+package does: there is no live ingest protocol for commentary.
 Data-parallel serving over several cards (``mesh=``, ``serve --dp``) is not
-ported yet: ROADMAP.md §1 item 6.  Trunks with the text branch are item 5.
+ported yet: ROADMAP.md §1 item 6.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from cvml_goalnet_tpu_torch import runtime
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.data.dataset import _load_frames, uniform_clip_intervals
+from cvml_goalnet_tpu_torch.data.text import commentary_sidecar, tokenize
 from cvml_goalnet_tpu_torch.device import resolve_device
 from cvml_goalnet_tpu_torch.models.audio import audio_feature_channels
 from cvml_goalnet_tpu_torch.models.avm import check_supported
@@ -121,6 +126,14 @@ def load_media(video_fp: str, cfg: PipelineConfig):
     return video_id, frames, full_n, _load_wav_sidecar(video_fp, cfg)
 
 
+def _load_commentary_sidecar(video_fp: str, cfg: PipelineConfig, n_condensed: int) -> "list[str] | None":
+    """Per-frame commentary from ``<video>.commentary.jsonl`` (the convention of ``build_video_item``), or None
+    without one or for a trunk without the text branch."""
+    if not cfg.model.text_included:
+        return None
+    return commentary_sidecar(video_fp, n_condensed, cfg.preprocess.skip_frames)
+
+
 def _silent_audio(n: int, cfg: PipelineConfig, device: torch.device) -> torch.Tensor:
     """Audio features of silence, for an audio trunk serving a video without a waveform."""
     return torch.zeros((n, cfg.audio.bin_length, audio_feature_channels(cfg.audio)), dtype=torch.float32,
@@ -137,7 +150,7 @@ def _fresh_state(cfg: PipelineConfig, checkpoint: tuple, device: torch.device):
 def _check_service(cfg: PipelineConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(MESH_NOT_PORTED)
-    check_supported(cfg.model)   # the text branch, MoE, resnet and vit raise here, naming ROADMAP §1 item 5
+    check_supported(cfg.model)   # resnet and vit raise here, naming ROADMAP §1 item 5
 
 
 class Summarizer:
@@ -216,6 +229,7 @@ class Summarizer:
         clip_intervals: np.ndarray | None = None,
         full_n_frames: int | None = None,
         waveform: np.ndarray | None = None,
+        commentary: "list[str] | None" = None,
     ) -> SummarizeResponse:
         cfg = self.cfg
         full_n = full_n_frames or len(frames) * cfg.preprocess.skip_frames
@@ -224,7 +238,9 @@ class Summarizer:
                 clip_intervals = np.asarray(self.store.change_points(video_id))
             else:
                 clip_intervals = uniform_clip_intervals(cfg, full_n)
-        feats = extract_features(frames, waveform, cfg, device=self.device)   # outside the lock
+        if cfg.model.text_included and commentary is None:
+            commentary = [""] * len(frames)   # no sidecar: the 3-modality trunk still expects the modality
+        feats = extract_features(frames, waveform, cfg, commentary=commentary, device=self.device)   # outside the lock
         if cfg.model.audio_included and feats["audio"] is None:
             feats["audio"] = _silent_audio(len(frames), cfg, self.device)   # no audio track: silence
         with self._lock:
@@ -236,7 +252,8 @@ class Summarizer:
 
     def summarize_path(self, video_fp: str) -> SummarizeResponse:
         video_id, frames, full_n, waveform = load_media(video_fp, self.cfg)
-        return self.summarize_frames(video_id, frames, None, full_n, waveform)
+        return self.summarize_frames(video_id, frames, None, full_n, waveform,
+                                     commentary=_load_commentary_sidecar(video_fp, self.cfg, len(frames)))
 
 
 @dataclass
@@ -251,7 +268,8 @@ class SpotResponse:
 
 def trunk_feature_dim(cfg: PipelineConfig) -> int:
     """Width of ``encode_timeline``'s features: the temporal head's input."""
-    return cfg.model.vis_feature_dim + (cfg.model.aud_feature_dim if cfg.model.audio_included else 0)
+    return (cfg.model.vis_feature_dim + (cfg.model.aud_feature_dim if cfg.model.audio_included else 0)
+            + (cfg.model.text_feature_dim if cfg.model.text_included else 0))
 
 
 class Spotter:
@@ -331,15 +349,18 @@ class Spotter:
         waveform: np.ndarray | None = None,
         peak_window: int = 5,
         peak_threshold: float = 0.0,
+        commentary: "list[str] | None" = None,
     ) -> SpotResponse:
         cfg = self.cfg
         full_n = full_n_frames or len(frames) * cfg.preprocess.skip_frames
-        feats_in = extract_features(frames, waveform, cfg, device=self.device)
+        if cfg.model.text_included and commentary is None:
+            commentary = [""] * len(frames)   # no sidecar: empty strings, the trained "no commentary" pattern
+        feats_in = extract_features(frames, waveform, cfg, commentary=commentary, device=self.device)
         if cfg.model.audio_included and feats_in["audio"] is None:
             feats_in["audio"] = _silent_audio(len(frames), cfg, self.device)
         with self._lock:
             feats = encode_timeline(self.state.params, self.state.model_state, feats_in["visual"],
-                                    feats_in["audio"], cfg, device=self.device)
+                                    feats_in["audio"], cfg, device=self.device, text=feats_in["text"])
             scores = score_timeline_auto(self.temporal_params, feats, cfg).cpu().numpy()
 
         if self.classes:
@@ -363,6 +384,10 @@ class Spotter:
         from cvml_goalnet_tpu_torch.data.video import probe_video_fps
 
         video_id, frames, full_n, waveform = load_media(video_fp, self.cfg)
+        if "commentary" not in kw:
+            side = _load_commentary_sidecar(video_fp, self.cfg, len(frames))
+            if side is not None:
+                kw["commentary"] = side
         resp = self.spot_frames(video_id, frames, full_n, waveform, **kw)
         return dataclasses.replace(resp, fps=probe_video_fps(video_fp))
 
@@ -387,6 +412,11 @@ class Spotter:
         generator runs, so the server answers 400 before any byte streams.
         """
         cfg = self.cfg
+        if cfg.model.text_included:
+            raise ValueError(
+                "spot-stream supports trunks without commentary — there is "
+                "no live ingest protocol for commentary tokens; serve a "
+                "trunk without --commentary or POST /spot")
         if cfg.model.audio_included and not follow:
             raise ValueError(
                 "audio trunks spot-stream via follow mode (a live segment directory where each segment ships "
@@ -541,7 +571,8 @@ class DynamicBatcher:
                 "audio": (torch.as_tensor(rng.random((b, cfg.audio.bin_length, audio_feature_channels(cfg.audio)))
                                           .astype(np.float32), device=s.device)
                           if cfg.model.audio_included else None),
-                "text": None,
+                "text": (tokenize([""] * b, cfg.model.text_vocab_size, cfg.model.text_max_len)
+                         if cfg.model.text_included else None),
             }
             with s._lock:
                 s._score(feats)
@@ -553,8 +584,10 @@ class DynamicBatcher:
         clip_intervals: np.ndarray | None = None,
         full_n_frames: int | None = None,
         waveform: np.ndarray | None = None,
+        commentary: "list[str] | None" = None,
     ) -> Future:
-        """→ ``Future[SummarizeResponse]``."""
+        """→ ``Future[SummarizeResponse]``.  ``commentary``: one string per frame for a trunk with the text
+        branch (tokenised here, on the host; ``""`` for every frame without it)."""
         s = self.summarizer
         cfg = s.cfg
         # the frames are preprocessed on the host (the batch is one upload of small frames, no per-request
@@ -567,6 +600,9 @@ class DynamicBatcher:
             feats["audio"] = extract_audio_features(waveform, len(frames), cfg.audio, s.device)
         if cfg.model.audio_included and feats["audio"] is None:
             feats["audio"] = _silent_audio(len(frames), cfg, s.device)
+        if cfg.model.text_included:
+            feats["text"] = tokenize(commentary if commentary is not None else [""] * len(frames),
+                                     cfg.model.text_vocab_size, cfg.model.text_max_len)
         fut: Future = Future()
         with self._submit_lock:   # once close() has queued the sentinel, nothing lands behind it
             if self._closed:
@@ -610,7 +646,8 @@ class DynamicBatcher:
                     if not fut.done():
                         fut.set_exception(e if isinstance(e, Exception) else RuntimeError(repr(e)))
 
-    def _scores_chunked(self, visual: np.ndarray, audio: "torch.Tensor | None") -> np.ndarray:
+    def _scores_chunked(self, visual: np.ndarray, audio: "torch.Tensor | None",
+                        text: "np.ndarray | None" = None) -> np.ndarray:
         """Score an assembled batch through bucket-padded ``fuse`` calls, in chunks of the largest bucket, so
         no mix of requests makes a shape ``warmup`` did not run."""
         if len(visual) == 0:
@@ -622,14 +659,17 @@ class DynamicBatcher:
         for i in range(0, len(visual), cap):
             v = visual[i:i + cap]
             a = audio[i:i + cap] if audio is not None else None
+            t = text[i:i + cap] if text is not None else None
             n = len(v)
             pad = self._bucket(n) - n
             if pad:
                 v = np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
                 if a is not None:
                     a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+                if t is not None:   # padded rows hold token 0, empty commentary
+                    t = np.concatenate([t, np.zeros((pad,) + t.shape[1:], t.dtype)])
             with s._lock:
-                scores = s._score({"visual": v, "audio": a, "text": None})
+                scores = s._score({"visual": v, "audio": a, "text": t})
             outs.append(scores[:n])
         return np.concatenate(outs)
 
@@ -639,7 +679,8 @@ class DynamicBatcher:
             # assembly inside the try: one grayscale or misshapen rider fails its batch's futures, not the worker
             visual = np.concatenate([b[1]["visual"] for b in batch])
             audio = torch.cat([b[1]["audio"] for b in batch]) if cfg.model.audio_included else None
-            scores = self._scores_chunked(visual, audio)
+            text = np.concatenate([b[1]["text"] for b in batch]) if cfg.model.text_included else None
+            scores = self._scores_chunked(visual, audio, text)
             self.stats["batches"] += 1
             self.stats["batched_frames"] += total
             off = 0
@@ -912,7 +953,9 @@ def serve_http(
                 if batcher is not None:
                     # concurrent requests share fuse calls; load_media is the sequence summarize_path runs
                     video_id, frames, full_n, waveform = load_media(path, summarizer.cfg)
-                    resp = batcher.submit(video_id, frames, None, full_n, waveform=waveform).result()
+                    resp = batcher.submit(
+                        video_id, frames, None, full_n, waveform=waveform,
+                        commentary=_load_commentary_sidecar(path, summarizer.cfg, len(frames))).result()
                 else:
                     resp = summarizer.summarize_path(path)
                 self._reply(200, {

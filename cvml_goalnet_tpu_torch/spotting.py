@@ -2,8 +2,9 @@
 
 Port of ``cvml_goalnet_tpu/spotting.py`` (single device):
 
-* :func:`encode_timeline` — the trunk (visual ‖ audio encoders, no fusion
-  head) over all frames → (T, D) per-frame features, ``[audio ‖ visual]``;
+* :func:`encode_timeline` — the trunk (audio, visual and text encoders, no
+  fusion head) over all frames → (T, D) per-frame features, ``[audio ‖
+  visual ‖ text]``;
 * :func:`score_timeline_auto` — dispatch on ``ModelConfig.temporal_model``:
   the bidirectional GRU (chunked with halos past
   ``temporal_chunk_threshold``), the transformer (full or banded flash
@@ -35,19 +36,29 @@ from cvml_goalnet_tpu_torch.models.avm import check_supported
 from cvml_goalnet_tpu_torch.models.temporal import detect_peaks, detect_peaks_multi, temporal_scorer_apply
 from cvml_goalnet_tpu_torch.models.temporal_attention import temporal_transformer_apply
 from cvml_goalnet_tpu_torch.models.temporal_hybrid import temporal_hybrid_apply
+from cvml_goalnet_tpu_torch.models.text import text_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
-from cvml_goalnet_tpu_torch.pipeline import SummaryResult, _on, summarize
+from cvml_goalnet_tpu_torch.pipeline import SummaryResult, _on, _tokens, summarize
 
 
-def encode_timeline(params, state, visual, audio, cfg: PipelineConfig, device=None) -> torch.Tensor:
-    """(T, h, w, C) normalised frames (+ (T, B, n_mfcc) audio) → (T, D) features on the device.
+def encode_timeline(params, state, visual, audio, cfg: PipelineConfig, device=None, text=None) -> torch.Tensor:
+    """(T, h, w, C) normalised frames (+ (T, B, n_mfcc) audio, + (T, text_max_len) commentary tokens) →
+    (T, D) features on the device, ``[audio ‖ visual ‖ text]``.
 
     ``params``/``state`` are the port's tensors (``weights.from_jax``).  The
-    audio features lead when ``cfg.model.audio_included`` and audio is given.
-    The trunk runs in float32 whatever ``cfg.model.dtype`` says, as the JAX
-    package's ``trunk_fn`` casts nothing; ``quantized_inference`` takes conv1
-    and conv2 through int8, with one activation scale over all T frames.
+    audio features lead when ``cfg.model.audio_included`` and audio is given;
+    ``text`` is required when ``cfg.model.text_included``: a 3-modality
+    trunk's features include the text branch's.  The trunk runs in float32
+    whatever ``cfg.model.dtype`` says, as the JAX package's ``trunk_fn``
+    casts nothing; ``quantized_inference`` takes conv1 and conv2 through
+    int8, with one activation scale over all T frames.
     """
+    if cfg.model.text_included and text is None:
+        raise ValueError(
+            "cfg.model.text_included=True but encode_timeline got no text "
+            "tokens — pass the commentary tokens (VideoItem.text / "
+            "data.text.tokenize) or use a trunk trained without --commentary"
+        )
     check_supported(cfg.model)
     dev = resolve_device(device)
     with torch.no_grad():
@@ -55,6 +66,8 @@ def encode_timeline(params, state, visual, audio, cfg: PipelineConfig, device=No
                                      quant=cfg.model.quantized_inference)
         if cfg.model.audio_included and audio is not None:
             feats = torch.cat([audio_encoder_apply(params["audio"], _on(audio, dev)), feats], dim=-1)
+        if cfg.model.text_included:
+            feats = torch.cat([feats, text_encoder_apply(params["text"], _tokens(text, dev), cfg=cfg.model)], dim=-1)
     return feats
 
 
@@ -190,6 +203,7 @@ def summarize_match(
     peak_threshold: float = 0.0,
     kcfg: KnapsackConfig | None = None,
     device=None,
+    text=None,
 ) -> MatchSummary:
     """Frames → features → temporal scores → events and a knapsack highlight summary.
 
@@ -199,7 +213,7 @@ def summarize_match(
     dev = resolve_device(device)
     skip = cfg.preprocess.skip_frames if skip_frames is None else skip_frames
     full_n = len(visual) * skip if full_n_frames is None else full_n_frames
-    feats = encode_timeline(params, state, visual, audio, cfg, device=dev)
+    feats = encode_timeline(params, state, visual, audio, cfg, device=dev, text=text)
     scores = score_timeline_auto(temporal_params, feats, cfg).cpu().numpy()
     if scores.ndim != 1:
         raise ValueError(
@@ -252,6 +266,7 @@ def spot_stream(
     peak_window: int = 5,
     peak_threshold: float = 0.0,
     audio_chunks=None,
+    text_chunks=None,
     device=None,
 ):
     """Online event spotting over a live stream of frame chunks → :class:`SpotStreamUpdate` s.
@@ -272,7 +287,9 @@ def spot_stream(
       unreported, a final update with empty scores delivers them.
 
     ``audio_chunks``: (k, B, n_mfcc) blocks on the same boundaries as
-    ``frame_chunks``, required when the trunk includes audio.
+    ``frame_chunks``, required when the trunk includes audio;
+    ``text_chunks``: (k, text_max_len) token ids likewise, when it includes
+    the text branch.
     """
     mc = cfg.model
     if mc.temporal_model in ("transformer", "hybrid") and mc.temporal_window <= 0:
@@ -286,24 +303,34 @@ def spot_stream(
             "cfg.model.audio_included=True but spot_stream got no audio_chunks — yield "
             "(k, B, n_mfcc) blocks on the frame-chunk boundaries, or stream with a trunk trained --no-audio"
         )
+    if mc.text_included and text_chunks is None:
+        raise ValueError(
+            "cfg.model.text_included=True but spot_stream got no "
+            "text_chunks — yield (k, text_max_len) token chunks on the "
+            "frame-chunk boundaries, or stream with a trunk trained "
+            "without --commentary")
     dev = resolve_device(device)
     n_out = head_out_dim(temporal_params)
     audio_iter = iter(audio_chunks) if audio_chunks is not None else None
+    text_iter = iter(text_chunks) if text_chunks is not None else None
+
+    def next_aligned(it, name, k):
+        try:
+            a = next(it)
+        except StopIteration:
+            raise ValueError(
+                f"{name} exhausted before frame_chunks — the stream must yield one chunk per "
+                "frame chunk") from None
+        if len(a) != k:
+            raise ValueError(
+                f"{name} chunk has {len(a)} rows but the frame chunk has {k} — chunk "
+                "the modalities on the same boundaries as frame_chunks")
+        return a
 
     def encode(chunk):
-        audio = None
-        if audio_iter is not None:
-            try:
-                audio = next(audio_iter)
-            except StopIteration:
-                raise ValueError(
-                    "audio_chunks exhausted before frame_chunks — the stream must yield one chunk per "
-                    "frame chunk") from None
-            if len(audio) != len(chunk):
-                raise ValueError(
-                    f"audio_chunks chunk has {len(audio)} rows but the frame chunk has {len(chunk)} — chunk "
-                    "the modalities on the same boundaries as frame_chunks")
-        return encode_timeline(params, state, chunk, audio, cfg, device=dev)
+        audio = next_aligned(audio_iter, "audio_chunks", len(chunk)) if audio_iter is not None else None
+        text = next_aligned(text_iter, "text_chunks", len(chunk)) if text_iter is not None else None
+        return encode_timeline(params, state, chunk, audio, cfg, device=dev, text=text)
 
     if mc.temporal_model == "transformer":
         # exactness floor: a score depends on inputs within num_layers·W frames

@@ -142,9 +142,9 @@ def score_video_stream(
     ``frame_chunks`` yields (k, H, W, C) arrays (k ≤ ``chunk_size``);
     ``audio_chunks`` (optional) yields the matching (k, B, n_mfcc) MFCC
     blocks; ``text_chunks`` the matching (k, text_max_len) commentary tokens,
-    required when ``cfg.model.text_included`` (the text branch itself is a
-    later slice of the port).  ``params`` and ``state`` are the port's tensors
-    on ``device`` (``None``: the card).
+    required when ``cfg.model.text_included`` (copied to the card by the
+    scoring thread: 256 bytes a frame).  ``params`` and ``state`` are the
+    port's tensors on ``device`` (``None``: the card).
 
     ``chunk_size`` bounds k: a longer chunk raises ``ValueError`` (the JAX
     scorer fails padding it).  Chunks are padded only under int8 (see the module's notes).
@@ -219,6 +219,7 @@ def score_video_stream(
                 if pad_chunks and 0 < k < chunk_size:
                     chunk = _zero_padded(chunk, chunk_size)
                     audio = None if audio is None else _zero_padded(np.asarray(audio, np.float32), chunk_size)
+                    text = None if text is None else _zero_padded(np.asarray(text, np.int32), chunk_size)
             yield chunk, audio, text, k
 
     frames_up = _Uploader(dev, STAGING_BUFFERS)
@@ -247,7 +248,7 @@ def score_video_stream(
                 nxt = next(it, None)
             if nxt is None:
                 break
-            (chunk_dev, chunk_ev), (audio_dev, audio_ev), _, k = nxt
+            (chunk_dev, chunk_ev), (audio_dev, audio_ev), text, k = nxt
             n_total += k
             n_chunks += 1
             if k == 0:
@@ -262,7 +263,8 @@ def score_video_stream(
                 else:
                     visual = preprocess_frames(chunk_dev, cfg.preprocess.frame_size, cfg.preprocess.eps).to(dt)
                 audio_dev = None if audio_dev is None else audio_dev.to(dt)
-                out = avm_apply(params, state, visual, audio_dev, cfg=cfg.model)[:k, 0].to(torch.float32)
+                text_dev = None if text is None else torch.as_tensor(np.asarray(text, np.int32)).to(dev)
+                out = avm_apply(params, state, visual, audio_dev, text_dev, cfg=cfg.model)[:k, 0].to(torch.float32)
                 host = torch.empty((k,), dtype=torch.float32, pin_memory=compute is not None)
                 host.copy_(out, non_blocking=compute is not None)
                 done = None

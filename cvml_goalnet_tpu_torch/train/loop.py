@@ -42,6 +42,7 @@ import torch
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models.avm import avm_apply, avm_train_apply, check_supported
+from cvml_goalnet_tpu_torch.models.moe import moe_load_balance_loss
 from cvml_goalnet_tpu_torch.ops.fscore import fscore_against_users_host
 from cvml_goalnet_tpu_torch.pipeline import summarize
 from cvml_goalnet_tpu_torch.train.optim import (
@@ -83,11 +84,14 @@ def make_train_video_fn(cfg: PipelineConfig, classifier: bool = False):
     """Build the per-video training function.
 
     ``fn(params, model_state, opt_state, visual (N, h, w, C), audio (N, B, M) | None, labels (N,), valid (N,),
-    generator)``, with N a multiple of ``subbatch_size`` and every tensor on the state's device, →
-    ``(params, model_state, opt_state, preds (N,), mean sub-batch loss)``, the last two tensors on that device.
+    generator, text (N, text_max_len) | None)``, with N a multiple of ``subbatch_size`` and every tensor on the
+    state's device, → ``(params, model_state, opt_state, preds (N,), mean sub-batch loss)``, the last two
+    tensors on that device.
 
-    ``fn.value_and_grad(params, model_state, visual, audio, labels, valid, generator)`` is one sub-batch's
-    ``(loss, preds, new_model_state, grads)``, the step ``fn`` takes.
+    ``fn.value_and_grad(params, model_state, visual, audio, labels, valid, generator, text)`` is one
+    sub-batch's ``(loss, preds, new_model_state, grads)``, the step ``fn`` takes.  With MoE (and
+    ``fusion_moe_aux_weight > 0``) the loss carries ``aux_weight · moe_load_balance_loss`` of the gate's
+    float32 combine weights, as the JAX package's does.
 
     With ``compute_dtype = "bfloat16"`` it trains in mixed precision as the JAX package does: params, model
     state and inputs are cast to bf16 inside the loss, the forward and backward run in bf16, the loss in
@@ -100,14 +104,19 @@ def make_train_video_fn(cfg: PipelineConfig, classifier: bool = False):
     S, K = tc.subbatch_size, tc.grad_accum_steps
     lr_fn = schedule_from_config(tc)
 
-    def value_and_grad(params, model_state, vis, aud, lab, msk, generator):
+    moe = mc.fusion_moe_experts > 0 and mc.fusion_moe_aux_weight > 0
+
+    def value_and_grad(params, model_state, vis, aud, lab, msk, generator, txt=None):
         with torch.enable_grad(), strict_f32():   # TF32 off in the backward's convolutions and products too
             leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-            preds, new_ms = avm_train_apply(tree_cast(tree_unflatten(params, leaves), dt), tree_cast(model_state, dt),
-                                            vis.to(dt), None if aud is None else aud.to(dt), cfg=mc,
-                                            generator=generator, classifier=classifier, valid=msk)
-            preds = preds.to(torch.float32)
+            fwd = avm_train_apply(tree_cast(tree_unflatten(params, leaves), dt), tree_cast(model_state, dt),
+                                  vis.to(dt), None if aud is None else aud.to(dt), txt, cfg=mc,
+                                  generator=generator, classifier=classifier, valid=msk, return_moe_probs=moe)
+            preds, new_ms = fwd[0].to(torch.float32), fwd[1]
             loss = _loss_fn(preds, lab, msk, broadcast_compat=tc.broadcast_loss_compat, classifier=classifier)
+            if moe:
+                # the Switch-style load-balance penalty keeps the top-k gate from collapsing onto one expert
+                loss = loss + mc.fusion_moe_aux_weight * moe_load_balance_loss(fwd[2].to(torch.float32))
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return (loss.detach(), preds.detach(), tree_cast(tree_map(torch.Tensor.detach, new_ms), torch.float32),
@@ -119,14 +128,14 @@ def make_train_video_fn(cfg: PipelineConfig, classifier: bool = False):
         return adam_update(clip_by_global_norm(grads, tc.grad_clip_norm), opt_state, params,
                            lr_fn(opt_state.step), tc.b1, tc.b2, tc.eps, tc.weight_decay)
 
-    def fn(params, model_state, opt_state, visual, audio, labels, valid, generator):
+    def fn(params, model_state, opt_state, visual, audio, labels, valid, generator, text=None):
         n_sub = visual.shape[0] // S
         outs, losses, gacc = [], [], None
         for idx in range(n_sub):
             sl = slice(idx * S, (idx + 1) * S)
             loss, preds, model_state, grads = value_and_grad(
                 params, model_state, visual[sl], None if audio is None else audio[sl], labels[sl], valid[sl],
-                generator)
+                generator, None if text is None else text[sl])
             if K <= 1:
                 params, opt_state = apply(grads, opt_state, params)
             else:
@@ -165,6 +174,15 @@ def _pad_video(item, S: int, device: torch.device):
     return pad_arr(visual), pad_arr(item.audio), pad_arr(np.asarray(labels, np.float32)), valid, n
 
 
+def _pad_text(item, rows: int, device: torch.device, cfg: PipelineConfig) -> torch.Tensor | None:
+    """A video's commentary token ids on ``device``, zero-padded (token 0, padding) to ``rows``; None without
+    the text branch."""
+    if not cfg.model.text_included or getattr(item, "text", None) is None:
+        return None
+    text = torch.as_tensor(item.text).to(device=device, dtype=torch.int32)
+    return torch.cat([text, text.new_zeros((rows - text.shape[0],) + tuple(text.shape[1:]))])
+
+
 def eval_video(state: TrainState, item, cfg: PipelineConfig, classifier: bool = False):
     """Eval-mode forward and loss of one whole video (reference ``main.py:93-118``) → ``(preds (n,), loss)``.
 
@@ -175,12 +193,13 @@ def eval_video(state: TrainState, item, cfg: PipelineConfig, classifier: bool = 
     tc, mc = cfg.train, cfg.model
     visual, audio, labels, valid, n = _pad_video(item, tc.subbatch_size, _device_of(state))
     audio = audio if mc.audio_included else None
+    text = _pad_text(item, len(visual), visual.device, cfg)
     with torch.no_grad():
         if tc.eval_train_mode_compat:
-            preds, _ = avm_train_apply(state.params, state.model_state, visual, audio, cfg=mc,
+            preds, _ = avm_train_apply(state.params, state.model_state, visual, audio, text, cfg=mc,
                                        classifier=classifier, valid=valid)
         else:
-            preds = avm_apply(state.params, state.model_state, visual.contiguous(), audio, cfg=mc,
+            preds = avm_apply(state.params, state.model_state, visual.contiguous(), audio, text, cfg=mc,
                               classifier=classifier)
         loss = _loss_fn(preds, labels, valid, broadcast_compat=tc.broadcast_loss_compat, classifier=classifier)
         out = _outputs(preds, classifier)
@@ -335,7 +354,8 @@ def train_importance_model(
             visual, audio, labels, valid, n = _pad_video(item, cfg.train.subbatch_size, dev)
             audio = audio if cfg.model.audio_included else None
             params, model_state, opt_state, preds, loss = train_fn(
-                params, model_state, opt_state, visual, audio, labels, valid, generator)
+                params, model_state, opt_state, visual, audio, labels, valid, generator,
+                _pad_text(item, len(visual), dev, cfg))
             loss_f = float(loss)
             if guard != "off" and not np.isfinite(loss_f):
                 # this video's updates (params, batchnorm state, Adam moments) are poisoned

@@ -7,7 +7,11 @@ by dtype and device alone, with no transposes:
   (``cvml_goalnet_tpu/models/layers.py``);
 * ``params = {"visual": {"conv0".."conv2", "bn0".."bn2", "head"},
   "audio": {"conv0", "conv1", "head"}, "fusion": [{"w", "b"}, ...]}`` and
-  ``model_state = {"visual": {"bn0".."bn2": {"mean", "var"}}}``.
+  ``model_state = {"visual": {"bn0".."bn2": {"mean", "var"}}}``;
+* with the text branch ``params["text"] = {"embed": (V, d), "head",
+  "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "mlp_in", "mlp_out"}]}``;
+  with MoE ``params["fusion"][0] = {"gate": {"w", "b"}, "experts": {"w":
+  (E, in, out), "b": (E, out)}}``.
 
 :func:`init_params` draws a pytree of that layout from a numpy seed (it is a
 fresh draw with PyTorch's default bounds, not ``avm_init``'s JAX random
@@ -37,6 +41,7 @@ from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.device import resolve_device
 from cvml_goalnet_tpu_torch.models.audio import audio_feature_channels, audio_temporal_trace
 from cvml_goalnet_tpu_torch.models.avm import N_CLASSES, fusion_input_dim
+from cvml_goalnet_tpu_torch.models.text import check_text_config
 from cvml_goalnet_tpu_torch.models.visual import STAGE_GEOM, visual_spatial_trace
 
 
@@ -117,7 +122,25 @@ def init_params(cfg: PipelineConfig, seed: int, classifier: bool = False):
         params["audio"] = audio
     dims = (fusion_input_dim(m),) + m.fusion_hidden + (N_CLASSES if classifier else 1,)
     params["fusion"] = [_layer(rng, (din, dout), din) for din, dout in zip(dims[:-1], dims[1:])]
+    if m.fusion_moe_experts > 0:
+        e, din, dout = m.fusion_moe_experts, dims[0], dims[1]
+        params["fusion"][0] = {"gate": _layer(rng, (din, e), din),
+                               "experts": {"w": _uniform(rng, (e, din, dout), din), "b": _uniform(rng, (e, dout), din)}}
+    if m.text_included:
+        params["text"] = _text_encoder(rng, m)
     return params, {"visual": vstate}
+
+
+def _text_encoder(rng, m):
+    """The text branch's tree (``models/text.py``): ``embed`` (V, d) drawn as N(0, 0.02²), ``head`` and
+    ``text_num_layers`` pre-LN blocks."""
+    check_text_config(m)
+    d = m.text_embed_dim
+    params = {"embed": (0.02 * rng.standard_normal((m.text_vocab_size, d))).astype(np.float32),
+              "head": _layer(rng, (d, m.text_feature_dim), d), "layers": []}
+    for _ in range(m.text_num_layers):
+        params["layers"].append(_block(rng, d))
+    return params
 
 
 def _layernorm(rng, dim):
@@ -140,14 +163,19 @@ def _transformer(rng, in_dim, mc, n_classes):
     if mc.temporal_pos_encoding == "learned":
         params["pos"] = (0.02 * rng.standard_normal((mc.temporal_max_len, md))).astype(np.float32)
     for _ in range(mc.temporal_num_layers):
-        layer = {"ln1": _layernorm(rng, md)}
-        for name in ("wq", "wk", "wv", "wo"):
-            layer[name] = _layer(rng, (md, md), md)
-        layer["ln2"] = _layernorm(rng, md)
-        layer["mlp_in"] = _layer(rng, (md, 4 * md), md)
-        layer["mlp_out"] = _layer(rng, (4 * md, md), 4 * md)
-        params["layers"].append(layer)
+        params["layers"].append(_block(rng, md))
     return params
+
+
+def _block(rng, d):
+    """A pre-LN transformer block: ``ln1``, ``wq/wk/wv/wo``, ``ln2``, ``mlp_in`` (d → 4d), ``mlp_out``."""
+    layer = {"ln1": _layernorm(rng, d)}
+    for name in ("wq", "wk", "wv", "wo"):
+        layer[name] = _layer(rng, (d, d), d)
+    layer["ln2"] = _layernorm(rng, d)
+    layer["mlp_in"] = _layer(rng, (d, 4 * d), d)
+    layer["mlp_out"] = _layer(rng, (4 * d, d), 4 * d)
+    return layer
 
 
 def init_temporal_params(model_cfg, in_dim: int, seed: int, n_classes: int = 1):

@@ -128,6 +128,31 @@ def _jax_stream(env, small_cfg, video, chunk, store, **kw):
     return summarize(scores, iv, cfg.preprocess.skip_frames, full_n, cfg.knapsack)
 
 
+def _jax_trunk(cfg):
+    return create_train_state(jax.random.PRNGKey(13), cfg)
+
+
+def _commentary_workdir(env, small_cfg, tmp_path, flags):
+    """A workdir with a JAX-written trunk for ``flags`` (tag ``opt``) and a copy of vidA with a commentary
+    sidecar → (workdir, video path)."""
+    import json
+    import shutil
+
+    from cvml_goalnet_tpu.cli import _load_cfg as jax_load_cfg
+
+    src = env["meta"]["video_fps"][0]
+    video = str(tmp_path / os.path.basename(src))
+    shutil.copy(src, video)
+    shutil.copy(src.rsplit(".", 1)[0] + ".wav", video.rsplit(".", 1)[0] + ".wav")
+    with open(video.rsplit(".", 1)[0] + ".commentary.jsonl", "w") as f:
+        for frame, line in ((0, "kick off"), (70, "a long ball forward"), (150, "GOAL! what a strike")):
+            f.write(json.dumps({"frame": frame, "text": line}) + "\n")
+    cfg = jax_load_cfg(cli.build_parser().parse_args(["infer", video, "--config", env["cfg"], *flags]))
+    work = str(tmp_path / "work")
+    save_checkpoint(os.path.join(work, "models", "importance"), _jax_trunk(cfg), cfg, tag="opt")
+    return work, video
+
+
 @pytest.mark.parametrize("audio", [True, False])
 @pytest.mark.parametrize("store", [True, False])
 def test_offline_matches_jax(env, small_cfg, exported, audio, store, capsys):
@@ -250,10 +275,37 @@ class TestRefusals:
                                     *_args(env, "--no-audio", "--stream", "--transfer-dtype", "uint8")],
                       "host-preprocess")
 
-    @pytest.mark.parametrize("flag,message", [(["--commentary"], "the text branch is not ported yet"),
-                                              (["--moe-experts", "4"], "the mixture-of-experts fusion")])
-    def test_unported_model_options(self, env, capsys, flag, message):
-        self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0], *_args(env, *flag)], message)
+    @pytest.mark.parametrize("flag", [["--commentary"], ["--moe-experts", "4"]])
+    def test_model_options_run_offline_as_jax(self, env, small_cfg, exported, tmp_path, flag):
+        """``--commentary`` (the video's sidecar through the text branch) and ``--moe-experts 4`` run offline
+        on a JAX-written trunk of that structure and export the frames the JAX package selects."""
+        from cvml_goalnet_tpu.cli import _load_cfg as jax_load_cfg
+
+        work, video = _commentary_workdir(env, small_cfg, tmp_path, flag)
+        args = ["--config", env["cfg"], "--workdir", work, *flag, "--mat-fp", env["meta"]["mat_file_path"],
+                "--h5-fp", env["meta"]["h5_file_path"]]
+        assert cli.main(["infer", video, *args]) == 0
+        cfg = jax_load_cfg(cli.build_parser().parse_args(["infer", video, *args]))
+        item = build_video_item(video, cfg, None, AnnotationStore(env["meta"]["mat_file_path"],
+                                                                  env["meta"]["h5_file_path"]), True)
+        state = _jax_trunk(cfg)
+        scores = fuse(state.params, state.model_state, {"visual": item.visual, "audio": item.audio,
+                                                        "text": item.text}, cfg)
+        want = summarize(scores, item.clip_intervals, cfg.preprocess.skip_frames, item.full_n_frames, cfg.knapsack,
+                         full_frames=_raw(video))
+        assert len(exported) == 1 and len(want.summary_frames) > 0
+        np.testing.assert_array_equal(exported[0], want.summary_frames)
+
+    def test_stream_refuses_commentary_as_jax(self, env, capsys):
+        """``infer --stream --commentary`` exits 2 with the JAX CLI's message, before any decode."""
+        from cvml_goalnet_tpu import cli as jcli
+
+        argv = ["infer", env["meta"]["video_fps"][0], *_args(env, "--no-audio", "--stream", "--commentary")]
+        errs = []
+        for main in (jcli.main, cli.main):
+            assert main(argv) == 2
+            errs.append([ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("E: ")])
+        assert errs[0] == errs[1] and "commentary alignment" in errs[1][0]
 
     def test_orbax_backend_flag(self, env, capsys):
         self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0],
@@ -412,20 +464,141 @@ class TestTrainRefusals:
     @pytest.mark.parametrize("verb,flags,message", [
         ("train", ["--dp"], "ROADMAP.md §1 item 6"),
         ("train", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
-        ("train", ["--commentary"], "ROADMAP.md §1 item 5"),
-        ("train", ["--moe-experts", "4"], "ROADMAP.md §1 item 5"),
         ("eval", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
-        ("eval", ["--commentary"], "ROADMAP.md §1 item 5"),
     ])
     def test_unported_flags_exit_2_before_any_decode(self, env, capsys, verb, flags, message):
         assert cli.main([verb, *_data_args(env["meta"], env["cfg"], env["work"], *flags)]) == 2
         assert message in capsys.readouterr().err
 
-    def test_baseline_refuses_an_unported_config(self, env, small_cfg, tmp_path, capsys):
+
+def _commentary_videos(meta, root):
+    """Copies of the synthetic videos (and their .wav) under ``root``, vidA with a commentary sidecar and vidB
+    without one (its frames read as empty commentary)."""
+    import json
+    import shutil
+
+    out = []
+    for i, src in enumerate(meta["video_fps"]):
+        dst = os.path.join(str(root), os.path.basename(src))
+        shutil.copy(src, dst)
+        shutil.copy(src.rsplit(".", 1)[0] + ".wav", dst.rsplit(".", 1)[0] + ".wav")
+        if i == 0:
+            with open(dst.rsplit(".", 1)[0] + ".commentary.jsonl", "w") as f:
+                for frame, line in ((0, "kick off"), (95, "shot"), (180, "GOAL")):
+                    f.write(json.dumps({"frame": frame, "text": line}) + "\n")
+        out.append(dst)
+    return out
+
+
+def _text_data_args(meta, videos, cfg_path, work, *extra):
+    args = _data_args(meta, cfg_path, work, *extra)
+    i = args.index("--videos")
+    return args[:i + 1] + videos + args[i + 1 + len(meta["video_fps"]):]
+
+
+class TestModelOptionVerbs:
+    @pytest.mark.parametrize("verb,flags", [
+        ("train", ["--commentary"]),
+        ("train", ["--moe-experts", "4"]),
+        ("eval", ["--commentary"]),
+    ])
+    def test_run_as_jax(self, env, small_cfg, tmp_path, capsys, verb, flags):
+        """``train`` and ``eval`` with the text branch (sidecars read, the empty-commentary fallback for a video
+        without one) or the MoE fusion: the JAX package's ``train --epochs 1`` writes the trunk; both packages
+        then resume it for an epoch (the logs 1e-5 relative, F-scores equal), or evaluate it (equal lines)."""
+        import shutil
+
+        from cvml_goalnet_tpu import cli as jcli
+
+        meta = env["meta"]
+        videos = _commentary_videos(meta, tmp_path)
+        cfg_path = _train_cfg(small_cfg, tmp_path)
+        first = str(tmp_path / "first")
+        assert jcli.main(["train", *_text_data_args(meta, videos, cfg_path, first, "--epochs", "1", *flags)]) == 0
+        outs, logs = [], {}
+        for name, main in (("jax", jcli.main), ("port", cli.main)):
+            work = str(tmp_path / name)
+            shutil.copytree(os.path.join(first, "models"), os.path.join(work, "models"))
+            capsys.readouterr()
+            extra = ["--checkpoint", "--epochs", "2"] if verb == "train" else []
+            assert main([verb, *_text_data_args(meta, videos, cfg_path, work, *extra, *flags)]) == 0
+            out = capsys.readouterr().out
+            if verb == "train":
+                assert "Resumed from epoch 1" in out
+                logs[name] = _epochs(work)
+            outs.append([ln for ln in out.splitlines() if ln.startswith("[eval]")])
+        if verb == "eval":
+            assert len(outs[1]) == 2
+            for got, want in zip(outs[1], outs[0]):
+                g, w = got.split(" - "), want.split(" - ")
+                assert g[0] == w[0] and g[2:] == w[2:]
+                assert float(g[1].split(": ")[1]) == pytest.approx(float(w[1].split(": ")[1]), rel=1e-3)
+            return
+        assert [e["epoch"] for e in logs["port"]] == [e["epoch"] for e in logs["jax"]] == [-1, 1]
+        for got, want in zip(logs["port"], logs["jax"]):
+            for k in ("train_loss", "val_loss"):
+                assert got[k] == pytest.approx(want[k], rel=1e-5), k
+            for k in ("train_f_avg", "train_f_max", "val_f_avg", "val_f_max"):
+                assert got[k] == want[k], k
+
+    def test_baseline_runs_a_moe_config(self, env, small_cfg, tmp_path, capsys):
+        """``baseline`` with an MoE (and text) config prints the JAX baseline's report keys (its samples are
+        the port's own draws, so the values differ by design: baseline.py)."""
+        from cvml_goalnet_tpu import cli as jcli
+
         path = str(tmp_path / "moe.json")
-        dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, fusion_moe_experts=4)).save(path)
-        assert cli.main(["baseline", *_data_args(env["meta"], path, env["work"])]) == 2
-        assert "ROADMAP.md §1 item 5" in capsys.readouterr().err
+        dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, fusion_moe_experts=4,
+                                                                 text_included=True)).save(path)
+        keys = []
+        for main in (jcli.main, cli.main):
+            assert main(["baseline", *_data_args(env["meta"], path, env["work"]), "--samples", "2"]) == 0
+            report = dict(ln.split(": ") for ln in capsys.readouterr().out.splitlines() if ": " in ln)
+            keys.append(set(report))
+            assert all(np.isfinite(float(v)) for v in report.values())
+        assert keys[0] == keys[1] and "opt_train_loss" in keys[1]
+
+    def test_jax_trained_trunk_with_both_flags_infers_as_jax(self, env, small_cfg, tmp_path, capsys, exported,
+                                                              monkeypatch):
+        """A trunk that the JAX package's ``train --commentary --moe-experts 4`` wrote on the synthetic set:
+        ``infer`` with the same flags in both packages exports the same frames, and the two packages' scores
+        of it agree within 1e-5."""
+        from cvml_goalnet_tpu import cli as jcli
+        from cvml_goalnet_tpu.data import video as JVid
+        from cvml_goalnet_tpu.train.checkpoint import load_checkpoint as jax_load
+        from cvml_goalnet_tpu_torch.data.dataset import build_video_item as port_item
+        from cvml_goalnet_tpu_torch.pipeline import fuse as port_fuse
+        from cvml_goalnet_tpu_torch.train.checkpoint import load_checkpoint as port_load
+        from cvml_goalnet_tpu_torch.train.state import create_train_state as port_state
+
+        jax_exported = []
+        real = JVid.export_video
+        monkeypatch.setattr(JVid, "export_video", lambda f, o, fps=30: (jax_exported.append(np.asarray(f).copy()),
+                                                                          real(f, o, fps=fps)))
+        meta = env["meta"]
+        videos = _commentary_videos(meta, tmp_path)
+        flags = ["--commentary", "--moe-experts", "4"]
+        cfg_path = _train_cfg(small_cfg, tmp_path)
+        work = str(tmp_path / "work")
+        assert jcli.main(["train", *_text_data_args(meta, videos, cfg_path, work, "--epochs", "1", *flags)]) == 0
+        args = ["--config", cfg_path, "--workdir", work, *flags, "--mat-fp", meta["mat_file_path"], "--h5-fp",
+                meta["h5_file_path"]]
+        assert jcli.main(["infer", videos[0], *args]) == 0
+        assert cli.main(["infer", videos[0], *args]) == 0
+        assert len(exported) == len(jax_exported) == 1
+        np.testing.assert_array_equal(exported[0], jax_exported[0])
+        pcfg = cli._load_cfg(cli.build_parser().parse_args(["infer", videos[0], *args]))
+        jcfg = jcli._load_cfg(cli.build_parser().parse_args(["infer", videos[0], *args]))
+        ckp = os.path.join(work, "models", "importance")
+        st = port_load(ckp, port_state(0, pcfg, device="cpu"), tag="opt")
+        js = jax_load(ckp, create_train_state(jax.random.PRNGKey(0), jcfg), tag="opt")
+        item, jitem = port_item(videos[0], pcfg, None, None, True, device="cpu"), build_video_item(videos[0], jcfg,
+                                                                                                None, None, True)
+        np.testing.assert_array_equal(item.text.numpy(), jitem.text)
+        np.testing.assert_allclose(
+            port_fuse(st.params, st.model_state, {"visual": item.visual, "audio": item.audio, "text": item.text},
+                      pcfg, device="cpu"),
+            fuse(js.params, js.model_state, {"visual": jitem.visual, "audio": jitem.audio, "text": jitem.text}, jcfg),
+            atol=1e-5, rtol=0)
 
 
 class TestEvalTrunk:

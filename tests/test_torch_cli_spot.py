@@ -12,7 +12,8 @@ one unit of the printed 4 decimals, choose the same best epoch, and save a
 head the JAX package's ``load_spotting_checkpoint`` reads, within steps·lr of
 the JAX package's head (Adam moves an entry whose gradient is rounding noise
 by up to lr a step).  Every flag the port does not run yet exits 2 before
-any decode, naming its ROADMAP item.
+any decode, naming its ROADMAP item; ``--commentary`` and ``--moe-experts``
+run in every verb and print what the JAX CLI prints.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from cvml_goalnet_tpu.train.checkpoint import save_checkpoint
 from cvml_goalnet_tpu.train.spotting import load_spotting_checkpoint
 from cvml_goalnet_tpu.train.state import create_train_state
 from cvml_goalnet_tpu_torch import cli
+from cvml_goalnet_tpu_torch import serve as TSV   # imported here, before TestRefusals stubs the decoders it binds
 from cvml_goalnet_tpu_torch import weights as W
 from cvml_goalnet_tpu_torch.data import dataset as TD
 from cvml_goalnet_tpu_torch.data import video as TVID
@@ -346,19 +348,14 @@ class TestRefusals:
         ("spot", ["--stream", "--eval-events", "--no-audio"], "--eval-events is an offline option"),
         ("spot", ["--stream", "--no-audio", "--temporal-model", "transformer"], "needs a banded window"),
         ("spot", ["--stream"], "audio trunks stream via --follow"),
-        ("spot", ["--commentary"], "item 5"),
-        ("spot", ["--moe-experts", "4"], "item 5"),
+        ("spot", ["--stream", "--no-audio", "--commentary"], "no live ingest protocol for commentary tokens"),
         ("spot-train", ["--tp", "2"], "--dp-timelines/--tp require --cp"),
         ("spot-train", ["--dp-timelines", "2"], "--dp-timelines/--tp require --cp"),
         ("spot-train", ["--cp"], "item 6"),
         ("spot-train", ["--cp", "--dp-timelines", "2", "--tp", "2"], "item 6"),
         ("spot-train", ["--pp", "2", "--temporal-model", "transformer"], "item 6"),
         ("spot-train", ["--early-stop", "2"], "--early-stop needs --val-videos"),
-        ("spot-train", ["--commentary"], "item 5"),
-        ("profile", ["--moe-experts", "4"], "item 5"),
         ("serve", ["--dp", "2"], "item 6"),
-        ("serve", ["--commentary"], "item 5"),
-        ("serve", ["--moe-experts", "2"], "item 5"),
         ("serve", ["--host", "0.0.0.0", "--port", "0", "--no-audio"], "non-loopback"),
     ])
     def test_exits_2_before_any_decode(self, env, capsys, verb, flags, message):
@@ -397,3 +394,132 @@ class TestRefusals:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["serve", "--config", env["cfg"], "--workdir", env["work"], "--no-audio", "--port", "0"])
+
+
+# ------------------------------------------------------------------ --commentary and --moe-experts
+
+
+def _model_workdir(env, tmp_path, flags):
+    """Copies of vid0 and vid1 (frames, .wav, .events.json) with a commentary sidecar for vid0, a JAX-written
+    trunk (tag ``opt``) and a JAX-written single-class head of the trunk's width → (argv tail, videos, head)."""
+    import shutil
+
+    from cvml_goalnet_tpu.train.spotting import save_spotting_checkpoint
+
+    data = tmp_path / "data"
+    data.mkdir()
+    videos = []
+    for i, src in enumerate(env["videos"][:2]):
+        dst = str(data / os.path.basename(src))
+        for ext in (".npz", ".wav", ".events.json"):
+            shutil.copy(src[:-4] + ext, dst[:-4] + ext)
+        if i == 0:
+            with open(dst[:-4] + ".commentary.jsonl", "w") as f:
+                for frame, line in ((0, "kick off"), (200, "a shot on goal"), (420, "GOAL! 1-0"), (700, "corner")):
+                    f.write(json.dumps({"frame": frame, "text": line}) + "\n")
+        videos.append(dst)
+    common = ["--config", env["cfg"], "--workdir", str(tmp_path / "work"), *flags]
+    cfg = JC._load_cfg(cli.build_parser().parse_args(["spot", videos[0], *common]))
+    save_checkpoint(str(tmp_path / "work" / "models" / "importance"), create_train_state(jax.random.PRNGKey(23), cfg),
+                    cfg, tag="opt")
+    d = cfg.model.vis_feature_dim + cfg.model.aud_feature_dim + (cfg.model.text_feature_dim if cfg.model.text_included
+                                                                 else 0)
+    head = str(tmp_path / "head.npz")
+    save_spotting_checkpoint(head, temporal_head_init_auto(jax.random.PRNGKey(7), d, cfg.model))
+    return common, videos, head, cfg
+
+
+def _serve_once(argv, requests, monkeypatch):
+    """``cli.main(["serve", ...])`` in a thread with ``--port 0``; POST each (path, body) once it listens →
+    (exit code, the JSON replies)."""
+    import threading
+
+    servers, replies, rc = [], [], []
+    real = TSV.serve_http
+
+    def capture(*a, **kw):
+        servers.append(real(*a, **kw))
+        servers[-1].timeout = 30   # a request never sent ends handle_request after 30 s, so the thread ends
+        return servers[-1]
+
+    monkeypatch.setattr(TSV, "serve_http", capture)
+    t = threading.Thread(target=lambda: rc.append(cli.main(argv + ["--port", "0", "--max-requests",
+                                                                   str(len(requests))])))
+    t.start()
+    try:
+        for _ in range(600):
+            if servers or not t.is_alive():
+                break
+            t.join(0.1)
+        assert servers, "the server did not start"
+        port = servers[0].server_address[1]
+        for path, body in requests:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                         method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    replies.append(json.load(r))
+            except urllib.error.HTTPError as e:
+                replies.append({"status": e.code, **json.load(e)})
+    finally:
+        t.join(120)
+    return rc[0], replies
+
+
+class TestModelOptions:
+    @pytest.mark.parametrize("verb,flags", [
+        ("spot", ["--commentary"]),
+        ("spot", ["--moe-experts", "4"]),
+        ("spot-train", ["--commentary"]),
+        ("profile", ["--moe-experts", "4"]),
+        ("serve", ["--commentary"]),
+        ("serve", ["--moe-experts", "2"]),
+    ])
+    def test_run_as_jax(self, env, capsys, monkeypatch, tmp_path, verb, flags):
+        """Each verb with the text branch (the video's commentary sidecar) or the MoE fusion, on a JAX-written
+        trunk of that structure: ``spot`` prints the JAX CLI's payload, ``spot-train`` its epoch losses,
+        ``profile`` its frame and clip counts, and ``serve`` answers /summarize (and /spot) as the JAX
+        package's services do."""
+        common, videos, head, cfg = _model_workdir(env, tmp_path, flags)
+        if verb != "serve":
+            common = [*common, "--data-root", str(tmp_path / "none")]
+        if verb == "spot":
+            out_t, out_j = _both(["spot", videos[0], *common, "--temporal-checkpoint", head, "--eval-events"], capsys)
+            assert _payload(out_t) == _payload(out_j)
+        elif verb == "spot-train":
+            _jax_initial_head(monkeypatch, env)
+            outs = {}
+            for name, main in (("port", cli.main), ("jax", JC.main)):
+                rc, out, err = _run(main, ["spot-train", "--videos", *videos, *common, "--epochs", "2", "--lr", "3e-3",
+                                           "--out", str(tmp_path / f"{name}.npz")], capsys)
+                assert rc == 0, err[-2000:]
+                outs[name] = out
+            _assert_losses(_epochs(outs["port"]), _epochs(outs["jax"]))
+        elif verb == "profile":
+            outs = {}
+            for name, main in (("port", cli.main), ("jax", JC.main)):
+                rc, out, err = _run(main, ["profile", videos[0], *common, "--repeats", "1"], capsys)
+                assert rc == 0, err[-2000:]
+                outs[name] = _payload(out)
+            for key in ("video_id", "repeats", "condensed_frames", "full_n_frames", "selected_clips"):
+                assert outs["port"][key] == outs["jax"][key], key
+        else:
+            from cvml_goalnet_tpu.serve import Spotter as JaxSpotter
+            from cvml_goalnet_tpu.train.checkpoint import load_checkpoint
+
+            media = os.path.dirname(videos[0])
+            name = os.path.basename(videos[0])
+            spot = ["--spot", "--temporal-checkpoint", head] if "--commentary" in flags else []
+            reqs = [("/summarize", {"video": name})] + ([("/spot", {"video": name})] if spot else [])
+            rc, replies = _serve_once(["serve", *common, "--media-root", media, "--batch", *spot], reqs, monkeypatch)
+            assert rc == 0 and all("error" not in r for r in replies), replies
+            state = load_checkpoint(str(tmp_path / "work" / "models" / "importance"),
+                                    create_train_state(jax.random.PRNGKey(0), cfg), tag="opt")
+            want = JaxSummarizer(cfg, state=state).summarize_path(videos[0])
+            assert replies[0]["mask_frames"] == int(want.frame_mask.sum())
+            assert replies[0]["clips"] == want.clips.tolist()
+            np.testing.assert_allclose(replies[0]["scores"], np.round(np.asarray(want.scores), 4), atol=2e-4)
+            if spot:
+                jsp = JaxSpotter(cfg, state=state, temporal_checkpoint=head)
+                w = jsp.spot_path(videos[0])
+                assert replies[1]["events_condensed_frames"] == w.events.tolist()

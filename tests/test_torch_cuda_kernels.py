@@ -1441,3 +1441,76 @@ def test_preset_fuse_card_matches_cpu_and_launches_the_forms(dev, dtype, quant):
     assert got == want
     if bf16:   # the scores lie on the bf16 grid
         assert torch.equal(torch.from_numpy(card).to(torch.bfloat16).to(torch.float32), torch.from_numpy(card))
+
+
+# ---------------------------------------------------------------- kernel 4 behind the text branch and MoE
+
+def _text_moe_layers(text: bool, moe: bool, bf16: bool):
+    """The fusion layers kernel 4 takes at reference_parity width: the whole 768-wide chain with the text branch
+    ([audio 128 ‖ visual 512 ‖ text 128] → 512 → 512 → 256 → 128 → 1), or after an MoE first layer its
+    remaining 512 → 512 → 256 → 128 → 1."""
+    import dataclasses
+
+    cfg = _parity_cfg(True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, text_included=text,
+                                                             fusion_moe_experts=4 if moe else 0))
+    layers = weights.tree_from_jax(weights.init_params(cfg, seed=17)[0]["fusion"])
+    layers = layers[1:] if moe else layers
+    return [{k: v.to(torch.bfloat16) for k, v in lp.items()} for lp in layers] if bf16 else layers
+
+
+@pytest.mark.parametrize("moe", [False, True])
+@pytest.mark.parametrize("rows", [1, 22, 64, 150, 1050, 5400])
+def test_fused_mlp_at_the_text_and_moe_chains(dev, moe, rows):
+    """Kernel 4 at the 768-wide chain and the post-MoE chain, at the row counts the paths give it: one launch,
+    within 1e-5 of the plain version, equal bits on a repeat."""
+    layers = _text_moe_layers(not moe, moe, False)
+    assert layers[0]["w"].shape[0] == (512 if moe else 768) and len(layers) == (4 if moe else 5)
+    x = torch.relu(_rand((rows, layers[0]["w"].shape[0]), 18))
+    before = fused_fusion_mlp.launches
+    got = fused_fusion_mlp(x, layers)
+    assert fused_fusion_mlp.launches == before + 1
+    torch.testing.assert_close(got, fused_fusion_mlp_plain(x, layers), atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, fused_fusion_mlp(x, layers))
+
+
+@pytest.mark.parametrize("moe", [False, True])
+@pytest.mark.parametrize("rows", [1, 22, 64, 150, 1050, 5400])
+def test_mlp_bf16_at_the_text_and_moe_chains(dev, moe, rows):
+    """4-bf16 at the same chains: one launch, within 2 bf16 ulps of the plain version (0.0625 on [4, 5]),
+    equal bits on a repeat."""
+    layers = _text_moe_layers(not moe, moe, True)
+    x = torch.relu(_rand((rows, layers[0]["w"].shape[0]), 19)).to(torch.bfloat16)
+    before = fused_fusion_mlp_bf16.launches
+    got = fused_fusion_mlp(x, layers)
+    torch.cuda.synchronize()
+    assert fused_fusion_mlp_bf16.launches == before + 1
+    want = fused_fusion_mlp_bf16_plain(x, layers)
+    assert_bf16_close(got, want, torch.zeros(()), f"mlp bf16 text/moe {rows}")
+    assert (got.to(torch.float32) - want.to(torch.float32)).abs().max() <= 0.0625
+    assert torch.equal(got, fused_fusion_mlp(x, layers))
+
+
+@pytest.mark.parametrize("text,moe", [(True, False), (False, True), (True, True)])
+def test_fuse_with_text_and_moe_card_matches_cpu(dev, text, moe):
+    """fuse at reference_parity width with the text branch, the MoE fusion and both on 64 frames with a row of
+    empty commentary: card against CPU within 1e-4, kernels 2-4 launched (kernel 4 once)."""
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch.data.text import tokenize
+
+    cfg = _parity_cfg(True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, text_included=text,
+                                                             fusion_moe_experts=4 if moe else 0))
+    p_np, s_np = weights.init_params(cfg, 0)
+    gen = np.random.default_rng(5)
+    feats = {"visual": gen.random((64, 40, 40, 3)).astype(np.float32),
+             "audio": gen.standard_normal((64, 30, 30)).astype(np.float32),
+             "text": tokenize(["", *(f"goal number {i} from the spot" for i in range(63))],
+                              cfg.model.text_vocab_size, cfg.model.text_max_len)}
+    tp, ts = weights.from_jax(p_np, s_np)
+    before = fused_fusion_mlp.launches, head_matmul.launches
+    card = fuse(tp, ts, feats, cfg)
+    assert (fused_fusion_mlp.launches, head_matmul.launches) == (before[0] + 1, before[1] + 1)
+    cp, cs = weights.from_jax(p_np, s_np, device="cpu")
+    assert np.abs(card - fuse(cp, cs, feats, cfg, device="cpu")).max() <= 1e-4

@@ -276,11 +276,28 @@ class TestBuildVideoItem:
             np.testing.assert_array_equal(TD.uniform_clip_intervals(_port_cfg(small_cfg), full_n),
                                           _uniform_clip_intervals(small_cfg, full_n))
 
-    def test_commentary_is_a_later_slice(self, synth_dir, small_cfg):
-        cfg = _port_cfg(small_cfg)
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, text_included=True))
-        with pytest.raises(NotImplementedError, match="text branch"):
-            TD.build_video_item(synth_dir["video_fps"][0], cfg, None, None, False, device=CPU)
+    def test_commentary_sidecar_matches_jax(self, synth_dir, small_cfg, tmp_path):
+        """With the text branch the ``.commentary.jsonl`` sidecar is read and aligned as the JAX package does,
+        and the token ids are cut with the other per-frame tensors to the annotation's length; a video
+        without a sidecar gets all-zero ids."""
+        import json
+        import shutil
+
+        jcfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, text_included=True))
+        store = JA.AnnotationStore(synth_dir["mat_file_path"], synth_dir["h5_file_path"])
+        for i, fp in enumerate(synth_dir["video_fps"][:2]):
+            video = str(tmp_path / os.path.basename(fp))
+            shutil.copy(fp, video)
+            shutil.copy(fp.rsplit(".", 1)[0] + ".wav", video.rsplit(".", 1)[0] + ".wav")
+            if i == 0:
+                with open(video.rsplit(".", 1)[0] + ".commentary.jsonl", "w") as f:
+                    for frame, line in ((30, "kick off"), (100, "shot on target"), (181, "GOAL")):
+                        f.write(json.dumps({"frame": frame, "text": line}) + "\n")
+            want = JD.build_video_item(video, jcfg, synth_dir["annotation_fp"], store, True)
+            got = TD.build_video_item(video, _port_cfg(jcfg), synth_dir["annotation_fp"], store, True, device=CPU)
+            assert got.text.dtype == torch.int32 and len(got.text) == len(got.visual) == len(want.labels)
+            np.testing.assert_array_equal(got.text.numpy(), want.text)
+            assert bool(got.text.numpy().any()) == (i == 0)
 
     def test_decode_workers_env(self, media, monkeypatch):
         monkeypatch.setenv("GOALNET_DECODE_WORKERS", "2")

@@ -146,8 +146,10 @@ class TestFuse:
 
     @pytest.mark.parametrize("config", ["tpu_serving.json", "vit", "text", "moe"])
     def test_later_slices_raise(self, small_cfg, config):
-        """The model families of later slices raise; the serving preset (bf16 with int8 conv1 and conv2, this
-        slice) runs, its scores on the bf16 grid in [1, 5] (held to the JAX package in test_torch_bf16.py)."""
+        """Only the vit and resnet families still raise.  The serving preset (bf16 with int8 conv1 and conv2)
+        runs, its scores on the bf16 grid in [1, 5] (held to the JAX package in test_torch_bf16.py); the text
+        branch and the MoE fusion run and match the JAX package's ``fuse`` within 1e-5 (both together, the
+        layers and training: test_torch_text.py and test_torch_moe.py)."""
         import dataclasses
 
         if config.endswith(".json"):
@@ -161,11 +163,21 @@ class TestFuse:
             return
         field = {"vit": {"vis_backbone": "vit"}, "text": {"text_included": True},
                  "moe": {"fusion_moe_experts": 4}}[config]
-        cfg = _port_cfg(small_cfg)
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **field))
-        feats = _random_features(cfg, 2, seed=0)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TP.fuse({}, {}, feats, cfg, device=CPU)
+        jcfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, **field))
+        cfg = _port_cfg(jcfg)
+        feats = _random_features(cfg, 6, seed=0)
+        if config == "vit":
+            with pytest.raises(NotImplementedError, match="later slice"):
+                TP.fuse({}, {}, feats, cfg, device=CPU)
+            return
+        if config == "text":
+            from cvml_goalnet_tpu.data.text import tokenize
+
+            feats["text"] = tokenize(["", "goal", "a long ball", "", "save", "corner"], 128, 12)
+        params, state = avm_init(jax.random.PRNGKey(0), jcfg.model, jcfg.preprocess, jcfg.audio)
+        want = JP.fuse(params, state, feats, jcfg)
+        np.testing.assert_allclose(TP.fuse(*W.from_jax(params, state, device=CPU), feats, cfg, device=CPU), want,
+                                   atol=1e-5, rtol=0)
 
 
 class TestExtractFeatures:

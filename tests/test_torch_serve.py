@@ -138,16 +138,21 @@ class TestSummarizer:
         assert ts.summarize_frames("v", _frames(3)).scores.shape == (3,)
 
     def test_unported_options_raise_naming_their_item(self, small_cfg):
+        """The mesh (item 6) and the vit and resnet backbones (item 5) raise; trunks with the text branch and
+        the MoE fusion are served (held to the JAX package in TestCommentary)."""
         cfg = _port(_jcfg(small_cfg, False))
         with pytest.raises(NotImplementedError, match="item 6"):
             TV.Summarizer(cfg, device=CPU, mesh=object())
         with pytest.raises(NotImplementedError, match="item 6"):
             TV.Spotter(cfg, device=CPU, mesh=object())
-        text = _port(_jcfg(small_cfg, False, text_included=True))
+        vit = _port(_jcfg(small_cfg, False, vis_backbone="vit"))
         with pytest.raises(NotImplementedError, match="item 5"):
-            TV.Summarizer(text, device=CPU)
+            TV.Summarizer(vit, device=CPU)
         with pytest.raises(NotImplementedError, match="item 5"):
-            TV.Spotter(text, device=CPU)
+            TV.Spotter(vit, device=CPU)
+        text = _port(_jcfg(small_cfg, False, text_included=True, fusion_moe_experts=4))
+        assert TV.Summarizer(text, device=CPU).summarize_frames("t", _frames(3)).scores.shape == (3,)
+        assert TV.Spotter(text, device=CPU).spot_frames("t", _frames(3)).scores.shape == (3,)
 
     def test_without_a_card_the_service_raises(self, small_cfg, monkeypatch):
         import torch
@@ -514,3 +519,101 @@ class TestServerMetrics:
             "latency_ms": {"p50": 220.0, "p95": 290.0, "max": 290.0, "window": 16}}
         assert got["batcher"]["mean_batch_frames"] == 250.2
         assert "batcher" not in TV.ServerMetrics().snapshot()
+
+
+# ------------------------------------------------------------------ commentary (the text branch) and MoE
+
+
+COMMENTARY = [(0, "kick off"), (95, "a long ball forward"), (200, "GOAL! 1-0"), (400, "corner")]
+
+
+@pytest.fixture(scope="module")
+def text_trunk(small_cfg):
+    """A JAX trunk with the text branch and the MoE fusion (no audio), and the port's copy."""
+    jcfg = _jcfg(small_cfg, False, text_included=True, fusion_moe_experts=4)
+    js = jax_train_state(jax.random.PRNGKey(21), jcfg)
+    return jcfg, js, _port_state(js)
+
+
+def _commentary(n, skip=30):
+    from cvml_goalnet_tpu.data.text import commentary_per_frame
+
+    return commentary_per_frame(COMMENTARY, n, skip)
+
+
+def _write_sidecar(video_fp):
+    import json
+
+    with open(video_fp.rsplit(".", 1)[0] + ".commentary.jsonl", "w") as f:
+        for frame, line in COMMENTARY:
+            f.write(json.dumps({"frame": frame, "text": line}) + "\n")
+
+
+class TestCommentary:
+    def test_summarizer_with_commentary_matches_jax(self, text_trunk, tmp_path):
+        """Frames with per-frame commentary, without it (every frame ""), and a path with and without its
+        sidecar: the JAX package's masks, scores within 1e-4."""
+        jcfg, js, ts = text_trunk
+        jsum, tsum = JV.Summarizer(jcfg, state=js), TV.Summarizer(_port(jcfg), state=ts, device=CPU)
+        frames = _frames(16, seed=30)
+        for commentary in (_commentary(16), None):
+            _assert_summaries(tsum.summarize_frames("v", frames, commentary=commentary),
+                              jsum.summarize_frames("v", frames, commentary=commentary))
+        with_text = tsum.summarize_frames("v", frames, commentary=_commentary(16))
+        assert not np.array_equal(with_text.scores, tsum.summarize_frames("v", frames).scores)
+        for sidecar in (True, False):
+            fp = str(tmp_path / f"clip{int(sidecar)}.npz")
+            np.savez(fp, frames=_frames(16 * 30, seed=31))
+            if sidecar:
+                _write_sidecar(fp)
+            _assert_summaries(tsum.summarize_path(fp), jsum.summarize_path(fp))
+
+    def test_batcher_with_commentary_matches_jax(self, text_trunk):
+        """Riders with and without commentary in one bucket-padded batch (padded rows hold token 0): the
+        unbatched summaries and the JAX package's batcher's."""
+        jcfg, js, ts = text_trunk
+        tsum = TV.Summarizer(_port(jcfg), state=ts, device=CPU)
+        reqs = [_frames(n, seed=40 + n) for n in (10, 7, 12)]
+        texts = [_commentary(10), None, _commentary(12, skip=11)]
+        with TV.DynamicBatcher(tsum, max_batch_frames=64, max_wait_ms=500.0, buckets=(16, 32, 64)) as tb:
+            tb.warmup()
+            got = [f.result(timeout=120) for f in [tb.submit(f"v{i}", fr, commentary=c)
+                                                   for i, (fr, c) in enumerate(zip(reqs, texts))]]
+            assert tb.stats["batches"] < 3
+        for i, (g, fr, c) in enumerate(zip(got, reqs, texts)):
+            want = tsum.summarize_frames(f"v{i}", fr, commentary=c)
+            np.testing.assert_allclose(g.scores, want.scores, atol=1e-5)
+            np.testing.assert_array_equal(g.frame_mask, want.frame_mask)
+        with JV.DynamicBatcher(JV.Summarizer(jcfg, state=js), max_batch_frames=64, max_wait_ms=500.0,
+                               buckets=(16, 32, 64)) as jb:
+            jfuts = [jb.submit(f"v{i}", fr, commentary=c) for i, (fr, c) in enumerate(zip(reqs, texts))]
+            for g, f in zip(got, jfuts):
+                _assert_summaries(g, f.result(timeout=120))
+
+    def test_spotter_on_a_three_modality_trunk_matches_jax(self, text_trunk, tmp_path):
+        """A banded transformer head on [visual ‖ text] features, frames with commentary and a path with its
+        sidecar; /spot-stream refuses the trunk with the JAX package's words, before any generator runs."""
+        jcfg, js, ts = text_trunk
+        jcfg = dataclasses.replace(jcfg, model=dataclasses.replace(jcfg.model, **SCORERS["transformer"]))
+        jsp, tsp = JV.Spotter(jcfg, state=js), TV.Spotter(_port(jcfg), state=ts, device=CPU)
+        d = jcfg.model.vis_feature_dim + jcfg.model.text_feature_dim
+        assert TV.trunk_feature_dim(_port(jcfg)) == d
+        head = temporal_head_init_auto(jax.random.PRNGKey(7), d, jcfg.model)
+        jsp.temporal_params, tsp.temporal_params = head, W.tree_from_jax(head, device=CPU)
+        frames = _frames(24, seed=50)
+        got = tsp.spot_frames("m", frames, peak_window=2, commentary=_commentary(24))
+        want = jsp.spot_frames("m", frames, peak_window=2, commentary=_commentary(24))
+        np.testing.assert_allclose(got.scores, np.asarray(want.scores), atol=1e-4)
+        _assert_events(got.events, want.events)
+        fp = str(tmp_path / "m.npz")
+        np.savez(fp, frames=_frames(24 * 30, seed=51))
+        _write_sidecar(fp)
+        got, want = tsp.spot_path(fp, peak_window=2), jsp.spot_path(fp, peak_window=2)
+        np.testing.assert_allclose(got.scores, np.asarray(want.scores), atol=1e-4)
+        np.testing.assert_array_equal(got.summary_clips, want.summary_clips)
+        messages = []
+        for sp in (tsp, jsp):
+            with pytest.raises(ValueError) as e:
+                sp.spot_stream_path(fp)
+            messages.append(str(e.value))
+        assert messages[0] == messages[1] and "no live ingest protocol for commentary" in messages[0]

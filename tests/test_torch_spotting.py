@@ -221,7 +221,12 @@ class TestTrunkAndMatch:
         np.testing.assert_array_equal(got.summary.frame_mask, want.summary.frame_mask)
         assert got.summary.selected_clips == want.summary.selected_clips
 
-    def test_multiclass_head_and_later_slices_raise(self, small_cfg):
+    def test_multiclass_head_raises_and_a_text_trunk_matches_jax(self, small_cfg):
+        """A multi-class head raises in summarize_match; a 3-modality trunk (the text branch) spots as the JAX
+        package does, its features [audio ‖ visual ‖ text] and the match summary."""
+        from cvml_goalnet_tpu.data.text import tokenize
+        from cvml_goalnet_tpu_torch.data.synthetic import synthetic_change_points
+
         cfg = PipelineConfig.from_json(small_cfg.to_json())
         params, state, (tp, ts) = _trunk(small_cfg)
         _, thp = _head(cfg.model, 32, n_classes=2)
@@ -229,9 +234,26 @@ class TestTrunkAndMatch:
             TS.summarize_match(tp, ts, thp, _frames(cfg, 5), None, np.array([[0, 150]]),
                                dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, audio_included=False)),
                                device=CPU)
-        text = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, text_included=True))
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TS.encode_timeline(tp, ts, _frames(cfg, 3), None, text, device=CPU)
+        jcfg = dataclasses.replace(small_cfg, model=_model(small_cfg, audio_included=False, text_included=True))
+        params, state, (tp, ts) = _trunk(jcfg, seed=3)
+        t = 12
+        visual = _frames(jcfg, t, seed=4)
+        text = tokenize(["", "kick off", "", "shot", "GOAL!", "goal replay", "", "", "corner", "save", "", "end"],
+                        128, 12)
+        want = JS.encode_timeline(params, state, jnp.asarray(visual), None, jcfg, text=jnp.asarray(text))
+        got = TS.encode_timeline(tp, ts, visual, None, PipelineConfig.from_json(jcfg.to_json()), device=CPU,
+                                 text=text)
+        assert got.shape == (t, 32 + 16)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5 * max(1.0, float(np.abs(want).max())))
+        p, thp = _head(jcfg.model, 32 + 16, seed=5)
+        iv = synthetic_change_points(t * 30, 4, seed=6)
+        want = JS.summarize_match(params, state, p, jnp.asarray(visual), None, iv, jcfg, peak_window=2,
+                                  text=jnp.asarray(text))
+        got = TS.summarize_match(tp, ts, thp, visual, None, iv, PipelineConfig.from_json(jcfg.to_json()),
+                                 peak_window=2, device=CPU, text=text)
+        np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
+        np.testing.assert_array_equal(got.events, want.events)
+        np.testing.assert_array_equal(got.summary.frame_mask, want.summary.frame_mask)
 
     def test_entry_points_without_card_raise(self, small_cfg, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -154,9 +154,20 @@ class TestRefusals:
                 fn(p, s, _chunks(frames, 8), c, chunk_size=8)
             messages.append(str(err.value))
         assert messages[0] == messages[1]
-        with pytest.raises(NotImplementedError, match="text branch"):
-            TS.score_video_stream(tp, ts, _chunks(frames, 8), tcfg, chunk_size=8,
-                                  text_chunks=_chunks(np.zeros((N, 12), np.int32), 8), device=CPU)
+        # with the chunks, a 3-modality trunk streams as the JAX scorer does and as the offline fuse scores
+        from cvml_goalnet_tpu.data.text import tokenize
+
+        params, state = avm_init(jax.random.PRNGKey(2), jtcfg.model, jtcfg.preprocess, jtcfg.audio)
+        ttp, tts = W.from_jax(params, state, device=CPU)
+        tokens = tokenize(["", "kick off", "shot", "GOAL!", "", "corner"] * 12, 128, 12)[:N]
+        want, _ = JS.score_video_stream(params, state, _chunks(frames, 8), jtcfg, chunk_size=8,
+                                        text_chunks=_chunks(tokens, 8))
+        got, _ = TS.score_video_stream(ttp, tts, _chunks(frames, 8), tcfg, chunk_size=8,
+                                       text_chunks=_chunks(tokens, 8), device=CPU)
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        offline = fuse(ttp, tts, {**extract_features(frames, None, tcfg, device=CPU), "text": tokens}, tcfg,
+                       device=CPU)
+        np.testing.assert_allclose(got, offline, atol=1e-5)
 
     def test_chunk_longer_than_chunk_size(self, inputs, trunks):
         frames, _ = inputs
