@@ -48,7 +48,7 @@ From the repository root, on a machine with a CUDA card:
    then sweeps tables of about 1e6 to 1e8 cells for the crossover where the
    device engine (on the card) falls below the native one;
 5. drives the spotting path over one synthetic 5400-frame match with its
-   audio: ``extract_features``, then ``summarize_match`` with
+   audio (cut: one seeded 600-frame segment repeated): ``extract_features``, then ``summarize_match`` with
    ``configs/tpu_spotting.json`` (banded attention), the same with
    ``temporal_window = 0`` (full attention) and
    ``configs/tpu_spotting_quality.json`` (GRU + banded hybrid), then
@@ -177,7 +177,26 @@ From the repository root, on a machine with a CUDA card:
     the CPU on 64 frames; (f) the serving preset with both flags, card vs
     CPU ≤ 0.0625 (a frame beyond only where the gate routes it to other
     experts on the two sides, reported);
-14. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+14. the resnet and vit visual backbones at the widths of
+    ``configs/reference_parity.json`` with ``vis_backbone`` swapped (resnet
+    64/256/512 with the 7×7 ImageNet stem at 40×40; vit patch 8, 25 tokens,
+    d = 192, depth 4, 4 heads), after phase 13: (a) phase 1's three videos
+    with each backbone in float32, bf16, int8 and bf16 + int8, kernel 1 and
+    kernel 4 (4-bf16 in bf16) launched and kernels 2 and 3 not, card
+    against CPU on 64 frames (≤ 1e-4 at float32 and int8 at float32, ≤
+    0.0625 in bf16) with the int8 codes that part between the two sides
+    counted, frames/s, the fuse and the backbone's share of it beside the
+    backbone's floor; (b) under int8 at float32 every int8 GEMM of those 64
+    frames (cuBLAS's, through ``torch._int_mm``) equal to the CPU's float64
+    product; (c) ``infer`` on phase 9's video against the direct path, then
+    ``train --epochs 1`` and ``eval`` on phase 10's videos, per backbone;
+    (d) the ``Summarizer`` and a batcher request per backbone against the
+    path scored directly; (e) ``Spotter.spot_frames`` over phase 5's match
+    with the resnet backbone and a full-window head (kernel 5 through
+    ``serve.py``), with the vit backbone and the default GRU head, and with
+    the resnet under int8 and the banded head (kernel 7), each against the
+    path run directly, its trunk against the CPU on 64 frames;
+15. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
     as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and read
@@ -221,7 +240,8 @@ from cvml_goalnet_tpu_torch.data.synthetic import (
 )
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
-from cvml_goalnet_tpu_torch.models.avm import _fused_input, _moe_layer
+from cvml_goalnet_tpu_torch.models import layers as L
+from cvml_goalnet_tpu_torch.models.avm import _fused_input, _moe_layer, visual_apply
 from cvml_goalnet_tpu_torch.models.text import text_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.ops.cuda import _build
@@ -323,6 +343,7 @@ from cvml_goalnet_tpu_torch.ops.cuda.matmul import (
     head_slots,
 )
 from cvml_goalnet_tpu_torch.ops import knapsack as knapsack_module
+from cvml_goalnet_tpu_torch.ops import quant
 from cvml_goalnet_tpu_torch.ops.knapsack import DEVICE_MS, NATIVE_MS, auto_engine, knapsack_select
 from cvml_goalnet_tpu_torch.ops.audio import extract_audio_features
 from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames_host, resize_taps_on
@@ -1466,7 +1487,8 @@ _matches: dict = {}
 def make_match(cfg: PipelineConfig, seed: int) -> dict:
     """One synthetic match: 600-frame segments as uint8 (the generator's float64
     temporaries for 5400 frames at once would take about 22 GB), its audio and clips.
-    Made once per seed and shape: phase 11 serves the match phase 5 spots (about a minute to make)."""
+    Cut: one seeded segment repeated (each segment takes about 9 s to make), as phase 9's video repeats one
+    block.  Made once per seed and shape: phases 11-14 serve the match phase 5 spots."""
     key = (seed, cfg.preprocess.skip_frames, cfg.audio.sample_rate, MATCH_FRAMES)
     if key not in _matches:
         _matches[key] = _make_match(cfg, seed)
@@ -1476,8 +1498,8 @@ def make_match(cfg: PipelineConfig, seed: int) -> dict:
 def _make_match(cfg: PipelineConfig, seed: int) -> dict:
     skip = cfg.preprocess.skip_frames
     per_frame = cfg.audio.sample_rate * skip // 30
-    frames = np.concatenate([synthetic_video_frames(SEGMENT_FRAMES, *RAW_HW, seed=seed + 100 + i)
-                             for i in range(MATCH_FRAMES // SEGMENT_FRAMES)])
+    segment = synthetic_video_frames(SEGMENT_FRAMES, *RAW_HW, seed=seed + 100)
+    frames = np.concatenate([segment] * (MATCH_FRAMES // SEGMENT_FRAMES))
     full_n = MATCH_FRAMES * skip
     return {
         "frames": frames,
@@ -3814,6 +3836,327 @@ def text_moe_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dic
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
 
 
+# ---------------------------------------------------------------- phase 14: the resnet and vit backbones
+
+BACKBONES = ("resnet", "vit")
+BACKBONE_MODES = {"float32": ("float32", False), "bf16": ("bfloat16", False), "int8": ("float32", True),
+                  "bf16_int8": ("bfloat16", True)}
+
+
+def backbone_cfg(backbone: str, mode: str = "float32", base: str = "reference_parity.json") -> PipelineConfig:
+    """``configs/<base>`` with ``vis_backbone`` swapped and the mode's ``dtype`` and ``quantized_inference``."""
+    cfg = PipelineConfig.load(str(REPO / "configs" / base))
+    dtype, quant_on = BACKBONE_MODES[mode]
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vis_backbone=backbone, dtype=dtype,
+                                                              quantized_inference=quant_on))
+
+
+def backbone_flops(cfg: PipelineConfig) -> tuple[float, float]:
+    """Multiply-adds × 2 a frame of the backbone → (all of it, the part int8 takes under ``quantized_inference``:
+    the resnet's 3×3 block convolutions, the vit's block linears)."""
+    m, (h, w), c = cfg.model, cfg.preprocess.frame_size, cfg.preprocess.channels
+    if m.vis_backbone == "vit":
+        d, p = m.vit_embed_dim, m.vit_patch_size
+        t = (h // p) * (w // p)
+        block_linear = 2 * t * (4 * d * d + 8 * d * d)
+        attention = 2 * 2 * t * t * d
+        total = 2 * t * p * p * c * d + m.vit_depth * (block_linear + attention) + 2 * d * m.vis_feature_dim
+        return float(total), float(m.vit_depth * block_linear)
+    chans = m.vis_channels
+    k = 7 if min(h, w) >= 32 else 3
+    if k == 7:
+        h, w = L.conv_out_size(h, 7, 2, 3), L.conv_out_size(w, 7, 2, 3)
+        total = 2 * h * w * k * k * c * chans[0]
+        h, w = L.conv_out_size(h, 3, 2, 1), L.conv_out_size(w, 3, 2, 1)
+    else:
+        total = 2 * h * w * k * k * c * chans[0]
+    quant_part, cin = 0, chans[0]
+    for si, cout in enumerate(chans):
+        for bi in range(2):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            h, w = L.conv_out_size(h, 3, stride, 1), L.conv_out_size(w, 3, stride, 1)
+            convs = 2 * h * w * 9 * (cin * cout + cout * cout)
+            quant_part += convs
+            total += convs + (2 * h * w * cin * cout if (stride != 1 or cin != cout) else 0)
+            cin = cout
+    return float(total + 2 * chans[-1] * m.vis_feature_dim), float(quant_part)
+
+
+def backbone_floor_ms(cfg: PipelineConfig, n: int) -> float:
+    """The least time of the backbone's products on ``n`` frames at the card's peak for their type: float32 on
+    the CUDA cores (TF32 is off), bf16 on the tensor cores, the int8 part at the int8 tensor-core peak."""
+    total, quant_part = backbone_flops(cfg)
+    peak = PEAK_BF16_FLOP_PER_S if cfg.model.dtype == "bfloat16" else PEAK_F32_FLOP_PER_S
+    if not cfg.model.quantized_inference:
+        return 1e3 * n * total / peak
+    return 1e3 * n * (quant_part / PEAK_INT8_OP_PER_S + (total - quant_part) / peak)
+
+
+@contextlib.contextmanager
+def int8_records(keep_products: bool = False):
+    """Records each activation's int8 codes that ``ops/quant.py`` quantizes (``quantize_act_per_tensor``), and
+    with ``keep_products`` each int8 GEMM's operands and int32 sums (``int8_matmul``), while the scope is open."""
+    codes, products = [], []
+    real_act, real_mm = quant.quantize_act_per_tensor, quant.int8_matmul
+
+    def act(x):
+        q, s = real_act(x)
+        codes.append(q.cpu())
+        return q, s
+
+    def mm(a, b):
+        out = real_mm(a, b)
+        products.append((a.cpu(), b.cpu(), out.cpu()))
+        return out
+
+    quant.quantize_act_per_tensor = act
+    if keep_products:
+        quant.int8_matmul = mm
+    try:
+        yield codes, products
+    finally:
+        quant.quantize_act_per_tensor, quant.int8_matmul = real_act, real_mm
+
+
+def backbone_videos_check(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> dict:
+    """14a and 14b: phase 1's three videos through ``extract_features`` → ``fuse_many`` → ``summarize`` with each
+    backbone in float32, bf16, int8 and bf16 + int8: kernel 1 and kernel 4 (4-bf16 in bf16) launched and kernels
+    2 and 3 not; card against CPU on 64 frames (≤ 1e-4 at float32 and int8 at float32, ≤ 0.0625 and on the bf16
+    grid in bf16), the int8 codes that part between the two sides counted; under int8 at float32 every int8
+    GEMM's sums on those 64 frames equal to the CPU's float64 product; frames/s, the fuse and the backbone's
+    share of it beside the backbone's floor."""
+    m, n_total = CPU_CHECK_FRAMES, sum(VIDEO_LENGTHS)
+    out = {}
+    for backbone in BACKBONES:
+        for mode in BACKBONE_MODES:
+            cfg = backbone_cfg(backbone, mode)
+            bf16 = cfg.model.dtype == "bfloat16"
+            params_np, state_np = weights.init_params(cfg, seed)
+            params, state = weights.from_jax(params_np, state_np)
+            label = f"backbone_{backbone}_{mode}"
+            mlp = "fused_fusion_mlp_bf16" if bf16 else "fused_fusion_mlp"
+            feats, scores, results, _ = drive(label, ["fused_preprocess_frames", mlp],
+                                              lambda: run_path(videos, params, state, cfg), launches_by_path)
+            require_not_launched(label, TRUNK + ("fused_conv_pool_stage_bf16", "fused_conv_pool_stage_int8",
+                                                 "head_matmul_bf16", "fused_fusion_mlp" if bf16 else
+                                                 "fused_fusion_mlp_bf16"), launches_by_path)
+            check_outputs(videos, feats, scores, results, cfg)
+            sub = {"visual": feats[0]["visual"][:m], "audio": feats[0]["audio"][:m]}
+            cpu_params, cpu_state = weights.from_jax(params_np, state_np, device="cpu")
+            exact = mode == "int8"
+            with int8_records(keep_products=exact) as (card_codes, products):
+                card = fuse(params, state, sub, cfg)
+            with int8_records() as (cpu_codes, _):
+                cpu = fuse(cpu_params, cpu_state, {k: v.cpu() for k, v in sub.items()}, cfg, device="cpu")
+            tol = 0.0625 if bf16 else 1e-4
+            err = float(np.abs(card - cpu).max())
+            require(err <= tol, f"{label}: card vs CPU on {m} frames, max |err| {err} > {tol}")
+            if bf16:
+                for s in scores:
+                    require(np.array_equal(torch.from_numpy(s).to(torch.bfloat16).float().numpy(), s),
+                            f"{label}: scores off the bf16 grid")
+            rec = {"card_vs_cpu_max_abs_err": err, "tolerance": tol,
+                   "distinct_scores": int(len(np.unique(np.concatenate(scores))))}
+            if cfg.model.quantized_inference:
+                require(len(card_codes) == len(cpu_codes) > 0, f"{label}: {len(card_codes)} int8 activations on the "
+                                                               f"card, {len(cpu_codes)} on the CPU")
+                rec["int8_points"] = len(card_codes)
+                rec["int8_code_flips"] = [int((a != b).sum()) for a, b in zip(card_codes, cpu_codes)]
+                rec["int8_codes"] = int(sum(a.numel() for a in card_codes))
+            if exact:
+                require(len(products) > 0, f"{label}: no int8 GEMM ran")
+                for i, (a, b, got) in enumerate(products):
+                    want = torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+                    require(torch.equal(got, want), f"{label}: int8 GEMM {i} {tuple(a.shape)} × {tuple(b.shape)} "
+                                                    "sums differ from the float64 product")
+                rec["int8_gemms_exact"] = [f"{tuple(a.shape)}x{tuple(b.shape)}" for a, b, _ in products]
+            walls, stages = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                stages.append(run_path(videos, params, state, cfg)[3])
+                walls.append(time.perf_counter() - t0)
+            dt = compute_dtype(cfg.model.dtype)
+            pc, sc = tree_cast(params, dt), tree_cast(state, dt)
+            vis = torch.cat([f["visual"] for f in feats]).to(dt)
+            apply, _ = visual_apply(cfg.model)
+            with torch.no_grad():
+                rec["fuse_ms"] = time_ms(lambda: fuse_many(params, state, feats, cfg), 5)
+                rec["backbone_ms"] = time_ms(lambda: apply(pc["visual"], sc["visual"], vis,
+                                                           quant=cfg.model.quantized_inference), 5)
+            wall = statistics.median(walls)
+            rec.update({"batch_s": wall, "frames_per_s": n_total / wall,
+                        "backbone_share_of_fuse": rec["backbone_ms"] / rec["fuse_ms"],
+                        "backbone_floor_ms": backbone_floor_ms(cfg, n_total),
+                        "backbone_gflop_a_frame": backbone_flops(cfg)[0] / 1e9,
+                        "stage_ms": {k: 1e3 * statistics.median(st[k] for st in stages) for k in stages[0]}})
+            out[label] = rec
+            print(f"phase 14a: {backbone} {mode} on {smi}: {json.dumps(rec)}", flush=True)
+            del feats
+    return out
+
+
+def backbone_verbs_check(seed: int, smi: str, launches_by_path: dict) -> dict:
+    """14c: for each backbone, ``infer`` offline on phase 9's video against the direct path, then ``train
+    --epochs 1`` and ``eval`` on phase 10's videos (each evaluation through kernel 4)."""
+    os.environ.pop("GOALNET_PLATFORM", None)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        base = backbone_cfg("resnet")
+        inp = make_infer_inputs(base, seed, root)
+        raw, video = inp["raw"], inp["video"]
+        full_n, skip = len(raw), base.preprocess.skip_frames
+        waveform, _ = load_waveform(video[:-4] + ".wav", base.audio.sample_rate)
+        train_root = os.path.join(root, "train")
+        os.makedirs(train_root)
+        data = make_train_inputs(base, seed, train_root)
+        store, plots = dataset_io.AnnotationStore, PlotSink()
+        saved = (viz.generate_metric_plots, viz.export_indices)
+        dataset_io.AnnotationStore = AnnotationStand
+        viz.generate_metric_plots, viz.export_indices = plots.metric_plots, plots.export_indices
+        sink = ExportSink(False)
+        video_io.export_video = sink
+        try:
+            for backbone in BACKBONES:
+                cfg = backbone_cfg(backbone)
+                work = os.path.join(root, f"work_{backbone}")
+                cfg_path = os.path.join(root, f"{backbone}.json")
+                cfg.save(cfg_path)
+                state = create_train_state(seed, cfg, device="cpu")
+                save_checkpoint(cli._artifact_paths(work, True)["ckp_dir"], state, cfg, tag="opt")
+                t0 = time.perf_counter()
+                rc = drive(f"infer_{backbone}", ["fused_preprocess_frames", "fused_fusion_mlp"],
+                           lambda: cli.main(["infer", video, "--config", cfg_path, "--workdir", work]),
+                           launches_by_path)
+                rec = {"infer_s": time.perf_counter() - t0}
+                require(rc == 0, f"14c: infer with the {backbone} backbone exited {rc}")
+                p, s = weights.from_jax(*weights.init_params(cfg, seed))
+                direct = summarize(fuse(p, s, extract_features(raw[::skip], waveform, cfg), cfg),
+                                   uniform_clip_intervals(cfg, full_n), skip, full_n, cfg.knapsack)
+                require(np.array_equal(sink.frames, chosen_frames(raw, direct.clip_intervals)),
+                        f"14c: infer with the {backbone} backbone exported other frames than the direct path")
+                rec["exported_frames"] = int(len(sink.frames))
+                args = ["--videos", *data["videos"], "--annotation-fp", data["annotation_fp"], "--mat-fp",
+                        data["mat_fp"], "--h5-fp", data["h5_fp"], "--info-fp", data["info_fp"], "--workdir",
+                        os.path.join(root, f"train_{backbone}"), "--config", cfg_path]
+                for verb, argv in (("train", ["train", *args, "--epochs", "1"]), ("eval", ["eval", *args])):
+                    buf = io.StringIO()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(buf):
+                        rc = drive(f"{verb}_{backbone}", ["fused_preprocess_frames", "fused_fusion_mlp"],
+                                   lambda: cli.main(argv), launches_by_path)
+                    rec[f"{verb}_s"] = time.perf_counter() - t0
+                    require(rc == 0 and "Operation completed" in buf.getvalue(), f"14c: {verb} with the {backbone} "
+                                                                                 f"backbone exited {rc}")
+                    rec[f"{verb}_lines"] = [ln for ln in buf.getvalue().splitlines()
+                                            if ln.startswith(("[eval]", "Optimal"))]
+                require_not_launched(f"train_{backbone}", TRUNK, launches_by_path)
+                out[backbone] = rec
+                print(f"phase 14c: infer, train and eval with the {backbone} backbone on {smi}: {json.dumps(rec)}",
+                      flush=True)
+        finally:
+            video_io.export_video = sink.writer
+            dataset_io.AnnotationStore = store
+            viz.generate_metric_plots, viz.export_indices = saved
+    return out
+
+
+def backbone_serving_check(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> dict:
+    """14d and 14e: for each backbone the ``Summarizer`` and one ``DynamicBatcher`` request against the path
+    scored directly; then ``Spotter.spot_frames`` over phase 5's match with the resnet backbone and a
+    full-window transformer head (``configs/tpu_spotting.json`` with ``temporal_window = 0``: kernel 5 through
+    ``serve.py``), with the vit backbone and the default GRU head (``reference_parity.json``) and with the
+    resnet backbone under int8 and the banded head (``configs/tpu_spotting.json``: kernel 7), each against the
+    path run directly and its trunk against the CPU on 64 frames."""
+    from cvml_goalnet_tpu_torch.serve import DynamicBatcher, Spotter, Summarizer
+
+    out = {}
+    v = videos[0]
+    n = LOWP_BATCH_REQUEST
+    for backbone in BACKBONES:
+        cfg = backbone_cfg(backbone)
+        summ = Summarizer(cfg, state=create_train_state(seed, cfg))
+        summ.warmup(((16, *RAW_HW),))
+        res = drive(f"serve_{backbone}_summarizer", ["fused_preprocess_frames", "fused_fusion_mlp"],
+                    lambda: summ.summarize_frames("v", v["frames"], v["intervals"], v["full_n"], v["waveform"]),
+                    launches_by_path)
+        p, s = summ.state.params, summ.state.model_state
+        direct = fuse(p, s, extract_features(v["frames"], v["waveform"], cfg), cfg)
+        serr = float(np.abs(res.scores - direct).max())
+        require(serr <= 1e-5, f"14d: the {backbone} Summarizer {serr} from the direct path (> 1e-5)")
+        wave = v["waveform"][: n * v["per_frame"]]
+        batcher = DynamicBatcher(summ)
+        try:
+            req = drive(f"serve_{backbone}_batcher", ["fused_fusion_mlp"],
+                        lambda: batcher.submit("r", v["frames"][:n], waveform=wave).result(), launches_by_path)
+        finally:
+            batcher.close()
+        pad = batcher._bucket(n) - n
+        vis = preprocess_frames_host(v["frames"][:n], cfg.preprocess.frame_size, cfg.preprocess.eps)
+        aud = extract_audio_features(wave, n, cfg.audio, torch.device("cuda"))
+        want = fuse(p, s, {"visual": np.concatenate([vis, np.zeros((pad,) + vis.shape[1:], vis.dtype)]),
+                           "audio": torch.cat([aud, aud.new_zeros((pad,) + tuple(aud.shape[1:]))])}, cfg)[:n]
+        berr = float(np.abs(req.scores - want).max())
+        require(berr <= 1e-5, f"14d: the {backbone} batcher's scores {berr} from its bucket scored directly")
+        out[backbone] = {"summarizer_max_abs_err": serr, "batcher_bucket": batcher._bucket(n),
+                         "batcher_max_abs_err": berr}
+        print(f"phase 14d: {backbone} Summarizer and batcher on {smi}: {json.dumps(out[backbone])}", flush=True)
+
+    match = make_match(PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json")), seed)
+    banded = backbone_cfg("resnet", "int8", base="tpu_spotting.json")
+    full = dataclasses.replace(banded, model=dataclasses.replace(banded.model, temporal_window=0,
+                                                                 quantized_inference=False))
+    m = CPU_CHECK_FRAMES
+    for label, scfg, head_kernel in (("serve_spotter_resnet_full", full, ["flash_fwd"]),
+                                     ("serve_spotter_vit_gru", backbone_cfg("vit"), []),
+                                     ("serve_spotter_resnet_int8_banded", banded, ["flash_local_fwd"])):
+        sp = Spotter(scfg, state=create_train_state(seed, scfg))
+        sp.warmup(64)
+        t0 = time.perf_counter()
+        got = drive(label, ["fused_preprocess_frames", *head_kernel],
+                    lambda: sp.spot_frames("match", match["frames"], match["full_n"], match["waveform"]),
+                    launches_by_path)
+        wall = time.perf_counter() - t0
+        others = tuple(k for k in ("flash_fwd", "flash_local_fwd") if k not in head_kernel)
+        require_not_launched(label, TRUNK + others + ("fused_conv_pool_stage_int8",), launches_by_path)
+        feats = extract_features(match["frames"], match["waveform"], scfg)
+        enc = encode_timeline(sp.state.params, sp.state.model_state, feats["visual"], feats["audio"], scfg)
+        scores = score_timeline_auto(sp.temporal_params, enc, scfg).cpu().numpy()
+        tol = score_tolerance(scores)
+        err = float(np.abs(got.scores - scores).max())
+        require(err <= tol, f"14e: {label} scores max |err| {err} > {tol}")
+        near = compare_events(got.scores, scores, tol)
+        encs, codes = [], []   # the first 64 frames alone on both sides: under int8 the scale spans the batch
+        for dev, st in ((None, sp.state), ("cpu", create_train_state(seed, scfg, device="cpu"))):
+            f = extract_features(match["frames"][:m], match["waveform"][: m * match["per_frame"]], scfg, device=dev)
+            with int8_records() as (c, _):
+                encs.append(encode_timeline(st.params, st.model_state, f["visual"], f["audio"], scfg, device=dev).cpu())
+            codes.append(c)
+        rel = float(((encs[0] - encs[1]).abs().max() / encs[1].abs().max()).item())
+        out[label] = {"max_abs_err": err, "tolerance": tol, "near_tie_events": near, "events": len(got.events),
+                      "trunk_rel": rel, "spot_frames_s": wall, "temporal_model": scfg.model.temporal_model,
+                      "temporal_window": scfg.model.temporal_window}
+        if scfg.model.quantized_inference:
+            # reported, not held to 1e-4: the int8 codes that part at a rounding boundary (cuDNN's and the CPU's
+            # float sums before the first quantization) move later codes too, through the 12 points
+            out[label]["int8_code_flips"] = [int((a != b).sum()) for a, b in zip(*codes)]
+        else:
+            require(rel <= 1e-4, f"14e: {label} trunk card vs CPU {rel} relative (> 1e-4)")
+        print(f"phase 14e: {label} on {smi}: {json.dumps(out[label])}", flush=True)
+    return out
+
+
+def backbone_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> None:
+    """Phase 14: the resnet and vit backbones at ``reference_parity.json``'s widths (resnet 64/256/512 with the
+    ImageNet stem at 40×40; vit patch 8, 25 tokens, d = 192, depth 4, 4 heads) in float32, bf16, int8 and
+    bf16 + int8, through the videos, the verbs and the services."""
+    t_phase = time.perf_counter()
+    backbone_videos_check(seed, smi, launches_by_path, videos)
+    backbone_verbs_check(seed, smi, launches_by_path)
+    backbone_serving_check(seed, smi, launches_by_path, videos)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3936,10 +4279,12 @@ def main() -> int:
     training_journey_phase(args.seed, smi, launches_by_path)
     rows.update(lowp_phase(args.seed, smi, launches_by_path, videos))
     text_moe_phase(args.seed, smi, launches_by_path, videos, rows)
+    backbone_phase(args.seed, smi, launches_by_path, videos)
     del videos
     serving_phase(args.seed, smi, launches_by_path)
     for label, got in launches_by_path.items():   # the float32 paths never take a low-precision form
-        if not label.startswith(("summarize_", "infer_preset", "serve_preset", "serve_spotter_int8", "train_bf16")):
+        if not label.startswith(("summarize_", "infer_preset", "serve_preset", "serve_spotter_int8", "train_bf16",
+                                 "backbone_")):   # phase 14a checks the forms of its own labels
             require_not_launched(label, LOWP_FORMS, launches_by_path)
     rows = {name: rows[name] for name in KERNELS}
     for name in LOWP_FORMS:

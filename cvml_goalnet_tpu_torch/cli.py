@@ -39,15 +39,17 @@ Port of those verbs of ``cvml_goalnet_tpu/cli.py`` (reference
   ``--max-requests N`` to exit after N requests.
 
 The trunk is the npz checkpoint the JAX package's ``train`` writes (the
-same layout both ways, ``train/checkpoint.py``).  ``--commentary`` (the text
-branch, reading ``<video>.commentary.jsonl`` sidecars) and ``--moe-experts
-N`` (the mixture-of-experts fusion) run in every verb that takes them;
-``infer --stream`` and ``spot --stream`` refuse ``--commentary`` as the JAX
-CLI does.  Flags for what the port does not run yet exit 2 before any
-decode, naming the ROADMAP item that brings it: the orbax backend, ``train
---dp``, ``serve --dp`` and ``spot-train --cp/--dp-timelines/--tp/--pp``
-(item 6), and the resnet and vit backbones (item 5).  The JAX CLI's
-``import-torch`` and ``export-torch`` are not ported.
+same layout both ways, ``train/checkpoint.py``).  Every model option of the
+config runs in every verb: the reference, resnet and vit backbones
+(``vis_backbone``), float32, bf16 (``dtype``) and int8
+(``quantized_inference``).  ``--commentary`` (the text branch, reading
+``<video>.commentary.jsonl`` sidecars) and ``--moe-experts N`` (the
+mixture-of-experts fusion) run in every verb that takes them; ``infer
+--stream`` and ``spot --stream`` refuse ``--commentary`` as the JAX CLI
+does.  Flags for what the port does not run yet exit 2 before any decode,
+naming the ROADMAP item that brings it: the orbax backend, ``train --dp``,
+``serve --dp`` and ``spot-train --cp/--dp-timelines/--tp/--pp`` (item 6).
+The JAX CLI's ``import-torch`` and ``export-torch`` are not ported.
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
@@ -171,18 +173,12 @@ def _resolve_data(args) -> dict:
     }
 
 
-def _unported(args, cfg) -> str | None:
-    """Why the port cannot run these flags or this config yet (naming the ROADMAP item), or None."""
-    from cvml_goalnet_tpu_torch.models.avm import check_supported
-
+def _unported(args) -> str | None:
+    """Why the port cannot run these flags yet (naming the ROADMAP item), or None."""
     if getattr(args, "dp", False):
         return DP_NOT_PORTED
     if getattr(args, "checkpoint_backend", None) == "orbax":
         return ORBAX_NOT_PORTED
-    try:
-        check_supported(cfg.model)
-    except NotImplementedError as e:
-        return str(e)
     return None
 
 
@@ -201,7 +197,7 @@ def _refusal(args, cfg) -> str | None:
                 "stream a finished file without --follow")
     if args.transfer_dtype and not args.host_preprocess:
         return "--transfer-dtype only applies with --host-preprocess (device preprocess ships raw frames)"
-    return _unported(args, cfg)
+    return _unported(args)
 
 
 def _refused(message: str | None) -> bool:
@@ -221,7 +217,7 @@ def cmd_train(args) -> int:
     from cvml_goalnet_tpu_torch.utils.metrics import MetricsLogger
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args, cfg)):
+    if _refused(_unported(args)):
         return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
@@ -275,7 +271,7 @@ def cmd_eval(args) -> int:
     from cvml_goalnet_tpu_torch.train.state import create_train_state
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args, cfg)):
+    if _refused(_unported(args)):
         return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
@@ -309,7 +305,7 @@ def cmd_baseline(args) -> int:
     from cvml_goalnet_tpu_torch.baseline import run_random_baseline
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args, cfg)):
+    if _refused(_unported(args)):
         return 2
     data = _resolve_data(args)
     report = run_random_baseline(cfg, data["videos"], data["annotation_fp"], data["mat_fp"], data["h5_fp"],
@@ -460,7 +456,7 @@ def cmd_profile(args) -> int:
     from cvml_goalnet_tpu_torch.utils.profiling import StageTimer, start_trace, stop_trace
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args, cfg)):
+    if _refused(_unported(args)):
         return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
@@ -557,7 +553,7 @@ def _spot_refusal(args, cfg) -> str | None:
     if args.follow and not args.stream:
         return ("--follow is a --stream mode (a live segment directory "
                 "cannot be spotted offline — the footage isn't finished)")
-    unported = _unported(args, cfg)
+    unported = _unported(args)
     if unported is not None or not args.stream:
         return unported
     if args.follow and not os.path.isdir(args.video):
@@ -776,7 +772,7 @@ def _spot_opt_kwargs(tc) -> dict:
 
 def _spot_train_refusal(args, cfg) -> str | None:
     """Why these ``spot-train`` flags cannot run, before any decode; None when they can."""
-    unported = _unported(args, cfg)
+    unported = _unported(args)
     if unported is not None:
         return unported
     if not args.cp and (max(1, args.dp_timelines or 1) > 1 or max(1, args.tp or 1) > 1):
@@ -939,7 +935,7 @@ def cmd_serve(args) -> int:
     from cvml_goalnet_tpu_torch.train.state import create_train_state
 
     cfg = _apply_temporal_overrides(_load_cfg(args), args)
-    if _refused(SERVE_DP_NOT_PORTED if args.dp else _unported(args, cfg)):
+    if _refused(SERVE_DP_NOT_PORTED if args.dp else _unported(args)):
         return 2
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     device = _device()

@@ -1,32 +1,31 @@
 """The frame-importance model: the eval forward and the train forward.
 
 Port of ``cvml_goalnet_tpu/models/avm.py`` (reference ``AVM``,
-``utils.py:229-272``) for the reference visual backbone: visual features
-(512) with audio features (128) concatenated in front when
-``cfg.audio_included`` ([audio ‖ visual], ``utils.py:266``) and the text
+``utils.py:229-272``): visual features (512, from the backbone that
+``cfg.vis_backbone`` names: :func:`visual_apply`) with audio features (128)
+concatenated in front when ``cfg.audio_included`` ([audio ‖ visual], ``utils.py:266``) and the text
 branch's features (128) behind when ``cfg.text_included`` ([audio ‖ visual
 ‖ text]), then the fusion MLP (640 or 768 → 512 → 512 → 256 → 128 → 1) and
 ``(hi − lo)·σ + lo``.  ``classifier=True`` returns the raw 5-way logits.
 With ``cfg.fusion_moe_experts > 0`` the fusion's first layer is a mixture
 of experts (``models/moe.py``).
 
-* :func:`avm_apply` is the eval forward: the folded visual trunk (kernels 2
-  and 3), the text encoder and the MoE layer in plain PyTorch, and the
+* :func:`avm_apply` is the eval forward: the visual backbone (the reference
+  backbone's folded trunk on kernels 2 and 3, or the resnet or vit
+  backbone), the text encoder and the MoE layer in plain PyTorch, and the
   fusion MLP in one launch of ``fused_fusion_mlp`` (kernel 4): the whole
   chain, or after an MoE layer and its ReLU the chain's remaining layers.
   It runs in the dtype of its inputs (float32, or bf16 once the caller has
-  cast params, state and features as ``pipeline.fuse`` does), with conv1
-  and conv2 through int8 under ``cfg.quantized_inference``.
+  cast params, state and features as ``pipeline.fuse`` does), with the
+  backbone's int8 path under ``cfg.quantized_inference``.
 * :func:`avm_train_apply` is JAX's ``avm_apply(train=True, rng=…,
-  valid=…)``: the unfolded visual trunk with batch-statistics batchnorm
+  valid=…)``: the backbone's train forward with batch-statistics batchnorm
   (``valid`` keeps padded rows out of them), the text encoder, linear (or
   MoE) → ReLU → dropout per hidden fusion layer, all plain differentiable
   ops, and the new batchnorm state; ``return_moe_probs`` adds the gate's
   combine weights for the load-balance loss.  Where JAX splits its key into
   one key for the visual branch and one per hidden fusion layer, the
   dropouts here draw from one generator in that order.
-
-Only the resnet and vit backbones are refused (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -37,8 +36,10 @@ from cvml_goalnet_tpu_torch.config import ModelConfig
 from cvml_goalnet_tpu_torch.models import layers as L
 from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
 from cvml_goalnet_tpu_torch.models.moe import moe_apply, moe_gate_probs
+from cvml_goalnet_tpu_torch.models.resnet import resnet_encoder_apply, resnet_encoder_train_apply
 from cvml_goalnet_tpu_torch.models.text import text_encoder_apply
 from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply, visual_encoder_train_apply
+from cvml_goalnet_tpu_torch.models.vit import vit_encoder_apply, vit_encoder_train_apply
 from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp
 
 N_CLASSES = 5  # classifier-mode output arity (importance grades 1..5)
@@ -53,13 +54,31 @@ def fusion_input_dim(cfg: ModelConfig) -> int:
     return dim
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model options this port does not run yet: the resnet and vit backbones."""
+def visual_apply(cfg: ModelConfig):
+    """The backbone ``cfg.vis_backbone`` names → ``(apply, train_apply)``, JAX ``_visual_init``'s dispatch.
+
+    ``apply(params, state, x, quant=False)`` → (N, vis_feature_dim) features (eval);
+    ``train_apply(params, state, x, *, generator, dropout_rate, mask=None)`` → ``(features, new_state)``.
+    The vit's static geometry (heads, patch) is closed over.  An unknown name raises, as in JAX: it would
+    otherwise build the reference stack under another name."""
+    if cfg.vis_backbone == "resnet":
+        return resnet_encoder_apply, resnet_encoder_train_apply
+    if cfg.vis_backbone == "vit":
+        geom = {"num_heads": cfg.vit_num_heads, "patch": cfg.vit_patch_size}
+
+        def apply(params, state, x, quant=False):
+            return vit_encoder_apply(params, state, x, quant=quant, **geom)
+
+        def train_apply(params, state, x, **kw):
+            return vit_encoder_train_apply(params, state, x, **geom, **kw)
+
+        return apply, train_apply
     if cfg.vis_backbone != "reference":
-        raise NotImplementedError(
-            f"ModelConfig.vis_backbone={cfg.vis_backbone!r}: the resnet and vit families are not ported yet "
-            "(ROADMAP.md §1 item 5, a later slice of the PyTorch port; the port runs the reference backbone)"
+        raise ValueError(
+            f"unknown vis_backbone {cfg.vis_backbone!r} "
+            "(reference | resnet | vit)"
         )
+    return visual_encoder_apply, visual_encoder_train_apply
 
 
 def _fused_input(params, feats: torch.Tensor, audio, text, cfg: ModelConfig) -> torch.Tensor:
@@ -84,8 +103,8 @@ def avm_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = 
               cfg: ModelConfig, classifier: bool = False) -> torch.Tensor:
     """Eval forward → (N, 1) scores in [out_lo, out_hi], or (N, 5) logits with ``classifier``, in the inputs'
     dtype.  ``text`` (N, text_max_len) token ids, with ``cfg.text_included``."""
-    check_supported(cfg)
-    feats = visual_encoder_apply(params["visual"], state["visual"], visual, quant=cfg.quantized_inference)
+    apply, _ = visual_apply(cfg)
+    feats = apply(params["visual"], state["visual"], visual, quant=cfg.quantized_inference)
     x = _fused_input(params, feats, audio, text, cfg)
     layers = params["fusion"]
     if cfg.fusion_moe_experts > 0:
@@ -108,11 +127,11 @@ def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | N
     generator and with ``dropout_rate > 0`` it raises, as the JAX function
     does without a key: a fixed mask would train a fixed sparse subnetwork.
     """
-    check_supported(cfg)
+    _, train_apply = visual_apply(cfg)
     if generator is None and cfg.dropout_rate > 0:
         raise ValueError("avm_train_apply with dropout_rate > 0 requires a generator")
-    feats, vis_state = visual_encoder_train_apply(params["visual"], state["visual"], visual, generator=generator,
-                                                  dropout_rate=cfg.dropout_rate, mask=valid)
+    feats, vis_state = train_apply(params["visual"], state["visual"], visual, generator=generator,
+                                   dropout_rate=cfg.dropout_rate, mask=valid)
     x = _fused_input(params, feats, audio, text, cfg)
     n_hidden = len(cfg.fusion_hidden)
     moe_probs = None

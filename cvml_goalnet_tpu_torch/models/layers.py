@@ -62,9 +62,9 @@ def conv1d_apply(params, x: torch.Tensor, stride: int = 1, padding: int = 0) -> 
     return y.permute(0, 2, 1)
 
 
-def maxpool2d(x: torch.Tensor, kernel: int = 3, stride: int = 1) -> torch.Tensor:
-    """NHWC max pool, no padding."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride).permute(0, 2, 3, 1)
+def maxpool2d(x: torch.Tensor, kernel: int = 3, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """NHWC max pool; ``padding`` pads with −inf, so the border never wins (JAX ``reduce_window``'s init)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, padding).permute(0, 2, 3, 1)
 
 
 def bn_affine(bn_params, bn_state, eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
@@ -91,6 +91,21 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``rsqrt``; on bf16 taken in float32 and rounded once, as XLA's bf16 ``rsqrt`` (PyTorch's own bf16
+    ``rsqrt`` on the CPU is one bf16 step off it for a few inputs in 10^4)."""
+    if x.dtype != torch.bfloat16:
+        return torch.rsqrt(x)
+    return torch.rsqrt(x.to(torch.float32)).to(x.dtype)
+
+
+def mean(x: torch.Tensor, dim) -> torch.Tensor:
+    """``jnp.mean``: on bf16 the mean taken in float32 and rounded once."""
+    if x.dtype != torch.bfloat16:
+        return x.mean(dim=dim)
+    return x.to(torch.float32).mean(dim=dim).to(x.dtype)
+
+
 def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis: biased variance, ``(x − mean)·rsqrt(var + eps)·scale + bias``.
 
@@ -101,7 +116,7 @@ def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
-    y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + _const(eps, x))
+    y = (x - mean.to(x.dtype)) * _rsqrt(var.to(x.dtype) + _const(eps, x))
     return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
 
 
@@ -131,32 +146,37 @@ def _contract(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.to(a.dtype)
 
 
-def multihead_attention(layer, x: torch.Tensor, num_heads: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+def multihead_attention(layer, x: torch.Tensor, num_heads: int, mask: torch.Tensor | None = None,
+                        linear_fn=None) -> torch.Tensor:
     """Multi-head self-attention over (N, T, D) token sequences with the (T, T) logits materialised.
 
     Port of ``cvml_goalnet_tpu/models/layers.py:188-218`` (the text
-    branch's attention; the timeline scorer uses the flash kernels):
-    ``layer`` holds ``wq/wk/wv/wo``; ``mask`` (N, T) marks the valid key
-    positions.  Masked logits are −1e30, not −inf, so a row with no valid
-    key (empty commentary) is a uniform average over its padding, never NaN.
+    branch's and the ViT's attention; the timeline scorer uses the flash
+    kernels): ``layer`` holds ``wq/wk/wv/wo``; ``mask`` (N, T) marks the
+    valid key positions; ``linear_fn`` takes the place of
+    :func:`linear_apply` for the four projections (the ViT's int8 path
+    passes ``ops/quant.py::quantized_linear``).  Masked logits are −1e30,
+    not −inf, so a row with no valid key (empty commentary) is a uniform
+    average over its padding, never NaN.
     In x's dtype; on bf16 every step rounds where the JAX package's does
     (the logits are divided by ``bf16(√hd)``).
     """
     n, t, d = x.shape
     hd = d // num_heads
+    lin = linear_apply if linear_fn is None else linear_fn
 
     def split(h):
         return h.reshape(n, t, num_heads, hd).permute(0, 2, 1, 3)
 
-    q = split(linear_apply(layer["wq"], x))
-    k = split(linear_apply(layer["wk"], x))
-    v = split(linear_apply(layer["wv"], x))
+    q = split(lin(layer["wq"], x))
+    k = split(lin(layer["wk"], x))
+    v = split(lin(layer["wv"], x))
     scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(device=x.device, dtype=x.dtype)
     logits = _contract("nhqd,nhkd->nhqk", q, k) / scale
     if mask is not None:
         logits = torch.where(mask[:, None, None, :], logits, _const(-1e30, logits))
     out = _contract("nhqk,nhkd->nhqd", softmax(logits), v)
-    return linear_apply(layer["wo"], out.permute(0, 2, 1, 3).reshape(n, t, d))
+    return lin(layer["wo"], out.permute(0, 2, 1, 3).reshape(n, t, d))
 
 
 def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float = 0.1, eps: float = 1e-5,
@@ -169,7 +189,9 @@ def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float
     valid leading rows of a zero-padded batch: the statistics count only
     those (``count = Σmask · per_frame``, the unbiased variance over
     ``max(count − 1, 1)``), while padded rows are still normalised.  Every
-    result is a new tensor: ``state`` is left as it was.
+    result is a new tensor: ``state`` is left as it was.  In eval mode on
+    bf16 (the resnet backbone's unfolded batchnorms) each operation rounds
+    to bf16 as the JAX package's do, ``eps`` rounded first.
     """
     dims = tuple(range(x.dim() - 1))
     if train:
@@ -192,7 +214,7 @@ def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float
     else:
         mean, var = state["mean"], state["var"]
         new_state = state
-    y = (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    y = (x - mean) * _rsqrt(var + _const(eps, var)) * params["scale"] + params["bias"]
     return y, new_state
 
 

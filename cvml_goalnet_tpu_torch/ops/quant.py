@@ -7,11 +7,16 @@ one per tensor for activations), values ``clip(round(x / s), −127, 127)``
 ``torch.round`` do), and dequantization ``acc_f32 · (s_x · s_w)`` with the
 scale product formed first, then a cast to the activation dtype.
 
-These are the plain versions.  On the card conv1 and conv2 take the int8
-form of kernel 2 (``ops/cuda/fused_stage.py::fused_conv_pool_stage_int8``),
-which computes the scales and quantizes the activations and the weights in
-kernels (none of these ops runs there) and sums in int32 on the tensor
-cores; :func:`conv2d_int8` here sums in float64, which is exact: a sum of at
+On the reference backbone these are the plain versions: on the card conv1
+and conv2 take the int8 form of kernel 2
+(``ops/cuda/fused_stage.py::fused_conv_pool_stage_int8``), which computes
+the scales and quantizes the activations and the weights in kernels and
+sums in int32 on the tensor cores.  The resnet and vit backbones' int8
+paths run these functions themselves (the JAX package computes them in XLA,
+with no Pallas kernel): on a CUDA tensor :func:`conv2d_int8` and
+:func:`quantized_linear` sum in int32 through cuBLAS's int8 GEMM
+(``torch._int_mm``, over an im2col of the int8 activations for the
+convolution); on the CPU they sum in float64, which is as exact: a sum of at
 most 2^53 / 127² products (float32 is not: conv2's K = 2304 sums reach
 2304 · 127² > 2^24).
 """
@@ -50,8 +55,45 @@ def quantize_act_per_tensor(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     return torch.clamp(torch.round(x.to(torch.float32) / s), -127, 127).to(torch.int8), s
 
 
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` zero-padded at the end of ``dim`` to ``size`` (itself when already that long)."""
+    if t.shape[dim] >= size:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, size - t.shape[dim]]
+    return F.pad(t, pad)
+
+
+def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) × int8 (K, N) → the exact int32 (M, N) product: ``torch._int_mm`` (cuBLAS's int8 GEMM) on a
+    CUDA tensor, a float64 product on the CPU.
+
+    ``torch._int_mm`` takes more than 16 rows and K and N each a multiple of 8, so the operands are
+    zero-padded to that (zero rows and columns add nothing to the sums) and the product is cut back."""
+    m, k = a_q.shape
+    n = b_q.shape[1]
+    if a_q.device.type != "cuda":
+        return torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64)).to(torch.int32)
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    a = _pad_to(_pad_to(a_q, 1, kp), 0, max(m, 17)).contiguous()
+    b = _pad_to(_pad_to(b_q, 0, kp), 1, np_).contiguous()
+    return torch._int_mm(a, b)[:m, :n]
+
+
+def _im2col(x_q: torch.Tensor, kh: int, kw: int, stride: int, padding: int) -> torch.Tensor:
+    """NHWC (N, H, W, C) → (N, Ho, Wo, kh·kw·C) patches in HWIO's (kh, kw, C) order, zero-padded borders."""
+    xp = F.pad(x_q, (0, 0, padding, padding, padding, padding))
+    cols = xp.unfold(1, kh, stride).unfold(2, kw, stride)          # (N, Ho, Wo, C, kh, kw)
+    n, ho, wo = cols.shape[:3]
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(n, ho, wo, kh * kw * x_q.shape[3])
+
+
 def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
     """int8 NHWC × int8 HWIO → the exact int32 NHWC convolution."""
+    if x_q.device.type == "cuda":
+        kh, kw, ci, co = w_q.shape
+        cols = _im2col(x_q, kh, kw, stride, padding)
+        y = int8_matmul(cols.reshape(-1, kh * kw * ci), w_q.reshape(kh * kw * ci, co))
+        return y.reshape(*cols.shape[:3], co)
     y = F.conv2d(x_q.to(torch.float64).permute(0, 3, 1, 2), w_q.to(torch.float64).permute(3, 2, 0, 1),
                  stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1).to(torch.int32)
@@ -71,6 +113,6 @@ def quantized_linear(params, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     float32 dequantization plus the bias, cast to ``out_dtype`` (default ``x.dtype``)."""
     w_q, s_w = quantize_weights_per_channel(params["w"], axis=1)
     x_q, s_x = quantize_act_per_tensor(x)
-    y = torch.matmul(x_q.to(torch.float64), w_q.to(torch.float64)).to(torch.float32)
+    y = int8_matmul(x_q.reshape(-1, x_q.shape[-1]), w_q).reshape(*x_q.shape[:-1], w_q.shape[1]).to(torch.float32)
     y = y * (s_x * s_w.reshape(-1)) + params["b"].to(torch.float32)
     return y.to(x.dtype if out_dtype is None else out_dtype)

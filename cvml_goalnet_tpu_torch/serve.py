@@ -59,7 +59,6 @@ from cvml_goalnet_tpu_torch.data.dataset import _load_frames, uniform_clip_inter
 from cvml_goalnet_tpu_torch.data.text import commentary_sidecar, tokenize
 from cvml_goalnet_tpu_torch.device import resolve_device
 from cvml_goalnet_tpu_torch.models.audio import audio_feature_channels
-from cvml_goalnet_tpu_torch.models.avm import check_supported
 from cvml_goalnet_tpu_torch.ops.audio import extract_audio_features
 from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames_host
 from cvml_goalnet_tpu_torch.pipeline import extract_features, fuse, summarize
@@ -150,7 +149,6 @@ def _fresh_state(cfg: PipelineConfig, checkpoint: tuple, device: torch.device):
 def _check_service(cfg: PipelineConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(MESH_NOT_PORTED)
-    check_supported(cfg.model)   # resnet and vit raise here, naming ROADMAP §1 item 5
 
 
 class Summarizer:

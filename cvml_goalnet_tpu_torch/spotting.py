@@ -32,12 +32,11 @@ import torch
 from cvml_goalnet_tpu_torch.config import KnapsackConfig, PipelineConfig
 from cvml_goalnet_tpu_torch.device import resolve_device
 from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
-from cvml_goalnet_tpu_torch.models.avm import check_supported
+from cvml_goalnet_tpu_torch.models.avm import visual_apply
 from cvml_goalnet_tpu_torch.models.temporal import detect_peaks, detect_peaks_multi, temporal_scorer_apply
 from cvml_goalnet_tpu_torch.models.temporal_attention import temporal_transformer_apply
 from cvml_goalnet_tpu_torch.models.temporal_hybrid import temporal_hybrid_apply
 from cvml_goalnet_tpu_torch.models.text import text_encoder_apply
-from cvml_goalnet_tpu_torch.models.visual import visual_encoder_apply
 from cvml_goalnet_tpu_torch.pipeline import SummaryResult, _on, _tokens, summarize
 
 
@@ -59,11 +58,10 @@ def encode_timeline(params, state, visual, audio, cfg: PipelineConfig, device=No
             "tokens — pass the commentary tokens (VideoItem.text / "
             "data.text.tokenize) or use a trunk trained without --commentary"
         )
-    check_supported(cfg.model)
+    apply, _ = visual_apply(cfg.model)
     dev = resolve_device(device)
     with torch.no_grad():
-        feats = visual_encoder_apply(params["visual"], state["visual"], _on(visual, dev),
-                                     quant=cfg.model.quantized_inference)
+        feats = apply(params["visual"], state["visual"], _on(visual, dev), quant=cfg.model.quantized_inference)
         if cfg.model.audio_included and audio is not None:
             feats = torch.cat([audio_encoder_apply(params["audio"], _on(audio, dev)), feats], dim=-1)
         if cfg.model.text_included:

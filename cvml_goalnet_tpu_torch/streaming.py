@@ -56,7 +56,7 @@ import torch
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.data.dataset import Prefetcher
 from cvml_goalnet_tpu_torch.device import resolve_device
-from cvml_goalnet_tpu_torch.models.avm import avm_apply, check_supported
+from cvml_goalnet_tpu_torch.models.avm import avm_apply
 from cvml_goalnet_tpu_torch.ops.preprocess import preprocess_frames, preprocess_frames_host
 from cvml_goalnet_tpu_torch.pipeline import SummaryResult, summarize
 from cvml_goalnet_tpu_torch.utils import compute_dtype, tree_cast
@@ -165,7 +165,6 @@ def score_video_stream(
             "boundaries as frame_chunks (data.text.tokenize), or stream with "
             "a trunk trained without --commentary"
         )
-    check_supported(cfg.model)
     dev = resolve_device(device)
     timer = StageTimer()
     audio_iter = iter(audio_chunks) if audio_chunks is not None else None

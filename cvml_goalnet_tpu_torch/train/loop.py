@@ -41,7 +41,7 @@ import torch
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.device import strict_f32
-from cvml_goalnet_tpu_torch.models.avm import avm_apply, avm_train_apply, check_supported
+from cvml_goalnet_tpu_torch.models.avm import avm_apply, avm_train_apply
 from cvml_goalnet_tpu_torch.models.moe import moe_load_balance_loss
 from cvml_goalnet_tpu_torch.ops.fscore import fscore_against_users_host
 from cvml_goalnet_tpu_torch.pipeline import summarize
@@ -99,7 +99,6 @@ def make_train_video_fn(cfg: PipelineConfig, classifier: bool = False):
     batchnorm statistics are cast back to float32.
     """
     tc, mc = cfg.train, cfg.model
-    check_supported(mc)
     dt = compute_dtype(tc.compute_dtype)
     S, K = tc.subbatch_size, tc.grad_accum_steps
     lr_fn = schedule_from_config(tc)

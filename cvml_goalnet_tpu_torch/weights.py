@@ -8,6 +8,11 @@ by dtype and device alone, with no transposes:
 * ``params = {"visual": {"conv0".."conv2", "bn0".."bn2", "head"},
   "audio": {"conv0", "conv1", "head"}, "fusion": [{"w", "b"}, ...]}`` and
   ``model_state = {"visual": {"bn0".."bn2": {"mean", "var"}}}``;
+* the resnet backbone's ``params["visual"] = {"stem", "bn_stem", "s{i}b{j}":
+  {"conv1", "bn1", "conv2", "bn2", "proj"?, "bn_proj"?}, "head"}`` with the
+  same keys' ``{"mean", "var"}`` in ``model_state["visual"]``; the vit's
+  ``{"patch", "pos", "head", "ln_out", "blocks": [{"ln1", "wq", "wk", "wv",
+  "wo", "ln2", "mlp_in", "mlp_out"}]}`` with ``model_state["visual"] = {}``;
 * with the text branch ``params["text"] = {"embed": (V, d), "head",
   "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "mlp_in", "mlp_out"}]}``;
   with MoE ``params["fusion"][0] = {"gate": {"w", "b"}, "experts": {"w":
@@ -43,6 +48,7 @@ from cvml_goalnet_tpu_torch.models.audio import audio_feature_channels, audio_te
 from cvml_goalnet_tpu_torch.models.avm import N_CLASSES, fusion_input_dim
 from cvml_goalnet_tpu_torch.models.text import check_text_config
 from cvml_goalnet_tpu_torch.models.visual import STAGE_GEOM, visual_spatial_trace
+from cvml_goalnet_tpu_torch.models.vit import check_vit_config, vit_grid
 
 
 def _map_with_paths(fn, tree, path=()):
@@ -95,22 +101,10 @@ def init_params(cfg: PipelineConfig, seed: int, classifier: bool = False):
     """
     m, pre, aud = cfg.model, cfg.preprocess, cfg.audio
     rng = np.random.default_rng(seed)
-    visual, vstate = {}, {}
-    chans = (pre.channels,) + m.vis_channels
-    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
-        k = STAGE_GEOM[i][0]
-        visual[f"conv{i}"] = _layer(rng, (k, k, cin, cout), cin * k * k)
-        visual[f"bn{i}"] = {
-            "scale": (1.0 + 0.1 * rng.standard_normal(cout)).astype(np.float32),
-            "bias": (0.1 * rng.standard_normal(cout)).astype(np.float32),
-        }
-        vstate[f"bn{i}"] = {
-            "mean": (0.1 * rng.standard_normal(cout)).astype(np.float32),
-            "var": rng.uniform(0.5, 1.5, cout).astype(np.float32),
-        }
-    h, w = visual_spatial_trace(pre.frame_size, len(m.vis_channels))[-1]
-    flat = m.vis_channels[-1] * h * w
-    visual["head"] = _layer(rng, (flat, m.vis_feature_dim), flat)
+    backbones = {"reference": _reference_backbone, "resnet": _resnet_backbone, "vit": _vit_backbone}
+    if m.vis_backbone not in backbones:
+        raise ValueError(f"unknown vis_backbone {m.vis_backbone!r} (reference | resnet | vit)")
+    visual, vstate = backbones[m.vis_backbone](rng, m, pre)
     params = {"visual": visual}
     if m.audio_included:
         audio = {}
@@ -129,6 +123,68 @@ def init_params(cfg: PipelineConfig, seed: int, classifier: bool = False):
     if m.text_included:
         params["text"] = _text_encoder(rng, m)
     return params, {"visual": vstate}
+
+
+def _batchnorm(rng, cout):
+    """A batchnorm's (params, state), away from the identity so the eval fold and its rounding are exercised."""
+    return ({"scale": (1.0 + 0.1 * rng.standard_normal(cout)).astype(np.float32),
+             "bias": (0.1 * rng.standard_normal(cout)).astype(np.float32)},
+            {"mean": (0.1 * rng.standard_normal(cout)).astype(np.float32),
+             "var": rng.uniform(0.5, 1.5, cout).astype(np.float32)})
+
+
+def _conv(rng, k, cin, cout):
+    return _layer(rng, (k, k, cin, cout), cin * k * k)
+
+
+def _reference_backbone(rng, m, pre):
+    """The reference stack (``models/visual.py``): ``conv0..2``, ``bn0..2``, the flatten head."""
+    visual, vstate = {}, {}
+    chans = (pre.channels,) + m.vis_channels
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        visual[f"conv{i}"] = _conv(rng, STAGE_GEOM[i][0], cin, cout)
+        visual[f"bn{i}"], vstate[f"bn{i}"] = _batchnorm(rng, cout)
+    h, w = visual_spatial_trace(pre.frame_size, len(m.vis_channels))[-1]
+    flat = m.vis_channels[-1] * h * w
+    visual["head"] = _layer(rng, (flat, m.vis_feature_dim), flat)
+    return visual, vstate
+
+
+def _resnet_backbone(rng, m, pre):
+    """The resnet (``models/resnet.py``, JAX ``resnet.py:67-86``): ``stem`` (7×7 at frames of 32 px and more,
+    3×3 below) and ``bn_stem``, two blocks ``s{i}b{j}`` a stage with a 1×1 ``proj`` where the stride or the
+    width changes, and the head."""
+    visual, vstate = {}, {}
+    chans = m.vis_channels
+    visual["stem"] = _conv(rng, 7 if min(pre.frame_size) >= 32 else 3, pre.channels, chans[0])
+    visual["bn_stem"], vstate["bn_stem"] = _batchnorm(rng, chans[0])
+    cin = chans[0]
+    for si, cout in enumerate(chans):
+        for bi in range(2):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            blk, bst = {"conv1": _conv(rng, 3, cin, cout), "conv2": _conv(rng, 3, cout, cout)}, {}
+            blk["bn1"], bst["bn1"] = _batchnorm(rng, cout)
+            blk["bn2"], bst["bn2"] = _batchnorm(rng, cout)
+            if stride != 1 or cin != cout:
+                blk["proj"] = _conv(rng, 1, cin, cout)
+                blk["bn_proj"], bst["bn_proj"] = _batchnorm(rng, cout)
+            visual[f"s{si}b{bi}"], vstate[f"s{si}b{bi}"] = blk, bst
+            cin = cout
+    visual["head"] = _layer(rng, (chans[-1], m.vis_feature_dim), chans[-1])
+    return visual, vstate
+
+
+def _vit_backbone(rng, m, pre):
+    """The vit (``models/vit.py``, JAX ``vit.py:65-85``): ``patch``, learned ``pos`` (N(0, 0.02²) a token),
+    ``head``, ``ln_out`` and ``vit_depth`` pre-LN ``blocks``; its state is empty."""
+    check_vit_config(m)
+    d, p = m.vit_embed_dim, m.vit_patch_size
+    n_tokens = vit_grid(m, pre)[2]
+    visual = {"patch": _layer(rng, (p * p * pre.channels, d), p * p * pre.channels),
+              "pos": (0.02 * rng.standard_normal((n_tokens, d))).astype(np.float32),
+              "head": _layer(rng, (d, m.vis_feature_dim), d), "ln_out": _layernorm(rng, d),
+              "blocks": [_block(rng, d) for _ in range(m.vit_depth)]}
+    return visual, {}
 
 
 def _text_encoder(rng, m):
@@ -237,10 +293,12 @@ def load_jax_checkpoint(ckp_dir: str, tag: str = "ckp"):
                 continue
             _insert(tree, key.split("/"), data[key])
     tree = _lists(tree)
-    for part in ("params", "model_state"):
-        if part not in tree:
-            raise ValueError(f"{ckp_dir}/{tag}_state.npz holds no '{part}' tree")
-    return tree["params"], tree["model_state"]
+    if "params" not in tree:
+        raise ValueError(f"{ckp_dir}/{tag}_state.npz holds no 'params' tree")
+    # a vit's batchnorm-free state ({"visual": {}}) has no leaf, so the npz holds no key for it
+    model_state = tree.get("model_state", {})
+    model_state.setdefault("visual", {})
+    return tree["params"], model_state
 
 
 def load_spotting_checkpoint(path: str, template, classes=None):

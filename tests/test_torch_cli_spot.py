@@ -523,3 +523,17 @@ class TestModelOptions:
                 jsp = JaxSpotter(cfg, state=state, temporal_checkpoint=head)
                 w = jsp.spot_path(videos[0])
                 assert replies[1]["events_condensed_frames"] == w.events.tolist()
+
+    @pytest.mark.parametrize("verb,backbone", [("spot", "resnet"), ("spot", "vit"), ("spot-train", "resnet"),
+                                               ("spot-train", "vit"), ("profile", "resnet"), ("serve", "vit")])
+    def test_backbones_run_as_jax(self, env, capsys, monkeypatch, tmp_path, verb, backbone):
+        """Each verb on a JAX-written trunk of the resnet or vit backbone (the suite's config with
+        ``vis_backbone`` swapped, a narrow vit), checked as :meth:`test_run_as_jax` checks the other options."""
+        from cvml_goalnet_tpu.config import PipelineConfig as JaxPipelineConfig
+
+        jcfg = JaxPipelineConfig.load(env["cfg"])
+        jcfg = dataclasses.replace(jcfg, model=dataclasses.replace(
+            jcfg.model, vis_backbone=backbone, vit_embed_dim=16, vit_depth=2, vit_num_heads=2))
+        path = str(tmp_path / f"{backbone}.json")
+        jcfg.save(path)
+        self.test_run_as_jax(env, capsys, monkeypatch, tmp_path, verb, ["--config", path])

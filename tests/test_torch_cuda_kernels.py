@@ -1514,3 +1514,75 @@ def test_fuse_with_text_and_moe_card_matches_cpu(dev, text, moe):
     assert (fused_fusion_mlp.launches, head_matmul.launches) == (before[0] + 1, before[1] + 1)
     cp, cs = weights.from_jax(p_np, s_np, device="cpu")
     assert np.abs(card - fuse(cp, cs, feats, cfg, device="cpu")).max() <= 1e-4
+
+
+# ---------------------------------------------------------------- the resnet and vit backbones
+
+@pytest.mark.parametrize("m,k,n", [(17, 8, 8), (1, 27, 5), (16, 576, 64), (0, 72, 16), (6400, 576, 64),
+                                   (1750, 2304, 256), (23328, 27, 64), (5000, 192, 768), (9, 768, 192)])
+def test_int8_gemm_is_exact_against_the_float64_product(dev, m, k, n):
+    """``quant.int8_matmul`` through ``torch._int_mm`` (rows, K and N padded to what it takes) against the CPU's
+    float64 product of the same int8 operands: equal int32 sums, at full ±127 magnitudes."""
+    from cvml_goalnet_tpu_torch.ops.quant import int8_matmul
+
+    gen = np.random.default_rng(m + k + n)
+    a = torch.as_tensor(gen.integers(-127, 128, (m, k), dtype=np.int8))
+    b = torch.as_tensor(gen.integers(-127, 128, (k, n), dtype=np.int8))
+    got = int8_matmul(a.to(dev), b.to(dev))
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), int8_matmul(a, b))
+
+
+@pytest.mark.parametrize("n,hw,cin,cout,stride", [(5, 24, 8, 16, 1), (3, 11, 16, 16, 2), (64, 10, 64, 64, 1),
+                                                  (64, 10, 64, 256, 2), (64, 5, 256, 512, 2), (2, 3, 3, 5, 1)])
+def test_conv2d_int8_card_matches_cpu(dev, n, hw, cin, cout, stride):
+    """The int8 convolution on the card (im2col + cuBLAS's int8 GEMM) against the CPU's float64 convolution:
+    equal int32 sums; ``quantized_conv2d`` and ``quantized_linear`` within 1e-6 relative."""
+    from cvml_goalnet_tpu_torch.ops import quant
+
+    gen = np.random.default_rng(n * hw + cin)
+    x = torch.as_tensor(np.maximum(gen.standard_normal((n, hw, hw, cin)), 0).astype(np.float32))
+    w = torch.as_tensor(gen.standard_normal((3, 3, cin, cout)).astype(np.float32) * 0.1)
+    xq, _ = quant.quantize_act_per_tensor(x)
+    wq, _ = quant.quantize_weights_per_channel(w, axis=3)
+    got = quant.conv2d_int8(xq.to(dev), wq.to(dev), stride, 1)
+    assert torch.equal(got.cpu(), quant.conv2d_int8(xq, wq, stride, 1))
+    want = quant.quantized_conv2d(x, w, stride, 1)
+    torch.testing.assert_close(quant.quantized_conv2d(x.to(dev), w.to(dev), stride, 1).cpu(), want,
+                               atol=1e-6 * float(want.abs().max()), rtol=0)
+    lin = {"w": w.reshape(-1, cout)[:cin], "b": torch.as_tensor(gen.standard_normal(cout).astype(np.float32))}
+    want = quant.quantized_linear(lin, x)
+    got = quant.quantized_linear({k: v.to(dev) for k, v in lin.items()}, x.to(dev)).cpu()
+    torch.testing.assert_close(got, want, atol=1e-6 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("backbone", ["resnet", "vit"])
+@pytest.mark.parametrize("dtype,quant", [("float32", False), ("float32", True), ("bfloat16", False),
+                                         ("bfloat16", True)])
+def test_backbone_fuse_card_matches_cpu(dev, backbone, dtype, quant):
+    """fuse at reference_parity width with the backbone swapped on 64 frames (and on zero frames), card against
+    CPU: within 1e-4 in float32 and under int8 at float32, within 0.0625 in bf16 (on the bf16 grid); kernel 4
+    (4-bf16 in bf16) launched once, kernels 2 and 3 not at all."""
+    import dataclasses
+
+    from cvml_goalnet_tpu_torch.ops.cuda.fused_mlp import fused_fusion_mlp_bf16
+
+    cfg = _parity_cfg(True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vis_backbone=backbone, dtype=dtype,
+                                                             quantized_inference=quant))
+    p_np, s_np = weights.init_params(cfg, 0)
+    gen = np.random.default_rng(6)
+    feats = {"visual": gen.random((64, 40, 40, 3)).astype(np.float32),
+             "audio": gen.standard_normal((64, 30, 30)).astype(np.float32)}
+    tp, ts = weights.from_jax(p_np, s_np)
+    mlp = fused_fusion_mlp_bf16 if dtype == "bfloat16" else fused_fusion_mlp
+    before = mlp.launches, head_matmul.launches, fused_conv_pool_stage.launches
+    card = fuse(tp, ts, feats, cfg)
+    assert (mlp.launches, head_matmul.launches, fused_conv_pool_stage.launches) == (before[0] + 1, *before[1:])
+    cp, cs = weights.from_jax(p_np, s_np, device="cpu")
+    cpu = fuse(cp, cs, feats, cfg, device="cpu")
+    assert np.abs(card - cpu).max() <= (1e-4 if dtype == "float32" else 0.0625)
+    if dtype == "bfloat16":
+        assert torch.equal(torch.from_numpy(card).to(torch.bfloat16).to(torch.float32), torch.from_numpy(card))
+    empty = {"visual": feats["visual"][:0], "audio": feats["audio"][:0]}
+    assert fuse(tp, ts, empty, cfg).shape == (0,)

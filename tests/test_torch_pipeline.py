@@ -146,10 +146,11 @@ class TestFuse:
 
     @pytest.mark.parametrize("config", ["tpu_serving.json", "vit", "text", "moe"])
     def test_later_slices_raise(self, small_cfg, config):
-        """Only the vit and resnet families still raise.  The serving preset (bf16 with int8 conv1 and conv2)
-        runs, its scores on the bf16 grid in [1, 5] (held to the JAX package in test_torch_bf16.py); the text
-        branch and the MoE fusion run and match the JAX package's ``fuse`` within 1e-5 (both together, the
-        layers and training: test_torch_text.py and test_torch_moe.py)."""
+        """No model option raises any more.  The serving preset (bf16 with int8 conv1 and conv2) runs, its
+        scores on the bf16 grid in [1, 5] (held to the JAX package in test_torch_bf16.py); the vit backbone,
+        the text branch and the MoE fusion run and match the JAX package's ``fuse`` within 1e-5 (the
+        backbones, both together, the layers and training: test_torch_backbones.py, test_torch_text.py and
+        test_torch_moe.py)."""
         import dataclasses
 
         if config.endswith(".json"):
@@ -161,15 +162,11 @@ class TestFuse:
             assert out.shape == (2,) and ((out >= 1) & (out <= 5)).all()
             assert np.array_equal(torch.from_numpy(out).to(torch.bfloat16).to(torch.float32).numpy(), out)
             return
-        field = {"vit": {"vis_backbone": "vit"}, "text": {"text_included": True},
-                 "moe": {"fusion_moe_experts": 4}}[config]
+        field = {"vit": {"vis_backbone": "vit", "vit_embed_dim": 16, "vit_depth": 2, "vit_num_heads": 2},
+                 "text": {"text_included": True}, "moe": {"fusion_moe_experts": 4}}[config]
         jcfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, **field))
         cfg = _port_cfg(jcfg)
         feats = _random_features(cfg, 6, seed=0)
-        if config == "vit":
-            with pytest.raises(NotImplementedError, match="later slice"):
-                TP.fuse({}, {}, feats, cfg, device=CPU)
-            return
         if config == "text":
             from cvml_goalnet_tpu.data.text import tokenize
 
@@ -347,7 +344,8 @@ class TestDevicePolicy:
             "assert not lazy, lazy\n"
             "for m in ('train.optim', 'train.spotting', 'runtime', 'ops.knapsack', 'cli', 'streaming',\n"
             "          'data.audio_io', 'data.video', 'data.annotations', 'data.dataset', 'data.follow',\n"
-            "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling', 'serve'):\n"
+            "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling', 'serve',\n"
+            "          'models.resnet', 'models.vit'):\n"
             "    assert 'cvml_goalnet_tpu_torch.' + m in sys.modules, m\n"
             "from cvml_goalnet_tpu_torch import cli\n"
             "verbs = set(cli.build_parser()._subparsers._group_actions[0].choices)\n"

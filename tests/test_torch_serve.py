@@ -138,18 +138,26 @@ class TestSummarizer:
         assert ts.summarize_frames("v", _frames(3)).scores.shape == (3,)
 
     def test_unported_options_raise_naming_their_item(self, small_cfg):
-        """The mesh (item 6) and the vit and resnet backbones (item 5) raise; trunks with the text branch and
-        the MoE fusion are served (held to the JAX package in TestCommentary)."""
+        """The mesh (item 6) raises; trunks of the vit and resnet backbones are served as the JAX package
+        serves them (scores within 1e-4, masks and events equal; more in test_torch_backbones.py), and trunks
+        with the text branch and the MoE fusion are served (held to the JAX package in TestCommentary)."""
         cfg = _port(_jcfg(small_cfg, False))
         with pytest.raises(NotImplementedError, match="item 6"):
             TV.Summarizer(cfg, device=CPU, mesh=object())
         with pytest.raises(NotImplementedError, match="item 6"):
             TV.Spotter(cfg, device=CPU, mesh=object())
-        vit = _port(_jcfg(small_cfg, False, vis_backbone="vit"))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TV.Summarizer(vit, device=CPU)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TV.Spotter(vit, device=CPU)
+        for backbone in ("vit", "resnet"):
+            jcfg = _jcfg(small_cfg, False, vis_backbone=backbone, vit_embed_dim=16, vit_depth=2, vit_num_heads=2)
+            js = jax_train_state(jax.random.PRNGKey(7), jcfg)
+            frames = _frames(9, seed=3)
+            _assert_summaries(TV.Summarizer(_port(jcfg), state=_port_state(js), device=CPU).summarize_frames(
+                "b", frames), JV.Summarizer(jcfg, state=js).summarize_frames("b", frames))
+            jspot, tspot = JV.Spotter(jcfg, state=js), TV.Spotter(_port(jcfg), state=_port_state(js), device=CPU)
+            head = _jax_head(jcfg, 5, 1)
+            jspot.temporal_params, tspot.temporal_params = head, W.tree_from_jax(head, device=CPU)
+            got, want = tspot.spot_frames("m", frames, peak_window=3), jspot.spot_frames("m", frames, peak_window=3)
+            np.testing.assert_allclose(got.scores, np.asarray(want.scores), atol=1e-4)
+            _assert_events(got.events, want.events)
         text = _port(_jcfg(small_cfg, False, text_included=True, fusion_moe_experts=4))
         assert TV.Summarizer(text, device=CPU).summarize_frames("t", _frames(3)).scores.shape == (3,)
         assert TV.Spotter(text, device=CPU).spot_frames("t", _frames(3)).scores.shape == (3,)
@@ -178,6 +186,16 @@ class TestZeroFrames:
             js.summarize_frames("e", empty, waveform=wave)
         want = js.summarize_frames("e", empty)
         assert want.scores.shape == (0,) and want.frame_mask.shape == (0,)
+
+    @pytest.mark.parametrize("scorer", ["gru", "transformer", "hybrid"])
+    def test_zero_frame_spotter_raises_as_jax(self, small_cfg, trunks, scorer):
+        """A 0-frame ``spot_frames`` raises JAX's ``ValueError`` (``scores_to_importance`` takes the minimum of
+        no scores) in both packages, for every head: the port keeps the reference's behaviour and adds no
+        empty answer of its own."""
+        _, js, ts = _spotters(small_cfg, trunks, scorer)
+        for spotter in (js, ts):
+            with pytest.raises(ValueError, match="zero-size array"):
+                spotter.spot_frames("e", _frames(0))
 
 
 def _jax_head(jcfg, seed, n_classes):
