@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases 1,15-17]
 
 From the repository root, on a machine with a CUDA card:
 
@@ -196,8 +196,34 @@ From the repository root, on a machine with a CUDA card:
     ``serve.py``), with the vit backbone and the default GRU head, and with
     the resnet under int8 and the banded head (kernel 7), each against the
     path run directly, its trunk against the CPU on 64 frames;
-15. prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
-    as the last line ``{"ok": true, "device": {...}}``.
+15. the reference checkpoint verbs at the width of
+    ``configs/reference_parity.json``: a seeded reference-format ``state_dict``
+    saved as ``.pt``, ``import-torch``, then ``infer`` on phase 9's video from
+    the imported trunk (kernels 1–4; its scores within 1e-4 of the same path
+    on the CPU, the selection equal but for a clip at a rounding boundary),
+    ``export-torch`` (every array the ``.pt``'s bit for bit) and the export's
+    re-import (the npz the first import's bit for bit);
+16. data-parallel serving over ``serving_mesh(-1)`` (every visible card):
+    the ``Summarizer`` on phase 1's three videos and the banded (kernel 7) and
+    full-window (kernel 5) ``Spotter`` on phase 5's match, each against the
+    single-device service (scores within 1e-5, masks and events equal but at
+    a rounding boundary or a near tie), with the launch scopes each card
+    entered and the walls beside one card's; then ``serve --dp -1`` answering
+    one ``/summarize`` (its banner naming the mesh size);
+17. data-parallel training: ``train --dp --global-batch 64 --epochs 1
+    --checkpoint`` over every visible card on NCCL (one spawned rank per
+    card) at the width of ``configs/reference_parity.json`` with dropout 0,
+    on phase 10's videos from a seeded ``ckp``: the ``[dp epoch 0]`` line,
+    the ``ckp`` and ``opt`` checkpoints, rank 0's evaluation launching
+    kernels 2–4 on its card, every rank's step losses equal, and rank 0's
+    first-step loss within 1e-4 relative of the train forward's loss on the
+    same global batch on one card.
+
+Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
+and as the last line ``{"ok": true, "device": {...}}``.  ``--phases`` runs
+only the named phases (numbers and ranges, e.g. ``1,15-17``; phase 7 brings
+1 and 5): set-up, the build, the table of the kernels that were checked and
+the last lines run always, and a failed phase still exits non-zero.
 
 Every path is driven with the launch counts set to 0 just before it and read
 just after; a kernel of the path that did not launch fails the run.  Any
@@ -3827,8 +3853,10 @@ def text_moe_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dic
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     f32, bf16 = text_moe_mlp_parts(sum(VIDEO_LENGTHS), seed, smi, gen)
-    rows["fused_fusion_mlp"] = row_of(rows["fused_fusion_mlp"]["parts"] + f32)
-    rows["fused_fusion_mlp_bf16"] = lowp_row(rows["fused_fusion_mlp_bf16"]["parts"] + bf16)
+    if "fused_fusion_mlp" in rows:   # run alone (--phases), phase 13 has no phase 1 or 12 rows to add to
+        rows["fused_fusion_mlp"] = row_of(rows["fused_fusion_mlp"]["parts"] + f32)
+    if "fused_fusion_mlp_bf16" in rows:
+        rows["fused_fusion_mlp_bf16"] = lowp_row(rows["fused_fusion_mlp_bf16"]["parts"] + bf16)
     text_moe_videos_check(seed, smi, launches_by_path, videos)
     text_moe_infer_check(seed, smi, launches_by_path)
     text_moe_train_check(seed, smi, launches_by_path)
@@ -4158,10 +4186,520 @@ def backbone_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dic
 
 
 
+# ---------------------------------------------------------------- phases 15-17: checkpoint verbs, DP serving, DP training
+
+DP_GLOBAL_BATCH = 64           # `train --dp --global-batch`: 16 frames a rank on four cards
+DP_SERVE_VIDEO_FRAMES = 1_800  # raw 180×320 frames of phase 16's `serve --dp -1` request (60 condensed)
+RANK_COUNTS_ENV = "GOALNET_SMOKE_RANK_COUNTS"   # where phase 17's spawned ranks write their launch counts
+RANK_GRADS_ENV = "GOALNET_SMOKE_RANK_GRADS"     # set: rank 0 also writes its first step's reduced gradients
+
+
+def reference_state_dict(cfg: PipelineConfig, seed: int) -> dict:
+    """Seeded reference-format weights (``visbl.*``, ``audbl.*``, ``fusion.*``: the reference's ``state_dict()``
+    schema) at ``cfg``'s widths, as ``tests/test_torch_reference_checkpoints.py`` draws them."""
+    from cvml_goalnet_tpu_torch.models.audio import audio_temporal_trace
+    from cvml_goalnet_tpu_torch.models.visual import visual_spatial_trace
+
+    rng = np.random.default_rng(seed)
+    m, pre, aud = cfg.model, cfg.preprocess, cfg.audio
+    f32 = lambda shape, scale: (rng.standard_normal(shape) * scale).astype(np.float32)   # noqa: E731
+    sd = {}
+    chans = (3,) + m.vis_channels
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:]), start=1):
+        sd[f"visbl.conv{i}.weight"] = f32((cout, cin, 3, 3), 1.0 / np.sqrt(9 * cin))
+        sd[f"visbl.conv{i}.bias"] = f32(cout, 0.1)
+        sd[f"visbl.bnorm{i}.weight"] = (rng.random(cout) + 0.5).astype(np.float32)
+        sd[f"visbl.bnorm{i}.bias"] = f32(cout, 0.1)
+        sd[f"visbl.bnorm{i}.running_mean"] = f32(cout, 0.1)
+        sd[f"visbl.bnorm{i}.running_var"] = (rng.random(cout) + 0.5).astype(np.float32)
+        sd[f"visbl.bnorm{i}.num_batches_tracked"] = np.asarray(0, np.int64)
+    h, w = visual_spatial_trace(pre.frame_size, len(m.vis_channels))[-1]
+    flat = m.vis_channels[-1] * h * w
+    sd["visbl.linear5.weight"] = f32((m.vis_feature_dim, flat), 1.0 / np.sqrt(flat))
+    sd["visbl.linear5.bias"] = f32(m.vis_feature_dim, 0.1)
+    achans = (aud.n_mfcc,) + m.aud_channels
+    for i, (cin, cout) in enumerate(zip(achans[:-1], achans[1:]), start=1):
+        sd[f"audbl.conv{i}.weight"] = f32((cout, cin, 3), 1.0 / np.sqrt(3 * cin))
+        sd[f"audbl.conv{i}.bias"] = f32(cout, 0.1)
+    t = audio_temporal_trace(aud.bin_length, len(m.aud_channels))[-1]
+    sd["audbl.linear3.weight"] = f32((m.aud_feature_dim, m.aud_channels[-1] * t), 1.0 / np.sqrt(m.aud_channels[-1] * t))
+    sd["audbl.linear3.bias"] = f32(m.aud_feature_dim, 0.1)
+    dims = (m.vis_feature_dim + m.aud_feature_dim,) + m.fusion_hidden + (1,)
+    for li, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        sd[f"fusion.{3 * li}.weight"] = f32((dout, din), 1.0 / np.sqrt(din))
+        sd[f"fusion.{3 * li}.bias"] = f32(dout, 0.1)
+    return sd
+
+
+class FuseSpy:
+    """Wraps ``pipeline.fuse`` as the CLI calls it (``cmd_infer`` imports it at call time): keeps the scores."""
+
+    def __init__(self):
+        import cvml_goalnet_tpu_torch.pipeline as pipeline_module
+
+        self.module, self.fn, self.scores = pipeline_module, pipeline_module.fuse, []
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.scores.append(np.asarray(out).copy())
+        return out
+
+    def __enter__(self):
+        self.module.fuse = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fuse = self.fn
+
+
+class CardLaunches:
+    """Counts the launch scopes each card enters (``ops/cuda/_build.on_device``, which every wrapper enters once
+    around each launch of its kernel): where a data-parallel path's launches went."""
+
+    def __init__(self):
+        self.by_card: dict[int, int] = {}
+        self.real = _build.on_device
+
+    def _spy(self, t):
+        self.by_card[t.device.index] = self.by_card.get(t.device.index, 0) + 1
+        return self.real(t)
+
+    def __enter__(self):
+        _build.on_device = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        _build.on_device = self.real
+
+
+def npz_arrays(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def checkpoint_verbs_phase(seed: int, smi: str, launches_by_path: dict) -> None:
+    """Phase 15: ``import-torch`` of a reference-format ``.pt`` at the width of
+    ``configs/reference_parity.json``, ``infer`` on the card from the imported trunk (kernels 1–4; scores against
+    the same path on the CPU), ``export-torch`` (bit-equal to the ``.pt``) and its re-import (bit-equal npz)."""
+    from cvml_goalnet_tpu_torch.compat import import_reference_state_dict
+
+    os.environ.pop("GOALNET_PLATFORM", None)   # the CLI runs on the card, as a user's call would
+    t_phase = time.perf_counter()
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        inp = make_infer_inputs(cfg, seed, root)
+        raw, video, cfg_path = inp["raw"], inp["video"], inp["cfg_path"]
+        sd = reference_state_dict(cfg, seed + 1500)
+        pt = os.path.join(root, "reference.pt")
+        torch.save({k: torch.as_tensor(v) for k, v in sd.items()}, pt)
+        work = os.path.join(root, "imported")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["import-torch", pt, "--config", cfg_path, "--workdir", work])
+        out["import_s"] = time.perf_counter() - t0
+        require(rc == 0 and "Operation completed" in buf.getvalue(), f"15: import-torch exited {rc}")
+        ckp_dir = cli._artifact_paths(work, True)["ckp_dir"]
+        require(sorted(os.listdir(ckp_dir)) == ["ckp_manifest.json", "ckp_state.npz", "opt_manifest.json",
+                                                "opt_state.npz"], f"15: import-torch wrote {os.listdir(ckp_dir)}")
+
+        sink = ExportSink(False)
+        video_io.export_video = sink
+        try:
+            with FuseSpy() as spy, contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                rc = drive("import_torch_infer", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                           lambda: cli.main(["infer", video, "--config", cfg_path, "--workdir", work]),
+                           launches_by_path)
+                out["infer_s"] = time.perf_counter() - t0
+        finally:
+            video_io.export_video = sink.writer
+        require(rc == 0 and len(spy.scores) == 1, f"15: infer from the imported trunk exited {rc}")
+        skip, full_n = cfg.preprocess.skip_frames, len(raw)
+        p, s = import_reference_state_dict(sd, cfg.model, cfg.preprocess, cfg.audio, device="cpu")
+        waveform, _ = load_waveform(video[:-4] + ".wav", cfg.audio.sample_rate)
+        cpu_scores = fuse(p, s, extract_features(raw[::skip], waveform, cfg, device="cpu"), cfg, device="cpu")
+        direct = summarize(cpu_scores, uniform_clip_intervals(cfg, full_n), skip, full_n, cfg.knapsack, device="cpu")
+        card = spy.scores[0]
+        out["card_vs_cpu_max_abs_err"] = float(np.abs(card - cpu_scores).max())
+        require(out["card_vs_cpu_max_abs_err"] <= 1e-4,
+                f"15: infer's scores from the imported trunk are {out['card_vs_cpu_max_abs_err']} from the CPU's")
+        flips = rounding_flips(cpu_scores, card, 1e-4)
+        same = bool(np.array_equal(sink.frames, chosen_frames(raw, direct.clip_intervals)))
+        require(same or flips, "15: infer exported other frames than the CPU path, with no score at a boundary")
+        out.update({"scores": int(len(card)), "score_range": [float(card.min()), float(card.max())],
+                    "exported_frames": int(len(sink.frames)), "selection_equal_to_cpu": same, "rounding_flips": flips})
+
+        exported = os.path.join(root, "exported.pt")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["export-torch", exported, "--config", cfg_path, "--workdir", work])
+        out["export_s"] = time.perf_counter() - t0
+        require(rc == 0, f"15: export-torch exited {rc}")
+        back = torch.load(exported, map_location="cpu", weights_only=True)
+        require(sorted(back) == sorted(sd), "15: export-torch wrote other keys than the reference's")
+        for k, v in sd.items():
+            require(back[k].numpy().dtype == v.dtype and np.array_equal(back[k].numpy(), v),
+                    f"15: export-torch's {k} is not the imported array bit for bit")
+        again = os.path.join(root, "reimported")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["import-torch", exported, "--config", cfg_path, "--workdir", again])
+        require(rc == 0, f"15: the re-import exited {rc}")
+        first = npz_arrays(os.path.join(ckp_dir, "opt_state.npz"))
+        second = npz_arrays(os.path.join(cli._artifact_paths(again, True)["ckp_dir"], "opt_state.npz"))
+        require(sorted(first) == sorted(second) and all(np.array_equal(first[k], second[k]) for k in first),
+                "15: the re-imported checkpoint is not the first import bit for bit")
+        out["round_trip"] = {"keys": len(sd), "bit_exact": True}
+    print(f"phase 15: import-torch → infer → export-torch → import-torch at reference_parity width on {smi}: "
+          f"{json.dumps(out)}; {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
+def dp_serving_phase(seed: int, smi: str, launches_by_path: dict, videos: list[dict]) -> dict:
+    """Phase 16: ``Summarizer`` and ``Spotter`` over ``serving_mesh(-1)`` (every visible card) against the
+    single-device services on phase 1's videos and phase 5's match, with the launch scopes per card, then
+    ``serve --dp -1`` answering one ``/summarize``."""
+    from cvml_goalnet_tpu_torch.parallel.mesh import serving_mesh
+    from cvml_goalnet_tpu_torch.serve import Spotter, Summarizer
+
+    os.environ.pop("GOALNET_PLATFORM", None)
+    t_phase = time.perf_counter()
+    mesh = serving_mesh(-1)
+    out = {"mesh": [str(d) for d in mesh]}
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    state = create_train_state(seed, cfg)
+    base, dp = Summarizer(cfg, state=state), Summarizer(cfg, state=state, mesh=mesh)
+    per_video = []
+    for i, v in enumerate(videos):
+        args = (f"v{i}", v["frames"], v["intervals"], v["full_n"], v["waveform"])
+        want = base.summarize_frames(*args)
+        with CardLaunches() as cards:
+            got = drive(f"serve_dp_summarize_{i}", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                        lambda: dp.summarize_frames(*args), launches_by_path)
+        flips = same_summary(got.scores, got.clips, want.scores, want.clips, 1e-5, f"16: video {i}")
+        require(len(cards.by_card) == len(mesh), f"16: launches reached the cards {sorted(cards.by_card)}")
+        per_video.append({"frames": len(v["frames"]), "max_abs_err": float(np.abs(got.scores - want.scores).max()),
+                          "rounding_flips": flips, "launch_scopes_by_card": cards.by_card})
+    out["summarizer"] = per_video
+    walls = {"single": [], "mesh": []}
+    for _ in range(3):
+        for name, svc in (("single", base), ("mesh", dp)):
+            t0 = time.perf_counter()
+            for i, v in enumerate(videos):
+                svc.summarize_frames(f"v{i}", v["frames"], v["intervals"], v["full_n"], v["waveform"])
+            walls[name].append(time.perf_counter() - t0)
+    out["three_videos_s"] = {k: percentiles(w) for k, w in walls.items()}
+
+    match = make_match(PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json")), seed)
+    spots = {}
+    for label, window, kernel in (("banded", None, "flash_local_fwd"), ("full", 0, "flash_fwd")):
+        scfg = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+        if window is not None:
+            scfg = dataclasses.replace(scfg, model=dataclasses.replace(scfg.model, temporal_window=window))
+        sstate = create_train_state(seed, scfg)
+        one, many = Spotter(scfg, state=sstate), Spotter(scfg, state=sstate, mesh=mesh)
+        many.temporal_params = one.temporal_params
+        args = ("match", match["frames"], match["full_n"], match["waveform"])
+        want = one.spot_frames(*args)
+        with CardLaunches() as cards:
+            t0 = time.perf_counter()
+            got = drive(f"serve_dp_spotter_{label}", ["fused_preprocess_frames", *TRUNK, kernel],
+                        lambda: many.spot_frames(*args), launches_by_path)
+            wall = time.perf_counter() - t0
+        tol = 1e-5 * max(1.0, float(np.abs(want.scores).max()))
+        err = float(np.abs(got.scores - want.scores).max())
+        require(err <= tol, f"16: the {label} Spotter on the mesh is {err} from one card's (> {tol})")
+        near = compare_events(got.scores, want.scores, tol)
+        require(near or np.array_equal(got.events, want.events), f"16: the {label} Spotter's events differ")
+        turns = {"single": [], "mesh": []}
+        for svc_name, svc in (("single", one), ("mesh", many), ("mesh", many), ("single", one)):
+            t0 = time.perf_counter()
+            svc.spot_frames(*args)
+            turns[svc_name].append(time.perf_counter() - t0)
+        spots[label] = {"max_abs_err": err, "events": len(got.events), "near_tie_events": near,
+                        "summary_clips_equal": bool(np.array_equal(got.summary_clips, want.summary_clips)),
+                        "first_mesh_call_s": wall, "spot_frames_s": {k: percentiles(v) for k, v in turns.items()},
+                        "launch_scopes_by_card": cards.by_card}
+    out["spotter"] = spots
+
+    with tempfile.TemporaryDirectory() as root:
+        media = os.path.join(root, "media")
+        os.makedirs(media)
+        target = os.path.join(media, "dp.npz")
+        write_video(target, DP_SERVE_VIDEO_FRAMES, RAW_HW, seed + 1600, cfg)
+        work = os.path.join(root, "work")
+        save_checkpoint(cli._artifact_paths(work, True)["ckp_dir"], create_train_state(seed, cfg, device="cpu"), cfg,
+                        tag="opt")
+        cfg_path = os.path.join(root, "cfg.json")
+        cfg.save(cfg_path)
+        watch = PortWatch(sys.stdout)
+        answers = {}
+
+        def client():
+            if watch.ready.wait(600):
+                t0 = time.perf_counter()
+                answers["summarize"] = http(watch.port, "/summarize", {"video": "dp.npz"})
+                answers["wall_s"] = time.perf_counter() - t0
+
+        c = threading.Thread(target=client)
+        c.start()
+        try:
+            with CardLaunches() as cards, contextlib.redirect_stdout(watch):
+                rc = drive("cli_serve_dp", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                           lambda: cli.main(["serve", "--config", cfg_path, "--workdir", work, "--port", "0",
+                                             "--media-root", media, "--dp", "-1", "--max-requests", "1"]),
+                           launches_by_path)
+        finally:
+            watch.ready.set()
+            c.join()
+        require(rc == 0 and answers.get("summarize", (0,))[0] == 200, f"16: serve --dp -1 answered {answers}")
+        require(f"dp={len(mesh)})" in watch.text, "16: serve --dp -1's banner does not name the mesh size")
+        want = Summarizer(cfg, checkpoint_dir=cli._artifact_paths(work, True)["ckp_dir"]).summarize_path(target)
+        reply = answers["summarize"][1]
+        require(np.abs(np.asarray(reply["scores"]) - np.round(want.scores, 4)).max() <= 2e-4
+                and reply["clips"] == want.clips.tolist(), "16: serve --dp -1 answered other scores or clips")
+        out["cli_serve_dp"] = {"request_s": answers["wall_s"], "launch_scopes_by_card": cards.by_card,
+                               "clips": len(reply["clips"])}
+    print(f"phase 16: data-parallel serving over {len(mesh)} card(s) on {smi}: {json.dumps(out)}; "
+          f"{time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return out
+
+
+def counted_train_rank(rank: int, world: int, device, job: dict):
+    """``train/dp_loop.py``'s rank function, with every kernel's launch count set to 0 before it and read after,
+    and each step's (global) loss kept; written as ``rank<r>.json`` under ``$GOALNET_SMOKE_RANK_COUNTS``.  With
+    ``$GOALNET_SMOKE_RANK_GRADS`` set every rank also computes its first step's reduced gradients once more
+    (``step.loss_and_grads``, a collective), and rank 0 writes them as ``grads.npz`` there.  The parent swaps it
+    in for ``dp_loop._train_rank``; a spawned rank imports this script as its main module."""
+    from cvml_goalnet_tpu_torch.parallel import dp
+    from cvml_goalnet_tpu_torch.train import dp_loop
+
+    losses, make = [], dp.make_dp_train_step
+    counts_dir = os.environ[RANK_COUNTS_ENV]
+
+    def counting(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args, **kws):
+            if os.environ.get(RANK_GRADS_ENV) and not losses:
+                params, model_state, _, vis, aud, lab, gen = args[:7]
+                _, _, grads = step.loss_and_grads(params, model_state, vis, aud, lab, gen, kws.get("text"))
+                if rank == 0:
+                    np.savez(os.path.join(counts_dir, "grads.npz"),
+                             *[g.cpu().numpy() for g in tree_leaves(grads)])
+            res = step(*args, **kws)
+            losses.append(float(res[3]))
+            return res
+
+        return run
+
+    dp.make_dp_train_step = counting
+    for f, _, _ in KERNELS.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = dp_loop._train_rank(rank, world, device, job)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    rec = {"rank": rank, "device": str(device), "wall_s": time.perf_counter() - t0, "step_losses": losses,
+           "launches": {name: f.launches for name, (f, _, _) in KERNELS.items() if f.launches}}
+    with open(os.path.join(counts_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return res
+
+
+@contextlib.contextmanager
+def fd_stdout(path: str):
+    """File descriptor 1 (and ``sys.stdout``) into ``path`` for the scope, so what spawned processes print is
+    kept too; restored after."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        with open(1, "w", closefd=False) as fd1, contextlib.redirect_stdout(fd1):
+            yield
+            fd1.flush()
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def dp_train_run(argv: list[str], counts_dir: str, label: str, launches_by_path: dict) -> tuple[str, list[dict]]:
+    """``cli.main(argv)`` (a ``train --dp``) with :func:`counted_train_rank` as the ranks' function → (its output
+    and its ranks', each rank's record)."""
+    from cvml_goalnet_tpu_torch.train import dp_loop
+
+    os.makedirs(counts_dir, exist_ok=True)
+    os.environ[RANK_COUNTS_ENV] = counts_dir
+    real, dp_loop._train_rank = dp_loop._train_rank, counted_train_rank
+    log = os.path.join(counts_dir, "stdout.txt")
+    try:
+        with fd_stdout(log):
+            rc = drive(label, ["fused_preprocess_frames"], lambda: cli.main(argv), launches_by_path)
+    finally:
+        dp_loop._train_rank = real
+    with open(log) as f:
+        text = f.read()
+    print(text, end="", flush=True)
+    require(rc == 0 and "Operation completed" in text, f"{label}: exit code {rc}")
+    ranks = []
+    for name in sorted(os.listdir(counts_dir)):
+        if name.startswith("rank") and name.endswith(".json"):
+            with open(os.path.join(counts_dir, name)) as f:
+                ranks.append(json.load(f))
+    return text, sorted(ranks, key=lambda r: r["rank"])
+
+
+def global_batch_loss(cfg: PipelineConfig, state, pool: dict, idx: np.ndarray, device) -> float:
+    """The train forward's mean squared error on the global batch ``idx`` on one device: the loss a
+    data-parallel step reports before its update."""
+    from cvml_goalnet_tpu_torch.models.avm import avm_train_apply
+
+    def rows(key):
+        x = pool[key]
+        return None if x is None else torch.as_tensor(x[idx]).to(device)
+
+    with torch.no_grad(), strict_f32():
+        preds, _ = avm_train_apply(state.params, state.model_state, rows("visual"), rows("audio"), None,
+                                   cfg=cfg.model)
+        return float(torch.mean(torch.square(preds[:, 0] - rows("labels"))))
+
+
+def dp_training_phase(seed: int, smi: str, launches_by_path: dict, one_rank_too: bool = False) -> dict:
+    """Phase 17: ``train --dp --epochs 1`` over every visible card on NCCL, one spawned rank per card, at the width
+    of ``configs/reference_parity.json`` (dropout 0) on phase 10's videos, from a seeded ``ckp``; rank 0's
+    evaluation on its card (kernels 2–4) and first-step loss against the single-device global-batch loss.
+    ``one_rank_too``: the same run again with ``mesh.data = 1`` (one rank on the first card), every step's loss
+    and the walls beside the mesh's (``tools/dp_four_cards.py``)."""
+    from cvml_goalnet_tpu_torch.data.dataset import build_datasets
+    from cvml_goalnet_tpu_torch.parallel.launch import backend_of
+    from cvml_goalnet_tpu_torch.parallel.mesh import build_mesh
+    from cvml_goalnet_tpu_torch.train.dp_loop import pool_dataset
+
+    os.environ.pop("GOALNET_PLATFORM", None)
+    t_phase = time.perf_counter()
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, dropout_rate=0.0))
+    if one_rank_too:
+        # Adam's eps at 1e-4, as the CPU tests set it: at 1e-8 an entry whose gradient is rounding noise moves by
+        # lr either way, and two runs that sum in other orders part within a few steps (PERF.md §6)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, eps=1e-4))
+        os.environ[RANK_GRADS_ENV] = "1"
+    mesh = build_mesh(cfg.mesh)
+    out = {"ranks": len(mesh), "backend": backend_of(mesh), "global_batch": DP_GLOBAL_BATCH}
+    with tempfile.TemporaryDirectory() as root:
+        data = make_train_inputs(cfg, seed, root)
+        cfg_path = os.path.join(root, "cfg.json")
+        cfg.save(cfg_path)
+        work = os.path.join(root, "work")
+        ckp_dir = cli._artifact_paths(work, True)["ckp_dir"]
+        start = create_train_state(seed, cfg, device="cpu")
+        save_checkpoint(ckp_dir, start, cfg, tag="ckp")
+        store = dataset_io.AnnotationStore
+        dataset_io.AnnotationStore = AnnotationStand
+        try:
+            args = ["--videos", *data["videos"], "--annotation-fp", data["annotation_fp"], "--mat-fp",
+                    data["mat_fp"], "--h5-fp", data["h5_fp"], "--info-fp", data["info_fp"], "--config", cfg_path,
+                    "--workdir", work]
+            t0 = time.perf_counter()
+            text, ranks = dp_train_run(["train", *args, "--dp", "--global-batch", str(DP_GLOBAL_BATCH),
+                                        "--epochs", "1", "--checkpoint"], os.path.join(root, "counts"),
+                                       "train_dp", launches_by_path)
+            out["train_dp_s"] = time.perf_counter() - t0
+            train_ds, _ = build_datasets(data["videos"], cfg, data["annotation_fp"], data["mat_fp"], data["h5_fp"],
+                                         data["info_fp"], audio_included=True)
+        finally:
+            dataset_io.AnnotationStore = store
+        require(re.search(r"^\[dp epoch 0\] train loss [\d.]+ val loss [\d.]+ F-avg [\d.]+$", text, re.M)
+                is not None, "17: train --dp printed no [dp epoch 0] line")
+        require(len(ranks) == len(mesh) and [r["device"] for r in ranks] == [str(d) for d in mesh],
+                f"17: the ranks ran on {[r['device'] for r in ranks]}")
+        for name in TRUNK + ("fused_fusion_mlp",):
+            require(ranks[0]["launches"].get(name, 0) > 0, f"17: rank 0's evaluation never launched {name}")
+        for tag in ("ckp", "opt"):
+            st = load_checkpoint(ckp_dir, create_train_state(seed, cfg, device="cpu"), tag=tag)
+            require(st.epoch == 1 and st.opt_state.step == len(ranks[0]["step_losses"]),
+                    f"17: {tag} holds epoch {st.epoch}, step {st.opt_state.step}")
+        pool = pool_dataset(train_ds)
+        n = len(pool["visual"])
+        gb = min(DP_GLOBAL_BATCH, (n // len(mesh)) * len(mesh))
+        first = np.random.default_rng(cfg.train.seed).permutation(n)[:gb]
+        single = global_batch_loss(cfg, TrainState(*weights.from_jax(*weights.init_params(cfg, seed)), None, 0), pool,
+                                   first, mesh[0])
+        got = ranks[0]["step_losses"][0]
+        require(all(r["step_losses"] == ranks[0]["step_losses"] for r in ranks), "17: the ranks' losses differ")
+        err = abs(got - single)
+        require(err <= 1e-4 * max(1.0, abs(single)), f"17: rank 0's first-step loss {got} vs one card's {single}")
+        out.update({"pooled_frames": n, "steps": len(ranks[0]["step_losses"]), "first_step_loss": got,
+                    "single_device_loss": single, "first_step_abs_err": err,
+                    "rank_walls_s": [r["wall_s"] for r in ranks],
+                    "rank_launches": {r["device"]: r["launches"] for r in ranks},
+                    "epoch_line": [ln for ln in text.splitlines() if ln.startswith("[dp epoch")]})
+        if one_rank_too:
+            one_cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, data=1))
+            one_path = os.path.join(root, "one.json")
+            one_cfg.save(one_path)
+            one_work = os.path.join(root, "one_work")
+            save_checkpoint(cli._artifact_paths(one_work, True)["ckp_dir"], start, one_cfg, tag="ckp")
+            dataset_io.AnnotationStore = AnnotationStand
+            try:
+                argv = ["train", *args[:-4], "--config", one_path, "--workdir", one_work, "--dp", "--global-batch",
+                        str(DP_GLOBAL_BATCH), "--epochs", "1", "--checkpoint"]
+                t0 = time.perf_counter()
+                one_text, one_ranks = dp_train_run(argv, os.path.join(root, "one_counts"), "train_dp_one_rank",
+                                                   launches_by_path)
+                out["one_rank_train_dp_s"] = time.perf_counter() - t0
+            finally:
+                dataset_io.AnnotationStore = store
+            os.environ.pop(RANK_GRADS_ENV, None)
+            a, b = np.asarray(ranks[0]["step_losses"]), np.asarray(one_ranks[0]["step_losses"])
+            require(len(one_ranks) == 1 and a.shape == b.shape, f"17: one rank ran {b.shape} steps, the mesh {a.shape}")
+            rel = np.abs(a - b) / np.maximum(np.abs(b), 1.0)
+            g_mesh = list(npz_arrays(os.path.join(root, "counts", "grads.npz")).values())
+            g_one = list(npz_arrays(os.path.join(root, "one_counts", "grads.npz")).values())
+            g_scale = max(float(np.abs(g).max()) for g in g_one)
+            g_err = max(float(np.abs(x - y).max()) for x, y in zip(g_mesh, g_one)) / g_scale
+            require(g_err <= 1e-4, f"17: the mesh's first-step gradients are {g_err} of max|g| from one rank's")
+            require(rel[0] <= 1e-4 and rel.max() <= 1e-2, f"17: the mesh's step losses {a} vs one rank's {b}")
+            out["one_rank"] = {"adam_eps": cfg.train.eps, "step_losses": b.tolist(), "mesh_step_losses": a.tolist(),
+                               "first_step_grads_err_of_max": g_err, "grads_max": g_scale,
+                               "max_rel_diff": float(rel.max()), "first_step_rel_diff": float(rel[0]),
+                               "rank_wall_s": one_ranks[0]["wall_s"],
+                               "epoch_line": [ln for ln in one_text.splitlines() if ln.startswith("[dp epoch")]}
+    print(f"phase 17: train --dp over {len(mesh)} card(s) on {out['backend']} on {smi}: {json.dumps(out)}; "
+          f"{time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return out
+
+
+PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17")
+
+
+def parse_phases(spec: str | None) -> set[str]:
+    """``--phases 1,15-17`` → {"1", "15", "16", "17"} (every phase without the flag).  Phase 7 trains on phase 5's
+    features and times against phase 1's kernel rows, so it brings both; phases 12-14 and 16 use phase 1's
+    videos, which are made when needed."""
+    if not spec:
+        return set(PHASES)
+    chosen = set()
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        for i in range(int(lo), int(hi or lo) + 1):
+            if str(i) not in PHASES:
+                raise SystemExit(f"chip_smoke: no phase {i} (phases: {', '.join(PHASES)})")
+            chosen.add(str(i))
+    if "7" in chosen:
+        chosen.update(("1", "5"))
+    return chosen
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases, e.g. 1,15-17 (default: every phase); set-up, the build and "
+                         "the last lines run always")
     args = ap.parse_args()
+    phases = parse_phases(args.phases)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
@@ -4216,78 +4754,105 @@ def main() -> int:
     params, state = weights.from_jax(params_np, state_np)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     n_total = sum(VIDEO_LENGTHS)
-
-    rows = check_kernels(n_total, cfg, params["fusion"], gen)
-    print(f"trunk at frame_size (64, 64), card vs CPU: {json.dumps(check_trunk_at_frame_size_64(args.seed))}",
-          flush=True)
-    print(f"fused_conv_pool_stage plans at N = {n_total} on {smi}: {json.dumps(stage_plan_sweep(n_total, gen))}",
-          flush=True)
-    sweep = mlp_plan_sweep(params["fusion"], gen)
-    print(f"fused_fusion_mlp plans on {smi}: chosen {json.dumps(sweep['chosen'])}; model refitted "
-          f"{json.dumps(sweep['fit'])}; clusters at once {json.dumps(sweep['clusters_at_once'])}; "
-          f"ms by M:plan {json.dumps(sweep['ms'])}", flush=True)
-    rows.update(check_attention_kernels(gen))
-    rows.update(check_attention_bwd_kernels(gen))
-    rows = {name: rows[name] for name in KERNELS if name not in LOWP_FORMS}
-    for name, r in rows.items():
-        print(f"kernel {name} on {smi}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain "
-              f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
-
-    t0 = time.perf_counter()
-    videos = make_videos(cfg, args.seed)
-    print(f"data: {len(videos)} videos, {n_total} frames of {RAW_HW}, made in {time.perf_counter() - t0:.1f} s")
-
+    rows: dict = {}
     launches_by_path: dict[str, dict] = {}
-    t0 = time.perf_counter()
-    with knapsack_engines_run() as engines:
-        feats, scores, results, _ = drive(
-            "summarize", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
-            lambda: run_path(videos, params, state, cfg), launches_by_path)
-    first_s = time.perf_counter() - t0
-    print(f"summarize's knapsack (\"auto\") ran the engines {json.dumps(engines)}, one a video", flush=True)
-    check_outputs(videos, feats, scores, results, cfg)
-    errs = check_against_cpu(videos[0], feats[0], scores[0], params_np, state_np, cfg)
-    print(f"card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(errs)}")
+    videos = None
 
-    walls, stages, per_video = [], [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        stages.append(run_path(videos, params, state, cfg)[3])
-        walls.append(time.perf_counter() - t0)
-        for v in videos:
+    def phase_videos():
+        nonlocal videos
+        if videos is None:
             t0 = time.perf_counter()
-            run_path([v], params, state, cfg)
-            per_video.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    stage_ms = {k: 1e3 * statistics.median(st[k] for st in stages) for k in stages[0]}
-    print(f"main path on {kind} ({smi}): first run {first_s:.3f} s; three videos in one batch "
-          f"median {wall:.4f} s = {n_total / wall:.1f} frames/s; per-video p50 "
-          f"{1e3 * statistics.median(per_video):.1f} ms over {len(per_video)} runs "
-          f"(lengths {VIDEO_LENGTHS}); batch stages median ms {json.dumps(stage_ms)}")
-    prof = profile_run(lambda: run_path(videos, params, state, cfg))
-    print(f"profile of one batch run: {json.dumps(prof)}")
-    print(f"fused_fusion_mlp at M = {n_total} on {smi}: traced in the path {prof.get('mlp_kernel_ms')} ms, "
-          f"timing loop {rows['fused_fusion_mlp']['ms']:.4f} ms")
-    del feats   # phase 12 runs the videos again
+            videos = make_videos(cfg, args.seed)
+            print(f"data: {len(videos)} videos, {n_total} frames of {RAW_HW}, made in {time.perf_counter() - t0:.1f} s")
+        return videos
 
-    knapsack_phase(args.seed, smi)
-    enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)
-    training_phase(enc, train_runs, args.seed, smi, rows, launches_by_path)
-    del enc, train_runs
-    infer_phase(args.seed, smi, launches_by_path)
-    training_journey_phase(args.seed, smi, launches_by_path)
-    rows.update(lowp_phase(args.seed, smi, launches_by_path, videos))
-    text_moe_phase(args.seed, smi, launches_by_path, videos, rows)
-    backbone_phase(args.seed, smi, launches_by_path, videos)
+    if "1" in phases:
+        rows = check_kernels(n_total, cfg, params["fusion"], gen)
+        print(f"trunk at frame_size (64, 64), card vs CPU: {json.dumps(check_trunk_at_frame_size_64(args.seed))}",
+              flush=True)
+        print(f"fused_conv_pool_stage plans at N = {n_total} on {smi}: {json.dumps(stage_plan_sweep(n_total, gen))}",
+              flush=True)
+        sweep = mlp_plan_sweep(params["fusion"], gen)
+        print(f"fused_fusion_mlp plans on {smi}: chosen {json.dumps(sweep['chosen'])}; model refitted "
+              f"{json.dumps(sweep['fit'])}; clusters at once {json.dumps(sweep['clusters_at_once'])}; "
+              f"ms by M:plan {json.dumps(sweep['ms'])}", flush=True)
+        rows.update(check_attention_kernels(gen))
+        rows.update(check_attention_bwd_kernels(gen))
+        rows = {name: rows[name] for name in KERNELS if name not in LOWP_FORMS}
+        for name, r in rows.items():
+            print(f"kernel {name} on {smi}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})", flush=True)
+
+        videos = phase_videos()
+        t0 = time.perf_counter()
+        with knapsack_engines_run() as engines:
+            feats, scores, results, _ = drive(
+                "summarize", ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"],
+                lambda: run_path(videos, params, state, cfg), launches_by_path)
+        first_s = time.perf_counter() - t0
+        print(f"summarize's knapsack (\"auto\") ran the engines {json.dumps(engines)}, one a video", flush=True)
+        check_outputs(videos, feats, scores, results, cfg)
+        errs = check_against_cpu(videos[0], feats[0], scores[0], params_np, state_np, cfg)
+        print(f"card vs CPU on {CPU_CHECK_FRAMES} frames: {json.dumps(errs)}")
+
+        walls, stages, per_video = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            stages.append(run_path(videos, params, state, cfg)[3])
+            walls.append(time.perf_counter() - t0)
+            for v in videos:
+                t0 = time.perf_counter()
+                run_path([v], params, state, cfg)
+                per_video.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        stage_ms = {k: 1e3 * statistics.median(st[k] for st in stages) for k in stages[0]}
+        print(f"main path on {kind} ({smi}): first run {first_s:.3f} s; three videos in one batch "
+              f"median {wall:.4f} s = {n_total / wall:.1f} frames/s; per-video p50 "
+              f"{1e3 * statistics.median(per_video):.1f} ms over {len(per_video)} runs "
+              f"(lengths {VIDEO_LENGTHS}); batch stages median ms {json.dumps(stage_ms)}")
+        prof = profile_run(lambda: run_path(videos, params, state, cfg))
+        print(f"profile of one batch run: {json.dumps(prof)}")
+        print(f"fused_fusion_mlp at M = {n_total} on {smi}: traced in the path {prof.get('mlp_kernel_ms')} ms, "
+              f"timing loop {rows['fused_fusion_mlp']['ms']:.4f} ms")
+        del feats   # phase 12 runs the videos again
+
+    if "4" in phases:
+        knapsack_phase(args.seed, smi)
+    if "5" in phases:
+        enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)
+        if "7" in phases:
+            training_phase(enc, train_runs, args.seed, smi, rows, launches_by_path)
+        del enc, train_runs
+    if "9" in phases:
+        infer_phase(args.seed, smi, launches_by_path)
+    if "10" in phases:
+        training_journey_phase(args.seed, smi, launches_by_path)
+    if "12" in phases:
+        rows.update(lowp_phase(args.seed, smi, launches_by_path, phase_videos()))
+    if "13" in phases:
+        text_moe_phase(args.seed, smi, launches_by_path, phase_videos(), rows)
+    if "14" in phases:
+        backbone_phase(args.seed, smi, launches_by_path, phase_videos())
+    if "15" in phases:
+        checkpoint_verbs_phase(args.seed, smi, launches_by_path)
+    if "16" in phases:
+        dp_serving_phase(args.seed, smi, launches_by_path, phase_videos())
+    if "17" in phases:
+        dp_training_phase(args.seed, smi, launches_by_path)
     del videos
-    serving_phase(args.seed, smi, launches_by_path)
+    if "11" in phases:
+        serving_phase(args.seed, smi, launches_by_path)
     for label, got in launches_by_path.items():   # the float32 paths never take a low-precision form
         if not label.startswith(("summarize_", "infer_preset", "serve_preset", "serve_spotter_int8", "train_bf16",
                                  "backbone_")):   # phase 14a checks the forms of its own labels
             require_not_launched(label, LOWP_FORMS, launches_by_path)
-    rows = {name: rows[name] for name in KERNELS}
+    if args.phases is None:   # every phase ran: every kernel has its row
+        require(set(rows) == set(KERNELS), f"kernel rows missing: {sorted(set(KERNELS) - set(rows))}")
+    rows = {name: rows[name] for name in KERNELS if name in rows}
     for name in LOWP_FORMS:
+        if name not in rows:
+            continue
         r = rows[name]
         print(f"kernel {name} on {smi}: max|err| {r['max_abs_err']:.3g}  {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  bound {r['bound_ms']:.4f} ms "

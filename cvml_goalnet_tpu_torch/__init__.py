@@ -16,11 +16,14 @@ training of those heads, ``make_spotting_train_step`` / ``init_spotting_opt``
 serving (``serve.py``): the long-lived ``Summarizer`` and ``Spotter``, the
 cross-request ``DynamicBatcher`` and the JSON-over-HTTP server
 ``serve_http`` (``/summarize``, ``/spot``, ``/spot-stream``, ``/reload``,
-``/metrics``, ``/healthz``).  The CLI (``cli.py``, ``goalnet-torch``) has
-the verbs ``train``, ``eval``, ``baseline``, ``infer``, ``profile``,
-``spot``, ``spot-train`` and ``serve``.  Entry points run on the card unless
-the caller passes ``device="cpu"``; the training steps run where their
-tensors are.
+``/metrics``, ``/healthz``), data-parallel over several cards with ``mesh=``
+(``parallel/``); data-parallel training (``train/dp_loop.py``); and the
+reference checkpoint bridge (``compat/``).  The CLI (``cli.py``,
+``goalnet-torch``) has every verb of the JAX CLI: ``train`` (``--dp``),
+``eval``, ``baseline``, ``infer``, ``profile``, ``spot``, ``spot-train``,
+``serve`` (``--dp``), ``import-torch`` and ``export-torch``.  Entry
+points run on the card unless the caller passes ``device="cpu"``; the
+training steps run where their tensors are.
 """
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig

@@ -1,6 +1,6 @@
-"""CLI of the port: ``goalnet-torch {train,eval,baseline,infer,profile,spot,spot-train,serve}``.
+"""CLI of the port: ``goalnet-torch {train,eval,baseline,infer,profile,spot,spot-train,serve,import-torch,export-torch}``.
 
-Port of those verbs of ``cvml_goalnet_tpu/cli.py`` (reference
+Port of every verb of ``cvml_goalnet_tpu/cli.py`` (reference
 ``main.py:351-373``) with the JAX parser's flags:
 
 * ``train``: ``build_datasets`` (kernel 1 once a video on the card), then
@@ -8,6 +8,10 @@ Port of those verbs of ``cvml_goalnet_tpu/cli.py`` (reference
   checkpoints under ``<workdir>/models/importance[_no_audio]``, the curves
   and the summary-mask image redrawn under ``<workdir>/tmp`` each epoch, and
   ``<workdir>/tmp/events.jsonl``; ``--checkpoint`` resumes from ``ckp``;
+  ``--dp`` (with ``--global-batch``) trains data-parallel instead
+  (``train/dp_loop.py``): one spawned rank per card of ``mesh.data`` (-1:
+  every visible card; gloo with ``mesh.data`` ranks under
+  ``GOALNET_PLATFORM=cpu``), rank 0 evaluating and writing ``ckp`` and ``opt``;
 * ``eval``: a trained trunk's loss and F-scores on the train and val splits
   (kernels 2–4 on the card); no trunk, or one of another structure, exits 2;
 * ``baseline``: the random-init chance floor over ``--samples`` models;
@@ -36,7 +40,12 @@ Port of those verbs of ``cvml_goalnet_tpu/cli.py`` (reference
 * ``serve``: the HTTP service of ``serve.py`` (``/summarize``, ``/spot``,
   ``/spot-stream``, ``/reload``, ``/metrics``, ``/healthz``), ``--batch``
   for cross-request batching, ``--warmup`` to build every kernel first,
-  ``--max-requests N`` to exit after N requests.
+  ``--max-requests N`` to exit after N requests, ``--dp N`` to split
+  ``/summarize``'s scoring and ``/spot``'s trunk over N cards (-1: all);
+* ``import-torch``: a reference-format ``.pt`` (``torch.save(state_dict)``)
+  → ``opt`` and ``ckp`` (or ``--tag``) npz checkpoints with Adam at step 0;
+* ``export-torch``: the trunk checkpoint → a reference-format ``.pt``
+  (reference backbone, no MoE).
 
 The trunk is the npz checkpoint the JAX package's ``train`` writes (the
 same layout both ways, ``train/checkpoint.py``).  Every model option of the
@@ -47,9 +56,9 @@ config runs in every verb: the reference, resnet and vit backbones
 mixture-of-experts fusion) run in every verb that takes them; ``infer
 --stream`` and ``spot --stream`` refuse ``--commentary`` as the JAX CLI
 does.  Flags for what the port does not run yet exit 2 before any decode,
-naming the ROADMAP item that brings it: the orbax backend, ``train --dp``,
-``serve --dp`` and ``spot-train --cp/--dp-timelines/--tp/--pp`` (item 6).
-The JAX CLI's ``import-torch`` and ``export-torch`` are not ported.
+naming the ROADMAP item that brings it: the orbax backend and
+``spot-train --cp/--dp-timelines/--tp/--pp`` (item 6), and ``train --dp``
+with a config of ``mesh.model > 1`` (item 6.6).
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
@@ -58,7 +67,9 @@ variable it raises.
     python -m cvml_goalnet_tpu_torch.cli train --videos A.npz B.npz --annotation-fp anno.tsv ...
     python -m cvml_goalnet_tpu_torch.cli infer VIDEO [--no-audio] [--stream] ...
     python -m cvml_goalnet_tpu_torch.cli spot VIDEO --temporal-checkpoint head.npz [--stream] ...
-    python -m cvml_goalnet_tpu_torch.cli serve --workdir work [--batch] [--spot] [--warmup] ...
+    python -m cvml_goalnet_tpu_torch.cli serve --workdir work [--batch] [--spot] [--warmup] [--dp N] ...
+    python -m cvml_goalnet_tpu_torch.cli train ... --dp [--global-batch G]
+    python -m cvml_goalnet_tpu_torch.cli import-torch opt_model.pt --workdir work
 """
 
 from __future__ import annotations
@@ -77,10 +88,6 @@ ORBAX_NOT_PORTED = (
     "the orbax checkpoint backend is not ported yet (ROADMAP.md §1 item 6, with the multi-GPU "
     "paths); the port reads the npz layout (<tag>_state.npz + <tag>_manifest.json) that "
     "`goalnet train` writes by default"
-)
-DP_NOT_PORTED = (
-    "--dp (mesh data-parallel training, train/dp_loop.py) is not ported yet (ROADMAP.md §1 item 6, with the "
-    "multi-GPU paths); the port trains on one device"
 )
 
 
@@ -175,8 +182,6 @@ def _resolve_data(args) -> dict:
 
 def _unported(args) -> str | None:
     """Why the port cannot run these flags yet (naming the ROADMAP item), or None."""
-    if getattr(args, "dp", False):
-        return DP_NOT_PORTED
     if getattr(args, "checkpoint_backend", None) == "orbax":
         return ORBAX_NOT_PORTED
     return None
@@ -219,6 +224,11 @@ def cmd_train(args) -> int:
     cfg = _load_cfg(args)
     if _refused(_unported(args)):
         return 2
+    if args.dp and cfg.mesh.model > 1:
+        from cvml_goalnet_tpu_torch.parallel.mesh import TP_NOT_PORTED
+
+        _refused(TP_NOT_PORTED)
+        return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     os.makedirs(os.path.dirname(paths["curves"]), exist_ok=True)
@@ -239,6 +249,16 @@ def cmd_train(args) -> int:
             print(f"E: {e}\nE: pass the matching --config/--no-audio combination", file=sys.stderr)
             return 2
         print(f"Resumed from epoch {state.epoch}")
+
+    if args.dp:
+        # global-batch training over the cards of the mesh, one spawned rank per card (train/dp_loop.py); rank 0
+        # writes the ckp and opt checkpoints
+        from cvml_goalnet_tpu_torch.train.dp_loop import train_data_parallel
+
+        train_data_parallel(cfg, train_ds, val_ds, state, num_epochs=args.epochs, global_batch=args.global_batch,
+                            device=device, checkpoint_dir=paths["ckp_dir"])
+        print("Operation completed")
+        return 0
 
     metrics_logger = MetricsLogger(os.path.join(args.workdir, "tmp", "events.jsonl"))
 
@@ -412,10 +432,6 @@ def _run_infer_stream(args, cfg, state, store, device) -> int:
     return 0
 
 
-SERVE_DP_NOT_PORTED = (
-    "serve --dp (data-parallel serving over a device mesh) is not ported yet (ROADMAP.md §1 item 6, with the "
-    "multi-GPU paths); the port serves on one device"
-)
 SPOT_MESH_NOT_PORTED = (
     "{flag} (mesh training of the temporal head: context, DP×CP, 3-D or pipeline parallel) is not ported yet "
     "(ROADMAP.md §1 item 6, with the multi-GPU paths); the port trains the head on one device"
@@ -935,10 +951,19 @@ def cmd_serve(args) -> int:
     from cvml_goalnet_tpu_torch.train.state import create_train_state
 
     cfg = _apply_temporal_overrides(_load_cfg(args), args)
-    if _refused(SERVE_DP_NOT_PORTED if args.dp else _unported(args)):
+    if _refused(_unported(args)):
         return 2
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     device = _device()
+    mesh = None
+    if args.dp:
+        from cvml_goalnet_tpu_torch.parallel.mesh import serving_mesh
+
+        try:
+            mesh = serving_mesh(None if args.dp == -1 else args.dp, device=device)
+        except ValueError as e:
+            print(f"E: {e}", file=sys.stderr)
+            return 2
     state = create_train_state(cfg.train.seed, cfg, device=device)
     try:
         state = _load_trunk(paths, state, args, tags=("opt", "ckp"))
@@ -954,14 +979,14 @@ def cmd_serve(args) -> int:
         template = create_train_state(cfg.train.seed, cfg, device=device)
         return _load_trunk(paths, template, args, tags=("opt", "ckp"))
 
-    summarizer = Summarizer(cfg, state=state, reloader=trunk_reloader, device=device)
+    summarizer = Summarizer(cfg, state=state, reloader=trunk_reloader, device=device, mesh=mesh)
     spotter = None
     if args.spot:
         if not args.temporal_checkpoint:
             print("W: /spot will use a random-init temporal head (pass --temporal-checkpoint)")
         try:
             spotter = Spotter(cfg, state=state, temporal_checkpoint=args.temporal_checkpoint,
-                              classes=_classes(args), reloader=trunk_reloader, device=device)
+                              classes=_classes(args), reloader=trunk_reloader, device=device, mesh=mesh)
         except (ValueError, OSError, zipfile.BadZipFile) as e:
             # a missing, unreadable or corrupt --temporal-checkpoint is a configuration error, not a traceback
             print(f"E: {e}", file=sys.stderr)
@@ -981,7 +1006,8 @@ def cmd_serve(args) -> int:
             print(f"E: {e}", file=sys.stderr)
             return 2
         print(f"serving on http://{args.host}:{server.server_address[1]}"
-              f" (spot={'on' if spotter else 'off'}, batch={'on' if batcher else 'off'}, dp=off)", flush=True)
+              f" (spot={'on' if spotter else 'off'}, batch={'on' if batcher else 'off'},"
+              f" dp={len(mesh) if mesh is not None else 'off'})", flush=True)
         if args.max_requests:
             # handle_request() returns once it has handed the request to a handler thread, and
             # ThreadingHTTPServer does not join daemon handlers on close: non-daemon handlers are joined by
@@ -997,6 +1023,70 @@ def cmd_serve(args) -> int:
     finally:
         if batcher is not None:
             batcher.close()
+    return 0
+
+
+def cmd_import_torch(args) -> int:
+    """A reference-format PyTorch checkpoint → the port's npz checkpoint.
+
+    The reference writes ``torch.save(model.state_dict())`` (``main.py:263,282``); this writes
+    ``models/importance*/{opt,ckp}_state.npz`` (or only ``--tag``) with Adam at step 0 and epoch 0, in the
+    layout both packages read, so ``infer``, ``spot`` and ``serve`` find the weights with no further flag.
+    """
+    import torch
+
+    from cvml_goalnet_tpu_torch.compat import import_reference_state_dict
+    from cvml_goalnet_tpu_torch.train.checkpoint import save_checkpoint
+    from cvml_goalnet_tpu_torch.train.optim import adam_init
+    from cvml_goalnet_tpu_torch.train.state import TrainState
+
+    cfg = _load_cfg(args)
+    paths = _artifact_paths(args.workdir, cfg.model.audio_included)
+    sd = torch.load(args.pt_file, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    try:
+        params, model_state = import_reference_state_dict(sd, cfg.model, cfg.preprocess, cfg.audio,
+                                                          device=_device())
+    except (ValueError, KeyError) as e:
+        print(f"E: {e}", file=sys.stderr)
+        return 2
+    state = TrainState(params=params, model_state=model_state, opt_state=adam_init(params), epoch=0)
+    for tag in (args.tag,) if args.tag else ("opt", "ckp"):
+        save_checkpoint(paths["ckp_dir"], state, cfg, tag=tag)
+    print(f"Imported {args.pt_file} -> {paths['ckp_dir']}")
+    print("Operation completed")
+    return 0
+
+
+def cmd_export_torch(args) -> int:
+    """The trunk checkpoint → a reference-format PyTorch ``.pt`` the reference's own ``AVM.load_state_dict``
+    loads (``main.py:65-66,326``); ``--tag`` picks the checkpoint (default ``opt``, then ``ckp``)."""
+    import torch
+
+    from cvml_goalnet_tpu_torch.compat import export_reference_state_dict
+    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
+    from cvml_goalnet_tpu_torch.train.state import create_train_state
+
+    cfg = _load_cfg(args)
+    if _refused(_unported(args)):
+        return 2
+    paths = _artifact_paths(args.workdir, cfg.model.audio_included)
+    state = create_train_state(cfg.train.seed, cfg, device=_device())
+    try:
+        state = _load_trunk(paths, state, args, tags=(args.tag,) if args.tag else ("opt", "ckp"))
+    except (FileNotFoundError, CheckpointMismatchError, CheckpointBackendError) as e:
+        print(f"E: {e}", file=sys.stderr)
+        return 2
+    try:
+        sd = export_reference_state_dict(state.params, state.model_state, cfg.model, cfg.preprocess, cfg.audio)
+    except ValueError as e:   # an MoE fusion head has no reference-format counterpart
+        print(f"E: {e}", file=sys.stderr)
+        return 2
+    os.makedirs(os.path.dirname(os.path.abspath(args.out_pt)), exist_ok=True)
+    torch.save({k: torch.as_tensor(v) for k, v in sd.items()}, args.out_pt)
+    print(f"Exported {paths['ckp_dir']} -> {args.out_pt}")
+    print("Operation completed")
     return 0
 
 
@@ -1195,7 +1285,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", action="store_true",
                    help="cross-request dynamic batching (serve.DynamicBatcher)")
     p.add_argument("--dp", type=int, default=0, metavar="N",
-                   help="data-parallel serving over N devices (not ported: ROADMAP §1 item 6)")
+                   help="shard /summarize scoring AND the /spot timeline "
+                        "encode data-parallel over N local devices (-1 = "
+                        "all); composes with --batch")
     p.add_argument("--spot", action="store_true",
                    help="also serve POST /spot and /spot-stream (event spotting)")
     p.add_argument("--temporal-checkpoint", default=None,
@@ -1213,6 +1305,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-experts", type=int, default=None,
                    help="match a trunk trained with --moe-experts N")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("import-torch", help="import a reference-format .pt as our checkpoint")
+    p.add_argument("pt_file")
+    p.add_argument("--config", default=None, help="PipelineConfig JSON path")
+    p.add_argument("--workdir", default=".", help="artifact root (models/)")
+    p.add_argument("--no-audio", action="store_true",
+                   help="the .pt is a no-audio (VM) checkpoint")
+    p.add_argument("--tag", choices=["opt", "ckp"], default=None,
+                   help="write only this tag (default: both)")
+    p.set_defaults(fn=cmd_import_torch)
+
+    p = sub.add_parser("export-torch", help="export our checkpoint as a reference-format .pt")
+    p.add_argument("out_pt")
+    p.add_argument("--config", default=None, help="PipelineConfig JSON path")
+    p.add_argument("--workdir", default=".", help="artifact root (models/)")
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--tag", choices=["opt", "ckp"], default=None,
+                   help="export this tag (default: opt, falling back to ckp)")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"], default=None,
+                   help="pin the checkpoint layout (default: auto-detect)")
+    p.set_defaults(fn=cmd_export_torch)
 
     p = sub.add_parser("baseline", help="random-init chance baseline")
     _add_data_args(p)

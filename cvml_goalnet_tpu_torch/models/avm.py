@@ -117,12 +117,14 @@ def avm_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = 
 
 def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, text=None, *,
                     cfg: ModelConfig, generator: torch.Generator | None = None, classifier: bool = False,
-                    valid: torch.Tensor | None = None, return_moe_probs: bool = False):
+                    valid: torch.Tensor | None = None, return_moe_probs: bool = False, bn_group=None):
     """Train-mode forward → ``((N, 1) scores or (N, 5) logits, new_state)``, and the MoE gate's (N, E)
     combine weights third with ``return_moe_probs`` (which needs ``fusion_moe_experts > 0``).
 
     ``valid`` (N,) marks the real rows of a zero-padded batch (the batchnorm
-    statistics count only those).  The dropouts draw from ``generator``: the
+    statistics count only those).  With ``bn_group`` (a ``torch.distributed``
+    group, the data-parallel step's) the batchnorm statistics are those of the
+    global batch, every rank's rows together.  The dropouts draw from ``generator``: the
     visual head's first, then each hidden fusion layer's.  Without a
     generator and with ``dropout_rate > 0`` it raises, as the JAX function
     does without a key: a fixed mask would train a fixed sparse subnetwork.
@@ -131,7 +133,7 @@ def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | N
     if generator is None and cfg.dropout_rate > 0:
         raise ValueError("avm_train_apply with dropout_rate > 0 requires a generator")
     feats, vis_state = train_apply(params["visual"], state["visual"], visual, generator=generator,
-                                   dropout_rate=cfg.dropout_rate, mask=valid)
+                                   dropout_rate=cfg.dropout_rate, mask=valid, bn_group=bn_group)
     x = _fused_input(params, feats, audio, text, cfg)
     n_hidden = len(cfg.fusion_hidden)
     moe_probs = None

@@ -179,8 +179,30 @@ def multihead_attention(layer, x: torch.Tensor, num_heads: int, mask: torch.Tens
     return lin(layer["wo"], out.permute(0, 2, 1, 3).reshape(n, t, d))
 
 
+def _group_stats(x: torch.Tensor, dims, mask: torch.Tensor | None, group):
+    """(mean, biased variance, count) over ``dims`` of the valid rows of every rank of ``group``: the per-channel
+    sums and the row count, then the sums of squared deviations, each all-reduced through an all-reduce that
+    autograd passes through, so each rank's gradient carries the statistics' share of every rank's loss."""
+    from cvml_goalnet_tpu_torch.parallel.collectives import all_reduce_sum
+
+    per_frame = x.numel() // x.shape[-1] // max(x.shape[0], 1)
+    if mask is None:
+        m = None
+        rows = torch.tensor(float(x.shape[0]), device=x.device)
+    else:
+        m = mask.reshape(mask.shape[:1] + (1,) * (x.dim() - 1)).to(x.dtype)
+        rows = mask.to(torch.float32).sum()
+    sums = (x if m is None else x * m).sum(dim=dims)
+    total = all_reduce_sum(torch.cat([sums.to(torch.float32), (rows * per_frame).reshape(1)]), group)
+    count = total[-1]
+    mean = (total[:-1] / count).to(x.dtype)
+    dev = torch.square(x - mean)
+    var = all_reduce_sum((dev if m is None else m * dev).sum(dim=dims), group) / count
+    return mean, var, count
+
+
 def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float = 0.1, eps: float = 1e-5,
-                    mask: torch.Tensor | None = None):
+                    mask: torch.Tensor | None = None, group=None):
     """BatchNorm over every axis but the last (channel) → ``(y, new_state)``.
 
     Train mode normalises by the biased batch statistics and moves the
@@ -188,14 +210,20 @@ def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float
     eval mode normalises by the running statistics.  ``mask`` (N,) marks the
     valid leading rows of a zero-padded batch: the statistics count only
     those (``count = Σmask · per_frame``, the unbiased variance over
-    ``max(count − 1, 1)``), while padded rows are still normalised.  Every
-    result is a new tensor: ``state`` is left as it was.  In eval mode on
+    ``max(count − 1, 1)``), while padded rows are still normalised.  With
+    ``group`` (a ``torch.distributed`` group) the statistics are those of
+    every rank's rows together, as one device's over the global batch
+    (JAX's GSPMD data-parallel step); without it nothing is communicated.
+    Every result is a new tensor: ``state`` is left as it was.  In eval mode on
     bf16 (the resnet backbone's unfolded batchnorms) each operation rounds
     to bf16 as the JAX package's do, ``eps`` rounded first.
     """
     dims = tuple(range(x.dim() - 1))
     if train:
-        if mask is None:
+        if group is not None:
+            mean, var, count = _group_stats(x, dims, mask, group)
+            unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+        elif mask is None:
             mean = x.mean(dim=dims)
             var = torch.square(x - mean).mean(dim=dims)
             count = x.numel() // x.shape[-1]

@@ -53,24 +53,25 @@ def _project(proj, x: torch.Tensor, stride: int) -> torch.Tensor:
     return L.linear_apply({"w": proj["w"][0, 0], "b": proj["b"]}, x[:, ::stride, ::stride, :])
 
 
-def _block_apply(params, state, x: torch.Tensor, stride: int, train: bool, mask=None):
+def _block_apply(params, state, x: torch.Tensor, stride: int, train: bool, mask=None, group=None):
     new_state = {}
     y = L.conv2d_apply(params["conv1"], x, stride=stride, padding=1)
-    y, new_state["bn1"] = L.batchnorm_apply(params["bn1"], state["bn1"], y, train, mask=mask)
+    y, new_state["bn1"] = L.batchnorm_apply(params["bn1"], state["bn1"], y, train, mask=mask, group=group)
     y = torch.relu(y)
     y = L.conv2d_apply(params["conv2"], y, stride=1, padding=1)
-    y, new_state["bn2"] = L.batchnorm_apply(params["bn2"], state["bn2"], y, train, mask=mask)
+    y, new_state["bn2"] = L.batchnorm_apply(params["bn2"], state["bn2"], y, train, mask=mask, group=group)
     if "proj" in params:
         x = _project(params["proj"], x, stride)
-        x, new_state["bn_proj"] = L.batchnorm_apply(params["bn_proj"], state["bn_proj"], x, train, mask=mask)
+        x, new_state["bn_proj"] = L.batchnorm_apply(params["bn_proj"], state["bn_proj"], x, train, mask=mask,
+                                                    group=group)
     return torch.relu(x + y), new_state
 
 
-def _stem_apply(params, state, x: torch.Tensor, train: bool, mask=None):
+def _stem_apply(params, state, x: torch.Tensor, train: bool, mask=None, group=None):
     """The stem in the checkpoint's variant → ``(x, new bn_stem state)``."""
     imagenet = params["stem"]["w"].shape[0] == 7
     x = L.conv2d_apply(params["stem"], x, stride=2 if imagenet else 1, padding=3 if imagenet else 1)
-    x, bn_state = L.batchnorm_apply(params["bn_stem"], state["bn_stem"], x, train, mask=mask)
+    x, bn_state = L.batchnorm_apply(params["bn_stem"], state["bn_stem"], x, train, mask=mask, group=group)
     x = torch.relu(x)
     if imagenet:
         x = L.maxpool2d(x, kernel=3, stride=2, padding=1)
@@ -116,11 +117,12 @@ def resnet_encoder_apply(params, state, x: torch.Tensor, quant: bool = False) ->
 
 
 def resnet_encoder_train_apply(params, state, x: torch.Tensor, *, generator: torch.Generator | None,
-                               dropout_rate: float, mask: torch.Tensor | None = None):
+                               dropout_rate: float, mask: torch.Tensor | None = None, bn_group=None):
     """x (N, H, W, C) → ``((N, vis_feature_dim) features, new_state)`` in train mode: batchnorm on the batch
-    statistics of the rows ``mask`` (N,) marks valid, the head's dropout from ``generator``."""
+    statistics of the rows ``mask`` (N,) marks valid (of every rank of ``bn_group`` with one), the head's
+    dropout from ``generator``."""
     new_state = {}
-    x, new_state["bn_stem"] = _stem_apply(params, state, x, True, mask=mask)
+    x, new_state["bn_stem"] = _stem_apply(params, state, x, True, mask=mask, group=bn_group)
     for name, stride in _blocks(params):
-        x, new_state[name] = _block_apply(params[name], state[name], x, stride, True, mask=mask)
+        x, new_state[name] = _block_apply(params[name], state[name], x, stride, True, mask=mask, group=bn_group)
     return L.dropout(_pool_head(params, x), dropout_rate, True, generator), new_state

@@ -91,10 +91,11 @@ def visual_encoder_apply(params, state, x: torch.Tensor, quant: bool = False) ->
 
 
 def visual_encoder_train_apply(params, state, x: torch.Tensor, *, generator: torch.Generator | None,
-                               dropout_rate: float, mask: torch.Tensor | None = None):
+                               dropout_rate: float, mask: torch.Tensor | None = None, bn_group=None):
     """x (N, H, W, C) normalised frames → ``((N, vis_feature_dim) features, new_state)`` in train mode.
 
-    ``mask`` (N,) keeps padded rows out of the batchnorm statistics; the head's dropout draws from
+    ``mask`` (N,) keeps padded rows out of the batchnorm statistics; with ``bn_group`` (a
+    ``torch.distributed`` group) the statistics are those of every rank's rows; the head's dropout draws from
     ``generator``.
     """
     new_state = {}
@@ -104,7 +105,8 @@ def visual_encoder_train_apply(params, state, x: torch.Tensor, *, generator: tor
             break
         _, stride, pad = STAGE_GEOM[i]
         x = L.maxpool2d(torch.relu(L.conv2d_apply(params[name], x, stride, pad)), *POOL)
-        x, new_state[f"bn{i}"] = L.batchnorm_apply(params[f"bn{i}"], state[f"bn{i}"], x, True, mask=mask)
+        x, new_state[f"bn{i}"] = L.batchnorm_apply(params[f"bn{i}"], state[f"bn{i}"], x, True, mask=mask,
+                                                   group=bn_group)
     x = x.reshape(x.shape[0], x.shape[1] * x.shape[2] * x.shape[3])
     x = torch.relu(L.linear_apply(params["head"], x))
     return L.dropout(x, dropout_rate, True, generator), new_state

@@ -77,8 +77,9 @@ def vit_encoder_apply(params, state, x: torch.Tensor, *, num_heads: int, patch: 
 
 def vit_encoder_train_apply(params, state, x: torch.Tensor, *, num_heads: int, patch: int,
                             generator: torch.Generator | None, dropout_rate: float,
-                            mask: torch.Tensor | None = None):
+                            mask: torch.Tensor | None = None, bn_group=None):
     """x → ``((N, vis_feature_dim) features, state)`` in train mode: the head's dropout from ``generator``;
-    ``mask`` is taken for the backbones' common signature and changes nothing."""
-    del mask
+    ``mask`` and ``bn_group`` are taken for the backbones' common signature (the vit has no batchnorm) and
+    change nothing."""
+    del mask, bn_group
     return L.dropout(_forward(params, x, num_heads, patch, L.linear_apply), dropout_rate, True, generator), state

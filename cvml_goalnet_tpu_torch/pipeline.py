@@ -105,11 +105,18 @@ def fuse(params, state, features: dict, cfg: PipelineConfig, device=None, text=N
             )
         text = features["text"]
     text = _tokens(text, dev) if cfg.model.text_included else None
-    dt = compute_dtype(cfg.model.dtype)
+    return fuse_on_device(params, state, _on(features["visual"], dev), audio, text, cfg.model).cpu().numpy()
+
+
+def fuse_on_device(params, state, visual: torch.Tensor, audio: torch.Tensor | None, text: torch.Tensor | None,
+                   cfg_model) -> torch.Tensor:
+    """The forward of :func:`fuse` on tensors already on one device → (N,) float32 scores there, not waited for
+    (the data-parallel fuse issues one of these per device)."""
+    dt = compute_dtype(cfg_model.dtype)
     with torch.no_grad():
-        out = avm_apply(tree_cast(params, dt), tree_cast(state, dt), _on(features["visual"], dev).to(dt),
-                        None if audio is None else audio.to(dt), text, cfg=cfg.model)
-    return out[:, 0].to(torch.float32).cpu().numpy()
+        out = avm_apply(tree_cast(params, dt), tree_cast(state, dt), visual.to(dt),
+                        None if audio is None else audio.to(dt), text, cfg=cfg_model)
+    return out[:, 0].to(torch.float32)
 
 
 def fuse_many(params, state, features_list: list[dict], cfg: PipelineConfig, device=None) -> list[np.ndarray]:

@@ -32,8 +32,14 @@ Trunks with the text branch read each video's ``<video>.commentary.jsonl``
 sidecar (``""`` for every frame without one, as in training); the text
 encoder runs in plain PyTorch.  ``/spot-stream`` refuses them, as the JAX
 package does: there is no live ingest protocol for commentary.
-Data-parallel serving over several cards (``mesh=``, ``serve --dp``) is not
-ported yet: ROADMAP.md §1 item 6.
+
+``mesh=`` (``parallel.mesh.serving_mesh``, the CLI's ``serve --dp N``) serves
+data-parallel over several cards: the Summarizer's ``fuse`` and the
+Spotter's trunk split the frames of a batch over the mesh
+(``parallel/serving.py``), with the weights copied to every card once per
+checkpoint (re)load, and the batcher's batches take the same path.  Frames
+are decoded and preprocessed, and the temporal head scores, on the mesh's
+first card.
 """
 
 from __future__ import annotations
@@ -73,11 +79,6 @@ from cvml_goalnet_tpu_torch.spotting import (
 from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError, load_checkpoint
 from cvml_goalnet_tpu_torch.train.state import create_train_state
 from cvml_goalnet_tpu_torch.weights import init_temporal_params, load_spotting_checkpoint, tree_from_jax
-
-MESH_NOT_PORTED = (
-    "data-parallel serving over a device mesh (mesh=, serve --dp) is not ported yet (ROADMAP.md §1 item 6, "
-    "with the multi-GPU paths); the port serves on one device"
-)
 
 # the CUDA sources each service launches (ops/cuda/_build.KERNELS names), built by warmup() before any request
 SUMMARIZER_SOURCES = ("fused_preprocess", "fused_stage", "fused_stage_lowp", "matmul", "fused_mlp")
@@ -146,13 +147,23 @@ def _fresh_state(cfg: PipelineConfig, checkpoint: tuple, device: torch.device):
     return state if ckp_dir is None else load_checkpoint(ckp_dir, state, tag=tag)
 
 
-def _check_service(cfg: PipelineConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+def _service_device(device, mesh) -> torch.device:
+    """The device a service decodes, preprocesses and scores on: ``device``, or the mesh's first one."""
+    return resolve_device(device if device is not None or not mesh else mesh[0])
+
+
+def _mesh_copies(state, mesh):
+    """With a mesh: (params, model_state) copied to each of its devices (``parallel.serving.replicate``), once
+    per checkpoint load so no request copies weights; None without one, where ``state`` is read directly."""
+    if mesh is None:
+        return None
+    from cvml_goalnet_tpu_torch.parallel.serving import replicate
+
+    return replicate(state.params, mesh), replicate(state.model_state, mesh)
 
 
 class Summarizer:
-    """Trunk loaded once; thread-safe scoring of many videos on one device."""
+    """Trunk loaded once; thread-safe scoring of many videos on one device, or split over ``mesh``."""
 
     def __init__(
         self,
@@ -165,10 +176,9 @@ class Summarizer:
         device=None,
         mesh=None,
     ):
-        _check_service(cfg, mesh)
         self.cfg = cfg
         self.store = store
-        self.device = resolve_device(device)
+        self.device = _service_device(device, mesh)
         self._checkpoint = (checkpoint_dir, checkpoint_tag)
         # a zero-argument callable → a fresh state: lets a launcher with its own checkpoint discovery make an
         # in-memory `state=` service reloadable without ever taking a path from a request
@@ -176,10 +186,20 @@ class Summarizer:
         self.state = state if state is not None else _fresh_state(cfg, self._checkpoint, self.device)
         self.reload_count = 0
         self._lock = threading.Lock()
+        self.mesh = mesh
+        self._dp_fuse = None
+        if mesh is not None:
+            from cvml_goalnet_tpu_torch.parallel.serving import make_dp_fuse
+
+            self._dp_fuse = make_dp_fuse(cfg.model, mesh)
+        self._placed = _mesh_copies(self.state, mesh)
 
     def _score(self, features: dict) -> np.ndarray:
-        """Features → (N,) scores.  The caller holds ``self._lock``: :meth:`reload`'s swap is the only writer
-        of ``state``, and an in-flight call keeps the references it read."""
+        """Features → (N,) scores, on the service's device or split over the mesh (the batcher calls this too).
+        The caller holds ``self._lock``: :meth:`reload`'s swap is the only writer of ``state`` and
+        ``_placed``, and an in-flight call keeps the references it read."""
+        if self._dp_fuse is not None:
+            return self._dp_fuse(*self._placed, features)
         return fuse(self.state.params, self.state.model_state, features, self.cfg, device=self.device)
 
     def reload(self) -> int:
@@ -199,8 +219,10 @@ class Summarizer:
                 "to reload from")
         else:
             candidate = _fresh_state(self.cfg, self._checkpoint, self.device)  # may raise
+        placed = _mesh_copies(candidate, self.mesh)   # the copies to the mesh, outside the lock
         with self._lock:
             self.state = candidate
+            self._placed = placed
             self.reload_count += 1
             return self.reload_count
 
@@ -289,10 +311,9 @@ class Spotter:
         device=None,
         mesh=None,
     ):
-        _check_service(cfg, mesh)
         self.cfg = cfg
         self.classes = list(classes) if classes else None
-        self.device = resolve_device(device)
+        self.device = _service_device(device, mesh)
         self._checkpoint = (checkpoint_dir, checkpoint_tag)
         self._temporal_checkpoint = temporal_checkpoint
         self._reloader = reloader  # the same contract as Summarizer's
@@ -300,6 +321,15 @@ class Spotter:
         self.temporal_params = self._build_temporal(temporal_checkpoint)
         self.reload_count = 0
         self._lock = threading.Lock()
+        # with a mesh the trunk's encode (the bulk of /spot) is split over it; the temporal head, cross-frame,
+        # scores the gathered (T, D) features on the first device
+        self.mesh = mesh
+        self._dp_encode = None
+        if mesh is not None:
+            from cvml_goalnet_tpu_torch.parallel.serving import make_dp_encode
+
+            self._dp_encode = make_dp_encode(cfg.model, mesh)
+        self._placed = _mesh_copies(self.state, mesh)
 
     def _build_temporal(self, temporal_checkpoint: "str | None"):
         """The configured temporal head, seeded, with the checkpoint loaded into it when one is given."""
@@ -325,9 +355,11 @@ class Spotter:
         # (assigned) head with a fresh random one
         new_tparams = (self._build_temporal(self._temporal_checkpoint)
                        if self._temporal_checkpoint is not None else self.temporal_params)
+        placed = _mesh_copies(new_state, self.mesh)
         with self._lock:
             self.state = new_state
             self.temporal_params = new_tparams
+            self._placed = placed
             self.reload_count += 1
             return self.reload_count
 
@@ -357,8 +389,11 @@ class Spotter:
         if cfg.model.audio_included and feats_in["audio"] is None:
             feats_in["audio"] = _silent_audio(len(frames), cfg, self.device)
         with self._lock:
-            feats = encode_timeline(self.state.params, self.state.model_state, feats_in["visual"],
-                                    feats_in["audio"], cfg, device=self.device, text=feats_in["text"])
+            if self._dp_encode is not None:
+                feats = self._dp_encode(*self._placed, feats_in["visual"], feats_in["audio"], feats_in["text"])
+            else:
+                feats = encode_timeline(self.state.params, self.state.model_state, feats_in["visual"],
+                                        feats_in["audio"], cfg, device=self.device, text=feats_in["text"])
             scores = score_timeline_auto(self.temporal_params, feats, cfg).cpu().numpy()
 
         if self.classes:

@@ -58,14 +58,22 @@ def encode_timeline(params, state, visual, audio, cfg: PipelineConfig, device=No
             "tokens — pass the commentary tokens (VideoItem.text / "
             "data.text.tokenize) or use a trunk trained without --commentary"
         )
-    apply, _ = visual_apply(cfg.model)
     dev = resolve_device(device)
+    return encode_on_device(params, state, _on(visual, dev), None if audio is None else _on(audio, dev),
+                            _tokens(text, dev) if cfg.model.text_included else None, cfg.model)
+
+
+def encode_on_device(params, state, visual: torch.Tensor, audio: torch.Tensor | None, text: torch.Tensor | None,
+                     cfg_model) -> torch.Tensor:
+    """The trunk of :func:`encode_timeline` (JAX ``spotting.trunk_fn``) on tensors already on one device → (T, D)
+    features there (the data-parallel encode runs one per device)."""
+    apply, _ = visual_apply(cfg_model)
     with torch.no_grad():
-        feats = apply(params["visual"], state["visual"], _on(visual, dev), quant=cfg.model.quantized_inference)
-        if cfg.model.audio_included and audio is not None:
-            feats = torch.cat([audio_encoder_apply(params["audio"], _on(audio, dev)), feats], dim=-1)
-        if cfg.model.text_included:
-            feats = torch.cat([feats, text_encoder_apply(params["text"], _tokens(text, dev), cfg=cfg.model)], dim=-1)
+        feats = apply(params["visual"], state["visual"], visual, quant=cfg_model.quantized_inference)
+        if cfg_model.audio_included and audio is not None:
+            feats = torch.cat([audio_encoder_apply(params["audio"], audio), feats], dim=-1)
+        if cfg_model.text_included:
+            feats = torch.cat([feats, text_encoder_apply(params["text"], text, cfg=cfg_model)], dim=-1)
     return feats
 
 

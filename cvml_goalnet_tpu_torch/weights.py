@@ -61,14 +61,15 @@ def _map_with_paths(fn, tree, path=()):
 
 
 def tree_from_jax(tree, device=None):
-    """Any numpy (or JAX) pytree → the same tree of float32 tensors on the device; lists stay lists."""
+    """Any numpy (or JAX) pytree → the same tree of contiguous float32 tensors on the device (a transposed numpy
+    view is copied into row-major order, as the kernels take it); lists stay lists."""
     dev = resolve_device(device)
 
     def leaf(a):
         a = np.asarray(a)
         if a.dtype.kind != "f":
             raise TypeError(f"parameter leaf of dtype {a.dtype} is not floating point")
-        return torch.as_tensor(a.astype(np.float32)).to(dev)
+        return torch.as_tensor(np.array(a, dtype=np.float32, order="C")).to(dev)
 
     return _map_with_paths(lambda _, a: leaf(a), tree)
 

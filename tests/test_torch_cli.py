@@ -451,6 +451,67 @@ class TestTrainVerbs:
             assert st.epoch == 2 and st.opt_state.step == 4
 
 
+class TestTrainDataParallel:
+    def test_train_dp_runs_as_jax(self, env, small_cfg, tmp_path, capfd):
+        """``train --dp`` (once refused, naming item 6) at two gloo ranks (``mesh.data = 2``) against the JAX
+        CLI's ``train --dp`` on its 8 virtual devices, the same global batch and dropout off: the printed
+        ``[dp epoch N]`` losses and F-scores within 1e-4 relative plus one unit of the printed 4 decimals, and
+        the ckp and opt checkpoints the JAX package's ``load_checkpoint`` reads within 5e-3 (its step
+        tolerance) of its own.  The spawned ranks print, so the output is read at the file descriptors."""
+        import re
+
+        from cvml_goalnet_tpu import cli as JC
+        from cvml_goalnet_tpu.config import MeshConfig
+        from cvml_goalnet_tpu.train.checkpoint import load_checkpoint
+
+        jcfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, dropout_rate=0.0),
+                                   train=dataclasses.replace(small_cfg.train, eps=1e-4))
+        paths = {}
+        for name, mesh in (("jax", MeshConfig()), ("port", MeshConfig(data=2))):
+            paths[name] = str(tmp_path / f"{name}.json")
+            dataclasses.replace(jcfg, mesh=mesh).save(paths[name])
+        out, works = {}, {}
+        start = create_train_state(jax.random.PRNGKey(3), jcfg)   # both resume from it: the inits' draws differ
+        for name, main in (("jax", JC.main), ("port", cli.main)):
+            works[name] = str(tmp_path / name)
+            save_checkpoint(os.path.join(works[name], "models", "importance"), start, jcfg, tag="ckp")
+            capfd.readouterr()
+            rc = main(["train", *_data_args(env["meta"], paths[name], works[name]), "--dp", "--global-batch", "8",
+                       "--epochs", "2", "--checkpoint"])
+            out[name] = capfd.readouterr().out
+            assert rc == 0 and "Operation completed" in out[name], out[name]
+            assert "Resumed from epoch 0" in out[name]
+
+        def epochs(text):
+            return [[float(x) for x in re.findall(r"-?\d+\.\d+", line)] for line in text.splitlines()
+                    if line.startswith("[dp epoch")]
+
+        got, want = epochs(out["port"]), epochs(out["jax"])
+        assert len(got) == len(want) == 2
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        for tag in ("ckp", "opt"):
+            states = [load_checkpoint(os.path.join(works[n], "models", "importance"),
+                                      create_train_state(jax.random.PRNGKey(0), jcfg), tag=tag) for n in ("port", "jax")]
+            assert states[0].epoch == states[1].epoch == 2
+            assert int(states[0].opt_state.step) == int(states[1].opt_state.step) == 2
+            for a, b in zip(jax.tree_util.tree_leaves(states[0].params), jax.tree_util.tree_leaves(states[1].params)):
+                np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=5e-3)
+
+    def test_train_dp_with_a_model_axis_exits_2_naming_item_6_6(self, env, small_cfg, tmp_path, capsys,
+                                                                 monkeypatch):
+        from cvml_goalnet_tpu.config import MeshConfig
+        from cvml_goalnet_tpu_torch.data import dataset
+
+        def refuse(*a, **kw):
+            raise AssertionError("a refused run decoded its videos")
+
+        monkeypatch.setattr(dataset, "build_datasets", refuse)
+        path = str(tmp_path / "tp.json")
+        dataclasses.replace(small_cfg, mesh=MeshConfig(data=2, model=2)).save(path)
+        assert cli.main(["train", *_data_args(env["meta"], path, str(tmp_path / "w")), "--dp"]) == 2
+        assert "ROADMAP.md §1 item 6.6" in capsys.readouterr().err
+
+
 class TestTrainRefusals:
     @pytest.fixture(autouse=True)
     def no_decode(self, monkeypatch):
@@ -462,7 +523,6 @@ class TestTrainRefusals:
         monkeypatch.setattr(dataset, "build_datasets", refuse)
 
     @pytest.mark.parametrize("verb,flags,message", [
-        ("train", ["--dp"], "ROADMAP.md §1 item 6"),
         ("train", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
         ("eval", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
     ])

@@ -13,7 +13,8 @@ head the JAX package's ``load_spotting_checkpoint`` reads, within steps·lr of
 the JAX package's head (Adam moves an entry whose gradient is rounding noise
 by up to lr a step).  Every flag the port does not run yet exits 2 before
 any decode, naming its ROADMAP item; ``--commentary`` and ``--moe-experts``
-run in every verb and print what the JAX CLI prints.
+run in every verb and print what the JAX CLI prints, and ``serve --dp N``
+answers as the JAX package's services on a mesh of N do.
 """
 
 from __future__ import annotations
@@ -355,7 +356,6 @@ class TestRefusals:
         ("spot-train", ["--cp", "--dp-timelines", "2", "--tp", "2"], "item 6"),
         ("spot-train", ["--pp", "2", "--temporal-model", "transformer"], "item 6"),
         ("spot-train", ["--early-stop", "2"], "--early-stop needs --val-videos"),
-        ("serve", ["--dp", "2"], "item 6"),
         ("serve", ["--host", "0.0.0.0", "--port", "0", "--no-audio"], "non-loopback"),
     ])
     def test_exits_2_before_any_decode(self, env, capsys, verb, flags, message):
@@ -523,6 +523,40 @@ class TestModelOptions:
                 jsp = JaxSpotter(cfg, state=state, temporal_checkpoint=head)
                 w = jsp.spot_path(videos[0])
                 assert replies[1]["events_condensed_frames"] == w.events.tolist()
+
+    def test_serve_dp_runs_as_jax(self, env, capsys, monkeypatch, tmp_path):
+        """``serve --dp 2 --batch --spot`` (once refused, naming item 6) on a CPU mesh of 2: the banner names
+        ``dp=2`` as the JAX CLI's does, and /summarize and /spot answer as the JAX package's services on its
+        mesh of 2 virtual devices."""
+        from cvml_goalnet_tpu.parallel.serving import serving_mesh as jax_serving_mesh
+        from cvml_goalnet_tpu.serve import Spotter as JaxSpotter
+        from cvml_goalnet_tpu.train.checkpoint import load_checkpoint
+
+        common, videos, head, cfg = _model_workdir(env, tmp_path, [])
+        media, name = os.path.dirname(videos[0]), os.path.basename(videos[0])
+        reqs = [("/summarize", {"video": name}), ("/spot", {"video": name})]
+        rc, replies = _serve_once(["serve", *common, "--media-root", media, "--batch", "--dp", "2", "--spot",
+                                   "--temporal-checkpoint", head], reqs, monkeypatch)
+        assert rc == 0 and all("error" not in r for r in replies), replies
+        assert "dp=2)" in capsys.readouterr().out
+        state = load_checkpoint(str(tmp_path / "work" / "models" / "importance"),
+                                create_train_state(jax.random.PRNGKey(0), cfg), tag="opt")
+        mesh = jax_serving_mesh(2)
+        want = JaxSummarizer(cfg, state=state, mesh=mesh).summarize_path(videos[0])
+        assert replies[0]["mask_frames"] == int(want.frame_mask.sum())
+        assert replies[0]["clips"] == want.clips.tolist()
+        np.testing.assert_allclose(replies[0]["scores"], np.round(np.asarray(want.scores), 4), atol=2e-4)
+        w = JaxSpotter(cfg, state=state, temporal_checkpoint=head, mesh=mesh).spot_path(videos[0])
+        assert replies[1]["events_condensed_frames"] == w.events.tolist()
+
+    def test_serve_dp_past_the_visible_cards_exits_2_as_jax(self, env, capsys, monkeypatch):
+        import torch
+
+        monkeypatch.delenv("GOALNET_PLATFORM")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        rc, _, err = _run(cli.main, ["serve", "--config", env["cfg"], "--workdir", env["work"], "--dp", "3"], capsys)
+        assert rc == 2 and "--dp 3 requested but only 2 device(s) are visible" in err
 
     @pytest.mark.parametrize("verb,backbone", [("spot", "resnet"), ("spot", "vit"), ("spot-train", "resnet"),
                                                ("spot-train", "vit"), ("profile", "resnet"), ("serve", "vit")])

@@ -346,6 +346,91 @@ def test_small_pipeline_card_matches_cpu(dev):
     np.testing.assert_array_equal(a.frame_mask, b.frame_mask)
 
 
+def _small_cfg(**model) -> PipelineConfig:
+    return PipelineConfig(
+        preprocess=PreprocessConfig(frame_size=(24, 24)),
+        model=ModelConfig(vis_channels=(8, 16, 16), vis_feature_dim=32, aud_channels=(8, 16), aud_feature_dim=16,
+                          fusion_hidden=(32, 16), **model),
+    )
+
+
+@pytest.mark.parametrize("mode,tol", [({}, 1e-4), ({"dtype": "bfloat16"}, 0.0625),
+                                      ({"quantized_inference": True}, 1e-4),
+                                      ({"dtype": "bfloat16", "quantized_inference": True}, 0.0625)])
+def test_dp_fuse_and_encode_launch_on_each_shards_card(dev, mode, tol):
+    """The data-parallel fuse and trunk encode over every visible card: every launch (kernels 1-4 and the bf16
+    and int8 forms) enters its shard's card, which is the current device while it launches, and the scores and
+    features equal a CPU mesh's of as many entries (the same blocks) within the mode's tolerance."""
+    from cvml_goalnet_tpu_torch.ops.cuda import _build
+    from cvml_goalnet_tpu_torch.parallel.mesh import serving_mesh
+    from cvml_goalnet_tpu_torch.parallel.serving import make_dp_encode, make_dp_fuse
+
+    cfg = _small_cfg(**mode)
+    mesh = serving_mesh(-1)
+    cpu_mesh = serving_mesh(len(mesh), device="cpu")
+    p_np, s_np = weights.init_params(cfg, seed=3)
+    frames = synthetic_video_frames(9 * len(mesh) + 5, 48, 64, seed=4)
+    wav = synthetic_waveform(len(frames) * 22050, seed=4)
+    feats = extract_features(frames, wav, cfg)
+    cpu_feats = extract_features(frames, wav, cfg, device="cpu")
+    seen, real = [], _build.on_device
+
+    class Spy:
+        def __init__(self, t):
+            self.t, self.ctx = t, real(t)
+
+        def __enter__(self):
+            self.ctx.__enter__()
+            seen.append((self.t.device.index, torch.cuda.current_device()))
+
+        def __exit__(self, *exc):
+            return self.ctx.__exit__(*exc)
+
+    _build.on_device = Spy
+    try:
+        got = make_dp_fuse(cfg.model, mesh)(*weights.from_jax(p_np, s_np), feats)
+        enc = make_dp_encode(cfg.model, mesh)(*weights.from_jax(p_np, s_np), feats["visual"], feats["audio"])
+    finally:
+        _build.on_device = real
+    cpu = weights.from_jax(p_np, s_np, device="cpu")
+    np.testing.assert_allclose(got, make_dp_fuse(cfg.model, cpu_mesh)(*cpu, cpu_feats), atol=tol)
+    want_enc = make_dp_encode(cfg.model, cpu_mesh)(*cpu, cpu_feats["visual"], cpu_feats["audio"])
+    assert enc.device == mesh[0] and enc.shape == want_enc.shape
+    np.testing.assert_allclose(enc.cpu().numpy(), want_enc.numpy(), atol=tol * max(1.0, float(want_enc.abs().max())))
+    assert {card for card, _ in seen} == set(range(len(mesh)))
+    assert all(card == current for card, current in seen), seen
+
+
+def test_nccl_one_rank_step_matches_gloo_on_the_cpu(dev):
+    """A spawned one-rank group on NCCL runs both data-parallel steps on the card as a one-rank gloo group on the
+    CPU does: losses within 1e-5 relative, reduced gradients within 1e-4·max|g|, the ranks import no JAX."""
+    import _torch_dp_ranks as ranks
+    from cvml_goalnet_tpu_torch.parallel.launch import spawn_ranks
+
+    cfg = _small_cfg(dropout_rate=0.0)
+    p_np, s_np = weights.init_params(cfg, seed=5)
+    rng = np.random.default_rng(6)
+    job = {"cfg": cfg, "params": p_np, "model_state": s_np,
+           "visual": rng.random((16, 24, 24, 3)).astype(np.float32),
+           "audio": rng.random((16, cfg.audio.bin_length, cfg.audio.n_mfcc)).astype(np.float32),
+           "labels": rng.integers(1, 6, 16).astype(np.float32)}
+    card = spawn_ranks(ranks.step_parity, [torch.device("cuda", 0)], (job,))[0]
+    cpu = spawn_ranks(ranks.step_parity, [torch.device("cpu")], (job,))[0]
+    assert card["forbidden"] == [] and cpu["forbidden"] == []
+    for kind in ("gspmd", "shardmap"):
+        assert card[kind]["loss"] == pytest.approx(cpu[kind]["loss"], rel=1e-5)
+        for g, w in zip(_leaves(card[kind]["grads"]), _leaves(cpu[kind]["grads"])):
+            np.testing.assert_allclose(g, w, atol=1e-4 * max(float(np.abs(w).max()), 1e-12), rtol=0)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def test_visual_trunk_at_frame_size_64_card_matches_cpu(dev):
     """The full-width trunk at frame_size (64, 64): conv1 at 21×21 and conv2 at 19×19, which the stage kernel
     cuts into tiles; card against CPU with the same weights, within 1e-4 relative."""

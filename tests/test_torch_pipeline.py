@@ -327,10 +327,12 @@ class TestDevicePolicy:
     def test_port_imports_no_jax(self):
         """A fresh interpreter: every module of the port (the training modules,
         the native runtime's loader, the data layer, the streaming scorer, the
-        serving layer and the CLI with its serving and spotting verbs among
-        them) and chip_smoke.py's imports leave jax and cvml_goalnet_tpu out
-        of sys.modules, and the optional media, HDF5 and plotting packages
-        too (imported only when a call needs them)."""
+        serving layer, the reference checkpoint verbs, the data-parallel
+        modules and the CLI with its serving and spotting verbs among them)
+        and chip_smoke.py's imports leave jax and cvml_goalnet_tpu out of
+        sys.modules, and the optional media, HDF5 and plotting packages too
+        (imported only when a call needs them); and so do two ranks spawned
+        by ``parallel.launch.spawn_ranks`` that import the training modules."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import cvml_goalnet_tpu_torch as pkg\n"
@@ -345,11 +347,19 @@ class TestDevicePolicy:
             "for m in ('train.optim', 'train.spotting', 'runtime', 'ops.knapsack', 'cli', 'streaming',\n"
             "          'data.audio_io', 'data.video', 'data.annotations', 'data.dataset', 'data.follow',\n"
             "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling', 'serve',\n"
-            "          'models.resnet', 'models.vit'):\n"
+            "          'models.resnet', 'models.vit', 'compat.torch_import', 'parallel.mesh', 'parallel.serving',\n"
+            "          'parallel.collectives', 'parallel.dp', 'parallel.launch', 'train.dp_loop'):\n"
             "    assert 'cvml_goalnet_tpu_torch.' + m in sys.modules, m\n"
             "from cvml_goalnet_tpu_torch import cli\n"
             "verbs = set(cli.build_parser()._subparsers._group_actions[0].choices)\n"
-            "assert verbs >= {'train', 'eval', 'baseline', 'infer', 'serve', 'spot', 'spot-train', 'profile'}, verbs\n"
+            "assert verbs >= {'train', 'eval', 'baseline', 'infer', 'serve', 'spot', 'spot-train', 'profile',\n"
+            "                 'import-torch', 'export-torch'}, verbs\n"
+            "import torch\n"
+            "from cvml_goalnet_tpu_torch.parallel.launch import spawn_ranks\n"
+            "from tests._torch_dp_ranks import report_imports\n"
+            "ranks = spawn_ranks(report_imports, [torch.device('cpu')] * 2)\n"
+            "assert [r['forbidden'] for r in ranks] == [[], []], ranks\n"
+            "assert [r['rank'] for r in ranks] == [0, 1] and ranks[0]['world'] == 2, ranks\n"
             "print(len([m for m in sys.modules if m.startswith('cvml_goalnet_tpu_torch')]))\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

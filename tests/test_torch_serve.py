@@ -137,15 +137,27 @@ class TestSummarizer:
         ts.warmup(((3, 24, 24),))
         assert ts.summarize_frames("v", _frames(3)).scores.shape == (3,)
 
-    def test_unported_options_raise_naming_their_item(self, small_cfg):
-        """The mesh (item 6) raises; trunks of the vit and resnet backbones are served as the JAX package
-        serves them (scores within 1e-4, masks and events equal; more in test_torch_backbones.py), and trunks
-        with the text branch and the MoE fusion are served (held to the JAX package in TestCommentary)."""
-        cfg = _port(_jcfg(small_cfg, False))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            TV.Summarizer(cfg, device=CPU, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 6"):
-            TV.Spotter(cfg, device=CPU, mesh=object())
+    def test_unported_options_raise_naming_their_item(self, small_cfg, trunks):
+        """Every option now serves: a mesh (the port's CPU mesh of 2 entries against the JAX package's 2
+        virtual devices; more in test_torch_dp.py), and trunks of the vit and resnet backbones, as the JAX
+        package serves them (scores within 1e-4, masks and events equal; more in test_torch_backbones.py), and
+        trunks with the text branch and the MoE fusion (held to the JAX package in TestCommentary)."""
+        from cvml_goalnet_tpu.parallel.serving import serving_mesh as jax_serving_mesh
+        from cvml_goalnet_tpu_torch.parallel.mesh import serving_mesh
+
+        jcfg = _jcfg(small_cfg, False)
+        cfg = _port(jcfg)
+        js, ts = trunks[False]
+        frames = _frames(9, seed=5)
+        mesh, jmesh = serving_mesh(2, device=CPU), jax_serving_mesh(2)
+        _assert_summaries(TV.Summarizer(cfg, state=ts, device=CPU, mesh=mesh).summarize_frames("m", frames),
+                          JV.Summarizer(jcfg, state=js, mesh=jmesh).summarize_frames("m", frames))
+        jspot, tspot = JV.Spotter(jcfg, state=js, mesh=jmesh), TV.Spotter(cfg, state=ts, device=CPU, mesh=mesh)
+        head = _jax_head(jcfg, 5, 1)
+        jspot.temporal_params, tspot.temporal_params = head, W.tree_from_jax(head, device=CPU)
+        got, want = tspot.spot_frames("m", frames, peak_window=3), jspot.spot_frames("m", frames, peak_window=3)
+        np.testing.assert_allclose(got.scores, np.asarray(want.scores), atol=1e-4)
+        _assert_events(got.events, want.events)
         for backbone in ("vit", "resnet"):
             jcfg = _jcfg(small_cfg, False, vis_backbone=backbone, vit_embed_dim=16, vit_depth=2, vit_num_heads=2)
             js = jax_train_state(jax.random.PRNGKey(7), jcfg)
