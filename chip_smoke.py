@@ -67,7 +67,7 @@ From the repository root, on a machine with a CUDA card:
    the plain version, both against float64; the band at T = 135,000 on row
    and key slices;
 7. drives spotting training on the match's features: a seeded event sidecar
-   read back with ``load_event_labels``, then three
+   read back with ``load_event_labels``, then two
    ``make_spotting_train_step`` steps from one seeded head for the banded,
    full and hybrid configs on the card and on the CPU (first gradients and
    every loss held to each other), ``save_spotting_checkpoint`` →
@@ -208,8 +208,11 @@ From the repository root, on a machine with a CUDA card:
     full-window (kernel 5) ``Spotter`` on phase 5's match, each against the
     single-device service (scores within 1e-5, masks and events equal but at
     a rounding boundary or a near tie), with the launch scopes each card
-    entered and the walls beside one card's; then ``serve --dp -1`` answering
-    one ``/summarize`` (its banner naming the mesh size);
+    entered and the walls beside one card's; the serving preset's int8 (at
+    float32 within 1e-5, with bf16 within 0.0625) over the mesh against one
+    card, the amax kernel launched twice a card (every block quantizes with
+    the batch's scale); then ``serve --dp -1`` answering one ``/summarize``
+    (its banner naming the mesh size);
 17. data-parallel training: ``train --dp --global-batch 64 --epochs 1
     --checkpoint`` over every visible card on NCCL (one spawned rank per
     card) at the width of ``configs/reference_parity.json`` with dropout 0,
@@ -217,9 +220,27 @@ From the repository root, on a machine with a CUDA card:
     the ``ckp`` and ``opt`` checkpoints, rank 0's evaluation launching
     kernels 2–4 on its card, every rank's step losses equal, and rank 0's
     first-step loss within 1e-4 relative of the train forward's loss on the
-    same global batch on one card.
+    same global batch on one card;
+18. context-parallel spotting at the width of ``configs/tpu_spotting.json``
+    (transformer 128 wide, 2 layers, W = 1024, and W = 0) on the one card:
+    (a) the ring's and the halo's hop math (``parallel/ring_attention.py``,
+    ``parallel/halo_attention.py``) over 4 virtual shards of one (1, T, 128)
+    q, k, v at T = 5400 and 5399 (a partial last shard), forward and
+    backward, against the monolithic kernels 5–8 (outputs and lse within
+    1e-5·max(1, max|out|), gradients within 1e-4·max(1, max|g|)), kernel 5
+    launched n² and kernel 7 n times a forward, 6 and 8 as often a backward;
+    (b) ``spot-train --cp`` through ``cli.main`` on one NCCL rank, banded and
+    full, for 2 epochs on phase 5's match (written as a ``--no-audio`` video
+    at ``skip_frames = 1`` with seeded events), against the single-device
+    ``spot-train``: every epoch's loss within 1e-4 relative, the rank's
+    launches of kernels 7 and 8 (5 and 6) counted, the two saved heads
+    scoring the match within 1e-4·max(1, max|s|); (c) on one NCCL rank in
+    this process, ``score_timeline_sharded`` against ``score_timeline_auto``
+    (banded, full) and the chunked single-device scorers (GRU, hybrid);
+    (d) the CP step's ms beside the single-device step's, and the phase's
+    wall.
 
-Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
+Every phase prints its wall and the script's time so far.  Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  ``--phases`` runs
 only the named phases (numbers and ranges, e.g. ``1,15-17``; phase 7 brings
 1 and 5): set-up, the build, the table of the kernels that were checked and
@@ -282,6 +303,8 @@ from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import (
     card_fwd_plan,
     card_local_bwd_plan,
     card_local_fwd_plan,
+    flash_attention_local_bounded,
+    flash_attention_with_lse,
     flash_bwd,
     flash_bwd_plain,
     flash_fwd,
@@ -406,13 +429,13 @@ ATTN_WINDOW = 1024                # temporal_window of configs/tpu_spotting*.jso
 LONG_T = 32_768                   # attention checked against its plain version at this T too
 MATCH_RATE_T = 135_000            # a 90-minute match at 25 frames/s: banded kernel timed alone
 EVENT_SPACING = 300               # condensed frames per synthetic training event
-TRAIN_STEPS = 3                   # make_spotting_train_step steps per scorer
+TRAIN_STEPS = 2                   # make_spotting_train_step steps per scorer
 LONG_GRU_EXTRA = 3_616            # frames past temporal_chunk_threshold for the chunked GRU check
 PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
 FRAME64_FRAMES = 6                # frames of the trunk check at frame_size (64, 64)
 INFER_SEGMENTS = (1_800, 1_500, 1_200)   # raw frames of the --follow segments: 4,500 in all, 2.5 minutes at 30 fps
 INFER_CHUNK = 64                         # --stream-chunk: 150 condensed frames in chunks of 64, 64 and 22
-INFER_REPEATS = 3                        # offline and streamed --no-audio runs timed in turns
+INFER_REPEATS = 2                        # offline and streamed --no-audio runs timed in turns
 TRANSFER_BOUNDS = {None: 1e-4, "float16": 1e-3, "uint8": 2e-2}   # host preprocess vs device, the JAX package's
 TRAIN_VIDEO_FRAMES = (4_500, 4_800, 5_100, 5_400)   # raw frames of vidA-vidD: 150-180 condensed at skip 30
 TRAIN_RAW_HW = (72, 96)                             # synthetic_video_frames' raw size (the model runs on 40×40)
@@ -420,9 +443,9 @@ TRAIN_ANNOTATORS = 20                               # TVSum's annotators per vid
 TRAIN_CLIP_FRAMES = 60                              # about 2-second clips (shots) at 30 fps raw
 TRAIN_EPOCHS = 2                                    # `train --epochs`; the resume runs one more
 # the knapsack sweep: matches of these condensed frames with their own clips and capacity, then with a match's
-# 540 clips capacities giving tables of about 1e6, 2.7e6, 1e7, 3e7 and 1e8 cells
-KNAPSACK_SWEEP_FRAMES = (600, 1_200, 2_400, 3_600, 5_400, 8_100, 10_800)
-KNAPSACK_SWEEP_CAPACITIES = (1_851, 5_000, 18_517, 55_000, 185_184)
+# 540 clips capacities giving tables of about 1e6, 1e7 and 1e8 cells
+KNAPSACK_SWEEP_FRAMES = (600, 2_400, 5_400, 10_800)
+KNAPSACK_SWEEP_CAPACITIES = (1_851, 18_517, 185_184)
 # (H, T, d, window, on a main path) of the attention kernels' checks: the spotting path's shapes, then
 # T = 32,768, then one head of 256, the widest built width, and one of 512, on the wide path
 ATTENTION_CASES = [(1, MATCH_FRAMES, 128, None, True), (1, MATCH_FRAMES, 128, ATTN_WINDOW, True),
@@ -1711,11 +1734,11 @@ def spotting_phase(seed: int, smi: str, launches_by_path: dict):
     del feats
 
     for label, cfg, tparams, _, _ in runs:
-        stages = [run_match(match, params, state, tparams, cfg)[1] for _ in range(3)]
+        stages = [run_match(match, params, state, tparams, cfg)[1] for _ in range(2)]
         totals = [sum(st.values()) for st in stages]
         p50 = statistics.median(totals)
         stage_ms = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
-        print(f"{label} on {smi}: per-match p50 {p50:.1f} ms over 3 runs = {1e3 * MATCH_FRAMES / p50:.1f} "
+        print(f"{label} on {smi}: per-match p50 {p50:.1f} ms over 2 runs = {1e3 * MATCH_FRAMES / p50:.1f} "
               f"frames/s; stages median ms {json.dumps(stage_ms)}", flush=True)
     prof = profile_run(lambda: run_match(match, params, state, transformer, banded_cfg))
     print(f"profile of one spot_banded match on {smi}: {json.dumps(prof)}", flush=True)
@@ -1750,7 +1773,7 @@ def train_steps(step, params, features, labels, steps: int = TRAIN_STEPS):
 
 
 def training_phase(enc: torch.Tensor, runs, seed: int, smi: str, kernel_rows: dict, launches_by_path: dict) -> None:
-    """Spotting training on the match's (T, 640) features, per scorer: first gradients and three steps on the
+    """Spotting training on the match's (T, 640) features, per scorer: first gradients and TRAIN_STEPS steps on the
     card against the CPU, then the trained head through a checkpoint file and back to scoring on the card."""
     n = enc.shape[0]
     enc_cpu = enc.cpu()
@@ -2123,6 +2146,9 @@ class PlotSink:
         self.indices.append((pred_mask.shape, gd_masks.shape, int(pred_mask.sum())))
 
 
+_train_frames: dict = {}
+
+
 def make_train_inputs(cfg: PipelineConfig, seed: int, root: str) -> dict:
     """Four seeded videos vidA-vidD (``TRAIN_VIDEO_FRAMES`` raw 72×96 uint8 frames as ``.npz``, the 22,050 Hz
     ``.wav`` sidecars), ``anno.tsv`` with 20 annotators' 1-5 grades per raw frame and ``info.tsv``, as
@@ -2133,7 +2159,10 @@ def make_train_inputs(cfg: PipelineConfig, seed: int, root: str) -> dict:
     fps, rows, arrays = [], [], {}
     for i, (vid, n) in enumerate(zip(ids, TRAIN_VIDEO_FRAMES)):
         path = os.path.join(root, f"{vid}.npz")
-        np.savez(path, frames=synthetic_video_frames(n, *TRAIN_RAW_HW, seed=seed + 400 + i))
+        key = (n, TRAIN_RAW_HW, seed + 400 + i)
+        if key not in _train_frames:   # made once (about 8 s a video); phases 10, 13, 14 and 17 write them
+            _train_frames[key] = synthetic_video_frames(n, *TRAIN_RAW_HW, seed=seed + 400 + i)
+        np.savez(path, frames=_train_frames[key])
         write_wav(os.path.join(root, f"{vid}.wav"),
                   synthetic_waveform(int(n / 30 * cfg.audio.sample_rate), cfg.audio.sample_rate, seed=seed + 400 + i),
                   cfg.audio.sample_rate)
@@ -2437,11 +2466,11 @@ def training_journey_phase(seed: int, smi: str, launches_by_path: dict) -> None:
 
 # ---------------------------------------------------------------- phase 11: serving
 
-SERVE_REQUESTS = 24                               # batcher requests of 30-300 condensed 180×320 frames
+SERVE_REQUESTS = 16                               # batcher requests of 30-300 condensed 180×320 frames
 SERVE_THREADS = 8                                 # client threads, in the batcher and over HTTP
 HTTP_VIDEO_FRAMES = (1_800, 2_700, 3_600, 4_500)  # raw 72×96 frames of the HTTP videos: 60-150 condensed
 HTTP_SPOT_FRAMES = 9_000                          # raw frames of the /spot video: 300 condensed
-HTTP_REQUESTS = 32                                # /summarize requests per server
+HTTP_REQUESTS = 16                                # /summarize requests per server
 SPOT_WINDOW = 64                                  # --attn-window of the --no-audio banded spotter and the CLI verbs
 
 
@@ -3320,7 +3349,7 @@ def lowp_videos_check(seed: int, smi: str, launches_by_path: dict, videos: list[
         drift = max(float(np.abs(a - b).max()) for a, b in zip(scores, f32_scores))
         require(drift <= 0.1, f"{label}: scores {drift} from the card's float32 scores (> 0.1, the drift gate)")
         walls, stages, per_video = [], [], []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             stages.append(run_path(videos, params, state, cfg)[3])
             walls.append(time.perf_counter() - t0)
@@ -3643,7 +3672,7 @@ def text_moe_videos_check(seed: int, smi: str, launches_by_path: dict, videos: l
             require(rel <= 1e-4, f"{label}: text features card vs CPU {rel} relative (> 1e-4)")
             rec["text_features_rel"] = rel
         walls, stages = [], []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             stages.append(run_path(videos, params, state, cfg, c)[3])
             walls.append(time.perf_counter() - t0)
@@ -3999,7 +4028,7 @@ def backbone_videos_check(seed: int, smi: str, launches_by_path: dict, videos: l
                                                     "sums differ from the float64 product")
                 rec["int8_gemms_exact"] = [f"{tuple(a.shape)}x{tuple(b.shape)}" for a, b, _ in products]
             walls, stages = [], []
-            for _ in range(3):
+            for _ in range(2):
                 t0 = time.perf_counter()
                 stages.append(run_path(videos, params, state, cfg)[3])
                 walls.append(time.perf_counter() - t0)
@@ -4381,8 +4410,27 @@ def dp_serving_phase(seed: int, smi: str, launches_by_path: dict, videos: list[d
         per_video.append({"frames": len(v["frames"]), "max_abs_err": float(np.abs(got.scores - want.scores).max()),
                           "rounding_flips": flips, "launch_scopes_by_card": cards.by_card})
     out["summarizer"] = per_video
+    # the serving preset's int8 (at float32, and with bf16): every block quantizes with the batch's activation
+    # scale (its amax from the 2-int8 kernel, reduced over the blocks), so the mesh's scores are one card's
+    from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import act_scale_int8
+
+    out["preset_int8"] = {}
+    for mode, tol in (("int8", 1e-5), ("bf16_int8", 0.0625)):
+        pcfg = preset_cfg(mode)
+        pstate = create_train_state(seed, pcfg)
+        v = videos[0]
+        args = ("v0", v["frames"], v["intervals"], v["full_n"], v["waveform"])
+        want = Summarizer(pcfg, state=pstate).summarize_frames(*args)
+        scales = act_scale_int8.launches
+        got = drive(f"serve_preset_dp_{mode}", ["fused_preprocess_frames", "fused_conv_pool_stage_int8"],
+                    lambda: Summarizer(pcfg, state=pstate, mesh=mesh).summarize_frames(*args), launches_by_path)
+        flips = same_summary(got.scores, got.clips, want.scores, want.clips, tol, f"16: preset {mode}")
+        require(act_scale_int8.launches - scales == 2 * len(mesh), f"16: preset {mode}: "
+                f"{act_scale_int8.launches - scales} amax launches over {len(mesh)} card(s), want 2 a card")
+        out["preset_int8"][mode] = {"max_abs_err": float(np.abs(got.scores - want.scores).max()), "tol": tol,
+                                    "rounding_flips": flips}
     walls = {"single": [], "mesh": []}
-    for _ in range(3):
+    for _ in range(2):
         for name, svc in (("single", base), ("mesh", dp)):
             t0 = time.perf_counter()
             for i, v in enumerate(videos):
@@ -4671,13 +4719,308 @@ def dp_training_phase(seed: int, smi: str, launches_by_path: dict, one_rank_too:
     return out
 
 
-PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17")
+CP_SHARDS = 4                   # phase 18a: virtual shards of the match on the one card
+CP_RANK_COUNTS_ENV = "GOALNET_SMOKE_CP_COUNTS"   # where phase 18b's spawned rank writes its launch counts
+CP_EPOCHS = 2                   # phase 18b: `spot-train --epochs`, one step an epoch (one match)
+CP_MASKED_VALID = 2000          # phase 18a: a true length that leaves the last two virtual shards no valid key
+
+
+def cp_virtual_case(t: int, window: int | None, gen: torch.Generator, launches_by_path: dict,
+                    t_valid: int | None = None) -> dict:
+    """18a: ring (``window`` None) or halo attention of one (1, t, 128) q, k, v cut into ``CP_SHARDS`` virtual
+    shards on the one card (t padded to a multiple, keys from ``t_valid``, default t, on masked), forward and
+    backward through the port's hop math (``parallel/ring_attention.py``, ``parallel/halo_attention.py``),
+    against the monolithic kernels 5-8 on the same q, k, v: every value finite, outputs and lse within
+    1e-5·max(1, max|out|), gradients within 1e-4·max(1, max|g|); kernel 5 (7) launched n² (n) times in the
+    forward, kernel 6 (8) as often in the backward.  A ``t_valid`` at most 2·t/n leaves the last shards with no
+    valid key: ring hops at ``t_valid`` 0 and halo shards with empty bounds, as the verb's padded groups give."""
+    from cvml_goalnet_tpu_torch.parallel.halo_attention import halo_bounds, halo_extended, halo_attention_shards
+    from cvml_goalnet_tpu_torch.parallel.ring_attention import ring_attention_shards
+
+    n, d = CP_SHARDS, 128
+    q, k, v, g = (torch.randn((1, t, d), generator=gen, device="cuda") for _ in range(4))
+    tl, tv = -(-t // n), t if t_valid is None else t_valid
+    label = f"cp_virtual_{'ring' if window is None else 'halo'}_{t}" + ("" if tv == t else f"_valid{tv}")
+    fwd, bwd = ("flash_fwd", "flash_bwd") if window is None else ("flash_local_fwd", "flash_local_bwd")
+    leaves = [F.pad(x, (0, 0, 0, n * tl - t)).requires_grad_() for x in (q, k, v)]
+    qs, ks, vs = ([x[:, i * tl:(i + 1) * tl] for i in range(n)] for x in leaves)
+
+    def forward():
+        with torch.enable_grad():
+            if window is None:
+                outs, lses = ring_attention_shards(qs, ks, vs, t_valid=tv)
+                return torch.cat(outs, 1)[:, :t], torch.cat(lses, 1)[:, :t, 0]
+            return torch.cat(halo_attention_shards(qs, ks, vs, window, t_valid=tv), 1)[:, :t], None
+
+    t0 = time.perf_counter()
+    out, lse = drive(f"{label}_fwd", [fwd], forward, launches_by_path)
+    grads = drive(f"{label}_bwd", [bwd], lambda: torch.autograd.grad((out * g).sum(), leaves), launches_by_path)
+    cp_ms = 1e3 * (time.perf_counter() - t0)
+    want = n * n if window is None else n
+    require(launches_by_path[f"{label}_fwd"][fwd] == want and launches_by_path[f"{label}_bwd"][bwd] == want,
+            f"18a {label}: {launches_by_path[f'{label}_fwd'][fwd]} {fwd} and {launches_by_path[f'{label}_bwd'][bwd]} "
+            f"{bwd} launches, want {want} each")
+    mono = [x.clone().requires_grad_() for x in (q, k, v)]
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        if window is None:
+            m_out, m_lse = flash_attention_with_lse(*mono, tv)
+            m_lse = m_lse[..., 0]
+        else:
+            m_out = flash_attention_local_bounded(*mono, 0, tv, window)
+        m_grads = torch.autograd.grad((m_out * g).sum(), mono)
+    torch.cuda.synchronize()
+    mono_ms = 1e3 * (time.perf_counter() - t0)
+    if window is not None:   # the halo's lse, shard by shard, through kernel 7's wrapper (not the path's launches)
+        with torch.no_grad():
+            lse = torch.cat([flash_local_fwd(qs[i], halo_extended(ks, i, window), halo_extended(vs, i, window),
+                                             1 / d ** 0.5, window, *halo_bounds(i, n, tl, window, tv),
+                                             q_offset=window)[1] for i in range(n)], 1)[:, :t]
+            m_lse = flash_local_fwd(q, k, v, 1 / d ** 0.5, window, 0, tv)[1]
+    out, m_out = out.detach(), m_out.detach()
+    finite = all(bool(torch.isfinite(x).all()) for x in (out, lse, *grads))
+    require(finite, f"18a {label}: a non-finite output, lse or gradient")
+    scale = max(1.0, float(m_out.abs().max()))
+    rec = {"t": t, "t_valid": tv, "shards": n, "shard_frames": tl, "finite": finite, "out_err": float((out - m_out).abs().max()) / scale,
+           "lse_err": float((lse.detach() - m_lse.detach()).abs().max()) / scale,
+           "grad_err": max(float((a[:, :t] - b).abs().max()) / max(1.0, float(b.abs().max()))
+                           for a, b in zip(grads, m_grads)),
+           "launches": {fwd: want, bwd: want}, "virtual_ms": cp_ms, "monolithic_ms": mono_ms}
+    require(rec["out_err"] <= 1e-5 and rec["lse_err"] <= 1e-5 and rec["grad_err"] <= 1e-4,
+            f"18a {label}: {json.dumps(rec)}")
+    return rec
+
+
+def counted_cp_rank(rank: int, world: int, device, job: dict):
+    """``train/cp_loop.py``'s rank function with every kernel's launch count set to 0 before it and read after,
+    written as ``cp_rank<r>.json`` under ``$GOALNET_SMOKE_CP_COUNTS``; the parent swaps it in for
+    ``cp_loop._cp_rank`` (a spawned rank imports this script as its main module)."""
+    from cvml_goalnet_tpu_torch.train import cp_loop
+
+    for f, _, _ in KERNELS.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = cp_loop._cp_rank(rank, world, device, job)
+    torch.cuda.synchronize(device)
+    rec = {"rank": rank, "wall_s": time.perf_counter() - t0,
+           "launches": {name: f.launches for name, (f, _, _) in KERNELS.items()}}
+    with open(os.path.join(os.environ[CP_RANK_COUNTS_ENV], f"cp_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return res
+
+
+def cp_verb_check(seed: int, smi: str, launches_by_path: dict, match: dict, root: str) -> dict:
+    """18b: ``spot-train --cp`` through ``cli.main`` on one NCCL rank, banded and full, ``CP_EPOCHS`` epochs on
+    phase 5's match (its 5400 frames written as a ``--no-audio`` video at ``skip_frames = 1``, seeded events),
+    against the single-device ``spot-train`` from the same seed: every epoch's loss within 1e-4 relative, and
+    the two saved heads scoring the match within 1e-4·max(1, max|s|)."""
+    from cvml_goalnet_tpu_torch.train import cp_loop
+    from cvml_goalnet_tpu_torch.train import spotting as train_spotting
+
+    base = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+    cfg = dataclasses.replace(base, preprocess=dataclasses.replace(base.preprocess, skip_frames=1),
+                              model=dataclasses.replace(base.model, audio_included=False))
+    cfg_path, video = os.path.join(root, "cfg.json"), os.path.join(root, "match.npz")
+    cfg.save(cfg_path)
+    np.savez(video, frames=match["frames"])
+    write_events(video, MATCH_FRAMES, 1, seed + 1800)
+    counts_dir = os.path.join(root, "counts")
+    os.makedirs(counts_dir)
+    os.environ[CP_RANK_COUNTS_ENV] = counts_dir
+    state = create_train_state(cfg.train.seed, cfg)
+    feats = extract_features(match["frames"], None, cfg)
+    enc = encode_timeline(state.params, state.model_state, feats["visual"], None, cfg)
+    out = {}
+    for label, window, kernels in (("banded", ATTN_WINDOW, ("flash_local_fwd", "flash_local_bwd")),
+                                   ("full", 0, ("flash_fwd", "flash_bwd"))):
+        heads, losses, walls = {}, {}, {}
+        for mode in ("cp", "single"):
+            head = os.path.join(root, f"{label}_{mode}.npz")
+            argv = ["spot-train", "--videos", video, "--config", cfg_path, "--workdir", os.path.join(root, "work"),
+                    "--no-audio", "--attn-window", str(window), "--epochs", str(CP_EPOCHS), "--out", head]
+            kept = []
+            if mode == "cp":
+                real_rank, real_train = cp_loop._cp_rank, cp_loop.train_spotting_cp
+                cp_loop._cp_rank = counted_cp_rank
+                cp_loop.train_spotting_cp = lambda *a, **kw: kept.append(real_train(*a, **kw)) or kept[-1]
+                expect, argv = ["fused_preprocess_frames", *TRUNK], [*argv, "--cp"]
+            else:
+                real_make = train_spotting.make_spotting_train_step
+
+                def recording(*a, **kw):
+                    step = real_make(*a, **kw)
+
+                    def run(*args):
+                        res = step(*args)
+                        kept.append(float(res[2]))
+                        return res
+
+                    return run
+
+                train_spotting.make_spotting_train_step = recording
+                expect = ["fused_preprocess_frames", *TRUNK, *kernels]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                log = os.path.join(root, f"{label}_{mode}.txt")
+                with fd_stdout(log):
+                    rc = drive(f"cp_verb_{label}_{mode}", expect, lambda: cli.main(argv), launches_by_path)
+                with open(log) as f:
+                    buf.write(f.read())
+            finally:
+                if mode == "cp":
+                    cp_loop._cp_rank, cp_loop.train_spotting_cp = real_rank, real_train
+                else:
+                    train_spotting.make_spotting_train_step = real_make
+            walls[mode] = time.perf_counter() - t0
+            text = buf.getvalue()
+            require(rc == 0 and "Operation completed" in text and os.path.exists(head),
+                    f"18b {label} {mode}: exit code {rc}: {text[-2000:]}")
+            if mode == "cp":
+                require("context-parallel over 1 devices" in text, f"18b: the layout line {text[-500:]}")
+                with open(os.path.join(counts_dir, "cp_rank0.json")) as f:
+                    rank = json.load(f)
+                launches_by_path[f"cp_verb_{label}_rank0"] = rank["launches"]
+                per = CP_EPOCHS * cfg.model.temporal_num_layers
+                require(all(rank["launches"][k] == per for k in kernels),
+                        f"18b {label}: the rank launched {rank['launches']}, want {per} of each of {kernels}")
+                losses[mode] = [x for epoch in kept[0]["step_losses"] for x in epoch]
+                out[f"{label}_rank_wall_s"] = rank["wall_s"]
+            else:
+                losses[mode] = kept
+            tmpl = weights.init_temporal_params(
+                dataclasses.replace(cfg.model, temporal_window=window), enc.shape[1], seed=1)
+            heads[mode] = weights.tree_from_jax(weights.load_spotting_checkpoint(head, tmpl))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cp"], losses["single"]))
+        require(len(losses["cp"]) == len(losses["single"]) == CP_EPOCHS and rel <= 1e-4,
+                f"18b {label}: losses {losses}")
+        wcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, temporal_window=window))
+        with torch.no_grad():
+            s_cp, s_one = (score_timeline_auto(heads[m], enc, wcfg).cpu().numpy() for m in ("cp", "single"))
+        tol = 1e-4 * max(1.0, float(np.abs(s_one).max()))
+        err = float(np.abs(s_cp - s_one).max())
+        require(err <= tol, f"18b {label}: the two heads score the match {err} apart (> {tol})")
+        out[label] = {"losses_cp": losses["cp"], "losses_single": losses["single"], "loss_max_rel_err": rel,
+                      "head_scores_max_abs_err": err, "verb_walls_s": walls}
+    return out, enc
+
+
+def cp_in_process_check(seed: int, smi: str, launches_by_path: dict, enc: torch.Tensor, root: str) -> dict:
+    """18c and 18d on one NCCL rank in this process: ``score_timeline_sharded`` against ``score_timeline_auto``
+    (transformer banded and full; the GRU and the hybrid against the chunked single-device scorer), then the CP
+    step's ms beside the single-device step's on the match's features (median of six, synchronised)."""
+    import torch.distributed as dist
+
+    from cvml_goalnet_tpu_torch.parallel.mesh import cp_groups
+    from cvml_goalnet_tpu_torch.spotting import score_timeline_chunked, score_timeline_sharded
+    from cvml_goalnet_tpu_torch.train.spotting import make_sharded_spotting_train_step
+
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    out = {"scores": {}, "steps": {}}
+    try:
+        groups = cp_groups(1, 1, 1)
+        d = enc.shape[1]
+        base = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+        gru = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+        # chunks that split the match (its 5400 frames are one window at the configs' 4096 + 2·256): five
+        # chunks for the GRU, three for the hybrid
+        chunk = MATCH_FRAMES // 5
+        gru = dataclasses.replace(gru, model=dataclasses.replace(gru.model, temporal_chunk=chunk,
+                                                                 temporal_halo=chunk // 16))
+        hybrid = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting_quality.json"))
+        chunk = MATCH_FRAMES // 3
+        hybrid = dataclasses.replace(hybrid, model=dataclasses.replace(hybrid.model, temporal_chunk=chunk,
+                                                                       temporal_halo=chunk // 8))
+        cases = (("banded", base, "flash_local_fwd"),
+                 ("full", dataclasses.replace(base, model=dataclasses.replace(base.model, temporal_window=0)),
+                  "flash_fwd"), ("gru", gru, None), ("hybrid", hybrid, "flash_local_fwd"))
+        for label, cfg, kernel in cases:
+            tp = weights.tree_from_jax(weights.init_temporal_params(cfg.model, d, seed))
+            with torch.no_grad():
+                got = drive(f"cp_sharded_score_{label}", [kernel] if kernel else [],
+                            lambda: score_timeline_sharded(tp, enc, groups, cfg), launches_by_path).cpu().numpy()
+                mc = cfg.model
+                if label in ("banded", "full"):
+                    want = score_timeline_auto(tp, enc, cfg).cpu().numpy()
+                elif label == "gru":
+                    want = score_timeline_chunked(tp, enc, mc.temporal_hidden, mc.temporal_chunk,
+                                                  mc.temporal_halo).cpu().numpy()
+                else:   # the hybrid's chunks one by one on one device, kept as the GRU's chunked scorer keeps them
+                    want = hybrid_chunked(tp, enc, cfg)
+            err = float(np.abs(got - want).max())
+            tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+            require(got.shape == want.shape and err <= tol, f"18c {label}: sharded vs single {err} (> {tol})")
+            out["scores"][label] = {"max_abs_err": err, "tol": tol}
+        with tempfile.TemporaryDirectory() as tmp:
+            labels = torch.as_tensor(synthetic_labels(enc.shape[0], 1, seed + 1900, tmp), device="cuda")
+        for label, window in (("banded", ATTN_WINDOW), ("full", 0)):
+            tp = weights.tree_from_jax(weights.init_temporal_params(
+                dataclasses.replace(base.model, temporal_window=window), d, seed))
+            cp_step = make_sharded_spotting_train_step(groups, base.model.temporal_num_heads, window=window)
+            one_step = make_spotting_train_step(0, scorer="transformer", num_heads=base.model.temporal_num_heads,
+                                                window=window)
+            ms = {}
+            for name, step in (("cp", cp_step), ("single", one_step), ("cp", cp_step), ("single", one_step)):
+                _, losses, step_ms = train_steps(step, tp, enc, labels, steps=3)
+                ms.setdefault(name, []).extend(step_ms)
+            out["steps"][label] = {k: statistics.median(v) for k, v in ms.items()}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def hybrid_chunked(tp, enc: torch.Tensor, cfg: PipelineConfig) -> np.ndarray:
+    """The hybrid's chunked scores on one device: windows of chunk + 2·halo clamped into the timeline, each
+    scored alone, the chunk kept (``score_timeline_chunked``'s layout)."""
+    from cvml_goalnet_tpu_torch.models.temporal_hybrid import temporal_hybrid_apply
+
+    mc = cfg.model
+    t, chunk, halo = enc.shape[0], mc.temporal_chunk, mc.temporal_halo
+    window = chunk + 2 * halo
+    starts = np.arange(-(-t // chunk)) * chunk
+    outs = []
+    for st in starts:
+        ws = int(np.clip(st - halo, 0, t - window))
+        s = temporal_hybrid_apply(tp, enc[ws:ws + window], mc.temporal_hidden, mc.temporal_num_heads,
+                                  mc.temporal_window)
+        outs.append(s[st - ws:st - ws + chunk])
+    return torch.cat(outs)[:t].cpu().numpy()
+
+
+def cp_phase(seed: int, smi: str, launches_by_path: dict, gen: torch.Generator) -> dict:
+    """Phase 18: context-parallel spotting on the one card — (a) the ring's and the halo's hop math over
+    ``CP_SHARDS`` virtual shards against kernels 5-8, (b) ``spot-train --cp`` on one NCCL rank against the
+    single-device verb, (c) ``score_timeline_sharded`` against the single-device scorers, (d) the CP step's ms
+    beside the single-device step's."""
+    t_phase = time.perf_counter()
+    cp_virtual_case(MATCH_FRAMES, None, gen, {})   # warm-up: the first autograd pass through the hops
+    # the last two: a true length of 2000 frames leaves shards 2 and 3 of 1350 with no valid key
+    out = {"virtual": [cp_virtual_case(t, w, gen, launches_by_path, tv)
+                       for t, tv in ((MATCH_FRAMES, None), (MATCH_FRAMES - 1, None), (MATCH_FRAMES, CP_MASKED_VALID))
+                       for w in (None, ATTN_WINDOW)]}
+    print(f"phase 18a: ring and halo over {CP_SHARDS} virtual shards vs kernels 5-8 on {smi}: "
+          f"{json.dumps(out['virtual'])}", flush=True)
+    match = make_match(PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json")), seed)
+    with tempfile.TemporaryDirectory() as root:
+        out["verb"], enc = cp_verb_check(seed, smi, launches_by_path, match, root)
+        print(f"phase 18b: spot-train --cp on one NCCL rank vs one device on {smi}: {json.dumps(out['verb'])}",
+              flush=True)
+        out.update(cp_in_process_check(seed, smi, launches_by_path, enc, root))
+    print(f"phase 18c: score_timeline_sharded on one rank vs one device: {json.dumps(out['scores'])}", flush=True)
+    print(f"phase 18d: CP step vs single-device step, median ms over 6 steps each, on {smi}: "
+          f"{json.dumps(out['steps'])}", flush=True)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return out
+
+
+PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18")
 
 
 def parse_phases(spec: str | None) -> set[str]:
     """``--phases 1,15-17`` → {"1", "15", "16", "17"} (every phase without the flag).  Phase 7 trains on phase 5's
     features and times against phase 1's kernel rows, so it brings both; phases 12-14 and 16 use phase 1's
-    videos, which are made when needed."""
+    videos and phases 11-14, 16 and 18 phase 5's match, which are made when needed."""
     if not spec:
         return set(PHASES)
     chosen = set()
@@ -4690,6 +5033,18 @@ def parse_phases(spec: str | None) -> set[str]:
     if "7" in chosen:
         chosen.update(("1", "5"))
     return chosen
+
+
+class PhaseClock:
+    """Prints each phase's wall (from the end of the one before) and the script's time so far."""
+
+    def __init__(self, t_start: float):
+        self.t_start = self.last = t_start
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name} wall: {now - self.last:.1f} s (script at {now - self.t_start:.1f} s)", flush=True)
+        self.last = now
 
 
 def main() -> int:
@@ -4766,6 +5121,8 @@ def main() -> int:
             print(f"data: {len(videos)} videos, {n_total} frames of {RAW_HW}, made in {time.perf_counter() - t0:.1f} s")
         return videos
 
+    clock = PhaseClock(t_start)
+    clock.done("set-up and build")
     if "1" in phases:
         rows = check_kernels(n_total, cfg, params["fusion"], gen)
         print(f"trunk at frame_size (64, 64), card vs CPU: {json.dumps(check_trunk_at_frame_size_64(args.seed))}",
@@ -4816,33 +5173,49 @@ def main() -> int:
         print(f"fused_fusion_mlp at M = {n_total} on {smi}: traced in the path {prof.get('mlp_kernel_ms')} ms, "
               f"timing loop {rows['fused_fusion_mlp']['ms']:.4f} ms")
         del feats   # phase 12 runs the videos again
+        clock.done("1")
 
     if "4" in phases:
         knapsack_phase(args.seed, smi)
+        clock.done("4")
     if "5" in phases:
         enc, train_runs = spotting_phase(args.seed, smi, launches_by_path)
+        clock.done("5")
         if "7" in phases:
             training_phase(enc, train_runs, args.seed, smi, rows, launches_by_path)
+            clock.done("7")
         del enc, train_runs
     if "9" in phases:
         infer_phase(args.seed, smi, launches_by_path)
+        clock.done("9")
     if "10" in phases:
         training_journey_phase(args.seed, smi, launches_by_path)
+        clock.done("10")
     if "12" in phases:
         rows.update(lowp_phase(args.seed, smi, launches_by_path, phase_videos()))
+        clock.done("12")
     if "13" in phases:
         text_moe_phase(args.seed, smi, launches_by_path, phase_videos(), rows)
+        clock.done("13")
     if "14" in phases:
         backbone_phase(args.seed, smi, launches_by_path, phase_videos())
+        clock.done("14")
     if "15" in phases:
         checkpoint_verbs_phase(args.seed, smi, launches_by_path)
+        clock.done("15")
     if "16" in phases:
         dp_serving_phase(args.seed, smi, launches_by_path, phase_videos())
+        clock.done("16")
     if "17" in phases:
         dp_training_phase(args.seed, smi, launches_by_path)
+        clock.done("17")
+    if "18" in phases:
+        cp_phase(args.seed, smi, launches_by_path, gen)
+        clock.done("18")
     del videos
     if "11" in phases:
         serving_phase(args.seed, smi, launches_by_path)
+        clock.done("11")
     for label, got in launches_by_path.items():   # the float32 paths never take a low-precision form
         if not label.startswith(("summarize_", "infer_preset", "serve_preset", "serve_spotter_int8", "train_bf16",
                                  "backbone_")):   # phase 14a checks the forms of its own labels

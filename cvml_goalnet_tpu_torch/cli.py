@@ -37,6 +37,10 @@ Port of every verb of ``cvml_goalnet_tpu/cli.py`` (reference
 * ``spot-train``: trains the temporal head on ``.events.json`` labels on one
   device (kernels 5 and 6, or 7 and 8 banded, for the transformer), with
   ``--val-videos`` and ``--early-stop``; saves the head for ``spot``;
+  ``--cp`` trains the transformer context parallel on one spawned rank per
+  card (ring attention on kernels 5 and 6, or halo attention on 7 and 8),
+  ``--dp-timelines N`` batching timelines and ``--tp N`` splitting heads
+  (``train/cp_loop.py``);
 * ``serve``: the HTTP service of ``serve.py`` (``/summarize``, ``/spot``,
   ``/spot-stream``, ``/reload``, ``/metrics``, ``/healthz``), ``--batch``
   for cross-request batching, ``--warmup`` to build every kernel first,
@@ -56,9 +60,9 @@ config runs in every verb: the reference, resnet and vit backbones
 mixture-of-experts fusion) run in every verb that takes them; ``infer
 --stream`` and ``spot --stream`` refuse ``--commentary`` as the JAX CLI
 does.  Flags for what the port does not run yet exit 2 before any decode,
-naming the ROADMAP item that brings it: the orbax backend and
-``spot-train --cp/--dp-timelines/--tp/--pp`` (item 6), and ``train --dp``
-with a config of ``mesh.model > 1`` (item 6.6).
+naming the ROADMAP item that brings it: the orbax backend (item 6),
+``spot-train --pp`` (item 6.4), and ``train --dp`` with a config of
+``mesh.model > 1`` (item 6.6).
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
@@ -433,8 +437,8 @@ def _run_infer_stream(args, cfg, state, store, device) -> int:
 
 
 SPOT_MESH_NOT_PORTED = (
-    "{flag} (mesh training of the temporal head: context, DP×CP, 3-D or pipeline parallel) is not ported yet "
-    "(ROADMAP.md §1 item 6, with the multi-GPU paths); the port trains the head on one device"
+    "{flag} (pipeline-parallel training of the temporal head) is not ported yet (ROADMAP.md §1 item 6.4); the "
+    "port trains the head on one device, or context parallel with --cp"
 )
 
 
@@ -786,26 +790,45 @@ def _spot_opt_kwargs(tc) -> dict:
     return kw
 
 
-def _spot_train_refusal(args, cfg) -> str | None:
-    """Why these ``spot-train`` flags cannot run, before any decode; None when they can."""
+def _spot_train_refusal(args, cfg, world: int) -> str | None:
+    """Why these ``spot-train`` flags cannot run on ``world`` ranks, before any decode; None when they can."""
     unported = _unported(args)
     if unported is not None:
         return unported
-    if not args.cp and (max(1, args.dp_timelines or 1) > 1 or max(1, args.tp or 1) > 1):
+    ndp, ntp = max(1, args.dp_timelines or 1), max(1, args.tp or 1)
+    if not args.cp and (ndp > 1 or ntp > 1):
         # these flags only pick mesh axes of the CP layouts: ignoring them would train on one device while the
         # user believes the run is parallel
         return "--dp-timelines/--tp require --cp"
-    if args.cp:
-        return SPOT_MESH_NOT_PORTED.format(flag="--cp")
     if max(1, args.pp or 1) > 1:
         return SPOT_MESH_NOT_PORTED.format(flag=f"--pp {args.pp}")
     if args.early_stop and not args.val_videos:
         return "--early-stop needs --val-videos (a held-out metric to stop on)"
+    if not args.cp:
+        return None
+    if cfg.model.temporal_model != "transformer":
+        return "--cp needs the transformer scorer (--temporal-model transformer)"
+    if ntp > 1:
+        if world % (ndp * ntp):
+            return f"--dp-timelines {ndp} × --tp {ntp} does not divide the {world}-device mesh"
+        if cfg.model.temporal_num_heads % ntp:
+            return f"--tp {ntp} must divide the head count ({cfg.model.temporal_num_heads}); pass --heads"
+    elif ndp > 1 and world % ndp:
+        return f"--dp-timelines {ndp} does not divide the {world}-device mesh"
     return None
 
 
+def _cp_layout_line(ndp: int, ntp: int, world: int) -> str:
+    """The JAX CLI's line naming the context-parallel layout."""
+    if ntp > 1:
+        return f"DP×TP×CP: {ndp} timelines × {ntp}-way tensor × {world // (ndp * ntp)}-way context parallel"
+    if ndp > 1:
+        return f"DP×CP: {ndp} timelines × {world // ndp}-way context parallel"
+    return f"context-parallel over {world} devices"
+
+
 def cmd_spot_train(args) -> int:
-    """Train the temporal spotting head on event-labelled videos, on one device.
+    """Train the temporal spotting head on event-labelled videos, on one device or context parallel.
 
     Each video's labels are its ``<video>.events.json`` sidecar (raw frame
     indices of events).  The trunk encodes each timeline once (kernels 1–3
@@ -815,23 +838,29 @@ def cmd_spot_train(args) -> int:
     best-val head is kept, and ``--early-stop N`` stops after N epochs
     without a better val loss.  The head is saved with
     ``save_spotting_checkpoint`` for ``spot --temporal-checkpoint``.
+    ``--cp`` (with ``--dp-timelines N`` and ``--tp N``) trains the
+    transformer on one spawned rank per card (``train/cp_loop.py``): every
+    visible card, as the JAX CLI takes every device; on the CPU the
+    config's ``mesh.data`` gloo ranks.
     """
     import torch
 
     from cvml_goalnet_tpu_torch import weights
     from cvml_goalnet_tpu_torch.data.annotations import AnnotationStore
     from cvml_goalnet_tpu_torch.data.dataset import build_video_item
-    from cvml_goalnet_tpu_torch.ops.spotting_metrics import multiclass_average_map
-    from cvml_goalnet_tpu_torch.spotting import encode_timeline, load_event_labels, score_timeline_auto, spot_events_multi
+    from cvml_goalnet_tpu_torch.parallel.mesh import cp_world
+    from cvml_goalnet_tpu_torch.spotting import encode_timeline, load_event_labels
     from cvml_goalnet_tpu_torch.train.spotting import (
         init_spotting_opt,
         make_spotting_train_step,
         save_spotting_checkpoint,
-        weighted_bce,
+        validation_loss,
+        validation_map,
     )
 
     cfg = _apply_temporal_overrides(_load_cfg(args), args)
-    if _refused(_spot_train_refusal(args, cfg)):
+    mesh = cp_world(_device(), cfg.mesh.data) if args.cp else None
+    if _refused(_spot_train_refusal(args, cfg, len(mesh) if mesh else 1)):
         return 2
     data = _resolve_data(args)
     val_fps = list(args.val_videos or [])
@@ -878,6 +907,21 @@ def cmd_spot_train(args) -> int:
     tparams = weights.tree_from_jax(_temporal_head(cfg, classes), device=device)
     mc = cfg.model
     opt_kw = _spot_opt_kwargs(cfg.train)
+    out_fp = args.out or os.path.join(args.workdir, "models", "spotting_head.npz")
+    if args.cp:
+        # context parallel: every timeline over every rank, its attention a ring (a halo hop each side when
+        # banded); --dp-timelines batches timelines over a data axis, --tp splits heads over a model axis
+        from cvml_goalnet_tpu_torch.train.cp_loop import train_spotting_cp
+
+        ndp, ntp = max(1, args.dp_timelines or 1), max(1, args.tp or 1)
+        print(_cp_layout_line(ndp, ntp, len(mesh)))
+        train_spotting_cp(cfg, pairs, val_pairs, tparams, mesh, ndp=ndp, ntp=ntp, lr=args.lr,
+                          pos_weight=args.pos_weight, epochs=args.epochs, out=out_fp, classes=classes,
+                          early_stop=args.early_stop, peak_window=args.peak_window,
+                          peak_threshold=args.peak_threshold, opt_kw=opt_kw)
+        print(f"Saved temporal head: {out_fp}")
+        print("Operation completed")
+        return 0
     if mc.temporal_model == "transformer":
         step = make_spotting_train_step(0, lr=args.lr, pos_weight=args.pos_weight, scorer="transformer",
                                         num_heads=mc.temporal_num_heads, window=mc.temporal_window, **opt_kw)
@@ -887,30 +931,6 @@ def cmd_spot_train(args) -> int:
     else:
         step = make_spotting_train_step(mc.temporal_hidden, lr=args.lr, pos_weight=args.pos_weight, **opt_kw)
 
-    def val_loss_of(tp) -> float:
-        # the held-out loss on the objective the steps train (a one-name --classes head scores (T,) against
-        # (T, 1) labels: reshaped, never broadcast to (T, T))
-        with torch.no_grad():
-            return float(np.mean([
-                float(weighted_bce(score_timeline_auto(tp, f, cfg).reshape(l.shape), l, args.pos_weight))
-                for _, f, l in val_pairs]))
-
-    def val_map_of(tp) -> float:
-        # the field's quality metric beside the loss: peaks of each val timeline at the peak window and
-        # threshold `spot` deploys with, average-mAP against the labelled events (classes without any excluded)
-        maps = []
-        with torch.no_grad():
-            for _, f, l in val_pairs:
-                l2 = l.cpu().numpy()
-                if l2.ndim == 1:
-                    l2 = l2[:, None]
-                s2 = score_timeline_auto(tp, f, cfg).cpu().numpy().reshape(l2.shape)
-                pred = spot_events_multi(s2, args.peak_window, args.peak_threshold)
-                gt = [np.nonzero(l2[:, c] > 0.5)[0] for c in range(l2.shape[1])]
-                sc = [s2[ev, c] if len(ev) else np.zeros((0,)) for c, ev in enumerate(pred)]
-                maps.append(multiclass_average_map(pred, sc, gt)["average_map"])
-        return float(np.mean(maps))
-
     opt = init_spotting_opt(tparams)
     best = {"val": float("inf"), "params": tparams, "epoch": -1}
     for epoch in range(args.epochs):
@@ -919,8 +939,9 @@ def cmd_spot_train(args) -> int:
             tparams, opt, loss = step(tparams, opt, feats, labels)
             losses.append(float(loss))
         if val_pairs:
-            vloss = val_loss_of(tparams)
-            print(f"epoch {epoch}: loss {np.mean(losses):.4f} val-loss {vloss:.4f} val-mAP {val_map_of(tparams):.4f}")
+            vloss = validation_loss(tparams, val_pairs, cfg, args.pos_weight)
+            vmap = validation_map(tparams, val_pairs, cfg, args.peak_window, args.peak_threshold)
+            print(f"epoch {epoch}: loss {np.mean(losses):.4f} val-loss {vloss:.4f} val-mAP {vmap:.4f}")
             if vloss < best["val"]:
                 best = {"val": vloss, "params": tparams, "epoch": epoch}
             elif args.early_stop and epoch - best["epoch"] >= args.early_stop:
@@ -932,7 +953,6 @@ def cmd_spot_train(args) -> int:
     if val_pairs:
         tparams = best["params"]   # held-out selection: the best-val head, not the last
         print(f"best val-loss {best['val']:.4f} at epoch {best['epoch']}")
-    out_fp = args.out or os.path.join(args.workdir, "models", "spotting_head.npz")
     save_spotting_checkpoint(out_fp, tparams, classes=classes)
     print(f"Saved temporal head: {out_fp}")
     print("Operation completed")
@@ -1238,13 +1258,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn-window", type=int, default=None,
                    help="transformer attention band radius in condensed frames")
     p.add_argument("--cp", action="store_true",
-                   help="context-parallel training over all devices (not ported: ROADMAP §1 item 6)")
+                   help="context-parallel training over all devices: one rank per card (on the CPU, the "
+                        "config's mesh.data gloo ranks); the transformer scorer only")
     p.add_argument("--dp-timelines", type=int, default=1, metavar="N",
-                   help="with --cp: batch N timelines over a 'data' mesh axis (not ported: item 6)")
+                   help="with --cp: compose DP×CP — batch N timelines over a 'data' mesh axis (N must divide "
+                        "the device count)")
     p.add_argument("--tp", type=int, default=1, metavar="N",
-                   help="with --cp: split heads and MLP N-way over a 'model' mesh axis (not ported: item 6)")
+                   help="with --cp: split attention heads and the MLP N-way over a 'model' mesh axis (N must "
+                        "divide the head count (--heads) and, with --dp-timelines, the device count)")
     p.add_argument("--pp", type=int, default=1, metavar="N",
-                   help="pipeline-parallel training over N devices (not ported: item 6)")
+                   help="pipeline-parallel training over N devices (not ported: ROADMAP §1 item 6.4)")
     p.add_argument("--heads", type=int, default=None,
                    help="override temporal_num_heads for the transformer scorer")
     p.add_argument("--classes", default=None,

@@ -735,19 +735,25 @@ extern "C" int fused_conv_pool_stage_bf16(const void* x, const void* w, const vo
 // Cout) float32; b (H, W, Cout) and out (n, H-2, W-2, Cout) in x's dtype; ws: the workspace above.  The plan
 // (ops/cuda/fused_stage.py::int8_stage_plan): `frames` per block, pooled tiles of rows x cols, (m_tiles,
 // block_n) in {(2, 128), (4, 64)} with frames * (rows + 2) * (cols + 2) <= 128 * m_tiles.  Four launches (after a
-// 8-byte memset): the scale, the activations, the weights, the conv; each checked.
+// 8-byte memset): the scale, the activations, the weights, the conv; each checked.  s_given: null, or a float32 on
+// the card that is the activation scale to quantize with (a data-parallel batch's, over every block): then the
+// scale's launch and its memset are skipped.
 extern "C" int fused_conv_pool_stage_int8(const void* x, const void* w, const void* b, void* out, void* ws, int n,
                                           int H, int W, int Cin, int Cout, int is_bf16, int frames, int rows, int cols,
-                                          int m_tiles, int block_n, void* stream) {
+                                          int m_tiles, int block_n, const void* s_given, void* stream) {
   const bool shape_ok = (m_tiles == 2 && block_n == 128) || (m_tiles == 4 && block_n == 64);
   if (!shape_ok || !tile_ok(n, H, W, frames, rows, cols, m_tiles) || Cin < 1 || Cout < 1 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(ws) % 256 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cin_p = (Cin + kIKC - 1) / kIKC * kIKC;
   const long long positions = static_cast<long long>(n) * H * W;
-  const I8Workspace p = int8_workspace(ws, positions, cin_p, Cout);
+  I8Workspace p = int8_workspace(ws, positions, cin_p, Cout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = launch_act_scale(x, positions * Cin, is_bf16, p.scalars, p.s_x, s);
+  int err = 0;
+  if (s_given)
+    p.s_x = const_cast<float*>(static_cast<const float*>(s_given));
+  else
+    err = launch_act_scale(x, positions * Cin, is_bf16, p.scalars, p.s_x, s);
   if (err) return err;
   const long long words = positions * (cin_p / 4);
   const unsigned qblocks = static_cast<unsigned>((words + 255) / 256);

@@ -52,7 +52,7 @@ _SIGNATURES = {
 }
 _LOWP_SIGNATURES = {
     "fused_conv_pool_stage_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fused_conv_pool_stage_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fused_conv_pool_stage_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "int8_pack_weights": [_P, _P, _P, _I, _I, _P],
     "int8_act_scale": [_P, _P, _P, ctypes.c_longlong, _I, _P],
 }
@@ -570,6 +570,14 @@ def fused_conv_pool_stage_int8(x: torch.Tensor, w: torch.Tensor, b_spatial: torc
     batch.  A CPU tensor takes the plain version; a CUDA tensor runs one C entry: the scale, the activations'
     and the weights' quantization (C zero-padded to a multiple of 64) and the conv kernel with
     :func:`card_int8_stage_plan`, in a workspace allocated here (x off a 16-byte boundary is copied first).
+
+    The launch sequence depends on the calling thread, not only on the arguments: on a thread inside
+    ``ops/quant.py::batch_scales`` the scale is the batch's (this block's from :func:`act_scale_int8`, passed
+    through the thread's reduction, and the C entry quantizes with the result), on any other thread the C
+    entry's own.  Only ``parallel/serving.py::_run_blocks`` enters ``batch_scales``, on the block threads it
+    starts and for the length of one block's forward; the mode is thread-local and ends with the block, so a
+    single-device call on any other thread takes its own scale
+    (``tests/test_torch_dp.py::TestDpFuse::test_batch_scales_stay_on_their_block_threads``).
     """
     if x.device.type == "cpu":
         return fused_conv_pool_stage_int8_plain(x, w, b_spatial)
@@ -584,6 +592,7 @@ def fused_conv_pool_stage_int8(x: torch.Tensor, w: torch.Tensor, b_spatial: torc
     if n == 0 or cout == 0:
         return out
     x = _aligned16(x)
+    s_x = quant.shared_scale(act_scale_int8(x)) if quant.sharing_scales() else None
     plan = card_int8_stage_plan(n, h, wd, cin, cout, x.device)
     ws = torch.empty(int8_workspace_bytes(n, h, wd, cin, cout), dtype=torch.uint8, device=x.device)
     lib = _build.load("fused_stage_lowp", _LOWP_SIGNATURES)
@@ -591,7 +600,7 @@ def fused_conv_pool_stage_int8(x: torch.Tensor, w: torch.Tensor, b_spatial: torc
         code = lib.fused_conv_pool_stage_int8(
             x.data_ptr(), w.data_ptr(), b_spatial.data_ptr(), out.data_ptr(), ws.data_ptr(), n, h, wd, cin, cout,
             int(x.dtype == torch.bfloat16), plan.frames, plan.rows, plan.cols, plan.m_tiles, plan.block_n,
-            _build.stream_of(x),
+            None if s_x is None else s_x.data_ptr(), _build.stream_of(x),
         )
     _build.check(lib, code, "fused_conv_pool_stage_int8")
     fused_conv_pool_stage_int8.launches += 1

@@ -19,12 +19,48 @@ with no Pallas kernel): on a CUDA tensor :func:`conv2d_int8` and
 convolution); on the CPU they sum in float64, which is as exact: a sum of at
 most 2^53 / 127² products (float32 is not: conv2's K = 2304 sums reach
 2304 · 127² > 2^24).
+
+Where JAX runs a data-parallel batch as one GSPMD program, each activation
+scale is the whole batch's.  The port runs a block of the batch on each
+device, each in a thread of its own inside :func:`batch_scales`: there every
+activation scale (:func:`act_scale`, and the 2-int8 kernel's on the card)
+goes through the block's ``reduce``, which hands back the largest scale of
+all blocks at that point.  ``max(amax / 127, 1e-12)`` grows with ``amax``, so
+that is the scale of the batch's ``amax``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+
+_SHARED = threading.local()
+
+
+@contextlib.contextmanager
+def batch_scales(reduce):
+    """On this thread, pass every activation scale through ``reduce(s) -> s`` (a float32 scalar on ``s``'s
+    device) until the block ends."""
+    prev = getattr(_SHARED, "reduce", None)
+    _SHARED.reduce = reduce
+    try:
+        yield
+    finally:
+        _SHARED.reduce = prev
+
+
+def sharing_scales() -> bool:
+    """Whether this thread is inside :func:`batch_scales`."""
+    return getattr(_SHARED, "reduce", None) is not None
+
+
+def shared_scale(s: torch.Tensor) -> torch.Tensor:
+    """``s`` as this thread's :func:`batch_scales` reduces it (``s`` itself outside one)."""
+    reduce = getattr(_SHARED, "reduce", None)
+    return s if reduce is None else reduce(s)
 
 
 def amax_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -45,8 +81,9 @@ def quantize_weights_per_channel(w: torch.Tensor, axis: int = -1) -> tuple[torch
 
 
 def act_scale(x: torch.Tensor) -> torch.Tensor:
-    """The per-tensor activation scale ``max(max|x| / 127, 1e-12)``, a float32 scalar on ``x``'s device."""
-    return amax_scale(x.abs().amax().to(torch.float32))
+    """The per-tensor activation scale ``max(max|x| / 127, 1e-12)``, a float32 scalar on ``x``'s device (the
+    batch's inside :func:`batch_scales`)."""
+    return shared_scale(amax_scale(x.abs().amax().to(torch.float32)))
 
 
 def quantize_act_per_tensor(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,12 +1,25 @@
-"""The collectives of the data group, over ``torch.distributed`` (NCCL on the cards, gloo on the CPU).
+"""The collectives of the parallel paths, over ``torch.distributed`` (NCCL on the cards, gloo on the CPU).
 
-Port of what the two data-parallel steps need of
+Port of what the data-parallel steps need of
 ``cvml_goalnet_tpu/parallel/collectives.py``: the sum and the mean over the
 group (``psum``, ``pmean``), and a sum that autograd passes through
 (:func:`all_reduce_sum`, whose backward all-reduces the incoming gradient),
 which the global batchnorm statistics take.  Trees (dicts and lists of
 tensors) are reduced as one flat buffer: one collective, not one per leaf.
 ``group=None`` is the default (world) group.
+
+The context-parallel paths add what ``shard_map`` gives the JAX package:
+
+* :func:`ring_shift`, ``lax.ppermute`` by ±1 around an axis of the rank grid
+  (``parallel/mesh.py::Axis``), on ``batch_isend_irecv``; its backward is the
+  reverse shift, which is what ``ppermute`` transposes to.  A ring of one
+  returns its input: nothing is sent to oneself.
+* Megatron's pair for the model axis: :func:`copy_to_axis` (identity
+  forward; its backward all-reduces the gradient of the replicated input
+  that every model rank reads) and :func:`reduce_from_axis` (the all-reduce
+  of a row-split output; identity backward).
+* :func:`all_gather_cat`, the shards of an axis concatenated in axis order
+  (no autograd: scoring only).
 """
 
 from __future__ import annotations
@@ -66,3 +79,82 @@ def tree_psum(tree, group=None, mean: bool = False):
         out.append(flat[off:off + t.numel()].reshape(t.shape).to(t.dtype))
         off += t.numel()
     return tree_unflatten(tree, out)
+
+
+def _shifted(x: torch.Tensor, axis, step: int) -> torch.Tensor:
+    """The ``x`` of the rank ``step`` places back on ``axis``'s ring (rank j's goes to j + step)."""
+    n = axis.size
+    if n == 1 or step % n == 0:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, axis.ranks[(axis.index + step) % n], axis.group),
+           dist.P2POp(dist.irecv, out, axis.ranks[(axis.index - step) % n], axis.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, step):
+        ctx.axis, ctx.step = axis, step
+        return _shifted(x, axis, step)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _RingShift.apply(grad, ctx.axis, -ctx.step), None, None
+
+
+def ring_shift(x: torch.Tensor, axis, step: int = 1) -> torch.Tensor:
+    """``ppermute`` by ``step`` around ``axis`` (a ``parallel.mesh.Axis``): each rank gets the ``x`` of the rank
+    ``step`` places back.  Differentiable: the gradient goes back by the reverse shift."""
+    return _RingShift.apply(x, axis, step)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_axis(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` as is; in the backward the sum over ``axis`` of the gradients (every rank of the axis reads the same
+    ``x`` into its own columns).  The identity on an axis of one."""
+    return x if axis.size == 1 else _CopyToAxis.apply(x, axis.group)
+
+
+def reduce_from_axis(x: torch.Tensor, axis) -> torch.Tensor:
+    """Σ over ``axis`` of each rank's ``x`` (a row-split product's partial sums); the gradient passes to each
+    rank's ``x`` unchanged.  The identity on an axis of one."""
+    return x if axis.size == 1 else _ReduceFromAxis.apply(x, axis.group)
+
+
+def all_gather_cat(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (one shape) on ``axis``, concatenated along ``dim`` in axis order; no autograd."""
+    if axis.size == 1:
+        return x
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x, group=axis.group)
+    return torch.cat(parts, dim=dim)
+

@@ -8,20 +8,30 @@ block scored on its own device with the weights replicated there once per
 checkpoint (re)load (:func:`replicate`), and the results concatenated in
 order.  Each block's forward is the single-device one (``pipeline.fuse``'s,
 ``spotting.encode_timeline``'s), so on the card each block launches kernels
-1–4 on its own card.  The blocks are issued one after another without a
-wait, so the cards run them at once; the host waits when it gathers them.
+1–4 on its own card.  Without int8 the blocks are issued one after another
+without a wait, so the cards run them at once; the host waits when it
+gathers them.
 
 Where JAX compiles one GSPMD program, reductions over the batch see the
 whole batch.  The port's one such reduction is the int8 activation scale of
-``quantized_inference``, which here is each block's own (ROADMAP.md §3).
+``quantized_inference`` (conv1 and conv2 of the reference backbone, the 12
+convs of the resnet, the 24 linears of the vit).  Under it the blocks run in
+lockstep, one thread each (:func:`_run_blocks`): at every quantized point
+each block computes its own scale (on the card, the 2-int8 kernels' amax),
+waits at a barrier for the others, and quantizes with the largest, so every
+block takes the padded batch's scale, as JAX's program does (its zero rows
+included, as JAX counts them).
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 from cvml_goalnet_tpu_torch.config import ModelConfig
+from cvml_goalnet_tpu_torch.ops import quant
 from cvml_goalnet_tpu_torch.train.optim import tree_map
 
 
@@ -63,6 +73,49 @@ def _blocks(mesh, visual, audio, text):
         yield (dev, *(None if x is None else x[sl].to(dev, non_blocking=True).contiguous() for x in parts))
 
 
+class _BatchScale:
+    """The batch's activation scale at each quantized point of ``n`` blocks running in lockstep."""
+
+    def __init__(self, n: int):
+        self.barrier = threading.Barrier(n)
+        self.slots = [0.0] * n
+
+    def reducer(self, i: int):
+        def reduce(s: torch.Tensor) -> torch.Tensor:
+            self.slots[i] = float(s)
+            self.barrier.wait()
+            batch = max(self.slots)
+            self.barrier.wait()   # every block has read the slots before any writes the next point's
+            return torch.tensor(batch, dtype=torch.float32, device=s.device)
+
+        return reduce
+
+
+def _run_blocks(fn, blocks: list, batch_scales: bool) -> list:
+    """``[fn(i, *block) for i, block in enumerate(blocks)]``; with ``batch_scales`` each block in a thread of its
+    own inside ``quant.batch_scales``, so every activation scale is the batch's."""
+    if not batch_scales:
+        return [fn(i, *b) for i, b in enumerate(blocks)]
+    shared, out, errors = _BatchScale(len(blocks)), [None] * len(blocks), []
+
+    def run(i, b):
+        try:
+            with quant.batch_scales(shared.reducer(i)):
+                out[i] = fn(i, *b)
+        except BaseException as e:   # a failed block releases the others from the barrier
+            errors.append(e)
+            shared.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i, b), name=f"dp-block-{i}") for i, b in enumerate(blocks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)), errors[0])
+    return out
+
+
 def make_dp_fuse(cfg_model: ModelConfig, mesh):
     """Build ``fuse_dp(params, model_state, features) -> (N,) float32`` over ``mesh`` (a list of devices).
 
@@ -90,8 +143,8 @@ def make_dp_fuse(cfg_model: ModelConfig, mesh):
                 "cfg.model.text_included=True but features['text'] is None "
                 "— tokenize commentary (or [''] rows) first")
         p, s = replicate(params, mesh), replicate(model_state, mesh)
-        outs = [fuse_on_device(p[i], s[i], v, a, t, cfg_model)
-                for i, (_, v, a, t) in enumerate(_blocks(mesh, visual, audio, text))]
+        outs = _run_blocks(lambda i, _, v, a, t: fuse_on_device(p[i], s[i], v, a, t, cfg_model),
+                           list(_blocks(mesh, visual, audio, text)), cfg_model.quantized_inference)
         return torch.cat([o.cpu() for o in outs]).numpy()[:n]
 
     return fuse_dp
@@ -130,8 +183,8 @@ def make_dp_encode(cfg_model: ModelConfig, mesh):
             return torch.zeros((0, _trunk_dim(cfg_model, audio is not None)), dtype=torch.float32, device=lead)
         t = len(visual)
         p, s = replicate(params, mesh), replicate(model_state, mesh)
-        outs = [encode_on_device(p[i], s[i], v, a, tx, cfg_model)
-                for i, (_, v, a, tx) in enumerate(_blocks(mesh, visual, audio, text))]
+        outs = _run_blocks(lambda i, _, v, a, tx: encode_on_device(p[i], s[i], v, a, tx, cfg_model),
+                           list(_blocks(mesh, visual, audio, text)), cfg_model.quantized_inference)
         return torch.cat([o.to(lead) for o in outs])[:t]
 
     return encode_dp

@@ -1,6 +1,6 @@
 """Temporal event spotting over long timelines: the port's spotting entry points.
 
-Port of ``cvml_goalnet_tpu/spotting.py`` (single device):
+Port of ``cvml_goalnet_tpu/spotting.py``:
 
 * :func:`encode_timeline` — the trunk (audio, visual and text encoders, no
   fusion head) over all frames → (T, D) per-frame features, ``[audio ‖
@@ -9,6 +9,8 @@ Port of ``cvml_goalnet_tpu/spotting.py`` (single device):
   the bidirectional GRU (chunked with halos past
   ``temporal_chunk_threshold``), the transformer (full or banded flash
   attention) or the GRU + transformer hybrid;
+* :func:`score_timeline_sharded` — the same over the ranks of a
+  context-parallel grid (``parallel/mesh.py::cp_groups``);
 * :func:`spot_events` / :func:`spot_events_multi` — local-peak event frames;
 * :func:`summarize_match` — frames → features → scores → events and a
   knapsack highlight summary over ``pipeline.summarize``;
@@ -125,6 +127,48 @@ def score_timeline_chunked(temporal_params, features: torch.Tensor, hidden: int,
     s = temporal_scorer_apply(temporal_params, wins, hidden).reshape(len(win_starts), window, n_out)
     keep = starts - win_starts
     scores = torch.cat([s[i, k : k + chunk] for i, k in enumerate(keep)])[:t]
+    return scores[:, 0] if n_out == 1 else scores
+
+
+def score_timeline_sharded(temporal_params, features: torch.Tensor, groups, cfg: PipelineConfig) -> torch.Tensor:
+    """Context-parallel scoring of a (T, D) timeline over the ctx axis of ``groups`` (every rank of it calls this
+    with the whole timeline) → (T,) or (T, C) on every rank.
+
+    The transformer runs ``temporal_transformer_sharded_apply`` (ring or halo
+    attention, equal to the monolithic scorer); the GRU and the hybrid score
+    their chunks with halos (``score_timeline_chunked``'s windows, clamped
+    into the timeline) with the chunk list split over the ranks and gathered.
+    A timeline no longer than one window goes to :func:`score_timeline_auto`.
+    """
+    from cvml_goalnet_tpu_torch.models.temporal_attention import temporal_transformer_sharded_apply
+    from cvml_goalnet_tpu_torch.parallel.collectives import all_gather_cat
+
+    mc = cfg.model
+    if mc.temporal_model == "transformer":
+        return temporal_transformer_sharded_apply(temporal_params, features, groups, mc.temporal_num_heads,
+                                                  mc.temporal_window)
+    t = features.shape[0]
+    chunk, overlap = mc.temporal_chunk, mc.temporal_halo
+    window = chunk + 2 * overlap
+    if t <= window:
+        return score_timeline_auto(temporal_params, features, cfg)
+    n_out = head_out_dim(temporal_params)
+    n = groups.ctx.size
+    n_pad = -(-(-(-t // chunk)) // n) * n
+    starts = np.arange(n_pad) * chunk
+    win_starts = np.clip(starts - overlap, 0, t - window)
+    keep = np.minimum(starts - win_starts, window)   # a pad chunk's slice clamped in, as dynamic_slice does
+    mine = range(groups.ctx.index * (n_pad // n), (groups.ctx.index + 1) * (n_pad // n))
+    wins = torch.stack([features[win_starts[i]:win_starts[i] + window] for i in mine])
+    if mc.temporal_model == "hybrid":
+        s = torch.stack([temporal_hybrid_apply(temporal_params, w, mc.temporal_hidden, mc.temporal_num_heads,
+                                               mc.temporal_window) for w in wins])
+    else:
+        s = temporal_scorer_apply(temporal_params, wins, mc.temporal_hidden)
+    s = s.reshape(len(mine), window, n_out)
+    s = torch.cat([s, s.new_zeros((len(mine), chunk, n_out))], dim=1)
+    local = torch.stack([s[j, keep[i]:keep[i] + chunk] for j, i in enumerate(mine)])
+    scores = all_gather_cat(local, groups.ctx).reshape(-1, n_out)[:t]
     return scores[:, 0] if n_out == 1 else scores
 
 

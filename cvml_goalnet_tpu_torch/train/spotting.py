@@ -1,13 +1,24 @@
-"""Training the temporal spotting head on one device.
+"""Training the temporal spotting head: on one device, and context parallel over the ranks of a grid.
 
-Port of the single-device part of ``cvml_goalnet_tpu/train/spotting.py``:
-per-frame event labels over a timeline, weighted binary cross-entropy, and
-Adam over the head's tree (GRU, transformer or hybrid).  Where the JAX step
-takes ``use_flash``/``flash_interpret``, here the device decides: on the card
-the transformer's attention runs the flash kernels forward and backward
-(``ops/cuda/flash_attention.py``), on the CPU their plain versions.  The
-context-parallel, DP×CP, 3-D and pipeline-parallel steps are multi-GPU work
-and not ported yet.
+Port of ``cvml_goalnet_tpu/train/spotting.py``: per-frame event labels over a
+timeline, weighted binary cross-entropy, and Adam over the head's tree (GRU,
+transformer or hybrid).  Where the JAX step takes
+``use_flash``/``flash_interpret``, here the device decides: on the card the
+transformer's attention runs the flash kernels forward and backward
+(``ops/cuda/flash_attention.py``), on the CPU their plain versions.
+
+The context-parallel steps (JAX ``:135-284``: the sharded, DP×CP and 3-D
+steps) run on every rank of a ``parallel.mesh.CpGroups`` grid with the whole
+batch on each: a rank takes the logits of its timelines on its shard of
+time (``models/temporal_attention.py``'s bodies), and its loss is its share
+of the global weighted BCE, its numerator over the global denominator
+(summed over the ctx and data axes; padded rows weigh 0).  Its gradients,
+which take in what its keys and values gave the other ranks' losses through
+the ring's reverse shifts, are summed over the ctx and data axes, and the
+model-split slices also over the model axis, so that every rank ends the step
+with the global gradient, the monolithic step's.  Clipping, the schedule and
+Adam then run on every rank on the same numbers.  The pipeline-parallel step
+is not ported yet (ROADMAP.md §1 item 6.4).
 """
 
 from __future__ import annotations
@@ -20,8 +31,14 @@ from torch.utils.checkpoint import checkpoint
 
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models.temporal import temporal_scorer_apply
-from cvml_goalnet_tpu_torch.models.temporal_attention import temporal_transformer_apply
+from cvml_goalnet_tpu_torch.models.temporal_attention import (
+    batch_local_logits,
+    cp_body,
+    padded_length,
+    temporal_transformer_apply,
+)
 from cvml_goalnet_tpu_torch.models.temporal_hybrid import temporal_hybrid_apply
+from cvml_goalnet_tpu_torch.parallel.collectives import psum, tree_psum
 from cvml_goalnet_tpu_torch.train.optim import (
     adam_init,
     adam_update,
@@ -122,6 +139,37 @@ def init_spotting_opt(params):
     return adam_init(params)
 
 
+def validation_loss(tparams, val_pairs, cfg, pos_weight: float) -> float:
+    """The mean over the val timelines ``(video_id, features, labels)`` of the weighted BCE of the single-device
+    scores: the objective the steps train (a one-name ``--classes`` head scores (T,) against (T, 1) labels:
+    reshaped, never broadcast to (T, T))."""
+    from cvml_goalnet_tpu_torch.spotting import score_timeline_auto
+
+    with torch.no_grad():
+        return float(np.mean([float(weighted_bce(score_timeline_auto(tparams, f, cfg).reshape(l.shape), l,
+                                                 pos_weight)) for _, f, l in val_pairs]))
+
+
+def validation_map(tparams, val_pairs, cfg, peak_window: int, peak_threshold: float) -> float:
+    """The mean over the val timelines of the average-mAP of their peaks (at the window and threshold ``spot``
+    deploys with) against the labelled events; classes without any are excluded."""
+    from cvml_goalnet_tpu_torch.ops.spotting_metrics import multiclass_average_map
+    from cvml_goalnet_tpu_torch.spotting import score_timeline_auto, spot_events_multi
+
+    maps = []
+    with torch.no_grad():
+        for _, f, l in val_pairs:
+            l2 = l.cpu().numpy()
+            if l2.ndim == 1:
+                l2 = l2[:, None]
+            s2 = score_timeline_auto(tparams, f, cfg).cpu().numpy().reshape(l2.shape)
+            pred = spot_events_multi(s2, peak_window, peak_threshold)
+            gt = [np.nonzero(l2[:, c] > 0.5)[0] for c in range(l2.shape[1])]
+            sc = [s2[ev, c] if len(ev) else np.zeros((0,)) for c, ev in enumerate(pred)]
+            maps.append(multiclass_average_map(pred, sc, gt)["average_map"])
+    return float(np.mean(maps))
+
+
 def save_spotting_checkpoint(path: str, params, classes=None) -> None:
     """Atomic npz checkpoint of a temporal head, in the JAX package's keys.
 
@@ -140,3 +188,93 @@ def save_spotting_checkpoint(path: str, params, classes=None) -> None:
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
 
+
+
+# ------------------------------------------------------------------ context parallel (JAX :135-284)
+
+_SPLIT_W = ("wq", "wk", "wv", "mlp_in", "wo", "mlp_out")   # sliced by the model axis (columns or rows)
+_SPLIT_B = ("wq", "wk", "wv", "mlp_in")                    # bias slices of the column-split products
+
+
+def _pad_time(x: torch.Tensor, t_pad: int, value: float) -> torch.Tensor:
+    """``x`` (B, T, ...) padded along T to ``t_pad`` with ``value``."""
+    pad = t_pad - x.shape[1]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_full((x.shape[0], pad) + tuple(x.shape[2:]), value)], dim=1)
+
+
+def _cp_step(groups, body, pos_weight: float, lr: float, lr_schedule, grad_clip_norm: float, batched: bool):
+    """The step of a context-parallel layout: ``body(params, feats_l, t)`` is one timeline's shard."""
+
+    sum_axes = (groups.ctx, groups.data)
+
+    def value_and_grad(params, features, labels):
+        if not batched:   # one timeline, valid over its whole length (JAX's static t)
+            features, labels, lengths = features[None], labels[None], None
+        else:
+            lengths = timeline_lengths(labels)
+        t_pad = padded_length(features.shape[1], groups.ctx.size)
+        bl = features.shape[0] // groups.data.size
+        tl = t_pad // groups.ctx.size
+        d0, c0 = groups.data.index * bl, groups.ctx.index * tl
+        lab = _pad_time(labels, t_pad, -1.0)[d0:d0 + bl, c0:c0 + tl]
+        w = torch.where(lab > 0.5, torch.full_like(lab, pos_weight), torch.ones_like(lab)) * (lab >= 0)
+        den = w.sum()
+        for axis in sum_axes:
+            den = psum(den, axis.group)
+        with torch.enable_grad(), strict_f32():
+            leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            logits = batch_local_logits(tree_unflatten(params, leaves), features, groups, body, lengths)
+            logits = logits.reshape(lab.shape)
+            per = logits.clamp_min(0.0) - logits * lab.clamp_min(0.0) + torch.log1p(torch.exp(-logits.abs()))
+            loss = torch.sum(w * per) / den
+            grads = list(torch.autograd.grad(loss, leaves))
+        loss = loss.detach()
+        for axis in sum_axes:
+            loss, grads = tree_psum([loss, grads], axis.group)
+        grads = tree_unflatten(params, grads)
+        if groups.model.size > 1:
+            split = [layer[n]["w"] for layer in grads["layers"] for n in _SPLIT_W]
+            split += [layer[n]["b"] for layer in grads["layers"] for n in _SPLIT_B]
+            for g, summed in zip(split, tree_psum(split, groups.model.group)):
+                g.copy_(summed)
+        return loss, grads
+
+    def step(params, opt_state, features, labels):
+        loss, grads = value_and_grad(params, features, labels)
+        params, opt_state = adam_update(clip_by_global_norm(grads, grad_clip_norm), opt_state, params,
+                                        _lr_at(opt_state, lr, lr_schedule))
+        return params, opt_state, loss
+
+    step.value_and_grad = value_and_grad
+    return step
+
+
+def make_sharded_spotting_train_step(groups, num_heads: int = 1, lr: float = 1e-3, pos_weight: float = 10.0,
+                                     window: int = 0, lr_schedule: "tuple | None" = None,
+                                     grad_clip_norm: float = 0.0):
+    """The context-parallel step of one timeline → ``step(params, opt_state, features (T, D), labels (T,) or
+    (T, C)) → (params, opt_state, global loss)`` on every rank of the ctx axis of ``groups``; ``window > 0``
+    takes the halo form.  ``step.value_and_grad`` gives the global loss and gradients alone."""
+    return _cp_step(groups, cp_body(groups, num_heads, window), pos_weight, lr, lr_schedule, grad_clip_norm,
+                    batched=False)
+
+
+def make_dp_cp_spotting_train_step(groups, num_heads: int = 1, lr: float = 1e-3, pos_weight: float = 10.0,
+                                   window: int = 0, lr_schedule: "tuple | None" = None,
+                                   grad_clip_norm: float = 0.0):
+    """The data × context parallel step → ``step(params, opt_state, features (B, T, D), labels (B, T[, C]))``:
+    timelines over the data axis, time over the ctx axis; a group padded to its longest timeline carries −1
+    labels on its pad rows, which weigh nothing and are no attention keys (each timeline's true length comes
+    from its labels)."""
+    return _cp_step(groups, cp_body(groups, num_heads, window), pos_weight, lr, lr_schedule, grad_clip_norm,
+                    batched=True)
+
+
+def make_3d_spotting_train_step(groups, num_heads: int = 1, lr: float = 1e-3, pos_weight: float = 10.0,
+                                window: int = 0, lr_schedule: "tuple | None" = None, grad_clip_norm: float = 0.0):
+    """The data × tensor × context parallel step, with :func:`make_dp_cp_spotting_train_step`'s signature and
+    padding contract: each block's heads and MLP over the model axis as well."""
+    return _cp_step(groups, cp_body(groups, num_heads, window, tp=True), pos_weight, lr, lr_schedule,
+                    grad_clip_norm, batched=True)

@@ -352,8 +352,8 @@ class TestRefusals:
         ("spot", ["--stream", "--no-audio", "--commentary"], "no live ingest protocol for commentary tokens"),
         ("spot-train", ["--tp", "2"], "--dp-timelines/--tp require --cp"),
         ("spot-train", ["--dp-timelines", "2"], "--dp-timelines/--tp require --cp"),
-        ("spot-train", ["--cp"], "item 6"),
-        ("spot-train", ["--cp", "--dp-timelines", "2", "--tp", "2"], "item 6"),
+        ("spot-train", ["--cp", "--pp", "2"], "item 6"),
+        ("spot-train", ["--cp", "--dp-timelines", "2", "--tp", "2", "--pp", "2"], "item 6"),
         ("spot-train", ["--pp", "2", "--temporal-model", "transformer"], "item 6"),
         ("spot-train", ["--early-stop", "2"], "--early-stop needs --val-videos"),
         ("serve", ["--host", "0.0.0.0", "--port", "0", "--no-audio"], "non-loopback"),

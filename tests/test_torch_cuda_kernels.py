@@ -1344,6 +1344,32 @@ def test_stage_int8_matches_plain(dev, dtype, n, hh, cin, cout):
         assert err <= 1e-6 * want.to(torch.float32).abs().max().item(), err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage_int8_takes_a_given_batch_scale(dev, dtype):
+    """Inside ``quant.batch_scales`` (a data-parallel block) the 2-int8 wrapper launches the amax kernel, reduces
+    its scale and passes the result to the C entry, which quantizes with it: an identity reduction gives the
+    call's own bits, and a scale 3x the block's equals the plain version under the same reduction (int8 codes
+    and int32 sums exact: 1e-6 relative)."""
+    from cvml_goalnet_tpu_torch.ops import quant
+    from cvml_goalnet_tpu_torch.ops.cuda.fused_stage import act_scale_int8
+
+    x, w, b = _stage_inputs(dev, 37, 15, 64, 256, 11)
+    x, b = x.to(dtype), b.to(dtype)
+    alone = fused_conv_pool_stage_int8(x, w, b)
+    before = act_scale_int8.launches
+    with quant.batch_scales(lambda s: s):
+        same = fused_conv_pool_stage_int8(x, w, b)
+    torch.cuda.synchronize()
+    assert act_scale_int8.launches == before + 1
+    assert torch.equal(same, alone)
+    with quant.batch_scales(lambda s: s * 3):
+        got = fused_conv_pool_stage_int8(x, w, b)
+        want = fused_conv_pool_stage_int8_plain(x.cpu(), w.cpu(), b.cpu())
+    err = (got.cpu().to(torch.float32) - want.to(torch.float32)).abs().max().item()
+    assert err <= 1e-6 * want.to(torch.float32).abs().max().item(), err
+    assert not torch.equal(got, alone)
+
+
 @pytest.mark.parametrize("m,k,n", [(150, 41472, 512), (1050, 41472, 512), (37, 1000, 60), (5, 24, 8), (0, 64, 64),
                                    (1, 41472, 512), (64, 41472, 512), (65, 41472, 512), (5400, 41472, 512),
                                    (65, 1000, 512)])   # K = 1000: a ragged last 64-deep box

@@ -99,6 +99,30 @@ def _features(cfg, n, seed=1, text=False):
     return out
 
 
+def _int8_codes(run):
+    """``run()`` and the int8 activation codes of every quantized point it passed, in order: each a numpy array
+    with frames first, a data-parallel run's blocks concatenated in block order (padded rows included)."""
+    import threading
+
+    from cvml_goalnet_tpu_torch.ops import quant
+
+    seen: dict = {}
+    inner = quant.quantize_act_per_tensor
+
+    def recording(x):
+        x_q, s = inner(x)
+        seen.setdefault(threading.current_thread().name, []).append(x_q.numpy().copy())
+        return x_q, s
+
+    quant.quantize_act_per_tensor = recording
+    try:
+        out = run()
+    finally:
+        quant.quantize_act_per_tensor = inner
+    threads = sorted(seen, key=lambda name: int(name.rsplit("-", 1)[1]) if name.startswith("dp-block-") else -1)
+    return out, [np.concatenate(per_point) for per_point in zip(*(seen[t] for t in threads))]
+
+
 # ------------------------------------------------------------------ Part B: serving
 
 
@@ -168,19 +192,101 @@ class TestDpFuse:
         np.testing.assert_allclose(got, want, atol=1e-5)
 
     def test_int8_blocks_take_their_own_activation_scale(self, small_cfg, mesh8, jax_mesh8):
-        """Under ``quantized_inference`` each block quantizes with its own activation scale, where JAX's one
-        GSPMD program takes the batch's (ROADMAP.md §3): the split is not exact, but stays within the port's
-        1e-4 fuse tolerance of the JAX package's data-parallel scores, on a batch whose frames' ranges differ."""
+        """Under ``quantized_inference`` every block computes its own activation scale and quantizes with the
+        batch's, the largest of them (the name records the fault this test once held, ROADMAP.md §3): on 37
+        frames of spread ranges over 8 blocks the port's data-parallel scores are within 1e-6 of the JAX
+        package's, and the int8 codes at conv1 and conv2 equal the single-device fuse's."""
         jcfg = _jcfg(small_cfg, True, quantized_inference=True)
         cfg = _port(jcfg)
         js = jax_train_state(jax.random.PRNGKey(0), jcfg)
         ts = _port_state(js)
         feats = _features(cfg, 37)
         feats["visual"] *= np.linspace(0.2, 1.0, 37, dtype=np.float32)[:, None, None, None]
-        got = make_dp_fuse(cfg.model, mesh8)(ts.params, ts.model_state, feats)
+        got, codes = _int8_codes(lambda: make_dp_fuse(cfg.model, mesh8)(ts.params, ts.model_state, feats))
         want = np.asarray(jax_make_dp_fuse(jcfg.model, jax_mesh8)(js.params, js.model_state, feats))
-        np.testing.assert_allclose(got, want, atol=1e-4)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        single, single_codes = _int8_codes(lambda: fuse(ts.params, ts.model_state, feats, cfg, device=CPU))
+        assert len(codes) == len(single_codes) == 2
+        for point, (a, b) in enumerate(zip(codes, single_codes)):
+            np.testing.assert_array_equal(a[:37], b, err_msg=f"quantized point {point}")
+        np.testing.assert_array_equal(single, want)
+
+    def test_batch_scales_stay_on_their_block_threads(self, small_cfg, mesh8, monkeypatch):
+        """The batch scale is a thread-local mode (``ops/quant.py::batch_scales``) that only the data-parallel
+        fuse's block threads enter: a single-device int8 fuse on another thread while a stray mode is held is
+        bit-equal to one without, and no mode outlives its block, whether the block ends, raises, or the
+        data-parallel fuse fails in one block."""
+        import threading
+
+        from cvml_goalnet_tpu_torch import pipeline
+        from cvml_goalnet_tpu_torch.ops import quant
+
+        jcfg = _jcfg(small_cfg, True, quantized_inference=True)
+        cfg = _port(jcfg)
+        ts = _port_state(jax_train_state(jax.random.PRNGKey(0), jcfg))
+        feats = _features(cfg, 9)
+        want = fuse(ts.params, ts.model_state, feats, cfg, device=CPU)
+        inside, release = threading.Event(), threading.Event()
+
+        def stray():
+            with quant.batch_scales(lambda s: torch.full_like(s, 1e3)):
+                assert quant.sharing_scales()
+                inside.set()
+                release.wait(120)
+
+        holder = threading.Thread(target=stray)
+        holder.start()
+        try:
+            assert inside.wait(120)
+            assert not quant.sharing_scales()
+            np.testing.assert_array_equal(fuse(ts.params, ts.model_state, feats, cfg, device=CPU), want)
+        finally:
+            release.set()
+            holder.join()
+        with pytest.raises(RuntimeError, match="inside"):
+            with quant.batch_scales(lambda s: s):
+                raise RuntimeError("inside")
+        assert not quant.sharing_scales()
+        make_dp_fuse(cfg.model, mesh8)(ts.params, ts.model_state, feats)
+        assert not quant.sharing_scales()
+        real = pipeline.fuse_on_device
+        calls = []
+
+        def third_block_fails(*a, **kw):
+            calls.append(None)
+            if len(calls) == 3:
+                raise RuntimeError("block failed")
+            return real(*a, **kw)
+
+        monkeypatch.setattr(pipeline, "fuse_on_device", third_block_fails)
+        with pytest.raises(RuntimeError, match="block failed"):
+            make_dp_fuse(cfg.model, mesh8)(ts.params, ts.model_state, feats)
+        monkeypatch.undo()
+        assert not quant.sharing_scales()
         np.testing.assert_array_equal(fuse(ts.params, ts.model_state, feats, cfg, device=CPU), want)
+
+    @pytest.mark.parametrize("backbone,points", [("resnet", 12), ("vit", 24)])
+    def test_int8_backbone_blocks_take_the_batch_scale(self, small_cfg, mesh8, jax_mesh8, backbone, points):
+        """The same at each of the resnet's 12 and the vit's 24 quantized points: the data-parallel scores
+        within 1e-6 of the single-device fuse's and the codes equal; against the JAX package's data-parallel
+        scores the backbones' own port tolerance, 1e-4 (the vit's float32 forward is 2.6e-5 from JAX's on one
+        device too)."""
+        extra = {"vit_embed_dim": 16, "vit_depth": 4, "vit_num_heads": 2, "vit_patch_size": 8} \
+            if backbone == "vit" else {}
+        jcfg = _jcfg(small_cfg, True, quantized_inference=True, vis_backbone=backbone, **extra)
+        cfg = _port(jcfg)
+        js = jax_train_state(jax.random.PRNGKey(3), jcfg)
+        ts = _port_state(js)
+        feats = _features(cfg, 21, seed=4)
+        feats["visual"] *= np.linspace(0.3, 1.0, 21, dtype=np.float32)[:, None, None, None]
+        got, codes = _int8_codes(lambda: make_dp_fuse(cfg.model, mesh8)(ts.params, ts.model_state, feats))
+        want = np.asarray(jax_make_dp_fuse(jcfg.model, jax_mesh8)(js.params, js.model_state, feats))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        single, single_codes = _int8_codes(lambda: fuse(ts.params, ts.model_state, feats, cfg, device=CPU))
+        np.testing.assert_allclose(got, single, rtol=0, atol=1e-6)
+        assert len(codes) == len(single_codes) == points
+        for point, (a, b) in enumerate(zip(codes, single_codes)):
+            np.testing.assert_array_equal(a[:21], b, err_msg=f"quantized point {point}")
 
     def test_empty_batch(self, small_cfg, mesh8, trunk):
         _, ts = trunk

@@ -328,11 +328,13 @@ class TestDevicePolicy:
         """A fresh interpreter: every module of the port (the training modules,
         the native runtime's loader, the data layer, the streaming scorer, the
         serving layer, the reference checkpoint verbs, the data-parallel
-        modules and the CLI with its serving and spotting verbs among them)
-        and chip_smoke.py's imports leave jax and cvml_goalnet_tpu out of
-        sys.modules, and the optional media, HDF5 and plotting packages too
-        (imported only when a call needs them); and so do two ranks spawned
-        by ``parallel.launch.spawn_ranks`` that import the training modules."""
+        modules, the context-parallel modules and the CLI with its serving
+        and spotting verbs among them) and chip_smoke.py's imports leave jax
+        and cvml_goalnet_tpu out of sys.modules, and the optional media, HDF5
+        and plotting packages too (imported only when a call needs them); and
+        so do two ranks spawned by ``parallel.launch.spawn_ranks`` that import
+        the data-parallel training modules, and two that import the
+        context-parallel ones."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import cvml_goalnet_tpu_torch as pkg\n"
@@ -348,7 +350,8 @@ class TestDevicePolicy:
             "          'data.audio_io', 'data.video', 'data.annotations', 'data.dataset', 'data.follow',\n"
             "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling', 'serve',\n"
             "          'models.resnet', 'models.vit', 'compat.torch_import', 'parallel.mesh', 'parallel.serving',\n"
-            "          'parallel.collectives', 'parallel.dp', 'parallel.launch', 'train.dp_loop'):\n"
+            "          'parallel.collectives', 'parallel.dp', 'parallel.launch', 'train.dp_loop',\n"
+            "          'parallel.ring_attention', 'parallel.halo_attention', 'train.cp_loop'):\n"
             "    assert 'cvml_goalnet_tpu_torch.' + m in sys.modules, m\n"
             "from cvml_goalnet_tpu_torch import cli\n"
             "verbs = set(cli.build_parser()._subparsers._group_actions[0].choices)\n"
@@ -360,6 +363,9 @@ class TestDevicePolicy:
             "ranks = spawn_ranks(report_imports, [torch.device('cpu')] * 2)\n"
             "assert [r['forbidden'] for r in ranks] == [[], []], ranks\n"
             "assert [r['rank'] for r in ranks] == [0, 1] and ranks[0]['world'] == 2, ranks\n"
+            "from tests._torch_cp_ranks import run_cases\n"
+            "ranks = spawn_ranks(run_cases, [torch.device('cpu')] * 2, ([{'kind': 'imports'}],))\n"
+            "assert ranks == [[{'forbidden': []}]] * 2, ranks\n"
             "print(len([m for m in sys.modules if m.startswith('cvml_goalnet_tpu_torch')]))\n"
         )
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -144,7 +144,7 @@ def main() -> int:
         if serialized:
             print(f"{name}: ptxas {serialized}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        lib.fused_conv_pool_stage_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
+        lib.fused_conv_pool_stage_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p, p]
         lib.fused_conv_pool_stage_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
         lib.fused_conv_pool_stage_int8.restype = lib.fused_conv_pool_stage_bf16.restype = ctypes.c_int
         libs[name] = lib
@@ -174,7 +174,7 @@ def main() -> int:
                     def call():
                         code = lib.fused_conv_pool_stage_int8(
                             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), n, hh, hh, cin,
-                            cout, 0, plan.frames, plan.rows, plan.cols, plan.m_tiles, plan.block_n,
+                            cout, 0, plan.frames, plan.rows, plan.cols, plan.m_tiles, plan.block_n, None,
                             torch.cuda.current_stream().cuda_stream)
                         if code:
                             raise RuntimeError(f"{name}: CUDA error {code}")
