@@ -238,7 +238,21 @@ From the repository root, on a machine with a CUDA card:
     this process, ``score_timeline_sharded`` against ``score_timeline_auto``
     (banded, full) and the chunked single-device scorers (GRU, hybrid);
     (d) the CP step's ms beside the single-device step's, and the phase's
-    wall.
+    wall;
+19. pipeline, tensor and expert parallelism on the one card: (a) GPipe
+    (``parallel/pp.py``) over 2 and 4 virtual stages of
+    ``configs/tpu_spotting.json``'s head with 4 blocks, banded (W = 1024)
+    and full, on two seeded 5400-frame timelines in two microbatches,
+    against the single-device scorer and ``make_spotting_train_step``
+    (outputs within 1e-5·max(1, max|s|), the loss within 1e-5 relative,
+    the first step's gradients within 1e-4·max(1, max|g|)), each block
+    launched once a microbatch, the PP step's ms beside the single-device
+    steps'; (b) at ``configs/reference_parity.json``'s fusion widths the
+    fusion MLP's train forward over 2 virtual model ranks (alone and after
+    an MoE first layer, dropout on) and the ``--moe-experts 4`` layer over
+    4 virtual expert shards against the whole layers (outputs within 1e-5,
+    gradients within 1e-4, relative to max(1, max)); (c) ``spot-train --pp
+    N+1`` on N cards exiting 2 with the JAX CLI's device-count message.
 
 Every phase prints its wall and the script's time so far.  Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  ``--phases`` runs
@@ -4725,6 +4739,13 @@ CP_EPOCHS = 2                   # phase 18b: `spot-train --epochs`, one step an 
 CP_MASKED_VALID = 2000          # phase 18a: a true length that leaves the last two virtual shards no valid key
 
 
+def halo_extended(xs: list, me: int, window: int) -> torch.Tensor:
+    """Shard ``me``'s extended keys (or values) from a list of shards (H, Tl, d): the previous shard's last
+    ``window`` frames, its own, the next shard's first ``window`` (wrapping round at the two ends)."""
+    n, tl = len(xs), xs[me].shape[1]
+    return torch.cat([xs[(me - 1) % n][:, tl - window:], xs[me], xs[(me + 1) % n][:, :window]], dim=1)
+
+
 def cp_virtual_case(t: int, window: int | None, gen: torch.Generator, launches_by_path: dict,
                     t_valid: int | None = None) -> dict:
     """18a: ring (``window`` None) or halo attention of one (1, t, 128) q, k, v cut into ``CP_SHARDS`` virtual
@@ -4734,7 +4755,7 @@ def cp_virtual_case(t: int, window: int | None, gen: torch.Generator, launches_b
     1e-5·max(1, max|out|), gradients within 1e-4·max(1, max|g|); kernel 5 (7) launched n² (n) times in the
     forward, kernel 6 (8) as often in the backward.  A ``t_valid`` at most 2·t/n leaves the last shards with no
     valid key: ring hops at ``t_valid`` 0 and halo shards with empty bounds, as the verb's padded groups give."""
-    from cvml_goalnet_tpu_torch.parallel.halo_attention import halo_bounds, halo_extended, halo_attention_shards
+    from cvml_goalnet_tpu_torch.parallel.halo_attention import halo_bounds, halo_attention_shards
     from cvml_goalnet_tpu_torch.parallel.ring_attention import ring_attention_shards
 
     n, d = CP_SHARDS, 128
@@ -5014,7 +5035,173 @@ def cp_phase(seed: int, smi: str, launches_by_path: dict, gen: torch.Generator) 
     return out
 
 
-PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18")
+# ---------------------------------------------------------------- phase 19: pipeline, tensor and expert parallelism
+
+PP_LAYERS = 4          # 19a: configs/tpu_spotting.json's head (128 wide, W = 1024) with 4 blocks
+PP_TIMELINES = 2       # 19a: one batch of two seeded 5400-frame timelines, drained in two microbatches
+PP_FEATURES = 640      # the trunk's features under tpu_spotting.json (audio 128 ‖ visual 512)
+EP_SHARDS = 4          # 19b: virtual expert shards of the --moe-experts 4 layer
+TP_RANKS = 2           # 19b: virtual model ranks of the fusion MLP
+SPLIT_ROWS = 1050      # 19b: frames through the split layers (phase 1's batch)
+
+
+def pp_virtual_case(stages: int, window: int, gen: torch.Generator, launches_by_path: dict) -> dict:
+    """19a: GPipe over ``stages`` virtual stages on the one card (``parallel/pp.py`` with
+    ``parallel.mesh.VirtualAxis``: the ranks' code, every stage's tick loop in this process, the shifts a
+    rotation of a list, the output's, loss's and shared leaves' sums over the pipe and the stages' gather
+    arithmetic on it) on
+    ``PP_TIMELINES`` seeded timelines of ``MATCH_FRAMES`` frames, against the single-device scorer and
+    ``make_spotting_train_step`` on the same card: outputs within 1e-5·max(1, max|s|), the batch's loss
+    within 1e-5 relative and the first step's gradients within 1e-4·max(1, max|g|) of the single-device
+    steps' (each timeline's weighted by its share of the batch's BCE weights); each block launched once a
+    microbatch (kernel 5 or 7 forward, 6 or 8 backward: the stages' idle ticks compute nothing); then the PP
+    step's ms beside the single-device steps' over the same two timelines."""
+    from cvml_goalnet_tpu_torch.models.temporal_attention import temporal_transformer_apply
+    from cvml_goalnet_tpu_torch.parallel.mesh import VirtualAxis
+    from cvml_goalnet_tpu_torch.parallel.pp import make_pp_spotting_train_step, pipeline_transformer_apply
+    from cvml_goalnet_tpu_torch.train.spotting import bce_weights
+
+    base = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+    mc = dataclasses.replace(base.model, temporal_num_layers=PP_LAYERS, temporal_window=window)
+    params = weights.tree_from_jax(weights.init_temporal_params(mc, PP_FEATURES, seed=19))
+    feats = torch.randn((PP_TIMELINES, MATCH_FRAMES, PP_FEATURES), generator=gen, device="cuda")
+    labels = (torch.rand((PP_TIMELINES, MATCH_FRAMES), generator=gen, device="cuda") < 0.02).float()
+    heads, axis = mc.temporal_num_heads, VirtualAxis(stages)
+    fwd, bwd = ("flash_local_fwd", "flash_local_bwd") if window else ("flash_fwd", "flash_bwd")
+    label = f"pp_virtual_{stages}_{'banded' if window else 'full'}"
+    with torch.no_grad():
+        out = drive(f"{label}_apply", [fwd], lambda: pipeline_transformer_apply(params, feats, axis, heads,
+                                                                                window=window), launches_by_path)
+        mono = torch.stack([temporal_transformer_apply(params, f, heads, window) for f in feats])
+    pp_step = make_pp_spotting_train_step(axis, heads, window=window)
+    loss, grads = drive(f"{label}_step", [fwd, bwd], lambda: pp_step.value_and_grad(params, feats, labels),
+                        launches_by_path)
+    one_step = make_spotting_train_step(0, scorer="transformer", num_heads=heads, window=window)
+    w = bce_weights(labels, 10.0).sum(dim=1)
+    share = [float(x) for x in w / w.sum()]   # the batch's BCE is Σ_b num_b / Σ_b den_b
+    parts = [one_step.value_and_grad(params, f, lab) for f, lab in zip(feats, labels)]
+    want_loss = sum(s * float(part_loss) for s, (part_loss, _) in zip(share, parts))
+    want = tree_map(lambda *g: sum(s * x for s, x in zip(share, g)), *[g for _, g in parts])
+    per = PP_TIMELINES * PP_LAYERS
+    got_launches = launches_by_path[f"{label}_step"]
+    require(launches_by_path[f"{label}_apply"][fwd] == per and got_launches[fwd] == per and got_launches[bwd] == per,
+            f"19a {label}: {got_launches[fwd]} {fwd} and {got_launches[bwd]} {bwd} launches, want {per} each")
+    gl, wl = tree_leaves(grads), tree_leaves(want)
+    finite = all(bool(torch.isfinite(x).all()) for x in (out, loss, *gl))
+    rec = {"stages": stages, "window": window, "microbatches": PP_TIMELINES, "layers": PP_LAYERS, "finite": finite,
+           "out_err": float((out - mono).abs().max()) / max(1.0, float(mono.abs().max())),
+           "loss_rel_err": abs(float(loss) - want_loss) / abs(want_loss),
+           "grad_err": max(float((a - b).abs().max()) for a, b in zip(gl, wl))
+           / max(1.0, max(float(b.abs().max()) for b in wl)),
+           "launches": {fwd: per, bwd: per}}
+    require(finite and rec["out_err"] <= 1e-5 and rec["loss_rel_err"] <= 1e-5 and rec["grad_err"] <= 1e-4,
+            f"19a {label}: {json.dumps(rec)}")
+    opt = init_spotting_opt(params)
+    rec["pp_step_ms"] = time_ms(lambda: pp_step(params, opt, feats, labels), reps=3, warmup=1)
+    rec["single_steps_ms"] = time_ms(lambda: [one_step(params, opt, f, lab) for f, lab in zip(feats, labels)],
+                                     reps=3, warmup=1)
+    return rec
+
+
+def split_against_whole(run, leaves_of, what: str) -> dict:
+    """``run(split)`` → output, with ``split`` False (the whole layer) and True (its virtual split), each with
+    fresh leaves ``leaves_of()``: the output within 1e-5·max(1, max|y|) and the gradients of Σ y² within
+    1e-4·max(1, max|g|) of the whole layer's."""
+    res = []
+    for split in (False, True):
+        leaves = leaves_of()
+        with torch.enable_grad():
+            y = run(split, leaves)
+            grads = torch.autograd.grad((y * y).sum(), leaves)
+        res.append((y.detach(), grads))
+    (y0, g0), (y1, g1) = res
+    rec = {"out_err": float((y1 - y0).abs().max()) / max(1.0, float(y0.abs().max())),
+           "grad_err": max(float((a - b).abs().max()) for a, b in zip(g1, g0))
+           / max(1.0, max(float(b.abs().max()) for b in g0)),
+           "finite": bool(torch.isfinite(y1).all()) and all(bool(torch.isfinite(g).all()) for g in g1)}
+    require(rec["finite"] and rec["out_err"] <= 1e-5 and rec["grad_err"] <= 1e-4, f"19b {what}: {json.dumps(rec)}")
+    return rec
+
+
+def split_layers_check(gen: torch.Generator) -> dict:
+    """19b: at ``configs/reference_parity.json``'s fusion widths (640 → 512 → 512 → 256 → 128 → 1) on
+    ``SPLIT_ROWS`` seeded rows: the fusion MLP's train forward split over ``TP_RANKS`` virtual model ranks
+    (``models/avm.py::fusion_train_apply`` with ``parallel.mesh.VirtualAxis``; dropout on, both sides from one
+    seed), alone and after an MoE first layer, and the ``--moe-experts 4`` layer over ``EP_SHARDS`` virtual
+    expert shards (``parallel/ep.py``), each against the whole layer on the same card.  Plain PyTorch, as the
+    train forward: no kernel of the port runs here."""
+    from cvml_goalnet_tpu_torch.models.avm import fusion_train_apply
+    from cvml_goalnet_tpu_torch.models.moe import moe_apply
+    from cvml_goalnet_tpu_torch.parallel.mesh import VirtualAxis
+    from cvml_goalnet_tpu_torch.parallel.ep import moe_apply_expert_parallel
+    from cvml_goalnet_tpu_torch.parallel.sharding import fusion_param_shardings, model_shard
+    from cvml_goalnet_tpu_torch.train.optim import tree_unflatten
+
+    cfg = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    out = {}
+    for label, c in (("tp_fusion", cfg), ("tp_fusion_after_moe", text_moe_cfg(cfg, "moe"))):
+        layers = weights.tree_from_jax(weights.init_params(c, 19)[0]["fusion"])
+        x = torch.randn((SPLIT_ROWS, 640), generator=gen, device="cuda")
+
+        def run(split, leaves, layers=layers, c=c, x=x):
+            tracked = tree_unflatten(layers, leaves)
+            tp = VirtualAxis(TP_RANKS) if split else None
+            held = tracked if not split else tp.split(
+                tracked, lambda t, i, n: model_shard({"fusion": t}, fusion_param_shardings({"fusion": t}), i, n)["fusion"])
+            return fusion_train_apply(held, x, c.model, torch.Generator(device="cuda").manual_seed(19), tp)[0]
+
+        out[label] = split_against_whole(run, lambda layers=layers: [t.clone().requires_grad_()
+                                                                     for t in tree_leaves(layers)], label)
+    moe_cfg = text_moe_cfg(cfg, "moe")
+    moe = weights.tree_from_jax(weights.init_params(moe_cfg, 19)[0]["fusion"][0])
+    x = torch.randn((SPLIT_ROWS, 640), generator=gen, device="cuda")
+    k = moe_cfg.model.fusion_moe_top_k
+
+    def run_ep(split, leaves):
+        p = tree_unflatten(moe, leaves)
+        return moe_apply_expert_parallel(p, x, VirtualAxis(EP_SHARDS), k) if split else moe_apply(p, x, k)
+
+    out["ep_moe"] = split_against_whole(run_ep, lambda: [t.clone().requires_grad_() for t in tree_leaves(moe)],
+                                        "ep_moe")
+    out["tp_ranks"], out["ep_shards"], out["rows"] = TP_RANKS, EP_SHARDS, SPLIT_ROWS
+    return out
+
+
+def pp_refusal_check(root: str) -> dict:
+    """19c: ``spot-train --pp N+1`` on the N visible cards exits 2 with the JAX CLI's device-count message,
+    before any decode (a config copy of tpu_spotting.json with N + 1 blocks, videos that do not exist)."""
+    n = torch.cuda.device_count()
+    base = PipelineConfig.load(str(REPO / "configs" / "tpu_spotting.json"))
+    path = os.path.join(root, "pp_cfg.json")
+    dataclasses.replace(base, model=dataclasses.replace(base.model, temporal_num_layers=n + 1)).save(path)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["spot-train", "--videos", os.path.join(root, "none.npz"), "--config", path, "--workdir", root,
+                       "--temporal-model", "transformer", "--pp", str(n + 1)])
+    message = f"E: --pp {n + 1} needs {n + 1} devices, have {n}"
+    require(rc == 2 and message in err.getvalue(), f"19c: exit code {rc}: {err.getvalue()[-500:]}")
+    return {"rc": rc, "message": message}
+
+
+def pp_tp_ep_phase(seed: int, smi: str, launches_by_path: dict, gen: torch.Generator) -> dict:
+    """Phase 19: pipeline, tensor and expert parallelism on the one card — (a) GPipe over 2 and 4 virtual stages
+    against the single-device steps, banded and full, (b) the fusion MLP over virtual model ranks and the MoE
+    layer over virtual expert shards against the whole layers, (c) ``spot-train --pp`` past the cards refused."""
+    t_phase = time.perf_counter()
+    out = {"pp": [pp_virtual_case(stages, window, gen, launches_by_path)
+                  for window in (ATTN_WINDOW, 0) for stages in (2, 4)]}
+    print(f"phase 19a: GPipe over virtual stages vs one device on {smi}: {json.dumps(out['pp'])}", flush=True)
+    out["split"] = split_layers_check(gen)
+    print(f"phase 19b: fusion MLP over {TP_RANKS} virtual model ranks, MoE over {EP_SHARDS} virtual expert "
+          f"shards vs the whole layers on {smi}: {json.dumps(out['split'])}", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        out["refusal"] = pp_refusal_check(root)
+    print(f"phase 19c: spot-train --pp past the cards: {json.dumps(out['refusal'])}", flush=True)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return out
+
+
+PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18", "19")
 
 
 def parse_phases(spec: str | None) -> set[str]:
@@ -5212,6 +5399,9 @@ def main() -> int:
     if "18" in phases:
         cp_phase(args.seed, smi, launches_by_path, gen)
         clock.done("18")
+    if "19" in phases:
+        pp_tp_ep_phase(args.seed, smi, launches_by_path, gen)
+        clock.done("19")
     del videos
     if "11" in phases:
         serving_phase(args.seed, smi, launches_by_path)

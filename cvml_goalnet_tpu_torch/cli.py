@@ -59,10 +59,10 @@ config runs in every verb: the reference, resnet and vit backbones
 ``<video>.commentary.jsonl`` sidecars) and ``--moe-experts N`` (the
 mixture-of-experts fusion) run in every verb that takes them; ``infer
 --stream`` and ``spot --stream`` refuse ``--commentary`` as the JAX CLI
-does.  Flags for what the port does not run yet exit 2 before any decode,
-naming the ROADMAP item that brings it: the orbax backend (item 6),
-``spot-train --pp`` (item 6.4), and ``train --dp`` with a config of
-``mesh.model > 1`` (item 6.6).
+does.  ``spot-train --cp`` and ``--pp`` and ``train --dp`` (a config's
+``mesh.model > 1`` gives its model axis replicas, as in JAX) run on spawned
+ranks.  The orbax checkpoint backend is not ported yet: it exits 2 before
+any decode, naming its ROADMAP item (6.5).
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
@@ -89,9 +89,8 @@ import numpy as np
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 
 ORBAX_NOT_PORTED = (
-    "the orbax checkpoint backend is not ported yet (ROADMAP.md §1 item 6, with the multi-GPU "
-    "paths); the port reads the npz layout (<tag>_state.npz + <tag>_manifest.json) that "
-    "`goalnet train` writes by default"
+    "the orbax checkpoint backend is not ported yet (ROADMAP.md §1 item 6.5); the port reads the npz layout "
+    "(<tag>_state.npz + <tag>_manifest.json) that `goalnet train` writes by default"
 )
 
 
@@ -227,11 +226,6 @@ def cmd_train(args) -> int:
 
     cfg = _load_cfg(args)
     if _refused(_unported(args)):
-        return 2
-    if args.dp and cfg.mesh.model > 1:
-        from cvml_goalnet_tpu_torch.parallel.mesh import TP_NOT_PORTED
-
-        _refused(TP_NOT_PORTED)
         return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
@@ -434,12 +428,6 @@ def _run_infer_stream(args, cfg, state, store, device) -> int:
         written = export_selected_clips_stream(args.video, res.clip_intervals, out_fp)
     print(f"\n[Exported video details]\n\nID: {video_id}\nTitle: {video_id}\nOutput: {out_fp}\nFrames: {written}")
     return 0
-
-
-SPOT_MESH_NOT_PORTED = (
-    "{flag} (pipeline-parallel training of the temporal head) is not ported yet (ROADMAP.md §1 item 6.4); the "
-    "port trains the head on one device, or context parallel with --cp"
-)
 
 
 def _sync(device) -> None:
@@ -791,23 +779,34 @@ def _spot_opt_kwargs(tc) -> dict:
 
 
 def _spot_train_refusal(args, cfg, world: int) -> str | None:
-    """Why these ``spot-train`` flags cannot run on ``world`` ranks, before any decode; None when they can."""
+    """Why these ``spot-train`` flags cannot run on ``world`` ranks, before any decode; None when they can.
+    The JAX CLI's refusals in its order (its ``--pp`` ones at ``cli.py:912-936``), bar the equal-length
+    timelines of ``--pp``, which :func:`_unequal_timelines` checks once the videos are known."""
     unported = _unported(args)
     if unported is not None:
         return unported
-    ndp, ntp = max(1, args.dp_timelines or 1), max(1, args.tp or 1)
+    ndp, ntp, npp = max(1, args.dp_timelines or 1), max(1, args.tp or 1), max(1, args.pp or 1)
     if not args.cp and (ndp > 1 or ntp > 1):
         # these flags only pick mesh axes of the CP layouts: ignoring them would train on one device while the
         # user believes the run is parallel
         return "--dp-timelines/--tp require --cp"
-    if max(1, args.pp or 1) > 1:
-        return SPOT_MESH_NOT_PORTED.format(flag=f"--pp {args.pp}")
     if args.early_stop and not args.val_videos:
         return "--early-stop needs --val-videos (a held-out metric to stop on)"
+    if args.cp and cfg.model.temporal_model != "transformer":
+        return "--cp needs the transformer scorer (--temporal-model transformer)"
+    if npp > 1:
+        if cfg.model.temporal_model != "transformer":
+            return "--pp needs the transformer scorer (--temporal-model transformer)"
+        if args.cp:
+            return ("--pp and --cp are mutually exclusive (pipeline stages and context shards lay the mesh out "
+                    "differently)")
+        if cfg.model.temporal_num_layers % npp:
+            return (f"--pp {npp} must divide temporal_num_layers ({cfg.model.temporal_num_layers}) — one stage "
+                    "per device needs an even split of blocks")
+        if world < npp:
+            return f"--pp {npp} needs {npp} devices, have {world}"
     if not args.cp:
         return None
-    if cfg.model.temporal_model != "transformer":
-        return "--cp needs the transformer scorer (--temporal-model transformer)"
     if ntp > 1:
         if world % (ndp * ntp):
             return f"--dp-timelines {ndp} × --tp {ntp} does not divide the {world}-device mesh"
@@ -816,6 +815,21 @@ def _spot_train_refusal(args, cfg, world: int) -> str | None:
     elif ndp > 1 and world % ndp:
         return f"--dp-timelines {ndp} does not divide the {world}-device mesh"
     return None
+
+
+PP_UNEQUAL = ("--pp requires equal-length timelines (the GPipe path does not mask pad rows out of attention) — "
+              "use --cp for variable lengths")
+
+
+def _unequal_timelines(fps, skip: int) -> bool:
+    """Whether the labelled videos of ``fps`` give timelines of more than one length, from the exact frame
+    counts of ``.npz`` headers (``data.dataset.condensed_length``: no decode); a video container, whose count
+    is an estimate, is left to the check after encoding."""
+    from cvml_goalnet_tpu_torch.data.dataset import condensed_length
+
+    lengths = {condensed_length(fp, skip) for fp in fps if os.path.exists(fp.rsplit(".", 1)[0] + ".events.json")}
+    lengths.discard(None)
+    return len(lengths) > 1
 
 
 def _cp_layout_line(ndp: int, ntp: int, world: int) -> str:
@@ -841,7 +855,9 @@ def cmd_spot_train(args) -> int:
     ``--cp`` (with ``--dp-timelines N`` and ``--tp N``) trains the
     transformer on one spawned rank per card (``train/cp_loop.py``): every
     visible card, as the JAX CLI takes every device; on the CPU the
-    config's ``mesh.data`` gloo ranks.
+    config's ``mesh.data`` gloo ranks.  ``--pp N`` trains it pipeline
+    parallel on the first N of them (``parallel/pp.py``, one stage a rank),
+    one batch of every (equal-length) timeline a step.
     """
     import torch
 
@@ -859,7 +875,8 @@ def cmd_spot_train(args) -> int:
     )
 
     cfg = _apply_temporal_overrides(_load_cfg(args), args)
-    mesh = cp_world(_device(), cfg.mesh.data) if args.cp else None
+    npp = max(1, args.pp or 1)
+    mesh = cp_world(_device(), cfg.mesh.data) if args.cp or npp > 1 else None
     if _refused(_spot_train_refusal(args, cfg, len(mesh) if mesh else 1)):
         return 2
     data = _resolve_data(args)
@@ -876,6 +893,9 @@ def cmd_spot_train(args) -> int:
             # a val video without labels validates nothing; skipping it would select on less than was asked
             print(f"E: val video {fp}: no .events.json sidecar", file=sys.stderr)
             return 2
+    if npp > 1 and _unequal_timelines(train_fps, cfg.preprocess.skip_frames):
+        _refused(PP_UNEQUAL)
+        return 2
     device = _device()
     store = (AnnotationStore(data["mat_fp"], data["h5_fp"])
              if os.path.exists(data["mat_fp"]) and os.path.exists(data["h5_fp"]) else None)
@@ -908,15 +928,25 @@ def cmd_spot_train(args) -> int:
     mc = cfg.model
     opt_kw = _spot_opt_kwargs(cfg.train)
     out_fp = args.out or os.path.join(args.workdir, "models", "spotting_head.npz")
-    if args.cp:
+    if args.cp or npp > 1:
         # context parallel: every timeline over every rank, its attention a ring (a halo hop each side when
-        # banded); --dp-timelines batches timelines over a data axis, --tp splits heads over a model axis
+        # banded); --dp-timelines batches timelines over a data axis, --tp splits heads over a model axis.
+        # Pipeline parallel: the blocks in --pp stages over the first --pp ranks, one batch of every timeline
         from cvml_goalnet_tpu_torch.train.cp_loop import train_spotting_cp
 
-        ndp, ntp = max(1, args.dp_timelines or 1), max(1, args.tp or 1)
-        print(_cp_layout_line(ndp, ntp, len(mesh)))
-        train_spotting_cp(cfg, pairs, val_pairs, tparams, mesh, ndp=ndp, ntp=ntp, lr=args.lr,
-                          pos_weight=args.pos_weight, epochs=args.epochs, out=out_fp, classes=classes,
+        ndp, ntp, n_micro = max(1, args.dp_timelines or 1), max(1, args.tp or 1), 0
+        if npp > 1:
+            if len({int(f.shape[0]) for _, f, _ in pairs}) > 1:   # a container that miscounted its frames
+                _refused(PP_UNEQUAL)
+                return 2
+            b = len(pairs)
+            n_micro = max(k for k in range(1, min(b, npp) + 1) if b % k == 0)
+            mesh = mesh[:npp]
+            print(f"pipeline-parallel: {npp} stages x {n_micro} microbatches")
+        else:
+            print(_cp_layout_line(ndp, ntp, len(mesh)))
+        train_spotting_cp(cfg, pairs, val_pairs, tparams, mesh, ndp=ndp, ntp=ntp, npp=npp, n_micro=n_micro,
+                          lr=args.lr, pos_weight=args.pos_weight, epochs=args.epochs, out=out_fp, classes=classes,
                           early_stop=args.early_stop, peak_window=args.peak_window,
                           peak_threshold=args.peak_threshold, opt_kw=opt_kw)
         print(f"Saved temporal head: {out_fp}")
@@ -1267,7 +1297,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --cp: split attention heads and the MLP N-way over a 'model' mesh axis (N must "
                         "divide the head count (--heads) and, with --dp-timelines, the device count)")
     p.add_argument("--pp", type=int, default=1, metavar="N",
-                   help="pipeline-parallel training over N devices (not ported: ROADMAP §1 item 6.4)")
+                   help="pipeline-parallel training (GPipe): the transformer's blocks one stage a device over the "
+                        "first N devices; N must divide temporal_num_layers; needs equal-length timelines")
     p.add_argument("--heads", type=int, default=None,
                    help="override temporal_num_heads for the transformer scorer")
     p.add_argument("--classes", default=None,

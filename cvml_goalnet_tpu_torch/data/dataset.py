@@ -85,6 +85,21 @@ def _load_frames(path: str, skip_frames: int) -> tuple[np.ndarray, int]:
     return decode_condensed_frames(path, skip_frames)
 
 
+def condensed_length(path: str, skip_frames: int) -> int | None:
+    """The length of a video's condensed timeline (``ceil(raw frames / skip_frames)``, what ``_load_frames``
+    keeps) where the file states its frame count exactly, without decoding: the ``frames`` array's header in
+    an ``.npz``.  None for a video container, whose reported count (``CAP_PROP_FRAME_COUNT``) is an estimate
+    from its metadata that the decoded frames need not match."""
+    if not path.endswith(".npz"):
+        return None
+    import zipfile
+
+    with zipfile.ZipFile(path) as z, z.open("frames.npy") as f:
+        fmt = np.lib.format
+        read = fmt.read_array_header_1_0 if fmt.read_magic(f) == (1, 0) else fmt.read_array_header_2_0
+        return -(-int(read(f)[0][0]) // skip_frames)
+
+
 def _load_titles(info_fp: str | None, video_ids: list[str]) -> dict[str, str]:
     """Title lookup from the info TSV (reference ``utils.py:55-66``)."""
     titles = {vid: vid for vid in video_ids}

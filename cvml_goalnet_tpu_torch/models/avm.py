@@ -23,7 +23,9 @@ of experts (``models/moe.py``).
   (``valid`` keeps padded rows out of them), the text encoder, linear (or
   MoE) → ReLU → dropout per hidden fusion layer, all plain differentiable
   ops, and the new batchnorm state; ``return_moe_probs`` adds the gate's
-  combine weights for the load-balance loss.  Where JAX splits its key into
+  combine weights for the load-balance loss.  With ``tp`` (a model axis) the
+  fusion MLP runs tensor parallel in Megatron's layout
+  (:func:`fusion_train_apply`).  Where JAX splits its key into
   one key for the visual branch and one per hidden fusion layer, the
   dropouts here draw from one generator in that order.
 """
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from cvml_goalnet_tpu_torch.config import ModelConfig
+from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models import layers as L
 from cvml_goalnet_tpu_torch.models.audio import audio_encoder_apply
 from cvml_goalnet_tpu_torch.models.moe import moe_apply, moe_gate_probs
@@ -117,14 +120,16 @@ def avm_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = 
 
 def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, text=None, *,
                     cfg: ModelConfig, generator: torch.Generator | None = None, classifier: bool = False,
-                    valid: torch.Tensor | None = None, return_moe_probs: bool = False, bn_group=None):
+                    valid: torch.Tensor | None = None, return_moe_probs: bool = False, bn_group=None, tp=None):
     """Train-mode forward → ``((N, 1) scores or (N, 5) logits, new_state)``, and the MoE gate's (N, E)
     combine weights third with ``return_moe_probs`` (which needs ``fusion_moe_experts > 0``).
 
     ``valid`` (N,) marks the real rows of a zero-padded batch (the batchnorm
     statistics count only those).  With ``bn_group`` (a ``torch.distributed``
     group, the data-parallel step's) the batchnorm statistics are those of the
-    global batch, every rank's rows together.  The dropouts draw from ``generator``: the
+    global batch, every rank's rows together.  With ``tp`` (the rank's ``parallel.mesh.Axis`` of the model
+    axis) ``params["fusion"]`` is the rank's slice of the fusion layout and the MLP runs tensor parallel
+    (:func:`fusion_train_apply`).  The dropouts draw from ``generator``: the
     visual head's first, then each hidden fusion layer's.  Without a
     generator and with ``dropout_rate > 0`` it raises, as the JAX function
     does without a key: a fixed mask would train a fixed sparse subnetwork.
@@ -135,15 +140,7 @@ def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | N
     feats, vis_state = train_apply(params["visual"], state["visual"], visual, generator=generator,
                                    dropout_rate=cfg.dropout_rate, mask=valid, bn_group=bn_group)
     x = _fused_input(params, feats, audio, text, cfg)
-    n_hidden = len(cfg.fusion_hidden)
-    moe_probs = None
-    for i, lp in enumerate(params["fusion"]):
-        if i == 0 and cfg.fusion_moe_experts > 0:
-            x, moe_probs = _moe_layer(lp, x, cfg)
-        else:
-            x = L.linear_apply(lp, x)
-        if i < n_hidden:
-            x = L.dropout(torch.relu(x), cfg.dropout_rate, True, generator)
+    x, moe_probs = fusion_train_apply(params["fusion"] if tp is None else [params["fusion"]], x, cfg, generator, tp)
     out = x if classifier else (cfg.out_hi - cfg.out_lo) * torch.sigmoid(x) + cfg.out_lo
     new_state = {**state, "visual": vis_state}
     if return_moe_probs:
@@ -151,3 +148,65 @@ def avm_train_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | N
             raise ValueError("return_moe_probs requires fusion_moe_experts > 0")
         return out, new_state, moe_probs
     return out, new_state
+
+
+def fusion_train_apply(layers, x: torch.Tensor, cfg: ModelConfig, generator: torch.Generator | None = None,
+                       tp=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The train forward of the fusion MLP: linear (or MoE) → ReLU → dropout per hidden layer, then the last
+    layer → (its output before the squash, the MoE gate's combine weights or None).
+
+    With ``tp`` (a lock-step view of a model axis: a rank's ``parallel.mesh.Axis``, or ``VirtualAxis``
+    for every rank in one process) ``layers`` is a list of the held ranks' slices of the fusion layout
+    (``parallel/sharding.py::fusion_param_shardings``) and the MLP runs Megatron's way: a column-parallel
+    layer reads its input through the axis's copy, a row-parallel one sums its partial products over the
+    axis and then adds its bias once, a whole layer (the last, an MoE layer) gathers a split input first and
+    a row-parallel one takes its slice of a whole input.  Each dropout draws the whole layer's mask from
+    ``generator`` and a split layer keeps its slice of it, so the result is the unsplit MLP's at the same
+    generator state.
+    """
+    n_hidden = len(cfg.fusion_hidden)
+    rate = cfg.dropout_rate
+    if tp is None:
+        moe_probs = None
+        for i, lp in enumerate(layers):
+            if i == 0 and cfg.fusion_moe_experts > 0:
+                x, moe_probs = _moe_layer(lp, x, cfg)
+            else:
+                x = L.linear_apply(lp, x)
+            if i < n_hidden:
+                x = L.dropout(torch.relu(x), rate, True, generator)
+        return x, moe_probs
+
+    from cvml_goalnet_tpu_torch.parallel.sharding import fusion_layer_split
+
+    n_layers = len(layers[0])
+    xs, split, moe_probs = [x] * len(tp.lanes), False, None
+    for i in range(n_layers):
+        lps = [held[i] for held in layers]
+        how = fusion_layer_split(i, n_layers, lps[0])
+        if how == "whole":
+            if split:
+                xs = tp.gather(xs)
+            if "experts" in lps[0]:
+                outs = [_moe_layer(lp, h, cfg) for lp, h in zip(lps, xs)]
+                xs, moe_probs = [o for o, _ in outs], outs[0][1]
+            else:
+                xs = [L.linear_apply(lp, h) for lp, h in zip(lps, xs)]
+        elif how == "cols":   # after a row-parallel or whole layer: its input is whole
+            xs = [L.linear_apply(lp, h) for lp, h in zip(lps, tp.copy(xs))]
+        else:
+            if not split:
+                xs = tp.scatter(xs)
+            with strict_f32():
+                parts = [torch.matmul(h, lp["w"]) for lp, h in zip(lps, xs)]
+            xs = [h + lp["b"] for lp, h in zip(lps, tp.reduce(parts))]
+        split = how == "cols"
+        if i < n_hidden:
+            xs = [torch.relu(h) for h in xs]
+            if rate > 0:
+                width = xs[0].shape[1] * (tp.size if split else 1)
+                kept = L.dropout_keep((xs[0].shape[0], width), rate, generator, xs[0].device, xs[0].dtype)
+                w = xs[0].shape[1]
+                xs = [L.apply_keep(h, kept[:, j * w:(j + 1) * w] if split else kept, rate)
+                      for j, h in zip(tp.lanes, xs)]
+    return xs[0], moe_probs

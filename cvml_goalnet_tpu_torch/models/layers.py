@@ -246,12 +246,20 @@ def batchnorm_apply(params, state, x: torch.Tensor, train: bool, momentum: float
     return y, new_state
 
 
+def dropout_keep(shape, rate: float, generator: torch.Generator | None, device, dtype) -> torch.Tensor:
+    """The keep mask of an inverted dropout of ``shape``: a uniform draw from ``generator`` below ``1 − rate``."""
+    return torch.rand(shape, generator=generator, device=device, dtype=dtype) < 1.0 - rate
+
+
+def apply_keep(x: torch.Tensor, kept: torch.Tensor, rate: float) -> torch.Tensor:
+    """``x`` scaled by ``1/(1 − rate)`` where ``kept``, 0 elsewhere."""
+    return torch.where(kept, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool, generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability ``1 − rate`` (a uniform draw from ``generator``, a
     generator on ``x``'s device) and scale the kept ones by ``1/keep``; ``x`` itself when not training or
     ``rate <= 0``."""
     if not train or rate <= 0.0:
         return x
-    keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep
-    return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return apply_keep(x, dropout_keep(x.shape, rate, generator, x.device, x.dtype), rate)

@@ -26,6 +26,8 @@ true length, clamped to at least 1.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -50,11 +52,13 @@ def rope_rotate(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0)
 
 
 def _attend(layer, x: torch.Tensor, num_heads: int, window: int = 0, rope_pos=None) -> torch.Tensor:
-    t, d = x.shape
-    hd = d // num_heads
+    """Self-attention of a (T, D) timeline, or of each timeline of a (B, T, D) batch (its timelines' heads side
+    by side in one kernel call)."""
+    *lead, t, d = x.shape
+    b, hd = math.prod(lead), d // num_heads   # explicit sizes: a timeline may have no frames
 
-    def split(h):  # (T, D) → (H, T, hd)
-        return h.reshape(t, num_heads, hd).permute(1, 0, 2).contiguous()
+    def split(h):  # (..., T, D) → (B·H, T, hd)
+        return h.reshape(b, t, num_heads, hd).transpose(1, 2).reshape(b * num_heads, t, hd).contiguous()
 
     q = split(L.linear_apply(layer["wq"], x))
     k = split(L.linear_apply(layer["wk"], x))
@@ -63,7 +67,20 @@ def _attend(layer, x: torch.Tensor, num_heads: int, window: int = 0, rope_pos=No
         q = rope_rotate(q, rope_pos)
         k = rope_rotate(k, rope_pos)
     attn = flash_attention_local(q, k, v, window) if window > 0 else flash_attention(q, k, v)
-    return L.linear_apply(layer["wo"], attn.permute(1, 0, 2).reshape(t, d))
+    attn = attn.reshape(b, num_heads, t, hd).transpose(1, 2).reshape(*lead, t, d)
+    return L.linear_apply(layer["wo"], attn)
+
+
+def _block_apply(layer, x: torch.Tensor, num_heads: int, window: int = 0, rope_pos=None) -> torch.Tensor:
+    """One pre-LN block on a (T, D) timeline or a (B, T, D) batch of them: attention, then the GELU MLP."""
+    h = L.layernorm_apply(layer["ln1"], x)
+    x = x + _attend(layer, h, num_heads, window, rope_pos)
+    h = L.layernorm_apply(layer["ln2"], x)
+    return x + L.linear_apply(layer["mlp_out"], _mlp_gelu(L.linear_apply(layer["mlp_in"], h)))
+
+
+def _mlp_gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
 
 
 def temporal_transformer_apply(params, features: torch.Tensor, num_heads: int = 1, window: int = 0,
@@ -84,10 +101,7 @@ def temporal_transformer_apply(params, features: torch.Tensor, num_heads: int = 
     else:
         rope_pos = pos
     for layer in params["layers"]:
-        h = L.layernorm_apply(layer["ln1"], x)
-        x = x + _attend(layer, h, num_heads, window, rope_pos)
-        h = L.layernorm_apply(layer["ln2"], x)
-        x = x + L.linear_apply(layer["mlp_out"], F.gelu(L.linear_apply(layer["mlp_in"], h), approximate="tanh"))
+        x = _block_apply(layer, x, num_heads, window, rope_pos)
     out = L.linear_apply(params["head"], x)
     return out[:, 0] if out.shape[-1] == 1 else out
 
@@ -108,10 +122,6 @@ def _cp_attention(q, k, v, ctx, window: int, t: int):
     from cvml_goalnet_tpu_torch.parallel.ring_attention import ring_attention_local
 
     return halo_attention_local(q, k, v, ctx, window, t) if window > 0 else ring_attention_local(q, k, v, ctx, t)
-
-
-def _mlp_gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
 
 
 def _cp_local_body(params, feats_l: torch.Tensor, *, ctx, num_heads: int, t: int, window: int, n_out: int):
@@ -144,39 +154,35 @@ def _tp_cp_local_body(params, feats_l: torch.Tensor, *, model, ctx, num_heads: i
                       n_out: int):
     """One rank's shard of the tensor × context parallel transformer: its H/n_model heads of its T/n_ctx frames.
 
-    wq, wk, wv and mlp_in are sliced by output columns, wo and mlp_out by input rows, at this rank's model
-    index; the block's input enters through ``copy_to_axis`` (its gradient summed over the model axis) and
+    The rank's slice of each block is ``parallel/sharding.py::transformer_param_shardings`` at its model index
+    (wq, wk, wv and mlp_in by output columns, wo and mlp_out by input rows); the block's input enters through ``copy_to_axis`` (its gradient summed over the model axis) and
     the two row-split products leave through ``reduce_from_axis``: Megatron's two all-reduces a layer.  The
     layer norms, ``proj_in``, the positions, the biases of wo and mlp_out and the head run replicated."""
     from cvml_goalnet_tpu_torch.parallel.collectives import copy_to_axis, reduce_from_axis
+    from cvml_goalnet_tpu_torch.parallel.sharding import model_shard, transformer_param_shardings
 
-    tl, me_m, nm = feats_l.shape[0], model.index, model.size
+    tl = feats_l.shape[0]
     x, rope_pos = _positions(params, L.linear_apply(params["proj_in"], feats_l), ctx.index, tl)
     d = x.shape[-1]
     hd = d // num_heads
-    h_loc, d_loc = num_heads // nm, d // nm
+    h_loc, d_loc = num_heads // model.size, d // model.size
+    mine = model_shard(params, transformer_param_shardings(params), model.index, model.size)
 
-    def cols(lin, width, y):   # y @ this rank's output columns of lin
-        sl = slice(me_m * width, (me_m + 1) * width)
+    def rows(w, y):     # y @ this rank's input rows of w: a partial sum of the whole product
         with strict_f32():
-            return torch.matmul(y, lin["w"][:, sl]) + lin["b"][sl]
+            return torch.matmul(y, w)
 
-    def rows(w, width, y):     # y @ this rank's input rows of w
-        with strict_f32():
-            return torch.matmul(y, w[me_m * width:(me_m + 1) * width])
-
-    for layer in params["layers"]:
+    for layer in mine["layers"]:
         h = copy_to_axis(L.layernorm_apply(layer["ln1"], x), model)
-        q, k, v = (cols(layer[n], d_loc, h).reshape(tl, h_loc, hd).permute(1, 0, 2).contiguous()
+        q, k, v = (L.linear_apply(layer[n], h).reshape(tl, h_loc, hd).permute(1, 0, 2).contiguous()
                    for n in ("wq", "wk", "wv"))
         if rope_pos is not None:
             q, k = rope_rotate(q, rope_pos), rope_rotate(k, rope_pos)
         attn = _cp_attention(q, k, v, ctx, window, t)
-        part = rows(layer["wo"]["w"], d_loc, attn.permute(1, 0, 2).reshape(tl, d_loc))
+        part = rows(layer["wo"]["w"], attn.permute(1, 0, 2).reshape(tl, d_loc))
         x = x + reduce_from_axis(part, model) + layer["wo"]["b"]
         h = copy_to_axis(L.layernorm_apply(layer["ln2"], x), model)
-        m_loc = layer["mlp_in"]["w"].shape[1] // nm
-        part = rows(layer["mlp_out"]["w"], m_loc, _mlp_gelu(cols(layer["mlp_in"], m_loc, h)))
+        part = rows(layer["mlp_out"]["w"], _mlp_gelu(L.linear_apply(layer["mlp_in"], h)))
         x = x + reduce_from_axis(part, model) + layer["mlp_out"]["b"]
     out = L.linear_apply(params["head"], x)
     return out[:, 0] if n_out == 1 else out

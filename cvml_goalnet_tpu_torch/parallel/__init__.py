@@ -1,13 +1,44 @@
-"""Data and context parallelism over the cards of one machine.
+"""Data, tensor, context, pipeline and expert parallelism over the cards of one machine.
 
-Port of what ``serve --dp``, ``train --dp`` and ``spot-train --cp`` need of
-``cvml_goalnet_tpu/parallel/``: device meshes as device lists and the
-(data, model, ctx) rank grid of the context-parallel steps (``mesh.py``),
-the data-parallel eval fuse and trunk encode (``serving.py``), one spawned
-rank per device in one process group (``launch.py``), the collectives
-(``collectives.py``: sums over a group, the ring shift, Megatron's pair),
-the two data-parallel train steps (``dp.py``), and ring and halo attention
-(``ring_attention.py``, ``halo_attention.py``).  Pipeline, expert and the
-fusion MLP's tensor parallelism are not ported yet (ROADMAP.md §1 items
-6.4–6.6).
+Port of ``cvml_goalnet_tpu/parallel/``: device meshes as device lists and the
+rank grids of the parallel steps (``mesh.py``), the layouts of the fusion MLP
+and the transformer over a model axis (``sharding.py``), the data-parallel
+eval fuse and trunk encode (``serving.py``), one spawned rank per device in
+one process group (``launch.py``), the collectives (``collectives.py``: sums
+over a group, the ring shift, Megatron's pairs, the lock-step axis views),
+the data-parallel train steps with the fusion MLP optionally tensor parallel
+(``dp.py``), ring and halo attention (``ring_attention.py``,
+``halo_attention.py``), the GPipe pipeline of the temporal transformer
+(``pp.py``) and expert-parallel MoE (``ep.py``).  ``multihost.py`` and
+``multislice.py`` are not ported yet (ROADMAP.md §1).
+
+The names of the JAX package's ``__all__`` that the port has are exported
+here, imported at first use (the submodules import one another's packages).
 """
+
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "build_mesh": "mesh",
+    "mesh_axis_sizes": "mesh",
+    "batch_sharding": "sharding",
+    "fusion_param_shardings": "sharding",
+    "replicated": "sharding",
+    "shard_batch": "sharding",
+    "pmean": "collectives",
+    "psum": "collectives",
+    "make_dp_train_step": "dp",
+    "moe_apply_expert_parallel": "ep",
+    "make_pp_spotting_train_step": "pp",
+    "pipeline_transformer_apply": "pp",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)

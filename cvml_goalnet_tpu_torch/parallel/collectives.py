@@ -20,6 +20,12 @@ The context-parallel paths add what ``shard_map`` gives the JAX package:
   of a row-split output; identity backward).
 * :func:`all_gather_cat`, the shards of an axis concatenated in axis order
   (no autograd: scoring only).
+
+The tensor-, pipeline- and expert-parallel paths add the other half of
+Megatron's set, :func:`gather_from_axis` (all-gather forward, this rank's
+slice of the gradient backward) and :func:`scatter_to_axis` (this rank's
+slice forward, all-gather backward).  A rank's ``parallel.mesh.Axis`` runs
+its lock-step combines on these.
 """
 
 from __future__ import annotations
@@ -149,6 +155,41 @@ def reduce_from_axis(x: torch.Tensor, axis) -> torch.Tensor:
     return x if axis.size == 1 else _ReduceFromAxis.apply(x, axis.group)
 
 
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.width = axis, dim, x.shape[dim]
+        return all_gather_cat(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.axis.index * ctx.width, ctx.width), None, None
+
+
+class _ScatterToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        width = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad, ctx.axis, ctx.dim), None, None
+
+
+def gather_from_axis(x: torch.Tensor, axis, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` on ``axis`` concatenated along ``dim`` in axis order; the gradient of this rank's ``x`` is
+    its slice of the output's (every rank reads the same gathered tensor)."""
+    return x if axis.size == 1 else _GatherFromAxis.apply(x, axis, dim % x.dim())
+
+
+def scatter_to_axis(x: torch.Tensor, axis, dim: int = -1) -> torch.Tensor:
+    """This rank's slice (``axis.index`` of ``axis.size`` equal ones) of a replicated ``x`` along ``dim``; the
+    gradient of ``x`` is every rank's slice gradient gathered."""
+    return x if axis.size == 1 else _ScatterToAxis.apply(x, axis, dim % x.dim())
+
+
 def all_gather_cat(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` (one shape) on ``axis``, concatenated along ``dim`` in axis order; no autograd."""
     if axis.size == 1:
@@ -157,4 +198,3 @@ def all_gather_cat(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x, group=axis.group)
     return torch.cat(parts, dim=dim)
-

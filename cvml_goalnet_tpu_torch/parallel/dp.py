@@ -18,10 +18,20 @@ parameters stay identical.
   batchnorm on each rank's own rows, and the mean over ranks of the
   gradients, the loss and the new batchnorm state.
 
-Each rank draws its own dropout masks from its own generator (JAX's GSPMD
-step draws one mask for the global batch; the distribution is the same).
-Tensor parallelism (``tensor_parallel=True``, ``mesh.model > 1``) is not
-ported: ROADMAP.md §1 item 6.6.
+Each data rank draws its own dropout masks from its own generator (JAX's
+GSPMD step draws one mask for the global batch; the distribution is the
+same); the ranks of one data index share theirs.
+
+On a ``(data, model)`` grid the batch splits over the data axis only.
+Without ``tensor_parallel`` the model axis holds replicas (JAX's GSPMD step
+on a mesh with ``model > 1`` and replicated parameters).  With it
+(:func:`make_dp_train_step` with ``model``) each rank holds its slice of the
+fusion MLP's Megatron layout (``parallel/sharding.py``) and the fusion runs
+tensor parallel (``models/avm.py::fusion_train_apply``): a split leaf's
+gradient is the rank's own and is summed over the data axis, a whole leaf's
+is the same on every model rank and is summed over the data axis alone, and
+clipping takes the global norm of the whole tree (the split leaves' squares
+summed over the model axis once).
 """
 
 from __future__ import annotations
@@ -34,10 +44,11 @@ from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models.avm import avm_train_apply
 from cvml_goalnet_tpu_torch.parallel.collectives import pmean, psum, tree_psum
-from cvml_goalnet_tpu_torch.parallel.mesh import TP_NOT_PORTED
+from cvml_goalnet_tpu_torch.parallel.sharding import fusion_param_shardings, partition_leaves
 from cvml_goalnet_tpu_torch.train.optim import (
     adam_update,
     clip_by_global_norm,
+    global_norm,
     schedule_from_config,
     tree_leaves,
     tree_map,
@@ -46,13 +57,9 @@ from cvml_goalnet_tpu_torch.train.optim import (
 
 
 def rank_generator(seed: int, rank: int, device) -> torch.Generator:
-    """The dropout generator of ``rank``: seeded from (seed, rank), so ranks draw independent masks."""
+    """The dropout generator of data index ``rank``: seeded from (seed, rank), so data ranks draw independent
+    masks and the model ranks of one data index the same ones."""
     return torch.Generator(device=device).manual_seed(int(np.random.SeedSequence([seed, rank]).generate_state(1)[0]))
-
-
-def _check(cfg: PipelineConfig, tensor_parallel: bool = False) -> None:
-    if tensor_parallel or cfg.mesh.model > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
 
 
 def _check_text(cfg: PipelineConfig, text) -> None:
@@ -64,12 +71,13 @@ def _check_text(cfg: PipelineConfig, text) -> None:
         )
 
 
-def _loss_and_grads(params, model_state, visual, audio, labels, generator, text, cfg, bn_group, denominator):
+def _loss_and_grads(params, model_state, visual, audio, labels, generator, text, cfg, bn_group, denominator,
+                    tp=None):
     """This rank's ``Σ (pred − label)² / denominator``, its new batchnorm state and its gradients."""
     with torch.enable_grad(), strict_f32():   # TF32 off in the backward's convolutions and products too
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         preds, new_ms = avm_train_apply(tree_unflatten(params, leaves), model_state, visual, audio, text,
-                                        cfg=cfg.model, generator=generator, bn_group=bn_group)
+                                        cfg=cfg.model, generator=generator, bn_group=bn_group, tp=tp)
         d = preds[:, 0] - labels
         loss = torch.sum(d * d) / denominator
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -77,13 +85,14 @@ def _loss_and_grads(params, model_state, visual, audio, labels, generator, text,
     return loss.detach(), tree_map(torch.Tensor.detach, new_ms), tree_unflatten(params, grads)
 
 
-def _with_update(cfg: PipelineConfig, loss_and_grads):
+def _with_update(cfg: PipelineConfig, loss_and_grads, norm_of=None):
     tc = cfg.train
     lr_fn = schedule_from_config(tc)
 
     def step(params, model_state, opt_state, visual, audio, labels, generator=None, text=None):
         loss, new_ms, grads = loss_and_grads(params, model_state, visual, audio, labels, generator, text)
-        new_params, new_opt = adam_update(clip_by_global_norm(grads, tc.grad_clip_norm), opt_state, params,
+        norm = norm_of(grads) if norm_of is not None and tc.grad_clip_norm > 0 else None
+        new_params, new_opt = adam_update(clip_by_global_norm(grads, tc.grad_clip_norm, norm), opt_state, params,
                                           lr_fn(opt_state.step), tc.b1, tc.b2, tc.eps, tc.weight_decay)
         return new_params, new_ms, new_opt, loss
 
@@ -91,28 +100,42 @@ def _with_update(cfg: PipelineConfig, loss_and_grads):
     return step
 
 
-def make_dp_train_step(cfg: PipelineConfig, group=None, tensor_parallel: bool = False):
+def _split_norm(model):
+    """The global norm of a tree of which this rank holds its slice of the fusion layout over ``model``."""
+    def norm_of(grads):
+        whole, split = partition_leaves(grads, fusion_param_shardings(grads))
+        sq_split = global_norm(split) ** 2 if split else torch.zeros((), device=whole[0].device)
+        return torch.sqrt(global_norm(whole) ** 2 + psum(sq_split, model.group))
+
+    return norm_of
+
+
+def make_dp_train_step(cfg: PipelineConfig, group=None, tensor_parallel: bool = False, model=None):
     """The GSPMD step → ``step(params, model_state, opt_state, visual, audio, labels, generator=None,
     text=None) -> (params, model_state, opt_state, loss)`` on this rank's block of the global batch (every
     rank's block the same size), the loss the global batch's.  ``step.loss_and_grads`` gives the global loss,
-    the new state and the reduced gradients alone.  ``group`` is the data group (None: the world)."""
-    _check(cfg, tensor_parallel)
+    the new state and the reduced gradients alone.  ``group`` is the data group (None: the world).
+
+    ``tensor_parallel`` needs ``model``, the rank's model axis (a ``parallel.mesh.Axis``): ``params`` and the
+    optimiser state are then the rank's slice of the fusion layout (``parallel.sharding.place_params``)."""
+    if tensor_parallel and model is None:
+        raise ValueError("tensor_parallel=True needs the rank's model axis (model=parallel.mesh.Axis)")
+    tp = model if tensor_parallel else None
 
     def loss_and_grads(params, model_state, visual, audio, labels, generator=None, text=None):
         _check_text(cfg, text)
         g = group if group is not None else dist.group.WORLD
         global_n = visual.shape[0] * dist.get_world_size(g)
         loss, new_ms, grads = _loss_and_grads(params, model_state, visual, audio, labels, generator, text, cfg,
-                                              g, global_n)
+                                              g, global_n, tp)
         return psum(loss, g), new_ms, tree_psum(grads, g)
 
-    return _with_update(cfg, loss_and_grads)
+    return _with_update(cfg, loss_and_grads, _split_norm(model) if tensor_parallel else None)
 
 
 def make_dp_train_step_shardmap(cfg: PipelineConfig, group=None):
     """The explicit-collectives step, with :func:`make_dp_train_step`'s signature: per-rank batchnorm
     statistics, then the mean over ranks of the gradients, the loss and the new batchnorm state."""
-    _check(cfg)
 
     def loss_and_grads(params, model_state, visual, audio, labels, generator=None, text=None):
         _check_text(cfg, text)

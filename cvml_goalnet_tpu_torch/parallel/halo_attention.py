@@ -11,10 +11,11 @@ timeline (the halos that wrap round at its two ends, and the padded tail) lie
 outside the ``[lo, hi)`` bounds of :func:`halo_bounds`, so the result is
 monolithic banded attention.
 
-The one form, :func:`halo_attention_with`, takes the halos' source as an
-argument: :func:`halo_attention_local` gives it the two shifts on a rank,
-:func:`halo_attention_shards` slices of the neighbouring shards of a list in
-one process (:func:`halo_extended`; the one-card check of ``chip_smoke.py``).
+The one form, :func:`halo_attention_lanes`, runs on a lock-step view of the
+axis: :func:`halo_attention_local` on a rank's ``parallel.mesh.Axis``, whose
+two shifts are collectives, :func:`halo_attention_shards` on a
+``parallel.mesh.VirtualAxis`` of every shard in one process (the one-card
+check of ``chip_smoke.py``), whose shifts rotate a list.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import flash_attention_local_bounded
-from cvml_goalnet_tpu_torch.parallel.collectives import ring_shift
+from cvml_goalnet_tpu_torch.parallel.mesh import VirtualAxis
 
 
 def check_window(window: int, tl: int) -> None:
@@ -48,44 +49,29 @@ def halo_attend(q, ext_k, ext_v, lo: int, hi: int, window: int) -> torch.Tensor:
     return flash_attention_local_bounded(q, ext_k, ext_v, lo, hi, window, q_offset=window)
 
 
-def halo_attention_with(q: torch.Tensor, kv: torch.Tensor, me: int, n: int, window: int, extend,
-                        t_valid: int | None = None) -> torch.Tensor:
-    """Shard ``me`` of ``n``: q (H, Tl, d) against ``kv`` = stack(k, v) (2, H, Tl, d) of its own shard, extended by
-    ``extend(kv)`` to the previous shard's last ``window`` frames ‖ its own ‖ the next one's first (2, H,
-    Tl + 2W, d) → (H, Tl, d), differentiable.  Raises ``ValueError`` when ``window`` exceeds the shard."""
-    tl, w = q.shape[1], window
+def halo_attention_lanes(qs: list, ks: list, vs: list, axis, window: int, t_valid: int | None = None) -> list:
+    """The shards ``axis`` holds (a lock-step view, ``parallel.mesh.Axis`` or ``VirtualAxis``): each q (H, Tl,
+    d) against its keys and values extended to the previous shard's last ``window`` frames ‖ its own ‖ the
+    next one's first (wrapping round at the two ends, outside the bounds) → (H, Tl, d) a lane held,
+    differentiable.  Raises ``ValueError`` when ``window`` exceeds the shard."""
+    tl, w = qs[0].shape[1], window
     check_window(w, tl)
+    kvs = [torch.stack(kv) for kv in zip(ks, vs)]
     if w > 0:
-        kv = extend(kv)
-    lo, hi = halo_bounds(me, n, tl, w, t_valid)
-    return halo_attend(q, kv[0], kv[1], lo, hi, w).to(q.dtype)
+        tails = axis.shift([kv[:, :, tl - w:] for kv in kvs], 1)
+        heads = axis.shift([kv[:, :, :w] for kv in kvs], -1)
+        kvs = [torch.cat(parts, dim=2) for parts in zip(tails, kvs, heads)]
+    return [halo_attend(q, kv[0], kv[1], *halo_bounds(me, axis.size, tl, w, t_valid), w).to(q.dtype)
+            for me, q, kv in zip(axis.lanes, qs, kvs)]
 
 
 def halo_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis, window: int,
                          t_valid: int | None = None) -> torch.Tensor:
     """This rank's shard of banded attention over the timeline split along ``axis``: q, k, v (H, T/n, d) →
     (H, T/n, d), differentiable.  Raises ``ValueError`` when ``window`` exceeds the shard."""
-    tl, w = q.shape[1], window
-
-    def shifted(kv):   # the previous shard's tail, its own, the next shard's head
-        return torch.cat([ring_shift(kv[:, :, tl - w:], axis, 1), kv, ring_shift(kv[:, :, :w], axis, -1)], dim=2)
-
-    return halo_attention_with(q, torch.stack((k, v)), axis.index, axis.size, w, shifted, t_valid)
-
-
-def halo_extended(xs: list, me: int, window: int) -> torch.Tensor:
-    """Shard ``me``'s extended keys (or values) from a list of shards: the previous shard's last ``window``
-    frames, its own, the next shard's first ``window`` (wrapping round at the two ends, as on the ring)."""
-    n, tl, w = len(xs), xs[me].shape[1], window
-    if w == 0:
-        return xs[me]
-    return torch.cat([xs[(me - 1) % n][:, tl - w:], xs[me], xs[(me + 1) % n][:, :w]], dim=1)
+    return halo_attention_lanes([q], [k], [v], axis, window, t_valid)[0]
 
 
 def halo_attention_shards(qs: list, ks: list, vs: list, window: int, t_valid: int | None = None) -> list:
     """:func:`halo_attention_local` of every shard, in one process."""
-    def extended(me):
-        return lambda _: torch.stack((halo_extended(ks, me, window), halo_extended(vs, me, window)))
-
-    return [halo_attention_with(q, torch.stack((ks[me], vs[me])), me, len(qs), window, extended(me), t_valid)
-            for me, q in enumerate(qs)]
+    return halo_attention_lanes(qs, ks, vs, VirtualAxis(len(qs)), window, t_valid)

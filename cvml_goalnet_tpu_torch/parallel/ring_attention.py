@@ -11,13 +11,14 @@ result is monolithic attention.  A hop with no valid key (the ring's padded
 tail) reports lse 0; it merges as ``NEG_INF``, as JAX's does, so it weighs
 nothing and its gradient is 0.
 
-The ring's loop (:func:`ring_attention_hops`: :func:`hop_valid`,
-:func:`ring_hop`, :func:`merge`) takes the key/value source as an argument:
-:func:`ring_attention_local` gives it the shift on a rank,
-:func:`ring_attention_shards` indexing into a list of shards in one process
-(the one-card check of ``chip_smoke.py``), so both run the one loop.  Both
-devices run this one formulation; on the CPU the kernels' wrappers take their
-plain versions.
+The ring's loop (:func:`ring_attention_lanes`: :func:`hop_valid`,
+:func:`ring_hop`, :func:`merge`) runs on a lock-step view of the axis:
+:func:`ring_attention_local` on a rank's ``parallel.mesh.Axis``, whose shift
+is the collective, :func:`ring_attention_shards` on a
+``parallel.mesh.VirtualAxis`` of every shard in one process (the one-card
+check of ``chip_smoke.py``), whose shift rotates a list.  Both devices run
+this one formulation; on the CPU the kernels' wrappers take their plain
+versions.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from cvml_goalnet_tpu_torch.ops.cuda.flash_attention import flash_attention_with_lse
-from cvml_goalnet_tpu_torch.parallel.collectives import ring_shift
+from cvml_goalnet_tpu_torch.parallel.mesh import VirtualAxis
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -54,35 +55,31 @@ def merge(out, lse, out_i, lse_i) -> tuple[torch.Tensor, torch.Tensor]:
     return (out * w + out_i.to(torch.float32) * w_i) / tot, m + torch.log(tot)
 
 
-def ring_attention_hops(q: torch.Tensor, kv: torch.Tensor, me: int, n: int, next_kv,
-                        t_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ring's loop for shard ``me`` of ``n``: q (H, Tl, d) against ``kv`` = stack(k, v) (2, H, Tl, d) of its
-    own shard, then, at hop i ≥ 1, against ``next_kv(kv, i)``, the stacked keys and values of shard
-    ``(me − i) mod n`` given the previous hop's → (out float32 (H, Tl, d), merged lse (H, Tl, 1))."""
-    h, tl, d = q.shape
-    out = torch.zeros((h, tl, d), dtype=torch.float32, device=q.device)
-    lse = torch.full((h, tl, 1), NEG_INF, dtype=torch.float32, device=q.device)
+def ring_attention_lanes(qs: list, ks: list, vs: list, axis, t_valid: int | None = None) -> tuple[list, list]:
+    """The ring's loop over the shards ``axis`` holds (a lock-step view, ``parallel.mesh.Axis`` or
+    ``VirtualAxis``): shard ``me``'s q (H, Tl, d) meets its own keys and values, then at hop i those of shard
+    ``(me − i) mod n``, shifted one lane on at each hop, keys of global index ``>= t_valid`` masked → (outs
+    (H, Tl, d) in q's dtype, merged lses float32 (H, Tl, 1)), one a lane held; differentiable."""
+    n, (h, tl, d) = axis.size, qs[0].shape
+    kvs = [torch.stack(kv) for kv in zip(ks, vs)]
+    outs = [torch.zeros((h, tl, d), dtype=torch.float32, device=q.device) for q in qs]
+    lses = [torch.full((h, tl, 1), NEG_INF, dtype=torch.float32, device=q.device) for q in qs]
     for i in range(n):
         if i:
-            kv = next_kv(kv, i)
-        out_i, lse_i = ring_hop(q, kv[0], kv[1], hop_valid(t_valid, (me - i) % n, tl))
-        out, lse = merge(out, lse, out_i, lse_i)
-    return out, lse
+            kvs = axis.shift(kvs)
+        for j, (me, q, kv) in enumerate(zip(axis.lanes, qs, kvs)):
+            out_i, lse_i = ring_hop(q, kv[0], kv[1], hop_valid(t_valid, (me - i) % n, tl))
+            outs[j], lses[j] = merge(outs[j], lses[j], out_i, lse_i)
+    return [out.to(q.dtype) for out, q in zip(outs, qs)], lses
 
 
 def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis,
                          t_valid: int | None = None) -> torch.Tensor:
     """This rank's shard of full attention over the timeline split along ``axis`` (a ``parallel.mesh.Axis``):
     q, k, v (H, T/n, d), keys of global index ``>= t_valid`` masked → (H, T/n, d), differentiable."""
-    out, _ = ring_attention_hops(q, torch.stack((k, v)), axis.index, axis.size,
-                                 lambda kv, _: ring_shift(kv, axis, 1), t_valid)
-    return out.to(q.dtype)
+    return ring_attention_lanes([q], [k], [v], axis, t_valid)[0][0]
 
 
 def ring_attention_shards(qs: list, ks: list, vs: list, t_valid: int | None = None) -> tuple[list, list]:
-    """:func:`ring_attention_local` of every shard, in one process: shard ``me`` meets shard ``(me − i) mod n`` at
-    hop i, as on the ring → (outs, merged lses (H, Tl, 1))."""
-    n, kvs = len(qs), [torch.stack(kv) for kv in zip(ks, vs)]
-    hops = [ring_attention_hops(q, kvs[me], me, n, lambda _, i, me=me: kvs[(me - i) % n], t_valid)
-            for me, q in enumerate(qs)]
-    return [out.to(q.dtype) for (out, _), q in zip(hops, qs)], [lse for _, lse in hops]
+    """:func:`ring_attention_local` of every shard, in one process → (outs, merged lses (H, Tl, 1))."""
+    return ring_attention_lanes(qs, ks, vs, VirtualAxis(len(qs)), t_valid)

@@ -1,6 +1,6 @@
-"""Context-parallel training of the spotting head: the ranks of ``spot-train --cp``.
+"""Context- and pipeline-parallel training of the spotting head: the ranks of ``spot-train --cp`` and ``--pp``.
 
-Port of the ``--cp`` branch of ``cvml_goalnet_tpu/cli.py:943-1150``.  The
+Port of the ``--cp`` and ``--pp`` branches of ``cvml_goalnet_tpu/cli.py:943-1150``.  The
 lead has encoded each timeline once (kernels 1–3 on the card);
 :func:`train_spotting_cp` then spawns one rank per mesh entry, once for the
 whole run (``parallel/launch.py``: NCCL on the cards, gloo on the CPU), laid
@@ -11,9 +11,12 @@ axis alone, ``make_dp_cp_spotting_train_step`` with ``--dp-timelines N``,
 ``make_3d_spotting_train_step`` with ``--tp N``.  The batched layouts take
 groups of N timelines padded to their longest (labels −1 on the pad) and
 filled with all-pad dummy timelines (:func:`group_timelines`, JAX
-``:1054-1080``).  Rank 0 runs the per-epoch validation on its own device
-(val loss, val mAP, best head, early stop, which it hands to the others) and
-saves the head.
+``:1054-1080``).  With ``npp > 1`` the ranks are the ``pipe`` axis of a
+GPipe pipeline instead (``parallel/pp.py``): each holds its stage's layers and
+steps on one batch of every timeline; the stages are gathered back into the
+whole head, in layer order, for the validation and the save.  Rank 0 runs
+the per-epoch validation on its own device (val loss, val mAP, best head,
+early stop, which it hands to the others) and saves the head.
 """
 
 from __future__ import annotations
@@ -56,6 +59,10 @@ def _step_of(groups, layout: dict):
 
     kw = {"num_heads": layout["num_heads"], "lr": layout["lr"], "pos_weight": layout["pos_weight"],
           "window": layout["window"], **layout["opt_kw"]}
+    if layout["npp"] > 1:
+        from cvml_goalnet_tpu_torch.parallel.pp import make_pp_spotting_train_step
+
+        return make_pp_spotting_train_step(groups["pipe"], n_micro=layout["n_micro"], **kw)
     if groups.model.size > 1:
         return TS.make_3d_spotting_train_step(groups, **kw)
     if layout["batched"]:
@@ -63,10 +70,23 @@ def _step_of(groups, layout: dict):
     return TS.make_sharded_spotting_train_step(groups, **kw)
 
 
+def _layout_groups(layout: dict, world: int):
+    """This rank's axes → (the groups its step takes, its part of the whole head, the whole head from every
+    rank's part: a collective under PP, so every rank calls it)."""
+    from cvml_goalnet_tpu_torch.parallel.mesh import cp_groups, grid_groups
+    from cvml_goalnet_tpu_torch.parallel.pp import gather_stages, stage_params
+
+    if layout["npp"] > 1:
+        groups = grid_groups([("pipe", world)])
+        pipe = groups["pipe"]
+        return groups, (lambda p: stage_params(p, pipe.index, pipe.size)), (lambda p: gather_stages([p], pipe))
+    groups = cp_groups(layout["ndp"], layout["ntp"], world // (layout["ndp"] * layout["ntp"]))
+    return groups, (lambda p: p), (lambda p: p)
+
+
 def _cp_rank(rank: int, world: int, device, job: dict):
     """One rank's whole run → rank 0's per-epoch and per-step losses, best epoch and best val loss; None
     elsewhere."""
-    from cvml_goalnet_tpu_torch.parallel.mesh import cp_groups
     from cvml_goalnet_tpu_torch.train.spotting import (
         init_spotting_opt,
         save_spotting_checkpoint,
@@ -75,7 +95,7 @@ def _cp_rank(rank: int, world: int, device, job: dict):
     )
 
     cfg, layout = job["cfg"], job["layout"]
-    groups = cp_groups(layout["ndp"], layout["ntp"], world // (layout["ndp"] * layout["ntp"]))
+    groups, part, whole = _layout_groups(layout, world)
     step = _step_of(groups, layout)
 
     def on_device(x):
@@ -83,9 +103,10 @@ def _cp_rank(rank: int, world: int, device, job: dict):
 
     batches = [(on_device(f), on_device(lab)) for f, lab in job["batches"]]
     val_pairs = [(vid, on_device(f), on_device(lab)) for vid, f, lab in job["val"]] if rank == 0 else []
-    tparams = tree_map(on_device, job["tparams"])
+    start = tree_map(on_device, job["tparams"])
+    tparams = part(start)
     opt = init_spotting_opt(tparams)
-    best = {"val": float("inf"), "params": tparams, "epoch": -1}
+    best = {"val": float("inf"), "params": start, "epoch": -1}
     epoch_losses, step_losses = [], []
     for epoch in range(job["epochs"]):
         losses = []
@@ -95,14 +116,15 @@ def _cp_rank(rank: int, world: int, device, job: dict):
         step_losses.append(losses)
         epoch_losses.append(float(np.mean(losses)))
         stop = False
+        full = whole(tparams) if job["val"] else None
         if rank == 0:
             if job["val"]:
-                vloss = validation_loss(tparams, val_pairs, cfg, layout["pos_weight"])
-                vmap = validation_map(tparams, val_pairs, cfg, job["peak_window"], job["peak_threshold"])
+                vloss = validation_loss(full, val_pairs, cfg, layout["pos_weight"])
+                vmap = validation_map(full, val_pairs, cfg, job["peak_window"], job["peak_threshold"])
                 print(f"epoch {epoch}: loss {epoch_losses[-1]:.4f} val-loss {vloss:.4f} val-mAP {vmap:.4f}",
                       flush=True)
                 if vloss < best["val"]:
-                    best = {"val": vloss, "params": tparams, "epoch": epoch}
+                    best = {"val": vloss, "params": full, "epoch": epoch}
                 elif job["early_stop"] and epoch - best["epoch"] >= job["early_stop"]:
                     print(f"Early stop: no val-loss improvement in {job['early_stop']} epochs (best epoch "
                           f"{best['epoch']}).", flush=True)
@@ -115,28 +137,32 @@ def _cp_rank(rank: int, world: int, device, job: dict):
             stop = flag[0]
         if stop:
             break
+    final = whole(tparams)
     if rank != 0:
         return None
     if job["val"]:
-        tparams = best["params"]   # held-out selection: the best-val head, not the last
+        final = best["params"]   # held-out selection: the best-val head, not the last
         print(f"best val-loss {best['val']:.4f} at epoch {best['epoch']}", flush=True)
-    save_spotting_checkpoint(job["out"], tparams, classes=job["classes"])
+    save_spotting_checkpoint(job["out"], final, classes=job["classes"])
     return {"epoch_losses": epoch_losses, "step_losses": step_losses, "best_epoch": best["epoch"],
             "best_val": best["val"]}
 
 
 def train_spotting_cp(cfg, pairs, val_pairs, tparams, mesh, *, ndp: int, ntp: int, lr: float, pos_weight: float,
                       epochs: int, out: str, classes=None, early_stop: int = 0, peak_window: int = 5,
-                      peak_threshold: float = 0.0, opt_kw: dict | None = None) -> dict:
+                      peak_threshold: float = 0.0, opt_kw: dict | None = None, npp: int = 1,
+                      n_micro: int = 0) -> dict:
     """Train the transformer head context parallel over ``mesh`` (a device list, one rank each; ``ndp·ntp``
-    divides its length) from ``tparams``; rank 0 saves the head to ``out`` → rank 0's record (per-epoch and
-    per-step global losses, best epoch and val loss)."""
+    divides its length), or with ``npp > 1`` pipeline parallel over its ``npp`` entries in ``n_micro``
+    microbatches, from ``tparams``; rank 0 saves the head to ``out`` → rank 0's record (per-epoch and per-step
+    global losses, best epoch and val loss)."""
     mc = cfg.model
-    batched = ndp > 1 or ntp > 1
-    batches = (group_timelines(pairs, ndp) if batched
+    batched = ndp > 1 or ntp > 1 or npp > 1
+    batches = (group_timelines(pairs, len(pairs) if npp > 1 else ndp) if batched
                else [(_host(f), _host(lab)) for _, f, lab in pairs])
-    layout = {"ndp": ndp, "ntp": ntp, "batched": batched, "num_heads": mc.temporal_num_heads,
-              "window": mc.temporal_window, "lr": lr, "pos_weight": pos_weight, "opt_kw": opt_kw or {}}
+    layout = {"ndp": ndp, "ntp": ntp, "npp": npp, "n_micro": n_micro, "batched": batched,
+              "num_heads": mc.temporal_num_heads, "window": mc.temporal_window, "lr": lr, "pos_weight": pos_weight,
+              "opt_kw": opt_kw or {}}
     job = {"cfg": cfg, "layout": layout, "batches": batches, "tparams": tree_map(_host, tparams),
            "val": [(vid, _host(f), _host(lab)) for vid, f, lab in val_pairs], "epochs": epochs, "out": out,
            "classes": classes, "early_stop": early_stop, "peak_window": peak_window, "peak_threshold": peak_threshold}

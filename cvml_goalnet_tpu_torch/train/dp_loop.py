@@ -17,7 +17,11 @@ per-video sub-batches):
 
 One epoch is one pass over the pooled frames in global batches.  The ranks
 are processes of their own (``parallel/launch.py``): NCCL between cards,
-gloo on the CPU.
+gloo on the CPU.  A mesh of ``data × model`` entries lays them out as JAX's
+``(data, model)`` mesh (``parallel/mesh.py::grid_groups``): the batch splits
+over the data axis, and the model axis holds replicas, or with
+``tensor_parallel`` each its slice of the fusion MLP (``parallel/dp.py``),
+gathered whole for the evaluation and the checkpoints.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.parallel.launch import spawn_ranks
-from cvml_goalnet_tpu_torch.parallel.mesh import TP_NOT_PORTED, build_mesh
+from cvml_goalnet_tpu_torch.parallel.mesh import build_mesh
 from cvml_goalnet_tpu_torch.train.optim import AdamState, tree_map
 from cvml_goalnet_tpu_torch.train.state import TrainState
 
@@ -79,21 +83,42 @@ def _on_host(item):
 def _train_rank(rank: int, world: int, device, job: dict):
     """One rank's whole run → rank 0's final state and history (as host arrays), None elsewhere."""
     from cvml_goalnet_tpu_torch.parallel.dp import make_dp_train_step, rank_generator
+    from cvml_goalnet_tpu_torch.parallel.mesh import grid_groups
+    from cvml_goalnet_tpu_torch.parallel.sharding import (
+        fusion_param_shardings,
+        gather_model_shards,
+        place_params,
+        shard_batch,
+    )
     from cvml_goalnet_tpu_torch.train.loop import _video_fscores, eval_video
 
     cfg, pool, val_items = job["cfg"], job["pool"], job["val"]
     gb, num_epochs, n = job["global_batch"], job["num_epochs"], len(pool["visual"])
-    b = gb // world
-    state = _state_on(job["state"], device)
-    params, model_state, opt_state = state.params, state.model_state, state.opt_state
-    step_fn = make_dp_train_step(cfg)
-    generator = rank_generator(cfg.train.seed, rank, device)
+    nm, tp = job["n_model"], job["tensor_parallel"]
+    grid = grid_groups([("data", world // nm), ("model", nm)])
+    data, model = grid["data"], grid["model"]
+    host = job["state"]
+    model_state = tree_map(lambda a: torch.as_tensor(a).to(device), host["model_state"])
+    final_epoch = num_epochs or host["epoch"]
+    layout = fusion_param_shardings(host["params"])
+    params, mu, nu = (place_params(host[k], model, tp, device) for k in ("params", "mu", "nu"))
+    opt_state = AdamState(host["step"], mu, nu)
+
+    def whole(tree):  # the whole tree from every model rank's slice (a collective under tensor parallelism)
+        return gather_model_shards(tree, layout, model) if tp else tree
+
+    step_fn = make_dp_train_step(cfg, group=data.group, tensor_parallel=tp, model=model if tp else None)
+    generator = rank_generator(cfg.train.seed, data.index, device)
     rng = np.random.default_rng(cfg.train.seed)
     history = {"train_loss": [], "val_loss": [], "val_f_avg": [], "val_f_max": []}
 
     def block(key, idx, dtype=torch.float32):
         x = pool[key]
         return None if x is None else torch.as_tensor(x[idx]).to(device=device, dtype=dtype)
+
+    def whole_state(epoch):
+        opt = AdamState(opt_state.step, whole(opt_state.mu), whole(opt_state.nu))
+        return TrainState(whole(params), model_state, opt, epoch)
 
     steps_per_epoch = max(1, n // gb)
     for epoch in range(num_epochs):
@@ -103,13 +128,14 @@ def _train_rank(rank: int, world: int, device, job: dict):
             idx = perm[s * gb:(s + 1) * gb]
             if len(idx) < gb:
                 break
-            mine = idx[rank * b:(rank + 1) * b]
+            rows = shard_batch(idx, data)
             params, model_state, opt_state, loss = step_fn(
-                params, model_state, opt_state, block("visual", mine), block("audio", mine),
-                block("labels", mine), generator, text=block("text", mine, torch.int32))
+                params, model_state, opt_state, block("visual", rows), block("audio", rows),
+                block("labels", rows), generator, text=block("text", rows, torch.int32))
             losses.append(float(loss))
-        state = TrainState(params, model_state, opt_state, epoch + 1)
         history["train_loss"].append(float(np.mean(losses)))
+        if val_items:
+            state = whole_state(epoch + 1)
         if rank != 0:
             continue
         if val_items:   # an empty val set must not np.mean([]) into NaN rows
@@ -127,6 +153,7 @@ def _train_rank(rank: int, world: int, device, job: dict):
             val = (f"val loss {history['val_loss'][-1]:.4f} "
                    f"F-avg {history['val_f_avg'][-1]:.4f}" if val_items else "no val set")
             print(f"[dp epoch {epoch}] train loss {history['train_loss'][-1]:.4f} {val}", flush=True)
+    state = whole_state(final_epoch)
     if rank != 0:
         return None
     if job["checkpoint_dir"]:
@@ -153,13 +180,17 @@ def train_data_parallel(
     """Data-parallel training over ``mesh`` (a device list; default ``parallel.mesh.build_mesh(cfg.mesh,
     device)``) → (final TrainState on the mesh's first device, history dict).
 
-    With ``checkpoint_dir`` rank 0 writes the final state there as ``ckp``
-    and ``opt``, as the JAX CLI's ``train --dp`` does after the loop.
+    ``cfg.mesh.model`` is the model axis of the mesh's ``data × model``
+    grid; ``tensor_parallel`` splits the fusion MLP over it
+    (JAX's ``place_params(tensor_parallel=True)``), else its ranks are
+    replicas.  With ``checkpoint_dir`` rank 0 writes the final state there as
+    ``ckp`` and ``opt``, as the JAX CLI's ``train --dp`` does after the loop.
     """
-    if tensor_parallel:
-        raise NotImplementedError(TP_NOT_PORTED)
     mesh = mesh or build_mesh(cfg.mesh, device)
-    n_data = len(mesh)
+    n_model = max(1, cfg.mesh.model)
+    if len(mesh) % n_model:
+        raise ValueError(f"{len(mesh)} devices not divisible by model axis {n_model}")
+    n_data = len(mesh) // n_model
     pool = pool_dataset(train_ds)
     n = len(pool["visual"])
     if n < n_data:
@@ -176,6 +207,7 @@ def train_data_parallel(
                          "axis — give a multiple of the mesh size")
     job = {"cfg": cfg, "pool": pool, "val": [_on_host(item) for item in val_ds], "state": _host_state(state),
            "global_batch": global_batch, "verbose": verbose, "checkpoint_dir": checkpoint_dir,
+           "n_model": n_model, "tensor_parallel": tensor_parallel,
            "num_epochs": cfg.train.num_epochs if num_epochs is None else num_epochs}
     result = spawn_ranks(_train_rank, mesh, (job,))[0]
     return _state_on(result["state"], mesh[0]), result["history"]

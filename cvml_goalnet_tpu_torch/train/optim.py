@@ -76,15 +76,17 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm: torch.Tensor | None = None):
     """Scale ``grads`` so their global ℓ2 norm is at most ``max_norm``; ``max_norm <= 0`` disables.
 
     The scale is ``min(1, max_norm / (norm + 1e-6))``, a tensor on the
     gradients' device: no host sync, and the 1e-6 keeps an all-zero tree finite.
+    ``norm`` is the norm to clip by when ``grads`` is one rank's part of a
+    larger tree (its pipeline stage, its model slice); default theirs.
     """
     if max_norm <= 0:
         return grads
-    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
+    scale = torch.clamp(max_norm / ((global_norm(grads) if norm is None else norm) + 1e-6), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads)
 
 

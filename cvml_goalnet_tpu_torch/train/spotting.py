@@ -39,6 +39,7 @@ from cvml_goalnet_tpu_torch.models.temporal_attention import (
 )
 from cvml_goalnet_tpu_torch.models.temporal_hybrid import temporal_hybrid_apply
 from cvml_goalnet_tpu_torch.parallel.collectives import psum, tree_psum
+from cvml_goalnet_tpu_torch.parallel.sharding import partition_leaves, transformer_param_shardings
 from cvml_goalnet_tpu_torch.train.optim import (
     adam_init,
     adam_update,
@@ -52,16 +53,28 @@ from cvml_goalnet_tpu_torch.weights import _map_with_paths
 SCORERS = ("gru", "transformer", "hybrid")
 
 
+def bce_weights(labels: torch.Tensor, pos_weight: float) -> torch.Tensor:
+    """The weight of each label: ``pos_weight`` on the positive class, 1 on the negative, 0 on padding (< 0)."""
+    return torch.where(labels > 0.5, torch.full_like(labels, pos_weight), torch.ones_like(labels)) * (labels >= 0)
+
+
+def weighted_bce_sum(logits: torch.Tensor, labels: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σ w·BCE(logits, labels): the numerator of :func:`weighted_bce` (padded rows kept finite, w is 0 there)."""
+    lab = labels.clamp_min(0.0)
+    per = logits.clamp_min(0.0) - logits * lab + torch.log1p(torch.exp(-logits.abs()))
+    return torch.sum(w * per)
+
+
 def weighted_bce(logits: torch.Tensor, labels: torch.Tensor, pos_weight: float) -> torch.Tensor:
     """Weighted binary cross-entropy on logits, the one loss of every spotting step.
 
     Labels < 0 mark padding and get weight 0; real labels get ``pos_weight``
-    on the positive class.  The mean is over the weights.
+    on the positive class.  The mean is over the weights.  The parallel steps
+    take its numerator on their share of the rows over the whole batch's
+    denominator.
     """
-    w = torch.where(labels > 0.5, torch.full_like(labels, pos_weight), torch.ones_like(labels)) * (labels >= 0)
-    lab = labels.clamp_min(0.0)  # keep padded rows finite; w is 0 there
-    per = logits.clamp_min(0.0) - logits * lab + torch.log1p(torch.exp(-logits.abs()))
-    return torch.sum(w * per) / torch.sum(w)
+    w = bce_weights(labels, pos_weight)
+    return weighted_bce_sum(logits, labels, w) / torch.sum(w)
 
 
 def timeline_lengths(labels: torch.Tensor) -> torch.Tensor:
@@ -192,10 +205,6 @@ def save_spotting_checkpoint(path: str, params, classes=None) -> None:
 
 # ------------------------------------------------------------------ context parallel (JAX :135-284)
 
-_SPLIT_W = ("wq", "wk", "wv", "mlp_in", "wo", "mlp_out")   # sliced by the model axis (columns or rows)
-_SPLIT_B = ("wq", "wk", "wv", "mlp_in")                    # bias slices of the column-split products
-
-
 def _pad_time(x: torch.Tensor, t_pad: int, value: float) -> torch.Tensor:
     """``x`` (B, T, ...) padded along T to ``t_pad`` with ``value``."""
     pad = t_pad - x.shape[1]
@@ -219,24 +228,21 @@ def _cp_step(groups, body, pos_weight: float, lr: float, lr_schedule, grad_clip_
         tl = t_pad // groups.ctx.size
         d0, c0 = groups.data.index * bl, groups.ctx.index * tl
         lab = _pad_time(labels, t_pad, -1.0)[d0:d0 + bl, c0:c0 + tl]
-        w = torch.where(lab > 0.5, torch.full_like(lab, pos_weight), torch.ones_like(lab)) * (lab >= 0)
+        w = bce_weights(lab, pos_weight)
         den = w.sum()
         for axis in sum_axes:
             den = psum(den, axis.group)
         with torch.enable_grad(), strict_f32():
             leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
             logits = batch_local_logits(tree_unflatten(params, leaves), features, groups, body, lengths)
-            logits = logits.reshape(lab.shape)
-            per = logits.clamp_min(0.0) - logits * lab.clamp_min(0.0) + torch.log1p(torch.exp(-logits.abs()))
-            loss = torch.sum(w * per) / den
+            loss = weighted_bce_sum(logits.reshape(lab.shape), lab, w) / den
             grads = list(torch.autograd.grad(loss, leaves))
         loss = loss.detach()
         for axis in sum_axes:
             loss, grads = tree_psum([loss, grads], axis.group)
         grads = tree_unflatten(params, grads)
-        if groups.model.size > 1:
-            split = [layer[n]["w"] for layer in grads["layers"] for n in _SPLIT_W]
-            split += [layer[n]["b"] for layer in grads["layers"] for n in _SPLIT_B]
+        if groups.model.size > 1:   # a split leaf's gradient is nonzero in this rank's slice only
+            _, split = partition_leaves(grads, transformer_param_shardings(grads))
             for g, summed in zip(split, tree_psum(split, groups.model.group)):
                 g.copy_(summed)
         return loss, grads

@@ -352,9 +352,13 @@ class TestRefusals:
         ("spot", ["--stream", "--no-audio", "--commentary"], "no live ingest protocol for commentary tokens"),
         ("spot-train", ["--tp", "2"], "--dp-timelines/--tp require --cp"),
         ("spot-train", ["--dp-timelines", "2"], "--dp-timelines/--tp require --cp"),
-        ("spot-train", ["--cp", "--pp", "2"], "item 6"),
-        ("spot-train", ["--cp", "--dp-timelines", "2", "--tp", "2", "--pp", "2"], "item 6"),
-        ("spot-train", ["--pp", "2", "--temporal-model", "transformer"], "item 6"),
+        # once the refusals of an unported --pp (their ids kept); now the JAX CLI's --pp refusals in its order
+        pytest.param("spot-train", ["--cp", "--pp", "2", "--temporal-model", "transformer"],
+                     "--pp and --cp are mutually exclusive", id="spot-train-flags8-item 6"),
+        pytest.param("spot-train", ["--cp", "--dp-timelines", "2", "--tp", "2", "--pp", "2"],
+                     "--cp needs the transformer scorer", id="spot-train-flags9-item 6"),
+        pytest.param("spot-train", ["--pp", "2", "--temporal-model", "transformer"], "--pp 2 needs 2 devices, have 1",
+                     id="spot-train-flags10-item 6"),
         ("spot-train", ["--early-stop", "2"], "--early-stop needs --val-videos"),
         ("serve", ["--host", "0.0.0.0", "--port", "0", "--no-audio"], "non-loopback"),
     ])

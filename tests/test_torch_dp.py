@@ -151,13 +151,16 @@ class TestServingMesh:
 
         assert build_mesh(MeshConfig(data=-1), CPU) == [torch.device("cpu")]
         assert build_mesh(MeshConfig(data=4), CPU) == [torch.device("cpu")] * 4
-        with pytest.raises(NotImplementedError, match="item 6.6"):
-            build_mesh(MeshConfig(data=2, model=2), CPU)
+        # a model axis (once refused): data × model entries in the JAX mesh's order
+        assert build_mesh(MeshConfig(data=2, model=2), CPU) == [torch.device("cpu")] * 4
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
         assert build_mesh(MeshConfig(data=-1)) == [torch.device("cuda", i) for i in range(4)]
+        assert build_mesh(MeshConfig(data=-1, model=2)) == [torch.device("cuda", i) for i in range(4)]
         with pytest.raises(ValueError, match="only 4 are visible"):
             build_mesh(MeshConfig(data=8))
+        with pytest.raises(ValueError, match="4 devices not divisible by model axis 3"):
+            build_mesh(MeshConfig(data=-1, model=3))
 
     def test_replicate_copies_once_per_device(self, trunk):
         _, ts = trunk
@@ -422,6 +425,7 @@ class TestDpServices:
 # ------------------------------------------------------------------ Part C: training
 
 import _torch_dp_ranks as RANKS  # noqa: E402  (tests/ is on the path; the spawned ranks import it by this name)
+import _torch_pp_ranks as RANKS_PP  # noqa: E402
 
 from cvml_goalnet_tpu.models.avm import avm_apply as jax_avm_apply  # noqa: E402
 from cvml_goalnet_tpu.parallel.dp import make_dp_train_step as jax_dp_step  # noqa: E402
@@ -544,16 +548,25 @@ class TestDpSteps:
         assert [r["forbidden"] for r in got] == [[]] * world
 
     def test_tensor_parallel_is_refused_naming_item_6_6(self, small_cfg):
-        from cvml_goalnet_tpu_torch.config import MeshConfig
-        from cvml_goalnet_tpu_torch.parallel.dp import make_dp_train_step, make_dp_train_step_shardmap
+        """The tensor-parallel step now runs (the name records the refusal it once held): on a 2 × 2 grid of
+        gloo ranks against JAX's on ``cpu_mesh(4, model=2)``, the loss within 1e-5 relative, the parameters
+        after Adam within 1e-5·max(1, max|p|) where the gradient is not rounding noise, every leaf moved
+        (``test_torch_pp.adam_close``); without the rank's model axis it raises."""
+        from test_torch_pp import adam_close
+        from test_torch_tp_ep import _cases, jax_tp_step
 
-        cfg = _port(small_cfg)
-        with pytest.raises(NotImplementedError, match="item 6.6"):
-            make_dp_train_step(cfg, tensor_parallel=True)
-        tp = dataclasses.replace(cfg, mesh=MeshConfig(data=2, model=2))
-        for make in (make_dp_train_step, make_dp_train_step_shardmap):
-            with pytest.raises(NotImplementedError, match="item 6.6"):
-                make(tp)
+        from cvml_goalnet_tpu_torch.parallel.dp import make_dp_train_step
+
+        with pytest.raises(ValueError, match="needs the rank's model axis"):
+            make_dp_train_step(_port(small_cfg), tensor_parallel=True)
+        case = {**_cases(small_cfg)["tp_step"], "axes": (("data", 2), ("model", 2))}
+        got = spawn_ranks(RANKS_PP.run_cases, serving_mesh(4, device=CPU), ([case],))[0][0]
+        jcfg = _train_cfg(small_cfg)
+        js = jax_train_state(jax.random.PRNGKey(0), jcfg)
+        start = jax.tree.map(np.asarray, js.params)
+        grads, p, loss = jax_tp_step(jcfg, js, case, cpu_mesh(4, model=2))
+        assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
+        adam_close(got["params"], p, start, grads, jcfg.train.learning_rate)
 
 
 def _items(small_cfg, lengths, text=False):
@@ -607,6 +620,7 @@ class TestDpLoop:
             np.testing.assert_allclose(g, w, atol=5e-3, err_msg=k)
 
     def test_refusals_as_jax(self, small_cfg):
+        from cvml_goalnet_tpu_torch.config import MeshConfig
         from cvml_goalnet_tpu_torch.data.dataset import VideoDataset as TDS
         from cvml_goalnet_tpu_torch.train.dp_loop import train_data_parallel
         from cvml_goalnet_tpu_torch.train.state import create_train_state
@@ -619,5 +633,6 @@ class TestDpLoop:
         _, ten = _items(small_cfg, (10,))
         with pytest.raises(ValueError, match="does not split over the 4 devices"):
             train_data_parallel(cfg, TDS(ten), TDS([]), state, global_batch=6, mesh=serving_mesh(4, device=CPU))
-        with pytest.raises(NotImplementedError, match="item 6.6"):
-            train_data_parallel(cfg, TDS(ten), TDS([]), state, tensor_parallel=True)
+        with pytest.raises(ValueError, match="3 devices not divisible by model axis 2"):   # once: TP refused
+            train_data_parallel(dataclasses.replace(cfg, mesh=MeshConfig(data=-1, model=2)), TDS(ten), TDS([]),
+                                state, tensor_parallel=True, mesh=serving_mesh(3, device=CPU))
