@@ -252,7 +252,22 @@ From the repository root, on a machine with a CUDA card:
     an MoE first layer, dropout on) and the ``--moe-experts 4`` layer over
     4 virtual expert shards against the whole layers (outputs within 1e-5,
     gradients within 1e-4, relative to max(1, max)); (c) ``spot-train --pp
-    N+1`` on N cards exiting 2 with the JAX CLI's device-count message.
+    N+1`` on N cards exiting 2 with the JAX CLI's device-count message;
+20. the orbax checkpoint backend (``--checkpoint-backend orbax``): (a) the
+    hand-written zstd decoder (``csrc/zstd_decode.cc``) built with g++ and
+    its decode rate over 64 MB of the committed JAX-written fixture's
+    largest chunk (random float32, zstd level 1) decoded again and again;
+    (b) that fixture (``tests/data/orbax_small``: an OCDBT store with zstd
+    chunks, written by ``tools/make_orbax_fixture.py`` with the JAX
+    package) loaded onto the card, every leaf bit-equal to its npz twin's;
+    (c) at the default config's full width on phase 10's videos, ``train
+    --epochs 1 --checkpoint-backend orbax``, its resume with ``--checkpoint``
+    to epoch 2 (the resumed state bit-equal to the one saved), ``infer`` on a
+    work directory holding only the orbax trunk (found without the flag;
+    its scores equal to an npz save of the same state's), ``serve`` answering
+    one ``/reload`` from the orbax trunk and one ``/summarize``, and the
+    save and load walls of the full state in both layouts; (d) kernels 1–4
+    launched by (c), from their counts.  The phase prints its wall.
 
 Every phase prints its wall and the script's time so far.  Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  ``--phases`` runs
@@ -275,6 +290,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5201,7 +5217,249 @@ def pp_tp_ep_phase(seed: int, smi: str, launches_by_path: dict, gen: torch.Gener
     return out
 
 
-PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18", "19")
+# ---------------------------------------------------------------- phase 20: the orbax checkpoint backend
+
+ORBAX_FIXTURE = REPO / "tests" / "data" / "orbax_small"   # JAX-written (tools/make_orbax_fixture.py)
+ZSTD_RATE_BYTES = 64 << 20                                # decoded bytes behind the decode rate
+
+
+class OrbaxSaves:
+    """Keeps a copy of each state ``save_checkpoint_orbax`` writes, by tag, and of each state
+    ``load_checkpoint_orbax`` returns, on their devices (the training loop imports the functions at call time,
+    so the module attributes are what it calls)."""
+
+    def __init__(self):
+        from cvml_goalnet_tpu_torch.train import orbax_io
+
+        self.module, self.save_fn, self.load_fn = orbax_io, orbax_io.save_checkpoint_orbax, orbax_io.load_checkpoint_orbax
+        self.saved, self.loaded = {}, []
+
+    @staticmethod
+    def snapshot(state) -> list:
+        return tree_map(lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t,
+                        [state.params, state.model_state, state.opt_state._asdict(), state.epoch])
+
+    def save(self, directory, state, cfg, tag="ckp"):
+        self.saved.setdefault(tag, []).append(self.snapshot(state))
+        return self.save_fn(directory, state, cfg, tag)
+
+    def load(self, directory, template, tag="ckp"):
+        out = self.load_fn(directory, template, tag)
+        self.loaded.append(self.snapshot(out))
+        return out
+
+    def __enter__(self):
+        self.module.save_checkpoint_orbax, self.module.load_checkpoint_orbax = self.save, self.load
+        return self
+
+    def __exit__(self, *exc):
+        self.module.save_checkpoint_orbax, self.module.load_checkpoint_orbax = self.save_fn, self.load_fn
+
+
+def same_tree(a, b) -> bool:
+    """Equal structure and every leaf bit-equal (tensors on any device, ints)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and x.dtype == y.dtype and x.shape == y.shape
+         and torch.equal(x, y.to(x.device))) or (not isinstance(x, torch.Tensor) and x == y) for x, y in zip(la, lb))
+
+
+def orbax_phase(seed: int, smi: str, launches_by_path: dict) -> None:
+    """Phase 20: the orbax backend: the zstd decoder's build and rate, the JAX-written fixture on the card, and
+    train, its resume, infer and serve through ``--checkpoint-backend orbax`` at the default config's width."""
+    from cvml_goalnet_tpu_torch.compat import zstd
+    from cvml_goalnet_tpu_torch.compat import zarr2
+    from cvml_goalnet_tpu_torch.compat.ocdbt import OcdbtStore
+    from cvml_goalnet_tpu_torch.train.orbax_io import load_checkpoint_orbax, save_checkpoint_orbax
+
+    os.environ.pop("GOALNET_PLATFORM", None)   # the CLI runs on the card, as a user's call would
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the decoder: built with g++ on this machine (always, timed: a copy of the tree may carry a library built
+    # elsewhere), then one call decoding the fixture's largest chunk's frame, concatenated until its content is
+    # ZSTD_RATE_BYTES, into one fresh array of that size (as the reader decodes a chunk: input and output far
+    # past the host's caches)
+    lib = zstd.lib_path()
+    fresh = lib.with_name(f"{lib.stem}.phase20-{os.getpid()}.so")
+    t0 = time.perf_counter()
+    zstd._build(fresh)
+    out["zstd_build_s"] = time.perf_counter() - t0
+    os.replace(fresh, lib)   # the library load() opens
+    zstd.load()
+    store = OcdbtStore(str(ORBAX_FIXTURE / "ckp_orbax"))
+    chunks = [k for k in store.list() if not k.endswith(b"/.zarray")]
+    key = max(chunks, key=lambda k: len(store.read(k)))
+    name = key.decode().rsplit("/", 1)[0]
+    meta = zarr2.read_metadata(store, name)
+    frame = store.read(key)
+    chunk_bytes = int(np.prod(meta["chunks"])) * zarr2.DTYPES[meta["dtype"]].itemsize
+    reps = -(-ZSTD_RATE_BYTES // chunk_bytes)
+    stream = frame * reps
+    buf = np.empty((reps * chunk_bytes,), dtype=np.uint8)
+    t0 = time.perf_counter()
+    n = zstd.decompress_into(stream, buf)
+    wall = time.perf_counter() - t0
+    require(n == buf.nbytes and np.array_equal(buf[:chunk_bytes], buf[-chunk_bytes:]),
+            f"20a: {reps} concatenated frames decoded to {n} bytes, expected {buf.nbytes}")
+    out["zstd_decode"] = {"chunk": key.decode(), "frames": reps, "stream_bytes": len(stream),
+                          "decoded_bytes": n, "s": wall, "MB_per_s": n / wall / 1e6}
+    print(f"phase 20a: zstd decoder built with g++ in {out['zstd_build_s']:.2f} s "
+          f"({zstd.lib_path().name}); one call decoding {reps} concatenated frames of {key.decode()} "
+          f"({len(stream)} → {n} bytes, into a fresh array) in {wall:.4f} s: "
+          f"{out['zstd_decode']['MB_per_s']:.1f} MB/s on the host of {smi}", flush=True)
+
+    # (b) the JAX-written fixture onto the card, leaf for leaf against its npz twin
+    fcfg = PipelineConfig.load(str(ORBAX_FIXTURE / "cfg.json"))
+    tpl = create_train_state(seed, fcfg)
+    t0 = time.perf_counter()
+    got = load_checkpoint_orbax(str(ORBAX_FIXTURE), tpl)
+    out["fixture_load_s"] = time.perf_counter() - t0
+    twin = load_checkpoint(str(ORBAX_FIXTURE), tpl)
+    leaves = tree_leaves([got.params, got.model_state, got.opt_state.mu, got.opt_state.nu])
+    require(all(t.is_cuda for t in leaves), "20b: the fixture's leaves are not on the card")
+    require(same_tree([got.params, got.model_state, got.opt_state._asdict(), got.epoch],
+                      [twin.params, twin.model_state, twin.opt_state._asdict(), twin.epoch]),
+            "20b: the JAX-written orbax fixture is not its npz twin bit for bit")
+    print(f"phase 20b: the JAX-written fixture ({len(leaves)} tensors, epoch {got.epoch}, Adam step "
+          f"{got.opt_state.step}) on the card, bit-equal to its npz twin; loaded in {out['fixture_load_s']:.3f} s",
+          flush=True)
+
+    # (c) the verbs at the default config's full width on phase 10's videos
+    cfg = PipelineConfig()
+    kernels = ["fused_preprocess_frames", *TRUNK, "fused_fusion_mlp"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = make_train_inputs(cfg, seed, root)
+        cfg_path = os.path.join(root, "cfg.json")
+        cfg.save(cfg_path)
+        out["data_s"] = time.perf_counter() - t0
+        store_cls, plots = dataset_io.AnnotationStore, PlotSink()
+        saved_viz = (viz.generate_metric_plots, viz.export_indices)
+        dataset_io.AnnotationStore = AnnotationStand
+        viz.generate_metric_plots, viz.export_indices = plots.metric_plots, plots.export_indices
+        work = os.path.join(root, "work")
+        args = ["--videos", *data["videos"], "--annotation-fp", data["annotation_fp"], "--mat-fp", data["mat_fp"],
+                "--h5-fp", data["h5_fp"], "--info-fp", data["info_fp"], "--config", cfg_path, "--workdir", work]
+        walls = {}
+
+        def verb(label, argv, expect=kernels, stdout=None):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout or buf):
+                rc = drive(label, expect, lambda: cli.main(argv), launches_by_path)
+            walls[label] = time.perf_counter() - t0
+            require(rc == 0, f"{label}: exit code {rc}")
+            return buf.getvalue()
+
+        try:
+            with OrbaxSaves() as spy:
+                text = verb("orbax_train", ["train", *args, "--epochs", "1", "--checkpoint-backend", "orbax"])
+                require("Operation completed" in text, "20c: train --checkpoint-backend orbax did not complete")
+                ckp_dir = cli._artifact_paths(work, True)["ckp_dir"]
+                names = sorted(os.listdir(ckp_dir))
+                require({"ckp_orbax", "opt_orbax", "ckp_orbax_manifest.json", "opt_orbax_manifest.json"} <= set(names)
+                        and not any(n.endswith(".npz") for n in names), f"20c: train wrote {names}")
+                text = verb("orbax_train --checkpoint", ["train", *args, "--checkpoint", "--epochs", "2",
+                                                         "--checkpoint-backend", "orbax"])
+                require("Resumed from epoch 1" in text, "20c: the resume did not start at epoch 1")
+                require(len(spy.saved.get("ckp", ())) >= 1 and len(spy.loaded) == 1
+                        and same_tree(spy.loaded[0], spy.saved["ckp"][0]),
+                        "20c: the resumed state is not the saved one bit for bit")
+                require(len(spy.saved.get("opt", ())) >= 1, "20c: train saved no opt checkpoint")
+            out["resumed_state_bit_equal_to_saved"] = True
+
+            # infer on a work directory holding only the orbax trunk (no flag), against an npz save of that state
+            only = os.path.join(root, "orbax_only")
+            only_dir = cli._artifact_paths(only, True)["ckp_dir"]
+            os.makedirs(only_dir)
+            for n in ("opt_orbax", "opt_orbax_manifest.json"):
+                (shutil.copytree if n.endswith("_orbax") else shutil.copy)(os.path.join(ckp_dir, n),
+                                                                            os.path.join(only_dir, n))
+            # the full-width states: `full` is saved and loaded back below, into `template` (another seed)
+            full, template = create_train_state(seed, cfg), create_train_state(seed + 1, cfg)
+            state = load_checkpoint_orbax(ckp_dir, template, tag="opt")
+            require(same_tree(OrbaxSaves.snapshot(state), spy.saved["opt"][-1]),
+                    "20c: the opt trunk loads other than the state train saved, bit for bit")
+            out["opt_load_bit_equal_to_saved"] = True
+            twin_work = os.path.join(root, "npz_twin")
+            save_checkpoint(cli._artifact_paths(twin_work, True)["ckp_dir"], state, cfg, tag="opt")
+            video = data["videos"][0]
+            scores = {}
+            sink = ExportSink(False)
+            video_io.export_video = sink
+            try:
+                for label, w in (("orbax_infer", only), ("orbax_infer npz twin", twin_work)):
+                    with FuseSpy() as fspy:
+                        verb(label, ["infer", video, "--config", cfg_path, "--workdir", w])
+                    require(len(fspy.scores) == 1, f"{label}: {len(fspy.scores)} fuse calls")
+                    scores[label] = fspy.scores[0]
+            finally:
+                video_io.export_video = sink.writer
+            diff = float(np.abs(scores["orbax_infer"] - scores["orbax_infer npz twin"]).max())
+            require(diff == 0.0, f"20c: infer from the orbax trunk scores {diff} from the npz twin's")
+            out["infer"] = {"scores": int(len(scores["orbax_infer"])), "max_abs_diff_to_npz_twin": diff}
+
+            # serve: booted on the orbax-only trunk, one /reload (the same auto-detected orbax load) and one
+            # /summarize of the video
+            watch = PortWatch(io.StringIO())
+            answers = {}
+
+            def client():
+                if not watch.ready.wait(300):
+                    return
+                answers["reload"] = http(watch.port, "/reload", {})
+                answers["summarize"] = http(watch.port, "/summarize", {"video": os.path.basename(video)})
+
+            c = threading.Thread(target=client)
+            c.start()
+            try:
+                verb("orbax_serve", ["serve", "--config", cfg_path, "--workdir", only, "--port", "0", "--media-root",
+                                     os.path.dirname(video), "--max-requests", "2"], stdout=watch)
+            finally:
+                watch.ready.set()
+                c.join()
+            require(answers.get("reload", (0,))[0] == 200 and answers["reload"][1].get("reloaded") == {"summarizer": 1},
+                    f"20c: /reload answered {answers.get('reload')}")
+            require(answers.get("summarize", (0,))[0] == 200, f"20c: /summarize answered {answers.get('summarize')}")
+            served = np.asarray(answers["summarize"][1]["scores"], dtype=np.float32)
+            out["serve"] = {"reload": answers["reload"][1],
+                            "summarize_max_abs_diff_to_infer": float(np.abs(served - scores["orbax_infer"]).max())}
+            require(out["serve"]["summarize_max_abs_diff_to_infer"] <= 1e-4,   # the response rounds to 4 decimals
+                    f"20c: /summarize after /reload scores {out['serve']} from infer's")
+        finally:
+            dataset_io.AnnotationStore = store_cls
+            viz.generate_metric_plots, viz.export_indices = saved_viz
+
+        # the full state's save and load walls, both layouts (the card's state; files on this machine's disk)
+        io_walls = {}
+        for name, save, load in (("orbax", save_checkpoint_orbax, load_checkpoint_orbax),
+                                 ("npz", save_checkpoint, load_checkpoint)):
+            d = os.path.join(root, f"walls_{name}")
+            t0 = time.perf_counter()
+            save(d, full, cfg, tag="ckp")
+            io_walls[f"{name}_save_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = load(d, template, tag="ckp")
+            torch.cuda.synchronize()
+            io_walls[f"{name}_load_s"] = time.perf_counter() - t0
+            require(same_tree(back.params, full.params), f"20c: the {name} round trip changed the parameters")
+        out["state_MB"] = sum(state_bytes(full).values()) / 1e6
+        out["io_walls"] = io_walls
+        out["data_s"] = round(out["data_s"], 3)
+    out["verb_walls_s"] = walls
+    for label in ("orbax_train", "orbax_train --checkpoint", "orbax_infer", "orbax_serve"):
+        got = launches_by_path[label]
+        out.setdefault("launches", {})[label] = {k: got[k] for k in kernels}
+    wall = time.perf_counter() - t_phase
+    out["phase_wall_s"] = wall
+    print(f"phase 20: orbax backend at the default config's width on {smi}: {json.dumps(out)}", flush=True)
+    print(f"phase 20: {wall:.1f} s wall (of which {out['data_s']:.1f} s making phase 10's videos when phase 10 "
+          f"did not run first)", flush=True)
+
+
+PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20")
 
 
 def parse_phases(spec: str | None) -> set[str]:
@@ -5402,6 +5660,9 @@ def main() -> int:
     if "19" in phases:
         pp_tp_ep_phase(args.seed, smi, launches_by_path, gen)
         clock.done("19")
+    if "20" in phases:
+        orbax_phase(args.seed, smi, launches_by_path)
+        clock.done("20")
     del videos
     if "11" in phases:
         serving_phase(args.seed, smi, launches_by_path)

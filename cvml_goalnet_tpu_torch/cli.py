@@ -61,8 +61,9 @@ mixture-of-experts fusion) run in every verb that takes them; ``infer
 --stream`` and ``spot --stream`` refuse ``--commentary`` as the JAX CLI
 does.  ``spot-train --cp`` and ``--pp`` and ``train --dp`` (a config's
 ``mesh.model > 1`` gives its model axis replicas, as in JAX) run on spawned
-ranks.  The orbax checkpoint backend is not ported yet: it exits 2 before
-any decode, naming its ROADMAP item (6.5).
+ranks.  ``--checkpoint-backend orbax`` reads and writes JAX's ``<tag>_orbax/``
+layout (``train/orbax_io.py``); without the flag an orbax-only checkpoint is
+found after the npz one, as in the JAX CLI.
 
 Runs on the card; ``GOALNET_PLATFORM=cpu`` (the JAX package's variable)
 runs the plain PyTorch path on the CPU.  With neither a card nor that
@@ -87,16 +88,6 @@ import sys
 import numpy as np
 
 from cvml_goalnet_tpu_torch.config import PipelineConfig
-
-ORBAX_NOT_PORTED = (
-    "the orbax checkpoint backend is not ported yet (ROADMAP.md §1 item 6.5); the port reads the npz layout "
-    "(<tag>_state.npz + <tag>_manifest.json) that `goalnet train` writes by default"
-)
-
-
-class CheckpointBackendError(RuntimeError):
-    """The checkpoint is in a layout the port does not read."""
-
 
 def _device():
     """``"cpu"`` when ``GOALNET_PLATFORM=cpu``, else None: the card (raises without one)."""
@@ -132,16 +123,19 @@ def _checkpoint_present(ckp_dir: str, tag: str, backend: str) -> bool:
 
 def _load_tag(ckp_dir: str, state, tag: str, backend: str):
     if backend == "orbax":
-        raise CheckpointBackendError(f"checkpoint '{tag}' under {ckp_dir!r} is an orbax checkpoint: {ORBAX_NOT_PORTED}")
+        from cvml_goalnet_tpu_torch.train.orbax_io import load_checkpoint_orbax
+
+        return load_checkpoint_orbax(ckp_dir, state, tag=tag)
     from cvml_goalnet_tpu_torch.train.checkpoint import load_checkpoint
 
     return load_checkpoint(ckp_dir, state, tag=tag)
 
 
 def _load_trunk(paths: dict, state, args, tags=("opt", "ckp")):
-    """Load the trunk checkpoint, probing the npz layout, then orbax's (which raises
-    :class:`CheckpointBackendError`).  Raises ``FileNotFoundError`` when there is none; a checkpoint that
-    exists but does not load fails hard (never a random trunk)."""
+    """Load the trunk checkpoint: the backend ``--checkpoint-backend`` pins, else the npz layout, then a
+    ``<tag>_orbax`` directory, so a trunk trained with ``train --checkpoint-backend orbax`` is found without the
+    flag.  Raises ``FileNotFoundError`` when there is none; a checkpoint that exists but does not load (a piece
+    missing, another config) fails hard (never a random trunk)."""
     from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
 
     requested = getattr(args, "checkpoint_backend", None)
@@ -183,13 +177,6 @@ def _resolve_data(args) -> dict:
     }
 
 
-def _unported(args) -> str | None:
-    """Why the port cannot run these flags yet (naming the ROADMAP item), or None."""
-    if getattr(args, "checkpoint_backend", None) == "orbax":
-        return ORBAX_NOT_PORTED
-    return None
-
-
 def _refusal(args, cfg) -> str | None:
     """Why these ``infer`` flags cannot run together, before any decode or checkpoint discovery; None when
     they can."""
@@ -205,7 +192,7 @@ def _refusal(args, cfg) -> str | None:
                 "stream a finished file without --follow")
     if args.transfer_dtype and not args.host_preprocess:
         return "--transfer-dtype only applies with --host-preprocess (device preprocess ships raw frames)"
-    return _unported(args)
+    return None
 
 
 def _refused(message: str | None) -> bool:
@@ -219,14 +206,12 @@ def cmd_train(args) -> int:
     from cvml_goalnet_tpu_torch import viz
     from cvml_goalnet_tpu_torch.data.dataset import build_datasets
     from cvml_goalnet_tpu_torch.pipeline import summarize
-    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError, load_checkpoint
+    from cvml_goalnet_tpu_torch.train.checkpoint import CheckpointMismatchError
     from cvml_goalnet_tpu_torch.train.loop import eval_video, train_importance_model
     from cvml_goalnet_tpu_torch.train.state import create_train_state
     from cvml_goalnet_tpu_torch.utils.metrics import MetricsLogger
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args)):
-        return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     os.makedirs(os.path.dirname(paths["curves"]), exist_ok=True)
@@ -239,10 +224,11 @@ def cmd_train(args) -> int:
     print(f"Number of train videos: {len(train_ds)}")
     print(f"Number of val videos: {len(val_ds)}")
 
+    backend = getattr(args, "checkpoint_backend", "npz")
     state = create_train_state(cfg.train.seed, cfg, device=device)
     if args.checkpoint:
         try:
-            state = load_checkpoint(paths["ckp_dir"], state, tag="ckp")
+            state = _load_tag(paths["ckp_dir"], state, "ckp", backend)
         except CheckpointMismatchError as e:
             print(f"E: {e}\nE: pass the matching --config/--no-audio combination", file=sys.stderr)
             return 2
@@ -250,7 +236,8 @@ def cmd_train(args) -> int:
 
     if args.dp:
         # global-batch training over the cards of the mesh, one spawned rank per card (train/dp_loop.py); rank 0
-        # writes the ckp and opt checkpoints
+        # writes the ckp and opt checkpoints in the npz layout whatever the backend, as the JAX CLI does (it
+        # resumes from orbax with --checkpoint-backend orbax but saves npz)
         from cvml_goalnet_tpu_torch.train.dp_loop import train_data_parallel
 
         train_data_parallel(cfg, train_ds, val_ds, state, num_epochs=args.epochs, global_batch=args.global_batch,
@@ -274,7 +261,7 @@ def cmd_train(args) -> int:
     _, history = train_importance_model(
         cfg, train_ds, val_ds, state,
         num_epochs=args.epochs, checkpoint_dir=paths["ckp_dir"],
-        on_epoch_end=on_epoch_end, metrics_logger=metrics_logger,
+        on_epoch_end=on_epoch_end, metrics_logger=metrics_logger, checkpoint_backend=backend,
     )
     print(f"Optimal epoch: {history['best_epoch']}")
     print("Operation completed")
@@ -289,8 +276,6 @@ def cmd_eval(args) -> int:
     from cvml_goalnet_tpu_torch.train.state import create_train_state
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args)):
-        return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     device = _device()
@@ -302,7 +287,7 @@ def cmd_eval(args) -> int:
     state = create_train_state(cfg.train.seed, cfg, device=device)
     try:
         state = _load_trunk(paths, state, args)
-    except (FileNotFoundError, CheckpointBackendError) as e:
+    except FileNotFoundError as e:
         print(f"E: {e}", file=sys.stderr)
         return 2
     except CheckpointMismatchError as e:
@@ -323,8 +308,6 @@ def cmd_baseline(args) -> int:
     from cvml_goalnet_tpu_torch.baseline import run_random_baseline
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args)):
-        return 2
     data = _resolve_data(args)
     report = run_random_baseline(cfg, data["videos"], data["annotation_fp"], data["mat_fp"], data["h5_fp"],
                                  n_samples=args.samples, device=_device())
@@ -361,9 +344,6 @@ def cmd_infer(args) -> int:
     except CheckpointMismatchError as e:
         print(f"E: {e}\nE: re-train with the current flags or pass the matching "
               "--config/--no-audio/--commentary/--moe-experts combination", file=sys.stderr)
-        return 2
-    except CheckpointBackendError as e:
-        print(f"E: {e}", file=sys.stderr)
         return 2
 
     if args.stream:
@@ -464,8 +444,6 @@ def cmd_profile(args) -> int:
     from cvml_goalnet_tpu_torch.utils.profiling import StageTimer, start_trace, stop_trace
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args)):
-        return 2
     data = _resolve_data(args)
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     device = _device()
@@ -475,7 +453,7 @@ def cmd_profile(args) -> int:
         state = _load_trunk(paths, state, args)
     except FileNotFoundError:
         print("W: no trained importance checkpoint; profiling a random-init trunk")
-    except (CheckpointMismatchError, CheckpointBackendError) as e:
+    except CheckpointMismatchError as e:
         print(f"E: {e}", file=sys.stderr)
         return 2
 
@@ -561,9 +539,8 @@ def _spot_refusal(args, cfg) -> str | None:
     if args.follow and not args.stream:
         return ("--follow is a --stream mode (a live segment directory "
                 "cannot be spotted offline — the footage isn't finished)")
-    unported = _unported(args)
-    if unported is not None or not args.stream:
-        return unported
+    if not args.stream:
+        return None
     if args.follow and not os.path.isdir(args.video):
         return (f"--follow takes a live segment DIRECTORY and {args.video!r} is not one — "
                 "stream a finished file without --follow")
@@ -605,9 +582,6 @@ def _load_spot_trunk(cfg, args, device, what: str):
         # a checkpoint exists but does not fit the flags: scoring with a random trunk would mean nothing
         print(f"E: {e}\nE: re-train with the current flags or pass the matching "
               "--config/--no-audio/--commentary/--moe-experts combination", file=sys.stderr)
-        return None, 2
-    except CheckpointBackendError as e:
-        print(f"E: {e}", file=sys.stderr)
         return None, 2
 
 
@@ -782,9 +756,6 @@ def _spot_train_refusal(args, cfg, world: int) -> str | None:
     """Why these ``spot-train`` flags cannot run on ``world`` ranks, before any decode; None when they can.
     The JAX CLI's refusals in its order (its ``--pp`` ones at ``cli.py:912-936``), bar the equal-length
     timelines of ``--pp``, which :func:`_unequal_timelines` checks once the videos are known."""
-    unported = _unported(args)
-    if unported is not None:
-        return unported
     ndp, ntp, npp = max(1, args.dp_timelines or 1), max(1, args.tp or 1), max(1, args.pp or 1)
     if not args.cp and (ndp > 1 or ntp > 1):
         # these flags only pick mesh axes of the CP layouts: ignoring them would train on one device while the
@@ -1001,8 +972,6 @@ def cmd_serve(args) -> int:
     from cvml_goalnet_tpu_torch.train.state import create_train_state
 
     cfg = _apply_temporal_overrides(_load_cfg(args), args)
-    if _refused(_unported(args)):
-        return 2
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     device = _device()
     mesh = None
@@ -1019,7 +988,7 @@ def cmd_serve(args) -> int:
         state = _load_trunk(paths, state, args, tags=("opt", "ckp"))
     except FileNotFoundError:
         print("W: no trained importance checkpoint; serving a random-init trunk")
-    except (CheckpointMismatchError, CheckpointBackendError) as e:
+    except CheckpointMismatchError as e:
         print(f"E: {e}", file=sys.stderr)
         return 2
 
@@ -1119,13 +1088,11 @@ def cmd_export_torch(args) -> int:
     from cvml_goalnet_tpu_torch.train.state import create_train_state
 
     cfg = _load_cfg(args)
-    if _refused(_unported(args)):
-        return 2
     paths = _artifact_paths(args.workdir, cfg.model.audio_included)
     state = create_train_state(cfg.train.seed, cfg, device=_device())
     try:
         state = _load_trunk(paths, state, args, tags=(args.tag,) if args.tag else ("opt", "ckp"))
-    except (FileNotFoundError, CheckpointMismatchError, CheckpointBackendError) as e:
+    except (FileNotFoundError, CheckpointMismatchError) as e:
         print(f"E: {e}", file=sys.stderr)
         return 2
     try:

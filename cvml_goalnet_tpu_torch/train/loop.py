@@ -253,17 +253,21 @@ def train_importance_model(
     epochs without a new best or when ``preemption_guard`` asks.
     ``nan_guard`` is ``off``, ``raise`` or ``rollback`` (a video with a
     non-finite loss loses its own updates, at most ``nan_guard_limit`` times).
-    ``checkpoint_backend`` takes ``"npz"``; ``"orbax"`` is not ported.
+    ``checkpoint_backend`` is ``"npz"`` (the portable default, ``train/checkpoint.py``) or ``"orbax"`` (the
+    ``<tag>_orbax/`` layout JAX's orbax backend reads, ``train/orbax_io.py``).
     """
     if checkpoint_backend == "orbax":
-        from cvml_goalnet_tpu_torch.cli import ORBAX_NOT_PORTED
-
-        raise NotImplementedError(ORBAX_NOT_PORTED)
-    if checkpoint_backend != "npz":
+        from cvml_goalnet_tpu_torch.train.orbax_io import save_checkpoint_orbax as save_checkpoint
+    elif checkpoint_backend == "npz":
+        from cvml_goalnet_tpu_torch.train.checkpoint import save_checkpoint
+    else:
         raise ValueError(f"unknown checkpoint_backend {checkpoint_backend!r}")
-    from cvml_goalnet_tpu_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
 
     if async_checkpoint:
+        if checkpoint_backend != "npz":
+            raise ValueError("async_checkpoint currently supports the npz backend only")
+        from cvml_goalnet_tpu_torch.train.checkpoint import AsyncCheckpointer
+
         _ck = AsyncCheckpointer()
         save_checkpoint = _ck.save  # noqa: F811 — same signature, off-thread
 

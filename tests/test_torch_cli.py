@@ -101,12 +101,12 @@ def _chosen_frames(frames, intervals):
     return np.concatenate([frames[int(a):int(b)] for a, b in intervals])
 
 
-def _jax_offline(env, small_cfg, video, audio, store):
+def _jax_offline(env, small_cfg, video, audio, store, state=None):
     cfg = _cfg(small_cfg, audio)
     meta = env["meta"]
     st = AnnotationStore(meta["mat_file_path"], meta["h5_file_path"]) if store else None
     item = build_video_item(video, cfg, None, st, audio)
-    state = env["states"][audio]
+    state = env["states"][audio] if state is None else state
     scores = fuse(state.params, state.model_state, {"visual": item.visual, "audio": item.audio, "text": item.text},
                   cfg)
     return summarize(scores, item.clip_intervals, cfg.preprocess.skip_frames, item.full_n_frames, cfg.knapsack,
@@ -126,6 +126,28 @@ def _jax_stream(env, small_cfg, video, chunk, store, **kw):
     iv = (AnnotationStore(meta["mat_file_path"], meta["h5_file_path"]).change_points(vid) if store
           else _uniform_clip_intervals(cfg, full_n))
     return summarize(scores, iv, cfg.preprocess.skip_frames, full_n, cfg.knapsack)
+
+
+ORBAX_FIXTURE = os.path.join(os.path.dirname(__file__), "data", "orbax_small")
+
+
+def _orbax_workdir(root) -> str:
+    """A workdir whose only trunk is the committed JAX-written orbax checkpoint (``tests/data/orbax_small``,
+    the suite's small config with audio, tag ``ckp``: OCDBT, zstd chunks)."""
+    import shutil
+
+    work = str(root / "work")
+    ckp = os.path.join(work, "models", "importance")
+    shutil.copytree(os.path.join(ORBAX_FIXTURE, "ckp_orbax"), os.path.join(ckp, "ckp_orbax"))
+    shutil.copy(os.path.join(ORBAX_FIXTURE, "ckp_orbax_manifest.json"), ckp)
+    return work
+
+
+def _orbax_fixture_state(cfg):
+    """The fixture's state as JAX reads its npz twin."""
+    from cvml_goalnet_tpu.train.checkpoint import load_checkpoint
+
+    return load_checkpoint(ORBAX_FIXTURE, create_train_state(jax.random.PRNGKey(0), cfg), tag="ckp")
 
 
 def _jax_trunk(cfg):
@@ -307,15 +329,27 @@ class TestRefusals:
             errs.append([ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("E: ")])
         assert errs[0] == errs[1] and "commentary alignment" in errs[1][0]
 
-    def test_orbax_backend_flag(self, env, capsys):
-        self._refused(env, capsys, ["infer", env["meta"]["video_fps"][0],
-                                    *_args(env, "--no-audio", "--checkpoint-backend", "orbax")],
-                      "ROADMAP.md §1 item 6")
+    def _orbax_infer(self, env, small_cfg, exported, tmp_path, capsys, flag):
+        video = env["meta"]["video_fps"][0]
+        work = _orbax_workdir(tmp_path)
+        extra = ["--checkpoint-backend", "orbax"] if flag else []
+        argv = ["infer", video, "--config", env["cfg"], "--workdir", work, *extra,
+                "--mat-fp", env["meta"]["mat_file_path"], "--h5-fp", env["meta"]["h5_file_path"]]
+        assert cli.main(argv) == 0
+        assert "falling back to rolling ckp" in capsys.readouterr().out
+        want = _jax_offline(env, small_cfg, video, True, True, state=_orbax_fixture_state(_cfg(small_cfg, True)))
+        assert len(exported) == 1 and len(want.summary_frames) > 0
+        np.testing.assert_array_equal(exported[0], want.summary_frames)
 
-    def test_orbax_only_checkpoint(self, env, small_cfg, tmp_path, capsys):
-        os.makedirs(tmp_path / "models" / "importance_no_audio" / "opt_orbax")
-        argv = ["infer", env["meta"]["video_fps"][0], "--config", env["cfg"], "--workdir", str(tmp_path), "--no-audio"]
-        self._refused(env, capsys, argv, "is an orbax checkpoint")
+    def test_orbax_backend_flag(self, env, small_cfg, exported, tmp_path, capsys):
+        """``infer --checkpoint-backend orbax`` (once refused, naming ROADMAP item 6.5) reads the JAX-written
+        orbax trunk and exports the frames the JAX package selects with that trunk."""
+        self._orbax_infer(env, small_cfg, exported, tmp_path, capsys, True)
+
+    def test_orbax_only_checkpoint(self, env, small_cfg, exported, tmp_path, capsys):
+        """A workdir with only an orbax trunk (once refused) is found without the flag, as the JAX CLI finds it,
+        and exports the frames the JAX package selects."""
+        self._orbax_infer(env, small_cfg, exported, tmp_path, capsys, False)
 
     def test_checkpoint_of_another_structure(self, env, small_cfg, tmp_path, capsys):
         other = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, audio_included=False,
@@ -538,23 +572,42 @@ class TestTrainDataParallel:
             np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=5e-3)
 
 
-class TestTrainRefusals:
-    @pytest.fixture(autouse=True)
-    def no_decode(self, monkeypatch):
-        from cvml_goalnet_tpu_torch.data import dataset
+class TestOrbaxVerbs:
+    """``train`` and ``eval`` with ``--checkpoint-backend orbax``, once refused before any decode (naming ROADMAP
+    item 6.5), now run as the JAX CLI's do."""
 
-        def refuse(*a, **kw):
-            raise AssertionError("a refused run decoded its videos")
+    @staticmethod
+    def _eval_numbers(text):
+        import re
 
-        monkeypatch.setattr(dataset, "build_datasets", refuse)
+        return [[float(x) for x in re.findall(r"-?\d+\.\d+", ln)] for ln in text.splitlines()
+                if ln.startswith("[eval]")]
 
-    @pytest.mark.parametrize("verb,flags,message", [
-        ("train", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
-        ("eval", ["--checkpoint-backend", "orbax"], "ROADMAP.md §1 item 6"),
-    ])
-    def test_unported_flags_exit_2_before_any_decode(self, env, capsys, verb, flags, message):
-        assert cli.main([verb, *_data_args(env["meta"], env["cfg"], env["work"], *flags)]) == 2
-        assert message in capsys.readouterr().err
+    @pytest.mark.parametrize("verb", ["train", "eval"])
+    def test_orbax_backend_runs_as_jax(self, env, small_cfg, tmp_path, capsys, verb):
+        """``train``: the port's ``train --epochs 1 --checkpoint-backend orbax`` writes ``opt_orbax`` and
+        ``ckp_orbax`` (no npz), and the JAX CLI's ``eval --checkpoint-backend orbax`` reads that trunk and prints
+        what the port's ``eval`` prints.  ``eval``: on the JAX-written orbax trunk (OCDBT, zstd) both CLIs'
+        ``eval --checkpoint-backend orbax`` print the same losses and F-scores (1e-4 plus one printed unit)."""
+        from cvml_goalnet_tpu import cli as jcli
+
+        meta = env["meta"]
+        if verb == "train":
+            work = str(tmp_path / "work")
+            assert cli.main(["train", *_data_args(meta, env["cfg"], work, "--epochs", "1", "--checkpoint-backend",
+                                                  "orbax")]) == 0
+            assert "Operation completed" in capsys.readouterr().out
+            ckp = os.path.join(work, "models", "importance")
+            assert {"opt_orbax", "ckp_orbax", "opt_orbax_manifest.json"} <= set(os.listdir(ckp))
+            assert not any(n.endswith(".npz") for n in os.listdir(ckp))
+        else:
+            work = _orbax_workdir(tmp_path)
+        printed = {}
+        for name, main in (("port", cli.main), ("jax", jcli.main)):
+            assert main(["eval", *_data_args(meta, env["cfg"], work, "--checkpoint-backend", "orbax")]) == 0
+            printed[name] = self._eval_numbers(capsys.readouterr().out)
+        assert len(printed["port"]) == len(printed["jax"]) == 2
+        np.testing.assert_allclose(printed["port"], printed["jax"], rtol=1e-4, atol=1e-4)
 
 
 def _commentary_videos(meta, root):

@@ -328,9 +328,10 @@ class TestDevicePolicy:
         """A fresh interpreter: every module of the port (the training modules,
         the native runtime's loader, the data layer, the streaming scorer, the
         serving layer, the reference checkpoint verbs, the data-parallel
-        modules, the context-parallel modules and the CLI with its serving
-        and spotting verbs among them) and chip_smoke.py's imports leave jax
-        and cvml_goalnet_tpu out of sys.modules, and the optional media, HDF5
+        modules, the context-parallel modules, the orbax checkpoint modules and
+        the CLI with its serving and spotting verbs among them) and
+        chip_smoke.py's imports leave jax, cvml_goalnet_tpu, orbax,
+        tensorstore, zarr and zstandard out of sys.modules, and the optional media, HDF5
         and plotting packages too (imported only when a call needs them); and
         so do two ranks spawned by ``parallel.launch.spawn_ranks`` that import
         the data-parallel training modules, and two that import the
@@ -341,8 +342,8 @@ class TestDevicePolicy:
             "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "import chip_smoke\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'cvml_goalnet_tpu' or m.startswith('cvml_goalnet_tpu.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'cvml_goalnet_tpu', 'orbax', 'tensorstore', 'zarr', 'zstandard'))\n"
             "assert not bad, bad\n"
             "lazy = sorted(m for m in ('cv2', 'h5py', 'imageio', 'matplotlib') if m in sys.modules)\n"
             "assert not lazy, lazy\n"
@@ -351,7 +352,8 @@ class TestDevicePolicy:
             "          'data.synthetic', 'train.checkpoint', 'train.state', 'viz', 'utils.profiling', 'serve',\n"
             "          'models.resnet', 'models.vit', 'compat.torch_import', 'parallel.mesh', 'parallel.serving',\n"
             "          'parallel.collectives', 'parallel.dp', 'parallel.launch', 'train.dp_loop',\n"
-            "          'parallel.ring_attention', 'parallel.halo_attention', 'train.cp_loop'):\n"
+            "          'parallel.ring_attention', 'parallel.halo_attention', 'train.cp_loop',\n"
+            "          'compat.zstd', 'compat.ocdbt', 'compat.zarr2', 'train.orbax_io'):\n"
             "    assert 'cvml_goalnet_tpu_torch.' + m in sys.modules, m\n"
             "from cvml_goalnet_tpu_torch import cli\n"
             "verbs = set(cli.build_parser()._subparsers._group_actions[0].choices)\n"

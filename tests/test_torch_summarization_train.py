@@ -574,13 +574,34 @@ class TestTrainImportanceModel:
             TL.train_importance_model(_pcfg(_jcfg(small_cfg, {"optimum_metric": "f1"})), TDS([good]), TDS([]),
                                       state, num_epochs=1, verbose=False)
 
-    def test_orbax_backend_is_refused(self, small_cfg):
+    def test_orbax_backend_is_refused(self, small_cfg, tmp_path):
+        """``checkpoint_backend="orbax"`` (the name records the refusal this test once held) writes the rolling
+        and optimum checkpoints in the ``<tag>_orbax/`` layout, and the JAX package's ``load_checkpoint_orbax``
+        restores them bit-equal to the port's own restore (one epoch: ``ckp`` at epoch 1, Adam at step 2)."""
+        from cvml_goalnet_tpu.train import orbax_io as JO
+        from cvml_goalnet_tpu.train.optim import AdamState as JAdam
+        from cvml_goalnet_tpu.train.state import TrainState as JState
+        from cvml_goalnet_tpu_torch.train.orbax_io import _leaves, load_checkpoint_orbax
+
         cfg = _pcfg(small_cfg)
         _, items = _items(small_cfg, [(10, 0)])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6") as e:
-            TL.train_importance_model(cfg, TDS(items), TDS([]), create_train_state(0, cfg, device=CPU),
-                                      checkpoint_backend="orbax")
-        assert str(e.value) == cli.ORBAX_NOT_PORTED
+        state = create_train_state(0, cfg, device=CPU)
+        TL.train_importance_model(cfg, TDS(items), TDS([]), state, num_epochs=1, checkpoint_dir=str(tmp_path),
+                                  verbose=False, checkpoint_backend="orbax")
+        to = lambda t: jnp.asarray(t.numpy())   # noqa: E731
+        jtpl = JState(params=tree_map(to, state.params), model_state=tree_map(to, state.model_state),
+                      opt_state=JAdam(step=jnp.asarray(0, dtype=jnp.int32), mu=tree_map(to, state.opt_state.mu),
+                                      nu=tree_map(to, state.opt_state.nu)), epoch=0)
+        for tag in ("ckp", "opt"):
+            mine = load_checkpoint_orbax(str(tmp_path), state, tag=tag)
+            theirs = JO.load_checkpoint_orbax(str(tmp_path), jtpl, tag=tag)
+            assert theirs.epoch == mine.epoch and int(theirs.opt_state.step) == mine.opt_state.step
+            flat = [{k: np.asarray(v) for k, _, v in _leaves([st.params, st.model_state, st.opt_state.mu,
+                                                              st.opt_state.nu])} for st in (mine, theirs)]
+            assert flat[0].keys() == flat[1].keys()
+            for k in flat[0]:
+                np.testing.assert_array_equal(flat[0][k], flat[1][k], err_msg=str(k))
+        assert load_checkpoint_orbax(str(tmp_path), state, tag="ckp").epoch == 1
 
     def test_empty_val_set_and_no_audio(self, small_cfg):
         jc = _jcfg(small_cfg, {"eps": LOOP_EPS}, audio_included=False)
