@@ -70,7 +70,9 @@ From the repository root, on a machine with a CUDA card:
    read back with ``load_event_labels``, then two
    ``make_spotting_train_step`` steps from one seeded head for the banded,
    full and hybrid configs on the card and on the CPU (first gradients and
-   every loss held to each other), ``save_spotting_checkpoint`` →
+   every loss held to each other; the hybrid, whose GRU steps through the
+   timeline on the host, on the match's first ``HYBRID_TRAIN_FRAMES``
+   frames), ``save_spotting_checkpoint`` →
    ``weights.load_spotting_checkpoint`` → ``score_timeline_auto`` →
    ``spot_events``, with the median step time per scorer;
 8. reports which of cv2, imageio, h5py and matplotlib import on this
@@ -267,7 +269,21 @@ From the repository root, on a machine with a CUDA card:
     its scores equal to an npz save of the same state's), ``serve`` answering
     one ``/reload`` from the orbax trunk and one ``/summarize``, and the
     save and load walls of the full state in both layouts; (d) kernels 1–4
-    launched by (c), from their counts.  The phase prints its wall.
+    launched by (c), from their counts.  The phase prints its wall;
+21. multi-host training (``parallel/multihost.py``,
+    ``parallel/multislice.py``) on the card: (a) the path of
+    ``examples/multihost_train_torch.py`` as one host process with every
+    visible card, its ranks on NCCL joined through a ``TCPStore`` on
+    ``127.0.0.1`` at a free port: three ``make_dp_train_step`` steps of the
+    example's tiny config, every step's loss bit-equal to the same ranks
+    joined through phase 17's per-run ``FileStore`` on the same cards and
+    batches; (b) the same steps on ``build_multislice_mesh``'s grid, the
+    gradients summed over data, then slice, within 1e-6 relative of (a);
+    (c) ``all_gather`` (stacked and tiled), ``reduce_scatter`` and
+    ``ppermute_ring`` (shifts 1, −1, 2) on a ``VirtualAxis`` of CUDA lanes
+    against the same lanes on the CPU; the ranks' kernel launch counts (the
+    data-parallel train step reaches no Pallas counterpart, as in JAX: none
+    of kernels 1–8) and the phase's wall.
 
 Every phase prints its wall and the script's time so far.  Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  ``--phases`` runs
@@ -460,6 +476,7 @@ LONG_T = 32_768                   # attention checked against its plain version 
 MATCH_RATE_T = 135_000            # a 90-minute match at 25 frames/s: banded kernel timed alone
 EVENT_SPACING = 300               # condensed frames per synthetic training event
 TRAIN_STEPS = 2                   # make_spotting_train_step steps per scorer
+HYBRID_TRAIN_FRAMES = 1_350       # the hybrid trains card vs CPU on the match's first quarter: its GRU steps on the host
 LONG_GRU_EXTRA = 3_616            # frames past temporal_chunk_threshold for the chunked GRU check
 PADDED_HEAD_DIM = 48              # a head width the kernels take zero-padded (to 64)
 FRAME64_FRAMES = 6                # frames of the trunk check at frame_size (64, 64)
@@ -1802,17 +1819,37 @@ def train_steps(step, params, features, labels, steps: int = TRAIN_STEPS):
     return params, losses, ms
 
 
-def training_phase(enc: torch.Tensor, runs, seed: int, smi: str, kernel_rows: dict, launches_by_path: dict) -> None:
+def attention_ms_at(name: str, shape: list, window: int) -> float:
+    """The attention kernel ``name``'s time (CUDA events) at ``shape`` (H, T, d) on seeded inputs: for a step at a
+    length the kernel phase timed no part at."""
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+    scale = shape[2] ** -0.5
+    fwd = (lambda: flash_local_fwd(q, k, v, scale, window)) if window > 0 else (lambda: flash_fwd(q, k, v, scale))
+    if name.endswith("_fwd"):
+        return time_ms(fwd)
+    out, lse = fwd()
+    if window > 0:
+        return time_ms(lambda: flash_local_bwd(q, k, v, out, lse, do, scale, window))
+    return time_ms(lambda: flash_bwd(q, k, v, out, lse, do, scale))
+
+
+def training_phase(enc_match: torch.Tensor, runs, seed: int, smi: str, kernel_rows: dict,
+                   launches_by_path: dict) -> None:
     """Spotting training on the match's (T, 640) features, per scorer: first gradients and TRAIN_STEPS steps on the
-    card against the CPU, then the trained head through a checkpoint file and back to scoring on the card."""
-    n = enc.shape[0]
-    enc_cpu = enc.cpu()
+    card against the CPU, then the trained head through a checkpoint file and back to scoring on the card.  The
+    hybrid trains on the match's first HYBRID_TRAIN_FRAMES frames, with every check and tolerance of the others:
+    its GRU steps through the timeline on the host, on the card and on the CPU alike."""
+    n_match = enc_match.shape[0]
     with tempfile.TemporaryDirectory() as tmp:
-        labels_np = synthetic_labels(n, runs[0][1].preprocess.skip_frames, seed + 200, tmp)
-        y_card, y_cpu = torch.as_tensor(labels_np, device="cuda"), torch.as_tensor(labels_np)
-        print(f"training labels: {int(labels_np.sum())} events over {n} frames", flush=True)
+        labels_match = synthetic_labels(n_match, runs[0][1].preprocess.skip_frames, seed + 200, tmp)
+        print(f"training labels: {int(labels_match.sum())} events over {n_match} frames", flush=True)
         for label, cfg, tp_np in runs:
             mc = cfg.model
+            n = min(n_match, HYBRID_TRAIN_FRAMES) if mc.temporal_model == "hybrid" else n_match
+            enc, labels_np = enc_match[:n], labels_match[:n]
+            enc_cpu = enc.cpu()
+            y_card, y_cpu = torch.as_tensor(labels_np, device="cuda"), torch.as_tensor(labels_np)
             n_layers = mc.temporal_num_layers
             fwd, bwd = ("flash_local_fwd", "flash_local_bwd") if mc.temporal_window > 0 else ("flash_fwd", "flash_bwd")
             step = make_spotting_train_step(mc.temporal_hidden if mc.temporal_model == "hybrid" else 0, lr=1e-3,
@@ -1852,13 +1889,15 @@ def training_phase(enc: torch.Tensor, runs, seed: int, smi: str, kernel_rows: di
             require(np.array_equal(scores, in_memory), f"{label}: the reloaded head scores differently")
             events = spot_events(scores, PEAK_WINDOW)
 
-            # the attention kernels' share of the steps, from their times at these shapes in the kernel phase
+            # the attention kernels' share of the steps, from their times at these shapes in the kernel phase (timed
+            # here at a length it did not take)
             heads = mc.temporal_num_heads
             shape = [heads, n, mc.temporal_hidden // heads]
             attn_ms = TRAIN_STEPS * n_layers * sum(
-                next(p["ms"] for p in kernel_rows[name]["parts"] if p["shape"] == shape) for name in (fwd, bwd))
+                next((p["ms"] for p in kernel_rows[name]["parts"] if p["shape"] == shape), None)
+                or attention_ms_at(name, shape, mc.temporal_window) for name in (fwd, bwd))
             record = {
-                "losses": losses, "losses_cpu": losses_cpu, "loss_max_rel_err": loss_rel,
+                "frames": n, "losses": losses, "losses_cpu": losses_cpu, "loss_max_rel_err": loss_rel,
                 "first_grads_err_over_tolerance": grad_ratio, "param_max_abs_diff_after_steps": param_diff,
                 "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
                 "attention_kernel_share_from_kernel_times": attn_ms / sum(step_ms),
@@ -5459,7 +5498,117 @@ def orbax_phase(seed: int, smi: str, launches_by_path: dict) -> None:
           f"did not run first)", flush=True)
 
 
-PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20")
+COLLECTIVE_LANES = 4          # 21c: lanes of the VirtualAxis
+COLLECTIVE_ROWS = 1_024       # 21c: rows of each lane's (rows, 128) tensor, divisible by the lanes
+
+
+def multihost_example():
+    """``examples/multihost_train_torch.py`` as a module (its directory put on the path, which spawned ranks
+    inherit)."""
+    import importlib
+
+    examples = str(REPO / "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    return importlib.import_module("multihost_train_torch")
+
+
+def counted_multihost_rank(rank: int, world: int, device, jobs: list) -> dict:
+    """The example's rank function over each job in turn, with every kernel's launch count set to 0 before and
+    read after → each job's step losses and the counts.  A spawned rank imports this script as its main
+    module."""
+    example = multihost_example()
+    for f, _, _ in KERNELS.values():
+        f.launches = 0
+    losses = [example.rank_steps(rank, world, device, job) for job in jobs]
+    return {"losses": losses, "launches": {name: f.launches for name, (f, _, _) in KERNELS.items()}}
+
+
+def collectives_check(gen: torch.Generator) -> dict:
+    """21c: JAX's remaining collectives on a VirtualAxis of CUDA lanes against the same lanes on the CPU."""
+    from cvml_goalnet_tpu_torch.parallel import collectives as C
+    from cvml_goalnet_tpu_torch.parallel.mesh import VirtualAxis
+
+    axis = VirtualAxis(COLLECTIVE_LANES)
+    card = [torch.randn((COLLECTIVE_ROWS, 128), generator=gen, device="cuda") for _ in range(COLLECTIVE_LANES)]
+    cpu = [x.cpu() for x in card]
+    runs = {"all_gather": lambda xs: C.all_gather(xs, axis), "all_gather_tiled": lambda xs: C.all_gather(xs, axis, True),
+            "reduce_scatter": lambda xs: C.reduce_scatter(xs, axis)}
+    for shift in (1, -1, 2):
+        runs[f"ppermute_ring_{shift}"] = lambda xs, s=shift: C.ppermute_ring(xs, axis, s)
+    errs = {}
+    for name, run in runs.items():
+        got, want = run(card), run(cpu)
+        require(all(g.is_cuda for g in got) and [g.shape for g in got] == [w.shape for w in want],
+                f"21c: {name} on the card gave {[tuple(g.shape) for g in got]}")
+        errs[name] = max(max_err(g.cpu(), w) for g, w in zip(got, want))
+        tol = 1e-6 * max(1.0, max(float(w.abs().max()) for w in want)) if name == "reduce_scatter" else 0.0
+        require(errs[name] <= tol, f"21c: {name} on the card {errs[name]} from the CPU (tolerance {tol})")
+    return errs
+
+
+def multihost_phase(seed: int, smi: str, launches_by_path: dict) -> dict:
+    """Phase 21: the example's multi-host path on every visible card as one host process, against phase 17's
+    launcher; the multislice grid; the collectives on CUDA lanes; launch counts and the wall."""
+    import socket
+
+    from cvml_goalnet_tpu_torch.parallel import multihost
+    from cvml_goalnet_tpu_torch.parallel.launch import backend_of, spawn_ranks
+
+    t_phase = time.perf_counter()
+    example = multihost_example()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize_from_env(f"127.0.0.1:{port}", 1, 0, timeout=60)
+    try:
+        mesh = multihost.global_data_mesh()
+        flat = example.make_job(mesh, seed=seed)
+        grid = example.make_job(mesh, multislice=True, seed=seed)
+        walls, got = {}, {}
+
+        def run(label, fn):
+            t0 = time.perf_counter()
+            got[label] = fn()
+            walls[label] = time.perf_counter() - t0
+
+        # (a) and (b) through the coordinator's TCPStore; phase 17's FileStore launch of the same ranks beside
+        threads = [threading.Thread(target=run, args=("tcp", lambda: multihost.run_ranks(
+                       counted_multihost_rank, mesh, ([flat, grid],)))),
+                   threading.Thread(target=run, args=("filestore", lambda: spawn_ranks(
+                       counted_multihost_rank, list(mesh.local), ([flat],))))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        multihost.shutdown()
+    require(set(got) == {"tcp", "filestore"}, f"21: a launch of the ranks failed ({sorted(got)} came back)")
+    tcp_flat, tcp_grid = got["tcp"][0]["losses"]
+    file_flat = got["filestore"][0]["losses"][0]
+    require(all(r["losses"] == got["tcp"][0]["losses"] for r in got["tcp"]), "21: the ranks' losses differ")
+    require(len(tcp_flat) == example.STEPS and tcp_flat == file_flat,
+            f"21a: the TCPStore ranks' losses {tcp_flat} vs the FileStore ranks' {file_flat}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tcp_grid, tcp_flat))
+    require(rel <= 1e-6, f"21b: the multislice grid's losses {tcp_grid} vs {tcp_flat} ({rel} relative)")
+    launches = {name: sum(r["launches"][name] for r in got["tcp"] + got["filestore"]) for name in KERNELS}
+    require(not any(launches.values()), f"21: the data-parallel train step launched kernels: {launches}")
+    for label in ("multihost_tcp", "multihost_filestore"):
+        launches_by_path[label] = {name: 0 for name in KERNELS}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    out = {"ranks": mesh.size, "backend": backend_of(list(mesh.local)), "steps": example.STEPS, "losses": tcp_flat,
+           "filestore_losses": file_flat, "bit_equal": True, "grid": grid["slices"].shape, "grid_losses": tcp_grid,
+           "grid_max_rel_diff": rel, "collectives_max_abs_err": collectives_check(gen),
+           "kernel_launches": launches, "walls_s": walls}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 21: multi-host training (one host process, {mesh.size} card(s), {out['backend']} over a TCPStore) on "
+          f"{smi}: "
+          f"{json.dumps(out)}", flush=True)
+    print(f"phase 21: {out['phase_wall_s']:.1f} s wall", flush=True)
+    return out
+
+
+PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20", "21")
 
 
 def parse_phases(spec: str | None) -> set[str]:
@@ -5663,6 +5812,9 @@ def main() -> int:
     if "20" in phases:
         orbax_phase(args.seed, smi, launches_by_path)
         clock.done("20")
+    if "21" in phases:
+        multihost_phase(args.seed, smi, launches_by_path)
+        clock.done("21")
     del videos
     if "11" in phases:
         serving_phase(args.seed, smi, launches_by_path)
@@ -5693,6 +5845,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "parts": r["parts"],
         })
+        if "21" in phases:   # the multi-host paths' ranks counted their own launches
+            table[-1]["multihost_phase_21"] = {
+                "launches": 0, "why": "the data-parallel train step reaches no Pallas counterpart, as in JAX"}
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

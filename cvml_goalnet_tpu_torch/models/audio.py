@@ -31,6 +31,16 @@ def audio_feature_channels(aud: AudioConfig) -> int:
     return aud.n_mels if aud.log_mel else aud.n_mfcc
 
 
+def audio_encoder_init(seed: int, cfg, aud: AudioConfig) -> dict:
+    """The audio branch's numpy tree in the JAX layout (``conv0``, ``conv1``, ``head``), drawn from ``seed`` as
+    ``weights.init_params`` draws it (JAX's ``audio_encoder_init`` takes a key; the draws differ)."""
+    import numpy as np
+
+    from cvml_goalnet_tpu_torch.weights import _audio_encoder
+
+    return _audio_encoder(np.random.default_rng(seed), cfg, aud)
+
+
 def audio_encoder_apply(params, x: torch.Tensor) -> torch.Tensor:
     """x (N, B, n_mfcc) MFCC features → (N, aud_feature_dim)."""
     n = x.shape[0]

@@ -102,6 +102,16 @@ def _moe_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, tor
     return moe_apply(lp, x, cfg.fusion_moe_top_k, probs=probs), probs
 
 
+def avm_init(seed: int, cfg: ModelConfig, pre, aud, classifier: bool = False) -> tuple[dict, dict]:
+    """The whole model's numpy (params, state) in the JAX layout for ``cfg`` (every backbone, audio, text and
+    MoE option), drawn from ``seed`` by ``weights.init_params`` (JAX's ``avm_init`` takes a key; the draws
+    differ).  ``weights.from_jax`` moves it to a device."""
+    from cvml_goalnet_tpu_torch.config import PipelineConfig
+    from cvml_goalnet_tpu_torch.weights import init_params
+
+    return init_params(PipelineConfig(preprocess=pre, audio=aud, model=cfg), seed, classifier)
+
+
 def avm_apply(params, state, visual: torch.Tensor, audio: torch.Tensor | None = None, text=None, *,
               cfg: ModelConfig, classifier: bool = False) -> torch.Tensor:
     """Eval forward → (N, 1) scores in [out_lo, out_hi], or (N, 5) logits with ``classifier``, in the inputs'

@@ -40,6 +40,19 @@ def _gru_scan(params, xs: torch.Tensor, hidden: int, reverse: bool = False) -> t
     return out if batched else out[0]
 
 
+def temporal_scorer_init(seed: int, in_dim: int, hidden: int, n_classes: int = 1) -> dict:
+    """The bidirectional GRU scorer's numpy tree in the JAX layout (``fwd``, ``bwd``: ``{"wx", "wh"}``, and
+    ``head``), drawn from ``seed`` as ``weights.init_temporal_params`` draws a GRU head (JAX's
+    ``temporal_scorer_init`` takes a key; the draws differ)."""
+    import numpy as np
+
+    from cvml_goalnet_tpu_torch.weights import _gru, _layer
+
+    rng = np.random.default_rng(seed)
+    return {"fwd": _gru(rng, in_dim, hidden), "bwd": _gru(rng, in_dim, hidden),
+            "head": _layer(rng, (2 * hidden, n_classes), 2 * hidden)}
+
+
 def temporal_scorer_apply(params, features: torch.Tensor, hidden: int) -> torch.Tensor:
     """features (T, D) → (T,) event scores, or (T, C) for a C-class head; a leading batch axis passes through."""
     hs = torch.cat([_gru_scan(params["fwd"], features, hidden),

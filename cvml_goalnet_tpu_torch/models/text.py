@@ -46,6 +46,15 @@ def check_text_config(cfg: ModelConfig) -> None:
         )
 
 
+def text_encoder_init(seed: int, cfg: ModelConfig) -> dict:
+    """The text branch's numpy tree in the JAX layout (``embed``, ``head``, ``layers``), drawn from ``seed`` as
+    ``weights.init_params`` draws it; a config the encoder cannot take raises JAX's ``ValueError`` (JAX's
+    ``text_encoder_init`` takes a key; the draws differ)."""
+    from cvml_goalnet_tpu_torch.weights import _text_encoder
+
+    return _text_encoder(np.random.default_rng(seed), cfg)
+
+
 def text_encoder_apply(params, token_ids: torch.Tensor, *, cfg: ModelConfig) -> torch.Tensor:
     """token_ids (N, T) integers (0 = padding) → (N, text_feature_dim) in the embedding's dtype."""
     ids = torch.as_tensor(token_ids).to(device=params["embed"].device, dtype=torch.long)

@@ -61,6 +61,17 @@ def visual_spatial_trace(hw: tuple[int, int], n_stages: int) -> list[tuple[int, 
     return sizes
 
 
+def visual_encoder_init(seed: int, cfg, pre) -> tuple[dict, dict]:
+    """The reference stack's numpy (params, state) in the JAX layout (``conv0..2``, ``bn0..2``, ``head``; the
+    batchnorm statistics), drawn from ``seed`` as ``weights.init_params`` draws them (JAX's
+    ``visual_encoder_init`` takes a key; the draws differ)."""
+    import numpy as np
+
+    from cvml_goalnet_tpu_torch.weights import _reference_backbone
+
+    return _reference_backbone(np.random.default_rng(seed), cfg, pre)
+
+
 def visual_encoder_apply(params, state, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
     """x (N, H, W, C) normalised frames → (N, vis_feature_dim) in x's dtype (float32 or bf16), eval mode;
     ``quant`` takes conv1 and conv2 through int8."""

@@ -8,6 +8,7 @@ clip; a negative start clamps to 0).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,3 +20,17 @@ def clip_stats(intervals: torch.Tensor, importances: torch.Tensor) -> tuple[torc
     end = torch.clamp(intervals[:, 1], 0, n)
     end = torch.maximum(end, start)
     return prefix[end] - prefix[start], (end - start).to(torch.int32)
+
+
+def clip_stats_host(intervals: np.ndarray, importances: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`clip_stats` in NumPy, clip by clip, with the same clamps (a negative start clamps to 0, where a
+    Python slice would wrap from the tail)."""
+    importances = np.asarray(importances)
+    n = len(importances)
+    sums, lens = [], []
+    for a, b in np.asarray(intervals):
+        a = min(max(int(a), 0), n)
+        b = max(min(max(int(b), 0), n), a)
+        sums.append(importances[a:b].sum())
+        lens.append(b - a)
+    return np.asarray(sums), np.asarray(lens, dtype=np.int32)

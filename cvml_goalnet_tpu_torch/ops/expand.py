@@ -7,6 +7,7 @@ scores back unchanged when they are already at the raw length.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,11 @@ def expand_scores(scores: torch.Tensor, skip_frames: int, full_n_frames: int) ->
         return scores
     idx = torch.clamp(torch.arange(full_n_frames, device=scores.device) // skip_frames, max=n - 1)
     return scores[idx]
+
+
+def expand_scores_host(scores: np.ndarray, skip_frames: int, full_n_frames: int) -> np.ndarray:
+    """The same gather in NumPy: a copy of the scores when they are already at the raw length."""
+    scores = np.asarray(scores).reshape(-1)
+    if scores.shape[0] == full_n_frames:
+        return scores.copy()
+    return scores[np.minimum(np.arange(full_n_frames) // skip_frames, scores.shape[0] - 1)]

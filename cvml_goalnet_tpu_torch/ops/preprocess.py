@@ -11,6 +11,8 @@ from the raw (uint8) frame.
 On the card :func:`preprocess_frames` is one launch of the hand-written kernel
 (``ops/cuda/fused_preprocess.py``); on the CPU it is that kernel's plain
 version.  :func:`preprocess_frames_host` is the host mirror (cv2, else NumPy).
+The two halves of the contract apart, :func:`normalize_frames` and
+:func:`resize_bilinear`, are plain PyTorch, as JAX computes them in XLA.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.ops.cuda.fused_preprocess import fused_preprocess_frames
 
 
@@ -70,6 +73,27 @@ def preprocess_frames(
     _, h, w, _ = frames.shape
     dev = frames.device
     return fused_preprocess_frames(frames, resize_taps_on(h, out_hw[0], dev), resize_taps_on(w, out_hw[1], dev), eps)
+
+
+def normalize_frames(frames: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Per-frame joint min-max normalisation over (H, W, C) of (N, H, W, C) frames → float32 (reference
+    ``utils.py:284``)."""
+    f = frames.to(torch.float32)
+    lo = f.amin(dim=(1, 2, 3), keepdim=True)
+    hi = f.amax(dim=(1, 2, 3), keepdim=True)
+    return (f - lo) / (hi - lo + eps)
+
+
+def resize_bilinear(frames: torch.Tensor, out_hw: tuple[int, int], compute_dtype=torch.float32) -> torch.Tensor:
+    """Bilinear resize of (N, H, W, C) → (N, out_h, out_w, C) float32 by two contractions with
+    :func:`resize_matrices`: the operands in ``compute_dtype`` (bf16 for JAX's MXU path), float32 sums, the
+    first product rounded to ``compute_dtype`` between them, as JAX's ``preferred_element_type`` does."""
+    _, h, w, _ = frames.shape
+    rh, rw = (torch.as_tensor(m, device=frames.device).to(compute_dtype).to(torch.float32)
+              for m in resize_matrices(h, w, *out_hw))
+    with strict_f32():
+        x = torch.einsum("ah,nhwc->nawc", rh, frames.to(compute_dtype).to(torch.float32))
+        return torch.einsum("bw,nawc->nabc", rw, x.to(compute_dtype).to(torch.float32))
 
 
 def preprocess_frames_host(

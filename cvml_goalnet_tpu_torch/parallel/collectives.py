@@ -26,14 +26,43 @@ Megatron's set, :func:`gather_from_axis` (all-gather forward, this rank's
 slice of the gradient backward) and :func:`scatter_to_axis` (this rank's
 slice forward, all-gather backward).  A rank's ``parallel.mesh.Axis`` runs
 its lock-step combines on these.
+
+The sums take ``group`` as one process group or as an ordered list of them,
+reduced over one after the other: a multi-slice grid's data-parallel step
+sums inside a host first, then across hosts (``parallel/multislice.py``).
+
+JAX's named-axis collectives close the module, over a lock-step view of an
+axis (a rank's ``parallel.mesh.Axis``, or a ``VirtualAxis`` holding every
+lane): :func:`all_gather`, :func:`reduce_scatter`, :func:`ppermute_ring`,
+:func:`axis_index` and :func:`barrier`.  Each takes and returns one entry a
+lane held, as the views' methods do.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
 from cvml_goalnet_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+
+def _groups(group) -> list:
+    """``group`` as the groups to sum over in order: one process group (``None``: the world), or a list of
+    them."""
+    return list(group) if isinstance(group, (list, tuple)) else [group]
+
+
+def group_size(group) -> int:
+    """The ranks a sum over ``group`` spans: the product of its groups' sizes."""
+    return math.prod(dist.get_world_size(g) for g in _groups(group))
+
+
+def _sum_in_place(t: torch.Tensor, group) -> torch.Tensor:
+    for g in _groups(group):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
+    return t
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -43,9 +72,7 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
+        return _sum_in_place(x.clone(memory_format=torch.contiguous_format), group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -60,14 +87,12 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Σ over the ranks of ``group``, a new tensor (no autograd)."""
-    out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
+    return _sum_in_place(x.detach().clone(), group)
 
 
 def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
     """The mean over the ranks of ``group`` (no autograd)."""
-    return psum(x, group) / dist.get_world_size(group)
+    return psum(x, group) / group_size(group)
 
 
 def tree_psum(tree, group=None, mean: bool = False):
@@ -76,10 +101,9 @@ def tree_psum(tree, group=None, mean: bool = False):
     leaves = tree_leaves(tree)
     if not leaves:
         return tree
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in leaves])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = _sum_in_place(torch.cat([t.detach().reshape(-1).to(torch.float32) for t in leaves]), group)
     if mean:
-        flat = flat / dist.get_world_size(group)
+        flat = flat / group_size(group)
     out, off = [], 0
     for t in leaves:
         out.append(flat[off:off + t.numel()].reshape(t.shape).to(t.dtype))
@@ -198,3 +222,36 @@ def all_gather_cat(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x, group=axis.group)
     return torch.cat(parts, dim=dim)
+
+
+def all_gather(xs: list, axis, tiled: bool = False) -> list:
+    """JAX's ``all_gather`` over ``axis``: for each lane held, every lane's ``x`` stacked on a new leading dim in
+    axis order, or with ``tiled`` concatenated along dim 0.  Differentiable (``Axis.gather``)."""
+    return axis.gather(xs if tiled else [x.unsqueeze(0) for x in xs], dim=0)
+
+
+def reduce_scatter(xs: list, axis) -> list:
+    """JAX's ``psum_scatter(tiled=True)`` over ``axis``: the sum of every lane's ``x``, cut along dim 0 into
+    ``axis.size`` equal chunks, lane i's the i-th.  Differentiable.  On a rank it is an all-reduce and a slice
+    (gloo has no reduce-scatter)."""
+    rows = xs[0].shape[0]
+    if rows % axis.size:
+        raise ValueError(f"reduce_scatter: {rows} rows do not split over an axis of {axis.size}")
+    return axis.scatter(axis.sum(xs), dim=0)
+
+
+def ppermute_ring(xs: list, axis, shift: int = 1) -> list:
+    """JAX's ``ppermute_ring``: lane i's ``x`` goes to lane i + ``shift`` around ``axis`` (``Axis.shift``)."""
+    return axis.shift(xs, shift)
+
+
+def axis_index(axis) -> list:
+    """JAX's ``axis_index``: the index on ``axis`` of each lane held."""
+    return list(axis.lanes)
+
+
+def barrier(xs: list, axis) -> list:
+    """Every rank of ``axis`` reaches this point before any goes on; ``xs`` comes back as it was (one process
+    holding every lane has nothing to wait for)."""
+    axis.barrier()
+    return xs

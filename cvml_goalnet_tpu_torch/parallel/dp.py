@@ -22,6 +22,11 @@ Each data rank draws its own dropout masks from its own generator (JAX's
 GSPMD step draws one mask for the global batch; the distribution is the
 same); the ranks of one data index share theirs.
 
+On a multi-slice ``(slice, data, model)`` grid the batch splits over the
+flattened (slice × data) product and every sum runs over the data axis
+(inside a host), then over the slice axis (across hosts), as JAX's
+``grad_reduce_axes`` orders them: ``group`` is then that list of groups.
+
 On a ``(data, model)`` grid the batch splits over the data axis only.
 Without ``tensor_parallel`` the model axis holds replicas (JAX's GSPMD step
 on a mesh with ``model > 1`` and replicated parameters).  With it
@@ -43,7 +48,7 @@ import torch.distributed as dist
 from cvml_goalnet_tpu_torch.config import PipelineConfig
 from cvml_goalnet_tpu_torch.device import strict_f32
 from cvml_goalnet_tpu_torch.models.avm import avm_train_apply
-from cvml_goalnet_tpu_torch.parallel.collectives import pmean, psum, tree_psum
+from cvml_goalnet_tpu_torch.parallel.collectives import group_size, pmean, psum, tree_psum
 from cvml_goalnet_tpu_torch.parallel.sharding import fusion_param_shardings, partition_leaves
 from cvml_goalnet_tpu_torch.train.optim import (
     adam_update,
@@ -114,7 +119,10 @@ def make_dp_train_step(cfg: PipelineConfig, group=None, tensor_parallel: bool = 
     """The GSPMD step → ``step(params, model_state, opt_state, visual, audio, labels, generator=None,
     text=None) -> (params, model_state, opt_state, loss)`` on this rank's block of the global batch (every
     rank's block the same size), the loss the global batch's.  ``step.loss_and_grads`` gives the global loss,
-    the new state and the reduced gradients alone.  ``group`` is the data group (None: the world).
+    the new state and the reduced gradients alone.  ``group`` is the data group (None: the world), or an
+    ordered list of groups whose ranks together hold the global batch: the batchnorm sums, the loss and the
+    gradients are reduced over each in turn (a multi-slice grid's ``data`` then ``slice``,
+    ``parallel/multislice.py``).
 
     ``tensor_parallel`` needs ``model``, the rank's model axis (a ``parallel.mesh.Axis``): ``params`` and the
     optimiser state are then the rank's slice of the fusion layout (``parallel.sharding.place_params``)."""
@@ -125,7 +133,7 @@ def make_dp_train_step(cfg: PipelineConfig, group=None, tensor_parallel: bool = 
     def loss_and_grads(params, model_state, visual, audio, labels, generator=None, text=None):
         _check_text(cfg, text)
         g = group if group is not None else dist.group.WORLD
-        global_n = visual.shape[0] * dist.get_world_size(g)
+        global_n = visual.shape[0] * group_size(g)
         loss, new_ms, grads = _loss_and_grads(params, model_state, visual, audio, labels, generator, text, cfg,
                                               g, global_n, tp)
         return psum(loss, g), new_ms, tree_psum(grads, g)

@@ -87,6 +87,13 @@ def build_mesh(cfg: MeshConfig = MeshConfig(), device=None) -> list[torch.device
     return _entries(dev, data * model)
 
 
+def cpu_mesh(n: int, model: int = 1) -> list[torch.device]:
+    """JAX's test mesh of ``n`` CPU devices as a ``(n / model) × model`` grid: ``n`` entries of the CPU device
+    (gloo ranks for the training paths); a model axis that does not divide ``n`` raises its ``ValueError``."""
+    data, model = mesh_axis_sizes(MeshConfig(data=n // max(1, model), model=model), n)
+    return build_mesh(MeshConfig(data=data, model=model), device="cpu")
+
+
 class Axis(NamedTuple):
     """One axis of the rank grid as this rank sees it: the process group of the ranks that differ from it along
     the axis only, their global ranks in axis order, and this rank's index among them.
@@ -100,7 +107,8 @@ class Axis(NamedTuple):
     ``tree_sum`` one all-reduce of a tree (no autograd), ``gather`` and
     ``scatter`` the other pair, ``shift`` the ring's ``ppermute``.  ``split``
     gives the trees of the lanes held from what the caller holds (a rank
-    holds its own lane's already) and ``join`` the reverse.
+    holds its own lane's already) and ``join`` the reverse; ``barrier`` waits
+    for every rank of the axis.
     """
     group: object
     ranks: tuple
@@ -137,6 +145,9 @@ class Axis(NamedTuple):
 
     def split(self, tree, cut) -> list:
         return [tree]
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
 
     def join(self, trees: list, glue):
         return trees[0]
@@ -176,6 +187,9 @@ class VirtualAxis:
 
     def split(self, tree, cut) -> list:
         return [cut(tree, i, self.size) for i in self.lanes]
+
+    def barrier(self) -> None:
+        pass
 
     def join(self, trees: list, glue):
         return glue(trees)

@@ -18,7 +18,7 @@ the ring's reverse shifts, are summed over the ctx and data axes, and the
 model-split slices also over the model axis, so that every rank ends the step
 with the global gradient, the monolithic step's.  Clipping, the schedule and
 Adam then run on every rank on the same numbers.  The pipeline-parallel step
-is not ported yet (ROADMAP.md §1 item 6.4).
+(JAX's ``parallel/pp.py``) is ``parallel/pp.py::make_pp_spotting_train_step``.
 """
 
 from __future__ import annotations

@@ -1,9 +1,38 @@
 """Cross-cutting utilities of the port: stage timing, console logging, the jsonl metrics log, and
-:func:`tree_cast`."""
+:func:`tree_cast`.
+
+The names of the JAX package's ``__all__`` are exported here, those of the submodules imported at first use,
+except the names in :data:`NOT_PORTED`, each with the reason the port does not take it.
+"""
 
 from __future__ import annotations
 
+import importlib
+
 import torch
+
+_EXPORTS = {
+    "Color": "logging",
+    "log_epoch_header": "logging",
+    "log_metrics": "logging",
+    "log_val_delta": "logging",
+    "StageTimer": "profiling",
+    "trace_annotation": "profiling",
+}
+
+NOT_PORTED = {
+    "apply_platform_override": "it pins JAX's jax_platforms and its persistent compile cache, and the port has "
+                               "neither: its entry points read GOALNET_PLATFORM=cpu themselves "
+                               "(cli._device) and its kernels are built by nvcc at first use",
+}
+
+__all__ = [*_EXPORTS, "tree_cast"]
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
 
 
 def tree_cast(tree, dtype: torch.dtype):

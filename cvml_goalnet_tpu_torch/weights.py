@@ -20,7 +20,8 @@ by dtype and device alone, with no transposes:
 
 :func:`init_params` draws a pytree of that layout from a numpy seed (it is a
 fresh draw with PyTorch's default bounds, not ``avm_init``'s JAX random
-stream); :func:`load_jax_checkpoint` reads the ``<tag>_state.npz`` files that
+stream; the models' ``*_init`` functions draw one module's tree the same
+way); :func:`load_jax_checkpoint` reads the ``<tag>_state.npz`` files that
 ``cvml_goalnet_tpu/train/checkpoint.py`` writes.
 
 The temporal (spotting) heads keep their JAX trees too: GRU
@@ -108,13 +109,7 @@ def init_params(cfg: PipelineConfig, seed: int, classifier: bool = False):
     visual, vstate = backbones[m.vis_backbone](rng, m, pre)
     params = {"visual": visual}
     if m.audio_included:
-        audio = {}
-        achans = (audio_feature_channels(aud),) + m.aud_channels
-        for i, (cin, cout) in enumerate(zip(achans[:-1], achans[1:])):
-            audio[f"conv{i}"] = _layer(rng, (3, cin, cout), cin * 3)
-        t = audio_temporal_trace(aud.bin_length, len(m.aud_channels))[-1]
-        audio["head"] = _layer(rng, (m.aud_channels[-1] * t, m.aud_feature_dim), m.aud_channels[-1] * t)
-        params["audio"] = audio
+        params["audio"] = _audio_encoder(rng, m, aud)
     dims = (fusion_input_dim(m),) + m.fusion_hidden + (N_CLASSES if classifier else 1,)
     params["fusion"] = [_layer(rng, (din, dout), din) for din, dout in zip(dims[:-1], dims[1:])]
     if m.fusion_moe_experts > 0:
@@ -124,6 +119,17 @@ def init_params(cfg: PipelineConfig, seed: int, classifier: bool = False):
     if m.text_included:
         params["text"] = _text_encoder(rng, m)
     return params, {"visual": vstate}
+
+
+def _audio_encoder(rng, m, aud):
+    """The audio branch (``models/audio.py``): ``conv0``, ``conv1`` (kernel 3, WIO) and the flatten head."""
+    audio = {}
+    achans = (audio_feature_channels(aud),) + m.aud_channels
+    for i, (cin, cout) in enumerate(zip(achans[:-1], achans[1:])):
+        audio[f"conv{i}"] = _layer(rng, (3, cin, cout), cin * 3)
+    t = audio_temporal_trace(aud.bin_length, len(m.aud_channels))[-1]
+    audio["head"] = _layer(rng, (m.aud_channels[-1] * t, m.aud_feature_dim), m.aud_channels[-1] * t)
+    return audio
 
 
 def _batchnorm(rng, cout):
