@@ -139,7 +139,10 @@ From the repository root, on a machine with a CUDA card:
     and a 404; (e) ``cli.main`` of ``spot-train`` (banded, ``--val-videos``,
     ``--early-stop``), ``spot`` and ``spot --stream`` with its head against
     the direct path, ``serve --max-requests 3`` driven by a client thread,
-    and ``profile --repeats 3 --trace-dir`` with its trace's busy share.
+    and ``profile --repeats 3 --trace-dir`` with its trace's busy share;
+    then ``spot-train --epochs 1`` of a GRU and of a hybrid head on the card
+    and on the CPU (every step's loss within 1e-4 relative, the two saved
+    heads scoring the spot target within 1e-4·max(1, max|s|)).
     The videos of (d) and (e) are 72×96 raw, as in phase 10 (cut: the model
     resizes to 40×40 either way), and repeat one seeded block of 500 frames;
 12. bf16 and int8 inference at the full width of ``configs/tpu_serving.json``
@@ -191,7 +194,9 @@ From the repository root, on a machine with a CUDA card:
     backbone's floor; (b) under int8 at float32 every int8 GEMM of those 64
     frames (cuBLAS's, through ``torch._int_mm``) equal to the CPU's float64
     product; (c) ``infer`` on phase 9's video against the direct path, then
-    ``train --epochs 1`` and ``eval`` on phase 10's videos, per backbone;
+    ``train --epochs 1`` and ``eval`` on phase 10's videos, per backbone,
+    and the first sub-batch's gradients from one seeded state at dropout 0,
+    card against CPU (each leaf within 1e-4·max(1, max|g|));
     (d) the ``Summarizer`` and a batcher request per backbone against the
     path scored directly; (e) ``Spotter.spot_frames`` over phase 5's match
     with the resnet backbone and a full-window head (kernel 5 through
@@ -283,7 +288,23 @@ From the repository root, on a machine with a CUDA card:
     ``ppermute_ring`` (shifts 1, −1, 2) on a ``VirtualAxis`` of CUDA lanes
     against the same lanes on the CPU; the ranks' kernel launch counts (the
     data-parallel train step reaches no Pallas counterpart, as in JAX: none
-    of kernels 1–8) and the phase's wall.
+    of kernels 1–8) and the phase's wall;
+22. the port's examples and the reference corpus: (a) the ``main`` of
+    ``examples/train_and_summarize_torch.py``, ``serve_and_spot_torch.py``
+    and ``live_follow_spotting_torch.py`` on the card, with h5py and
+    matplotlib stood in where this machine lacks them (the in-memory
+    annotation store and the plot sink of phase 10), their banner lines
+    printed; (b) each against the same example run on the CPU in a child
+    process from the same seeded weights (``train_and_summarize`` at dropout
+    0 and Adam eps 1e-4 on both sides): summarization scores within 1e-4,
+    training losses within 1e-4 relative (``serve_and_spot``: its first 10
+    steps free-running, then the card's loss from the CPU run's parameters
+    at every 25th step), ``spot_stream``'s scores within
+    1e-4·max(1, max|s|), masks, clips and events equal but at a rounding
+    boundary or a near tie; (c) each example's launches of kernels 1–8, kernels 2–4 from
+    ``train_and_summarize`` and from the batcher; (d) where cv2 and h5py
+    import, ``compat.reference_runner.build_reference_corpus`` read through
+    the port's loaders and its first video fused on the card; the wall.
 
 Every phase prints its wall and the script's time so far.  Then it prints the kernel table as one JSON line, the ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  ``--phases`` runs
@@ -1658,12 +1679,12 @@ def peak_margin(s: np.ndarray, i: int, window: int, threshold: float = 0.0) -> f
     return float(min(abs(s[i] - threshold), abs(s[i] - nb.max()) if len(nb) else np.inf))
 
 
-def compare_events(a: np.ndarray, b: np.ndarray, tol: float) -> list[dict]:
+def compare_events(a: np.ndarray, b: np.ndarray, tol: float, window: int = PEAK_WINDOW) -> list[dict]:
     """Frames whose event status differs between two score vectors; each must be a near tie."""
-    ea, eb = set(spot_events(a, PEAK_WINDOW).tolist()), set(spot_events(b, PEAK_WINDOW).tolist())
+    ea, eb = set(spot_events(a, window).tolist()), set(spot_events(b, window).tolist())
     diffs = []
     for i in sorted(ea ^ eb):
-        margin = min(peak_margin(a, i, PEAK_WINDOW), peak_margin(b, i, PEAK_WINDOW))
+        margin = min(peak_margin(a, i, window), peak_margin(b, i, window))
         if margin > tol:
             raise AssertionError(f"event at frame {i} differs, decided by {margin} > {tol}")
         diffs.append({"frame": i, "margin": margin})
@@ -2928,6 +2949,78 @@ def http_check(cfg: PipelineConfig, seed: int, root: str, launches_by_path: dict
     return out
 
 
+def spot_train_heads_check(cfg: PipelineConfig, videos: list[str], target: str, common: list[str], work: str,
+                           root: str, seed: int, launches_by_path: dict) -> dict:
+    """11e: ``spot-train --epochs 1`` of a GRU and of a hybrid head on the first two videos (the third for
+    validation), on the card and then on the CPU (``GOALNET_PLATFORM=cpu``, the same verb): every step's loss
+    within 1e-4 relative, and the two saved heads scoring ``target``'s trunk features on the card within
+    1e-4·max(1, max|s|); the walls."""
+    from cvml_goalnet_tpu_torch.data.dataset import build_video_item
+    from cvml_goalnet_tpu_torch.serve import trunk_feature_dim
+    from cvml_goalnet_tpu_torch.train import spotting as train_spotting
+
+    state = load_checkpoint(cli._artifact_paths(work, False)["ckp_dir"], create_train_state(seed, cfg), tag="opt")
+    item = build_video_item(target, cfg, None, None, False)
+    enc = encode_timeline(state.params, state.model_state, item.visual, None, cfg)
+    out = {}
+    for family, flags, kernels in (
+            ("gru", ["--temporal-model", "gru"], []),
+            ("hybrid", ["--temporal-model", "hybrid", "--attn-window", str(SPOT_WINDOW)],
+             ["flash_local_fwd", "flash_local_bwd"])):
+        fcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, temporal_model=family, temporal_window=SPOT_WINDOW if family == "hybrid" else 0))
+        losses, scores, walls = {}, {}, {}
+        for where in ("card", "cpu"):
+            head = os.path.join(root, f"head_{family}_{where}.npz")
+            argv = ["spot-train", "--videos", *videos[:2], "--val-videos", videos[2], *common, *flags,
+                    "--epochs", "1", "--out", head]
+            kept = []
+            real_make = train_spotting.make_spotting_train_step
+
+            def recording(*a, **kw):
+                step = real_make(*a, **kw)
+
+                def run(*args):
+                    res = step(*args)
+                    kept.append(float(res[2]))
+                    return res
+
+                return run
+
+            train_spotting.make_spotting_train_step = recording
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    if where == "card":
+                        rc = drive(f"cli_spot_train_{family}", ["fused_preprocess_frames", *TRUNK, *kernels],
+                                   lambda: cli.main(argv), launches_by_path)
+                    else:
+                        os.environ["GOALNET_PLATFORM"] = "cpu"
+                        rc = cli.main(argv)
+            finally:
+                train_spotting.make_spotting_train_step = real_make
+                os.environ.pop("GOALNET_PLATFORM", None)
+            walls[where] = time.perf_counter() - t0
+            require(rc == 0 and os.path.exists(head) and kept,
+                    f"11e: spot-train of a {family} head on the {where} exited {rc}: {buf.getvalue()[-1500:]}")
+            losses[where] = kept
+            tmpl = weights.init_temporal_params(fcfg.model, trunk_feature_dim(fcfg), seed=1)
+            with torch.no_grad():
+                scores[where] = score_timeline_auto(weights.tree_from_jax(weights.load_spotting_checkpoint(head, tmpl)),
+                                                    enc, fcfg).cpu().numpy()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+        require(len(losses["card"]) == len(losses["cpu"]) and rel <= 1e-4,
+                f"11e: spot-train {family} losses card {losses['card']} vs CPU {losses['cpu']}")
+        tol = score_tolerance(scores["cpu"])
+        err = float(np.abs(scores["card"] - scores["cpu"]).max())
+        require(err <= tol, f"11e: the {family} heads trained on the card and the CPU score {err} apart (> {tol})")
+        launched = {k: v for k, v in launches_by_path[f"cli_spot_train_{family}"].items() if v}
+        out[family] = {"losses_card": losses["card"], "loss_max_rel_err": rel, "head_scores_max_abs_err": err,
+                       "walls_s": walls, "launches": launched}
+    return out
+
+
 def cli_check(cfg: PipelineConfig, seed: int, root: str, launches_by_path: dict) -> dict:
     """11e: the verbs ``spot-train``, ``spot``, ``spot --stream``, ``serve --max-requests 3`` and ``profile``
     in-process, ``--no-audio``, on the 72×96 videos of 11d with seeded ``.events.json`` sidecars."""
@@ -2970,6 +3063,8 @@ def cli_check(cfg: PipelineConfig, seed: int, root: str, launches_by_path: dict)
     out["spot_train_epochs"] = [[float(x) for x in e] for e in epochs]
 
     target = videos[3]
+    out["spot_train_heads"] = spot_train_heads_check(no_audio, videos, target, common, work, root, seed,
+                                                     launches_by_path)
     text = verb("cli_spot", ["fused_preprocess_frames", *TRUNK, "flash_local_fwd"],
                 ["spot", target, *common, *temporal, "--temporal-checkpoint", head])
     payload = verb_payload(text)
@@ -3808,6 +3903,27 @@ def text_moe_infer_check(seed: int, smi: str, launches_by_path: dict) -> dict:
     return out
 
 
+def first_grads_against_cpu(cfg: PipelineConfig, item, seed: int, what: str) -> dict:
+    """The first sub-batch's loss and gradients of ``item`` (on the card) from one seeded state, card against
+    CPU: each leaf within 1e-4·max(1, max|g|) → the losses, the largest error as a share of its tolerance and
+    the leaf count.  ``cfg`` runs at dropout 0 (the two devices draw other masks)."""
+    fn = train_loop.make_train_video_fn(cfg)
+    S = cfg.train.subbatch_size
+    grads, losses = {}, {}
+    for name, it in (("card", item), ("cpu", on_cpu(item))):
+        d = it.visual.device
+        st = create_train_state(seed, cfg, device=d)
+        v, a, lab, valid, _ = train_loop._pad_video(it, S, d)
+        text = train_loop._pad_text(it, len(v), d, cfg)
+        loss, _, _, g = fn.value_and_grad(st.params, st.model_state, v[:S], None if a is None else a[:S], lab[:S],
+                                          valid[:S], None, None if text is None else text[:S])
+        grads[name], losses[name] = [t.cpu() for t in tree_leaves(g)], float(loss)
+    ratio = max((a - b).abs().max().item() / (1e-4 * max(1.0, b.abs().max().item()))
+                for a, b in zip(grads["card"], grads["cpu"]))
+    require(ratio <= 1.0, f"{what}: card vs CPU first gradients beyond 1e-4·max(1, max|g|) ({ratio:.3g}×)")
+    return {"first_loss": losses, "grad_ratio_of_tolerance": ratio, "leaves": len(grads["card"])}
+
+
 def text_moe_train_check(seed: int, smi: str, launches_by_path: dict) -> dict:
     """13d: ``train --commentary --moe-experts 4 --epochs 1``, then ``eval --commentary`` with a config of 4
     experts (``eval`` takes no ``--moe-experts``, as the JAX CLI's), on phase 10's videos (vidA and vidC
@@ -3852,20 +3968,7 @@ def text_moe_train_check(seed: int, smi: str, launches_by_path: dict) -> dict:
             viz.generate_metric_plots, viz.export_indices = saved
     item = train_ds[0]
     require(item.text is not None and bool(item.text.any()), "13d: vidA's commentary did not reach its item")
-    fn = train_loop.make_train_video_fn(dcfg)
-    S = dcfg.train.subbatch_size
-    grads, losses = {}, {}
-    for name, it in (("card", item), ("cpu", on_cpu(item))):
-        d = it.visual.device
-        st = create_train_state(seed, dcfg, device=d)
-        v, a, lab, valid, _ = train_loop._pad_video(it, S, d)
-        text = train_loop._pad_text(it, len(v), d, dcfg)
-        loss, _, _, g = fn.value_and_grad(st.params, st.model_state, v[:S], a[:S], lab[:S], valid[:S], None, text[:S])
-        grads[name], losses[name] = [t.cpu() for t in tree_leaves(g)], float(loss)
-    ratio = max((a - b).abs().max().item() / (1e-4 * max(1.0, b.abs().max().item()))
-                for a, b in zip(grads["card"], grads["cpu"]))
-    require(ratio <= 1.0, f"13d: card vs CPU first gradients beyond 1e-4·max(1, max|g|) ({ratio:.3g}×)")
-    out.update({"first_loss": losses, "grad_ratio_of_tolerance": ratio, "leaves": len(grads["card"])})
+    out.update(first_grads_against_cpu(dcfg, item, seed, "13d"))
     print(f"phase 13d: train and eval {' '.join(TEXT_FLAGS)} on {smi}: {json.dumps(out)}", flush=True)
     return out
 
@@ -4123,7 +4226,8 @@ def backbone_videos_check(seed: int, smi: str, launches_by_path: dict, videos: l
 
 def backbone_verbs_check(seed: int, smi: str, launches_by_path: dict) -> dict:
     """14c: for each backbone, ``infer`` offline on phase 9's video against the direct path, then ``train
-    --epochs 1`` and ``eval`` on phase 10's videos (each evaluation through kernel 4)."""
+    --epochs 1`` and ``eval`` on phase 10's videos (each evaluation through kernel 4), then vidA's first
+    sub-batch's gradients from one seeded state at dropout 0, card against CPU."""
     os.environ.pop("GOALNET_PLATFORM", None)
     out = {}
     with tempfile.TemporaryDirectory() as root:
@@ -4176,6 +4280,12 @@ def backbone_verbs_check(seed: int, smi: str, launches_by_path: dict) -> dict:
                     rec[f"{verb}_lines"] = [ln for ln in buf.getvalue().splitlines()
                                             if ln.startswith(("[eval]", "Optimal"))]
                 require_not_launched(f"train_{backbone}", TRUNK, launches_by_path)
+                t0 = time.perf_counter()
+                dcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+                item = dataset_io.build_video_item(data["videos"][0], dcfg, data["annotation_fp"], AnnotationStand(),
+                                                   True)
+                rec["first_grads"] = first_grads_against_cpu(dcfg, item, seed, f"14c {backbone}")
+                rec["first_grads_s"] = time.perf_counter() - t0
                 out[backbone] = rec
                 print(f"phase 14c: infer, train and eval with the {backbone} backbone on {smi}: {json.dumps(rec)}",
                       flush=True)
@@ -5502,22 +5612,21 @@ COLLECTIVE_LANES = 4          # 21c: lanes of the VirtualAxis
 COLLECTIVE_ROWS = 1_024       # 21c: rows of each lane's (rows, 128) tensor, divisible by the lanes
 
 
-def multihost_example():
-    """``examples/multihost_train_torch.py`` as a module (its directory put on the path, which spawned ranks
-    inherit)."""
+def example_module(name: str):
+    """``examples/<name>.py`` as a module (its directory put on the path, which spawned ranks inherit)."""
     import importlib
 
     examples = str(REPO / "examples")
     if examples not in sys.path:
         sys.path.insert(0, examples)
-    return importlib.import_module("multihost_train_torch")
+    return importlib.import_module(name)
 
 
 def counted_multihost_rank(rank: int, world: int, device, jobs: list) -> dict:
     """The example's rank function over each job in turn, with every kernel's launch count set to 0 before and
     read after → each job's step losses and the counts.  A spawned rank imports this script as its main
     module."""
-    example = multihost_example()
+    example = example_module("multihost_train_torch")
     for f, _, _ in KERNELS.values():
         f.launches = 0
     losses = [example.rank_steps(rank, world, device, job) for job in jobs]
@@ -5556,7 +5665,7 @@ def multihost_phase(seed: int, smi: str, launches_by_path: dict) -> dict:
     from cvml_goalnet_tpu_torch.parallel.launch import backend_of, spawn_ranks
 
     t_phase = time.perf_counter()
-    example = multihost_example()
+    example = example_module("multihost_train_torch")
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -5608,7 +5717,314 @@ def multihost_phase(seed: int, smi: str, launches_by_path: dict) -> dict:
     return out
 
 
-PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20", "21")
+# ---------------------------------------------------------------- phase 22: the examples and the reference corpus
+
+EXAMPLES = ("train_and_summarize_torch", "serve_and_spot_torch", "live_follow_spotting_torch")
+FORCED_EVERY = 25          # 22b: the card's serve_and_spot loss from the CPU run's parameters at every 25th step
+EXAMPLES_CPU_THREADS = 4   # torch threads of the child process that runs the examples on the CPU
+OPTIONAL_MODULES = ("h5py", "cv2", "matplotlib")
+
+
+def absent_modules() -> list[str]:
+    import importlib.util
+
+    return [m for m in OPTIONAL_MODULES if importlib.util.find_spec(m) is None]
+
+
+def synthetic_dataset_stand(root: str, video_ids=("vidA", "vidB"), full_n_frames: int = 360, n_annotators: int = 20,
+                            n_clips: int = 8, fps_raw: int = 30, sr: int = 22050, seed: int = 7,
+                            length_step: int = 30) -> dict:
+    """``data.synthetic.synthetic_dataset_dir`` without h5py: the same ``.npz`` videos, ``.wav`` sidecars and
+    TSVs from the same draws; the arrays it would write into the ``.mat``/``.h5`` pair go to
+    :class:`AnnotationStand`."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    fps, rows, arrays = [], [], {}
+    for vi, vid in enumerate(video_ids):
+        n = full_n_frames + vi * length_step
+        np.savez_compressed(os.path.join(root, f"{vid}.npz"), frames=synthetic_video_frames(n, seed=seed + vi))
+        write_wav(os.path.join(root, f"{vid}.wav"), synthetic_waveform(int(n / fps_raw * sr), sr, seed=seed + vi), sr)
+        anno = rng.integers(1, 6, size=(n_annotators, n)).astype(np.float64)
+        rows += [f"{vid}\tcategory\t{','.join(str(int(x)) for x in a)}\n" for a in anno]
+        arrays[vid] = {"anno": anno, "change_points": synthetic_change_points(n - 1, n_clips, seed=seed + vi)}
+        fps.append(os.path.join(root, f"{vid}.npz"))
+    with open(os.path.join(root, "anno.tsv"), "w") as f:
+        f.writelines(rows)
+    with open(os.path.join(root, "info.tsv"), "w") as f:
+        f.write("video_id\ttitle\n" + "".join(f"{v}\tTitle of {v}\n" for v in video_ids))
+    AnnotationStand.arrays = arrays
+    return {"video_fps": fps, "annotation_fp": os.path.join(root, "anno.tsv"),
+            "mat_file_path": os.path.join(root, "gt.mat"), "h5_file_path": os.path.join(root, "gt.h5"),
+            "info_fp": os.path.join(root, "info.tsv"), "video_ids": list(video_ids), "sr": sr, "fps_raw": fps_raw}
+
+
+@contextlib.contextmanager
+def examples_stood_in(absent: list[str]):
+    """Without h5py, ``train_and_summarize``'s dataset is written by :func:`synthetic_dataset_stand` and read
+    through :class:`AnnotationStand`; without matplotlib its curves go to a :class:`PlotSink`."""
+    ex = example_module("train_and_summarize_torch")
+    saved = (ex.synthetic_dataset_dir, ex.generate_metric_plots, dataset_io.AnnotationStore)
+    if "h5py" in absent:
+        ex.synthetic_dataset_dir, dataset_io.AnnotationStore = synthetic_dataset_stand, AnnotationStand
+    if "matplotlib" in absent:
+        ex.generate_metric_plots = PlotSink().metric_plots
+    try:
+        yield
+    finally:
+        ex.synthetic_dataset_dir, ex.generate_metric_plots, dataset_io.AnnotationStore = saved
+
+
+def run_example(label: str, fn, launches_by_path: dict | None, expect=()):
+    """One example's ``main`` with its output kept → (result, printed lines); on the card driven with the launch
+    counts set to 0 before and read after."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn() if launches_by_path is None else drive(label, expect, fn, launches_by_path)
+    return out, buf.getvalue().splitlines()
+
+
+def run_examples(device: str, launches_by_path: dict | None, root: str) -> dict:
+    """The three examples' ``main`` on ``device`` with their default (seeded) weights, each working in a
+    directory under ``root`` → numpy results and the lines each printed.  ``train_and_summarize`` runs at
+    dropout 0 and Adam eps 1e-4 (the run compared across devices) and, on the card, also as the example is;
+    ``serve_and_spot`` keeps its head's parameters at every ``FORCED_EVERY``-th step and its last, and on the
+    card the batcher's launches (before the first encode)."""
+    on_card = launches_by_path is not None
+    train, serve, live = (example_module(name) for name in EXAMPLES)
+    res, lines, walls = {}, {}, {}
+
+    def workdir(name):
+        os.makedirs(os.path.join(root, name))
+        return os.path.join(root, name)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out, lines[name] = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    kernels_24 = ["fused_conv_pool_stage", "head_matmul", "fused_fusion_mlp"]
+    if on_card:
+        timed("train_and_summarize", lambda: run_example(
+            "example_train_and_summarize", lambda: train.main(device, work=workdir("train")), launches_by_path,
+            ["fused_preprocess_frames", *kernels_24]))
+    cfg = train.example_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout_rate=0.0),
+                              train=dataclasses.replace(cfg.train, eps=1e-4))
+    out = timed("train_and_summarize_dropout0", lambda: run_example(
+        "example_train_and_summarize_dropout0", lambda: train.main(device, cfg=cfg, work=workdir("train_dropout0")),
+        launches_by_path, ["fused_preprocess_frames", *kernels_24]))
+    res["train"] = {"history": {k: v for k, v in out["history"].items() if isinstance(v, list)},
+                    "scores": np.asarray(out["scores"]), "mask": out["summary"].frame_mask,
+                    "clips": np.asarray(out["summary"].clip_intervals)}
+
+    visited, snapshot = {}, {}
+    real_make, real_encode = serve.make_spotting_train_step, serve.encode_timeline
+
+    def recording(*a, **kw):
+        step = real_make(*a, **kw)
+        count = [0]
+
+        def run(params, *rest):
+            k = count[0]
+            if k % FORCED_EVERY == 0 or k == serve.STEPS - 1:
+                visited[k] = tree_map(lambda t: t.detach().cpu().numpy(), params)
+            count[0] += 1
+            return step(params, *rest)
+
+        run.value_and_grad = step.value_and_grad
+        return run
+
+    def encode_after_batcher(*a, **kw):
+        if not snapshot:
+            snapshot.update({name: f.launches for name, (f, _, _) in KERNELS.items()})
+        return real_encode(*a, **kw)
+
+    serve.make_spotting_train_step, serve.encode_timeline = recording, encode_after_batcher
+    try:
+        out = timed("serve_and_spot", lambda: run_example(
+            "example_serve_and_spot", lambda: serve.main(device), launches_by_path, kernels_24))
+    finally:
+        serve.make_spotting_train_step, serve.encode_timeline = real_make, real_encode
+    res["serve"] = {"scores": [r.scores for r in out["responses"]], "clips": [np.asarray(r.clips) for r in
+                                                                              out["responses"]],
+                    "masks": [r.frame_mask for r in out["responses"]], "stats": out["batcher_stats"],
+                    "features": out["features"].cpu().numpy(), "losses": out["losses"], "visited": visited,
+                    "head_scores": out["scores"], "events": out["events"], "prf": out["prf"],
+                    "average_map": out["average_map"], "labels": serve.example_inputs()["labels"]}
+    if on_card:
+        res["serve"]["batcher_launches"] = snapshot
+
+    out = timed("live_follow_spotting", lambda: run_example(
+        "example_live_follow_spotting", lambda: live.main(device, live_dir=workdir("live")), launches_by_path, TRUNK))
+    res["live"] = {"streamed": out["streamed"], "events": np.sort(np.concatenate(out["events"])),
+                   "drift": out["drift"], "updates": out["updates"]}
+    res["lines"], res["walls_s"] = lines, walls
+    return res
+
+
+def examples_on_cpu(out_path: str, root: str) -> None:
+    """Phase 22b's child process: the examples on the CPU (:func:`run_examples`, working under ``root``),
+    pickled to ``out_path``."""
+    import pickle
+
+    torch.set_num_threads(EXAMPLES_CPU_THREADS)
+    with examples_stood_in(absent_modules()):
+        res = run_examples("cpu", None, root)
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def compare_examples(card: dict, cpu: dict, device: str = "cuda") -> dict:
+    """22b: each example on the card against its CPU run, at PERF.md §2's tolerances (the forced losses of
+    ``serve_and_spot`` on ``device``)."""
+    out = {}
+    tr, tc = card["train"], cpu["train"]
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(tr["history"][k], tc["history"][k]))
+           for k in tc["history"] if tc["history"][k]}
+    require(all(len(tr["history"][k]) == len(v) for k, v in tc["history"].items()) and max(rel.values()) <= 1e-4,
+            f"22b train_and_summarize: histories {tr['history']} vs CPU {tc['history']}")
+    flips = same_summary(tr["scores"], tr["clips"], tc["scores"], tc["clips"], 1e-4, "22b train_and_summarize")
+    require(flips or np.array_equal(tr["mask"], tc["mask"]), "22b train_and_summarize: the summary masks differ")
+    out["train_and_summarize"] = {"history_max_rel_err": rel, "scores_max_abs_err": float(
+        np.abs(tr["scores"] - tc["scores"]).max()), "rounding_flips": flips}
+
+    sr, sc = card["serve"], cpu["serve"]
+    flips = []
+    for i, (a, b, ca, cb, ma, mb) in enumerate(zip(sr["scores"], sc["scores"], sr["clips"], sc["clips"], sr["masks"],
+                                                   sc["masks"])):
+        f = same_summary(a, ca, b, cb, 1e-4, f"22b serve_and_spot clip{i}")
+        require(f or np.array_equal(ma, mb), f"22b serve_and_spot: clip{i}'s masks differ")
+        flips += f
+    require(sr["stats"]["requests"] == sc["stats"]["requests"] == len(sr["scores"]),
+            f"22b serve_and_spot: batcher stats {sr['stats']} vs {sc['stats']}")
+    first = max(abs(a - b) / abs(b) for a, b in zip(sr["losses"][:10], sc["losses"][:10]))
+    require(len(sr["losses"]) == len(sc["losses"]) and first <= 1e-4,
+            f"22b serve_and_spot: the first 10 losses {sr['losses'][:10]} vs CPU {sc['losses'][:10]}")
+    serve = example_module("serve_and_spot_torch")
+    step = make_spotting_train_step(serve.example_config().model.temporal_hidden, lr=1e-2, pos_weight=20.0)
+    feats = torch.as_tensor(sr["features"], device=device)
+    labels = torch.as_tensor(sr["labels"], device=device)
+    forced = {}
+    for k, params in sc["visited"].items():
+        loss, _ = step.value_and_grad(weights.tree_from_jax(params, device=device), feats, labels)
+        forced[k] = abs(float(loss) - sc["losses"][k]) / abs(sc["losses"][k])
+    require(len(forced) == len(range(0, serve.STEPS, FORCED_EVERY)) + 1 and max(forced.values()) <= 1e-4,
+            f"22b serve_and_spot: the card's losses from the CPU run's parameters {forced}")
+    require(np.array_equal(sr["events"], sc["events"]) and sr["prf"] == sc["prf"]
+            and sr["average_map"] == sc["average_map"],
+            f"22b serve_and_spot: events {sr['events']} {sr['prf']} vs CPU {sc['events']} {sc['prf']}")
+    out["serve_and_spot"] = {
+        "batcher_rounding_flips": flips, "first_10_losses_max_rel_err": first, "forced_losses_max_rel_err":
+        max(forced.values()), "last_loss": [sr["losses"][-1], sc["losses"][-1]],
+        "free_running_head_scores_max_abs_diff": float(np.abs(sr["head_scores"] - sc["head_scores"]).max()),
+        "events": sr["events"].tolist(), "prf": sr["prf"], "average_map": sr["average_map"]}
+
+    lr_, lc = card["live"], cpu["live"]
+    tol = score_tolerance(lc["streamed"])
+    err = float(np.abs(lr_["streamed"] - lc["streamed"]).max())
+    require(lr_["streamed"].shape == lc["streamed"].shape and err <= tol,
+            f"22b live_follow_spotting: streamed scores {err} from the CPU's (> {tol})")
+    window = example_module("live_follow_spotting_torch").PEAK_WINDOW
+    near = compare_events(lr_["streamed"], lc["streamed"], tol, window)
+    require(near or np.array_equal(lr_["events"], lc["events"]), "22b live_follow_spotting: the events differ")
+    out["live_follow_spotting"] = {"streamed_max_abs_err": err, "near_ties": near, "events": lr_["events"].tolist(),
+                                   "drift_vs_offline": lr_["drift"]}
+    return out
+
+
+def reference_corpus_check(root: str, absent: list[str], seed: int, launches_by_path: dict,
+                           device: str = "cuda") -> dict:
+    """22d: where cv2 and h5py import, ``build_reference_corpus`` into ``root``, read through the port's loaders
+    at the width of ``configs/reference_parity.json`` (no audio: the sidecars are empty), and its first video
+    fused on the card (kernels 1–4)."""
+    lacking = [m for m in ("cv2", "h5py") if m in absent]
+    if lacking:
+        return {"ran": False, "absent": lacking}
+    from cvml_goalnet_tpu_torch.compat.reference_runner import build_reference_corpus
+
+    t0 = time.perf_counter()
+    corpus = build_reference_corpus(root)
+    base = PipelineConfig.load(str(REPO / "configs" / "reference_parity.json"))
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, audio_included=False))
+    train_ds, val_ds = dataset_io.build_datasets(corpus["video_fps"], cfg, corpus["annotation_fp"],
+                                                 corpus["mat_file_path"], corpus["h5_file_path"], corpus["info_fp"],
+                                                 audio_included=False, device=device)
+    items = [*train_ds, *val_ds]
+    require([it.video_id for it in items] == corpus["video_ids"]
+            and all(it.labels is not None and it.gd_summary_masks is not None for it in items),
+            f"22d: the corpus read as {[it.video_id for it in items]}")
+    state = create_train_state(seed, cfg, device=device)
+    scores = drive("reference_corpus_fuse", ["fused_conv_pool_stage", "head_matmul", "fused_fusion_mlp"],
+                   lambda: fuse(state.params, state.model_state, {"visual": items[0].visual, "audio": None}, cfg,
+                                device=device),
+                   launches_by_path)
+    require(scores.shape == (len(items[0].visual),) and np.isfinite(scores).all(), "22d: the corpus's scores")
+    return {"ran": True, "video_ids": corpus["video_ids"], "decoded_frames": corpus["n_frames"],
+            "condensed_frames": [len(it.visual) for it in items], "wall_s": time.perf_counter() - t0}
+
+
+def examples_phase(seed: int, smi: str, launches_by_path: dict, device: str = "cuda") -> dict:
+    """Phase 22: the three examples on the card (``device``), each against its run on the CPU in a child
+    process (started first, so the two overlap), their kernel launches, and the reference corpus."""
+    import pickle
+
+    os.environ.pop("GOALNET_PLATFORM", None)
+    t_phase = time.perf_counter()
+    absent = absent_modules()
+    stood_in = [m for m in absent if m in ("h5py", "matplotlib")]
+    print(f"phase 22: absent here: {absent or 'none'}; stood in for train_and_summarize: {stood_in or 'none'}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        cpu_path, log_path = os.path.join(root, "cpu.pkl"), os.path.join(root, "cpu.log")
+        code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                f"chip_smoke.examples_on_cpu({cpu_path!r}, {os.path.join(root, 'cpu')!r})")
+        with open(log_path, "w") as log:
+            child = subprocess.Popen([sys.executable, "-c", code], cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT,
+                                     env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        try:
+            with examples_stood_in(absent):
+                card = run_examples(device, launches_by_path, os.path.join(root, "card"))
+            t0 = time.perf_counter()
+            rc = child.wait(timeout=600)
+            cpu_wait = time.perf_counter() - t0
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        with open(log_path) as f:
+            log_text = f.read()
+        require(rc == 0, f"22b: the examples' CPU run exited {rc}: {log_text[-3000:]}")
+        with open(cpu_path, "rb") as f:
+            cpu = pickle.load(f)
+        corpus = reference_corpus_check(os.path.join(root, "corpus"), absent, seed, launches_by_path, device)
+    for name, lines in card["lines"].items():
+        banners = [ln for ln in lines if ln.startswith(("summary:", "artifacts in", "[serve]", "[spot]", "[producer] "
+                                                        "segment 0", "[check]", "live follow spotting"))]
+        require(banners, f"22a: {name} printed no banner line")
+        for ln in banners:
+            print(f"phase 22a: {name}: {ln}", flush=True)
+    launches = {label: {k: v for k, v in got.items() if v} for label, got in launches_by_path.items()
+                if label.startswith("example_")}
+    batcher = card["serve"]["batcher_launches"]
+    require(all(batcher[k] for k in ("fused_conv_pool_stage", "head_matmul", "fused_fusion_mlp")),
+            f"22c: the batcher launched {batcher}")
+    require(not any(got.get(k) for got in launches.values() for k in ("flash_fwd", "flash_bwd", "flash_local_fwd",
+                                                                          "flash_local_bwd")),
+            f"22c: an example with a GRU head launched an attention kernel: {launches}")
+    out = {"stood_in": stood_in, "absent": absent, "launches": launches,
+           "batcher_launches": {k: v for k, v in batcher.items() if v}, "compare": compare_examples(card, cpu, device),
+           "reference_corpus": corpus, "card_walls_s": card["walls_s"], "cpu_walls_s": cpu["walls_s"],
+           "cpu_wait_after_card_s": cpu_wait}
+    if not corpus["ran"]:
+        print(f"phase 22d: the reference corpus did not run: {', '.join(corpus['absent'])} absent here", flush=True)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 22: the examples on {smi} against the CPU: {json.dumps(out, default=str)}", flush=True)
+    print(f"phase 22: {out['phase_wall_s']:.1f} s wall", flush=True)
+    return out
+
+
+PHASES = ("1", "4", "5", "7", "9", "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20", "21", "22")
 
 
 def parse_phases(spec: str | None) -> set[str]:
@@ -5815,6 +6231,9 @@ def main() -> int:
     if "21" in phases:
         multihost_phase(args.seed, smi, launches_by_path)
         clock.done("21")
+    if "22" in phases:
+        examples_phase(args.seed, smi, launches_by_path)
+        clock.done("22")
     del videos
     if "11" in phases:
         serving_phase(args.seed, smi, launches_by_path)

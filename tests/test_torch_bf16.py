@@ -33,8 +33,9 @@ Tolerances:
   pixel, 0.0039, on either side), the scores within 0.125; host-preprocessed
   uint8 frames (the same bf16 rescale) within 0.0625;
 * the spotting trunk under int8: features within 1e-4 of max|JAX|;
-* bf16 training, five Adam steps on one sub-batch: the first loss within
-  1e-2 relative of the JAX package's, the loss falling, the master params
+* bf16 training, five Adam steps on one sub-batch, with the reference
+  backbone and with a narrow resnet and vit: the first loss within 1e-2
+  relative of the JAX package's, the loss falling, the master params
   float32.
 """
 
@@ -394,7 +395,25 @@ def test_spotting_trunk_under_int8_matches_jax(small_cfg, small_trunk):
 
 
 def test_five_bf16_train_steps_match_jax(small_cfg):
-    jcfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, dropout_rate=0.0),
+    _five_bf16_train_steps(small_cfg, {})
+
+
+# the backbones at narrow widths: resnet on the suite's vis_channels (8, 16, 16), a vit of 16 wide, 2 heads, depth 2
+BACKBONES = {"resnet": {"vis_backbone": "resnet"},
+             "vit": {"vis_backbone": "vit", "vit_embed_dim": 16, "vit_depth": 2, "vit_num_heads": 2,
+                     "vit_patch_size": 8}}
+
+
+@pytest.mark.parametrize("backbone", list(BACKBONES))
+def test_five_bf16_train_steps_of_a_backbone_match_jax(small_cfg, backbone):
+    _five_bf16_train_steps(small_cfg, BACKBONES[backbone])
+
+
+def _five_bf16_train_steps(small_cfg, model: dict):
+    """Five bf16 mixed-precision Adam steps on one sub-batch of gratings, the port against the JAX package from
+    the same weights: the first loss within 1e-2 relative, the loss falling on both sides, the master parameters,
+    the batchnorm state and the predictions float32."""
+    jcfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, dropout_rate=0.0, **model),
                                train=dataclasses.replace(small_cfg.train, compute_dtype="bfloat16"))
     js = jax_train_state(jax.random.PRNGKey(9), jcfg)
     S = jcfg.train.subbatch_size
@@ -422,3 +441,4 @@ def test_five_bf16_train_steps_match_jax(small_cfg):
     assert t_losses[-1] < t_losses[0] and j_losses[-1] < j_losses[0], (t_losses, j_losses)
     assert all(p.dtype == torch.float32 for p in tree_leaves(tp)) and preds.dtype == torch.float32
     assert all(s.dtype == torch.float32 for s in tree_leaves(tms))
+    return t_losses, j_losses

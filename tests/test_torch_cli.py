@@ -531,12 +531,11 @@ class TestTrainDataParallel:
             for a, b in zip(jax.tree_util.tree_leaves(states[0].params), jax.tree_util.tree_leaves(states[1].params)):
                 np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=5e-3)
 
-    def test_train_dp_with_a_model_axis_exits_2_naming_item_6_6(self, env, small_cfg, tmp_path, capfd):
-        """``train --dp`` with ``mesh.model = 2`` runs as the JAX CLI runs it (the name records the refusal this
-        test once held): the model axis holds replicas and the batch splits over the data axis.  The port on a 2 × 2 grid of gloo ranks
-        against the JAX CLI on its 4 × 2 mesh of the 8 virtual devices, both resuming one JAX-drawn ``ckp``
-        with dropout off: the printed ``[dp epoch N]`` numbers within 1e-4 relative plus one unit of the
-        printed 4 decimals, the checkpoints within 5e-3."""
+    def test_train_dp_with_a_model_axis_matches_the_jax_cli(self, env, small_cfg, tmp_path, capfd):
+        """``train --dp`` with ``mesh.model = 2`` runs as the JAX CLI runs it: the model axis holds replicas and the
+        batch splits over the data axis. The port on a 2 × 2 grid of gloo ranks against the JAX CLI on its 4 × 2 mesh
+        of the 8 virtual devices, both resuming one JAX-drawn ``ckp`` with dropout off: the printed ``[dp epoch N]``
+        numbers within 1e-4 relative plus one unit of the printed 4 decimals, the checkpoints within 5e-3."""
         import re
 
         from cvml_goalnet_tpu import cli as JC

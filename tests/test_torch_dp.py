@@ -547,11 +547,10 @@ class TestDpSteps:
         _, got = step_runs(world)
         assert [r["forbidden"] for r in got] == [[]] * world
 
-    def test_tensor_parallel_is_refused_naming_item_6_6(self, small_cfg):
-        """The tensor-parallel step now runs (the name records the refusal it once held): on a 2 × 2 grid of
-        gloo ranks against JAX's on ``cpu_mesh(4, model=2)``, the loss within 1e-5 relative, the parameters
-        after Adam within 1e-5·max(1, max|p|) where the gradient is not rounding noise, every leaf moved
-        (``test_torch_pp.adam_close``); without the rank's model axis it raises."""
+    def test_tensor_parallel_step_matches_jax_on_a_grid(self, small_cfg):
+        """The tensor-parallel step on a 2 × 2 grid of gloo ranks against JAX's on ``cpu_mesh(4, model=2)``: the loss
+        within 1e-5 relative, the parameters after Adam within 1e-5·max(1, max|p|) where the gradient is not rounding
+        noise, every leaf moved (``test_torch_pp.adam_close``); without the rank's model axis it raises."""
         from test_torch_pp import adam_close
         from test_torch_tp_ep import _cases, jax_tp_step
 
